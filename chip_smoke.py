@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py                 # every phase, full depth (48 layers)
-    python3 chip_smoke.py --layers 8      # cut the served model's depth
+    python3 chip_smoke.py --layers 8      # cut the served models' depth
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each of which raises on failure (no phase's failure is caught):
@@ -13,26 +13,41 @@ Phases, each of which raises on failure (no phase's failure is caught):
    process per source, all started together) and print the build time and
    ``-Xptxas -v`` report.
 2. ``kernels``: call each kernel's wrapper on CUDA tensors at the shapes the
-   serving path gives it, in bfloat16 and float32, and hold the result
-   against its plain PyTorch version (``kernels/ref.py``) on the same
-   inputs: bf16 atol = rtol = 2e-2 on f32-cast outputs (both round once,
-   from f32 sums taken in different orders); f32 atol = rtol = 1e-4.  Times
-   the kernel, the plain version and one PyTorch library call for the same
-   function (a yardstick only, never called by the port) with CUDA events,
-   each launch after an L2 flush, and computes the bound from the bytes and
-   operations of these inputs.
+   serving path gives it, in bfloat16 and float32 (q and x; the int8
+   kernels read int8 pools with positive random scales), and hold the
+   result against its plain PyTorch version (``kernels/ref.py``) on the
+   same inputs: bf16 atol = rtol = 2e-2 on f32-cast outputs (both round
+   once, from f32 sums taken in different orders); f32 atol = rtol = 1e-4.
+   Times the kernel, the plain version and one PyTorch library call for
+   the same function (a yardstick only, never called by the port; for the
+   int8 kernels it reads K/V or pages dequantized to q's dtype beforehand)
+   with CUDA events, each launch after an L2 flush, and computes the bound
+   from the bytes and operations of these inputs.
 3. ``e2e``: a 2-layer qwen3-30b-a3b at full width, one prefill chunk and
    one decode step, through the kernels and through ``ops.use_reference()``
-   from identical caches; logits must agree (f32: atol = rtol = 1e-3;
-   bf16: relative Frobenius error below 0.25, because a one-ulp bf16
-   difference may flip a near-tied top-8 expert choice).
+   from identical caches, with bf16/f32 stores and with int8 KV blocks and
+   int8 expert pages.  Layer 0's written KV rows (and int8 scales) must be
+   equal on both paths.  Logits must agree: f32 atol = rtol = 1e-3; bf16
+   relative Frobenius error below 0.25, because a one-ulp bf16 difference
+   may flip a near-tied top-8 expert choice.  int8 f32 is held to the f32
+   rule when layer 1's written int8 rows are equal on both paths; where a
+   rounding tie put an entry one quantum apart, it is held to the 0.25
+   rule, since that quantum may flip an expert choice too.  In f32 layer
+   1's int8 entries may differ by at most one quantum; in bf16 layer 1's
+   inputs already differ by more than a rounding (see above), so its
+   entries are only counted.  The count is printed.
 4. ``serve``: ``ElasticServer`` with paged KV, pooled experts and chunked
    prefill serves qwen3-30b-a3b in bf16 with random weights from a seed: 8
    requests of 200-1000 prompt tokens, two sharing a prefix (prefix skip
-   and copy-on-write run), 32 output tokens each.  Every kernel's launch
-   count must be above zero after this phase.
+   and copy-on-write run), 32 output tokens each.  Each bf16 kernel's
+   launch count, set to 0 just before, must be above zero after it.
+5. ``serve_int8``: the same requests on a server with
+   ``kv_dtype="int8", expert_dtype="int8"``, after the bf16 server is freed
+   (the two do not fit one card together); each int8 kernel's launch count
+   must be above zero after it.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (launches from the
+serve phase of each kernel's path); the last line is
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 measurement (per-case kernel times, the build log, the decode-tick
 profile) to PATH.  Imports nothing of JAX or ``repro``.
@@ -41,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -72,11 +88,28 @@ REPLACES = {
     "block_paged_decode_attention": "src/repro/kernels/paged_attention.py:123",
     "mixed_block_paged_attention": "src/repro/kernels/paged_attention.py:322",
     "paged_gmm": "src/repro/kernels/moe_gmm.py:83",
+    "quant_block_paged_decode_attention":
+        "src/repro/kernels/paged_attention.py:217",
+    "quant_mixed_block_paged_attention":
+        "src/repro/kernels/paged_attention.py:430",
+    "quant_paged_gmm": "src/repro/kernels/moe_gmm.py:148",
 }
+_ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
+_GMM_CU = "src/repro_torch/csrc/moe_gmm.cu"
 SOURCES = {
-    "block_paged_decode_attention": "src/repro_torch/csrc/paged_attention.cu",
-    "mixed_block_paged_attention": "src/repro_torch/csrc/paged_attention.cu",
-    "paged_gmm": "src/repro_torch/csrc/moe_gmm.cu",
+    "block_paged_decode_attention": _ATTN_CU,
+    "mixed_block_paged_attention": _ATTN_CU,
+    "paged_gmm": _GMM_CU,
+    "quant_block_paged_decode_attention": _ATTN_CU,
+    "quant_mixed_block_paged_attention": _ATTN_CU,
+    "quant_paged_gmm": _GMM_CU,
+}
+# the kernels each serve phase's path runs (False: bf16 stores, True: int8)
+PATH_KERNELS = {
+    False: ("block_paged_decode_attention", "mixed_block_paged_attention",
+            "paged_gmm"),
+    True: ("quant_block_paged_decode_attention",
+           "quant_mixed_block_paged_attention", "quant_paged_gmm"),
 }
 
 
@@ -167,27 +200,48 @@ def _tables(gen, lengths, NB, MB, need_extra=0):
     return bt
 
 
-def _attention_case(kind, dtype, gen, timer, do_time):
+def _kv_pools(gen, dtype, quant, NB):
+    """K/V pools for an attention case: (kernel arguments, pools for the
+    library call in q's dtype, K/V bytes per context token).  int8 pools
+    hold random entries and positive scales with row maxima in [0.3, 3]."""
+    from repro_torch.kernels.quant import dequantize_rows
+    if not quant:
+        k = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
+        v = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
+        return (k, v), (k, v), 2 * KVH * HD * k.element_size()
+    pools = []
+    for _ in range(2):
+        p = torch.randint(-127, 128, (NB, BS, KVH, HD), generator=gen,
+                          dtype=torch.int8).cuda()
+        sc = ((0.3 + 2.7 * torch.rand(NB, BS, generator=gen)) / 127).cuda()
+        pools += [p, sc]
+    lib = tuple(dequantize_rows(p, sc, (-2, -1)).to(dtype)
+                for p, sc in (pools[:2], pools[2:]))
+    return tuple(pools), lib, 2 * (KVH * HD + 4)
+
+
+def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     from repro_torch.kernels import ops, ref
     NB, MB = 1024, MAX_LEN // BS
-    k_pool = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
-    v_pool = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
-    el = k_pool.element_size()
+    pools, (k_lib, v_lib), kv_tok_bytes = _kv_pools(gen, dtype, quant, NB)
     if kind == "decode":
         lengths = torch.tensor([2048, 1, 17, 333, 1024, 1500, 64, 777],
                                dtype=torch.int32)
         bt = _tables(gen, lengths.tolist(), NB, MB).cuda()
         q = torch.randn(BATCH, H, HD, generator=gen).to(dtype).cuda()
         lens = lengths.cuda()
-        kern = lambda: ops.block_paged_decode_attention(q, k_pool, v_pool,
-                                                        bt, lens)
-        plain = lambda: ref.block_paged_decode_attention_ref(
-            q, k_pool, v_pool, bt, lens)
+        op, plain_op = (
+            (ops.quant_block_paged_decode_attention,
+             ref.quant_block_paged_decode_attention_ref) if quant else
+            (ops.block_paged_decode_attention,
+             ref.block_paged_decode_attention_ref))
+        kern = lambda: op(q, *pools, bt, lens)
+        plain = lambda: plain_op(q, *pools, bt, lens)
         ctx_tok = int(lengths.sum())
         attended = H * ctx_tok
         S = MB * BS
-        kg = ref._gather_rows(k_pool, bt).reshape(BATCH, S, KVH, HD)
-        vg = ref._gather_rows(v_pool, bt).reshape(BATCH, S, KVH, HD)
+        kg = ref._gather_rows(k_lib, bt).reshape(BATCH, S, KVH, HD)
+        vg = ref._gather_rows(v_lib, bt).reshape(BATCH, S, KVH, HD)
         mask = (torch.arange(S, device="cuda")[None, :]
                 < lens.long()[:, None])[:, None, None, :]
         ql, kl, vl = q[:, :, None], kg.transpose(1, 2).contiguous(), \
@@ -201,17 +255,20 @@ def _attention_case(kind, dtype, gen, timer, do_time):
         q = torch.randn(1, CHUNK, H, HD, generator=gen).to(dtype).cuda()
         ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
         ql_t = torch.tensor([q_len], dtype=torch.int32, device="cuda")
-        kern = lambda: ops.mixed_block_paged_attention(q, k_pool, v_pool, bt,
-                                                       ctx_t, ql_t)
-        plain = lambda: ref.mixed_block_paged_attention_ref(
-            q, k_pool, v_pool, bt, ctx_t, ql_t)
+        op, plain_op = (
+            (ops.quant_mixed_block_paged_attention,
+             ref.quant_mixed_block_paged_attention_ref) if quant else
+            (ops.mixed_block_paged_attention,
+             ref.mixed_block_paged_attention_ref))
+        kern = lambda: op(q, *pools, bt, ctx_t, ql_t)
+        plain = lambda: plain_op(q, *pools, bt, ctx_t, ql_t)
         ctx_tok = ctx
         q_abs = ctx - q_len + torch.arange(CHUNK)
         attended = H * int(torch.minimum(q_abs + 1,
                                          torch.tensor(ctx)).sum())
         S = MB * BS
-        kg = ref._gather_rows(k_pool, bt).reshape(1, S, KVH, HD)
-        vg = ref._gather_rows(v_pool, bt).reshape(1, S, KVH, HD)
+        kg = ref._gather_rows(k_lib, bt).reshape(1, S, KVH, HD)
+        vg = ref._gather_rows(v_lib, bt).reshape(1, S, KVH, HD)
         t = torch.arange(S, device="cuda")
         qa = q_abs.cuda()
         mask = ((t[None, :] < ctx) & (t[None, :] <= qa[:, None]))[None, None]
@@ -233,7 +290,8 @@ def _attention_case(kind, dtype, gen, timer, do_time):
     else:
         torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
                                    **TOL[dtype])
-    kv_bytes = 2 * ctx_tok * KVH * HD * el
+    # K/V rows (and int8 scales) of the context, read once
+    kv_bytes = ctx_tok * kv_tok_bytes
     ops_n = 4 * HD * attended
     b_ms, b_by = bound_ms(io + kv_bytes, ops_n, dtype)
     rec = {"case": label, "dtype": str(dtype).replace("torch.", ""),
@@ -242,23 +300,38 @@ def _attention_case(kind, dtype, gen, timer, do_time):
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
-    return rec, (q, k_pool, v_pool, bt) if kind == "decode" else None
+    return rec, (q, pools, bt) if kind == "decode" else None
 
 
-def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time):
+def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant import dequantize_rows
     P = 2 * N_EXP
     Din, Fout = (D_MODEL, MOE_FF) if bank in ("wi", "wg") else \
         (MOE_FF, D_MODEL)
-    pool = (torch.randn(P, Din, Fout, generator=gen)
-            / math.sqrt(Din)).to(dtype).cuda()
     perm = torch.randperm(P, generator=gen).to(torch.int32)
     table = (perm[torch.arange(N_EXP) % (N_EXP // 2)] if aliased
              else perm[:N_EXP]).cuda()
     x = torch.randn(N_EXP, C, Din, generator=gen).to(dtype).cuda()
-    kern = lambda: ops.paged_gmm(table, pool, x)
-    plain = lambda: ref.paged_gmm_ref(table, pool, x)
-    w = ref._gather_rows(pool, table).contiguous()
+    if quant:
+        # page maxima in [0.3, 3] / sqrt(Din): weights of a normal layer
+        pool = torch.randint(-127, 128, (P, Din, Fout), generator=gen,
+                             dtype=torch.int8).cuda()
+        scales = ((0.3 + 2.7 * torch.rand(P, generator=gen))
+                  / (127 * math.sqrt(Din))).cuda()
+        kern = lambda: ops.quant_paged_gmm(table, pool, scales, x)
+        plain = lambda: ref.quant_paged_gmm_ref(table, pool, scales, x)
+        w = dequantize_rows(ref._gather_rows(pool, table),
+                            ref._gather_rows(scales, table),
+                            (-2, -1)).to(dtype)
+        extra = int(torch.unique(table).numel()) * 4       # page scales
+    else:
+        pool = (torch.randn(P, Din, Fout, generator=gen)
+                / math.sqrt(Din)).to(dtype).cuda()
+        kern = lambda: ops.paged_gmm(table, pool, x)
+        plain = lambda: ref.paged_gmm_ref(table, pool, x)
+        w = ref._gather_rows(pool, table).contiguous()
+        extra = 0
     lib = lambda: torch.bmm(x, w)
     got = kern()
     want = plain()
@@ -267,7 +340,8 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lib().float(), want.float(), **TOL[dtype])
     pages = int(torch.unique(table).numel())
-    nb = pages * Din * Fout * pool.element_size() + nbytes(x, got, table)
+    nb = pages * Din * Fout * pool.element_size() + extra \
+        + nbytes(x, got, table)
     ops_n = 2 * N_EXP * C * Din * Fout
     b_ms, b_by = bound_ms(nb, ops_n, dtype)
     rec = {"case": f"{bank} E={N_EXP} C={C} [{Din}x{Fout}] pages={pages}"
@@ -284,34 +358,38 @@ def phase_kernels():
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
-    out = {"block_paged_decode_attention": [],
-           "mixed_block_paged_attention": [], "paged_gmm": []}
-    for dtype in (torch.bfloat16, torch.float32):
-        timed = dtype == torch.bfloat16
-        rec, dec_inputs = _attention_case("decode", dtype, gen, timer, timed)
-        out["block_paged_decode_attention"].append(rec)
-        for kind in ((1000, 104), (512, 128)):
-            rec, _ = _attention_case(kind, dtype, gen, timer, timed)
-            out["mixed_block_paged_attention"].append(rec)
-        # q_len == 1 through the mixed kernel is the decode kernel, bit for bit
-        q, kp, vp, bt = dec_inputs
-        lens = torch.tensor([2048, 1, 17, 333, 1024, 1500, 64, 777],
-                            dtype=torch.int32, device="cuda")
-        dec = ops.block_paged_decode_attention(q, kp, vp, bt, lens)
-        mix = ops.mixed_block_paged_attention(
-            q[:, None].contiguous(), kp, vp, bt, lens,
-            torch.ones_like(lens))
-        torch.cuda.synchronize()
-        require(torch.equal(dec, mix[:, 0]),
-                "q_len == 1 differs from decode")
-        del dec_inputs, q, kp, vp, bt
-        for bank in ("wi", "wg", "wo"):
-            for C in (1, 5):
-                out["paged_gmm"].append(
-                    _gmm_case(bank, C, dtype, False, gen, timer, timed))
-        out["paged_gmm"].append(
-            _gmm_case("wi", 5, dtype, True, gen, timer, False))
-        torch.cuda.empty_cache()
+    out = {name: [] for name in REPLACES}
+    lens = torch.tensor([2048, 1, 17, 333, 1024, 1500, 64, 777],
+                        dtype=torch.int32, device="cuda")
+    for quant in (False, True):
+        dec_name, mix_name, gmm_name = PATH_KERNELS[quant]
+        decode, mixed = getattr(ops, dec_name), getattr(ops, mix_name)
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16
+            rec, dec_inputs = _attention_case("decode", dtype, gen, timer,
+                                              timed, quant)
+            out[dec_name].append(rec)
+            for kind in ((1000, 104), (512, 128)):
+                rec, _ = _attention_case(kind, dtype, gen, timer, timed,
+                                         quant)
+                out[mix_name].append(rec)
+            # q_len == 1 through the mixed kernel is the decode kernel, bit
+            # for bit
+            q, pools, bt = dec_inputs
+            dec = decode(q, *pools, bt, lens)
+            mix = mixed(q[:, None].contiguous(), *pools, bt, lens,
+                        torch.ones_like(lens))
+            torch.cuda.synchronize()
+            require(torch.equal(dec, mix[:, 0]),
+                    f"{mix_name}: q_len == 1 differs from decode")
+            del dec_inputs, q, pools, bt
+            for bank in ("wi", "wg", "wo"):
+                for C in (1, 5):
+                    out[gmm_name].append(_gmm_case(bank, C, dtype, False,
+                                                   gen, timer, timed, quant))
+            out[gmm_name].append(
+                _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
+            torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
             t = (f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -324,7 +402,7 @@ def phase_kernels():
     return out
 
 
-def _e2e(dtype_name):
+def _e2e(dtype_name, quant=False):
     from repro_torch.configs import get_config
     from repro_torch.core.hmm import HMM
     from repro_torch.core.topology import ElasticConfig
@@ -332,15 +410,23 @@ def _e2e(dtype_name):
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
                               dtype=dtype_name)
+    store = "int8" if quant else None
     hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN,
               kv_block_size=BS, kv_blocks_per_replica=512, seed=1,
-              device="cuda")
+              kv_dtype=store, expert_dtype=store, device="cuda")
     hmm.boot(ElasticConfig(1, 1, (0,)))
     params, cache = hmm.params, hmm.cache
     NB, MB = 512, MAX_LEN // BS
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for leaf in cache.values():
-        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    for name, leaf in cache.items():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        elif name.endswith("_scale"):     # row maxima in [0.3, 3]
+            leaf.copy_((0.3 + 2.7 * torch.rand(leaf.shape, generator=gen,
+                                               device="cuda")) / 127)
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
     # one chunk: positions 256..383 of a 360-token prompt (q_len 104, padding
     # rows), then one decode step of 8 slots at ragged lengths (one inactive)
     cg = torch.Generator().manual_seed(3)
@@ -380,18 +466,37 @@ def _e2e(dtype_name):
     for k in c_got:
         require(torch.equal(c_got[k][0], c_want[k][0]),
                 f"cache {k} differs")
+    # layer 1's int8 rows quantize values that went through layer 0's
+    # kernels: in f32 a rounding tie may land one quantum apart; in bf16
+    # layer 0's outputs already differ by more than a rounding
+    flips = max_q = 0
+    for k in ("k", "v"):
+        if quant:
+            d = (c_got[k][1].int() - c_want[k][1].int()).abs()
+            flips += int(d.count_nonzero())
+            max_q = max(max_q, int(d.max()))
     if dtype_name == "float32":
+        require(max_q <= 1, f"layer 1 int8 rows differ by {max_q} quanta")
+    if dtype_name == "float32" and flips == 0:
         torch.testing.assert_close(got, want, **E2E_F32_TOL)
     else:
-        require(rel < E2E_BF16_REL, f"bf16 logits rel err {rel}")
-    log(f"[e2e] 2-layer qwen3-30b-a3b {dtype_name}: chunk + decode logits "
-        f"{tuple(got.shape)}, max_abs_err {err:.3e}, rel {rel:.3e}")
-    return {"dtype": dtype_name, "max_abs_err": err, "rel_err": rel}
+        require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
+    name = f"{dtype_name}{' int8 KV + int8 experts' if quant else ''}"
+    log(f"[e2e] 2-layer qwen3-30b-a3b {name}: chunk + decode logits "
+        f"{tuple(got.shape)}, max_abs_err {err:.3e}, rel {rel:.3e}"
+        + (f", layer-1 int8 entries that differ: {flips} (at most "
+           f"{max_q} quanta)" if quant else ""))
+    return {"dtype": dtype_name, "int8": quant, "max_abs_err": err,
+            "rel_err": rel, "layer1_int8_differing": flips,
+            "layer1_int8_max_quanta": max_q}
 
 
 def phase_e2e():
-    out = [_e2e("float32"), _e2e("bfloat16")]
-    torch.cuda.empty_cache()
+    out = []
+    for quant in (False, True):
+        for dtype_name in ("float32", "bfloat16"):
+            out.append(_e2e(dtype_name, quant))
+            torch.cuda.empty_cache()
     return out
 
 
@@ -406,7 +511,7 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def phase_serve(layers, profile=True):
+def phase_serve(layers, quant=False, profile=True):
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.elastic_engine import ElasticServer
@@ -417,21 +522,26 @@ def phase_serve(layers, profile=True):
     cfg = get_config("qwen3-30b-a3b")
     if layers != cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    log(f"[serve] qwen3-30b-a3b, {cfg.num_layers} layers, d_model "
+    tag = "[serve_int8]" if quant else "[serve]"
+    store = "int8" if quant else None
+    log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, "
         f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-        f"{cfg.param_count():,} parameters")
+        f"{cfg.param_count():,} parameters; KV and expert store: "
+        f"{store or cfg.dtype}")
+    gc.collect()                  # an earlier server's pools are freed
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     srv = ElasticServer(cfg, tp=1, batch_per_replica=BATCH, max_len=MAX_LEN,
                         kv_mode="paged", kv_block_size=BS,
                         expert_mode="pooled", prefill_chunk=CHUNK, seed=0,
-                        device="cuda")
+                        kv_dtype=store, expert_dtype=store, device="cuda")
     t0 = time.perf_counter()
     srv.boot(ElasticConfig(1, 1, (0,)))
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     mem_boot = torch.cuda.memory_allocated()
-    log(f"[serve] boot {boot_s:.2f} s, {mem_boot / 2**30:.2f} GiB allocated")
+    log(f"{tag} boot {boot_s:.2f} s, {mem_boot / 2**30:.2f} GiB allocated")
 
     prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
     out_len = 32
@@ -497,8 +607,8 @@ def phase_serve(layers, profile=True):
         require(all(0 <= t < cfg.vocab_size for t in toks))
     require(kv["shared_block_hits"] >= 17 and kv["cow_copies"] >= 1, kv)
     require(kv["used_blocks"] == 0)
-    for name, n in counts.items():
-        require(n > 0, f"{name} was not launched while serving")
+    for name in PATH_KERNELS[quant]:
+        require(counts[name] > 0, f"{name} was not launched while serving")
     # the served weights give finite logits of the expected shape
     NB = eng.kv.num_blocks
     tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
@@ -514,7 +624,8 @@ def phase_serve(layers, profile=True):
     chunk = [t["chunk_ms"] / t["chunks"] for t in ticks if t["chunks"]]
     gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
     res = {
-        "layers": cfg.num_layers, "boot_s": boot_s,
+        "layers": cfg.num_layers, "store": store or cfg.dtype,
+        "boot_s": boot_s, "boot_allocated_gib": mem_boot / 2**30,
         "ticks": len(ticks) + len(prof_ticks),
         "decode_tick_ms_median": statistics.median(dec),
         "decode_tick_ms_p90": float(np.percentile(dec, 90)),
@@ -528,14 +639,14 @@ def phase_serve(layers, profile=True):
         "ttft_s": {r.rid: r.ttft for r in reqs},
         "profile": prof_rows, "profiled_ticks_ms": prof_ticks,
     }
-    log(f"[serve] {len(reqs)} requests, {gen_tokens} tokens in {wall:.2f} s "
+    log(f"{tag} {len(reqs)} requests, {gen_tokens} tokens in {wall:.2f} s "
         f"({res['output_tok_s']:.2f} tok/s); decode tick median "
         f"{res['decode_tick_ms_median']:.2f} ms, p90 "
         f"{res['decode_tick_ms_p90']:.2f} ms over {len(dec)} ticks; chunk "
         f"step median {res['chunk_step_ms_median']:.2f} ms over "
         f"{len(chunk)} chunks; max_memory_allocated "
         f"{res['max_memory_allocated_gib']:.2f} GiB")
-    log(f"[serve] launches {counts}; kv {res['kv']}")
+    log(f"{tag} launches {counts}; kv {res['kv']}")
     return res
 
 
@@ -576,8 +687,8 @@ def _profile_ticks(srv, t_start, n):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
-                    help="depth of the served model (full: 48)")
-    ap.add_argument("--phases", default="build,kernels,e2e,serve")
+                    help="depth of the served models (full: 48)")
+    ap.add_argument("--phases", default="build,kernels,e2e,serve,serve_int8")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -606,6 +717,8 @@ def main():
         res["e2e"] = phase_e2e()
     if "serve" in phases:
         res["serve"] = phase_serve(args.layers)
+    if "serve_int8" in phases:
+        res["serve_int8"] = phase_serve(args.layers, quant=True)
     res["seconds"] = time.perf_counter() - t0
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -614,7 +727,11 @@ def main():
             json.dump(res, f, indent=1, default=str)
 
     if "kernels" in res:
-        launches = res.get("serve", {}).get("launches", {})
+        # each kernel's launches come from the serve phase of its path
+        launches = {}
+        for phase, quant in (("serve", False), ("serve_int8", True)):
+            got = res.get(phase, {}).get("launches", {})
+            launches.update({n: got.get(n, 0) for n in PATH_KERNELS[quant]})
         line = []
         for name, recs in res["kernels"].items():
             r = recs[0]                       # the main case, bf16, timed

@@ -49,6 +49,10 @@ class ElasticServer:
                 "prefill_chunk=0 (monolithic prefill) is not ported yet")
         self.mcfg = mcfg
         self.kv_mode = kv_mode
+        # int8 storage: the HMM owns the layout (int8 pools with f32 scale
+        # sidecars) and checks the values
+        self.kv_dtype = kv_dtype
+        self.expert_dtype = expert_dtype
         self.expert_mode = expert_mode
         self.prefill_chunk = prefill_chunk
         self.prefill_buckets = tuple(prefill_buckets)

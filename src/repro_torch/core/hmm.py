@@ -7,9 +7,14 @@ serving instance.  Expert weights live as a page *pool* per bank
 ``ExpertPageTable``'s index arrays; the KV cache is a block pool
 ``[L, NB, bs, KVH, hd]`` with its host-side ``KVBlockManager``.
 
-Scaling (``begin_scale``/``commit``, P2P page moves, KV migration), the
-int8 stores, rebalancing and parking need several devices or belong to
-later slices; their knobs raise ``NotImplementedError``.
+``kv_dtype="int8"`` stores the KV pool as int8 entries with per-token f32
+scale pools on the same block axis; ``expert_dtype="int8"`` stores the
+expert banks as int8 pages with per-page f32 scale banks
+(``moe_pool/{wi,wg,wo}_scale``) addressed by the same page table.
+
+Scaling (``begin_scale``/``commit``, P2P page moves, KV migration),
+rebalancing and parking need several devices or belong to later slices;
+their knobs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch import obs
 from repro_torch.core.expert_pages import ExpertPageTable, pooled_layout
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models.model import (init_expert_bank, init_paged_cache,
                                       init_params, paged_cache_supported)
 from repro_torch.serving.kv_blocks import KVBlockManager
@@ -53,8 +59,6 @@ class HMM:
         not_ported("kv_mode", kv_mode, "paged")
         not_ported("expert_mode", expert_mode, "pooled")
         not_ported("staging", staging, "serial")
-        not_ported("kv_dtype", kv_dtype, None)
-        not_ported("expert_dtype", expert_dtype, None)
         not_ported("expert_slot_slack", expert_slot_slack, 0)
         not_ported("expert_host_pages", expert_host_pages, None)
         not_ported("all_devices", all_devices, None)
@@ -66,6 +70,16 @@ class HMM:
                              f"layout")
         if max_len % kv_block_size:
             raise ValueError("max_len must be a multiple of kv_block_size")
+        # kv_mode / expert_mode are "paged" / "pooled" here, which the int8
+        # stores require (block-wise and page-wise scales)
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None or "
+                             f"'int8')")
+        if expert_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported expert_dtype {expert_dtype!r} "
+                             f"(None or 'int8')")
+        self.kv_dtype = kv_dtype
+        self.expert_dtype = expert_dtype
         self.device = resolve_device(device)
         self.mcfg = mcfg
         self.tp = tp
@@ -92,6 +106,14 @@ class HMM:
     @property
     def _n_moe_layers(self) -> int:
         return self.mcfg.num_layers - self.mcfg.first_k_dense
+
+    def expert_page_nbytes(self) -> int:
+        """Bytes of ONE (layer, expert) page across all three banks; int8
+        pages count their entries plus the three per-page f32 scales that
+        travel with them."""
+        bpe = torch_dtype(self.expert_dtype or self.mcfg.dtype).itemsize
+        scale = 3 * 4 if self.expert_dtype is not None else 0
+        return 3 * self.mcfg.d_model * self.mcfg.moe_d_ff * bpe + scale
 
     @obs.traced("hmm.boot", cat="hmm")
     def boot(self, cfg: ElasticConfig, params=None) -> float:
@@ -120,7 +142,7 @@ class HMM:
         self.params = params
         self.cache = init_paged_cache(
             self.mcfg, cfg.dp * self.kv_blocks_per_replica,
-            self.kv_block_size, device=self.device)
+            self.kv_block_size, device=self.device, kv_dtype=self.kv_dtype)
         self.kv_blocks = KVBlockManager(cfg.dp, self.kv_blocks_per_replica,
                                         self.kv_block_size)
         self.active_cfg = cfg
@@ -131,23 +153,37 @@ class HMM:
         """Random parameters with the experts written layer by layer
         straight into their ``initial_place`` pages: the dense banks are
         never held beside the pool (at full size that would be the 58 GB
-        of expert weights twice)."""
+        of expert weights twice).  With ``expert_dtype="int8"`` each
+        layer's freshly drawn bank is quantized on the device, one scale
+        per (layer, expert) page, and its int8 pages and scales are written
+        through the same rows."""
         mcfg, dev = self.mcfg, self.device
         dtype = torch_dtype(mcfg.dtype)
         params = init_params(mcfg, self.seed, device=dev)
         rows = cfg.ndev * self.expert_pool_pages
         D, Fd = mcfg.d_model, mcfg.moe_d_ff
-        pool = {"wi": torch.zeros((rows, D, Fd), dtype=dtype, device=dev),
-                "wg": torch.zeros((rows, D, Fd), dtype=dtype, device=dev),
-                "wo": torch.zeros((rows, Fd, D), dtype=dtype, device=dev)}
+        quant = self.expert_dtype is not None
+        pdt = torch.int8 if quant else dtype
+        pool = {"wi": torch.zeros((rows, D, Fd), dtype=pdt, device=dev),
+                "wg": torch.zeros((rows, D, Fd), dtype=pdt, device=dev),
+                "wo": torch.zeros((rows, Fd, D), dtype=pdt, device=dev)}
+        banks = list(pool)
+        if quant:
+            for k in banks:
+                pool[k + "_scale"] = torch.zeros((rows,), dtype=torch.float32,
+                                                 device=dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed + 1)
         for l in range(self._n_moe_layers):
             bank = init_expert_bank(mcfg, gen, dtype, dev)
             pages = torch.from_numpy(layout["gtable"][l].astype(np.int64)
                                      ).to(dev)
-            for k in pool:
-                pool[k][pages] = bank[k]
+            for k in banks:
+                if quant:
+                    pool[k][pages], pool[k + "_scale"][pages] = \
+                        quantize_rows(bank.pop(k), (-2, -1))
+                else:
+                    pool[k][pages] = bank.pop(k)
             del bank
         params["blocks"]["moe"].update(
             {k: torch.from_numpy(v).to(dev) for k, v in layout.items()})
@@ -165,6 +201,13 @@ class HMM:
         if not np.array_equal(got, layout["gtable"]):
             raise ValueError("params' page tables differ from the initial "
                              "placement of this configuration")
+        pool = params["moe_pool"]
+        quant = self.expert_dtype is not None
+        if (pool["wi"].dtype == torch.int8) != quant \
+                or ("wi_scale" in pool) != quant:
+            raise ValueError(f"params' expert pool ({pool['wi'].dtype}, "
+                             f"scales: {'wi_scale' in pool}) does not match "
+                             f"expert_dtype={self.expert_dtype!r}")
 
         def move(t):
             if isinstance(t, dict):

@@ -1,10 +1,13 @@
 // Paged attention over the KV block pool, for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the reference package:
-//   * block_paged_decode_attention  (src/repro/kernels/paged_attention.py:123)
-//   * mixed_block_paged_attention   (src/repro/kernels/paged_attention.py:322)
-// Both are one kernel here: decode is the mixed case with one query row per
-// sequence (q_len == 1), so the two agree exactly by construction.
+// Replaces four Pallas TPU kernels of the reference package:
+//   * block_paged_decode_attention        (src/repro/kernels/paged_attention.py:123)
+//   * mixed_block_paged_attention         (src/repro/kernels/paged_attention.py:322)
+//   * quant_block_paged_decode_attention  (src/repro/kernels/paged_attention.py:217)
+//   * quant_mixed_block_paged_attention   (src/repro/kernels/paged_attention.py:430)
+// All are one kernel here, templated on the pools' storage type: decode is
+// the mixed case with one query row per sequence (q_len == 1), so decode
+// and mixed agree exactly by construction, in bf16/f32 and in int8.
 //
 // What it computes.  q [B,Sq,H,hd]; k/v pools [NB,bs,KVH,hd]; block tables
 // [B,MB] int32; ctx_lens [B]; q_lens [B] (decode: 1).  Query row i of
@@ -14,10 +17,21 @@
 // accumulator acc), scale 1/sqrt(hd), masked scores -1e30, output
 // acc / max(l, 1e-30) cast to q's dtype — the Pallas kernel's arithmetic.
 //
+// int8 pools (_quant_block_kernel / _quant_mixed_kernel of the reference).
+// Each token row of k and v has one f32 scale, in [NB,bs] scale pools read
+// through the same table entry as the rows.  The dequantization commutes
+// out of both contractions, as in the Pallas kernels: the int8 rows are
+// staged as f32 without their scale; the score is dot(q, k_i8) * sk[t] *
+// scale, in that order; the running sum l adds p, and the accumulator adds
+// (p * sv[t]) * v_i8, so sv never enters l.  Rows are loaded 8 int8 values
+// per thread (one 8-byte load; hd % 8 == 0 and 8-byte aligned pools, which
+// the wrapper checks).
+//
 // Bound on an H100.  Memory: every K/V row of the context is read once per
 // (sequence, kv head), so the least time is (K+V bytes of the context + q +
-// out) / 3.35 TB/s.  Decode at B=8, ctx up to 2048 moves ~33 MB per layer:
-// ~10 us.  The arithmetic (4*hd FLOPs per query row and context token) is
+// out) / 3.35 TB/s.  Decode at B=8, ctx up to 2048 moves ~33 MB per layer
+// in bf16: ~10 us; int8 halves the rows and adds 8 bytes of scales per
+// token.  The arithmetic (4*hd FLOPs per query row and context token) is
 // far below the card's rate at decode and, at a 128-token chunk, still
 // under the memory time.
 //
@@ -26,16 +40,23 @@
 // consecutive chunk positions), so a 128-token chunk with G = 8 spreads over
 // 64 tiles per kv head instead of one 1024-row accumulator (the Pallas
 // kernel's VMEM block).  The block loads its own table entries (the TPU
-// kernel's scalar prefetch) and stages one K/V block [bs, hd] at a time in
-// shared memory, in f32; scores, the softmax update and acc += p @ v are
-// plain FMAs on CUDA cores.  Blocks past the last position any row of the
-// tile attends are skipped: their scores are all masked, so skipping them
-// changes no bit.  Known gaps, measured and left for later work: decode
-// fills B*KVH = 32 blocks of 132 SMs (no split over the context), and no
-// tensor cores or asynchronous copies are used.
+// kernel's scalar prefetch), clamps the NB sentinel to NB - 1 where it reads
+// the table (for the rows and the scales alike), and stages one K/V block
+// [bs, hd] at a time in shared memory, in f32; scores, the softmax update
+// and acc += p @ v are plain FMAs on CUDA cores.  Blocks past the last
+// position any row of the tile attends are skipped: their scores are all
+// masked, so skipping them changes no bit.  Known gaps, measured and left
+// for later work, shared by the int8 instantiation: serial work inside the
+// block, about 8 us per 16-token KV block (the scores are hd scalar FMAs
+// per thread from shared memory, the softmax update runs on R of the 128
+// threads serially over the block's tokens, four barriers per block);
+// decode fills B*KVH = 32 blocks of 132 SMs (no split over the context);
+// no tensor cores or asynchronous copies.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,14 +77,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// grid (row tiles, KVH, B); dynamic shared memory: see smem_bytes().
-template <typename T>
+// One int8 value of a 4-byte word, sign-extended, as f32.
+__device__ __forceinline__ float i8_at(int w, int j) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * j)));
+}
+
+// grid (row tiles, KVH, B); dynamic shared memory: see smem_bytes().  KV is
+// the pools' storage type: T itself, or int8_t with f32 scale pools
+// k_scale / v_scale [NB, bs] (unused, and null, otherwise).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int32_t* __restrict__ tables,
+    const T* __restrict__ q, const KV* __restrict__ k_pool,
+    const float* __restrict__ k_scale, const KV* __restrict__ v_pool,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ ctx_lens, const int32_t* __restrict__ q_lens,
     T* __restrict__ out, int Sq, int H, int KVH, int hd, int NB, int bs,
     int MB, int R, float scale) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   extern __shared__ float smem[];
   const int G = H / KVH;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -78,6 +108,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   float* m_s = p_s + R * bs;      // [R] running max
   float* l_s = m_s + R;           // [R] running sum
   float* a_s = l_s + R;           // [R] rescale factor of this step
+  float* sk_s = a_s + R;          // [bs] k scales of the block (int8 only)
+  float* sv_s = sk_s + bs;        // [bs] v scales of the block (int8 only)
   const int tid = threadIdx.x;
 
   const int ctx = ctx_lens[b];
@@ -107,11 +139,32 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   for (int ki = 0; ki < nblk; ++ki) {
     int phys = tables[(size_t)b * MB + ki];
     phys = min(max(phys, 0), NB - 1);
-    for (int idx = tid; idx < bs * hd; idx += THREADS) {
-      const int t = idx / hd, d = idx - (idx / hd) * hd;
-      const size_t off = (((size_t)phys * bs + t) * KVH + kvh) * hd + d;
-      k_s[t * hdp + d] = to_f32(k_pool[off]);
-      v_s[idx] = to_f32(v_pool[off]);
+    if constexpr (QUANT) {
+      const int hd8 = hd >> 3;
+      for (int idx = tid; idx < bs * hd8; idx += THREADS) {
+        const int t = idx / hd8, d = (idx - t * hd8) << 3;
+        const size_t off = (((size_t)phys * bs + t) * KVH + kvh) * hd + d;
+        const int2 kw = *reinterpret_cast<const int2*>(k_pool + off);
+        const int2 vw = *reinterpret_cast<const int2*>(v_pool + off);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          k_s[t * hdp + d + j] = i8_at(kw.x, j);
+          k_s[t * hdp + d + 4 + j] = i8_at(kw.y, j);
+          v_s[t * hd + d + j] = i8_at(vw.x, j);
+          v_s[t * hd + d + 4 + j] = i8_at(vw.y, j);
+        }
+      }
+      for (int t = tid; t < bs; t += THREADS) {
+        sk_s[t] = k_scale[(size_t)phys * bs + t];
+        sv_s[t] = v_scale[(size_t)phys * bs + t];
+      }
+    } else {
+      for (int idx = tid; idx < bs * hd; idx += THREADS) {
+        const int t = idx / hd, d = idx - (idx / hd) * hd;
+        const size_t off = (((size_t)phys * bs + t) * KVH + kvh) * hd + d;
+        k_s[t * hdp + d] = to_f32(k_pool[off]);
+        v_s[idx] = to_f32(v_pool[off]);
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < R * bs; idx += THREADS) {
@@ -122,7 +175,10 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
       for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
       const int pos = ki * bs + t;
       const int q_abs = ctx - q_len + (row0 + r) / G;
-      p_s[idx] = (pos < ctx && pos <= q_abs) ? dot * scale : NEG_INF;
+      float sc;
+      if constexpr (QUANT) sc = dot * sk_s[t] * scale;
+      else sc = dot * scale;
+      p_s[idx] = (pos < ctx && pos <= q_abs) ? sc : NEG_INF;
     }
     __syncthreads();
     for (int r = tid; r < R; r += THREADS) {
@@ -132,7 +188,9 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
       float sum = 0.f;
       for (int t = 0; t < bs; ++t) {
         const float p = expf(p_s[r * bs + t] - m_cur);
-        p_s[r * bs + t] = p;
+        // int8: the v scale folds into the probability row, not into l
+        if constexpr (QUANT) p_s[r * bs + t] = p * sv_s[t];
+        else p_s[r * bs + t] = p;
         sum += p;
       }
       const float alpha = expf(m_prev - m_cur);
@@ -159,46 +217,55 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   }
 }
 
-size_t smem_bytes(int R, int hd, int bs) {
+size_t smem_bytes(int R, int hd, int bs, bool quant) {
   return sizeof(float) * ((size_t)2 * R * hd + (size_t)bs * (hd + 1) +
-                          (size_t)bs * hd + (size_t)R * bs + 3 * (size_t)R);
+                          (size_t)bs * hd + (size_t)R * bs + 3 * (size_t)R +
+                          (quant ? 2 * (size_t)bs : 0));
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* ctx_lens, const void* q_lens,
-           void* out, int B, int Sq, int H, int KVH, int hd, int NB, int bs,
-           int MB, float scale, cudaStream_t stream) {
+template <typename T, typename KV>
+int launch(const void* q, const void* k_pool, const void* k_scale,
+           const void* v_pool, const void* v_scale, const void* tables,
+           const void* ctx_lens, const void* q_lens, void* out, int B, int Sq,
+           int H, int KVH, int hd, int NB, int bs, int MB, float scale,
+           cudaStream_t stream) {
   const int rows = Sq * (H / KVH);
   const int R = rows < ROWS_MAX ? rows : ROWS_MAX;
   const dim3 grid((rows + R - 1) / R, KVH, B);
-  const size_t smem = smem_bytes(R, hd, bs);
+  const size_t smem =
+      smem_bytes(R, hd, bs, std::is_same<KV, int8_t>::value);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_attention_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(tables),
+  paged_attention_kernel<T, KV><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const float*>(k_scale), static_cast<const KV*>(v_pool),
+      static_cast<const float*>(v_scale), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(ctx_lens),
       static_cast<const int32_t*>(q_lens), static_cast<T*>(out), Sq, H, KVH,
       hd, NB, bs, MB, R, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch(int dtype, const void* q, const void* k_pool, const void* v_pool,
+// dtype: q/out type, 0 = float32, 1 = bfloat16; quant: int8 pools + scales
+// (else pools of q's type and null scales).
+int dispatch(int dtype, bool quant, const void* q, const void* k_pool,
+             const void* k_scale, const void* v_pool, const void* v_scale,
              const void* tables, const void* ctx_lens, const void* q_lens,
              void* out, int B, int Sq, int H, int KVH, int hd, int NB, int bs,
              int MB, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, ctx_lens, q_lens, out, B,
-                         Sq, H, KVH, hd, NB, bs, MB, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, ctx_lens, q_lens,
-                                 out, B, Sq, H, KVH, hd, NB, bs, MB, scale, s);
+#define PA_LAUNCH(T, KV)                                                    \
+  launch<T, KV>(q, k_pool, k_scale, v_pool, v_scale, tables, ctx_lens,     \
+                q_lens, out, B, Sq, H, KVH, hd, NB, bs, MB, scale, s)
+  if (dtype == 0) return quant ? PA_LAUNCH(float, int8_t)
+                               : PA_LAUNCH(float, float);
+  if (dtype == 1) return quant ? PA_LAUNCH(__nv_bfloat16, int8_t)
+                               : PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+#undef PA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -206,8 +273,9 @@ int dispatch(int dtype, const void* q, const void* k_pool, const void* v_pool,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).  Allocates nothing and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16 (q, out and, unquantized, the pools).
+// Returns cudaGetLastError() after the launch (0 on success).  Allocates
+// nothing and does not synchronise.
 int block_paged_decode_attention_launch(int dtype, const void* q,
                                         const void* k_pool,
                                         const void* v_pool,
@@ -215,8 +283,9 @@ int block_paged_decode_attention_launch(int dtype, const void* q,
                                         const void* lengths, void* out, int B,
                                         int H, int KVH, int hd, int NB, int bs,
                                         int MB, float scale, void* stream) {
-  return dispatch(dtype, q, k_pool, v_pool, tables, lengths, nullptr, out, B,
-                  1, H, KVH, hd, NB, bs, MB, scale, stream);
+  return dispatch(dtype, false, q, k_pool, nullptr, v_pool, nullptr, tables,
+                  lengths, nullptr, out, B, 1, H, KVH, hd, NB, bs, MB, scale,
+                  stream);
 }
 
 int mixed_block_paged_attention_launch(int dtype, const void* q,
@@ -227,8 +296,31 @@ int mixed_block_paged_attention_launch(int dtype, const void* q,
                                        int Sq, int H, int KVH, int hd, int NB,
                                        int bs, int MB, float scale,
                                        void* stream) {
-  return dispatch(dtype, q, k_pool, v_pool, tables, ctx_lens, q_lens, out, B,
-                  Sq, H, KVH, hd, NB, bs, MB, scale, stream);
+  return dispatch(dtype, false, q, k_pool, nullptr, v_pool, nullptr, tables,
+                  ctx_lens, q_lens, out, B, Sq, H, KVH, hd, NB, bs, MB, scale,
+                  stream);
+}
+
+// int8 pools [NB,bs,KVH,hd] with f32 scale pools [NB,bs]; q and out of
+// type dtype.
+int quant_block_paged_decode_attention_launch(
+    int dtype, const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* tables,
+    const void* lengths, void* out, int B, int H, int KVH, int hd, int NB,
+    int bs, int MB, float scale, void* stream) {
+  return dispatch(dtype, true, q, k_pool, k_scale, v_pool, v_scale, tables,
+                  lengths, nullptr, out, B, 1, H, KVH, hd, NB, bs, MB, scale,
+                  stream);
+}
+
+int quant_mixed_block_paged_attention_launch(
+    int dtype, const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* tables,
+    const void* ctx_lens, const void* q_lens, void* out, int B, int Sq, int H,
+    int KVH, int hd, int NB, int bs, int MB, float scale, void* stream) {
+  return dispatch(dtype, true, q, k_pool, k_scale, v_pool, v_scale, tables,
+                  ctx_lens, q_lens, out, B, Sq, H, KVH, hd, NB, bs, MB, scale,
+                  stream);
 }
 
 const char* cuda_error_string(int code) {

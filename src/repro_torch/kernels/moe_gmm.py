@@ -1,11 +1,12 @@
-"""Paged grouped expert matmul — CUDA launch wrapper and the expert FFN.
+"""Paged grouped expert matmul — CUDA launch wrappers and the expert FFNs.
 
-Port of the Pallas TPU kernel ``paged_gmm`` (``repro/kernels/moe_gmm.py:83``)
-and of ``paged_expert_ffn`` (``:131``), which stays the same three-call
-composition.  The kernel and its design note are in ``csrc/moe_gmm.cu``.
-The wrapper takes CUDA tensors only: it checks device, dtype, shape and
-contiguity, allocates the output, launches on PyTorch's current stream and
-counts the launch.  ``kernels/ops.py`` dispatches CPU tensors to the plain
+Port of the Pallas TPU kernels ``paged_gmm`` (``repro/kernels/moe_gmm.py:83``)
+and ``quant_paged_gmm`` (``:148``), and of ``paged_expert_ffn`` (``:131``)
+and ``quant_paged_expert_ffn`` (``:192``), which stay the same three-call
+compositions.  The kernels and their design note are in
+``csrc/moe_gmm.cu``.  The wrappers take CUDA tensors only: they check
+device, dtype, shape and contiguity, allocate the output, launch on
+PyTorch's current stream and count the launch.  ``kernels/ops.py`` dispatches CPU tensors to the plain
 versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
@@ -17,27 +18,33 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"paged_gmm_launch": [_I] + [_P] * 4 + [_I] * 5 + [_P]}
+_SIGNATURES = {"paged_gmm_launch": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+               "quant_paged_gmm_launch": [_I] + [_P] * 5 + [_I] * 6 + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
-    """out[e] = x[e] @ pool[table[e]] for each local expert e.
-
-    table [E] int32; pool [P,D,F]; x [E,C,D] -> [E,C,F] in x's dtype.
-    Aliased tables (several entries naming one page) are fine: every block
-    only reads ``pool[table[e]]``."""
+def _check(table, pool, x, scales=None):
+    """Checks shared by both wrappers (``scales``: the int8 pool's f32
+    per-page scales [P]).  Returns (E, C, D, F, P)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
     if x.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {x.dtype} (bfloat16 or float32)")
-    if pool.dtype != x.dtype:
-        raise TypeError(f"pool dtype {pool.dtype} != x dtype {x.dtype}")
+    pool_dtype = x.dtype if scales is None else torch.int8
+    if pool.dtype != pool_dtype:
+        raise TypeError(f"pool dtype {pool.dtype}, expected {pool_dtype}")
     if table.dtype != torch.int32:
         raise TypeError(f"table must be int32, got {table.dtype}")
-    for name, t in (("table", table), ("pool", pool), ("x", x)):
+    named = [("table", table), ("pool", pool), ("x", x)]
+    if scales is not None:
+        if scales.dtype != torch.float32:
+            raise TypeError(f"scales must be float32, got {scales.dtype}")
+        if scales.shape != pool.shape[:1]:
+            raise ValueError(f"scales must be [P] = {pool.shape[0]}, got "
+                             f"{tuple(scales.shape)}")
+        named.append(("scales", scales))
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, x on {dev}")
         if not t.is_contiguous():
@@ -47,8 +54,18 @@ def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
         raise ValueError(f"shapes: table [E], pool [P,D,F], x [E,C,D]; got "
                          f"{tuple(table.shape)}, {tuple(pool.shape)}, "
                          f"{tuple(x.shape)}")
-    E, C, D = x.shape
-    P, _, F = pool.shape
+    return (*x.shape, pool.shape[2], pool.shape[0])
+
+
+def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+    """out[e] = x[e] @ pool[table[e]] for each local expert e.
+
+    table [E] int32; pool [P,D,F]; x [E,C,D] -> [E,C,F] in x's dtype.
+    Aliased tables (several entries naming one page) are fine: every block
+    only reads ``pool[table[e]]``."""
+    E, C, D, F, P = _check(table, pool, x)
+    dev = x.device
     out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if E == 0 or C == 0:
         return out
@@ -66,6 +83,33 @@ def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
 paged_gmm.launches = 0
 
 
+def quant_paged_gmm(table: torch.Tensor, pool: torch.Tensor,
+                    scales: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """:func:`paged_gmm` over int8 pages: pool int8 [P,D,F] with one f32
+    scale per page, scales [P], read through the same table; x bf16 or
+    f32 [E,C,D] -> [E,C,F] in x's dtype.  Each output is ``(sum_d x *
+    w_i8) * scale``, rounded once."""
+    E, C, D, F, P = _check(table, pool, x, scales)
+    dev = x.device
+    out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
+    if E == 0 or C == 0:
+        return out
+    vec = int(F % 4 == 0 and pool.data_ptr() % 4 == 0)
+    lib = _build.load("moe_gmm", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.quant_paged_gmm_launch(_DTYPES[x.dtype], table.data_ptr(),
+                                        x.data_ptr(), pool.data_ptr(),
+                                        scales.data_ptr(), out.data_ptr(), E,
+                                        C, D, F, P, vec, stream)
+    _build.check(lib, rc, "quant_paged_gmm")
+    quant_paged_gmm.launches += 1
+    return out
+
+
+quant_paged_gmm.launches = 0
+
+
 def paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o, x):
     """SwiGLU expert FFN over paged weights, ``down(up(x) * silu(gate(x)))``,
     as three ``paged_gmm`` launches with independent page tables.  Rounding
@@ -75,3 +119,13 @@ def paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o, x):
     g = paged_gmm(table_g, pool_g, x)
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
     return paged_gmm(table_o, pool_o, h)
+
+
+def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
+                           scale_i, scale_g, scale_o, x):
+    """:func:`paged_expert_ffn` over int8 pages with per-page f32 scales:
+    three ``quant_paged_gmm`` launches, the same rounding points."""
+    h = quant_paged_gmm(table_i, pool_i, scale_i, x)
+    g = quant_paged_gmm(table_g, pool_g, scale_g, x)
+    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    return quant_paged_gmm(table_o, pool_o, scale_o, h)

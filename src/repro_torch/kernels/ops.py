@@ -30,6 +30,11 @@ KERNELS = {
     "mixed_block_paged_attention":
         paged_attention.mixed_block_paged_attention,
     "paged_gmm": moe_gmm.paged_gmm,
+    "quant_block_paged_decode_attention":
+        paged_attention.quant_block_paged_decode_attention,
+    "quant_mixed_block_paged_attention":
+        paged_attention.quant_mixed_block_paged_attention,
+    "quant_paged_gmm": moe_gmm.quant_paged_gmm,
 }
 
 
@@ -99,3 +104,49 @@ def paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o, x):
                                         pool_i, pool_g, pool_o, x)
     return moe_gmm.paged_expert_ffn(table_i, table_g, table_o,
                                     pool_i, pool_g, pool_o, x)
+
+
+def quant_block_paged_decode_attention(q, k_pool, k_scale, v_pool, v_scale,
+                                       block_tables, lengths):
+    """Int8 block-table paged decode attention (every decode tick, every
+    layer, with ``kv_dtype="int8"``); see
+    ``paged_attention.quant_block_paged_decode_attention``."""
+    if _plain(q):
+        return ref.quant_block_paged_decode_attention_ref(
+            q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths)
+    return paged_attention.quant_block_paged_decode_attention(
+        q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths)
+
+
+def quant_mixed_block_paged_attention(q, k_pool, k_scale, v_pool, v_scale,
+                                      block_tables, ctx_lens, q_lens):
+    """Int8 mixed chunked-prefill / decode attention (every prefill chunk,
+    every layer, with ``kv_dtype="int8"``); see
+    ``paged_attention.quant_mixed_block_paged_attention``."""
+    if _plain(q):
+        return ref.quant_mixed_block_paged_attention_ref(
+            q, k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens,
+            q_lens)
+    return paged_attention.quant_mixed_block_paged_attention(
+        q, k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens, q_lens)
+
+
+def quant_paged_gmm(table, pool, scales, x):
+    """out[e] = x[e] @ (pool[table[e]] * scales[table[e]]) over int8
+    pages; see ``moe_gmm.quant_paged_gmm``."""
+    if _plain(x):
+        return ref.quant_paged_gmm_ref(table, pool, scales, x)
+    return moe_gmm.quant_paged_gmm(table, pool, scales, x)
+
+
+def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
+                           scale_i, scale_g, scale_o, x):
+    """Paged SwiGLU expert FFN over int8 pages (``expert_dtype="int8"``):
+    three ``quant_paged_gmm`` launches on the card."""
+    if _plain(x):
+        return ref.quant_paged_expert_ffn_ref(table_i, table_g, table_o,
+                                              pool_i, pool_g, pool_o,
+                                              scale_i, scale_g, scale_o, x)
+    return moe_gmm.quant_paged_expert_ffn(table_i, table_g, table_o, pool_i,
+                                          pool_g, pool_o, scale_i, scale_g,
+                                          scale_o, x)

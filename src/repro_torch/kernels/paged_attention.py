@@ -1,9 +1,11 @@
 """Paged attention over the KV block pool — CUDA launch wrappers.
 
 Port of the Pallas TPU kernels ``block_paged_decode_attention``
-(``repro/kernels/paged_attention.py:123``) and
-``mixed_block_paged_attention`` (``:322``); the kernel and its design note
-are in ``csrc/paged_attention.cu``.  These wrappers take CUDA tensors only:
+(``repro/kernels/paged_attention.py:123``), ``mixed_block_paged_attention``
+(``:322``) and their int8 variants ``quant_block_paged_decode_attention``
+(``:217``) and ``quant_mixed_block_paged_attention`` (``:430``); the one
+kernel behind all four and its design note are in
+``csrc/paged_attention.cu``.  These wrappers take CUDA tensors only:
 they check device, dtype, shape and contiguity, allocate the output, launch
 on PyTorch's current stream and count the launch.  ``kernels/ops.py``
 dispatches CPU tensors to the plain versions in ``kernels/ref.py``.
@@ -23,6 +25,10 @@ _SIGNATURES = {
         [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "mixed_block_paged_attention_launch":
         [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+    "quant_block_paged_decode_attention_launch":
+        [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    "quant_mixed_block_paged_attention_launch":
+        [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -31,17 +37,27 @@ def _lib():
     return _build.load("paged_attention", _SIGNATURES)
 
 
-def _check_common(q, k_pool, v_pool, block_tables, ints):
+def _check_common(q, k_pool, v_pool, block_tables, ints, scales=()):
+    """Checks shared by the four wrappers; ``scales`` are the int8 pools'
+    ``(name, [NB,bs] f32)`` pairs (empty: pools of q's dtype)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
     if q.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q.dtype} (bfloat16 or float32)")
+    pool_dtype = torch.int8 if scales else q.dtype
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.dtype != pool_dtype:
+            raise TypeError(f"{name} dtype {t.dtype}, expected {pool_dtype}")
+    for name, t in scales:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.shape != k_pool.shape[:2]:
+            raise ValueError(f"{name} must be [NB,bs] = "
+                             f"{tuple(k_pool.shape[:2])}, got "
+                             f"{tuple(t.shape)}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), *ints):
+                    ("block_tables", block_tables), *ints, *scales):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -57,7 +73,46 @@ def _check_common(q, k_pool, v_pool, block_tables, ints):
     if hd2 != hd or H % KVH:
         raise ValueError(f"q heads/dim {H}/{hd} do not fit pool "
                          f"KVH/hd {KVH}/{hd2}")
+    if scales and (hd % 8 or k_pool.data_ptr() % 8 or v_pool.data_ptr() % 8):
+        raise ValueError("int8 pools are read 8 values at a time: hd must "
+                         "be a multiple of 8 and the pools 8-byte aligned")
     return NB, bs, KVH, hd
+
+
+def _decode_dims(q, block_tables, lengths):
+    if q.dim() != 3 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != q.shape[0] \
+            or lengths.shape != (q.shape[0],):
+        raise ValueError("shapes: q [B,H,hd], block_tables [B,MB], "
+                         "lengths [B]")
+    return q.shape[0], q.shape[1], block_tables.shape[1]
+
+
+def _mixed_dims(q, block_tables, ctx_lens, q_lens):
+    if q.dim() != 4:
+        raise ValueError("q must be [B,Sq,H,hd]")
+    B = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or ctx_lens.shape != (B,) or q_lens.shape != (B,):
+        raise ValueError("shapes: block_tables [B,MB], ctx_lens/q_lens [B]")
+    return B, q.shape[1], q.shape[2], block_tables.shape[1]
+
+
+def _launch(wrapper, q, inputs, dims):
+    """Launch ``<wrapper name>_launch(dtype, q, *inputs, out, *dims,
+    1/sqrt(hd), stream)`` on PyTorch's current stream, raise on a CUDA
+    error, and count the launch on ``wrapper``."""
+    out = torch.empty_like(q)
+    lib = _lib()
+    name = wrapper.__name__
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, f"{name}_launch")(
+            _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in inputs),
+            out.data_ptr(), *dims, 1.0 / math.sqrt(q.shape[-1]), stream)
+    _build.check(lib, rc, name)
+    wrapper.launches += 1
+    return out
 
 
 def block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -70,24 +125,10 @@ def block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     read."""
     NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
                                     [("lengths", lengths)])
-    B, H = q.shape[0], q.shape[1]
-    if q.dim() != 3 or block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or lengths.shape != (B,):
-        raise ValueError("shapes: q [B,H,hd], block_tables [B,MB], "
-                         "lengths [B]")
-    MB = block_tables.shape[1]
-    out = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.block_paged_decode_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, KVH, hd, NB, bs, MB,
-            1.0 / math.sqrt(hd), stream)
-    _build.check(lib, rc, "block_paged_decode_attention")
-    block_paged_decode_attention.launches += 1
-    return out
+    B, H, MB = _decode_dims(q, block_tables, lengths)
+    return _launch(block_paged_decode_attention, q,
+                   (k_pool, v_pool, block_tables, lengths),
+                   (B, H, KVH, hd, NB, bs, MB))
 
 
 block_paged_decode_attention.launches = 0
@@ -108,25 +149,56 @@ def mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
                                     [("ctx_lens", ctx_lens),
                                      ("q_lens", q_lens)])
-    if q.dim() != 4:
-        raise ValueError("q must be [B,Sq,H,hd]")
-    B, Sq, H = q.shape[0], q.shape[1], q.shape[2]
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or ctx_lens.shape != (B,) or q_lens.shape != (B,):
-        raise ValueError("shapes: block_tables [B,MB], ctx_lens/q_lens [B]")
-    MB = block_tables.shape[1]
-    out = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mixed_block_paged_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
-            q_lens.data_ptr(), out.data_ptr(), B, Sq, H, KVH, hd, NB, bs, MB,
-            1.0 / math.sqrt(hd), stream)
-    _build.check(lib, rc, "mixed_block_paged_attention")
-    mixed_block_paged_attention.launches += 1
-    return out
+    B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
+    return _launch(mixed_block_paged_attention, q,
+                   (k_pool, v_pool, block_tables, ctx_lens, q_lens),
+                   (B, Sq, H, KVH, hd, NB, bs, MB))
 
 
 mixed_block_paged_attention.launches = 0
+
+
+def quant_block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                       k_scale: torch.Tensor,
+                                       v_pool: torch.Tensor,
+                                       v_scale: torch.Tensor,
+                                       block_tables: torch.Tensor,
+                                       lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`block_paged_decode_attention` over int8 pools
+    ``[NB,bs,KVH,hd]`` with f32 per-token scale pools ``k/v_scale``
+    ``[NB,bs]`` (``quantize_rows`` over (KVH, hd)), read through the same
+    table.  q bf16 or f32 -> [B,H,hd] in q's dtype."""
+    NB, bs, KVH, hd = _check_common(
+        q, k_pool, v_pool, block_tables, [("lengths", lengths)],
+        scales=[("k_scale", k_scale), ("v_scale", v_scale)])
+    B, H, MB = _decode_dims(q, block_tables, lengths)
+    return _launch(quant_block_paged_decode_attention, q,
+                   (k_pool, k_scale, v_pool, v_scale, block_tables, lengths),
+                   (B, H, KVH, hd, NB, bs, MB))
+
+
+quant_block_paged_decode_attention.launches = 0
+
+
+def quant_mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      block_tables: torch.Tensor,
+                                      ctx_lens: torch.Tensor,
+                                      q_lens: torch.Tensor) -> torch.Tensor:
+    """:func:`mixed_block_paged_attention` over int8 pools with f32
+    per-token scale pools, as :func:`quant_block_paged_decode_attention`.
+    At ``q_lens == 1`` it is the int8 decode, bit for bit."""
+    NB, bs, KVH, hd = _check_common(
+        q, k_pool, v_pool, block_tables,
+        [("ctx_lens", ctx_lens), ("q_lens", q_lens)],
+        scales=[("k_scale", k_scale), ("v_scale", v_scale)])
+    B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
+    return _launch(quant_mixed_block_paged_attention, q,
+                   (k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens,
+                    q_lens),
+                   (B, Sq, H, KVH, hd, NB, bs, MB))
+
+
+quant_mixed_block_paged_attention.launches = 0

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the ported kernels — the port of
-``repro.kernels.ref`` for the three kernels on the serving path.
+``repro.kernels.ref`` for the six kernels on the serving path (bf16/f32
+pools, and int8 pools with f32 scales).
 
 The CPU tests hold these against the Pallas kernels; ``chip_smoke.py``
 holds the CUDA kernels against these on the card.  They repeat the
@@ -15,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.kernels.quant import dequantize_rows
 
 NEG_INF = -1e30
 
@@ -38,6 +41,26 @@ def paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g, pool_o,
     g = paged_gmm_ref(table_g, pool_g, x)
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
     return paged_gmm_ref(table_o, pool_o, h)
+
+
+def quant_paged_gmm_ref(table, pool, scales, x):
+    """Dequantize-then-delegate for the int8 paged GMM: pool int8 [P,D,F],
+    scales f32 [P] (one per page).  x is cast to f32 and the result back
+    to x's dtype, as the reference oracle does.  The pages are gathered
+    before they are dequantized (elementwise, so the same numbers as
+    dequantizing the whole pool, without an f32 copy of it)."""
+    w = dequantize_rows(_gather_rows(pool, table), _gather_rows(scales, table),
+                        (-2, -1))
+    return torch.einsum("ecd,edf->ecf", x.float(), w).to(x.dtype)
+
+
+def quant_paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g,
+                               pool_o, scale_i, scale_g, scale_o, x):
+    """:func:`paged_expert_ffn_ref` over int8 pages with per-page scales."""
+    h = quant_paged_gmm_ref(table_i, pool_i, scale_i, x)
+    g = quant_paged_gmm_ref(table_g, pool_g, scale_g, x)
+    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    return quant_paged_gmm_ref(table_o, pool_o, scale_o, h)
 
 
 def paged_decode_attention_ref(q, k_cache, v_cache, lengths):
@@ -94,3 +117,24 @@ def mixed_block_paged_attention_ref(q, k_pool, v_pool, block_tables,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkh->bqkgh", p, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def quant_block_paged_decode_attention_ref(q, k_pool, k_scale, v_pool,
+                                           v_scale, block_tables, lengths):
+    """Dequantize-then-delegate for the int8 block-table decode: k/v_pool
+    int8 [NB,bs,KVH,hd], k/v_scale f32 [NB,bs] (one per token row,
+    ``quantize_rows`` over (KVH, hd))."""
+    k = dequantize_rows(k_pool, k_scale, (-2, -1))
+    v = dequantize_rows(v_pool, v_scale, (-2, -1))
+    return block_paged_decode_attention_ref(q, k, v, block_tables, lengths)
+
+
+def quant_mixed_block_paged_attention_ref(q, k_pool, k_scale, v_pool,
+                                          v_scale, block_tables, ctx_lens,
+                                          q_lens):
+    """Dequantize-then-delegate for the int8 mixed prefill/decode
+    attention (same scale layout as the int8 decode)."""
+    k = dequantize_rows(k_pool, k_scale, (-2, -1))
+    v = dequantize_rows(v_pool, v_scale, (-2, -1))
+    return mixed_block_paged_attention_ref(q, k, v, block_tables, ctx_lens,
+                                           q_lens)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import quantize_rows
 
 # --------------------------------------------------------------------- utils
 
@@ -147,23 +148,36 @@ def paged_attention_apply(cfg, p, x, positions, *, cache, block_tables,
     """Decode-step attention over the paged KV pool.
 
     x [B,1,D]; ``cache`` = this layer's pools {'k','v': [NB,bs,KVH,hd]},
-    updated in place; block_tables [B,MB]; write_block [B] = pool row
-    receiving this step's k/v (``NB`` marks inactive slots, whose writes
-    drop); lengths [B] = tokens already cached (the new token lands at
-    offset ``lengths % bs``).  Returns (y [B,1,D], cache)."""
+    updated in place — int8 pools carry f32 per-token scale pools
+    {'k_scale','v_scale': [NB,bs]} and the new rows are quantized over
+    (KVH, hd) as they are written; block_tables [B,MB]; write_block [B] =
+    pool row receiving this step's k/v (``NB`` marks inactive slots, whose
+    writes drop); lengths [B] = tokens already cached (the new token lands
+    at offset ``lengths % bs``).  Returns (y [B,1,D], cache)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim
     NB, bs = cache["k"].shape[0], cache["k"].shape[1]
     q, k, v = _qkv_rope(cfg, p, x, positions)
     rows = _kept_rows(write_block, NB)
     wb, off = write_block[rows].long(), (lengths % bs)[rows].long()
-    cache["k"][wb, off] = k[rows, 0].to(cache["k"].dtype)
-    cache["v"][wb, off] = v[rows, 0].to(cache["v"].dtype)
+    quant = "k_scale" in cache
+    for name, new in (("k", k), ("v", v)):
+        if quant:
+            qr, s = quantize_rows(new[rows, 0], (-2, -1))   # [n,KVH,hd]
+            cache[name][wb, off] = qr
+            cache[name + "_scale"][wb, off] = s
+        else:
+            cache[name][wb, off] = new[rows, 0].to(cache[name].dtype)
     # table padding holds the NB sentinel; the kernel and the plain version
     # clamp it to NB - 1 where they read (inactive slots' outputs are unused)
-    o = ops.block_paged_decode_attention(q[:, 0].contiguous(), cache["k"],
-                                         cache["v"], block_tables,
-                                         (lengths + 1).to(torch.int32))
+    qd, lens = q[:, 0].contiguous(), (lengths + 1).to(torch.int32)
+    if quant:
+        o = ops.quant_block_paged_decode_attention(
+            qd, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            block_tables, lens)
+    else:
+        o = ops.block_paged_decode_attention(qd, cache["k"], cache["v"],
+                                             block_tables, lens)
     return linear(p["o"], o.reshape(B, 1, H * hd)), cache
 
 
@@ -177,21 +191,34 @@ def paged_chunk_attention_apply(cfg, p, x, positions, *, cache, block_tables,
     ``chunk_block_ids`` [C/bs] first (``NB`` marks padding and CoW-shared
     prefix rows, whose writes drop), then the chunk attends causally over
     the whole context through ``block_tables`` [1,MB].  ``cache`` is
-    updated in place.  Returns (y [1,C,D], cache)."""
+    updated in place; int8 pools quantize each token row as it is written
+    and scatter its scale alongside, as :func:`paged_attention_apply`.
+    Returns (y [1,C,D], cache)."""
     B, C, _ = x.shape
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     NB, bs = cache["k"].shape[0], cache["k"].shape[1]
     q, k, v = _qkv_rope(cfg, p, x, positions)
     rows = _kept_rows(chunk_block_ids, NB)
     ids = chunk_block_ids[rows].long()
+    quant = "k_scale" in cache
     for name, new in (("k", k), ("v", v)):
-        cache[name][ids] = new[0].reshape(C // bs, bs, KVH, hd)[rows].to(
-            cache[name].dtype)
+        blocks = new[0].reshape(C // bs, bs, KVH, hd)[rows]
+        if quant:
+            qr, s = quantize_rows(blocks, (-2, -1))          # [n,bs,KVH,hd]
+            cache[name][ids] = qr
+            cache[name + "_scale"][ids] = s
+        else:
+            cache[name][ids] = blocks.to(cache[name].dtype)
     ctx1 = ctx_len.reshape(1).to(torch.int32)
     qlen1 = q_len.reshape(1).to(torch.int32)
-    o = ops.mixed_block_paged_attention(q.contiguous(), cache["k"],
-                                        cache["v"], block_tables, ctx1,
-                                        qlen1)
+    if quant:
+        o = ops.quant_mixed_block_paged_attention(
+            q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], block_tables, ctx1, qlen1)
+    else:
+        o = ops.mixed_block_paged_attention(q.contiguous(), cache["k"],
+                                            cache["v"], block_tables, ctx1,
+                                            qlen1)
     return linear(p["o"], o.reshape(B, C, H * hd)), cache
 
 

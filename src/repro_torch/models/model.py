@@ -143,16 +143,30 @@ def chunk_prefill_supported(cfg) -> bool:
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
                      device="cuda", kv_dtype=None):
-    """Block-pool decode cache: {'k','v': [L, NB, bs, KVH, hd]}, zeros."""
+    """Block-pool decode cache: {'k','v': [L, NB, bs, KVH, hd]}, zeros.
+
+    ``kv_dtype="int8"`` (any dtype other than the model's) makes the entry
+    pools int8 and adds f32 per-token scale pools {'k_scale','v_scale':
+    [L, NB, bs]}.  Every leaf keeps the block axis at axis 1, so the
+    engine's copy-on-write and per-block byte accounting move a block's
+    scales with its entries.  Any other ``kv_dtype`` raises."""
     if not paged_cache_supported(cfg):
         raise ValueError(f"{cfg.name}: paged KV requires a "
                          f"standard-attention decoder")
-    if kv_dtype is not None:
-        raise NotImplementedError("kv_dtype (int8 KV pool) is not ported yet")
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
+    if kv_dtype is not None and torch_dtype(kv_dtype) != dtype:
+        if torch_dtype(kv_dtype) != torch.int8:
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (int8 or "
+                             f"the model dtype)")
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=dev)}
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 

@@ -132,9 +132,17 @@ def moe_local_pooled(cfg, p, pool, x, capacity=None):
     is each expert's global pool row and ``pool`` holds the banks
     ``{wi, wg, wo}`` as ``[pages, D, F]`` / ``[pages, F, D]``; the expert
     FFN reads pages through the table (``ops.paged_expert_ffn``: three
-    paged-GMM launches on the card).  x [T, D] -> [T, D]."""
+    paged-GMM launches on the card).  An int8 store also holds the
+    per-page f32 scale banks ``{wi,wg,wo}_scale`` [pages], read through the
+    same table (``ops.quant_paged_expert_ffn``).  x [T, D] -> [T, D]."""
     gt = p["gtable"]
-    return _moe_local_body(
-        cfg, p, x, capacity,
-        lambda xg: ops.paged_expert_ffn(gt, gt, gt, pool["wi"], pool["wg"],
-                                        pool["wo"], xg))
+    if "wi_scale" in pool:
+        def ffn(xg):
+            return ops.quant_paged_expert_ffn(
+                gt, gt, gt, pool["wi"], pool["wg"], pool["wo"],
+                pool["wi_scale"], pool["wg_scale"], pool["wo_scale"], xg)
+    else:
+        def ffn(xg):
+            return ops.paged_expert_ffn(gt, gt, gt, pool["wi"], pool["wg"],
+                                        pool["wo"], xg)
+    return _moe_local_body(cfg, p, x, capacity, ffn)

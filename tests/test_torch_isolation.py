@@ -175,6 +175,47 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
+def _small_quant_inputs():
+    g = torch.Generator().manual_seed(1)
+    q, _, _, bt, lens, x, _, table = _small_inputs()
+    kp = torch.randint(-127, 128, (6, 4, 2, 8), generator=g,
+                       dtype=torch.int8)
+    vp = torch.randint(-127, 128, (6, 4, 2, 8), generator=g,
+                       dtype=torch.int8)
+    ks, vs = torch.rand(6, 4, generator=g), torch.rand(6, 4, generator=g)
+    pool = torch.randint(-127, 128, (4, 8, 5), generator=g, dtype=torch.int8)
+    scales = torch.rand(4, generator=g)
+    return q, kp, ks, vp, vs, bt, lens, x, pool, scales, table
+
+
+def test_quant_cpu_tensors_run_plain_versions_and_count_no_launch():
+    q, kp, ks, vp, vs, bt, lens, x, pool, scales, table = \
+        _small_quant_inputs()
+    ops.reset_launch_counts()
+    ops.quant_block_paged_decode_attention(q, kp, ks, vp, vs, bt, lens)
+    ops.quant_mixed_block_paged_attention(q[:, None], kp, ks, vp, vs, bt,
+                                          lens, torch.ones_like(lens))
+    ops.quant_paged_gmm(table, pool, scales, x)
+    ops.quant_paged_expert_ffn(table, table, table, pool, pool,
+                               pool.transpose(1, 2).contiguous(), scales,
+                               scales, scales, x)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_quant_kernel_wrappers_refuse_cpu_tensors():
+    q, kp, ks, vp, vs, bt, lens, x, pool, scales, table = \
+        _small_quant_inputs()
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        paged_attention.quant_block_paged_decode_attention(
+            q, kp, ks, vp, vs, bt, lens)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        paged_attention.quant_mixed_block_paged_attention(
+            q[:, None], kp, ks, vp, vs, bt, lens, torch.ones_like(lens))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        moe_gmm.quant_paged_gmm(table, pool, scales, x)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
 def test_use_reference_is_scoped():
     assert not ops._REFERENCE.get()
     with ops.use_reference():
@@ -185,7 +226,7 @@ def test_use_reference_is_scoped():
 NOT_PORTED = {
     "kv_mode": "dense", "expert_mode": "dense", "prefill_chunk": 0,
     "staging": "overlap", "rebalance": object(), "routing_sample_every": 4,
-    "kv_dtype": "int8", "expert_dtype": "int8", "imm_cache": object(),
+    "imm_cache": object(),
 }
 
 
@@ -194,6 +235,21 @@ def test_knobs_outside_the_slice_raise(knob):
     with pytest.raises(NotImplementedError):
         ElasticServer(MCFG, **{**SERVER_KW, knob: NOT_PORTED[knob]},
                       device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["kv_dtype", "expert_dtype"])
+def test_storage_dtypes_other_than_int8_raise(knob):
+    """As in the reference, only ``None`` and ``"int8"`` are storage
+    dtypes."""
+    with pytest.raises(ValueError, match=knob):
+        ElasticServer(MCFG, **{**SERVER_KW, knob: "fp8"}, device="cpu")
+
+
+def test_int8_cache_of_other_dtype_raises():
+    with pytest.raises(ValueError):
+        M.init_paged_cache(MCFG, 4, 16, device="cpu", kv_dtype="fp8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        M.init_paged_cache(MCFG, 4, 16, device="cpu", kv_dtype="int16")
 
 
 def test_more_than_one_device_raises():
