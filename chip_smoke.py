@@ -13,11 +13,13 @@ Phases, each of which raises on failure (no phase's failure is caught):
    process per source, all started together) and print the build time and
    ``-Xptxas -v`` report.
 2. ``kernels``: call each kernel's wrapper on CUDA tensors at the shapes the
-   serving path gives it, in bfloat16 and float32 (q and x; the int8
+   serving paths give it, in bfloat16 and float32 (q and x; the int8
    kernels read int8 pools with positive random scales), and hold the
    result against its plain PyTorch version (``kernels/ref.py``) on the
    same inputs: bf16 atol = rtol = 2e-2 on f32-cast outputs (both round
-   once, from f32 sums taken in different orders); f32 atol = rtol = 1e-4.
+   once, from f32 sums taken in different orders); f32 atol = rtol = 1e-4;
+   ``kv_cache_write`` bit for bit.  ``flash_attention`` runs at the
+   buckets S = 1024 (the main case), 192 (a ragged tile) and 64.
    Times the kernel, the plain version and one PyTorch library call for
    the same function (a yardstick only, never called by the port; for the
    int8 kernels it reads K/V or pages dequantized to q's dtype beforehand)
@@ -35,7 +37,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    rule, since that quantum may flip an expert choice too.  In f32 layer
    1's int8 entries may differ by at most one quantum; in bf16 layer 1's
    inputs already differ by more than a rounding (see above), so its
-   entries are only counted.  The count is printed.
+   entries are only counted.  The count is printed.  Then the default
+   stores (slot-contiguous KV, dense expert banks): a monolithic prefill of
+   a 200-token prompt (bucket 256) into one slot and a decode step of 8
+   slots, one of them full (its KV write drops), held to the same rules;
+   layer 0's cache rows must be equal on both paths.
 4. ``serve``: ``ElasticServer`` with paged KV, pooled experts and chunked
    prefill serves qwen3-30b-a3b in bf16 with random weights from a seed: 8
    requests of 200-1000 prompt tokens, two sharing a prefix (prefix skip
@@ -45,9 +51,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``kv_dtype="int8", expert_dtype="int8"``, after the bf16 server is freed
    (the two do not fit one card together); each int8 kernel's launch count
    must be above zero after it.
+6. ``serve_dense``: the same requests on a server with the reference's
+   default knobs (slot-contiguous KV, dense expert banks, monolithic
+   prefill at admission) and ``prefill_buckets`` every 64 tokens up to
+   1024; ``flash_attention``, ``paged_decode_attention`` and
+   ``kv_cache_write`` must each have launched.
 
 The line before the last is ``{"kernels": [...]}`` (launches from the
-serve phase of each kernel's path); the last line is
+serve phase of each kernel's path, ``PATH_KERNELS``); the last line is
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 measurement (per-case kernel times, the build log, the decode-tick
 profile) to PATH.  Imports nothing of JAX or ``repro``.
@@ -93,6 +104,9 @@ REPLACES = {
     "quant_mixed_block_paged_attention":
         "src/repro/kernels/paged_attention.py:430",
     "quant_paged_gmm": "src/repro/kernels/moe_gmm.py:148",
+    "flash_attention": "src/repro/kernels/flash_attention.py:72",
+    "paged_decode_attention": "src/repro/kernels/paged_attention.py:75",
+    "kv_cache_write": "src/repro/kernels/kv_write.py:37",
 }
 _ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
 _GMM_CU = "src/repro_torch/csrc/moe_gmm.cu"
@@ -103,14 +117,20 @@ SOURCES = {
     "quant_block_paged_decode_attention": _ATTN_CU,
     "quant_mixed_block_paged_attention": _ATTN_CU,
     "quant_paged_gmm": _GMM_CU,
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "paged_decode_attention": _ATTN_CU,
+    "kv_cache_write": "src/repro_torch/csrc/kv_write.cu",
 }
-# the kernels each serve phase's path runs (False: bf16 stores, True: int8)
+# the kernels each serve phase's path runs
 PATH_KERNELS = {
-    False: ("block_paged_decode_attention", "mixed_block_paged_attention",
-            "paged_gmm"),
-    True: ("quant_block_paged_decode_attention",
-           "quant_mixed_block_paged_attention", "quant_paged_gmm"),
+    "serve": ("block_paged_decode_attention", "mixed_block_paged_attention",
+              "paged_gmm"),
+    "serve_int8": ("quant_block_paged_decode_attention",
+                   "quant_mixed_block_paged_attention", "quant_paged_gmm"),
+    "serve_dense": ("flash_attention", "paged_decode_attention",
+                    "kv_cache_write"),
 }
+DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 
 
 def log(*a):
@@ -225,8 +245,7 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     NB, MB = 1024, MAX_LEN // BS
     pools, (k_lib, v_lib), kv_tok_bytes = _kv_pools(gen, dtype, quant, NB)
     if kind == "decode":
-        lengths = torch.tensor([2048, 1, 17, 333, 1024, 1500, 64, 777],
-                               dtype=torch.int32)
+        lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
         bt = _tables(gen, lengths.tolist(), NB, MB).cuda()
         q = torch.randn(BATCH, H, HD, generator=gen).to(dtype).cuda()
         lens = lengths.cuda()
@@ -354,15 +373,141 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False):
     return rec
 
 
+def _flash_case(S, dtype, gen, timer, do_time):
+    """Causal prefill attention of one prompt of S tokens (a serving
+    bucket) against its plain version and causal SDPA."""
+    from repro_torch.kernels import ops, ref
+    q = torch.randn(1, S, H, HD, generator=gen).to(dtype).cuda()
+    k = torch.randn(1, S, KVH, HD, generator=gen).to(dtype).cuda()
+    v = torch.randn(1, S, KVH, HD, generator=gen).to(dtype).cuda()
+    kern = lambda: ops.flash_attention(q, k, v)
+    plain = lambda: ref.flash_attention_ref(q, k, v)
+    ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, enable_gqa=True)
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lib().transpose(1, 2).float(), want.float(),
+                               **TOL[dtype])
+    ops_n = 4 * HD * H * S * (S + 1) // 2       # attended (q, k, head)
+    io = nbytes(q, k, v, got)
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B=1 S={S} H={H} KVH={KVH} hd={HD} causal",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if do_time:
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
+                   library_ms=timer(lib))
+    return rec
+
+
+def _slot_decode_case(dtype, gen, timer, do_time):
+    """Decode over the slot-contiguous cache [B, 2048, KVH, hd] at ragged
+    lengths, against its plain version and SDPA with a length mask over
+    the cache's rows."""
+    from repro_torch.kernels import ops, ref
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
+    kc = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype).cuda()
+    vc = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype).cuda()
+    q = torch.randn(BATCH, H, HD, generator=gen).to(dtype).cuda()
+    lens = lengths.cuda()
+    kern = lambda: ops.paged_decode_attention(q, kc, vc, lens)
+    plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, lens)
+    mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    ql, kl, vl = q[:, :, None], kc.transpose(1, 2).contiguous(), \
+        vc.transpose(1, 2).contiguous()
+    lib = lambda: sdpa(ql, kl, vl, mask)
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
+                               **TOL[dtype])
+    ctx_tok = int(lengths.sum())
+    kv_bytes = ctx_tok * 2 * KVH * HD * kc.element_size()
+    io = nbytes(q, got, lens) + kv_bytes
+    ops_n = 4 * HD * H * ctx_tok
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B={BATCH} S_max={MAX_LEN} lengths={DECODE_LENGTHS}",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if do_time:
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
+                   library_ms=timer(lib))
+    return rec
+
+
+def _kv_write_case(dtype, gen, timer, do_time):
+    """One decode step's k rows into a layer's slot cache [B, 2048, KVH,
+    hd]; slot 0 writes at position 0, slot 1 at 2048 (dropped).  Must
+    equal its plain version bit for bit.  The library yardstick is
+    ``cache[rows, pos] = new`` over the rows that write (picked before
+    timing; an index of 2048 would fault there)."""
+    from repro_torch.kernels import ops, ref
+    cache = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype) \
+        .cuda()
+    new = torch.randn(BATCH, KVH, HD, generator=gen).to(dtype).cuda()
+    pos_l = [0, MAX_LEN] + torch.randint(1, MAX_LEN, (BATCH - 2,),
+                                         generator=gen).tolist()
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    got = ops.kv_cache_write(cache.clone(), new, pos)
+    want = ref.kv_cache_write_ref(cache.clone(), new, pos)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "kv_cache_write differs from its plain "
+            "version")
+    require(torch.equal(got[1], cache[1]), "the write at S_max was not "
+            "dropped")
+    kept = [b for b, p in enumerate(pos_l) if 0 <= p < MAX_LEN]
+    rows = torch.tensor(kept, device="cuda")
+    kpos = pos[rows].long()
+    knew = new[rows].contiguous()
+    lib_cache = cache.clone()
+
+    def lib():
+        lib_cache[rows, kpos] = knew
+    lib()
+    require(torch.equal(lib_cache, want))
+    err = (got.float() - want.float()).abs().max().item()
+    row = KVH * HD * new.element_size()
+    io = 2 * len(kept) * row + nbytes(pos)
+    b_ms, b_by = bound_ms(io, 0, dtype)
+    rec = {"case": f"B={BATCH} S={MAX_LEN} rows of {row} B, pos={pos_l}",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": 0}
+    if do_time:
+        kc = cache.clone()
+        rec.update(ms=timer(lambda: ops.kv_cache_write(kc, new, pos)),
+                   plain_ms=timer(lambda: ref.kv_cache_write_ref(kc, new,
+                                                                 pos),
+                                  iters=10),
+                   library_ms=timer(lib))
+    return rec
+
+
 def phase_kernels():
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
     out = {name: [] for name in REPLACES}
-    lens = torch.tensor([2048, 1, 17, 333, 1024, 1500, 64, 777],
-                        dtype=torch.int32, device="cuda")
-    for quant in (False, True):
-        dec_name, mix_name, gmm_name = PATH_KERNELS[quant]
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for S in (1024, 192, 64):          # the main case first
+            out["flash_attention"].append(_flash_case(S, dtype, gen, timer,
+                                                      timed))
+        out["paged_decode_attention"].append(
+            _slot_decode_case(dtype, gen, timer, timed))
+        out["kv_cache_write"].append(_kv_write_case(dtype, gen, timer,
+                                                    timed))
+        torch.cuda.empty_cache()
+    for phase in ("serve", "serve_int8"):
+        quant = phase == "serve_int8"
+        dec_name, mix_name, gmm_name = PATH_KERNELS[phase]
         decode, mixed = getattr(ops, dec_name), getattr(ops, mix_name)
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16
@@ -412,8 +557,9 @@ def _e2e(dtype_name, quant=False):
                               dtype=dtype_name)
     store = "int8" if quant else None
     hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN,
-              kv_block_size=BS, kv_blocks_per_replica=512, seed=1,
-              kv_dtype=store, expert_dtype=store, device="cuda")
+              kv_mode="paged", kv_block_size=BS, kv_blocks_per_replica=512,
+              expert_mode="pooled", seed=1, kv_dtype=store,
+              expert_dtype=store, device="cuda")
     hmm.boot(ElasticConfig(1, 1, (0,)))
     params, cache = hmm.params, hmm.cache
     NB, MB = 512, MAX_LEN // BS
@@ -491,12 +637,82 @@ def _e2e(dtype_name, quant=False):
             "layer1_int8_max_quanta": max_q}
 
 
+def _e2e_dense(dtype_name):
+    """The default stores (slot-contiguous KV, dense expert banks): a
+    monolithic prefill of a 200-token prompt padded to its 256 bucket into
+    slot 2 (the engine's own prefill step), then one decode step of the 8
+    slots at ragged lengths, the last one full (its write drops)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _prefill_fn
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
+                              dtype=dtype_name)
+    hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN, seed=1,
+              device="cuda")
+    hmm.boot(ElasticConfig(1, 1, (0,)))
+    params, cache = hmm.params, hmm.cache
+    require("wi" in params["blocks"]["moe"] and "moe_pool" not in params)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for leaf in cache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    cg = torch.Generator().manual_seed(3)
+    S, S_pad, slot = 200, 256, 2
+    tokens = torch.zeros(1, S_pad, dtype=torch.int32)
+    tokens[0, :S] = torch.randint(0, cfg.vocab_size, (S,), generator=cg)
+    lengths = [1900, 5, S, 1024, 77, 300, 1500, MAX_LEN]
+    dec_tokens = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=cg)
+    args = [t.cuda() for t in (tokens, torch.tensor(S, dtype=torch.int32),
+                               dec_tokens,
+                               torch.tensor(lengths, dtype=torch.int32))]
+
+    def run():
+        c = {k: v.clone() for k, v in cache.items()}
+        _, c = _prefill_fn(cfg, MAX_LEN, params, c, args[0], args[1], slot)
+        lp, _ = M.prefill(cfg, params, {"tokens": args[0],
+                                        "lengths": args[1][None]},
+                          max_len=S_pad)
+        ld, c = M.decode_step(cfg, params, args[2], c, args[3])
+        return torch.cat([lp, ld]).float(), c
+
+    got, c_got = run()
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    require(got.shape == (1 + BATCH, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    # layer 0's K/V rows (prefill and decode) come before any kernel
+    for k in c_got:
+        require(torch.equal(c_got[k][0], c_want[k][0]), f"cache {k} differs")
+        require(not c_got[k][:, slot, S_pad:].any(),
+                "the prefilled row is not zero past its bucket")
+        require(torch.equal(c_got[k][:, BATCH - 1], cache[k][:, BATCH - 1]),
+                "the write of the full slot was not dropped")
+    if dtype_name == "float32":
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
+    log(f"[e2e] 2-layer qwen3-30b-a3b {dtype_name} dense KV + dense banks: "
+        f"prefill (S={S}, bucket {S_pad}) + decode logits "
+        f"{tuple(got.shape)}, max_abs_err {err:.3e}, rel {rel:.3e}")
+    return {"dtype": dtype_name, "store": "dense", "max_abs_err": err,
+            "rel_err": rel}
+
+
 def phase_e2e():
     out = []
     for quant in (False, True):
         for dtype_name in ("float32", "bfloat16"):
             out.append(_e2e(dtype_name, quant))
             torch.cuda.empty_cache()
+    for dtype_name in ("float32", "bfloat16"):
+        out.append(_e2e_dense(dtype_name))
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -511,7 +727,19 @@ def _prompts(rng, vocab):
     return prompts
 
 
-def phase_serve(layers, quant=False, profile=True):
+SERVE_STORES = {
+    # phase: (server knobs, KV/expert store)
+    "serve": (dict(kv_mode="paged", kv_block_size=BS, expert_mode="pooled",
+                   prefill_chunk=CHUNK), None),
+    "serve_int8": (dict(kv_mode="paged", kv_block_size=BS,
+                        expert_mode="pooled", prefill_chunk=CHUNK,
+                        kv_dtype="int8", expert_dtype="int8"), "int8"),
+    # the reference's default knobs; every prompt's 64-token bucket given
+    "serve_dense": (dict(prefill_buckets=tuple(range(64, 1025, 64))), None),
+}
+
+
+def phase_serve(layers, phase="serve", profile=True):
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.elastic_engine import ElasticServer
@@ -522,20 +750,21 @@ def phase_serve(layers, quant=False, profile=True):
     cfg = get_config("qwen3-30b-a3b")
     if layers != cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    tag = "[serve_int8]" if quant else "[serve]"
-    store = "int8" if quant else None
+    tag = f"[{phase}]"
+    knobs, store = SERVE_STORES[phase]
+    paged = knobs.get("kv_mode") == "paged"
     log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, "
         f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
         f"{cfg.param_count():,} parameters; KV and expert store: "
-        f"{store or cfg.dtype}")
+        f"{store or cfg.dtype}, "
+        + ("paged KV, pooled experts, chunked prefill" if paged else
+           "dense KV, dense expert banks, monolithic prefill"))
     gc.collect()                  # an earlier server's pools are freed
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     srv = ElasticServer(cfg, tp=1, batch_per_replica=BATCH, max_len=MAX_LEN,
-                        kv_mode="paged", kv_block_size=BS,
-                        expert_mode="pooled", prefill_chunk=CHUNK, seed=0,
-                        kv_dtype=store, expert_dtype=store, device="cuda")
+                        seed=0, device="cuda", **knobs)
     t0 = time.perf_counter()
     srv.boot(ElasticConfig(1, 1, (0,)))
     torch.cuda.synchronize()
@@ -548,16 +777,19 @@ def phase_serve(layers, quant=False, profile=True):
     reqs = [Request(rid=i, arrival_s=0.0, prompt_len=len(p),
                     output_len=out_len, prompt=p)
             for i, p in enumerate(prompts)]
-    # the prefix sharer arrives once the 17 blocks it matches are written
-    # and registered
-    late = reqs[-1]
-    late_tokens = [int(t) for t in late.prompt]
-    for r in reqs[:-1]:
-        srv.submit(r)
+    # paged: the prefix sharer arrives once the 17 blocks it matches are
+    # written and registered; dense KV shares nothing, all arrive at once
+    late = reqs[-1] if paged else None
+    late_tokens = [int(t) for t in reqs[-1].prompt]
+    for r in reqs:
+        if r is not late:
+            srv.submit(r)
 
     tracer = obs.install(obs.Tracer())
     ops.reset_launch_counts()
     ticks = []
+    prefills = []
+    first_token = {}
     prof_rows = None
     prof_ticks = []
     prof_overhead_s = 0.0
@@ -575,7 +807,9 @@ def phase_serve(layers, quant=False, profile=True):
         if profile and steady and prof_rows is None and ticks \
                 and not ticks[-1]["chunks"]:
             tp = time.perf_counter()
-            prof_rows, prof_ticks = _profile_ticks(srv, t_start, 3)
+            prof_rows, prof_ticks = _profile(
+                "decode ticks",
+                lambda: srv.tick(time.perf_counter() - t_start), 3)
             # the profiler's start-up and table building are not serving
             prof_overhead_s = (time.perf_counter() - tp
                                - sum(prof_ticks) / 1e3)
@@ -586,11 +820,16 @@ def phase_serve(layers, quant=False, profile=True):
         srv.tick(ts - t_start)
         torch.cuda.synchronize()
         te = time.perf_counter()
-        chunk_s = [e.dur for e in tracer.events()
-                   if e.name == "prefill.chunks"]
-        ticks.append({"ms": (te - ts) * 1e3,
-                      "chunk_ms": sum(chunk_s) * 1e3,
-                      "chunks": len(chunk_s)})
+        ev = tracer.events()
+        chunk_s = [e.dur for e in ev if e.name == "prefill.chunks"]
+        for e in ev:
+            if e.name == "prefill.request":
+                prefills.append((e.args["S_pad"], e.dur * 1e3))
+                # a monolithic prefill's token is ready at the span's end
+                first_token[e.args["rid"]] = e.t1 - t_start
+        pre = chunk_s or [e.dur for e in ev if e.name == "prefill.request"]
+        ticks.append({"ms": (te - ts) * 1e3, "chunk_ms": sum(chunk_s) * 1e3,
+                      "chunks": len(pre)})
         tick += 1
         if late is None and all(r.finish_s is not None for r in reqs):
             break
@@ -599,67 +838,94 @@ def phase_serve(layers, quant=False, profile=True):
     obs.install(None)
     counts = ops.launch_counts()
     eng = srv.engine
-    kv = eng.kv_stats()
 
     for r in reqs:
         toks = eng.generated[r.rid]
         require(len(toks) == out_len, (r.rid, len(toks)))
         require(all(0 <= t < cfg.vocab_size for t in toks))
-    require(kv["shared_block_hits"] >= 17 and kv["cow_copies"] >= 1, kv)
-    require(kv["used_blocks"] == 0)
-    for name in PATH_KERNELS[quant]:
+    for name in PATH_KERNELS[phase]:
         require(counts[name] > 0, f"{name} was not launched while serving")
     # the served weights give finite logits of the expected shape
-    NB = eng.kv.num_blocks
-    tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
-                     device="cuda")
-    tbl[0, :CHUNK // BS] = torch.arange(CHUNK // BS)
-    logits, _ = M.paged_chunk_prefill_step(
-        cfg, eng.params, torch.from_numpy(prompts[0][None, :CHUNK]).cuda(),
-        eng.cache, 0, CHUNK, tbl, tbl[0, :CHUNK // BS].contiguous())
+    head = torch.from_numpy(prompts[0][None, :CHUNK]).cuda()
+    if paged:
+        kv = eng.kv_stats()
+        require(kv["shared_block_hits"] >= 17 and kv["cow_copies"] >= 1, kv)
+        require(kv["used_blocks"] == 0)
+        NB = eng.kv.num_blocks
+        tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
+                         device="cuda")
+        tbl[0, :CHUNK // BS] = torch.arange(CHUNK // BS)
+        logits, _ = M.paged_chunk_prefill_step(
+            cfg, eng.params, head, eng.cache, 0, CHUNK, tbl,
+            tbl[0, :CHUNK // BS].contiguous())
+    else:
+        require(eng.kv_stats() is None and srv.hmm.kv_blocks is None)
+        logits, _ = M.prefill(cfg, eng.params, {"tokens": head}, CHUNK)
     require(logits.shape == (1, cfg.vocab_size))
     require(torch.isfinite(logits).all())
 
     dec = [t["ms"] for t in ticks if not t["chunks"]]
-    chunk = [t["chunk_ms"] / t["chunks"] for t in ticks if t["chunks"]]
     gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
     res = {
         "layers": cfg.num_layers, "store": store or cfg.dtype,
+        "knobs": {k: v for k, v in knobs.items() if k != "prefill_buckets"},
         "boot_s": boot_s, "boot_allocated_gib": mem_boot / 2**30,
         "ticks": len(ticks) + len(prof_ticks),
         "decode_tick_ms_median": statistics.median(dec),
         "decode_tick_ms_p90": float(np.percentile(dec, 90)),
         "decode_ticks": len(dec),
-        "chunk_step_ms_median": statistics.median(chunk),
-        "chunk_steps": len(chunk),
         "output_tok_s": gen_tokens / wall, "serve_s": wall,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts, "kv": {k: kv[k] for k in (
-            "shared_block_hits", "cow_copies", "preemptions")},
+        "launches": counts,
         "ttft_s": {r.rid: r.ttft for r in reqs},
         "profile": prof_rows, "profiled_ticks_ms": prof_ticks,
     }
+    if paged:
+        chunk = [t["chunk_ms"] / t["chunks"] for t in ticks if t["chunks"]]
+        res.update(chunk_step_ms_median=statistics.median(chunk),
+                   chunk_steps=len(chunk),
+                   kv={k: kv[k] for k in ("shared_block_hits", "cow_copies",
+                                          "preemptions")})
+        pre_txt = (f"chunk step median {res['chunk_step_ms_median']:.2f} ms "
+                   f"over {len(chunk)} chunks")
+    else:
+        # the server stamps a token with its tick's start; every request
+        # arrived at 0, so its time to first token is its prefill's end
+        res["ttft_s"] = first_token
+        res["prefill_ms"] = prefills
+        pre_txt = "prefill ms by bucket " + ", ".join(
+            f"{S}: {ms:.2f}" for S, ms in prefills)
+        # one more prefill of the longest prompt, into a freed slot, traced
+        S = max(len(p) for p in prompts)
+        S_pad = -(-S // 64) * 64
+        toks = torch.zeros(1, S_pad, dtype=torch.int32, device="cuda")
+        toks[0, :S] = torch.from_numpy(max(prompts, key=len))
+        length = torch.tensor(S, dtype=torch.int32, device="cuda")
+        step = eng.compiled[f"prefill_{S_pad}"]
+        res["prefill_profile"], _ = _profile(
+            f"prefills of {S} tokens (bucket {S_pad})",
+            lambda: step(eng.params, eng.cache, toks, length, 0), 2)
     log(f"{tag} {len(reqs)} requests, {gen_tokens} tokens in {wall:.2f} s "
         f"({res['output_tok_s']:.2f} tok/s); decode tick median "
         f"{res['decode_tick_ms_median']:.2f} ms, p90 "
-        f"{res['decode_tick_ms_p90']:.2f} ms over {len(dec)} ticks; chunk "
-        f"step median {res['chunk_step_ms_median']:.2f} ms over "
-        f"{len(chunk)} chunks; max_memory_allocated "
+        f"{res['decode_tick_ms_p90']:.2f} ms over {len(dec)} ticks; "
+        f"{pre_txt}; max_memory_allocated "
         f"{res['max_memory_allocated_gib']:.2f} GiB")
-    log(f"{tag} launches {counts}; kv {res['kv']}")
+    log(f"{tag} launches {counts}" + (f"; kv {res['kv']}" if paged else ""))
     return res
 
 
-def _profile_ticks(srv, t_start, n):
-    """Trace ``n`` steady decode ticks with torch.profiler: device time by
-    kernel name, and the device's busy share of the ticks' wall time."""
+def _profile(label, fn, n):
+    """Trace ``n`` calls of ``fn`` (each ending in a sync) with
+    torch.profiler: device time by kernel name, and the device's busy share
+    of the calls' wall time."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     walls = []
     with profile(activities=acts) as prof:
         for _ in range(n):
             ts = time.perf_counter()
-            srv.tick(ts - t_start)
+            fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - ts) * 1e3)
     rows = []
@@ -669,18 +935,18 @@ def _profile_ticks(srv, t_start, n):
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         rows.append({"name": ev.key[:90], "count": ev.count,
-                     "device_ms_per_tick":
+                     "device_ms_per_call":
                          ev.self_device_time_total / 1e3 / n})
-    rows.sort(key=lambda r: -r["device_ms_per_tick"])
-    busy = sum(r["device_ms_per_tick"] for r in rows)
+    rows.sort(key=lambda r: -r["device_ms_per_call"])
+    busy = sum(r["device_ms_per_call"] for r in rows)
     wall = sum(walls) / n
-    log(f"[profile] {n} decode ticks, wall {wall:.2f} ms/tick, device "
-        f"kernels {busy:.2f} ms/tick (idle share "
+    log(f"[profile] {n} {label}, wall {wall:.2f} ms each, device kernels "
+        f"{busy:.2f} ms each (idle share "
         f"{(1 - busy / wall) if rows else float('nan'):.3f})")
     for r in rows[:12]:
-        log(f"[profile]   {r['device_ms_per_tick']:9.3f} ms  x{r['count']:<6}"
+        log(f"[profile]   {r['device_ms_per_call']:9.3f} ms  x{r['count']:<6}"
             f" {r['name']}")
-    return {"wall_ms_per_tick": wall, "device_ms_per_tick": busy,
+    return {"wall_ms_per_call": wall, "device_ms_per_call": busy,
             "kernels": rows[:40]}, walls
 
 
@@ -688,7 +954,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
                     help="depth of the served models (full: 48)")
-    ap.add_argument("--phases", default="build,kernels,e2e,serve,serve_int8")
+    ap.add_argument("--phases",
+                    default="build,kernels,e2e,serve,serve_int8,serve_dense")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -715,10 +982,9 @@ def main():
         res["kernels"] = phase_kernels()
     if "e2e" in phases:
         res["e2e"] = phase_e2e()
-    if "serve" in phases:
-        res["serve"] = phase_serve(args.layers)
-    if "serve_int8" in phases:
-        res["serve_int8"] = phase_serve(args.layers, quant=True)
+    for phase in SERVE_STORES:
+        if phase in phases:
+            res[phase] = phase_serve(args.layers, phase)
     res["seconds"] = time.perf_counter() - t0
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -729,9 +995,9 @@ def main():
     if "kernels" in res:
         # each kernel's launches come from the serve phase of its path
         launches = {}
-        for phase, quant in (("serve", False), ("serve_int8", True)):
+        for phase, names in PATH_KERNELS.items():
             got = res.get(phase, {}).get("launches", {})
-            launches.update({n: got.get(n, 0) for n in PATH_KERNELS[quant]})
+            launches.update({n: got.get(n, 0) for n in names})
         line = []
         for name, recs in res["kernels"].items():
             r = recs[0]                       # the main case, bf16, timed

@@ -2,8 +2,12 @@
 ``repro.core.elastic_engine.ElasticServer``'s ``__init__``, ``boot``,
 ``submit``, ``tick``, ``step``, ``queue_depth`` and ``utilization``.
 
-One ``ElasticConfig(1, 1, (0,))`` instance serves a standard-attention MoE
-decoder with the paged KV pool, pooled expert pages and chunked prefill.
+One ``ElasticConfig(1, 1, (0,))`` instance serves a standard-attention
+decoder.  The defaults are the reference's: the slot-contiguous KV cache
+(``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
+monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
+pooled expert pages, chunked prefill and the int8 stores are the other
+modes.  Dense KV with chunked prefill is not ported yet and raises.
 The elastic half — scale events, KV migration, rebalancing, parking —
 exists only across devices and belongs to the multi-card slice: its knobs
 keep the reference's names and raise ``NotImplementedError``.
@@ -23,13 +27,13 @@ class ElasticServer:
     def __init__(self, mcfg, *, tp: int, batch_per_replica: int,
                  max_len: int, prefill_buckets=(64,), all_devices=None,
                  policy=None, seed: int = 0,
-                 kv_mode: str = "paged", kv_block_size: int = 16,
+                 kv_mode: str = "dense", kv_block_size: int = 16,
                  kv_blocks_per_replica: Optional[int] = None,
-                 expert_mode: str = "pooled",
+                 expert_mode: str = "dense",
                  expert_pool_pages: Optional[int] = None,
                  staging: str = "serial", transfer_workers: int = 4,
                  scaledown: str = "migrate",
-                 prefill_chunk: int = 64,
+                 prefill_chunk: int = 0,
                  prefill_budget: Optional[int] = None,
                  routing_sample_every: int = 0,
                  rebalance=None,
@@ -44,9 +48,9 @@ class ElasticServer:
         not_ported("rebalance", rebalance, None)
         not_ported("imm_cache", imm_cache, None)
         not_ported("expert_slot_slack", expert_slot_slack or 0, 0)
-        if prefill_chunk <= 0:
+        if prefill_chunk and kv_mode == "dense":
             raise NotImplementedError(
-                "prefill_chunk=0 (monolithic prefill) is not ported yet")
+                "dense KV with prefill_chunk > 0 is not ported yet")
         self.mcfg = mcfg
         self.kv_mode = kv_mode
         # int8 storage: the HMM owns the layout (int8 pools with f32 scale
@@ -82,8 +86,10 @@ class ElasticServer:
         device, or adopts ``params`` (the reference's converted parameters,
         as the tests pass them), then the engine binds the pool."""
         self.hmm.boot(cfg, params)
-        compiled, _ = compile_step_functions(self.mcfg,
-                                             prefill_chunk=self.prefill_chunk)
+        compiled, _ = compile_step_functions(
+            self.mcfg, max_len=self.hmm.max_len,
+            prefill_buckets=self.prefill_buckets, kv_mode=self.kv_mode,
+            prefill_chunk=self.prefill_chunk)
         self.engine.bind(cfg, self.hmm.params, self.hmm.cache, compiled,
                          kv=self.hmm.kv_blocks)
         self.hmm.cache = None  # ownership moves to the engine
@@ -103,9 +109,10 @@ class ElasticServer:
         self.queue.append(req)
 
     def tick(self, now: float) -> List[int]:
-        """One engine tick: admit queued requests into free slots (FIFO,
-        gated by free KV blocks; the head request tries every free slot,
-        longest registered prefix first), then one engine tick of prefill
+        """One engine tick: admit queued requests into free slots (FIFO;
+        paged: gated by free KV blocks, the head request tries every free
+        slot, longest registered prefix first) — a monolithic prefill runs
+        here and gives the first token — then one engine tick of prefill
         chunks and decode.  Sequences preempted under pool pressure re-enter
         at the front of the queue.  Returns rids finished this tick."""
         tr = obs.get_tracer()
@@ -121,8 +128,21 @@ class ElasticServer:
             self.queue.pop(0)
             tr.instant("req.admit", cat="req",
                        args={"rid": req.rid, "slot": slot})
-            self.engine.start_request(req, req.prompt, slot)
+            first = self.engine.start_request(req, req.prompt, slot)
+            if first is None:
+                continue    # chunked: the first token comes from decode_tick
+            if req.first_token_s is None:
+                req.first_token_s = now
+                req.token_times = [now]
+                tr.instant("req.first_token", cat="req",
+                           args={"rid": req.rid})
+            elif req.token_times is not None:   # preemption resume
+                req.token_times.append(now)
         finished = []
+        for rid in self.engine.drain_finished_at_admission():
+            self.requests[rid].finish_s = now
+            finished.append(rid)
+            tr.instant("req.finish", cat="req", args={"rid": rid})
         for rid, tok, fin in self.engine.decode_tick():
             req = self.requests[rid]
             if req.first_token_s is None:
@@ -153,5 +173,5 @@ class ElasticServer:
         return self.engine.utilization()
 
     def kv_stats(self):
-        """Block-pool stats."""
+        """Block-pool stats (None for the dense layout)."""
         return self.engine.kv_stats()

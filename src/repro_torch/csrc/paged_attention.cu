@@ -1,13 +1,25 @@
-// Paged attention over the KV block pool, for Hopper (sm_90a).
+// Paged attention over the KV block pool, and decode attention over the
+// slot-contiguous KV cache, for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernels of the reference package:
+// Replaces five Pallas TPU kernels of the reference package:
 //   * block_paged_decode_attention        (src/repro/kernels/paged_attention.py:123)
 //   * mixed_block_paged_attention         (src/repro/kernels/paged_attention.py:322)
 //   * quant_block_paged_decode_attention  (src/repro/kernels/paged_attention.py:217)
 //   * quant_mixed_block_paged_attention   (src/repro/kernels/paged_attention.py:430)
-// All are one kernel here, templated on the pools' storage type: decode is
-// the mixed case with one query row per sequence (q_len == 1), so decode
-// and mixed agree exactly by construction, in bf16/f32 and in int8.
+//   * paged_decode_attention              (src/repro/kernels/paged_attention.py:75)
+// All are one kernel here, templated on the pools' storage type and on how
+// a K/V row is addressed: decode is the mixed case with one query row per
+// sequence (q_len == 1), so decode and mixed agree exactly by construction,
+// in bf16/f32 and in int8.  The slot-contiguous decode (the dense-KV
+// serving mode) is the same decode with position p of sequence b at row
+// b * S_max + p instead of through a block table -- the Pallas file does
+// the same, its _block_kernel calls the slot kernel's body.
+//
+// Slot-contiguous cache.  k/v caches [B,S_max,KVH,hd], one row per
+// sequence; lengths are clamped to S_max (the Pallas grid stops at S_max);
+// the kernel walks the row in tiles of SLOT_BS = 16 positions and stages
+// zeros past S_max, where a ragged last tile would reach into the next
+// sequence's row (it reads the row's last position there, then drops it).  Bound: the context's K/V rows read once, as below.
 //
 // What it computes.  q [B,Sq,H,hd]; k/v pools [NB,bs,KVH,hd]; block tables
 // [B,MB] int32; ctx_lens [B]; q_lens [B] (decode: 1).  Query row i of
@@ -62,6 +74,7 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int ROWS_MAX = 16;
+constexpr int SLOT_BS = 16;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -84,16 +97,20 @@ __device__ __forceinline__ float i8_at(int w, int j) {
 
 // grid (row tiles, KVH, B); dynamic shared memory: see smem_bytes().  KV is
 // the pools' storage type: T itself, or int8_t with f32 scale pools
-// k_scale / v_scale [NB, bs] (unused, and null, otherwise).
-template <typename T, typename KV>
+// k_scale / v_scale [NB, bs] (unused, and null, otherwise).  SLOT: the
+// pools are slot-contiguous caches [B, S_max, KVH, hd] (tables unused and
+// null; bs == SLOT_BS), else block pools [NB, bs, KVH, hd] read through
+// the tables.
+template <typename T, typename KV, bool SLOT>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const T* __restrict__ q, const KV* __restrict__ k_pool,
     const float* __restrict__ k_scale, const KV* __restrict__ v_pool,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ ctx_lens, const int32_t* __restrict__ q_lens,
     T* __restrict__ out, int Sq, int H, int KVH, int hd, int NB, int bs,
-    int MB, int R, float scale) {
+    int MB, int S_max, int R, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static_assert(!(SLOT && QUANT), "the slot-contiguous cache is unquantized");
   extern __shared__ float smem[];
   const int G = H / KVH;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -112,7 +129,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   float* sv_s = sk_s + bs;        // [bs] v scales of the block (int8 only)
   const int tid = threadIdx.x;
 
-  const int ctx = ctx_lens[b];
+  const int ctx = SLOT ? min(ctx_lens[b], S_max) : ctx_lens[b];
   const int q_len = q_lens ? q_lens[b] : 1;
 
   for (int idx = tid; idx < R * hd; idx += THREADS) {
@@ -137,9 +154,24 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   __syncthreads();
 
   for (int ki = 0; ki < nblk; ++ki) {
-    int phys = tables[(size_t)b * MB + ki];
-    phys = min(max(phys, 0), NB - 1);
-    if constexpr (QUANT) {
+    int phys = 0;
+    if constexpr (!SLOT) {
+      phys = tables[(size_t)b * MB + ki];
+      phys = min(max(phys, 0), NB - 1);
+    }
+    if constexpr (SLOT) {
+      // the row is clamped and the value selected after the load, so the
+      // loads carry no predicate and stay in flight together
+      for (int idx = tid; idx < bs * hd; idx += THREADS) {
+        const int t = idx / hd, d = idx - (idx / hd) * hd;
+        const int pos = ki * bs + t;
+        const size_t off =
+            (((size_t)b * S_max + min(pos, S_max - 1)) * KVH + kvh) * hd + d;
+        const float kv = to_f32(k_pool[off]), vv = to_f32(v_pool[off]);
+        k_s[t * hdp + d] = pos < S_max ? kv : 0.f;
+        v_s[idx] = pos < S_max ? vv : 0.f;
+      }
+    } else if constexpr (QUANT) {
       const int hd8 = hd >> 3;
       for (int idx = tid; idx < bs * hd8; idx += THREADS) {
         const int t = idx / hd8, d = (idx - t * hd8) << 3;
@@ -223,12 +255,12 @@ size_t smem_bytes(int R, int hd, int bs, bool quant) {
                           (quant ? 2 * (size_t)bs : 0));
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool SLOT = false>
 int launch(const void* q, const void* k_pool, const void* k_scale,
            const void* v_pool, const void* v_scale, const void* tables,
            const void* ctx_lens, const void* q_lens, void* out, int B, int Sq,
            int H, int KVH, int hd, int NB, int bs, int MB, float scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, int S_max = 0) {
   const int rows = Sq * (H / KVH);
   const int R = rows < ROWS_MAX ? rows : ROWS_MAX;
   const dim3 grid((rows + R - 1) / R, KVH, B);
@@ -236,17 +268,17 @@ int launch(const void* q, const void* k_pool, const void* k_scale,
       smem_bytes(R, hd, bs, std::is_same<KV, int8_t>::value);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, KV>,
+        paged_attention_kernel<T, KV, SLOT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_attention_kernel<T, KV><<<grid, THREADS, smem, stream>>>(
+  paged_attention_kernel<T, KV, SLOT><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_pool),
       static_cast<const float*>(k_scale), static_cast<const KV*>(v_pool),
       static_cast<const float*>(v_scale), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(ctx_lens),
       static_cast<const int32_t*>(q_lens), static_cast<T*>(out), Sq, H, KVH,
-      hd, NB, bs, MB, R, scale);
+      hd, NB, bs, MB, S_max, R, scale);
   return (int)cudaGetLastError();
 }
 
@@ -321,6 +353,24 @@ int quant_mixed_block_paged_attention_launch(
   return dispatch(dtype, true, q, k_pool, k_scale, v_pool, v_scale, tables,
                   ctx_lens, q_lens, out, B, Sq, H, KVH, hd, NB, bs, MB, scale,
                   stream);
+}
+
+// Slot-contiguous caches [B,S_max,KVH,hd] of q's type; lengths [B]
+// (clamped to S_max).
+int paged_decode_attention_launch(int dtype, const void* q,
+                                  const void* k_cache, const void* v_cache,
+                                  const void* lengths, void* out, int B,
+                                  int H, int KVH, int hd, int S_max,
+                                  float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PA_SLOT(T)                                                         \
+  launch<T, T, true>(q, k_cache, nullptr, v_cache, nullptr, nullptr,       \
+                     lengths, nullptr, out, B, 1, H, KVH, hd, 0, SLOT_BS,  \
+                     0, scale, s, S_max)
+  if (dtype == 0) return PA_SLOT(float);
+  if (dtype == 1) return PA_SLOT(__nv_bfloat16);
+#undef PA_SLOT
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* cuda_error_string(int code) {

@@ -18,7 +18,8 @@ from typing import Dict, Iterator
 
 import torch
 
-from repro_torch.kernels import moe_gmm, paged_attention, ref
+from repro_torch.kernels import (flash_attention as _flash, kv_write,
+                                 moe_gmm, paged_attention, ref)
 
 _REFERENCE = contextvars.ContextVar("repro_torch_use_reference",
                                     default=False)
@@ -35,6 +36,9 @@ KERNELS = {
     "quant_mixed_block_paged_attention":
         paged_attention.quant_mixed_block_paged_attention,
     "quant_paged_gmm": moe_gmm.quant_paged_gmm,
+    "flash_attention": _flash.flash_attention,
+    "paged_decode_attention": paged_attention.paged_decode_attention,
+    "kv_cache_write": kv_write.kv_cache_write,
 }
 
 
@@ -150,3 +154,30 @@ def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
     return moe_gmm.quant_paged_expert_ffn(table_i, table_g, table_o, pool_i,
                                           pool_g, pool_o, scale_i, scale_g,
                                           scale_o, x)
+
+
+def flash_attention(q, k, v, causal=True):
+    """Causal blocked attention over a whole prompt (every monolithic
+    prefill, every layer); see ``flash_attention.flash_attention``."""
+    if _plain(q):
+        return ref.flash_attention_ref(q, k, v, causal)
+    return _flash.flash_attention(q, k, v, causal)
+
+
+def paged_decode_attention(q, k_cache, v_cache, lengths):
+    """Decode attention over the slot-contiguous cache (every decode tick,
+    every layer, with ``kv_mode="dense"``); see
+    ``paged_attention.paged_decode_attention``."""
+    if _plain(q):
+        return ref.paged_decode_attention_ref(q, k_cache, v_cache, lengths)
+    return paged_attention.paged_decode_attention(q, k_cache, v_cache,
+                                                  lengths)
+
+
+def kv_cache_write(cache, new, pos):
+    """``cache[b, pos[b]] = new[b]`` in place, positions outside ``[0, S)``
+    dropped (every decode tick, twice per layer, with ``kv_mode="dense"``);
+    see ``kv_write.kv_cache_write``.  Returns ``cache``."""
+    if _plain(cache):
+        return ref.kv_cache_write_ref(cache, new, pos)
+    return kv_write.kv_cache_write(cache, new, pos)

@@ -1,11 +1,16 @@
-"""Paged attention over the KV block pool — CUDA launch wrappers.
+"""Paged attention over the KV block pool, and decode attention over the
+slot-contiguous KV cache — CUDA launch wrappers.
 
 Port of the Pallas TPU kernels ``block_paged_decode_attention``
 (``repro/kernels/paged_attention.py:123``), ``mixed_block_paged_attention``
-(``:322``) and their int8 variants ``quant_block_paged_decode_attention``
-(``:217``) and ``quant_mixed_block_paged_attention`` (``:430``); the one
-kernel behind all four and its design note are in
-``csrc/paged_attention.cu``.  These wrappers take CUDA tensors only:
+(``:322``), their int8 variants ``quant_block_paged_decode_attention``
+(``:217``) and ``quant_mixed_block_paged_attention`` (``:430``), and the
+slot-contiguous ``paged_decode_attention`` (``:75``); the one kernel
+behind all five and its design note are in ``csrc/paged_attention.cu``.
+The slot-contiguous decode is that kernel's decode with a K/V row
+addressed as ``b * S_max + pos`` instead of through a table: bound by the
+context's K/V bytes, it inherits the block kernel's serial work inside a
+block (PERF.md).  These wrappers take CUDA tensors only:
 they check device, dtype, shape and contiguity, allocate the output, launch
 on PyTorch's current stream and count the launch.  ``kernels/ops.py``
 dispatches CPU tensors to the plain versions in ``kernels/ref.py``.
@@ -29,6 +34,7 @@ _SIGNATURES = {
         [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     "quant_mixed_block_paged_attention_launch":
         [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "paged_decode_attention_launch": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -202,3 +208,43 @@ def quant_mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 quant_mixed_block_paged_attention.launches = 0
+
+
+def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over the slot-contiguous cache (the dense-KV
+    serving mode).  q [B,H,hd]; k/v_cache [B,S_max,KVH,hd] of q's dtype;
+    lengths [B] int32, clamped to S_max -> [B,H,hd].  Positions at or past
+    ``lengths[b]`` are never read."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {dev.type} tensor")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {q.dtype} (bfloat16 or float32)")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype}, expected {q.dtype}")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != q.shape[0] \
+            or k_cache.shape[3] != q.shape[2] \
+            or q.shape[1] % k_cache.shape[2] \
+            or lengths.shape != (q.shape[0],):
+        raise ValueError(f"shapes: q [B,H,hd], caches [B,S_max,KVH,hd], "
+                         f"lengths [B]; got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(lengths.shape)}")
+    B, H, hd = q.shape
+    S_max, KVH = k_cache.shape[1], k_cache.shape[2]
+    return _launch(paged_decode_attention, q, (k_cache, v_cache, lengths),
+                   (B, H, KVH, hd, S_max))
+
+
+paged_decode_attention.launches = 0

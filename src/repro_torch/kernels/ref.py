@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the ported kernels — the port of
-``repro.kernels.ref`` for the six kernels on the serving path (bf16/f32
-pools, and int8 pools with f32 scales).
+``repro.kernels.ref`` for the nine kernels on the serving paths (bf16/f32
+pools, int8 pools with f32 scales, and the slot-contiguous KV cache of the
+dense-KV mode with its monolithic prefill).
 
 The CPU tests hold these against the Pallas kernels; ``chip_smoke.py``
 holds the CUDA kernels against these on the card.  They repeat the
@@ -10,6 +11,10 @@ the whole gathered context) and are no yardstick of speed.
 Gathers through a table clamp out-of-range rows to the last pool row,
 which is what a JAX gather does with the ``NB`` sentinel; position masking
 keeps such rows inert.
+
+In-place contract: ``kv_cache_write_ref`` updates the cache it is given
+and returns it, as the CUDA kernel does and as the Pallas kernel's output
+aliases its cache; every other function here allocates its output.
 """
 from __future__ import annotations
 
@@ -63,8 +68,40 @@ def quant_paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g,
     return quant_paged_gmm_ref(table_o, pool_o, scale_o, h)
 
 
+def flash_attention_ref(q, k, v, causal=True):
+    """q [B,S,H,hd]; k/v [B,S,KVH,hd] (query head h reads kv head
+    h // (H/KVH)) -> [B,S,H,hd]; causal: row i attends rows t <= i."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, S, KVH, G, hd).float()
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqt,btkh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def kv_cache_write_ref(cache, new, pos):
+    """cache [B,S,...]; new [B,...]; pos [B] -> ``cache``, written in place:
+    ``cache[b, pos[b]] = new[b]`` cast to the cache's dtype; a ``pos``
+    outside ``[0, S)`` writes nothing (JAX's ``mode="drop"``).  No host
+    synchronisation: a dropped row rewrites the value it reads."""
+    B, S = cache.shape[:2]
+    p = pos.long()
+    keep = (p >= 0) & (p < S)
+    b = torch.arange(B, device=cache.device)
+    p = p.clamp(0, S - 1)
+    keep = keep.reshape(B, *([1] * (new.dim() - 1)))
+    cache[b, p] = torch.where(keep, new.to(cache.dtype), cache[b, p])
+    return cache
+
+
 def paged_decode_attention_ref(q, k_cache, v_cache, lengths):
-    """q [B,H,hd]; caches [B,S,KVH,hd]; lengths [B] -> [B,H,hd]."""
+    """q [B,H,hd]; caches [B,S,KVH,hd]; lengths [B] (clamped to S) ->
+    [B,H,hd]."""
     B, H, hd = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH

@@ -1,17 +1,19 @@
 """Core transformer layers as plain functions over parameter dicts — the
-port of the parts of ``repro.models.layers`` the paged serving path uses.
+port of the parts of ``repro.models.layers`` the serving paths use (the
+paged KV pool, and the slot-contiguous cache with monolithic prefill).
 
 Conventions (the reference's, kept at every public function):
 
 * weights are ``[d_in, d_out]`` and used as ``x @ w``;
 * activations [B, S, D]; attention heads [B, S, H, hd];
-* paged KV pools [NB, bs, KVH, hd] per layer;
+* paged KV pools [NB, bs, KVH, hd] per layer; slot-contiguous caches
+  [B, max_len, KVH, hd] per layer;
 * matmuls accumulate in f32 and round to x's dtype (``dot``); norms, RoPE
   and the router compute in f32.
 
-The paged attention functions update the layer's pool views in place
-(the reference donates the cache to its jitted steps; PyTorch writes the
-rows directly) and return the same dict.
+The attention functions that take a cache update the layer's views in
+place (the reference donates the cache to its jitted steps; PyTorch writes
+the rows directly) and return the same dict or tuple.
 """
 from __future__ import annotations
 
@@ -134,6 +136,45 @@ def _qkv_rope(cfg, p, x, positions):
         q = apply_rope(q, cos, sin, rot_dim)
         k = apply_rope(k, cos, sin, rot_dim)
     return q, k, v
+
+
+def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
+                    kv_valid_len=None, kv_x=None, causal=None, window=None):
+    """Self-attention, with or without the slot-contiguous KV cache.
+
+    * Prefill / forward (``cache=None``): x [B,S,D] at ``positions``
+      ``arange(S)`` attends causally (``cfg.causal`` unless ``causal`` is
+      given) over its own k/v through ``ops.flash_attention``; returns
+      (y [B,S,D], (k, v) [B,S,KVH,hd]).
+    * Decode (``cache=(k_cache, v_cache)`` [B,max_len,KVH,hd], x [B,1,D]):
+      the new k/v rows go to ``cache[b, write_pos[b]]`` in place
+      (``ops.kv_cache_write``; positions outside the cache drop), then the
+      token attends positions ``< kv_valid_len[b]`` (the decode step
+      passes lengths + 1, where the causal mask ends too) through
+      ``ops.paged_decode_attention``; returns (y [B,1,D], cache).
+
+    Cross-attention (``kv_x``, or a cache without ``write_pos``) and
+    windowed attention are outside this port and raise."""
+    if kv_x is not None or (cache is not None and write_pos is None):
+        raise NotImplementedError("cross-attention is not ported yet")
+    window = cfg.attn_window if window is None else window
+    if window is not None:
+        raise NotImplementedError("windowed attention is not ported yet")
+    causal = cfg.causal if causal is None else causal
+    B, Sq, _ = x.shape
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv_rope(cfg, p, x, positions)
+    if cache is None:
+        o = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal)
+        return linear(p["o"], o.reshape(B, Sq, H * hd)), (k, v)
+    k_cache, v_cache = cache
+    pos = write_pos.to(torch.int32)
+    ops.kv_cache_write(k_cache, k[:, 0].to(k_cache.dtype).contiguous(), pos)
+    ops.kv_cache_write(v_cache, v[:, 0].to(v_cache.dtype).contiguous(), pos)
+    o = ops.paged_decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                   kv_valid_len.to(torch.int32))
+    return linear(p["o"], o.reshape(B, 1, H * hd)), cache
 
 
 def _kept_rows(ids: torch.Tensor, nb: int) -> torch.Tensor:

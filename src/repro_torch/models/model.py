@@ -1,16 +1,22 @@
-"""Standard-attention decoder (dense or MoE) over the paged KV pool — the
-port of the serving steps of ``repro.models.model``.
+"""Standard-attention decoder (dense or MoE) — the port of the serving
+steps of ``repro.models.model`` over the two KV layouts: the paged pool
+(``paged_decode_step``, ``paged_chunk_prefill_step``) and the
+slot-contiguous cache of the dense-KV mode (``prefill``, ``decode_step``;
+``write_prefill_to_blocks`` moves a monolithic prefill into the pool), plus
+the full-sequence ``forward``.
 
 Parameters are nested dicts of tensors in the reference's layout: the
 per-layer leaves under ``params["blocks"]`` are stacked with a leading
 layer axis, an optional ``params["dense_prefix"]`` list holds the first
-``first_k_dense`` layers of a MoE model, and with the pooled expert store
-``params["moe_pool"]`` holds the page banks while ``blocks/moe`` holds the
-index arrays (``tables``, ``edest``, ``eslot``, ``gtable``).  A Python loop
-over layers replaces the reference's ``lax.scan``.
+``first_k_dense`` layers of a MoE model.  The routed experts are either
+dense banks ``blocks/moe/{wi,wg,wo}`` ``[L, E, D, F|D]`` or, with the
+pooled expert store, page banks in ``params["moe_pool"]`` while
+``blocks/moe`` holds the index arrays (``tables``, ``edest``, ``eslot``,
+``gtable``).  A Python loop over layers replaces the reference's
+``lax.scan``.
 
-The paged steps update the KV pool in place (the reference donates it to
-its jitted steps) and return the same dict.
+The steps that take a cache update it in place (the reference donates it
+to its jitted steps) and return the same dict.
 """
 from __future__ import annotations
 
@@ -20,11 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.models.layers import (apply_norm, attention_init, linear,
-                                       linear_init, mlp_apply, mlp_init,
-                                       norm_init, paged_attention_apply,
+from repro_torch.kernels.quant import quantize_rows
+from repro_torch.models.layers import (_kept_rows, apply_norm,
+                                       attention_apply, attention_init,
+                                       linear, linear_init, mlp_apply,
+                                       mlp_init, norm_init,
+                                       paged_attention_apply,
                                        paged_chunk_attention_apply)
-from repro_torch.models.moe import moe_local_pooled, router_init
+from repro_torch.models.moe import moe_local, moe_local_pooled, router_init
 
 Params = Dict[str, Any]
 
@@ -71,8 +80,8 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
     the reference's parameters with ``convert.params_from_jax`` instead).
 
     MoE layers get the router but no routed experts: ``HMM.boot`` fills the
-    pooled store layer by layer with ``init_expert_bank`` and adds its page
-    tables, so the experts are never held twice."""
+    dense banks or the pooled store layer by layer with
+    ``init_expert_bank``, so the experts are never held twice."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -106,12 +115,17 @@ def layer_params(tree, i: int):
 def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None):
     """Post-attention feed-forward: the dense MLP, or the MoE over the
     pooled expert store ``moe_pool`` (``bp["moe"]`` carries its page-table
-    index arrays)."""
+    index arrays) or over the layer's dense banks ``bp["moe"]["wi"/"wg"/
+    "wo"]``."""
     if not moe:
         return mlp_apply(bp["mlp"], h, cfg.mlp_gated)
     B, S, D = h.shape
-    y = moe_local_pooled(cfg, bp["moe"], moe_pool,
-                         h.reshape(B * S, D)).reshape(B, S, D)
+    x = h.reshape(B * S, D)
+    if moe_pool is not None and "gtable" in bp["moe"]:
+        y = moe_local_pooled(cfg, bp["moe"], moe_pool, x)
+    else:
+        y = moe_local(cfg, bp["moe"], x)
+    y = y.reshape(B, S, D)
     if cfg.dense_residual:
         y = y + mlp_apply(bp["mlp"], h, cfg.mlp_gated)
     return y
@@ -128,6 +142,38 @@ def _layers(cfg, params):
 
 
 # ------------------------------------------------------------------- caches
+
+def _check_dense_kv(cfg) -> None:
+    """The slot-contiguous steps cover the reference's standard-attention
+    branches of ``prefill`` / ``decode_step``, which scan ``blocks`` only:
+    a dense prefix there is outside what the reference computes."""
+    if not paged_cache_supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: only standard-attention "
+                                  f"decoders are ported")
+    if cfg.is_moe and cfg.first_k_dense:
+        raise ValueError(f"{cfg.name}: the dense-KV steps apply no "
+                         f"first_k_dense prefix (as in the reference)")
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=None, *,
+               device="cuda"):
+    """Slot-contiguous decode cache {'k','v': [L, B, max_len, KVH, hd]},
+    zeros, in the model dtype (or ``dtype``)."""
+    _check_dense_kv(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _cache_slot(cfg, lengths):
+    """KV write slot for each sequence (ring-buffered under attn_window)."""
+    if cfg.attn_window is None:
+        return lengths
+    return lengths % cfg.attn_window
+
 
 def paged_cache_supported(cfg) -> bool:
     """The block-managed KV layout covers standard-attention decoders
@@ -171,7 +217,115 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def write_prefill_to_blocks(cache, dense_cache, block_ids):
+    """Scatter one sequence's prefill KV (``dense_cache`` {'k','v': [L, 1,
+    S, KVH, hd]}) into its pool blocks, in place.  ``block_ids`` [S/bs]
+    holds the pool row per prompt block; entries == NB drop — the engine
+    passes the sentinel for padding blocks and for CoW-shared prefix
+    blocks, which hold another live sequence's tokens.  An int8 pool
+    quantizes each token row as it is written and scatters its scale
+    through the same ids.  Returns ``cache``."""
+    NB, bs = cache["k"].shape[1], cache["k"].shape[2]
+    nb = block_ids.shape[0]
+    keep = _kept_rows(block_ids, NB)
+    ids = block_ids[keep].long()
+    for name in ("k", "v"):
+        small = dense_cache[name]
+        L = small.shape[0]
+        rows = small[:, 0, :nb * bs].reshape(L, nb, bs,
+                                             *small.shape[3:])[:, keep]
+        if name + "_scale" in cache:
+            q, sc = quantize_rows(rows, (-2, -1))
+            cache[name][:, ids] = q
+            cache[name + "_scale"][:, ids] = sc
+        else:
+            cache[name][:, ids] = rows.to(cache[name].dtype)
+    return cache
+
+
 # ------------------------------------------------------------------- steps
+
+def forward(cfg, params: Params, batch):
+    """Full-sequence forward: tokens [B,S] -> logits [B,S,V].  Every
+    sequence attends causally over its S tokens (``ops.flash_attention``).
+    The reference also returns the router's load-balance loss, a training
+    term; it is not computed here."""
+    if not paged_cache_supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: only standard-attention "
+                                  f"decoders are ported")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    pool = params.get("moe_pool")
+    for bp, moe in _layers(cfg, params):
+        h = apply_norm(bp["ln1"], x, cfg.norm_type)
+        a, _ = attention_apply(cfg, bp["attn"], h, positions)
+        x = x + a
+        h = apply_norm(bp["ln2"], x, cfg.norm_type)
+        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    return linear(params["lm_head"], x)
+
+
+def prefill(cfg, params: Params, batch, max_len: int):
+    """Monolithic prefill of left-aligned prompts padded to one length.
+
+    batch: tokens [B,S], optional lengths [B] (true prompt lengths).  Every
+    position — padding included — attends causally and goes through the
+    MoE router, as in the reference (with capacity dropping, padding tokens
+    take capacity slots).  Returns (logits [B,V] at position lengths-1,
+    cache {'k','v': [L,B,max_len,KVH,hd]}, each layer's K/V in its first
+    S rows (the last ``max_len`` when S is longer) and zeros after)."""
+    _check_dense_kv(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    n = min(S, max_len)
+    cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
+    pool = params.get("moe_pool")
+    for i, (bp, moe) in enumerate(_layers(cfg, params)):
+        h = apply_norm(bp["ln1"], x, cfg.norm_type)
+        a, (k, v) = attention_apply(cfg, bp["attn"], h, positions)
+        cache["k"][i, :, :n] = k[:, S - n:]
+        cache["v"][i, :, :n] = v[:, S - n:]
+        x = x + a
+        h = apply_norm(bp["ln2"], x, cfg.norm_type)
+        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    lengths = batch.get("lengths")
+    if lengths is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(B, device=x.device), lengths.long() - 1]
+    return linear(params["lm_head"], last), cache
+
+
+def decode_step(cfg, params: Params, tokens, cache, lengths):
+    """One decode step over the slot-contiguous cache.  tokens [B,1];
+    lengths [B] int32 = tokens already cached: the new token's k/v land
+    at slot ``lengths`` (``ops.kv_cache_write``; past the cache they drop)
+    and it attends ``lengths + 1`` positions
+    (``ops.paged_decode_attention``).  Updates ``cache`` in place; returns
+    (logits [B,V], cache)."""
+    _check_dense_kv(cfg)
+    x = F.embedding(tokens.long(), params["embed"])
+    positions = lengths[:, None]
+    write_pos = _cache_slot(cfg, lengths)
+    valid = lengths + 1
+    pool = params.get("moe_pool")
+    for i, (bp, moe) in enumerate(_layers(cfg, params)):
+        h = apply_norm(bp["ln1"], x, cfg.norm_type)
+        a, _ = attention_apply(cfg, bp["attn"], h, positions,
+                               cache=(cache["k"][i], cache["v"][i]),
+                               write_pos=write_pos, kv_valid_len=valid)
+        x = x + a
+        h = apply_norm(bp["ln2"], x, cfg.norm_type)
+        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    return linear(params["lm_head"], x[:, 0]), cache
+
 
 def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
                       block_tables, write_block):

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import mlp_apply
+from repro_torch.models.layers import dot, mlp_apply
 
 
 def router_init(gen, d_model, num_experts, device, lead=()):
@@ -85,11 +85,18 @@ def routing_counts(topk_idx, num_experts: int):
 
 
 def _expert_ffn(xg, wi, wg, wo):
-    """Dense banks: xg [E, C, D]; wi/wg [E, D, F]; wo [E, F, D]."""
-    h = torch.einsum("ecd,edf->ecf", xg.float(), wi.float()).to(xg.dtype)
-    g = torch.einsum("ecd,edf->ecf", xg.float(), wg.float())
-    h = h * F.silu(g).to(xg.dtype)
-    return torch.einsum("ecf,efd->ecd", h.float(), wo.float()).to(xg.dtype)
+    """Dense banks: xg [E, C, D]; wi/wg [E, D, F]; wo [E, F, D].  Three
+    batched products, each accumulated in f32 and rounded once to xg's
+    dtype (``dot``), with ``silu`` in f32 of the rounded gate: the
+    rounding points of the pooled path's ``paged_expert_ffn``.  The
+    reference's dense einsum keeps the gate product in f32 until after
+    ``silu``; in f32 the two are the same function, in bf16 they differ by
+    one rounding of the gate.  Casting the banks to f32 instead would copy
+    every expert's weights (2.4 GB a layer at full size) on every step."""
+    h = dot(xg, wi)
+    g = dot(xg, wg)
+    h = h * F.silu(g.float()).to(h.dtype)
+    return dot(h, wo)
 
 
 def _moe_local_body(cfg, p, x, capacity, expert_ffn):

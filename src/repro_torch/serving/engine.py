@@ -1,24 +1,31 @@
-"""Inference engine on one device: continuous batching over the paged KV
-pool with chunked prefill — the port of the one-device serving half of
+"""Inference engine on one device: continuous batching over the
+slot-contiguous KV cache or the paged KV pool, with monolithic or chunked
+prefill — the port of the one-device serving half of
 ``repro.serving.engine``.
 
-The cache is a block *pool* ``[L, NB, bs, ...]`` and each slot holds a
-block table (``serving/kv_blocks.py``).  Admission is gated by free blocks,
+Dense KV (``kv=None`` at ``bind``, the reference's default) keeps one
+cache row ``[L, B, max_len, ...]`` per slot; each admitted request is
+prefilled at admission, padded to a bucket, and its KV overwrites the slot
+row.  Paged KV keeps a block *pool* ``[L, NB, bs, ...]`` and each slot a
+block table (``serving/kv_blocks.py``): admission is gated by free blocks,
 shared prompt prefixes are copy-on-write, and when the pool runs dry the
 lowest-priority sequence is preempted (freed + re-queued; recomputed on
-resume).  Each tick runs at most ``prefill_budget`` prompt tokens as
-``prefill_chunk``-token chunks (``serving/scheduler.py``), then one decode
-step for every runnable slot.
+resume).  With ``prefill_chunk > 0`` (paged only here) each tick runs at
+most ``prefill_budget`` prompt tokens as ``prefill_chunk``-token chunks
+(``serving/scheduler.py``); with ``prefill_chunk == 0`` the whole prompt
+is prefilled at admission.  Every tick ends with one decode step for every
+runnable slot.
 
 The step functions are plain callables keyed like the reference's compiled
-executables (``decode``, ``chunk_prefill_{C}``); PyTorch runs them eagerly.
-They update the pool in place: the reference donates it to its jitted
-steps, here the rows are written directly.
+executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``);
+PyTorch runs them eagerly.  They update the cache in place: the reference
+donates it to its jitted steps, here the rows are written directly.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -30,6 +37,15 @@ from repro_torch.models import model as M
 from repro_torch.serving.kv_blocks import KVBlockManager
 from repro_torch.serving.scheduler import (PrefillJob, TokenBudgetScheduler,
                                            prefix_skip)
+
+
+def _decode_fn(mcfg, params, cache, tokens, lengths, active):
+    """Greedy decode over the slot-contiguous cache; inactive slots keep
+    their token (their rows are rewritten by the next prefill)."""
+    logits, cache = M.decode_step(mcfg, params, tokens[:, None], cache,
+                                  lengths)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.where(active, nxt, tokens), cache
 
 
 def _paged_decode_fn(mcfg, params, cache, tokens, lengths, active,
@@ -47,6 +63,32 @@ def _paged_decode_fn(mcfg, params, cache, tokens, lengths, active,
     return torch.where(active, nxt, tokens), cache
 
 
+def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot):
+    """Prefill one request (padded to a bucket) into cache row ``slot``:
+    the whole row is overwritten, zeros past the bucket, as the
+    reference's update of its ``max_len``-padded cache does.  Returns (the
+    argmax token at position ``length - 1``, cache)."""
+    logits, small = M.prefill(mcfg, params,
+                              {"tokens": tokens, "lengths": length[None]},
+                              max_len=max_len)
+    for name, leaf in cache.items():
+        leaf[:, slot] = small[name][:, 0]
+    return int(torch.argmax(logits, dim=-1)[0]), cache
+
+
+def _paged_prefill_fn(mcfg, params, cache, tokens, length, block_ids):
+    """Prefill one request and scatter its KV into pool blocks
+    ``block_ids`` [S_pad/bs] (``NB`` marks padding and CoW-shared prefix
+    blocks, which already hold the same tokens — or a co-owner's tokens
+    beyond this prompt — and are not rewritten)."""
+    S_pad = tokens.shape[1]
+    logits, small = M.prefill(mcfg, params,
+                              {"tokens": tokens, "lengths": length[None]},
+                              max_len=S_pad)
+    cache = M.write_prefill_to_blocks(cache, small, block_ids)
+    return int(torch.argmax(logits, dim=-1)[0]), cache
+
+
 def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
                             block_tables, chunk_ids):
     """One paged prefill chunk: the chunk's KV lands in pool rows
@@ -59,17 +101,31 @@ def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
     return int(torch.argmax(logits, dim=-1)[0]), cache
 
 
-def compile_step_functions(mcfg, *, prefill_chunk: int
+def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
+                           kv_mode: str = "dense", prefill_chunk: int = 0
                            ) -> Tuple[Dict[str, Callable], float]:
     """The step callables of an instance, keyed like the reference's
-    executables: ``decode`` and ``chunk_prefill_{C}``.  Eager PyTorch needs
-    no compilation; returns (callables, seconds) as the reference does."""
+    executables: ``decode``, ``prefill_{S_pad}`` for each bucket and, with
+    ``prefill_chunk``, ``chunk_prefill_{C}``.  Eager PyTorch needs no
+    compilation; returns (callables, seconds) as the reference does."""
     t0 = time.perf_counter()
-    if not M.chunk_prefill_supported(mcfg):
-        raise ValueError(f"{mcfg.name}: chunked prefill unsupported")
-    out = {"decode": partial(_paged_decode_fn, mcfg),
-           f"chunk_prefill_{prefill_chunk}":
-               partial(_paged_chunk_prefill_fn, mcfg)}
+    paged = kv_mode == "paged"
+    if prefill_chunk and not paged:
+        raise NotImplementedError(
+            "dense KV with prefill_chunk > 0 is not ported yet")
+    if paged:
+        out = {"decode": partial(_paged_decode_fn, mcfg)}
+        prefill = partial(_paged_prefill_fn, mcfg)
+    else:
+        out = {"decode": partial(_decode_fn, mcfg)}
+        prefill = partial(_prefill_fn, mcfg, max_len)
+    for S_pad in prefill_buckets:
+        out[f"prefill_{S_pad}"] = prefill
+    if prefill_chunk:
+        if not M.chunk_prefill_supported(mcfg):
+            raise ValueError(f"{mcfg.name}: chunked prefill unsupported")
+        out[f"chunk_prefill_{prefill_chunk}"] = partial(
+            _paged_chunk_prefill_fn, mcfg)
     return out, time.perf_counter() - t0
 
 
@@ -85,25 +141,30 @@ class SlotState:
 
 
 class InferenceEngine:
-    """Continuous-batching engine bound to one device's parameters, pool
+    """Continuous-batching engine bound to one device's parameters, cache
     and step functions."""
 
+    #: most prefill buckets built lazily (paged mode) and kept, least
+    #: recently used first out; buckets given at bind are never evicted
+    MAX_LAZY_PREFILL = 8
+
     def __init__(self, mcfg, *, batch_per_replica: int, max_len: int,
-                 prefill_bucket: int = 64, prefill_chunk: int = 64,
+                 prefill_bucket: int = 64, prefill_chunk: int = 0,
                  prefill_budget: Optional[int] = None, device="cuda"):
-        if prefill_chunk <= 0:
-            raise NotImplementedError(
-                "prefill_chunk=0 (monolithic prefill) is not ported yet")
         self.mcfg = mcfg
         self.batch_per_replica = batch_per_replica
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
+        # > 0: prefill in fixed chunks under a per-tick token budget
+        # (serving/scheduler.py); 0: the whole prompt at admission
         self.prefill_chunk = prefill_chunk
         self.device = torch.device(device)
-        self.scheduler = TokenBudgetScheduler(prefill_chunk, prefill_budget)
+        self.scheduler = (TokenBudgetScheduler(prefill_chunk, prefill_budget)
+                          if prefill_chunk > 0 else None)
         self._prefilling: List[PrefillJob] = []       # FIFO, admission order
         # slot -> (full prompt, resumed): host-side context for chunk jobs
         self._chunk_ctx: Dict[int, Tuple[np.ndarray, bool]] = {}
+        self._lazy_prefill: "OrderedDict[str, None]" = OrderedDict()
         self.cfg = None
         self.params = None
         self.cache = None
@@ -116,6 +177,7 @@ class InferenceEngine:
         self.block_tables: Optional[np.ndarray] = None
         self._preempted_pending: List[int] = []   # rids awaiting re-queue
         self._resume_rids: set = set()            # preempted at least once
+        self._finished_at_admission: List[int] = []
         self.preemptions = 0
         self._step_count = 0
 
@@ -124,8 +186,14 @@ class InferenceEngine:
     def num_slots(self) -> int:
         return 0 if self.cfg is None else self.cfg.dp * self.batch_per_replica
 
-    def bind(self, cfg, params, cache, compiled, kv: KVBlockManager):
-        """Attach the instance's parameters, pool and step functions."""
+    @property
+    def paged(self) -> bool:
+        return self.kv is not None
+
+    def bind(self, cfg, params, cache, compiled,
+             kv: Optional[KVBlockManager] = None):
+        """Attach the instance's parameters, cache and step functions;
+        ``kv`` is the block manager of a paged pool (None: dense KV)."""
         self.cfg = cfg
         self.params, self.cache = params, cache
         self.compiled = compiled
@@ -134,30 +202,48 @@ class InferenceEngine:
         self.slots = [SlotState() for _ in range(n)]
         self.lengths = np.zeros((n,), np.int32)
         self.tokens = np.zeros((n,), np.int32)
-        if not M.chunk_prefill_supported(self.mcfg):
-            raise ValueError("chunked prefill unsupported for this model")
-        bs = kv.block_size
-        if self.max_len % bs or self.prefill_bucket % bs \
-                or self.prefill_chunk % bs:
-            raise ValueError("max_len, prefill buckets and prefill_chunk "
-                             "must be block-size multiples")
-        # padding rows hold the NB sentinel (never block id 0, a valid row)
-        self.block_tables = np.full((n, self.max_len // bs), kv.num_blocks,
-                                    np.int32)
+        if self.prefill_chunk:
+            if not self.paged:
+                raise NotImplementedError(
+                    "dense KV with prefill_chunk > 0 is not ported yet")
+            if not M.chunk_prefill_supported(self.mcfg):
+                raise ValueError("chunked prefill unsupported for this "
+                                 "model")
+        if self.paged:
+            bs = kv.block_size
+            if self.max_len % bs or self.prefill_bucket % bs \
+                    or self.prefill_chunk % bs:
+                raise ValueError("max_len, prefill buckets and "
+                                 "prefill_chunk must be block-size "
+                                 "multiples")
+            # padding rows hold the NB sentinel (never block id 0, a valid
+            # row)
+            self.block_tables = np.full((n, self.max_len // bs),
+                                        kv.num_blocks, np.int32)
+        self._lazy_prefill = OrderedDict()
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if not s.active]
 
+    def active_count(self) -> int:
+        return sum(1 for s in self.slots if s.active)
+
     def utilization(self) -> float:
-        """Block-pool occupancy (drives load estimation)."""
-        return self.kv.used_blocks() / max(self.kv.num_blocks, 1)
+        """Occupied share of the serving capacity (drives load
+        estimation): block-pool occupancy paged, slot occupancy dense."""
+        if self.paged:
+            return self.kv.used_blocks() / max(self.kv.num_blocks, 1)
+        return self.active_count() / max(len(self.slots), 1)
 
     def block_nbytes(self) -> int:
         """Device bytes of ONE pool block across all layers/tensors."""
         return sum(leaf.nbytes // leaf.shape[1]
                    for leaf in self.cache.values())
 
-    def kv_stats(self) -> Dict[str, float]:
+    def kv_stats(self) -> Optional[Dict[str, float]]:
+        """Block-pool stats (None for the dense layout)."""
+        if not self.paged:
+            return None
         st = self.kv.stats()
         st["preemptions"] = self.preemptions
         st["block_bytes"] = self.block_nbytes()
@@ -177,6 +263,8 @@ class InferenceEngine:
         return np.asarray(prompt, np.int32)
 
     def can_admit(self, req, prompt: np.ndarray, slot: int) -> bool:
+        if not self.paged:
+            return True
         full = self._full_prompt(req, prompt)
         # +1: the first decode token must be appendable without preemption
         return self.kv.can_allocate(len(full) + 1, self._partition(slot),
@@ -186,8 +274,8 @@ class InferenceEngine:
                         free: List[int]) -> List[int]:
         """Prefix-cache-aware admission order: free slots whose partition
         holds the longest registered prefix of this prompt come first;
-        ties keep slot order."""
-        if len(free) <= 1:
+        ties keep slot order (the dense layout keeps slot order)."""
+        if not self.paged or len(free) <= 1:
             return list(free)
         toks = [int(t) for t in self._full_prompt(req, prompt)]
         score = {p: len(self.kv.prefix_match_blocks(p, toks))
@@ -195,6 +283,69 @@ class InferenceEngine:
         return sorted(free, key=lambda s: (-score[self._partition(s)], s))
 
     def start_request(self, req, prompt: np.ndarray, slot: int):
+        """Admit ``req`` into ``slot``.  Monolithic mode
+        (``prefill_chunk == 0``) prefills the whole prompt, padded to a
+        multiple of the bucket, here and returns the first generated token;
+        chunked mode only allocates KV and enqueues a job, and returns None
+        (the first token arrives from ``decode_tick``)."""
+        if self.prefill_chunk:
+            return self._start_request_chunked(req, prompt, slot)
+        resume = req.rid in self._resume_rids
+        full = self._full_prompt(req, prompt)
+        S = len(full)
+        bucket = self.prefill_bucket
+        S_pad = max(bucket, -(-S // bucket) * bucket)
+        toks = np.zeros((1, S_pad), np.int32)
+        toks[0, :S] = full
+        length = torch.tensor(S, dtype=torch.int32, device=self.device)
+        # the span closes once the first token is on the host, so it holds
+        # the prefill's device time too (the time to first token)
+        with obs.get_tracer().span("prefill.request", cat="serve",
+                                   args={"rid": req.rid, "S_pad": S_pad}):
+            if self.paged:
+                alloc = self.kv.allocate(
+                    req.rid, S, partition=self._partition(slot),
+                    priority=getattr(req, "priority", 0),
+                    tokens=[int(t) for t in full])
+                bs = self.kv.block_size
+                ids = np.full((S_pad // bs,), self.kv.num_blocks, np.int32)
+                for j, b in enumerate(alloc.blocks):
+                    if j >= alloc.num_shared:  # shared prefix: not rewritten
+                        ids[j] = b
+                first, self.cache = self._prefill(S_pad)(
+                    self.params, self.cache, self._to_device(toks), length,
+                    self._to_device(ids))
+                # the NB sentinel, never block 0 (a valid row), clears the
+                # previous occupant's rows
+                self.block_tables[slot, :] = self.kv.num_blocks
+                self.block_tables[slot, :len(alloc.blocks)] = alloc.blocks
+            else:
+                first, self.cache = self._prefill(S_pad)(
+                    self.params, self.cache, self._to_device(toks), length,
+                    slot)
+        produced = len(self.generated.get(req.rid, [])) if resume else 0
+        remaining = req.output_len - produced - 1
+        self.slots[slot] = SlotState(rid=req.rid, remaining=remaining,
+                                     active=remaining > 0,
+                                     priority=getattr(req, "priority", 0))
+        self.lengths[slot] = S
+        self.tokens[slot] = first
+        if resume:
+            self._resume_rids.discard(req.rid)
+            self.generated[req.rid].append(first)
+        else:
+            self.generated[req.rid] = [first]
+        if remaining <= 0:
+            # the prefill token was the last (output_len 1, or a resume
+            # with only its final token left): report completion here, the
+            # request never reaches decode_tick
+            self.slots[slot].active = False
+            if self.paged:
+                self.kv.free(req.rid)
+            self._finished_at_admission.append(req.rid)
+        return first
+
+    def _start_request_chunked(self, req, prompt: np.ndarray, slot: int):
         """Chunked admission: no model compute runs here.  KV is allocated
         up-front (occupancy-gated like ``can_admit``) but prefix chains
         register only as chunks are written (``register_written``) — a
@@ -225,6 +376,32 @@ class InferenceEngine:
         self._prefilling.append(PrefillJob(slot=slot, rid=req.rid,
                                            pos=start, total=S))
         return None
+
+    def drain_finished_at_admission(self) -> List[int]:
+        """Requests whose prefill produced their final token."""
+        out, self._finished_at_admission = self._finished_at_admission, []
+        return out
+
+    def _prefill(self, S_pad: int) -> Callable:
+        """The prefill step for a bucket.  Dense KV serves only the buckets
+        it was given, as the reference does; paged mode builds an unseen
+        bucket (preemption resumes grow prompts past the given set) and
+        keeps at most ``MAX_LAZY_PREFILL`` such buckets, least recently
+        used first out."""
+        key = f"prefill_{S_pad}"
+        if key in self.compiled:
+            if key in self._lazy_prefill:
+                self._lazy_prefill.move_to_end(key)
+            return self.compiled[key]
+        if not self.paged:
+            raise KeyError(f"no prefill step for bucket {S_pad} (dense KV "
+                           f"serves only the prefill_buckets it was given)")
+        self.compiled[key] = partial(_paged_prefill_fn, self.mcfg)
+        self._lazy_prefill[key] = None
+        while len(self._lazy_prefill) > self.MAX_LAZY_PREFILL:
+            old, _ = self._lazy_prefill.popitem(last=False)
+            self.compiled.pop(old, None)
+        return self.compiled[key]
 
     def _chunk_prefill(self) -> Callable:
         return self.compiled[f"chunk_prefill_{self.prefill_chunk}"]
@@ -359,31 +536,35 @@ class InferenceEngine:
 
     @obs.traced("decode.tick", cat="serve")
     def decode_tick(self) -> List[Tuple[int, int, bool]]:
-        """One engine tick: the prefill phase (at most ``prefill_budget``
-        prompt tokens), then one decode step for every runnable slot —
-        decode runs every tick regardless of prefill backlog.  Returns
-        [(rid, token, finished)]; prefill completions come first."""
+        """One engine tick: the prefill phase when chunking (at most
+        ``prefill_budget`` prompt tokens), then one decode step for every
+        runnable slot — decode runs every tick regardless of prefill
+        backlog.  Returns [(rid, token, finished)]; prefill completions
+        come first."""
         pre: List[Tuple[int, int, bool]] = []
-        if self._prefilling:
+        if self.scheduler is not None and self._prefilling:
             pre = self._run_prefill_chunks()
-        # highest priority first, oldest first on ties: pressure evicts
-        # from the low-priority/young end before it reaches them
-        order = sorted((i for i, s in enumerate(self.slots)
-                        if s.active and not s.prefilling),
-                       key=lambda i: (-self.slots[i].priority,
-                                      self.slots[i].rid))
-        for slot in order:
-            if self.slots[slot].active:
-                self._ensure_append(slot)
+        if self.paged:
+            # highest priority first, oldest first on ties: pressure
+            # evicts from the low-priority/young end before it reaches them
+            order = sorted((i for i, s in enumerate(self.slots)
+                            if s.active and not s.prefilling),
+                           key=lambda i: (-self.slots[i].priority,
+                                          self.slots[i].rid))
+            for slot in order:
+                if self.slots[slot].active:
+                    self._ensure_append(slot)
         runnable = [s.active and not s.prefilling for s in self.slots]
         if not any(runnable):
             return pre
         active = np.array(runnable)
         self._step_count += 1
-        nxt, self.cache = self.compiled["decode"](
-            self.params, self.cache, self._to_device(self.tokens),
-            self._to_device(self.lengths), self._to_device(active),
-            self._to_device(self.block_tables))
+        args = [self._to_device(a) for a in (self.tokens, self.lengths,
+                                             active)]
+        if self.paged:
+            args.append(self._to_device(self.block_tables))
+        nxt, self.cache = self.compiled["decode"](self.params, self.cache,
+                                                  *args)
         nxt = nxt.cpu().numpy()
         out = []
         for i, s in enumerate(self.slots):
@@ -396,6 +577,7 @@ class InferenceEngine:
             fin = s.remaining <= 0 or self.lengths[i] >= self.max_len - 1
             if fin:
                 s.active = False
-                self.kv.free(s.rid)
+                if self.paged:
+                    self.kv.free(s.rid)
             out.append((s.rid, int(nxt[i]), fin))
         return pre + out

@@ -2,7 +2,9 @@
 at edge shapes the serving path does not reach (ragged F and D tiles, odd
 token counts, other head dims and block sizes, aliased tables, sentinel
 rows), for bf16/f32 pools and for int8 pools with f32 scales (rows whose
-scales differ by 100x, an all-zero scale row).  Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the
+scales differ by 100x, an all-zero scale row), and for the slot-contiguous
+path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
+S_max, a dropped cache write).  Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the
 card, from the repo root::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import moe_gmm, ops, paged_attention, ref
+from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
+                                 paged_attention, ref)
 from repro_torch.kernels.quant import dequantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -269,3 +272,89 @@ def test_quant_wrappers_refuse_what_the_kernel_does_not_take(dev):
         moe_gmm.quant_paged_gmm(t, pool.float(), scales, x)
     with pytest.raises(ValueError):
         moe_gmm.quant_paged_gmm(t, pool, scales[:2], x)
+
+
+# --------------------------------------------- slot-contiguous KV, prefill
+
+FLASH = {  # B, S, H, KVH, hd
+    "gqa8-hd128-ragged": (1, 200, 32, 4, 128),
+    "mha-hd64-ragged": (2, 77, 4, 4, 64),
+    "gqa2-hd64-one-tile": (2, 64, 8, 4, 64),
+    "gqa8-hd128-one-token": (1, 1, 8, 1, 128),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_attention_matches_plain(dev, case, dtype, causal):
+    B, S, H, KVH, hd = FLASH[case]
+    gen = torch.Generator().manual_seed(10)
+    q = _rand(gen, (B, S, H, hd), dtype, dev)
+    k = _rand(gen, (B, S, KVH, hd), dtype, dev)
+    v = _rand(gen, (B, S, KVH, hd), dtype, dev)
+    got = flash_attention.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+SLOT = {  # H, KVH, hd, S_max, lengths
+    "gqa8-hd128": (32, 4, 128, 256, [1, 256, 17, 300]),
+    "mha-hd64-ragged-smax": (4, 4, 64, 50, [50, 1, 49]),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(SLOT))
+def test_slot_decode_kernel_matches_plain(dev, case, dtype):
+    """Lengths of 1, of S_max and past S_max (clamped); an S_max that is
+    not a multiple of the kernel's 16-row tile."""
+    H, KVH, hd, S_max, lengths = SLOT[case]
+    gen = torch.Generator().manual_seed(11)
+    B = len(lengths)
+    q = _rand(gen, (B, H, hd), dtype, dev)
+    kc = _rand(gen, (B, S_max, KVH, hd), dtype, dev)
+    vc = _rand(gen, (B, S_max, KVH, hd), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = paged_attention.paged_decode_attention(q, kc, vc, lens)
+    want = ref.paged_decode_attention_ref(q, kc, vc, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.int8], ids=str)
+@pytest.mark.parametrize("row", [(4, 128), (3, 5)], ids=["vec16", "bytes"])
+def test_kv_cache_write_matches_plain_bit_for_bit(dev, dtype, row):
+    """Positions 0, S-1, S (dropped) and -1 (dropped); 16-byte rows and
+    rows of an odd byte count."""
+    gen = torch.Generator().manual_seed(12)
+    B, S = 4, 37
+    cache = torch.randint(-100, 100, (B, S, *row), generator=gen).to(dtype) \
+        .to(dev)
+    new = torch.randint(-100, 100, (B, *row), generator=gen).to(dtype).to(dev)
+    pos = torch.tensor([0, S - 1, S, -1], dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    got = kv_write.kv_cache_write(cache.clone(), new, pos)
+    assert ops.launch_counts()["kv_cache_write"] == 1
+    want = ref.kv_cache_write_ref(cache.clone(), new, pos)
+    assert torch.equal(got, want)
+    assert torch.equal(got[2], cache[2]) and torch.equal(got[3], cache[3])
+    assert torch.equal(got[0, 0], new[0]) and torch.equal(got[1, S - 1],
+                                                          new[1])
+
+
+def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.randn(1, 8, 4, 48, device=dev)                 # hd 48
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(1, 8, 4, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q.bfloat16(), q)
+    cache = torch.zeros(2, 8, 4, 64, device=dev)
+    with pytest.raises(TypeError):
+        kv_write.kv_cache_write(cache, torch.zeros(2, 4, 64, device=dev,
+                                                   dtype=torch.bfloat16),
+                                torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        paged_attention.paged_decode_attention(
+            q[:, 0].contiguous(), cache, cache,
+            torch.ones(2, dtype=torch.int64, device=dev))

@@ -18,7 +18,9 @@ from repro_torch.core.elastic_engine import ElasticServer
 from repro_torch.core.hmm import HMM
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.device import exact_matmuls
-from repro_torch.kernels import moe_gmm, ops, paged_attention
+from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
+                                 paged_attention)
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.models import model as M
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,7 +83,8 @@ def test_source_imports_no_jax_or_reference(path):
 
 ENTRY_POINTS = {
     "ElasticServer": lambda **kw: ElasticServer(MCFG, **SERVER_KW, **kw),
-    "HMM": lambda **kw: HMM(MCFG, 1, batch_per_replica=2, max_len=64, **kw),
+    "HMM": lambda **kw: HMM(MCFG, 1, batch_per_replica=2, max_len=64,
+                            kv_mode="paged", expert_mode="pooled", **kw),
     "init_params": lambda **kw: M.init_params(MCFG, 0, **kw),
     "init_paged_cache": lambda **kw: M.init_paged_cache(MCFG, 4, 16, **kw),
 }
@@ -101,7 +104,8 @@ def test_entry_points_default_to_the_card(name):
 
 
 def test_hmm_boot_on_cpu_fills_the_pooled_store():
-    hmm = HMM(MCFG, 1, batch_per_replica=2, max_len=64, device="cpu")
+    hmm = HMM(MCFG, 1, batch_per_replica=2, max_len=64, kv_mode="paged",
+              expert_mode="pooled", device="cpu")
     hmm.boot(ElasticConfig(1, 1, (0,)))
     pool = hmm.params["moe_pool"]
     L, E = MCFG.num_layers, MCFG.num_experts
@@ -216,6 +220,37 @@ def test_quant_kernel_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
+def _small_dense_inputs():
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 8, 4, 16, generator=g)
+    k = torch.randn(2, 8, 2, 16, generator=g)
+    v = torch.randn(2, 8, 2, 16, generator=g)
+    lens = torch.tensor([3, 8], dtype=torch.int32)
+    new = torch.randn(2, 2, 16, generator=g)
+    pos = torch.tensor([1, 8], dtype=torch.int32)
+    return q, k, v, lens, new, pos
+
+
+def test_dense_cpu_tensors_run_plain_versions_and_count_no_launch():
+    q, k, v, lens, new, pos = _small_dense_inputs()
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v)
+    ops.paged_decode_attention(q[:, 0], k, v, lens)
+    ops.kv_cache_write(k, new, pos)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_dense_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v, lens, new, pos = _small_dense_inputs()
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        flash_attention.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        paged_attention.paged_decode_attention(q[:, 0], k, v, lens)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kv_write.kv_cache_write(k, new, pos)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
 def test_use_reference_is_scoped():
     assert not ops._REFERENCE.get()
     with ops.use_reference():
@@ -224,7 +259,9 @@ def test_use_reference_is_scoped():
 
 
 NOT_PORTED = {
-    "kv_mode": "dense", "expert_mode": "dense", "prefill_chunk": 0,
+    # dense KV with SERVER_KW's chunked prefill (the reference's
+    # chunk_prefill_step) is outside the ported slices
+    "kv_mode": "dense", "scaledown": "drain", "expert_host_pages": 4,
     "staging": "overlap", "rebalance": object(), "routing_sample_every": 4,
     "imm_cache": object(),
 }
@@ -243,6 +280,35 @@ def test_storage_dtypes_other_than_int8_raise(knob):
     dtypes."""
     with pytest.raises(ValueError, match=knob):
         ElasticServer(MCFG, **{**SERVER_KW, knob: "fp8"}, device="cpu")
+
+
+@pytest.mark.parametrize("knobs", [
+    {"kv_dtype": "int8", "kv_mode": "dense"},
+    {"expert_dtype": "int8", "expert_mode": "dense"},
+], ids=["kv", "expert"])
+def test_int8_stores_need_the_paged_layouts(knobs):
+    """As the reference asserts: int8 KV needs the block pool (its scales
+    are per block row), int8 experts the pooled store (scales per page)."""
+    kw = {**SERVER_KW, "prefill_chunk": 0, "kv_mode": "paged",
+          "expert_mode": "pooled", **knobs}
+    with pytest.raises(ValueError, match=next(iter(knobs))):
+        ElasticServer(MCFG, **kw, device="cpu")
+    with pytest.raises(ValueError, match=next(iter(knobs))):
+        HMM(MCFG, 1, batch_per_replica=2, max_len=64, device="cpu",
+            **{k: v for k, v in kw.items() if k in (
+                "kv_mode", "expert_mode", "kv_dtype", "expert_dtype")})
+
+
+@pytest.mark.parametrize("entry", ["ElasticServer", "HMM", "InferenceEngine"])
+def test_defaults_are_the_references(entry):
+    """The reference's defaults: slot-contiguous KV, dense expert banks,
+    monolithic prefill."""
+    fn = {"ElasticServer": ElasticServer.__init__, "HMM": HMM.__init__,
+          "InferenceEngine": InferenceEngine.__init__}[entry]
+    params = inspect.signature(fn).parameters
+    want = {"kv_mode": "dense", "expert_mode": "dense", "prefill_chunk": 0}
+    got = {name: params[name].default for name in want if name in params}
+    assert got == {name: want[name] for name in got} and got
 
 
 def test_int8_cache_of_other_dtype_raises():

@@ -502,8 +502,8 @@ def test_expert_page_nbytes_matches_reference():
                       expert_mode="pooled", kv_mode="paged",
                       **kw).expert_page_nbytes()
         got = HMM(ModelConfig(**dataclasses.asdict(jcfg)), 1,
-                  batch_per_replica=2, max_len=64, device="cpu",
-                  **kw).expert_page_nbytes()
+                  batch_per_replica=2, max_len=64, expert_mode="pooled",
+                  kv_mode="paged", device="cpu", **kw).expert_page_nbytes()
         assert got == want
 
 
