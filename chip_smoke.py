@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with a CUDA card::
 
-    python3 chip_smoke.py                 # every phase, full depth (48 layers)
-    python3 chip_smoke.py --layers 8      # cut the served models' depth
+    python3 chip_smoke.py                 # every phase, full depth
+    python3 chip_smoke.py --layers 8      # cap every served model's depth
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each of which raises on failure (no phase's failure is caught):
@@ -19,7 +19,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
    same inputs: bf16 atol = rtol = 2e-2 on f32-cast outputs (both round
    once, from f32 sums taken in different orders); f32 atol = rtol = 1e-4;
    ``kv_cache_write`` bit for bit.  ``flash_attention`` runs at the
-   buckets S = 1024 (the main case), 192 (a ragged tile) and 64.
+   buckets S = 1024 (the main case), 192 (a ragged tile) and 64, and at
+   MLA's q/k width 192 and v width 128 (S = 1024 and 192);
+   ``mla_decode_attention`` at deepseek-v2-lite's decode shape (B = 8,
+   H = 16, r = 512, dr = 64, S_max = 2048) and at lengths all 1, all
+   S_max, and an S_max of 1000 with a length of 0, with queries drawn so
+   that the scores spread over several units (a peaked softmax, as in
+   decode); ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
+   ``paged_gmm`` at deepseek-v2-lite's D = 2048, F = 1408, E = 64 too, at
+   C = 1 (decode) and C = 120 (a 1,024-token prefill's 6,144 routed rows
+   over 64 experts at capacity factor 1.25).
    Times the kernel, the plain version and one PyTorch library call for
    the same function (a yardstick only, never called by the port; for the
    int8 kernels it reads K/V or pages dequantized to q's dtype beforehand)
@@ -56,9 +65,22 @@ Phases, each of which raises on failure (no phase's failure is caught):
    prefill at admission) and ``prefill_buckets`` every 64 tokens up to
    1024; ``flash_attention``, ``paged_decode_attention`` and
    ``kv_cache_write`` must each have launched.
+7. ``e2e_mla``: a 2-layer deepseek-v2-lite-16b at full width (the dense
+   layer and one MoE layer) with dense expert banks and with pooled
+   pages: a monolithic prefill of a 200-token prompt into one slot, then
+   three decode steps of 8 slots (one full: its writes drop), through the
+   kernels and through ``ops.use_reference()``, held to the e2e rules
+   above; layer 0's latent rows must be equal on both paths.
+8. ``serve_mla`` and ``serve_mla_pooled``: the same requests on
+   deepseek-v2-lite-16b at full depth (27 layers) with the reference's
+   default knobs, and with ``expert_mode="pooled"``; each decode step
+   must launch ``mla_decode_attention`` once and ``kv_cache_write`` twice
+   per layer, each prefill ``flash_attention`` once per layer, and the
+   pooled store ``paged_gmm`` three times per MoE layer per step.
 
 The line before the last is ``{"kernels": [...]}`` (launches from the
-serve phase of each kernel's path, ``PATH_KERNELS``); the last line is
+first serve phase of each kernel's path, ``PATH_KERNELS``); the last line
+is
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 measurement (per-case kernel times, the build log, the decode-tick
 profile) to PATH.  Imports nothing of JAX or ``repro``.
@@ -94,6 +116,11 @@ E2E_BF16_REL = 0.25
 H, KVH, HD, BS = 32, 4, 128, 16
 MAX_LEN, BATCH, CHUNK = 2048, 8, 128
 D_MODEL, MOE_FF, N_EXP = 2048, 768, 128
+# deepseek-v2-lite-16b's (MLA): heads, latent rank, rope dim, nope dim,
+# v dim; experts and their width
+MLA_H, MLA_R, MLA_DR, MLA_DN, MLA_DV = 16, 512, 64, 128, 128
+MLA_FF, MLA_EXP = 1408, 64
+MLA_PREFILL_C = 120            # rows an expert in a 1,024-token prefill
 
 REPLACES = {
     "block_paged_decode_attention": "src/repro/kernels/paged_attention.py:123",
@@ -107,6 +134,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:75",
     "kv_cache_write": "src/repro/kernels/kv_write.py:37",
+    "mla_decode_attention": "src/repro/kernels/mla_decode.py:73",
 }
 _ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
 _GMM_CU = "src/repro_torch/csrc/moe_gmm.cu"
@@ -120,8 +148,10 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "paged_decode_attention": _ATTN_CU,
     "kv_cache_write": "src/repro_torch/csrc/kv_write.cu",
+    "mla_decode_attention": "src/repro_torch/csrc/mla_decode.cu",
 }
-# the kernels each serve phase's path runs
+# the kernels each serve phase's path runs (the kernels line takes each
+# kernel's launches from the first phase listing it)
 PATH_KERNELS = {
     "serve": ("block_paged_decode_attention", "mixed_block_paged_attention",
               "paged_gmm"),
@@ -129,6 +159,10 @@ PATH_KERNELS = {
                    "quant_mixed_block_paged_attention", "quant_paged_gmm"),
     "serve_dense": ("flash_attention", "paged_decode_attention",
                     "kv_cache_write"),
+    "serve_mla": ("mla_decode_attention", "flash_attention",
+                  "kv_cache_write"),
+    "serve_mla_pooled": ("mla_decode_attention", "flash_attention",
+                         "kv_cache_write", "paged_gmm"),
 }
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 
@@ -322,16 +356,20 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     return rec, (q, pools, bt) if kind == "decode" else None
 
 
-def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False):
+def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
+              shape=(N_EXP, D_MODEL, MOE_FF)):
+    """One bank's paged GMM over ``shape`` = (experts, d_model, moe_d_ff):
+    qwen3-30b-a3b's by default, deepseek-v2-lite's (64, 2048, 1408) too."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.quant import dequantize_rows
-    P = 2 * N_EXP
-    Din, Fout = (D_MODEL, MOE_FF) if bank in ("wi", "wg") else \
-        (MOE_FF, D_MODEL)
+    n_exp, d_model, moe_ff = shape
+    P = 2 * n_exp
+    Din, Fout = (d_model, moe_ff) if bank in ("wi", "wg") else \
+        (moe_ff, d_model)
     perm = torch.randperm(P, generator=gen).to(torch.int32)
-    table = (perm[torch.arange(N_EXP) % (N_EXP // 2)] if aliased
-             else perm[:N_EXP]).cuda()
-    x = torch.randn(N_EXP, C, Din, generator=gen).to(dtype).cuda()
+    table = (perm[torch.arange(n_exp) % (n_exp // 2)] if aliased
+             else perm[:n_exp]).cuda()
+    x = torch.randn(n_exp, C, Din, generator=gen).to(dtype).cuda()
     if quant:
         # page maxima in [0.3, 3] / sqrt(Din): weights of a normal layer
         pool = torch.randint(-127, 128, (P, Din, Fout), generator=gen,
@@ -361,9 +399,9 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False):
     pages = int(torch.unique(table).numel())
     nb = pages * Din * Fout * pool.element_size() + extra \
         + nbytes(x, got, table)
-    ops_n = 2 * N_EXP * C * Din * Fout
+    ops_n = 2 * n_exp * C * Din * Fout
     b_ms, b_by = bound_ms(nb, ops_n, dtype)
-    rec = {"case": f"{bank} E={N_EXP} C={C} [{Din}x{Fout}] pages={pages}"
+    rec = {"case": f"{bank} E={n_exp} C={C} [{Din}x{Fout}] pages={pages}"
                    + (" aliased" if aliased else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "ops": ops_n}
@@ -373,18 +411,23 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False):
     return rec
 
 
-def _flash_case(S, dtype, gen, timer, do_time):
+def _flash_case(S, dtype, gen, timer, do_time, mla=False):
     """Causal prefill attention of one prompt of S tokens (a serving
-    bucket) against its plain version and causal SDPA."""
+    bucket) against its plain version and causal SDPA: qwen3-30b-a3b's
+    heads (32 query, 4 kv, width 128), or with ``mla`` deepseek-v2-lite's
+    (16 and 16, q/k width 192, v width 128, the model's scale)."""
     from repro_torch.kernels import ops, ref
-    q = torch.randn(1, S, H, HD, generator=gen).to(dtype).cuda()
-    k = torch.randn(1, S, KVH, HD, generator=gen).to(dtype).cuda()
-    v = torch.randn(1, S, KVH, HD, generator=gen).to(dtype).cuda()
-    kern = lambda: ops.flash_attention(q, k, v)
-    plain = lambda: ref.flash_attention_ref(q, k, v)
+    nh, nkv, hd, hdv = ((MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV) if mla
+                        else (H, KVH, HD, HD))
+    scale = hd ** -0.5
+    q = torch.randn(1, S, nh, hd, generator=gen).to(dtype).cuda()
+    k = torch.randn(1, S, nkv, hd, generator=gen).to(dtype).cuda()
+    v = torch.randn(1, S, nkv, hdv, generator=gen).to(dtype).cuda()
+    kern = lambda: ops.flash_attention(q, k, v, True, scale)
+    plain = lambda: ref.flash_attention_ref(q, k, v, True, scale)
     ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True, enable_gqa=True)
+        ql, kl, vl, is_causal=True, enable_gqa=True, scale=scale)
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -392,10 +435,11 @@ def _flash_case(S, dtype, gen, timer, do_time):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lib().transpose(1, 2).float(), want.float(),
                                **TOL[dtype])
-    ops_n = 4 * HD * H * S * (S + 1) // 2       # attended (q, k, head)
+    # 2 (hd + hdv) per attended (q, k, head)
+    ops_n = 2 * (hd + hdv) * nh * S * (S + 1) // 2
     io = nbytes(q, k, v, got)
     b_ms, b_by = bound_ms(io, ops_n, dtype)
-    rec = {"case": f"B=1 S={S} H={H} KVH={KVH} hd={HD} causal",
+    rec = {"case": f"B=1 S={S} H={nh} KVH={nkv} hd={hd} hdv={hdv} causal",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
     if do_time:
@@ -442,16 +486,17 @@ def _slot_decode_case(dtype, gen, timer, do_time):
     return rec
 
 
-def _kv_write_case(dtype, gen, timer, do_time):
-    """One decode step's k rows into a layer's slot cache [B, 2048, KVH,
-    hd]; slot 0 writes at position 0, slot 1 at 2048 (dropped).  Must
-    equal its plain version bit for bit.  The library yardstick is
-    ``cache[rows, pos] = new`` over the rows that write (picked before
-    timing; an index of 2048 would fault there)."""
+def _kv_write_case(dtype, gen, timer, do_time, row=(KVH, HD)):
+    """One decode step's rows into a layer's slot cache [B, 2048, *row]
+    (k rows of qwen3-30b-a3b by default; MLA's latent rows (512,) and
+    rope-key rows (64,) too); slot 0 writes at position 0, slot 1 at 2048
+    (dropped).  Must equal its plain version bit for bit.  The library
+    yardstick is ``cache[rows, pos] = new`` over the rows that write
+    (picked before timing; an index of 2048 would fault there)."""
     from repro_torch.kernels import ops, ref
-    cache = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype) \
+    cache = torch.randn(BATCH, MAX_LEN, *row, generator=gen).to(dtype) \
         .cuda()
-    new = torch.randn(BATCH, KVH, HD, generator=gen).to(dtype).cuda()
+    new = torch.randn(BATCH, *row, generator=gen).to(dtype).cuda()
     pos_l = [0, MAX_LEN] + torch.randint(1, MAX_LEN, (BATCH - 2,),
                                          generator=gen).tolist()
     pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
@@ -473,7 +518,7 @@ def _kv_write_case(dtype, gen, timer, do_time):
     lib()
     require(torch.equal(lib_cache, want))
     err = (got.float() - want.float()).abs().max().item()
-    row = KVH * HD * new.element_size()
+    row = new[0].numel() * new.element_size()
     io = 2 * len(kept) * row + nbytes(pos)
     b_ms, b_by = bound_ms(io, 0, dtype)
     rec = {"case": f"B={BATCH} S={MAX_LEN} rows of {row} B, pos={pos_l}",
@@ -485,6 +530,63 @@ def _kv_write_case(dtype, gen, timer, do_time):
                    plain_ms=timer(lambda: ref.kv_cache_write_ref(kc, new,
                                                                  pos),
                                   iters=10),
+                   library_ms=timer(lib))
+    return rec
+
+
+def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
+    """Absorbed MLA decode over deepseek-v2-lite's latent cache [B, S_max,
+    512] + [B, S_max, 64] at the model's scale, against its plain version
+    and one SDPA call over the cache laid out as one kv head: q =
+    [q_eff | q_rope], k = [c | kr], v = c, a length mask (a row of length
+    0 has no SDPA counterpart: SDPA is held only where every length is
+    above 0).  Each of the score's two products has a standard deviation
+    of 3 after the scale (sum about 4.2), so the softmax is peaked as in
+    decode: a few rows carry most of the weight, and a wrong score moves
+    the output by the size of a row, not of the mean of the rows."""
+    from repro_torch.kernels import ops, ref
+    B = len(lengths)
+    scale = (MLA_DN + MLA_DR) ** -0.5
+    spread = 3 / scale
+    qe = (torch.randn(B, MLA_H, MLA_R, generator=gen)
+          * spread * MLA_R ** -0.5).to(dtype).cuda()
+    qr = (torch.randn(B, MLA_H, MLA_DR, generator=gen)
+          * spread * MLA_DR ** -0.5).to(dtype).cuda()
+    c = torch.randn(B, S_max, MLA_R, generator=gen).to(dtype).cuda()
+    kr = torch.randn(B, S_max, MLA_DR, generator=gen).to(dtype).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kern = lambda: ops.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    plain = lambda: ref.mla_decode_attention_ref(qe, qr, c, kr, lens, scale)
+    ql = torch.cat([qe, qr], -1)[:, :, None]               # [B,H,1,576]
+    kl = torch.cat([c, kr], -1)[:, None]                   # [B,1,S,576]
+    vl = c[:, None]
+    mask = (torch.arange(S_max, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask, enable_gqa=True, scale=scale)
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    for b, n in enumerate(lengths):
+        if n == 0:
+            require(not got[b].any(), "a length of 0 did not give zeros")
+    if min(lengths) > 0:
+        torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
+                                   **TOL[dtype])
+    # the latent rows up to each length read once, q read, out written
+    ctx_tok = sum(min(n, S_max) for n in lengths)
+    io = ctx_tok * (MLA_R + MLA_DR) * c.element_size() + nbytes(qe, qr, got,
+                                                               lens)
+    ops_n = 2 * MLA_H * (2 * MLA_R + MLA_DR) * ctx_tok
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B={B} H={MLA_H} r={MLA_R} dr={MLA_DR} S_max={S_max} "
+                   f"lengths={lengths}",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if do_time:
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
     return rec
 
@@ -504,6 +606,24 @@ def phase_kernels():
             _slot_decode_case(dtype, gen, timer, timed))
         out["kv_cache_write"].append(_kv_write_case(dtype, gen, timer,
                                                     timed))
+        torch.cuda.empty_cache()
+    # MLA (deepseek-v2-lite): the decode kernel, the prefill instance at
+    # q/k 192 and v 128, latent-row writes, the expert GMM's widths
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        mla = out["mla_decode_attention"]
+        mla.append(_mla_case(DECODE_LENGTHS, MAX_LEN, dtype, gen, timer,
+                             timed))                     # the main case
+        for lengths, S_max in (([1] * BATCH, MAX_LEN),
+                               ([MAX_LEN] * BATCH, MAX_LEN),
+                               ([1000, 999, 0, 1, 500, 64, 65, 1000], 1000)):
+            mla.append(_mla_case(lengths, S_max, dtype, gen, timer, False))
+        for S in (1024, 192):
+            out["flash_attention"].append(_flash_case(S, dtype, gen, timer,
+                                                      timed, mla=True))
+        for row in ((MLA_R,), (MLA_DR,)):
+            out["kv_cache_write"].append(_kv_write_case(dtype, gen, timer,
+                                                        timed, row))
         torch.cuda.empty_cache()
     for phase in ("serve", "serve_int8"):
         quant = phase == "serve_int8"
@@ -535,6 +655,16 @@ def phase_kernels():
             out[gmm_name].append(
                 _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
             torch.cuda.empty_cache()
+    # deepseek-v2-lite's: decode (C = 1) and a 1,024-token prefill (C =
+    # 1024 * 6 / 64 * 1.25 = 120 rows an expert)
+    for dtype in (torch.bfloat16, torch.float32):
+        for C in (1, MLA_PREFILL_C):
+            for bank in ("wi", "wg", "wo"):
+                out["paged_gmm"].append(_gmm_case(
+                    bank, C, dtype, False, gen, timer,
+                    dtype == torch.bfloat16, shape=(MLA_EXP, D_MODEL,
+                                                    MLA_FF)))
+        torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
             t = (f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -716,6 +846,91 @@ def phase_e2e():
     return out
 
 
+def _e2e_mla(dtype_name, expert_mode):
+    """deepseek-v2-lite at full width, 2 layers (the dense layer, one MoE
+    layer), dense KV with ``expert_mode``'s store: a monolithic prefill of
+    a 200-token prompt padded to its 256 bucket into slot 2 (the engine's
+    own prefill step), then three decode steps of the 8 slots at ragged
+    lengths, the last one full (its writes drop)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _prefill_fn
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=2, dtype=dtype_name)
+    hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN, seed=1,
+              expert_mode=expert_mode, device="cuda")
+    hmm.boot(ElasticConfig(1, 1, (0,)))
+    params, cache = hmm.params, hmm.cache
+    require(set(cache) == {"c", "kr"} and len(params["dense_prefix"]) == 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for leaf in cache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    cg = torch.Generator().manual_seed(3)
+    S, S_pad, slot, steps = 200, 256, 2, 3
+    tokens = torch.zeros(1, S_pad, dtype=torch.int32)
+    tokens[0, :S] = torch.randint(0, cfg.vocab_size, (S,), generator=cg)
+    lengths = [1900, 5, S, 1024, 77, 300, 1500, MAX_LEN]
+    dec_tokens = torch.randint(0, cfg.vocab_size, (steps, BATCH, 1),
+                               generator=cg)
+    args = [t.cuda() for t in (tokens, torch.tensor(S, dtype=torch.int32),
+                               dec_tokens,
+                               torch.tensor(lengths, dtype=torch.int32))]
+
+    def run():
+        c = {k: v.clone() for k, v in cache.items()}
+        _, c = _prefill_fn(cfg, MAX_LEN, params, c, args[0], args[1], slot)
+        out = [M.prefill(cfg, params, {"tokens": args[0],
+                                       "lengths": args[1][None]},
+                         max_len=S_pad)[0]]
+        for i in range(steps):
+            ld, c = M.decode_step(cfg, params, args[2][i], c, args[3] + i)
+            out.append(ld)
+        return torch.cat(out).float(), c
+
+    got, c_got = run()
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    require(got.shape == (1 + steps * BATCH, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    for k in c_got:
+        # layer 0's latent rows (prefill and decode) come before any
+        # kernel; layer 1's went through layer 0's attention kernels
+        require(torch.equal(c_got[k][0], c_want[k][0]), f"cache {k} differs")
+        require(not c_got[k][:, slot, S_pad:].any(),
+                "the prefilled row is not zero past its bucket")
+        require(torch.equal(c_got[k][:, BATCH - 1], cache[k][:, BATCH - 1]),
+                "the writes of the full slot were not dropped")
+    layer1 = max((c_got[k][1].float() - c_want[k][1].float()).abs().max()
+                 .item() for k in c_got)
+    if dtype_name == "float32":
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
+    log(f"[e2e_mla] 2-layer deepseek-v2-lite-16b {dtype_name}, dense latent "
+        f"KV, {expert_mode} experts: prefill (S={S}, bucket {S_pad}) + "
+        f"{steps} decode steps, logits {tuple(got.shape)}, max_abs_err "
+        f"{err:.3e}, rel {rel:.3e}; layer 1 latent rows max_abs_err "
+        f"{layer1:.3e}")
+    return {"dtype": dtype_name, "expert_mode": expert_mode,
+            "max_abs_err": err, "rel_err": rel, "layer1_cache_err": layer1}
+
+
+def phase_e2e_mla():
+    out = []
+    for expert_mode in ("dense", "pooled"):
+        for dtype_name in ("float32", "bfloat16"):
+            out.append(_e2e_mla(dtype_name, expert_mode))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def _prompts(rng, vocab):
     """8 prompts of 200-1000 tokens; the last is the seventh one's first 264
     tokens: 16 full shared blocks plus a shared partial 17th, so it skips
@@ -727,15 +942,25 @@ def _prompts(rng, vocab):
     return prompts
 
 
+DENSE_BUCKETS = tuple(range(64, 1025, 64))   # every prompt's bucket
 SERVE_STORES = {
-    # phase: (server knobs, KV/expert store)
-    "serve": (dict(kv_mode="paged", kv_block_size=BS, expert_mode="pooled",
+    # phase: (model, server knobs, KV/expert store)
+    "serve": ("qwen3-30b-a3b",
+              dict(kv_mode="paged", kv_block_size=BS, expert_mode="pooled",
                    prefill_chunk=CHUNK), None),
-    "serve_int8": (dict(kv_mode="paged", kv_block_size=BS,
+    "serve_int8": ("qwen3-30b-a3b",
+                   dict(kv_mode="paged", kv_block_size=BS,
                         expert_mode="pooled", prefill_chunk=CHUNK,
                         kv_dtype="int8", expert_dtype="int8"), "int8"),
-    # the reference's default knobs; every prompt's 64-token bucket given
-    "serve_dense": (dict(prefill_buckets=tuple(range(64, 1025, 64))), None),
+    # the reference's default knobs
+    "serve_dense": ("qwen3-30b-a3b", dict(prefill_buckets=DENSE_BUCKETS),
+                    None),
+    # MLA: dense latent KV and monolithic prefill, either expert store
+    "serve_mla": ("deepseek-v2-lite-16b",
+                  dict(prefill_buckets=DENSE_BUCKETS), None),
+    "serve_mla_pooled": ("deepseek-v2-lite-16b",
+                         dict(prefill_buckets=DENSE_BUCKETS,
+                              expert_mode="pooled"), None),
 }
 
 
@@ -747,19 +972,23 @@ def phase_serve(layers, phase="serve", profile=True):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.serving.workload import Request
-    cfg = get_config("qwen3-30b-a3b")
-    if layers != cfg.num_layers:
+    model, knobs, store = SERVE_STORES[phase]
+    cfg = get_config(model)
+    if layers < cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     tag = f"[{phase}]"
-    knobs, store = SERVE_STORES[phase]
     paged = knobs.get("kv_mode") == "paged"
-    log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, "
-        f"moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-        f"{cfg.param_count():,} parameters; KV and expert store: "
-        f"{store or cfg.dtype}, "
-        + ("paged KV, pooled experts, chunked prefill" if paged else
-           "dense KV, dense expert banks, monolithic prefill"))
+    pooled = knobs.get("expert_mode") == "pooled"
+    log(f"{tag} {model}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k} "
+        f"(+{cfg.num_shared_experts} shared, {cfg.first_k_dense} dense "
+        f"layers first), moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}; KV and expert store: {store or cfg.dtype}, "
+        + ("paged KV" if paged else "dense latent KV" if cfg.use_mla
+           else "dense KV")
+        + (", pooled experts" if pooled else ", dense expert banks")
+        + (", chunked prefill" if knobs.get("prefill_chunk") else
+           ", monolithic prefill"))
     gc.collect()                  # an earlier server's pools are freed
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -770,7 +999,18 @@ def phase_serve(layers, phase="serve", profile=True):
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     mem_boot = torch.cuda.memory_allocated()
-    log(f"{tag} boot {boot_s:.2f} s, {mem_boot / 2**30:.2f} GiB allocated")
+    held = 0
+    stack = [srv.engine.params]
+    while stack:                       # parameters held (index arrays out)
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack += t.values()
+        elif isinstance(t, list):
+            stack += t
+        elif t.is_floating_point() or t.dtype == torch.int8:
+            held += t.numel()
+    log(f"{tag} boot {boot_s:.2f} s, {mem_boot / 2**30:.2f} GiB allocated, "
+        f"{held:,} parameters held")
 
     prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
     out_len = 32
@@ -838,7 +1078,25 @@ def phase_serve(layers, phase="serve", profile=True):
     obs.install(None)
     counts = ops.launch_counts()
     eng = srv.engine
-
+    if cfg.use_mla:
+        # each decode step: one MLA decode and two latent-row writes per
+        # layer; each prefill: one flash attention per layer; pooled: three
+        # expert GMMs per MoE layer per step and prefill
+        L, steps = cfg.num_layers, eng._step_count
+        want = {"mla_decode_attention": L * steps,
+                "kv_cache_write": 2 * L * steps,
+                "flash_attention": L * len(prefills)}
+        if pooled:
+            want["paged_gmm"] = (3 * (L - cfg.first_k_dense)
+                                 * (steps + len(prefills)))
+        for name, n in want.items():
+            require(counts[name] == n, f"{name}: {counts[name]} launches, "
+                    f"{n} expected")
+        log(f"{tag} {steps} decode steps, {len(prefills)} prefills: "
+            f"launches per decode step "
+            f"{counts['mla_decode_attention'] / steps:g} "
+            f"mla_decode_attention, {counts['kv_cache_write'] / steps:g} "
+            f"kv_cache_write")
     for r in reqs:
         toks = eng.generated[r.rid]
         require(len(toks) == out_len, (r.rid, len(toks)))
@@ -867,6 +1125,7 @@ def phase_serve(layers, phase="serve", profile=True):
     dec = [t["ms"] for t in ticks if not t["chunks"]]
     gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
     res = {
+        "model": model, "params_held": held,
         "layers": cfg.num_layers, "store": store or cfg.dtype,
         "knobs": {k: v for k, v in knobs.items() if k != "prefill_buckets"},
         "boot_s": boot_s, "boot_allocated_gib": mem_boot / 2**30,
@@ -953,9 +1212,11 @@ def _profile(label, fn, n):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
-                    help="depth of the served models (full: 48)")
+                    help="cap on every served model's depth (full: 48 for "
+                         "qwen3-30b-a3b, 27 for deepseek-v2-lite-16b)")
     ap.add_argument("--phases",
-                    default="build,kernels,e2e,serve,serve_int8,serve_dense")
+                    default="build,kernels,e2e,e2e_mla,serve,serve_int8,"
+                            "serve_dense,serve_mla,serve_mla_pooled")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -982,6 +1243,8 @@ def main():
         res["kernels"] = phase_kernels()
     if "e2e" in phases:
         res["e2e"] = phase_e2e()
+    if "e2e_mla" in phases:
+        res["e2e_mla"] = phase_e2e_mla()
     for phase in SERVE_STORES:
         if phase in phases:
             res[phase] = phase_serve(args.layers, phase)
@@ -993,11 +1256,13 @@ def main():
             json.dump(res, f, indent=1, default=str)
 
     if "kernels" in res:
-        # each kernel's launches come from the serve phase of its path
+        # each kernel's launches come from the first serve phase of its
+        # path
         launches = {}
         for phase, names in PATH_KERNELS.items():
-            got = res.get(phase, {}).get("launches", {})
-            launches.update({n: got.get(n, 0) for n in names})
+            if phase in res:
+                for n in names:
+                    launches.setdefault(n, res[phase]["launches"][n])
         line = []
         for name, recs in res["kernels"].items():
             r = recs[0]                       # the main case, bf16, timed

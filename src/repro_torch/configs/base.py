@@ -3,7 +3,8 @@
 Pure data.  The field set is the reference's, field for field, so a
 reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``;
 the port itself serves the standard-attention MoE decoders
-(``models/model.py:paged_cache_supported``).
+(``models/model.py:paged_cache_supported``) and the MLA decoders
+(``models/mla.py``).
 """
 from __future__ import annotations
 
@@ -94,13 +95,24 @@ class ModelConfig:
         return self.arch_type != "encoder"
 
     def param_count(self) -> int:
-        """Parameters of a standard-attention decoder (embedding, LM head,
-        attention, dense MLP or routed experts plus router) — the subset of
-        the reference's ``param_count`` that the port's models cover."""
+        """Parameters of a standard-attention or MLA decoder (embedding, LM
+        head, attention, dense MLP or routed and shared experts plus
+        router) — the subset of the reference's ``param_count`` that the
+        port's models cover, term for term (like the reference, it counts
+        every layer as a MoE layer and no norm scales)."""
         D, H = self.d_model, self.num_heads
         hd, kvh = self.resolved_head_dim, self.num_kv_heads
         n = self.vocab_size * D * (1 if self.tie_embeddings else 2)
-        attn = D * H * hd + 2 * D * kvh * hd + H * hd * D
+        if self.use_mla:
+            r, dr, dn = self.kv_lora_rank, self.qk_rope_dim, self.qk_nope_dim
+            qk = dn + dr
+            attn = (D * self.q_lora_rank + self.q_lora_rank * H * qk
+                    if self.q_lora_rank else D * H * qk)
+            attn += D * (r + dr)                       # kv down + k_rope
+            attn += r * H * (dn + self.v_head_dim)     # k_up, v_up
+            attn += H * self.v_head_dim * D            # o proj
+        else:
+            attn = D * H * hd + 2 * D * kvh * hd + H * hd * D
         ff_mult = 3 if self.mlp_gated else 2
         if self.is_moe:
             ffn = (self.num_experts * ff_mult * D * self.moe_d_ff
@@ -115,7 +127,7 @@ class ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """A smoke-test-sized variant of the same architecture family (2
     layers, d_model<=256, <=4 experts, f32) — the reference's ``reduced``
-    for the standard-attention decoders the port covers."""
+    for the standard-attention and MLA decoders the port covers."""
     small: dict = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -136,5 +148,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         small["moe_d_ff"] = min(cfg.moe_d_ff, 256)
         small["num_shared_experts"] = min(cfg.num_shared_experts, 1)
         small["first_k_dense"] = min(cfg.first_k_dense, 1)
+    if cfg.use_mla:
+        small["kv_lora_rank"] = min(cfg.kv_lora_rank, 64)
+        small["q_lora_rank"] = min(cfg.q_lora_rank, 64)
+        small["qk_nope_dim"] = 32
+        small["qk_rope_dim"] = 16
+        small["v_head_dim"] = 32
+        small["head_dim"] = 0
     small["dtype"] = "float32"
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)

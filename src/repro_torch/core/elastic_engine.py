@@ -3,7 +3,9 @@
 ``submit``, ``tick``, ``step``, ``queue_depth`` and ``utilization``.
 
 One ``ElasticConfig(1, 1, (0,))`` instance serves a standard-attention
-decoder.  The defaults are the reference's: the slot-contiguous KV cache
+or an MLA decoder (the latter over its latent cache with dense KV and
+monolithic prefill only, as in the reference).  The defaults are the
+reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
@@ -19,6 +21,7 @@ from typing import Dict, List, Optional
 from repro_torch import obs
 from repro_torch.core.hmm import HMM, not_ported
 from repro_torch.core.topology import ElasticConfig
+from repro_torch.models.model import chunk_prefill_supported
 from repro_torch.serving.engine import InferenceEngine, compile_step_functions
 from repro_torch.serving.workload import Request
 
@@ -48,6 +51,9 @@ class ElasticServer:
         not_ported("rebalance", rebalance, None)
         not_ported("imm_cache", imm_cache, None)
         not_ported("expert_slot_slack", expert_slot_slack or 0, 0)
+        if prefill_chunk and not chunk_prefill_supported(mcfg):
+            raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
+                             f"(as in the reference)")
         if prefill_chunk and kv_mode == "dense":
             raise NotImplementedError(
                 "dense KV with prefill_chunk > 0 is not ported yet")

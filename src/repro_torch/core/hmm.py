@@ -5,10 +5,12 @@ The HMM owns the model weights and the KV cache independently of the
 serving instance.  Two expert stores (``expert_mode``): dense banks
 ``blocks/moe/{wi,wg,wo}`` ``[L, E, D, F|D]`` (the reference's default), or
 a page *pool* per bank (``moe_pool/{wi,wg,wo}`` [pages, D, F|D]) addressed
-through the ``ExpertPageTable``'s index arrays.  Two KV layouts
-(``kv_mode``): the slot-contiguous cache ``[L, B, max_len, KVH, hd]`` (the
-default), or a block pool ``[L, NB, bs, KVH, hd]`` with its host-side
-``KVBlockManager``.
+through the ``ExpertPageTable``'s index arrays; both cover the ``L -
+first_k_dense`` MoE layers.  Two KV layouts (``kv_mode``): the
+slot-contiguous cache ``[L, B, max_len, KVH, hd]`` (the default; an MLA
+model's latent ``{c: [L, B, max_len, r], kr: [L, B, max_len, dr]}``), or
+a block pool ``[L, NB, bs, KVH, hd]`` with its host-side
+``KVBlockManager`` (standard attention only, as the reference asserts).
 
 ``kv_dtype="int8"`` stores the KV pool as int8 entries with per-token f32
 scale pools on the same block axis; ``expert_dtype="int8"`` stores the
@@ -33,9 +35,9 @@ from repro_torch.core.expert_pages import ExpertPageTable, pooled_layout
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels.quant import quantize_rows
-from repro_torch.models.model import (init_cache, init_expert_bank,
-                                      init_paged_cache, init_params,
-                                      paged_cache_supported)
+from repro_torch.models.model import (dense_cache_supported, init_cache,
+                                      init_expert_bank, init_paged_cache,
+                                      init_params, paged_cache_supported)
 from repro_torch.serving.kv_blocks import KVBlockManager
 
 
@@ -72,9 +74,12 @@ class HMM:
         if expert_mode == "pooled" and not mcfg.is_moe:
             raise ValueError(f"{mcfg.name}: expert_mode='pooled' requires a "
                              f"MoE model")
-        if not paged_cache_supported(mcfg):
-            raise ValueError(f"{mcfg.name}: only standard-attention "
-                             f"decoders are ported")
+        if not dense_cache_supported(mcfg):
+            raise ValueError(f"{mcfg.name}: only standard-attention and "
+                             f"MLA decoders are ported")
+        if kv_mode == "paged" and not paged_cache_supported(mcfg):
+            raise ValueError(f"{mcfg.name} does not support the paged KV "
+                             f"layout (MLA caches its latent per slot)")
         if kv_mode == "paged" and max_len % kv_block_size:
             raise ValueError("max_len must be a multiple of kv_block_size")
         if kv_dtype not in (None, "int8"):

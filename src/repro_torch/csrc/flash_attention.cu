@@ -4,12 +4,16 @@
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention.py:72).
 //
-// What it computes.  q [B,S,H,hd]; k/v [B,S,KVH,hd] (GQA: query head h
-// reads kv head h / (H/KVH)); out [B,S,H,hd].  Query row i attends to key
-// rows t <= i (causal) or to every row (not causal).  Online softmax in f32
-// (running max m, sum l, accumulator acc), score = dot(q, k) * 1/sqrt(hd),
-// masked scores -1e30, output acc / max(l, 1e-30) rounded once to q's type
-// -- the Pallas kernel's arithmetic.
+// What it computes.  q/k [B,S,H|KVH,hd]; v [B,S,KVH,hdv] (GQA: query head
+// h reads kv head h / (H/KVH)); out [B,S,H,hdv].  Query row i attends to
+// key rows t <= i (causal) or to every row (not causal).  Online softmax
+// in f32 (running max m, sum l, accumulator acc), score = dot(q, k) *
+// scale (the caller's; 1/sqrt(hd) for a standard head), masked scores
+// -1e30, output acc / max(l, 1e-30) rounded once to q's type -- the Pallas
+// kernel's arithmetic.  Instances (hd, hdv): (64, 64), (128, 128), and
+// (192, 128) for MLA's prefill (q/k carry dn + dr = 192 values, v 128:
+// the reference pads v to 192 and trims the output, this instance reads
+// and writes 128).
 //
 // Bound on an H100.  At the serving path's largest bucket (B=1, S=1024,
 // H=32, KVH=4, hd=128, causal) the work is 4*hd operations per attended
@@ -17,9 +21,15 @@
 // rate; the bytes (q, k, v read once, out written once) are 18.9 MB, 5.6
 // us.  So the kernel is bound by operations, and by the CUDA-core rate
 // (67 TFLOP/s in f32, ~128 us) as long as it does not use tensor cores.
+// At MLA's (192, 128), B=1, S=1024, H=KVH=16: 2 * (192 + 128) operations
+// per attended triple, 5.4 GFLOP (5.4 us); 21.0 MB of q, k, v and out
+// (6.3 us): the bytes bound it there.
 //
 // Design.  One block of 256 threads per (query tile of BQ = 64 rows, head,
-// sequence); heavier (later) causal tiles are scheduled first.  A loop
+// sequence); heavier (later) causal tiles are scheduled first.  Shared
+// memory is 4 * (64 * (hd+1) * 2 + 64 * hdv + 64 * 65) bytes: 148,224 at
+// (192, 128), above the 48 KB default, so the launch raises the block's
+// dynamic shared-memory limit first (227 KB on Hopper).  A loop
 // inside the block over key tiles of BK = 64 rows takes the place of the
 // Pallas grid's sequential kv axis; it ends at the tile's causal limit, so
 // fully masked tiles are never read.  Q, K and V tiles are staged in shared
@@ -81,20 +91,20 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* src,
   }
 }
 
-// grid (query tiles, H, B); dynamic shared memory: smem_bytes<HD>().
-template <typename T, int HD>
+// grid (query tiles, H, B); dynamic shared memory: smem_bytes<HD, HDV>().
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, int S, int H, int KVH,
     int causal, float scale) {
   constexpr int QP = HD + 1;     // padded q / k rows
   constexpr int PP = BK + 1;     // padded probability rows
-  constexpr int NC = HD / 16;    // accumulator columns per thread
+  constexpr int NC = HDV / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;              // [BQ][HD + 1]
   float* k_s = q_s + BQ * QP;     // [BK][HD + 1]
-  float* v_s = k_s + BK * QP;     // [BK][HD]
-  float* p_s = v_s + BK * HD;     // [BQ][BK + 1]
+  float* v_s = k_s + BK * QP;     // [BK][HDV]
+  float* p_s = v_s + BK * HDV;    // [BQ][BK + 1]
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heavy causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -102,9 +112,10 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const int q0 = qt * BQ;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KVH * HD;
+  const size_t v_stride = (size_t)KVH * HDV, o_stride = (size_t)H * HDV;
   const T* q_base = q + ((size_t)b * S + q0) * q_stride + (size_t)h * HD;
   const T* k_base = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const T* v_base = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const T* v_base = v + (size_t)b * S * v_stride + (size_t)kvh * HDV;
 
   stage<T, HD>(q_s, QP, q_base, q_stride, BQ, S - q0);
 
@@ -124,8 +135,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const int k0 = kt * BK;
     stage<T, HD>(k_s, QP, k_base + (size_t)k0 * kv_stride, kv_stride, BK,
                  S - k0);
-    stage<T, HD>(v_s, HD, v_base + (size_t)k0 * kv_stride, kv_stride, BK,
-                 S - k0);
+    stage<T, HDV>(v_s, HDV, v_base + (size_t)k0 * v_stride, v_stride, BK,
+                  S - k0);
     __syncthreads();
 
     // scores of rows ty*4 + i against columns tx + 16*j
@@ -187,7 +198,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * PP + t];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) vv[j] = v_s[t * HD + tx + 16 * j];
+      for (int j = 0; j < NC; ++j) vv[j] = v_s[t * HDV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -201,29 +212,30 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const int r = ty * 4 + i;
     if (q0 + r >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((size_t)b * S + q0 + r) * q_stride + (size_t)h * HD;
+    T* o = out + ((size_t)b * S + q0 + r) * o_stride + (size_t)h * HDV;
 #pragma unroll
     for (int j = 0; j < NC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)BQ * (HD + 1) + (size_t)BK * (HD + 1) +
-                          (size_t)BK * HD + (size_t)BQ * (BK + 1));
+                          (size_t)BK * HDV + (size_t)BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int S, int H, int KVH, int causal, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<HD, HDV>();
+  static_assert(smem <= 232448, "above Hopper's 227 KB per block");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<T, HD, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+  flash_attention_kernel<T, HD, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, KVH, causal,
       scale);
@@ -231,14 +243,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 template <typename T>
-int by_hd(int hd, const void* q, const void* k, const void* v, void* out,
-          int B, int S, int H, int KVH, int causal, float scale,
+int by_hd(int hd, int hdv, const void* q, const void* k, const void* v,
+          void* out, int B, int S, int H, int KVH, int causal, float scale,
           cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, out, B, S, H, KVH, causal, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, S, H, KVH, causal, scale, s);
-  }
+  if (hd == 64 && hdv == 64)
+    return launch<T, 64, 64>(q, k, v, out, B, S, H, KVH, causal, scale, s);
+  if (hd == 128 && hdv == 128)
+    return launch<T, 128, 128>(q, k, v, out, B, S, H, KVH, causal, scale, s);
+  if (hd == 192 && hdv == 128)
+    return launch<T, 192, 128>(q, k, v, out, B, S, H, KVH, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -246,19 +259,20 @@ int by_hd(int hd, const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); hd in {64, 128}.
-// Returns cudaGetLastError() after the launch (0 on success).  Allocates
-// nothing and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); (hd, hdv) in {(64, 64),
+// (128, 128), (192, 128)}.  Returns cudaGetLastError() after the launch (0
+// on success).  Allocates nothing and does not synchronise.
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int B, int S, int H,
-                           int KVH, int hd, int causal, float scale,
+                           int KVH, int hd, int hdv, int causal, float scale,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 0 || B <= 0) return 0;
   if (dtype == 0)
-    return by_hd<float>(hd, q, k, v, out, B, S, H, KVH, causal, scale, s);
+    return by_hd<float>(hd, hdv, q, k, v, out, B, S, H, KVH, causal, scale,
+                        s);
   if (dtype == 1)
-    return by_hd<__nv_bfloat16>(hd, q, k, v, out, B, S, H, KVH, causal,
+    return by_hd<__nv_bfloat16>(hd, hdv, q, k, v, out, B, S, H, KVH, causal,
                                 scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ FMAs on CUDA cores, one block per (64-row query tile, head, sequence)
 with the accumulator in registers and a loop over key tiles that stops at
 the causal limit.  The Pallas kernel needs S divisible by its tiles; this
 one masks a ragged last tile itself, so any S >= 1 works (the serving
-path's 64-token buckets are not all multiples of 128).
+path's 64-token buckets are not all multiples of 128).  Head widths: q/k
+and v of 64 or 128, or q/k 192 with v 128 (MLA's prefill: the reference
+pads v to 192 and trims the output; this instance reads and writes 128);
+the scale is the caller's, ``1/sqrt(hd)`` by default.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and alignment, allocates the output, launches on PyTorch's
@@ -28,16 +31,19 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_launch":
-               [_I] + [_P] * 4 + [_I] * 6 + [_F, _P]}
+               [_I] + [_P] * 4 + [_I] * 7 + [_F, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+#: (q/k head dim, v head dim) instances
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """q [B,S,H,hd]; k/v [B,S,KVH,hd] (query head h reads kv head
-    h // (H/KVH)) -> [B,S,H,hd] in q's dtype; causal: row i attends rows
-    t <= i.  hd in (64, 128)."""
+                    causal: bool = True, scale: float | None = None
+                    ) -> torch.Tensor:
+    """q [B,S,H,hd]; k [B,S,KVH,hd]; v [B,S,KVH,hdv] (query head h reads
+    kv head h // (H/KVH)) -> [B,S,H,hdv] in q's dtype; causal: row i
+    attends rows t <= i; scores scaled by ``scale`` (default
+    ``1/sqrt(hd)``).  (hd, hdv) in ``HEAD_DIMS``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -51,23 +57,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("shapes: q [B,S,H,hd], k/v [B,S,KVH,hd]")
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError("shapes: q [B,S,H,hd], k [B,S,KVH,hd], v "
+                         "[B,S,KVH,hdv]")
     B, S, H, hd = q.shape
-    KVH = k.shape[2]
+    KVH, hdv = k.shape[2], v.shape[3]
     if k.shape[:2] != (B, S) or k.shape[3] != hd or H % KVH:
-        raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
+        raise ValueError(f"q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    out = torch.empty_like(q)
+    if (hd, hdv) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q/k, v) = {(hd, hdv)} not in "
+                         f"{HEAD_DIMS}")
+    scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
+    out = q.new_empty((B, S, H, hdv))
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, KVH, hd, int(causal),
-            1.0 / math.sqrt(hd), stream)
+            out.data_ptr(), B, S, H, KVH, hd, hdv, int(causal), scale,
+            stream)
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
     return out

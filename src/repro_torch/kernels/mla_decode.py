@@ -1,0 +1,123 @@
+"""Absorbed MLA decode attention over the latent cache — CUDA launch
+wrapper.
+
+Port of the Pallas TPU kernel ``mla_decode_attention``
+(``repro/kernels/mla_decode.py:73``); the kernel and its design note are in
+``csrc/mla_decode.cu``.  The bytes bound it (every latent row up to each
+length read once: 6.64 MB for 5,764 context tokens of deepseek-v2-lite in
+bf16, 2 µs); the kernel runs one block of 8 warps per (sequence, 2 heads,
+256 tokens), each warp folding its own rows into an accumulator held in
+registers; the warps, then the blocks of a sequence, are merged in a fixed
+order, in the same launch (the last block of a sequence merges, through a
+workspace the wrapper allocates, and counts on a buffer of counters the
+wrapper keeps per stream, which every launch leaves zero).
+
+Two departures from the Pallas kernel, both kept by the plain version
+``kernels/ref.py``'s ``mla_decode_attention_ref`` too:
+
+* the scale is an argument (the model passes ``1/sqrt(dn+dr)``; the Pallas
+  kernel derives ``1/sqrt(128+dr)`` or ``1/sqrt(r+dr)`` from the shapes,
+  which differs from the model's on the reduced configs);
+* any S works (the Pallas kernel asserts ``S % block_k == 0``): there are
+  no tiles, every warp stops at the sequence's length; a length of 0 gives
+  zeros, as the Pallas kernel gives.
+
+The wrapper takes CUDA tensors only: it checks device, dtype, shape,
+contiguity and alignment, allocates the output, launches on PyTorch's
+current stream and counts the launch.  ``kernels/ops.py`` dispatches CPU
+tensors to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"mla_decode_attention_launch":
+               [_I] + [_P] * 9 + [_I] * 5 + [_F, _P]}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (kv_lora_rank, qk_rope_dim) instances: deepseek-v2/v3 and their reduced
+#: configs
+SHAPES = ((512, 64), (64, 16))
+#: heads per block and tokens per block, as in ``csrc/mla_decode.cu``
+HEADS_PER_BLOCK, TOKENS_PER_BLOCK = 2, 256
+#: (device index, stream) -> the int32 split counters of that stream's
+#: launches, zero between launches
+_DONE: dict = {}
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    done = _DONE.get(key)
+    if done is None or done.numel() < n:
+        done = _DONE[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return done
+
+
+def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
+                         c_cache: torch.Tensor, kr_cache: torch.Tensor,
+                         lengths: torch.Tensor, scale: float
+                         ) -> torch.Tensor:
+    """q_eff [B,H,r] (H even); q_rope [B,H,dr]; c_cache [B,S,r]; kr_cache
+    [B,S,dr]; lengths [B] int32 (clamped to [0, S]) -> latent context
+    [B,H,r] in q_eff's dtype."""
+    dev = q_eff.device
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given a {dev.type} tensor")
+    if q_eff.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {q_eff.dtype} (bfloat16 or "
+                        f"float32)")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    for name, t in (("q_eff", q_eff), ("q_rope", q_rope),
+                    ("c_cache", c_cache), ("kr_cache", kr_cache),
+                    ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q_eff on {dev}")
+        if t is not lengths and t.dtype != q_eff.dtype:
+            raise TypeError(f"{name} dtype {t.dtype}, q_eff {q_eff.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    if q_eff.dim() != 3 or q_rope.dim() != 3 or c_cache.dim() != 3 \
+            or kr_cache.dim() != 3:
+        raise ValueError("shapes: q_eff [B,H,r], q_rope [B,H,dr], c_cache "
+                         "[B,S,r], kr_cache [B,S,dr]")
+    B, H, r = q_eff.shape
+    S, dr = c_cache.shape[1], q_rope.shape[2]
+    if q_rope.shape[:2] != (B, H) or tuple(c_cache.shape) != (B, S, r) \
+            or tuple(kr_cache.shape) != (B, S, dr) \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError(f"q_eff {tuple(q_eff.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, c_cache "
+                         f"{tuple(c_cache.shape)}, kr_cache "
+                         f"{tuple(kr_cache.shape)} and lengths "
+                         f"{tuple(lengths.shape)} do not fit")
+    if (r, dr) not in SHAPES:
+        raise ValueError(f"(kv_lora_rank, qk_rope_dim) = {(r, dr)} not in "
+                         f"{SHAPES}")
+    if H % HEADS_PER_BLOCK:
+        raise ValueError(f"{H} heads: the kernel takes an even count")
+    out = torch.empty_like(q_eff)
+    # the splits of sequences longer than one block
+    splits = max(1, -(-S // TOKENS_PER_BLOCK))
+    ws_acc = torch.empty((B, H, splits, r), dtype=torch.float32, device=dev)
+    ws_ml = torch.empty((B, H, splits, 2), dtype=torch.float32, device=dev)
+    lib = _build.load("mla_decode", _SIGNATURES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        done = _counters(dev, stream, B * H // HEADS_PER_BLOCK)
+        rc = lib.mla_decode_attention_launch(
+            _DTYPES[q_eff.dtype], q_eff.data_ptr(), q_rope.data_ptr(),
+            c_cache.data_ptr(), kr_cache.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(),
+            done.data_ptr(), B, H, S, r, dr, float(scale), stream)
+    _build.check(lib, rc, "mla_decode_attention")
+    mla_decode_attention.launches += 1
+    return out
+
+
+mla_decode_attention.launches = 0

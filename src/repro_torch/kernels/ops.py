@@ -19,7 +19,7 @@ from typing import Dict, Iterator
 import torch
 
 from repro_torch.kernels import (flash_attention as _flash, kv_write,
-                                 moe_gmm, paged_attention, ref)
+                                 mla_decode, moe_gmm, paged_attention, ref)
 
 _REFERENCE = contextvars.ContextVar("repro_torch_use_reference",
                                     default=False)
@@ -39,6 +39,7 @@ KERNELS = {
     "flash_attention": _flash.flash_attention,
     "paged_decode_attention": paged_attention.paged_decode_attention,
     "kv_cache_write": kv_write.kv_cache_write,
+    "mla_decode_attention": mla_decode.mla_decode_attention,
 }
 
 
@@ -156,12 +157,13 @@ def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
                                           scale_o, x)
 
 
-def flash_attention(q, k, v, causal=True):
+def flash_attention(q, k, v, causal=True, scale=None):
     """Causal blocked attention over a whole prompt (every monolithic
-    prefill, every layer); see ``flash_attention.flash_attention``."""
+    prefill, every layer; MLA's at q/k width 192 and v width 128); see
+    ``flash_attention.flash_attention``."""
     if _plain(q):
-        return ref.flash_attention_ref(q, k, v, causal)
-    return _flash.flash_attention(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal, scale)
+    return _flash.flash_attention(q, k, v, causal, scale)
 
 
 def paged_decode_attention(q, k_cache, v_cache, lengths):
@@ -181,3 +183,14 @@ def kv_cache_write(cache, new, pos):
     if _plain(cache):
         return ref.kv_cache_write_ref(cache, new, pos)
     return kv_write.kv_cache_write(cache, new, pos)
+
+
+def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, lengths, scale):
+    """Absorbed MLA decode over the latent cache (every decode tick, every
+    layer of an MLA model) -> latent context [B,H,r]; see
+    ``mla_decode.mla_decode_attention``."""
+    if _plain(q_eff):
+        return ref.mla_decode_attention_ref(q_eff, q_rope, c_cache, kr_cache,
+                                            lengths, scale)
+    return mla_decode.mla_decode_attention(q_eff, q_rope, c_cache, kr_cache,
+                                           lengths, scale)

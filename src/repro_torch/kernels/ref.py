@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the ported kernels — the port of
-``repro.kernels.ref`` for the nine kernels on the serving paths (bf16/f32
-pools, int8 pools with f32 scales, and the slot-contiguous KV cache of the
-dense-KV mode with its monolithic prefill).
+``repro.kernels.ref`` for the ten kernels on the serving paths (bf16/f32
+pools, int8 pools with f32 scales, the slot-contiguous KV cache of the
+dense-KV mode with its monolithic prefill, and the MLA latent cache).
 
 The CPU tests hold these against the Pallas kernels; ``chip_smoke.py``
 holds the CUDA kernels against these on the card.  They repeat the
@@ -68,20 +68,44 @@ def quant_paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g,
     return quant_paged_gmm_ref(table_o, pool_o, scale_o, h)
 
 
-def flash_attention_ref(q, k, v, causal=True):
-    """q [B,S,H,hd]; k/v [B,S,KVH,hd] (query head h reads kv head
-    h // (H/KVH)) -> [B,S,H,hd]; causal: row i attends rows t <= i."""
+def flash_attention_ref(q, k, v, causal=True, scale=None):
+    """q [B,S,H,hd]; k [B,S,KVH,hd]; v [B,S,KVH,hdv] (query head h reads
+    kv head h // (H/KVH)) -> [B,S,H,hdv]; causal: row i attends rows
+    t <= i; scores scaled by ``scale`` (default ``1/sqrt(hd)``)."""
     B, S, H, hd = q.shape
-    KVH = k.shape[2]
+    KVH, hdv = k.shape[2], v.shape[3]
     G = H // KVH
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qg = q.reshape(B, S, KVH, G, hd).float()
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k.float()) / math.sqrt(hd)
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k.float()) * scale
     if causal:
         mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkh->bqkgh", p, v.float())
-    return o.reshape(B, S, H, hd).to(q.dtype)
+    return o.reshape(B, S, H, hdv).to(q.dtype)
+
+
+def mla_decode_attention_ref(q_eff, q_rope, c_cache, kr_cache, lengths,
+                             scale):
+    """Absorbed MLA decode: q_eff [B,H,r], q_rope [B,H,dr], c_cache
+    [B,S,r], kr_cache [B,S,dr], lengths [B] (clamped to S) -> the latent
+    context [B,H,r] = softmax((q_eff·c + q_rope·kr) * scale) · c over the
+    first ``lengths[b]`` rows, f32 inside, in q_eff's dtype.
+
+    The scale is the caller's (the model passes ``1/sqrt(dn+dr)``; the
+    reference's oracle derives ``1/sqrt(128+dr)`` or ``1/sqrt(r+dr)``
+    from the shapes).  A length of 0 gives zeros, as the Pallas kernel,
+    which skips every block, does; the reference's oracle would take a
+    softmax over a row of ``-1e30`` and return the mean of ``c``."""
+    c = c_cache.float()
+    s = (torch.einsum("bhr,btr->bht", q_eff.float(), c)
+         + torch.einsum("bhd,btd->bht", q_rope.float(),
+                        kr_cache.float())) * scale
+    t = torch.arange(c.shape[1], device=c.device)[None, None]
+    keep = t < lengths.long()[:, None, None]
+    p = torch.softmax(torch.where(keep, s, NEG_INF), dim=-1) * keep
+    return torch.einsum("bht,btr->bhr", p, c).to(q_eff.dtype)
 
 
 def kv_cache_write_ref(cache, new, pos):

@@ -1,9 +1,12 @@
-"""Standard-attention decoder (dense or MoE) — the port of the serving
-steps of ``repro.models.model`` over the two KV layouts: the paged pool
-(``paged_decode_step``, ``paged_chunk_prefill_step``) and the
-slot-contiguous cache of the dense-KV mode (``prefill``, ``decode_step``;
-``write_prefill_to_blocks`` moves a monolithic prefill into the pool), plus
-the full-sequence ``forward``.
+"""Standard-attention and MLA decoders (dense or MoE) — the port of the
+serving steps of ``repro.models.model`` over the two KV layouts: the paged
+pool (``paged_decode_step``, ``paged_chunk_prefill_step``; standard
+attention only, as in the reference) and the slot-contiguous cache of the
+dense-KV mode (``prefill``, ``decode_step``; ``write_prefill_to_blocks``
+moves a monolithic prefill into the pool), plus the full-sequence
+``forward``.  An MLA model (``cfg.use_mla``) caches its latent
+``{'c','kr'}`` (``models/mla.py``) and applies its ``first_k_dense`` prefix
+in every step, prefix rows first in the cache.
 
 Parameters are nested dicts of tensors in the reference's layout: the
 per-layer leaves under ``params["blocks"]`` are stacked with a leading
@@ -33,6 +36,7 @@ from repro_torch.models.layers import (_kept_rows, apply_norm,
                                        mlp_init, norm_init,
                                        paged_attention_apply,
                                        paged_chunk_attention_apply)
+from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
 from repro_torch.models.moe import moe_local, moe_local_pooled, router_init
 
 Params = Dict[str, Any]
@@ -41,9 +45,10 @@ Params = Dict[str, Any]
 # ------------------------------------------------------------------ builders
 
 def _block_init(gen, cfg, dtype, device, *, moe: bool, lead=()):
+    attn = mla_init if cfg.use_mla else attention_init
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_type, dtype, device, lead),
          "ln2": norm_init(cfg.d_model, cfg.norm_type, dtype, device, lead),
-         "attn": attention_init(gen, cfg, dtype, device, lead)}
+         "attn": attn(gen, cfg, dtype, device, lead)}
     if moe:
         p["moe"] = {"router": router_init(gen, cfg.d_model, cfg.num_experts,
                                           device, lead)}
@@ -141,31 +146,60 @@ def _layers(cfg, params):
             yield layer_params(params["blocks"], i - nk), cfg.is_moe
 
 
+def _attention(cfg, bp, h, positions, **cache_kw):
+    """The layer's self-attention: MLA (``models/mla.py``) or standard
+    (``layers.attention_apply``); returns (y, new k/v or latent)."""
+    if cfg.use_mla:
+        if not cache_kw:
+            return mla_prefill(cfg, bp["attn"], h, positions)
+        return mla_decode(cfg, bp["attn"], h, positions, **cache_kw)
+    return attention_apply(cfg, bp["attn"], h, positions, **cache_kw)
+
+
 # ------------------------------------------------------------------- caches
+
+def dense_cache_supported(cfg) -> bool:
+    """The slot-contiguous cache covers the standard-attention decoders
+    (``paged_cache_supported``) and the MLA decoders (dense and MoE)."""
+    return paged_cache_supported(cfg) or (
+        cfg.has_decode and cfg.arch_type in ("dense", "moe")
+        and cfg.use_mla and cfg.attn_window is None)
+
+
+def cache_names(cfg):
+    """The slot-contiguous cache's leaves: the latent and rope key for
+    MLA, k and v otherwise."""
+    return ("c", "kr") if cfg.use_mla else ("k", "v")
+
 
 def _check_dense_kv(cfg) -> None:
     """The slot-contiguous steps cover the reference's standard-attention
-    branches of ``prefill`` / ``decode_step``, which scan ``blocks`` only:
-    a dense prefix there is outside what the reference computes."""
-    if not paged_cache_supported(cfg):
+    and MLA branches of ``prefill`` / ``decode_step``.  The standard
+    branches scan ``blocks`` only: a dense prefix there is outside what the
+    reference computes; the MLA branches apply it."""
+    if not dense_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: only standard-attention "
-                                  f"decoders are ported")
-    if cfg.is_moe and cfg.first_k_dense:
+                                  f"and MLA decoders are ported")
+    if cfg.is_moe and cfg.first_k_dense and not cfg.use_mla:
         raise ValueError(f"{cfg.name}: the dense-KV steps apply no "
                          f"first_k_dense prefix (as in the reference)")
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *,
                device="cuda"):
-    """Slot-contiguous decode cache {'k','v': [L, B, max_len, KVH, hd]},
-    zeros, in the model dtype (or ``dtype``)."""
+    """Slot-contiguous decode cache, zeros, in the model dtype (or
+    ``dtype``): {'k','v': [L, B, max_len, KVH, hd]}, or for MLA the latent
+    {'c': [L, B, max_len, r], 'kr': [L, B, max_len, dr]}."""
     _check_dense_kv(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    lead = (cfg.num_layers, batch, max_len)
+    if cfg.use_mla:
+        shapes = ((cfg.kv_lora_rank,), (cfg.qk_rope_dim,))
+    else:
+        shapes = ((cfg.num_kv_heads, cfg.resolved_head_dim),) * 2
+    return {n: torch.zeros(lead + tail, dtype=dtype, device=dev)
+            for n, tail in zip(cache_names(cfg), shapes)}
 
 
 def _cache_slot(cfg, lengths):
@@ -250,9 +284,9 @@ def forward(cfg, params: Params, batch):
     sequence attends causally over its S tokens (``ops.flash_attention``).
     The reference also returns the router's load-balance loss, a training
     term; it is not computed here."""
-    if not paged_cache_supported(cfg):
+    if not dense_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: only standard-attention "
-                                  f"decoders are ported")
+                                  f"and MLA decoders are ported")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
@@ -260,7 +294,7 @@ def forward(cfg, params: Params, batch):
     pool = params.get("moe_pool")
     for bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, _ = attention_apply(cfg, bp["attn"], h, positions)
+        a, _ = _attention(cfg, bp, h, positions)
         x = x + a
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
         x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
@@ -275,8 +309,9 @@ def prefill(cfg, params: Params, batch, max_len: int):
     position — padding included — attends causally and goes through the
     MoE router, as in the reference (with capacity dropping, padding tokens
     take capacity slots).  Returns (logits [B,V] at position lengths-1,
-    cache {'k','v': [L,B,max_len,KVH,hd]}, each layer's K/V in its first
-    S rows (the last ``max_len`` when S is longer) and zeros after)."""
+    cache as ``init_cache`` lays it out, each layer's K/V or latent in its
+    first S rows (the last ``max_len`` when S is longer) and zeros
+    after)."""
     _check_dense_kv(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -285,11 +320,12 @@ def prefill(cfg, params: Params, batch, max_len: int):
     n = min(S, max_len)
     cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
     pool = params.get("moe_pool")
+    names = cache_names(cfg)
     for i, (bp, moe) in enumerate(_layers(cfg, params)):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, (k, v) = attention_apply(cfg, bp["attn"], h, positions)
-        cache["k"][i, :, :n] = k[:, S - n:]
-        cache["v"][i, :, :n] = v[:, S - n:]
+        a, kv = _attention(cfg, bp, h, positions)
+        for name, new in zip(names, kv):
+            cache[name][i, :, :n] = new[:, S - n:]
         x = x + a
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
         x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
@@ -304,22 +340,23 @@ def prefill(cfg, params: Params, batch, max_len: int):
 
 def decode_step(cfg, params: Params, tokens, cache, lengths):
     """One decode step over the slot-contiguous cache.  tokens [B,1];
-    lengths [B] int32 = tokens already cached: the new token's k/v land
-    at slot ``lengths`` (``ops.kv_cache_write``; past the cache they drop)
-    and it attends ``lengths + 1`` positions
-    (``ops.paged_decode_attention``).  Updates ``cache`` in place; returns
-    (logits [B,V], cache)."""
+    lengths [B] int32 = tokens already cached: the new token's k/v (MLA:
+    latent rows) land at slot ``lengths`` (``ops.kv_cache_write``; past
+    the cache they drop) and it attends ``lengths + 1`` positions
+    (``ops.paged_decode_attention``; MLA: ``ops.mla_decode_attention``).
+    Updates ``cache`` in place; returns (logits [B,V], cache)."""
     _check_dense_kv(cfg)
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     write_pos = _cache_slot(cfg, lengths)
     valid = lengths + 1
     pool = params.get("moe_pool")
+    names = cache_names(cfg)
     for i, (bp, moe) in enumerate(_layers(cfg, params)):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, _ = attention_apply(cfg, bp["attn"], h, positions,
-                               cache=(cache["k"][i], cache["v"][i]),
-                               write_pos=write_pos, kv_valid_len=valid)
+        a, _ = _attention(cfg, bp, h, positions,
+                          cache=tuple(cache[n][i] for n in names),
+                          write_pos=write_pos, kv_valid_len=valid)
         x = x + a
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
         x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)

@@ -2,10 +2,14 @@
 at edge shapes the serving path does not reach (ragged F and D tiles, odd
 token counts, other head dims and block sizes, aliased tables, sentinel
 rows), for bf16/f32 pools and for int8 pools with f32 scales (rows whose
-scales differ by 100x, an all-zero scale row), and for the slot-contiguous
+scales differ by 100x, an all-zero scale row), for the slot-contiguous
 path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
-S_max, a dropped cache write).  Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the
-card, from the repo root::
+S_max, a dropped cache write), and for MLA (the latent decode at lengths
+0, 1, S_max and past it, an S_max that is no tile multiple, sequences
+split over up to 16 blocks, peaked and flat scores; prefill attention at
+q/k width 192 and v width 128).
+Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
+from the repo root::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -17,8 +21,8 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
-                                 paged_attention, ref)
+from repro_torch.kernels import (flash_attention, kv_write, mla_decode,
+                                 moe_gmm, ops, paged_attention, ref)
 from repro_torch.kernels.quant import dequantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -358,3 +362,114 @@ def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
         paged_attention.paged_decode_attention(
             q[:, 0].contiguous(), cache, cache,
             torch.ones(2, dtype=torch.int64, device=dev))
+
+
+# ------------------------------------------------------------------- MLA
+
+MLA = {  # H, r, dr, S_max, lengths
+    "full-one-smax-past": (16, 512, 64, 2048, [1, 2048, 2049, 777]),
+    "full-ragged-smax-zero": (16, 512, 64, 1000, [1000, 999, 0, 333]),
+    "full-h6-three-groups": (6, 512, 64, 64, [64, 3]),
+    "reduced-h4": (4, 64, 16, 96, [96, 5, 50]),
+    "reduced-h2-one-group": (2, 64, 16, 40, [40, 1]),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(MLA))
+def test_mla_decode_kernel_matches_plain(dev, case, dtype):
+    """Lengths of 0 (zeros), 1, S_max and past S_max (clamped); an S_max
+    that is not a multiple of the 256-token block; 8, 3 and 1 groups of
+    two heads."""
+    H, r, dr, S_max, lengths = MLA[case]
+    gen = torch.Generator().manual_seed(13)
+    B = len(lengths)
+    qe = _rand(gen, (B, H, r), dtype, dev, r ** -0.5)
+    qr = _rand(gen, (B, H, dr), dtype, dev, dr ** -0.5)
+    c = _rand(gen, (B, S_max, r), dtype, dev)
+    kr = _rand(gen, (B, S_max, dr), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = (128 + dr) ** -0.5
+    ops.reset_launch_counts()
+    got = mla_decode.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    assert ops.launch_counts()["mla_decode_attention"] == 1
+    want = ref.mla_decode_attention_ref(qe, qr, c, kr, lens, scale)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert not got[b].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("S", [200, 1000, 4096])
+def test_mla_decode_splits_match_plain(dev, dtype, S):
+    """A sequence read by one block (S = 200) or split over 4 or 16 blocks
+    of 256 tokens (the last block merges them), lengths 0, 1, 256, 257
+    and S, with scores spread over several units; the same numbers run to
+    run (a fixed merge order) and on a second launch, which reuses the
+    split counters the first left at zero."""
+    gen = torch.Generator().manual_seed(16)
+    H, r, dr = 4, 512, 64
+    lengths = [0, 1, min(256, S), min(257, S), S]
+    B = len(lengths)
+    scale = (128 + dr) ** -0.5
+    qe = _rand(gen, (B, H, r), dtype, dev, 3 * (128 + dr) ** 0.5 / r ** 0.5)
+    qr = _rand(gen, (B, H, dr), dtype, dev, 3 * (128 + dr) ** 0.5 / dr ** 0.5)
+    c = _rand(gen, (B, S, r), dtype, dev)
+    kr = _rand(gen, (B, S, dr), dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = mla_decode.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    again = mla_decode.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    want = ref.mla_decode_attention_ref(qe, qr, c, kr, lens, scale)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got, again) and not got[0].any()
+
+
+MLA_FLASH = {  # B, S, H
+    "h16-ragged": (1, 200, 16),
+    "h4-two-sequences-one-tile": (2, 64, 4),
+    "h2-one-token": (1, 1, 2),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(MLA_FLASH))
+def test_flash_attention_192_128_matches_plain(dev, case, dtype, causal):
+    """MLA's prefill instance: q/k rows of 192, v and output rows of 128,
+    one kv head per query head, the model's scale given explicitly."""
+    B, S, H = MLA_FLASH[case]
+    gen = torch.Generator().manual_seed(15)
+    q = _rand(gen, (B, S, H, 192), dtype, dev)
+    k = _rand(gen, (B, S, H, 192), dtype, dev)
+    v = _rand(gen, (B, S, H, 128), dtype, dev)
+    got = flash_attention.flash_attention(q, k, v, causal, 0.05)
+    want = ref.flash_attention_ref(q, k, v, causal, 0.05)
+    assert tuple(got.shape) == (B, S, H, 128)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    qe = torch.randn(2, 4, 256, device=dev)                  # r = 256
+    qr = torch.randn(2, 4, 64, device=dev)
+    c, kr = torch.randn(2, 8, 256, device=dev), torch.randn(2, 8, 64,
+                                                            device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="kv_lora_rank"):
+        mla_decode.mla_decode_attention(qe, qr, c, kr, lens, 0.1)
+    qe, c = qe[..., :64].contiguous(), c[..., :64].contiguous()
+    qr, kr = qr[..., :16].contiguous(), kr[..., :16].contiguous()
+    with pytest.raises(TypeError):
+        mla_decode.mla_decode_attention(qe, qr, c, kr, lens.long(), 0.1)
+    with pytest.raises(TypeError):
+        mla_decode.mla_decode_attention(qe, qr, c.bfloat16(), kr, lens, 0.1)
+    with pytest.raises(ValueError):
+        mla_decode.mla_decode_attention(qe, qr, c[:1].contiguous(), kr,
+                                        lens, 0.1)
+    with pytest.raises(ValueError, match="even"):
+        mla_decode.mla_decode_attention(qe[:, :3].contiguous(),
+                                        qr[:, :3].contiguous(), c, kr, lens,
+                                        0.1)
+    q = torch.randn(1, 8, 4, 192, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(q, q, q)              # v 192
