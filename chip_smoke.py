@@ -28,7 +28,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
    decode); ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
    ``paged_gmm`` at deepseek-v2-lite's D = 2048, F = 1408, E = 64 too, at
    C = 1 (decode) and C = 120 (a 1,024-token prefill's 6,144 routed rows
-   over 64 experts at capacity factor 1.25).
+   over 64 experts at capacity factor 1.25).  ``ssd_scan`` at mamba2-1.3b's
+   prefill shape (B = 1, S = 1024, H = 64, P = 64, N = 128, chunk 256; the
+   main case), zamba2-2.7b's (H = 80, N = 64, chunk 128), B = 2 with S =
+   512, a ragged S = 1000, and mamba2's shape in f32: its outputs are f32
+   from f32 sums on both sides, atol = rtol = 1e-3 on y and the state; no
+   single PyTorch call computes the scan, so it has no library time.
+   ``flash_attention`` and ``paged_decode_attention`` at zamba2's shared
+   block too (H = KVH = 32, head width 80).
    Times the kernel, the plain version and one PyTorch library call for
    the same function (a yardstick only, never called by the port; for the
    int8 kernels it reads K/V or pages dequantized to q's dtype beforehand)
@@ -77,11 +84,27 @@ Phases, each of which raises on failure (no phase's failure is caught):
    must launch ``mla_decode_attention`` once and ``kv_cache_write`` twice
    per layer, each prefill ``flash_attention`` once per layer, and the
    pooled store ``paged_gmm`` three times per MoE layer per step.
+9. ``e2e_ssm``: mamba2-1.3b and zamba2-2.7b at full width, 2 layers (the
+   hybrid as two groups of one SSD layer, each led by the shared attention
+   block), the default stores: a monolithic prefill of a 200-token prompt
+   into one slot, then three decode steps of 8 slots, through the kernels
+   and through ``ops.use_reference()``, held to the e2e rules above; layer
+   0's conv tails (mamba2) or group 0's K/V rows (zamba2) must be equal on
+   both paths.
+10. ``serve_mamba2`` and ``serve_zamba2``: the same requests on
+   mamba2-1.3b (48 layers) and zamba2-2.7b (54 layers) with the
+   reference's default knobs and prefill buckets that are multiples of
+   the SSD chunk (256 and 128 tokens) up to 1024; each prefill must launch
+   ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
+   per group; each zamba2 decode step ``paged_decode_attention`` once and
+   ``kv_cache_write`` twice per group; mamba2 no attention kernel.
 
 The line before the last is ``{"kernels": [...]}`` (launches from the
 first serve phase of each kernel's path, ``PATH_KERNELS``); the last line
 is
-``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
+``{"ok": true, "device": {...}}``.  ``--layers N`` caps every served
+model's depth at N (a hybrid's at a multiple of its ``attn_every``); by
+default each serves at full depth.  ``--json PATH`` also writes every
 measurement (per-case kernel times, the build log, the decode-tick
 profile) to PATH.  Imports nothing of JAX or ``repro``.
 """
@@ -121,6 +144,12 @@ D_MODEL, MOE_FF, N_EXP = 2048, 768, 128
 MLA_H, MLA_R, MLA_DR, MLA_DN, MLA_DV = 16, 512, 64, 128, 128
 MLA_FF, MLA_EXP = 1408, 64
 MLA_PREFILL_C = 120            # rows an expert in a 1,024-token prefill
+# the SSD scans of a 1,024-token prefill, (B, S, H, P, N, chunk):
+# mamba2-1.3b's and zamba2-2.7b's; zamba2's shared attention block's heads
+SSD_MAMBA2 = (1, 1024, 64, 64, 128, 256)
+SSD_ZAMBA2 = (1, 1024, 80, 64, 64, 128)
+SSD_TOL = dict(atol=1e-3, rtol=1e-3)
+ZAMBA_H, ZAMBA_HD = 32, 80
 
 REPLACES = {
     "block_paged_decode_attention": "src/repro/kernels/paged_attention.py:123",
@@ -135,6 +164,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/paged_attention.py:75",
     "kv_cache_write": "src/repro/kernels/kv_write.py:37",
     "mla_decode_attention": "src/repro/kernels/mla_decode.py:73",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
 }
 _ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
 _GMM_CU = "src/repro_torch/csrc/moe_gmm.cu"
@@ -149,6 +179,7 @@ SOURCES = {
     "paged_decode_attention": _ATTN_CU,
     "kv_cache_write": "src/repro_torch/csrc/kv_write.cu",
     "mla_decode_attention": "src/repro_torch/csrc/mla_decode.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 # the kernels each serve phase's path runs (the kernels line takes each
 # kernel's launches from the first phase listing it)
@@ -163,6 +194,9 @@ PATH_KERNELS = {
                   "kv_cache_write"),
     "serve_mla_pooled": ("mla_decode_attention", "flash_attention",
                          "kv_cache_write", "paged_gmm"),
+    "serve_mamba2": ("ssd_scan",),
+    "serve_zamba2": ("ssd_scan", "flash_attention", "paged_decode_attention",
+                     "kv_cache_write"),
 }
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 
@@ -411,14 +445,15 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
     return rec
 
 
-def _flash_case(S, dtype, gen, timer, do_time, mla=False):
+def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD)):
     """Causal prefill attention of one prompt of S tokens (a serving
-    bucket) against its plain version and causal SDPA: qwen3-30b-a3b's
-    heads (32 query, 4 kv, width 128), or with ``mla`` deepseek-v2-lite's
-    (16 and 16, q/k width 192, v width 128, the model's scale)."""
+    bucket) against its plain version and causal SDPA, at ``heads`` =
+    (query heads, kv heads, q/k width, v width): qwen3-30b-a3b's (32, 4,
+    128, 128) by default, deepseek-v2-lite's MLA (16, 16, 192, 128) or
+    zamba2-2.7b's shared block (32, 32, 80, 80); scale 1/sqrt(q/k
+    width)."""
     from repro_torch.kernels import ops, ref
-    nh, nkv, hd, hdv = ((MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV) if mla
-                        else (H, KVH, HD, HD))
+    nh, nkv, hd, hdv = heads
     scale = hd ** -0.5
     q = torch.randn(1, S, nh, hd, generator=gen).to(dtype).cuda()
     k = torch.randn(1, S, nkv, hd, generator=gen).to(dtype).cuda()
@@ -448,15 +483,17 @@ def _flash_case(S, dtype, gen, timer, do_time, mla=False):
     return rec
 
 
-def _slot_decode_case(dtype, gen, timer, do_time):
+def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     """Decode over the slot-contiguous cache [B, 2048, KVH, hd] at ragged
     lengths, against its plain version and SDPA with a length mask over
-    the cache's rows."""
+    the cache's rows; ``heads`` = (query heads, kv heads, width):
+    qwen3-30b-a3b's by default, zamba2-2.7b's (32, 32, 80) too."""
     from repro_torch.kernels import ops, ref
+    nh, nkv, hd = heads
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
-    kc = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype).cuda()
-    vc = torch.randn(BATCH, MAX_LEN, KVH, HD, generator=gen).to(dtype).cuda()
-    q = torch.randn(BATCH, H, HD, generator=gen).to(dtype).cuda()
+    kc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
+    vc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
+    q = torch.randn(BATCH, nh, hd, generator=gen).to(dtype).cuda()
     lens = lengths.cuda()
     kern = lambda: ops.paged_decode_attention(q, kc, vc, lens)
     plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, lens)
@@ -473,11 +510,12 @@ def _slot_decode_case(dtype, gen, timer, do_time):
     torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
                                **TOL[dtype])
     ctx_tok = int(lengths.sum())
-    kv_bytes = ctx_tok * 2 * KVH * HD * kc.element_size()
+    kv_bytes = ctx_tok * 2 * nkv * hd * kc.element_size()
     io = nbytes(q, got, lens) + kv_bytes
-    ops_n = 4 * HD * H * ctx_tok
+    ops_n = 4 * hd * nh * ctx_tok
     b_ms, b_by = bound_ms(io, ops_n, dtype)
-    rec = {"case": f"B={BATCH} S_max={MAX_LEN} lengths={DECODE_LENGTHS}",
+    rec = {"case": f"B={BATCH} H={nh} KVH={nkv} hd={hd} S_max={MAX_LEN} "
+                   f"lengths={DECODE_LENGTHS}",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
     if do_time:
@@ -591,6 +629,48 @@ def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
     return rec
 
 
+def _ssd_case(shape, dtype, gen, timer, do_time):
+    """The SSD chunk scan at ``shape`` = (B, S, H, P, N, chunk) against its
+    plain version: x, B and C in ``dtype``, dt and A f32 from the
+    reference test's distributions (dt in [0.01, 0.51], A in [-1.5, -0.5]:
+    decays slow enough that the state carries across chunks); y and the
+    state are f32 from f32 sums on both sides.  The bound counts C.Bᵀ once
+    per (sequence, chunk), the least the work needs (the Pallas kernel
+    computes it per head: both counts are kept).  No single PyTorch call
+    computes the scan: no library time."""
+    from repro_torch.kernels import ops, ref
+    B, S, nh, P, N, chunk = shape
+    x = torch.randn(B, S, nh, P, generator=gen).to(dtype).cuda()
+    dt = (torch.rand(B, S, nh, generator=gen) * 0.5 + 0.01).cuda()
+    A = (-(torch.rand(nh, generator=gen) + 0.5)).cuda()
+    Bm = torch.randn(B, S, N, generator=gen).to(dtype).cuda()
+    Cm = torch.randn(B, S, N, generator=gen).to(dtype).cuda()
+    kern = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    plain = lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    (y, st), (wy, ws) = kern(), plain()
+    torch.cuda.synchronize()
+    err = max((y - wy).abs().max().item(), (st - ws).abs().max().item())
+    torch.testing.assert_close(y, wy, **SSD_TOL)
+    torch.testing.assert_close(st, ws, **SSD_TOL)
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    # per (sequence, head, chunk): M.x 2Q²P, C.state and the state update
+    # 2QNP each; C.Bᵀ 2Q²N once per (sequence, chunk), or per head as the
+    # Pallas kernel computes it
+    per_head = 2 * Q * Q * P + 4 * Q * N * P
+    ops_n = B * nc * (2 * Q * Q * N + nh * per_head)
+    ops_pallas = B * nc * nh * (2 * Q * Q * N + per_head)
+    io = nbytes(x, dt, A, Bm, Cm, y, st)
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B={B} S={S} H={nh} P={P} N={N} chunk={chunk}",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n,
+           "ops_pallas": ops_pallas, "library_ms": None}
+    if do_time:
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10))
+    return rec
+
+
 def phase_kernels():
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(0)
@@ -619,12 +699,29 @@ def phase_kernels():
                                ([1000, 999, 0, 1, 500, 64, 65, 1000], 1000)):
             mla.append(_mla_case(lengths, S_max, dtype, gen, timer, False))
         for S in (1024, 192):
-            out["flash_attention"].append(_flash_case(S, dtype, gen, timer,
-                                                      timed, mla=True))
+            out["flash_attention"].append(_flash_case(
+                S, dtype, gen, timer, timed,
+                heads=(MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV)))
         for row in ((MLA_R,), (MLA_DR,)):
             out["kv_cache_write"].append(_kv_write_case(dtype, gen, timer,
                                                         timed, row))
         torch.cuda.empty_cache()
+    # Mamba2: the SSD scan (mamba2-1.3b's shape first: the main case), and
+    # zamba2-2.7b's shared attention block at head width 80
+    ssd = out["ssd_scan"]
+    for shape, timed in ((SSD_MAMBA2, True), (SSD_ZAMBA2, True),
+                         ((2, 512, 64, 64, 128, 256), False),
+                         ((1, 1000, 64, 64, 128, 256), False)):
+        ssd.append(_ssd_case(shape, torch.bfloat16, gen, timer, timed))
+    ssd.append(_ssd_case(SSD_MAMBA2, torch.float32, gen, timer, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        out["flash_attention"].append(_flash_case(
+            1024, dtype, gen, timer, timed,
+            heads=(ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD)))
+        out["paged_decode_attention"].append(_slot_decode_case(
+            dtype, gen, timer, timed, heads=(ZAMBA_H, ZAMBA_H, ZAMBA_HD)))
+    torch.cuda.empty_cache()
     for phase in ("serve", "serve_int8"):
         quant = phase == "serve_int8"
         dec_name, mix_name, gmm_name = PATH_KERNELS[phase]
@@ -667,8 +764,10 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
+            lib = r.get("library_ms")
             t = (f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                 f"library {r['library_ms']:.4f} ms," if "ms" in r else "")
+                 f"library {'none' if lib is None else f'{lib:.4f} ms'},"
+                 if "ms" in r else "")
             log(f"[kernels] {name} {r['dtype']} {r['case']}: max_abs_err "
                 f"{r['max_abs_err']:.3e};{t} bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
@@ -931,6 +1030,98 @@ def phase_e2e_mla():
     return out
 
 
+def _e2e_ssm(model, dtype_name):
+    """mamba2-1.3b or zamba2-2.7b at full width, 2 layers (zamba2 as two
+    groups of one SSD layer, each led by the shared attention block: the
+    reduced hybrid's layout), the default stores: a monolithic prefill of a
+    200-token prompt padded to its 256 bucket into slot 2 (the engine's own
+    prefill step), then three decode steps of the 8 slots at ragged
+    lengths, through the kernels and through ``ops.use_reference()``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _prefill_fn
+    base = get_config(model)
+    hybrid = base.arch_type == "hybrid"
+    cfg = dataclasses.replace(base, num_layers=2, dtype=dtype_name,
+                              **({"attn_every": 1} if hybrid else {}))
+    hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN, seed=1,
+              device="cuda")
+    hmm.boot(ElasticConfig(1, 1, (0,)))
+    params, cache = hmm.params, hmm.cache
+    require(set(cache) == ({"conv", "state", "attn_k", "attn_v"} if hybrid
+                           else {"conv", "state"}))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for leaf in cache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    cg = torch.Generator().manual_seed(3)
+    S, S_pad, slot, steps = 200, 256, 2, 3
+    tokens = torch.zeros(1, S_pad, dtype=torch.int32)
+    tokens[0, :S] = torch.randint(0, cfg.vocab_size, (S,), generator=cg)
+    lengths = [1900, 5, S, 1024, 77, 300, 1500, 2000]
+    dec_tokens = torch.randint(0, cfg.vocab_size, (steps, BATCH, 1),
+                               generator=cg)
+    args = [t.cuda() for t in (tokens, torch.tensor(S, dtype=torch.int32),
+                               dec_tokens,
+                               torch.tensor(lengths, dtype=torch.int32))]
+
+    def run():
+        c = {k: v.clone() for k, v in cache.items()}
+        _, c = _prefill_fn(cfg, MAX_LEN, params, c, args[0], args[1], slot)
+        out = [M.prefill(cfg, params, {"tokens": args[0],
+                                       "lengths": args[1][None]},
+                         max_len=S_pad)[0]]
+        for i in range(steps):
+            ld, c = M.decode_step(cfg, params, args[2][i], c, args[3] + i)
+            out.append(ld)
+        return torch.cat(out).float(), c
+
+    ops.reset_launch_counts()
+    got, c_got = run()
+    counts = ops.launch_counts()
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    # two prefills (the slot's and the logits') of 2 SSD layers
+    require(counts["ssd_scan"] == 4, counts)
+    require(got.shape == (1 + steps * BATCH, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    # written before any kernel: the first SSD layer's raw conv tails
+    # (mamba2), the first group's K/V rows (zamba2, whose first SSD layer
+    # follows the shared block's attention kernels)
+    for k in (("attn_k", "attn_v") if hybrid else ("conv",)):
+        require(torch.equal(c_got[k][0], c_want[k][0]), f"cache {k} differs")
+    state_err = (c_got["state"] - c_want["state"]).abs().max().item()
+    if dtype_name == "float32":
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+        torch.testing.assert_close(c_got["state"], c_want["state"],
+                                   **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
+    stores = "per-slot SSD state" + (" + shared-attention KV" if hybrid
+                                      else "")
+    log(f"[e2e_ssm] 2-layer {model} {dtype_name}, {stores}: "
+        f"prefill (S={S}, bucket {S_pad}) + {steps} decode steps, logits "
+        f"{tuple(got.shape)}, max_abs_err {err:.3e}, rel {rel:.3e}; SSD "
+        f"state max_abs_err {state_err:.3e}")
+    return {"model": model, "dtype": dtype_name, "max_abs_err": err,
+            "rel_err": rel, "state_err": state_err}
+
+
+def phase_e2e_ssm():
+    out = []
+    for model in ("mamba2-1.3b", "zamba2-2.7b"):
+        for dtype_name in ("float32", "bfloat16"):
+            out.append(_e2e_ssm(model, dtype_name))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
 def _prompts(rng, vocab):
     """8 prompts of 200-1000 tokens; the last is the seventh one's first 264
     tokens: 16 full shared blocks plus a shared partial 17th, so it skips
@@ -961,7 +1152,51 @@ SERVE_STORES = {
     "serve_mla_pooled": ("deepseek-v2-lite-16b",
                          dict(prefill_buckets=DENSE_BUCKETS,
                               expert_mode="pooled"), None),
+    # Mamba2: per-slot SSD state (and the hybrid's shared-attention KV),
+    # buckets that are multiples of the SSD chunk, as the reference's
+    # chunked scan asserts
+    "serve_mamba2": ("mamba2-1.3b",
+                     dict(prefill_buckets=(256, 512, 768, 1024)), None),
+    "serve_zamba2": ("zamba2-2.7b",
+                     dict(prefill_buckets=tuple(range(128, 1025, 128))),
+                     None),
 }
+
+
+def _capped(cfg, layers):
+    """``cfg`` at most ``layers`` deep (None: full depth); a hybrid's depth
+    stays a multiple of its ``attn_every`` (one shared block a group)."""
+    if layers is None or layers >= cfg.num_layers:
+        return cfg
+    if cfg.attn_every:
+        layers = max(cfg.attn_every, layers - layers % cfg.attn_every)
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _describe(cfg, knobs, store):
+    """The served model and its stores, for the serve phase's first
+    line."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        arch = (f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+        if cfg.arch_type == "hybrid":
+            arch += (f", one shared attention block ({cfg.num_heads} heads "
+                     f"of {cfg.resolved_head_dim}, MLP {cfg.d_ff}) every "
+                     f"{cfg.attn_every} layers")
+        stores = ("per-slot SSD state"
+                  + (" + shared-attention KV" if cfg.attn_every else ""))
+    else:
+        arch = (f"{cfg.num_experts} experts top-{cfg.top_k} "
+                f"(+{cfg.num_shared_experts} shared, {cfg.first_k_dense} "
+                f"dense layers first), moe_d_ff {cfg.moe_d_ff}")
+        stores = (("paged KV" if knobs.get("kv_mode") == "paged"
+                   else "dense latent KV" if cfg.use_mla else "dense KV")
+                  + (", pooled experts" if knobs.get("expert_mode")
+                     == "pooled" else ", dense expert banks"))
+    return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {arch}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}; store: {store or cfg.dtype}, "
+            f"{stores}" + (", chunked prefill" if knobs.get("prefill_chunk")
+                           else ", monolithic prefill"))
 
 
 def phase_serve(layers, phase="serve", profile=True):
@@ -973,22 +1208,11 @@ def phase_serve(layers, phase="serve", profile=True):
     from repro_torch.models import model as M
     from repro_torch.serving.workload import Request
     model, knobs, store = SERVE_STORES[phase]
-    cfg = get_config(model)
-    if layers < cfg.num_layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = _capped(get_config(model), layers)
     tag = f"[{phase}]"
     paged = knobs.get("kv_mode") == "paged"
     pooled = knobs.get("expert_mode") == "pooled"
-    log(f"{tag} {model}, {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k} "
-        f"(+{cfg.num_shared_experts} shared, {cfg.first_k_dense} dense "
-        f"layers first), moe_d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}, "
-        f"{cfg.dtype}; KV and expert store: {store or cfg.dtype}, "
-        + ("paged KV" if paged else "dense latent KV" if cfg.use_mla
-           else "dense KV")
-        + (", pooled experts" if pooled else ", dense expert banks")
-        + (", chunked prefill" if knobs.get("prefill_chunk") else
-           ", monolithic prefill"))
+    log(f"{tag} {model}, {_describe(cfg, knobs, store)}")
     gc.collect()                  # an earlier server's pools are freed
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1096,6 +1320,25 @@ def phase_serve(layers, phase="serve", profile=True):
             f"launches per decode step "
             f"{counts['mla_decode_attention'] / steps:g} "
             f"mla_decode_attention, {counts['kv_cache_write'] / steps:g} "
+            f"kv_cache_write")
+    if cfg.arch_type in ("ssm", "hybrid"):
+        # each prefill: one SSD scan per layer and, in the hybrid, one
+        # flash attention per group; each decode step: one slot decode
+        # and two KV writes per group (none in mamba2)
+        steps, n_pre = eng._step_count, len(prefills)
+        groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+        want = {"ssd_scan": cfg.num_layers * n_pre,
+                "flash_attention": groups * n_pre,
+                "paged_decode_attention": groups * steps,
+                "kv_cache_write": 2 * groups * steps}
+        for name, n in want.items():
+            require(counts[name] == n, f"{name}: {counts[name]} launches, "
+                    f"{n} expected")
+        log(f"{tag} {steps} decode steps, {n_pre} prefills: launches per "
+            f"prefill {counts['ssd_scan'] / n_pre:g} ssd_scan, "
+            f"{counts['flash_attention'] / n_pre:g} flash_attention; per "
+            f"decode step {counts['paged_decode_attention'] / steps:g} "
+            f"paged_decode_attention, {counts['kv_cache_write'] / steps:g} "
             f"kv_cache_write")
     for r in reqs:
         toks = eng.generated[r.rid]
@@ -1211,12 +1454,16 @@ def _profile(label, fn, n):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=48,
-                    help="cap on every served model's depth (full: 48 for "
-                         "qwen3-30b-a3b, 27 for deepseek-v2-lite-16b)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cap on every served model's depth (default: full "
+                         "depth, 48 for qwen3-30b-a3b, 27 for "
+                         "deepseek-v2-lite-16b, 48 for mamba2-1.3b, 54 for "
+                         "zamba2-2.7b); a hybrid's cap is rounded down to a "
+                         "multiple of its attn_every")
     ap.add_argument("--phases",
-                    default="build,kernels,e2e,e2e_mla,serve,serve_int8,"
-                            "serve_dense,serve_mla,serve_mla_pooled")
+                    default="build,kernels,e2e,e2e_mla,e2e_ssm,serve,"
+                            "serve_int8,serve_dense,serve_mla,"
+                            "serve_mla_pooled,serve_mamba2,serve_zamba2")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1245,6 +1492,8 @@ def main():
         res["e2e"] = phase_e2e()
     if "e2e_mla" in phases:
         res["e2e_mla"] = phase_e2e_mla()
+    if "e2e_ssm" in phases:
+        res["e2e_ssm"] = phase_e2e_ssm()
     for phase in SERVE_STORES:
         if phase in phases:
             res[phase] = phase_serve(args.layers, phase)

@@ -3,8 +3,9 @@
 Pure data.  The field set is the reference's, field for field, so a
 reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``;
 the port itself serves the standard-attention MoE decoders
-(``models/model.py:paged_cache_supported``) and the MLA decoders
-(``models/mla.py``).
+(``models/model.py:paged_cache_supported``), the MLA decoders
+(``models/mla.py``) and the Mamba2 models, attention-free and hybrid
+(``models/mamba2.py``).
 """
 from __future__ import annotations
 
@@ -90,19 +91,42 @@ class ModelConfig:
         return self.num_experts > 0
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def has_decode(self) -> bool:
         """Encoder-only architectures have no autoregressive decode step."""
         return self.arch_type != "encoder"
 
     def param_count(self) -> int:
-        """Parameters of a standard-attention or MLA decoder (embedding, LM
-        head, attention, dense MLP or routed and shared experts plus
-        router) — the subset of the reference's ``param_count`` that the
+        """Parameters of a standard-attention, MLA or Mamba2 decoder
+        (embedding, LM head, attention, dense MLP or routed and shared
+        experts plus router, SSD blocks, a hybrid's one shared attention
+        block) — the subset of the reference's ``param_count`` that the
         port's models cover, term for term (like the reference, it counts
-        every layer as a MoE layer and no norm scales)."""
+        every layer as a MoE layer, no norm scales, and an SSD block's
+        conv over ``d_inner`` channels only)."""
         D, H = self.d_model, self.num_heads
         hd, kvh = self.resolved_head_dim, self.num_kv_heads
         n = self.vocab_size * D * (1 if self.tie_embeddings else 2)
+        ff_mult = 3 if self.mlp_gated else 2
+        std_attn = D * H * hd + 2 * D * kvh * hd + H * hd * D
+        if self.arch_type in ("ssm", "hybrid"):
+            di, nh = self.d_inner, self.ssm_heads
+            n += self.num_layers * (D * (2 * di + 2 * self.ssm_state + nh)
+                                    + di * self.ssm_conv + di * D)
+            if self.arch_type == "hybrid" and self.attn_every:
+                n += std_attn + ff_mult * D * self.d_ff
+            return n
         if self.use_mla:
             r, dr, dn = self.kv_lora_rank, self.qk_rope_dim, self.qk_nope_dim
             qk = dn + dr
@@ -112,8 +136,7 @@ class ModelConfig:
             attn += r * H * (dn + self.v_head_dim)     # k_up, v_up
             attn += H * self.v_head_dim * D            # o proj
         else:
-            attn = D * H * hd + 2 * D * kvh * hd + H * hd * D
-        ff_mult = 3 if self.mlp_gated else 2
+            attn = std_attn
         if self.is_moe:
             ffn = (self.num_experts * ff_mult * D * self.moe_d_ff
                    + self.num_shared_experts * ff_mult * D * self.moe_d_ff
@@ -127,7 +150,8 @@ class ModelConfig:
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """A smoke-test-sized variant of the same architecture family (2
     layers, d_model<=256, <=4 experts, f32) — the reference's ``reduced``
-    for the standard-attention and MLA decoders the port covers."""
+    for the standard-attention, MLA and Mamba2 decoders the port
+    covers."""
     small: dict = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -155,5 +179,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         small["qk_rope_dim"] = 16
         small["v_head_dim"] = 32
         small["head_dim"] = 0
+    if cfg.ssm_state:
+        small["ssm_state"] = min(cfg.ssm_state, 16)
+        small["ssm_head_dim"] = 32
+        small["ssm_chunk"] = 16
+    if cfg.attn_every:
+        small["attn_every"] = 1
+        small["num_layers"] = 2
     small["dtype"] = "float32"
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)

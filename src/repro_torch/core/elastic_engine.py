@@ -3,8 +3,10 @@
 ``submit``, ``tick``, ``step``, ``queue_depth`` and ``utilization``.
 
 One ``ElasticConfig(1, 1, (0,))`` instance serves a standard-attention
-or an MLA decoder (the latter over its latent cache with dense KV and
-monolithic prefill only, as in the reference).  The defaults are the
+decoder, an MLA decoder (over its latent cache) or a Mamba2 model,
+attention-free or hybrid (over its per-slot SSD state and, hybrid, the
+shared block's K/V); the last two with dense KV and monolithic prefill
+only, as in the reference.  The defaults are the
 reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,

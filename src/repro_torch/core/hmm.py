@@ -8,9 +8,11 @@ a page *pool* per bank (``moe_pool/{wi,wg,wo}`` [pages, D, F|D]) addressed
 through the ``ExpertPageTable``'s index arrays; both cover the ``L -
 first_k_dense`` MoE layers.  Two KV layouts (``kv_mode``): the
 slot-contiguous cache ``[L, B, max_len, KVH, hd]`` (the default; an MLA
-model's latent ``{c: [L, B, max_len, r], kr: [L, B, max_len, dr]}``), or
-a block pool ``[L, NB, bs, KVH, hd]`` with its host-side
-``KVBlockManager`` (standard attention only, as the reference asserts).
+model's latent ``{c: [L, B, max_len, r], kr: [L, B, max_len, dr]}``; a
+Mamba2 model's per-slot ``{conv, state}`` and a hybrid's shared-attention
+``{attn_k, attn_v}``), or a block pool ``[L, NB, bs, KVH, hd]`` with its
+host-side ``KVBlockManager`` (standard attention only, as the reference
+asserts).
 
 ``kv_dtype="int8"`` stores the KV pool as int8 entries with per-token f32
 scale pools on the same block axis; ``expert_dtype="int8"`` stores the
@@ -75,11 +77,12 @@ class HMM:
             raise ValueError(f"{mcfg.name}: expert_mode='pooled' requires a "
                              f"MoE model")
         if not dense_cache_supported(mcfg):
-            raise ValueError(f"{mcfg.name}: only standard-attention and "
-                             f"MLA decoders are ported")
+            raise ValueError(f"{mcfg.name}: only standard-attention, "
+                             f"MLA and Mamba2 decoders are ported")
         if kv_mode == "paged" and not paged_cache_supported(mcfg):
             raise ValueError(f"{mcfg.name} does not support the paged KV "
-                             f"layout (MLA caches its latent per slot)")
+                             f"layout (MLA caches its latent per slot, "
+                             f"Mamba2 its SSD state)")
         if kv_mode == "paged" and max_len % kv_block_size:
             raise ValueError("max_len must be a multiple of kv_block_size")
         if kv_dtype not in (None, "int8"):

@@ -10,8 +10,9 @@
 // in f32 (running max m, sum l, accumulator acc), score = dot(q, k) *
 // scale (the caller's; 1/sqrt(hd) for a standard head), masked scores
 // -1e30, output acc / max(l, 1e-30) rounded once to q's type -- the Pallas
-// kernel's arithmetic.  Instances (hd, hdv): (64, 64), (128, 128), and
-// (192, 128) for MLA's prefill (q/k carry dn + dr = 192 values, v 128:
+// kernel's arithmetic.  Instances (hd, hdv): (64, 64), (80, 80) for
+// zamba2's shared attention block, (128, 128), and (192, 128) for MLA's
+// prefill (q/k carry dn + dr = 192 values, v 128:
 // the reference pads v to 192 and trims the output, this instance reads
 // and writes 128).
 //
@@ -23,7 +24,8 @@
 // (67 TFLOP/s in f32, ~128 us) as long as it does not use tensor cores.
 // At MLA's (192, 128), B=1, S=1024, H=KVH=16: 2 * (192 + 128) operations
 // per attended triple, 5.4 GFLOP (5.4 us); 21.0 MB of q, k, v and out
-// (6.3 us): the bytes bound it there.
+// (6.3 us): the bytes bound it there.  At zamba2's (80, 80), B=1, S=1024,
+// H=KVH=32: 5.4 GFLOP (5.4 us); 21.0 MB (6.3 us): bytes again.
 //
 // Design.  One block of 256 threads per (query tile of BQ = 64 rows, head,
 // sequence); heavier (later) causal tiles are scheduled first.  Shared
@@ -248,6 +250,8 @@ int by_hd(int hd, int hdv, const void* q, const void* k, const void* v,
           cudaStream_t s) {
   if (hd == 64 && hdv == 64)
     return launch<T, 64, 64>(q, k, v, out, B, S, H, KVH, causal, scale, s);
+  if (hd == 80 && hdv == 80)
+    return launch<T, 80, 80>(q, k, v, out, B, S, H, KVH, causal, scale, s);
   if (hd == 128 && hdv == 128)
     return launch<T, 128, 128>(q, k, v, out, B, S, H, KVH, causal, scale, s);
   if (hd == 192 && hdv == 128)
@@ -260,7 +264,7 @@ int by_hd(int hd, int hdv, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); (hd, hdv) in {(64, 64),
-// (128, 128), (192, 128)}.  Returns cudaGetLastError() after the launch (0
+// (80, 80), (128, 128), (192, 128)}.  Returns cudaGetLastError() after the launch (0
 // on success).  Allocates nothing and does not synchronise.
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int B, int S, int H,

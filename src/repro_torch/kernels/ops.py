@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import (flash_attention as _flash, kv_write,
                                  mla_decode, moe_gmm, paged_attention, ref)
+from repro_torch.kernels import ssd_scan as _ssd
 
 _REFERENCE = contextvars.ContextVar("repro_torch_use_reference",
                                     default=False)
@@ -40,6 +41,7 @@ KERNELS = {
     "paged_decode_attention": paged_attention.paged_decode_attention,
     "kv_cache_write": kv_write.kv_cache_write,
     "mla_decode_attention": mla_decode.mla_decode_attention,
+    "ssd_scan": _ssd.ssd_scan,
 }
 
 
@@ -194,3 +196,12 @@ def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, lengths, scale):
                                             lengths, scale)
     return mla_decode.mla_decode_attention(q_eff, q_rope, c_cache, kr_cache,
                                            lengths, scale)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk):
+    """Mamba2 SSD chunk scan from a zero state (every prefill, every SSM
+    layer) -> (y [B,S,H,P] f32, final state [B,H,N,P] f32); see
+    ``ssd_scan.ssd_scan``."""
+    if _plain(x):
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk)

@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the ported kernels — the port of
-``repro.kernels.ref`` for the ten kernels on the serving paths (bf16/f32
+``repro.kernels.ref`` for the eleven kernels on the serving paths (bf16/f32
 pools, int8 pools with f32 scales, the slot-contiguous KV cache of the
-dense-KV mode with its monolithic prefill, and the MLA latent cache).
+dense-KV mode with its monolithic prefill, the MLA latent cache, and the
+Mamba2 SSD chunk scan).
 
 The CPU tests hold these against the Pallas kernels; ``chip_smoke.py``
 holds the CUDA kernels against these on the card.  They repeat the
 reference's arithmetic (f32 accumulation, ``-1e30`` masking, a softmax over
-the whole gathered context) and are no yardstick of speed.
+the whole gathered context, the SSD scan's chunked products) and are no
+yardstick of speed.
 
 Gathers through a table clamp out-of-range rows to the last pool row,
 which is what a JAX gather does with the ``NB`` sentinel; position masking
@@ -199,3 +201,52 @@ def quant_mixed_block_paged_attention_ref(q, k_pool, k_scale, v_pool,
     v = dequantize_rows(v_pool, v_scale, (-2, -1))
     return mixed_block_paged_attention_ref(q, k, v, block_tables, ctx_lens,
                                            q_lens)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, chunk):
+    """Mamba2 SSD chunk scan with one B/C group, the Pallas kernel's chunked
+    arithmetic in f32: x [B,S,H,P]; dt [B,S,H] (> 0); A [H] (< 0); Bm/Cm
+    [B,S,N] -> (y [B,S,H,P] f32, final state [B,H,N,P] f32), the state
+    starting at zero.
+
+    With Q = min(chunk, S) and ``acs`` the inclusive cumsum of ``dt * A``
+    within a chunk, each chunk gives ``y = (C · state) * exp(acs) + ((C ·
+    Bᵀ) ∘ exp(acs_i - acs_j)[i >= j] ∘ dt_j) · x`` and carries ``state *
+    exp(acs[-1]) + (B * exp(acs[-1] - acs) * dt)ᵀ · x``.  A ragged last
+    chunk (S not a multiple of Q, which the Pallas kernel refuses) is read
+    as padded with rows of dt = 0 and x = B = C = 0: a decay of 1 and no
+    input, so the padding changes neither y nor the state."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):         # [B,S,...] f32, zero-padded -> [B,nc,Q,...]
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad, *t.shape[2:]))], 1)
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(Bm), chunks(Cm)
+    acs = torch.cumsum(dtc * A.float(), dim=2)                # [B,nc,Q,H]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    state = x.new_zeros((Bsz, H, N, P), dtype=torch.float32)
+    ys = []
+    for c in range(nc):
+        a, d, xq, bq, cq = acs[:, c], dtc[:, c], xc[:, c], bc[:, c], cc[:, c]
+        y_off = torch.einsum("bqn,bhnp->bqhp", cq, state) \
+            * torch.exp(a)[..., None]
+        seg = a[:, :, None, :] - a[:, None, :, :]              # [B,Q,K,H]
+        L = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                  float("-inf")))
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)
+        M = scores[..., None] * L * d[:, None]                 # [B,Q,K,H]
+        y_diag = torch.einsum("bqkh,bkhp->bqhp", M, xq)
+        decay_out = torch.exp(a[:, -1:] - a) * d               # [B,Q,H]
+        state = state * torch.exp(a[:, -1])[:, :, None, None] \
+            + torch.einsum("bkn,bkhp->bhnp", bq,
+                           xq * decay_out[..., None])
+        ys.append(y_off + y_diag)
+    y = torch.stack(ys, 1).reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y, state

@@ -1,12 +1,17 @@
-"""Standard-attention and MLA decoders (dense or MoE) — the port of the
-serving steps of ``repro.models.model`` over the two KV layouts: the paged
-pool (``paged_decode_step``, ``paged_chunk_prefill_step``; standard
-attention only, as in the reference) and the slot-contiguous cache of the
-dense-KV mode (``prefill``, ``decode_step``; ``write_prefill_to_blocks``
-moves a monolithic prefill into the pool), plus the full-sequence
-``forward``.  An MLA model (``cfg.use_mla``) caches its latent
-``{'c','kr'}`` (``models/mla.py``) and applies its ``first_k_dense`` prefix
-in every step, prefix rows first in the cache.
+"""Standard-attention and MLA decoders (dense or MoE) and the Mamba2
+models — the port of the serving steps of ``repro.models.model`` over the
+two KV layouts: the paged pool (``paged_decode_step``,
+``paged_chunk_prefill_step``; standard attention only, as in the
+reference) and the slot-contiguous cache of the dense-KV mode
+(``prefill``, ``decode_step``; ``write_prefill_to_blocks`` moves a
+monolithic prefill into the pool), plus the full-sequence ``forward``.  An
+MLA model (``cfg.use_mla``) caches its latent ``{'c','kr'}``
+(``models/mla.py``) and applies its ``first_k_dense`` prefix in every
+step, prefix rows first in the cache.  A Mamba2 model (``arch_type``
+"ssm") caches each layer's conv tail and SSD state ``{'conv','state'}``
+(``models/mamba2.py``); a hybrid ("hybrid", zamba2) adds one shared
+attention block at the head of every group of ``attn_every`` SSD layers,
+its K/V rows ``{'attn_k','attn_v'}`` cached per group.
 
 Parameters are nested dicts of tensors in the reference's layout: the
 per-layer leaves under ``params["blocks"]`` are stacked with a leading
@@ -15,8 +20,9 @@ layer axis, an optional ``params["dense_prefix"]`` list holds the first
 dense banks ``blocks/moe/{wi,wg,wo}`` ``[L, E, D, F|D]`` or, with the
 pooled expert store, page banks in ``params["moe_pool"]`` while
 ``blocks/moe`` holds the index arrays (``tables``, ``edest``, ``eslot``,
-``gtable``).  A Python loop over layers replaces the reference's
-``lax.scan``.
+``gtable``).  The Mamba2 models stack ``blocks/{ln, ssm}`` and a hybrid
+holds its one shared block, unstacked, in ``params["shared_attn"]``.  A
+Python loop over layers replaces the reference's ``lax.scan``.
 
 The steps that take a cache update it in place (the reference donates it
 to its jitted steps) and return the same dict.
@@ -36,6 +42,8 @@ from repro_torch.models.layers import (_kept_rows, apply_norm,
                                        mlp_init, norm_init,
                                        paged_attention_apply,
                                        paged_chunk_attention_apply)
+from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
+                                       mamba2_init)
 from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
 from repro_torch.models.moe import moe_local, moe_local_pooled, router_init
 
@@ -86,7 +94,9 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
 
     MoE layers get the router but no routed experts: ``HMM.boot`` fills the
     dense banks or the pooled store layer by layer with
-    ``init_expert_bank``, so the experts are never held twice."""
+    ``init_expert_bank``, so the experts are never held twice.  The Mamba2
+    models get stacked SSD blocks and, a hybrid, one shared attention
+    block."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
@@ -99,6 +109,14 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
                  .to(dtype),
                  "lm_head": linear_init(gen, cfg.d_model, cfg.vocab_size,
                                         dtype, dev)}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        lead = (cfg.num_layers,)
+        p["blocks"] = {"ln": norm_init(cfg.d_model, cfg.norm_type, dtype,
+                                       dev, lead),
+                       "ssm": mamba2_init(gen, cfg, dtype, dev, lead)}
+        if cfg.arch_type == "hybrid":
+            p["shared_attn"] = _block_init(gen, cfg, dtype, dev, moe=False)
+        return p
     nk = cfg.first_k_dense if cfg.is_moe else 0
     if nk:
         p["dense_prefix"] = [_block_init(gen, cfg, dtype, dev, moe=False)
@@ -137,13 +155,25 @@ def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None):
 
 
 def _layers(cfg, params):
-    """(block params, is_moe) per layer, dense prefix first."""
+    """(kind, cache row, block params, is_moe) per block, in order.  An
+    attention decoder's blocks are all "attn", dense prefix first, cache
+    row = layer.  A Mamba2 model's are "ssm" (cache row = layer); a hybrid
+    applies its shared "attn" block at the head of every group of
+    ``attn_every`` layers (cache row = group)."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        every = cfg.attn_every if cfg.arch_type == "hybrid" else 0
+        for l in range(cfg.num_layers):
+            if every and l % every == 0:
+                yield "attn", l // every, params["shared_attn"], False
+            yield "ssm", l, layer_params(params["blocks"], l), False
+        return
     nk = cfg.first_k_dense if cfg.is_moe else 0
     for i in range(cfg.num_layers):
         if i < nk:
-            yield params["dense_prefix"][i], False
+            yield "attn", i, params["dense_prefix"][i], False
         else:
-            yield layer_params(params["blocks"], i - nk), cfg.is_moe
+            yield "attn", i, layer_params(params["blocks"], i - nk), \
+                cfg.is_moe
 
 
 def _attention(cfg, bp, h, positions, **cache_kw):
@@ -156,30 +186,58 @@ def _attention(cfg, bp, h, positions, **cache_kw):
     return attention_apply(cfg, bp["attn"], h, positions, **cache_kw)
 
 
+def _attn_block(cfg, bp, x, positions, *, moe=False, moe_pool=None,
+                **cache_kw):
+    """Self-attention and the feed-forward, each with its residual ->
+    (x', the attention's new k/v, latent or cache)."""
+    h = apply_norm(bp["ln1"], x, cfg.norm_type)
+    a, kv = _attention(cfg, bp, h, positions, **cache_kw)
+    x = x + a
+    h = apply_norm(bp["ln2"], x, cfg.norm_type)
+    return x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=moe_pool), kv
+
+
+def _ssm_block(cfg, bp, x, cache=None):
+    """Norm, SSD (``mamba2_forward`` from a zero state, or one
+    ``mamba2_decode`` step from ``cache``) and residual -> (x', the
+    layer's new {'conv', 'state'})."""
+    h = apply_norm(bp["ln"], x, cfg.norm_type)
+    if cache is None:
+        y, new = mamba2_forward(cfg, bp["ssm"], h, return_cache=True)
+    else:
+        y, new = mamba2_decode(cfg, bp["ssm"], h, cache)
+    return x + y, new
+
+
 # ------------------------------------------------------------------- caches
 
 def dense_cache_supported(cfg) -> bool:
     """The slot-contiguous cache covers the standard-attention decoders
-    (``paged_cache_supported``) and the MLA decoders (dense and MoE)."""
+    (``paged_cache_supported``), the MLA decoders (dense and MoE) and the
+    Mamba2 models (attention-free and hybrid)."""
     return paged_cache_supported(cfg) or (
-        cfg.has_decode and cfg.arch_type in ("dense", "moe")
-        and cfg.use_mla and cfg.attn_window is None)
+        cfg.has_decode and cfg.attn_window is None
+        and (cfg.arch_type in ("ssm", "hybrid")
+             or (cfg.arch_type in ("dense", "moe") and cfg.use_mla)))
 
 
 def cache_names(cfg):
-    """The slot-contiguous cache's leaves: the latent and rope key for
-    MLA, k and v otherwise."""
+    """The slot-contiguous cache's leaves that the attention blocks write:
+    the latent and rope key for MLA, the shared block's k and v for a
+    hybrid, none for an attention-free model, k and v otherwise."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return ("attn_k", "attn_v") if cfg.arch_type == "hybrid" else ()
     return ("c", "kr") if cfg.use_mla else ("k", "v")
 
 
 def _check_dense_kv(cfg) -> None:
-    """The slot-contiguous steps cover the reference's standard-attention
-    and MLA branches of ``prefill`` / ``decode_step``.  The standard
-    branches scan ``blocks`` only: a dense prefix there is outside what the
-    reference computes; the MLA branches apply it."""
+    """The slot-contiguous steps cover the reference's standard-attention,
+    MLA, ssm and hybrid branches of ``prefill`` / ``decode_step``.  The
+    standard branches scan ``blocks`` only: a dense prefix there is
+    outside what the reference computes; the MLA branches apply it."""
     if not dense_cache_supported(cfg):
-        raise NotImplementedError(f"{cfg.name}: only standard-attention "
-                                  f"and MLA decoders are ported")
+        raise NotImplementedError(f"{cfg.name}: only standard-attention, "
+                                  f"MLA and Mamba2 decoders are ported")
     if cfg.is_moe and cfg.first_k_dense and not cfg.use_mla:
         raise ValueError(f"{cfg.name}: the dense-KV steps apply no "
                          f"first_k_dense prefix (as in the reference)")
@@ -188,18 +246,31 @@ def _check_dense_kv(cfg) -> None:
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *,
                device="cuda"):
     """Slot-contiguous decode cache, zeros, in the model dtype (or
-    ``dtype``): {'k','v': [L, B, max_len, KVH, hd]}, or for MLA the latent
-    {'c': [L, B, max_len, r], 'kr': [L, B, max_len, dr]}."""
+    ``dtype``): {'k','v': [L, B, max_len, KVH, hd]}; for MLA the latent
+    {'c': [L, B, max_len, r], 'kr': [L, B, max_len, dr]}; for a Mamba2
+    model {'conv': [L, B, K-1, d_inner + 2N], 'state': [L, B, H, N, P]
+    f32}, and for a hybrid also the shared block's {'attn_k','attn_v':
+    [L / attn_every, B, max_len, KVH, hd]}."""
     _check_dense_kv(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
-    lead = (cfg.num_layers, batch, max_len)
+    L = cfg.num_layers
+    cache = {}
+    if cfg.arch_type in ("ssm", "hybrid"):
+        conv = cfg.d_inner + 2 * cfg.ssm_state
+        cache["conv"] = torch.zeros((L, batch, cfg.ssm_conv - 1, conv),
+                                    dtype=dtype, device=dev)
+        cache["state"] = torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_state,
+                                      cfg.ssm_head_dim), device=dev)
+        L = L // cfg.attn_every if cfg.attn_every else 0
+    lead = (L, batch, max_len)
     if cfg.use_mla:
         shapes = ((cfg.kv_lora_rank,), (cfg.qk_rope_dim,))
     else:
         shapes = ((cfg.num_kv_heads, cfg.resolved_head_dim),) * 2
-    return {n: torch.zeros(lead + tail, dtype=dtype, device=dev)
-            for n, tail in zip(cache_names(cfg), shapes)}
+    cache.update({n: torch.zeros(lead + tail, dtype=dtype, device=dev)
+                  for n, tail in zip(cache_names(cfg), shapes)})
+    return cache
 
 
 def _cache_slot(cfg, lengths):
@@ -281,23 +352,24 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids):
 
 def forward(cfg, params: Params, batch):
     """Full-sequence forward: tokens [B,S] -> logits [B,S,V].  Every
-    sequence attends causally over its S tokens (``ops.flash_attention``).
-    The reference also returns the router's load-balance loss, a training
+    sequence attends causally over its S tokens (``ops.flash_attention``);
+    an SSD layer scans them from a zero state (``ops.ssd_scan``).  The
+    reference also returns the router's load-balance loss, a training
     term; it is not computed here."""
     if not dense_cache_supported(cfg):
-        raise NotImplementedError(f"{cfg.name}: only standard-attention "
-                                  f"and MLA decoders are ported")
+        raise NotImplementedError(f"{cfg.name}: only standard-attention, "
+                                  f"MLA and Mamba2 decoders are ported")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     pool = params.get("moe_pool")
-    for bp, moe in _layers(cfg, params):
-        h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, _ = _attention(cfg, bp, h, positions)
-        x = x + a
-        h = apply_norm(bp["ln2"], x, cfg.norm_type)
-        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+    for kind, _, bp, moe in _layers(cfg, params):
+        if kind == "ssm":
+            x, _ = _ssm_block(cfg, bp, x)
+        else:
+            x, _ = _attn_block(cfg, bp, x, positions, moe=moe,
+                               moe_pool=pool)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return linear(params["lm_head"], x)
 
@@ -311,7 +383,9 @@ def prefill(cfg, params: Params, batch, max_len: int):
     take capacity slots).  Returns (logits [B,V] at position lengths-1,
     cache as ``init_cache`` lays it out, each layer's K/V or latent in its
     first S rows (the last ``max_len`` when S is longer) and zeros
-    after)."""
+    after).  An SSD layer scans all S tokens, padding included, so its
+    cached conv tail and state are those after S tokens, as in the
+    reference; decode continues from there."""
     _check_dense_kv(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -321,14 +395,15 @@ def prefill(cfg, params: Params, batch, max_len: int):
     cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
     pool = params.get("moe_pool")
     names = cache_names(cfg)
-    for i, (bp, moe) in enumerate(_layers(cfg, params)):
-        h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, kv = _attention(cfg, bp, h, positions)
+    for kind, i, bp, moe in _layers(cfg, params):
+        if kind == "ssm":
+            x, new = _ssm_block(cfg, bp, x)
+            cache["conv"][i] = new["conv"]
+            cache["state"][i] = new["state"]
+            continue
+        x, kv = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool)
         for name, new in zip(names, kv):
             cache[name][i, :, :n] = new[:, S - n:]
-        x = x + a
-        h = apply_norm(bp["ln2"], x, cfg.norm_type)
-        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     lengths = batch.get("lengths")
     if lengths is None:
@@ -344,22 +419,31 @@ def decode_step(cfg, params: Params, tokens, cache, lengths):
     latent rows) land at slot ``lengths`` (``ops.kv_cache_write``; past
     the cache they drop) and it attends ``lengths + 1`` positions
     (``ops.paged_decode_attention``; MLA: ``ops.mla_decode_attention``).
-    Updates ``cache`` in place; returns (logits [B,V], cache)."""
+    An SSD layer takes one recurrent step from its cached conv tail and
+    state; a hybrid's shared block writes at ``lengths % max_len`` and
+    attends ``min(lengths + 1, max_len)`` positions, as the reference's
+    hybrid branch does.  Updates ``cache`` in place; returns (logits
+    [B,V], cache)."""
     _check_dense_kv(cfg)
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     write_pos = _cache_slot(cfg, lengths)
     valid = lengths + 1
+    if cfg.arch_type == "hybrid":
+        win = cache["attn_k"].shape[2]
+        write_pos, valid = lengths % win, valid.clamp(max=win)
     pool = params.get("moe_pool")
     names = cache_names(cfg)
-    for i, (bp, moe) in enumerate(_layers(cfg, params)):
-        h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, _ = _attention(cfg, bp, h, positions,
-                          cache=tuple(cache[n][i] for n in names),
-                          write_pos=write_pos, kv_valid_len=valid)
-        x = x + a
-        h = apply_norm(bp["ln2"], x, cfg.norm_type)
-        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+    for kind, i, bp, moe in _layers(cfg, params):
+        if kind == "ssm":
+            x, new = _ssm_block(cfg, bp, x, {"conv": cache["conv"][i],
+                                             "state": cache["state"][i]})
+            cache["conv"][i] = new["conv"]
+            cache["state"][i] = new["state"]
+            continue
+        x, _ = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+                           cache=tuple(cache[n][i] for n in names),
+                           write_pos=write_pos, kv_valid_len=valid)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return linear(params["lm_head"], x[:, 0]), cache
 
@@ -374,7 +458,7 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     pool = params.get("moe_pool")
-    for i, (bp, moe) in enumerate(_layers(cfg, params)):
+    for _, i, bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
         a, _ = paged_attention_apply(
             cfg, bp["attn"], h, positions,
@@ -408,7 +492,7 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
     ctx_t = torch.tensor([length], dtype=torch.int32, device=dev)
     qlen_t = torch.tensor([q_len], dtype=torch.int32, device=dev)
     pool = params.get("moe_pool")
-    for i, (bp, moe) in enumerate(_layers(cfg, params)):
+    for _, i, bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
         a, _ = paged_chunk_attention_apply(
             cfg, bp["attn"], h, positions,

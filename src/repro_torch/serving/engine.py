@@ -4,9 +4,10 @@ prefill — the port of the one-device serving half of
 ``repro.serving.engine``.
 
 Dense KV (``kv=None`` at ``bind``, the reference's default) keeps one
-cache row ``[L, B, max_len, ...]`` per slot; each admitted request is
-prefilled at admission, padded to a bucket, and its KV overwrites the slot
-row.  Paged KV keeps a block *pool* ``[L, NB, bs, ...]`` and each slot a
+cache row ``[L, B, ...]`` per slot (K/V or MLA latent rows of max_len
+positions; a Mamba2 model's conv tail and SSD state); each admitted
+request is prefilled at admission, padded to a bucket, and its cache
+overwrites the slot row.  Paged KV keeps a block *pool* ``[L, NB, bs, ...]`` and each slot a
 block table (``serving/kv_blocks.py``): admission is gated by free blocks,
 shared prompt prefixes are copy-on-write, and when the pool runs dry the
 lowest-priority sequence is preempted (freed + re-queued; recomputed on

@@ -7,7 +7,10 @@ path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
 S_max, a dropped cache write), and for MLA (the latent decode at lengths
 0, 1, S_max and past it, an S_max that is no tile multiple, sequences
 split over up to 16 blocks, peaked and flat scores; prefill attention at
-q/k width 192 and v width 128).
+q/k width 192 and v width 128), and for the Mamba2 models (the SSD chunk
+scan at ragged lengths, one token, fewer than 32 columns of P, chunks of
+16 to 256 rows, B and C in bf16 and f32; zamba2's attention at head width
+80).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -15,14 +18,17 @@ from the repo root::
 
 Tolerance: f32 atol = rtol = 1e-4 (f32 sums in another order than the
 plain version's matmuls); bf16 atol = rtol = 2e-2 on f32-cast outputs
-(both round once from f32).
+(both round once from f32).  The SSD scan's outputs are f32 from f32 sums
+on both sides whatever the input type: atol = rtol = 1e-3 (sums of up to
+256 products, the decays' exps taken in another order).
 """
 import pytest
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (flash_attention, kv_write, mla_decode,
-                                 moe_gmm, ops, paged_attention, ref)
+                                 moe_gmm, ops, paged_attention, ref,
+                                 ssd_scan)
 from repro_torch.kernels.quant import dequantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -285,6 +291,8 @@ FLASH = {  # B, S, H, KVH, hd
     "mha-hd64-ragged": (2, 77, 4, 4, 64),
     "gqa2-hd64-one-tile": (2, 64, 8, 4, 64),
     "gqa8-hd128-one-token": (1, 1, 8, 1, 128),
+    "mha-hd80-ragged": (1, 200, 32, 32, 80),
+    "mha-hd80-two-sequences": (2, 77, 4, 4, 80),
 }
 
 
@@ -305,6 +313,7 @@ def test_flash_attention_matches_plain(dev, case, dtype, causal):
 SLOT = {  # H, KVH, hd, S_max, lengths
     "gqa8-hd128": (32, 4, 128, 256, [1, 256, 17, 300]),
     "mha-hd64-ragged-smax": (4, 4, 64, 50, [50, 1, 49]),
+    "mha-hd80": (32, 32, 80, 256, [1, 256, 17, 300]),
 }
 
 
@@ -473,3 +482,75 @@ def test_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 8, 4, 192, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(q, q, q)              # v 192
+
+
+# ------------------------------------------------------------------ SSD
+
+SSD_TOL = dict(atol=1e-3, rtol=1e-3)
+SSD = {  # B, S, H, P, N, chunk
+    "mamba2-s1024": (1, 1024, 64, 64, 128, 256),
+    "zamba2-s1024": (1, 1024, 80, 64, 64, 128),
+    "b2-s512": (2, 512, 64, 64, 128, 256),
+    "ragged-s1000": (1, 1000, 8, 64, 128, 256),
+    "reduced-ragged-s40": (2, 40, 4, 32, 16, 16),
+    "p16-n8-c16": (2, 64, 8, 16, 8, 16),
+    "one-token": (3, 1, 4, 64, 64, 128),
+    "s-below-chunk-c100": (1, 250, 2, 40, 24, 100),
+}
+
+
+def _ssd_inputs(gen, B, S, H, P, N, dtype, dev):
+    """The reference test's distributions: dt in [0.01, 0.51], A in
+    [-1.5, -0.5]."""
+    return (_rand(gen, (B, S, H, P), dtype, dev),
+            (torch.rand(B, S, H, generator=gen) * 0.5 + 0.01).to(dev),
+            (-(torch.rand(H, generator=gen) + 0.5)).to(dev),
+            _rand(gen, (B, S, N), dtype, dev),
+            _rand(gen, (B, S, N), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(SSD))
+def test_ssd_scan_matches_plain(dev, case, dtype):
+    *shape, chunk = SSD[case]
+    gen = torch.Generator().manual_seed(17)
+    inputs = _ssd_inputs(gen, *shape, dtype, dev)
+    ops.reset_launch_counts()
+    y, st = ssd_scan.ssd_scan(*inputs, chunk)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    wy, ws = ref.ssd_scan_ref(*inputs, chunk)
+    assert y.dtype == st.dtype == torch.float32
+    assert tuple(st.shape) == (shape[0], shape[2], shape[4], shape[3])
+    torch.testing.assert_close(y, wy, **SSD_TOL)
+    torch.testing.assert_close(st, ws, **SSD_TOL)
+    again = ssd_scan.ssd_scan(*inputs, chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], st)
+
+
+def test_ssd_scan_counts_and_use_reference(dev):
+    gen = torch.Generator().manual_seed(18)
+    inputs = _ssd_inputs(gen, 1, 64, 2, 32, 16, torch.float32, dev)
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*inputs, 16)
+    with ops.use_reference():
+        want = ops.ssd_scan(*inputs, 16)
+    assert ops.launch_counts()["ssd_scan"] == 1         # plain: no launch
+    torch.testing.assert_close(got, want, **SSD_TOL)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    gen = torch.Generator().manual_seed(19)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 2, 32, 16, torch.bfloat16,
+                                   dev)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x, dt.bfloat16(), A, Bm, Cm, 16)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(x, dt, A, Bm.float(), Cm, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          dt, A, Bm, Cm, 16)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_scan.ssd_scan(x, dt, A[:1].contiguous(), Bm, Cm, 16)
+    big = _ssd_inputs(gen, 1, 512, 2, 32, 16, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd_scan(*big, 512)

@@ -19,7 +19,7 @@ from repro_torch.core.hmm import HMM
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.device import exact_matmuls
 from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
-                                 paged_attention)
+                                 paged_attention, ref, ssd_scan)
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.models import model as M
 
@@ -248,6 +248,30 @@ def test_dense_kernel_wrappers_refuse_cpu_tensors():
         paged_attention.paged_decode_attention(q[:, 0], k, v, lens)
     with pytest.raises(ValueError, match="CUDA kernel"):
         kv_write.kv_cache_write(k, new, pos)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def _small_ssd_inputs():
+    g = torch.Generator().manual_seed(3)
+    return (torch.randn(1, 24, 2, 16, generator=g),
+            torch.rand(1, 24, 2, generator=g) + 0.01,
+            -torch.rand(2, generator=g) - 0.5,
+            torch.randn(1, 24, 8, generator=g),
+            torch.randn(1, 24, 8, generator=g))
+
+
+def test_ssd_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    inputs = _small_ssd_inputs()
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(*inputs, 16)
+    wy, ws = ref.ssd_scan_ref(*inputs, 16)
+    assert torch.equal(y, wy) and torch.equal(st, ws)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_ssd_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        ssd_scan.ssd_scan(*_small_ssd_inputs(), 16)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
