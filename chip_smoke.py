@@ -36,6 +36,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    single PyTorch call computes the scan, so it has no library time.
    ``flash_attention`` and ``paged_decode_attention`` at zamba2's shared
    block too (H = KVH = 32, head width 80).
+   The decode kernels run twice on the same inputs and must give the same
+   bits (the split-context decode's counters, which the first launch
+   leaves at zero, are reused).  Their queries, as MLA's, make scores of
+   standard deviation 3; the bf16 split-context decodes must also be the
+   f32 answer rounded once to bf16 (within 3e-5 past half a bf16 step).
    Times the kernel, the plain version and one PyTorch library call for
    the same function (a yardstick only, never called by the port; for the
    int8 kernels it reads K/V or pages dequantized to q's dtype beforehand)
@@ -86,9 +91,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    pooled store ``paged_gmm`` three times per MoE layer per step.
 9. ``e2e_ssm``: mamba2-1.3b and zamba2-2.7b at full width, 2 layers (the
    hybrid as two groups of one SSD layer, each led by the shared attention
-   block), the default stores: a monolithic prefill of a 200-token prompt
-   into one slot, then three decode steps of 8 slots, through the kernels
-   and through ``ops.use_reference()``, held to the e2e rules above; layer
+   block), and zamba2-2.7b again with ``attn_every`` 2 (4 layers, two
+   groups of two SSD layers), the default stores: a monolithic prefill of
+   a 200-token prompt into one slot, then three decode steps of 8 slots,
+   through the kernels and through ``ops.use_reference()``, held to the
+   e2e rules above; layer
    0's conv tails (mamba2) or group 0's K/V rows (zamba2) must be equal on
    both paths.
 10. ``serve_mamba2`` and ``serve_zamba2``: the same requests on
@@ -149,6 +156,9 @@ MLA_PREFILL_C = 120            # rows an expert in a 1,024-token prefill
 SSD_MAMBA2 = (1, 1024, 64, 64, 128, 256)
 SSD_ZAMBA2 = (1, 1024, 80, 64, 64, 128)
 SSD_TOL = dict(atol=1e-3, rtol=1e-3)
+# decode queries: N(0, 3^2) entries against N(0, 1) keys give scores of
+# standard deviation 3 after the 1/sqrt(hd) scale, a peaked softmax
+DECODE_Q_STD = 3.0
 ZAMBA_H, ZAMBA_HD = 32, 80
 
 REPLACES = {
@@ -167,16 +177,17 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
 }
 _ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
+_DECODE_CU = "src/repro_torch/csrc/paged_decode.cu"
 _GMM_CU = "src/repro_torch/csrc/moe_gmm.cu"
 SOURCES = {
-    "block_paged_decode_attention": _ATTN_CU,
+    "block_paged_decode_attention": _DECODE_CU,
     "mixed_block_paged_attention": _ATTN_CU,
     "paged_gmm": _GMM_CU,
     "quant_block_paged_decode_attention": _ATTN_CU,
     "quant_mixed_block_paged_attention": _ATTN_CU,
     "quant_paged_gmm": _GMM_CU,
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-    "paged_decode_attention": _ATTN_CU,
+    "paged_decode_attention": _DECODE_CU,
     "kv_cache_write": "src/repro_torch/csrc/kv_write.cu",
     "mla_decode_attention": "src/repro_torch/csrc/mla_decode.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
@@ -315,7 +326,9 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     if kind == "decode":
         lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
         bt = _tables(gen, lengths.tolist(), NB, MB).cuda()
-        q = torch.randn(BATCH, H, HD, generator=gen).to(dtype).cuda()
+        # each score with a standard deviation of 3, a peaked softmax
+        q = (torch.randn(BATCH, H, HD, generator=gen)
+             * DECODE_Q_STD).to(dtype).cuda()
         lens = lengths.cuda()
         op, plain_op = (
             (ops.quant_block_paged_decode_attention,
@@ -369,6 +382,15 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    excess = None
+    if kind == "decode":
+        # a second launch reuses the split counters the first left at 0
+        require(torch.equal(kern(), got), f"{op.__name__}: a second launch "
+                "differs from the first")
+        if not quant and dtype == torch.bfloat16:
+            excess = _require_one_bf16_rounding(
+                got, plain_op(q.float(), *(p.float() for p in pools), bt,
+                              lens), op.__name__)
     if kind != "decode":
         # the library call must compute the same function on valid rows
         lib_out = lib().transpose(1, 2)
@@ -384,6 +406,8 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     rec = {"case": label, "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
            "bytes": io + kv_bytes, "ops": ops_n}
+    if excess is not None:
+        rec["rounding_excess"] = excess
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
@@ -483,6 +507,20 @@ def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD)):
     return rec
 
 
+def _require_one_bf16_rounding(got, want32, what, atol=3e-5):
+    """bf16 ``got`` must be ``want32``, the f32 answer on the same inputs,
+    rounded once: within half a bf16 step of it (a step is 2^(e-8) for a
+    value in [2^(e-1), 2^e)), plus ``atol`` for f32 sums taken in another
+    order.  A kernel that rounds the probabilities to bf16 before P.V
+    fails this at peaked scores, well inside TOL."""
+    half = torch.ldexp(torch.ones_like(want32),
+                       torch.frexp(want32).exponent - 9)
+    excess = ((got.float() - want32).abs() - half).max().item()
+    require(excess <= atol, f"{what}: {excess:.3e} past one bf16 rounding "
+            f"of the f32 answer")
+    return excess
+
+
 def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     """Decode over the slot-contiguous cache [B, 2048, KVH, hd] at ragged
     lengths, against its plain version and SDPA with a length mask over
@@ -493,7 +531,8 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
     kc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
     vc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
-    q = torch.randn(BATCH, nh, hd, generator=gen).to(dtype).cuda()
+    q = (torch.randn(BATCH, nh, hd, generator=gen)
+         * DECODE_Q_STD).to(dtype).cuda()
     lens = lengths.cuda()
     kern = lambda: ops.paged_decode_attention(q, kc, vc, lens)
     plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, lens)
@@ -507,6 +546,14 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    require(torch.equal(kern(), got), "paged_decode_attention: a second "
+            "launch differs from the first")
+    excess = None
+    if dtype == torch.bfloat16:
+        excess = _require_one_bf16_rounding(
+            got, ref.paged_decode_attention_ref(q.float(), kc.float(),
+                                                vc.float(), lens),
+            "paged_decode_attention")
     torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
                                **TOL[dtype])
     ctx_tok = int(lengths.sum())
@@ -518,6 +565,8 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
                    f"lengths={DECODE_LENGTHS}",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if excess is not None:
+        rec["rounding_excess"] = excess
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
@@ -735,15 +784,20 @@ def phase_kernels():
                 rec, _ = _attention_case(kind, dtype, gen, timer, timed,
                                          quant)
                 out[mix_name].append(rec)
-            # q_len == 1 through the mixed kernel is the decode kernel, bit
-            # for bit
+            # q_len == 1 through the mixed kernel is the decode: bit for
+            # bit in int8 (one kernel), within TOL in bf16/f32 (the
+            # split-context decode sums in another order)
             q, pools, bt = dec_inputs
             dec = decode(q, *pools, bt, lens)
             mix = mixed(q[:, None].contiguous(), *pools, bt, lens,
                         torch.ones_like(lens))
             torch.cuda.synchronize()
-            require(torch.equal(dec, mix[:, 0]),
-                    f"{mix_name}: q_len == 1 differs from decode")
+            if quant:
+                require(torch.equal(dec, mix[:, 0]),
+                        f"{mix_name}: q_len == 1 differs from decode")
+            else:
+                torch.testing.assert_close(mix[:, 0].float(), dec.float(),
+                                           **TOL[dtype])
             del dec_inputs, q, pools, bt
             for bank in ("wi", "wg", "wo"):
                 for C in (1, 5):
@@ -1030,13 +1084,15 @@ def phase_e2e_mla():
     return out
 
 
-def _e2e_ssm(model, dtype_name):
+def _e2e_ssm(model, dtype_name, attn_every=1):
     """mamba2-1.3b or zamba2-2.7b at full width, 2 layers (zamba2 as two
     groups of one SSD layer, each led by the shared attention block: the
-    reduced hybrid's layout), the default stores: a monolithic prefill of a
-    200-token prompt padded to its 256 bucket into slot 2 (the engine's own
-    prefill step), then three decode steps of the 8 slots at ragged
-    lengths, through the kernels and through ``ops.use_reference()``."""
+    reduced hybrid's layout; with ``attn_every`` 2, 4 layers as two groups
+    of two, as the full model's groups of 6 share one block), the default
+    stores: a monolithic prefill of a 200-token prompt padded to its 256
+    bucket into slot 2 (the engine's own prefill step), then three decode
+    steps of the 8 slots at ragged lengths, through the kernels and
+    through ``ops.use_reference()``."""
     from repro_torch.configs import get_config
     from repro_torch.core.hmm import HMM
     from repro_torch.core.topology import ElasticConfig
@@ -1045,8 +1101,10 @@ def _e2e_ssm(model, dtype_name):
     from repro_torch.serving.engine import _prefill_fn
     base = get_config(model)
     hybrid = base.arch_type == "hybrid"
-    cfg = dataclasses.replace(base, num_layers=2, dtype=dtype_name,
-                              **({"attn_every": 1} if hybrid else {}))
+    cfg = dataclasses.replace(base, num_layers=2 * attn_every,
+                              dtype=dtype_name,
+                              **({"attn_every": attn_every} if hybrid
+                                 else {}))
     hmm = HMM(cfg, 1, batch_per_replica=BATCH, max_len=MAX_LEN, seed=1,
               device="cuda")
     hmm.boot(ElasticConfig(1, 1, (0,)))
@@ -1084,8 +1142,11 @@ def _e2e_ssm(model, dtype_name):
     with ops.use_reference():
         want, c_want = run()
     torch.cuda.synchronize()
-    # two prefills (the slot's and the logits') of 2 SSD layers
-    require(counts["ssd_scan"] == 4, counts)
+    # two prefills (the slot's and the logits') of every SSD layer; each
+    # decode step one shared-block attention a group
+    require(counts["ssd_scan"] == 2 * cfg.num_layers, counts)
+    require(counts["paged_decode_attention"]
+            == (steps * 2 if hybrid else 0), counts)
     require(got.shape == (1 + steps * BATCH, cfg.vocab_size))
     require(torch.isfinite(got).all() and torch.isfinite(want).all())
     err = (got - want).abs().max().item()
@@ -1104,19 +1165,22 @@ def _e2e_ssm(model, dtype_name):
         require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
     stores = "per-slot SSD state" + (" + shared-attention KV" if hybrid
                                       else "")
-    log(f"[e2e_ssm] 2-layer {model} {dtype_name}, {stores}: "
+    log(f"[e2e_ssm] {cfg.num_layers}-layer {model} {dtype_name}"
+        f"{f', attn_every {attn_every}' if hybrid else ''}, {stores}: "
         f"prefill (S={S}, bucket {S_pad}) + {steps} decode steps, logits "
         f"{tuple(got.shape)}, max_abs_err {err:.3e}, rel {rel:.3e}; SSD "
         f"state max_abs_err {state_err:.3e}")
-    return {"model": model, "dtype": dtype_name, "max_abs_err": err,
+    return {"model": model, "dtype": dtype_name, "layers": cfg.num_layers,
+            "attn_every": cfg.attn_every, "max_abs_err": err,
             "rel_err": rel, "state_err": state_err}
 
 
 def phase_e2e_ssm():
     out = []
-    for model in ("mamba2-1.3b", "zamba2-2.7b"):
+    for model, attn_every in (("mamba2-1.3b", 1), ("zamba2-2.7b", 1),
+                              ("zamba2-2.7b", 2)):
         for dtype_name in ("float32", "bfloat16"):
-            out.append(_e2e_ssm(model, dtype_name))
+            out.append(_e2e_ssm(model, dtype_name, attn_every))
             gc.collect()
             torch.cuda.empty_cache()
     return out

@@ -1,25 +1,16 @@
-// Paged attention over the KV block pool, and decode attention over the
-// slot-contiguous KV cache, for Hopper (sm_90a).
+// Paged attention over the KV block pool for Hopper (sm_90a): the mixed
+// (chunked-prefill) attention, and the int8 decode.
 //
-// Replaces five Pallas TPU kernels of the reference package:
-//   * block_paged_decode_attention        (src/repro/kernels/paged_attention.py:123)
+// Replaces three Pallas TPU kernels of the reference package:
 //   * mixed_block_paged_attention         (src/repro/kernels/paged_attention.py:322)
 //   * quant_block_paged_decode_attention  (src/repro/kernels/paged_attention.py:217)
 //   * quant_mixed_block_paged_attention   (src/repro/kernels/paged_attention.py:430)
-//   * paged_decode_attention              (src/repro/kernels/paged_attention.py:75)
-// All are one kernel here, templated on the pools' storage type and on how
-// a K/V row is addressed: decode is the mixed case with one query row per
-// sequence (q_len == 1), so decode and mixed agree exactly by construction,
-// in bf16/f32 and in int8.  The slot-contiguous decode (the dense-KV
-// serving mode) is the same decode with position p of sequence b at row
-// b * S_max + p instead of through a block table -- the Pallas file does
-// the same, its _block_kernel calls the slot kernel's body.
-//
-// Slot-contiguous cache.  k/v caches [B,S_max,KVH,hd], one row per
-// sequence; lengths are clamped to S_max (the Pallas grid stops at S_max);
-// the kernel walks the row in tiles of SLOT_BS = 16 positions and stages
-// zeros past S_max, where a ragged last tile would reach into the next
-// sequence's row (it reads the row's last position there, then drops it).  Bound: the context's K/V rows read once, as below.
+// All are one kernel here, templated on the pools' storage type: the int8
+// decode is the int8 mixed case with one query row per sequence (q_len ==
+// 1), so the two agree exactly by construction.  The bf16/f32 decodes,
+// block_paged_decode_attention (paged_attention.py:123) and the
+// slot-contiguous paged_decode_attention (paged_attention.py:75), run the
+// split-context kernel of paged_decode.cu.
 //
 // What it computes.  q [B,Sq,H,hd]; k/v pools [NB,bs,KVH,hd]; block tables
 // [B,MB] int32; ctx_lens [B]; q_lens [B] (decode: 1).  Query row i of
@@ -41,11 +32,10 @@
 //
 // Bound on an H100.  Memory: every K/V row of the context is read once per
 // (sequence, kv head), so the least time is (K+V bytes of the context + q +
-// out) / 3.35 TB/s.  Decode at B=8, ctx up to 2048 moves ~33 MB per layer
-// in bf16: ~10 us; int8 halves the rows and adds 8 bytes of scales per
-// token.  The arithmetic (4*hd FLOPs per query row and context token) is
-// far below the card's rate at decode and, at a 128-token chunk, still
-// under the memory time.
+// out) / 3.35 TB/s.  int8 decode at B=8, ctx up to 2048 moves ~6 MB per
+// layer: ~1.8 us.  The arithmetic (4*hd FLOPs per query row and context
+// token) is far below the card's rate at decode and, at a 128-token chunk,
+// still under the memory time.
 //
 // Design.  One block of 128 threads per (row tile, kv head, sequence).  A
 // row tile holds up to ROWS_MAX query rows (the G = H/KVH grouped heads of
@@ -58,12 +48,13 @@
 // and acc += p @ v are plain FMAs on CUDA cores.  Blocks past the last
 // position any row of the tile attends are skipped: their scores are all
 // masked, so skipping them changes no bit.  Known gaps, measured and left
-// for later work, shared by the int8 instantiation: serial work inside the
-// block, about 8 us per 16-token KV block (the scores are hd scalar FMAs
-// per thread from shared memory, the softmax update runs on R of the 128
-// threads serially over the block's tokens, four barriers per block);
-// decode fills B*KVH = 32 blocks of 132 SMs (no split over the context);
-// no tensor cores or asynchronous copies.
+// for later work: serial work inside the block, about 8 us per 16-token KV
+// block (the scores are hd scalar FMAs per thread from shared memory, the
+// softmax update runs on R of the 128 threads serially over the block's
+// tokens, four barriers per block); the int8 decode fills B*KVH = 32 blocks
+// of 132 SMs (no split over the context); no tensor cores or asynchronous
+// copies.  paged_decode.cu is the redesign of the bf16/f32 decode that
+// removes these gaps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +65,6 @@ namespace {
 
 constexpr int THREADS = 128;
 constexpr int ROWS_MAX = 16;
-constexpr int SLOT_BS = 16;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -97,20 +87,17 @@ __device__ __forceinline__ float i8_at(int w, int j) {
 
 // grid (row tiles, KVH, B); dynamic shared memory: see smem_bytes().  KV is
 // the pools' storage type: T itself, or int8_t with f32 scale pools
-// k_scale / v_scale [NB, bs] (unused, and null, otherwise).  SLOT: the
-// pools are slot-contiguous caches [B, S_max, KVH, hd] (tables unused and
-// null; bs == SLOT_BS), else block pools [NB, bs, KVH, hd] read through
-// the tables.
-template <typename T, typename KV, bool SLOT>
+// k_scale / v_scale [NB, bs] (unused, and null, otherwise); block pools
+// [NB, bs, KVH, hd] read through the tables.
+template <typename T, typename KV>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const T* __restrict__ q, const KV* __restrict__ k_pool,
     const float* __restrict__ k_scale, const KV* __restrict__ v_pool,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ ctx_lens, const int32_t* __restrict__ q_lens,
     T* __restrict__ out, int Sq, int H, int KVH, int hd, int NB, int bs,
-    int MB, int S_max, int R, float scale) {
+    int MB, int R, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
-  static_assert(!(SLOT && QUANT), "the slot-contiguous cache is unquantized");
   extern __shared__ float smem[];
   const int G = H / KVH;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -129,7 +116,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   float* sv_s = sk_s + bs;        // [bs] v scales of the block (int8 only)
   const int tid = threadIdx.x;
 
-  const int ctx = SLOT ? min(ctx_lens[b], S_max) : ctx_lens[b];
+  const int ctx = ctx_lens[b];
   const int q_len = q_lens ? q_lens[b] : 1;
 
   for (int idx = tid; idx < R * hd; idx += THREADS) {
@@ -154,24 +141,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   __syncthreads();
 
   for (int ki = 0; ki < nblk; ++ki) {
-    int phys = 0;
-    if constexpr (!SLOT) {
-      phys = tables[(size_t)b * MB + ki];
-      phys = min(max(phys, 0), NB - 1);
-    }
-    if constexpr (SLOT) {
-      // the row is clamped and the value selected after the load, so the
-      // loads carry no predicate and stay in flight together
-      for (int idx = tid; idx < bs * hd; idx += THREADS) {
-        const int t = idx / hd, d = idx - (idx / hd) * hd;
-        const int pos = ki * bs + t;
-        const size_t off =
-            (((size_t)b * S_max + min(pos, S_max - 1)) * KVH + kvh) * hd + d;
-        const float kv = to_f32(k_pool[off]), vv = to_f32(v_pool[off]);
-        k_s[t * hdp + d] = pos < S_max ? kv : 0.f;
-        v_s[idx] = pos < S_max ? vv : 0.f;
-      }
-    } else if constexpr (QUANT) {
+    const int phys = min(max(tables[(size_t)b * MB + ki], 0), NB - 1);
+    if constexpr (QUANT) {
       const int hd8 = hd >> 3;
       for (int idx = tid; idx < bs * hd8; idx += THREADS) {
         const int t = idx / hd8, d = (idx - t * hd8) << 3;
@@ -255,12 +226,12 @@ size_t smem_bytes(int R, int hd, int bs, bool quant) {
                           (quant ? 2 * (size_t)bs : 0));
 }
 
-template <typename T, typename KV, bool SLOT = false>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pool, const void* k_scale,
            const void* v_pool, const void* v_scale, const void* tables,
            const void* ctx_lens, const void* q_lens, void* out, int B, int Sq,
            int H, int KVH, int hd, int NB, int bs, int MB, float scale,
-           cudaStream_t stream, int S_max = 0) {
+           cudaStream_t stream) {
   const int rows = Sq * (H / KVH);
   const int R = rows < ROWS_MAX ? rows : ROWS_MAX;
   const dim3 grid((rows + R - 1) / R, KVH, B);
@@ -268,17 +239,17 @@ int launch(const void* q, const void* k_pool, const void* k_scale,
       smem_bytes(R, hd, bs, std::is_same<KV, int8_t>::value);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, KV, SLOT>,
+        paged_attention_kernel<T, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  paged_attention_kernel<T, KV, SLOT><<<grid, THREADS, smem, stream>>>(
+  paged_attention_kernel<T, KV><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_pool),
       static_cast<const float*>(k_scale), static_cast<const KV*>(v_pool),
       static_cast<const float*>(v_scale), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(ctx_lens),
       static_cast<const int32_t*>(q_lens), static_cast<T*>(out), Sq, H, KVH,
-      hd, NB, bs, MB, S_max, R, scale);
+      hd, NB, bs, MB, R, scale);
   return (int)cudaGetLastError();
 }
 
@@ -308,18 +279,6 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, out and, unquantized, the pools).
 // Returns cudaGetLastError() after the launch (0 on success).  Allocates
 // nothing and does not synchronise.
-int block_paged_decode_attention_launch(int dtype, const void* q,
-                                        const void* k_pool,
-                                        const void* v_pool,
-                                        const void* tables,
-                                        const void* lengths, void* out, int B,
-                                        int H, int KVH, int hd, int NB, int bs,
-                                        int MB, float scale, void* stream) {
-  return dispatch(dtype, false, q, k_pool, nullptr, v_pool, nullptr, tables,
-                  lengths, nullptr, out, B, 1, H, KVH, hd, NB, bs, MB, scale,
-                  stream);
-}
-
 int mixed_block_paged_attention_launch(int dtype, const void* q,
                                        const void* k_pool, const void* v_pool,
                                        const void* tables,
@@ -353,24 +312,6 @@ int quant_mixed_block_paged_attention_launch(
   return dispatch(dtype, true, q, k_pool, k_scale, v_pool, v_scale, tables,
                   ctx_lens, q_lens, out, B, Sq, H, KVH, hd, NB, bs, MB, scale,
                   stream);
-}
-
-// Slot-contiguous caches [B,S_max,KVH,hd] of q's type; lengths [B]
-// (clamped to S_max).
-int paged_decode_attention_launch(int dtype, const void* q,
-                                  const void* k_cache, const void* v_cache,
-                                  const void* lengths, void* out, int B,
-                                  int H, int KVH, int hd, int S_max,
-                                  float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PA_SLOT(T)                                                         \
-  launch<T, T, true>(q, k_cache, nullptr, v_cache, nullptr, nullptr,       \
-                     lengths, nullptr, out, B, 1, H, KVH, hd, 0, SLOT_BS,  \
-                     0, scale, s, S_max)
-  if (dtype == 0) return PA_SLOT(float);
-  if (dtype == 1) return PA_SLOT(__nv_bfloat16);
-#undef PA_SLOT
-  return (int)cudaErrorInvalidValue;
 }
 
 const char* cuda_error_string(int code) {

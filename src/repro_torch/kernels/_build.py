@@ -23,16 +23,24 @@ import threading
 import time
 from typing import Dict, Iterable, Sequence
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("paged_attention", "moe_gmm", "flash_attention", "kv_write",
-           "mla_decode", "ssd_scan")
+SOURCES = ("paged_attention", "paged_decode", "moe_gmm", "flash_attention",
+           "kv_write", "mla_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: (device index, stream) -> the int32 split counters of that stream's
+#: launches, zero between launches
+_counters: Dict[tuple, torch.Tensor] = {}
+#: (device index, stream) -> the f32 split workspace of that stream's
+#: launches
+_workspaces: Dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -104,6 +112,33 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``dev`` for the split-merging kernels
+    launched on ``stream``: the last block of each group of splits counts
+    on them and resets its counter to zero, so every launch leaves them
+    zero and one buffer per (device, stream) serves every launch there
+    (launches on one stream never overlap) without a memset."""
+    key = (dev.index, stream)
+    done = _counters.get(key)
+    if done is None or done.numel() < n:
+        done = _counters[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return done
+
+
+def split_workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` f32 values on ``dev`` where the split-merging kernels
+    launched on ``stream`` store each split's partial sums.  A launch
+    writes every split it reads before its last block reads them, so one
+    buffer per (device, stream), grown when a launch needs more, serves
+    every launch there; launches on one stream never overlap."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _workspaces[key] = torch.empty(n, dtype=torch.float32,
+                                            device=dev)
+    return ws
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

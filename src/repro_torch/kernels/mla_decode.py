@@ -9,8 +9,8 @@ bf16, 2 µs); the kernel runs one block of 8 warps per (sequence, 2 heads,
 256 tokens), each warp folding its own rows into an accumulator held in
 registers; the warps, then the blocks of a sequence, are merged in a fixed
 order, in the same launch (the last block of a sequence merges, through a
-workspace the wrapper allocates, and counts on a buffer of counters the
-wrapper keeps per stream, which every launch leaves zero).
+workspace, and counts on a buffer of counters, which every launch leaves
+zero; ``_build`` keeps both per stream).
 
 Two departures from the Pallas kernel, both kept by the plain version
 ``kernels/ref.py``'s ``mla_decode_attention_ref`` too:
@@ -44,17 +44,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SHAPES = ((512, 64), (64, 16))
 #: heads per block and tokens per block, as in ``csrc/mla_decode.cu``
 HEADS_PER_BLOCK, TOKENS_PER_BLOCK = 2, 256
-#: (device index, stream) -> the int32 split counters of that stream's
-#: launches, zero between launches
-_DONE: dict = {}
-
-
-def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (dev.index, stream)
-    done = _DONE.get(key)
-    if done is None or done.numel() < n:
-        done = _DONE[key] = torch.zeros(n, dtype=torch.int32, device=dev)
-    return done
 
 
 def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
@@ -102,18 +91,19 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
     if H % HEADS_PER_BLOCK:
         raise ValueError(f"{H} heads: the kernel takes an even count")
     out = torch.empty_like(q_eff)
-    # the splits of sequences longer than one block
+    # the splits of sequences longer than one block: [B,H,splits,r]
+    # accumulators, then [B,H,splits,2] (m, l)
     splits = max(1, -(-S // TOKENS_PER_BLOCK))
-    ws_acc = torch.empty((B, H, splits, r), dtype=torch.float32, device=dev)
-    ws_ml = torch.empty((B, H, splits, 2), dtype=torch.float32, device=dev)
+    n_acc = B * H * splits * r
     lib = _build.load("mla_decode", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        done = _counters(dev, stream, B * H // HEADS_PER_BLOCK)
+        done = _build.split_counters(dev, stream, B * H // HEADS_PER_BLOCK)
+        ws = _build.split_workspace(dev, stream, n_acc + 2 * n_acc // r)
         rc = lib.mla_decode_attention_launch(
             _DTYPES[q_eff.dtype], q_eff.data_ptr(), q_rope.data_ptr(),
             c_cache.data_ptr(), kr_cache.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), ws_acc.data_ptr(), ws_ml.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
             done.data_ptr(), B, H, S, r, dr, float(scale), stream)
     _build.check(lib, rc, "mla_decode_attention")
     mla_decode_attention.launches += 1

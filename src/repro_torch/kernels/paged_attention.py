@@ -5,15 +5,17 @@ Port of the Pallas TPU kernels ``block_paged_decode_attention``
 (``repro/kernels/paged_attention.py:123``), ``mixed_block_paged_attention``
 (``:322``), their int8 variants ``quant_block_paged_decode_attention``
 (``:217``) and ``quant_mixed_block_paged_attention`` (``:430``), and the
-slot-contiguous ``paged_decode_attention`` (``:75``); the one kernel
-behind all five and its design note are in ``csrc/paged_attention.cu``.
-The slot-contiguous decode is that kernel's decode with a K/V row
-addressed as ``b * S_max + pos`` instead of through a table: bound by the
-context's K/V bytes, it inherits the block kernel's serial work inside a
-block (PERF.md).  These wrappers take CUDA tensors only:
-they check device, dtype, shape and contiguity, allocate the output, launch
-on PyTorch's current stream and count the launch.  ``kernels/ops.py``
-dispatches CPU tensors to the plain versions in ``kernels/ref.py``.
+slot-contiguous ``paged_decode_attention`` (``:75``).  The two bf16/f32
+decodes run the split-context kernel of ``csrc/paged_decode.cu``: one
+block per (context span of 128 tokens, kv head, sequence), the last block
+of a sequence merging the spans in a fixed order through a workspace and
+counters that ``_build.split_workspace`` / ``split_counters`` keep per
+stream.  The mixed attention and the int8 decode (the mixed kernel at one
+query row) run the kernel of ``csrc/paged_attention.cu``; each file
+carries its design note.  These wrappers take CUDA tensors only: they check device,
+dtype, shape and contiguity, allocate the output, launch on PyTorch's
+current stream and count the launch.  ``kernels/ops.py`` dispatches CPU
+tensors to the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -26,17 +28,24 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "block_paged_decode_attention_launch":
-        [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
     "mixed_block_paged_attention_launch":
         [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
     "quant_block_paged_decode_attention_launch":
         [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     "quant_mixed_block_paged_attention_launch":
         [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
-    "paged_decode_attention_launch": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
+}
+_DECODE_SIGNATURES = {
+    "block_paged_decode_attention_launch":
+        [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
+    "paged_decode_attention_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the split-context decode's limits: query heads per kv head, head width
+MAX_GROUP, MAX_HEAD_DIM = 16, 128
+#: context tokens one block of the split-context decode reads, as ``CH``
+#: in ``csrc/paged_decode.cu``
+TOKENS_PER_BLOCK = 128
 
 
 def _lib():
@@ -121,20 +130,61 @@ def _launch(wrapper, q, inputs, dims):
     return out
 
 
+def _decode_launch(wrapper, q, inputs, dims, context):
+    """Launch the split-context decode ``<wrapper name>_launch(dtype, q,
+    *inputs, out, ws_acc, ws_ml, done, *dims, 1/sqrt(hd), stream)`` of
+    ``csrc/paged_decode.cu`` on PyTorch's current stream, with a workspace
+    for every span of ``context`` a block reads (``ceil(context /
+    TOKENS_PER_BLOCK)`` per sequence and kv head; the stream's own,
+    ``_build.split_workspace``); raise on a CUDA error, and count the
+    launch on ``wrapper``.  ``inputs`` start with the K and V pools or
+    caches."""
+    B, H, hd = q.shape
+    KVH = inputs[0].shape[2]
+    G = H // KVH
+    step = 16 if q.dtype == torch.bfloat16 else 4
+    if G > MAX_GROUP or hd > MAX_HEAD_DIM or hd % step:
+        raise ValueError(f"{H} query heads over {KVH} kv heads of width "
+                         f"{hd}: the decode kernel takes at most "
+                         f"{MAX_GROUP} heads per kv head and a head dim of "
+                         f"at most {MAX_HEAD_DIM}, a multiple of {step}")
+    if any(t.data_ptr() % 16 for t in (q, *inputs[:2])):
+        raise ValueError("q and K/V must be 16-byte aligned (read 16 bytes "
+                         "at a time)")
+    lib = _build.load("paged_decode", _DECODE_SIGNATURES)
+    splits = max(1, -(-context // TOKENS_PER_BLOCK))
+    n_acc = B * KVH * splits * G * hd       # then B*KVH*splits*G (m, l)
+    out = torch.empty_like(q)
+    name = wrapper.__name__
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        done = _build.split_counters(q.device, stream, B * KVH)
+        ws = _build.split_workspace(q.device, stream,
+                                    n_acc + 2 * n_acc // hd)
+        rc = getattr(lib, f"{name}_launch")(
+            _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in inputs),
+            out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
+            done.data_ptr(), *dims, 1.0 / math.sqrt(hd), stream)
+    _build.check(lib, rc, name)
+    wrapper.launches += 1
+    return out
+
+
 def block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  lengths: torch.Tensor) -> torch.Tensor:
     """q [B,H,hd]; k/v_pool [NB,bs,KVH,hd]; block_tables [B,MB] int32;
-    lengths [B] int32 -> [B,H,hd].  Block ``ki`` of sequence ``b`` is pool
-    row ``block_tables[b, ki]``; blocks at or past ``lengths[b]`` are never
-    read."""
+    lengths [B] int32, clamped to MB * bs -> [B,H,hd].  Block ``ki`` of
+    sequence ``b`` is pool row ``block_tables[b, ki]``; blocks at or past
+    ``lengths[b]`` are never read.  At most 16 query heads per kv head;
+    hd at most 128, a multiple of 16 (bf16) or 4 (f32)."""
     NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
                                     [("lengths", lengths)])
     B, H, MB = _decode_dims(q, block_tables, lengths)
-    return _launch(block_paged_decode_attention, q,
-                   (k_pool, v_pool, block_tables, lengths),
-                   (B, H, KVH, hd, NB, bs, MB))
+    return _decode_launch(block_paged_decode_attention, q,
+                          (k_pool, v_pool, block_tables, lengths),
+                          (B, H, KVH, hd, NB, bs, MB), MB * bs)
 
 
 block_paged_decode_attention.launches = 0
@@ -216,7 +266,8 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Decode attention over the slot-contiguous cache (the dense-KV
     serving mode).  q [B,H,hd]; k/v_cache [B,S_max,KVH,hd] of q's dtype;
     lengths [B] int32, clamped to S_max -> [B,H,hd].  Positions at or past
-    ``lengths[b]`` are never read."""
+    ``lengths[b]`` are never read.  The limits of
+    :func:`block_paged_decode_attention` hold."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -243,8 +294,9 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)}, {tuple(lengths.shape)}")
     B, H, hd = q.shape
     S_max, KVH = k_cache.shape[1], k_cache.shape[2]
-    return _launch(paged_decode_attention, q, (k_cache, v_cache, lengths),
-                   (B, H, KVH, hd, S_max))
+    return _decode_launch(paged_decode_attention, q,
+                          (k_cache, v_cache, lengths),
+                          (B, H, KVH, hd, S_max), S_max)
 
 
 paged_decode_attention.launches = 0

@@ -4,7 +4,10 @@ token counts, other head dims and block sizes, aliased tables, sentinel
 rows), for bf16/f32 pools and for int8 pools with f32 scales (rows whose
 scales differ by 100x, an all-zero scale row), for the slot-contiguous
 path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
-S_max, a dropped cache write), and for MLA (the latent decode at lengths
+S_max, a dropped cache write), for the split-context decode over both
+addressings (lengths at and either side of a split boundary, at and past
+S_max, groups of 1 to 16 heads, peaked scores, a repeat launch that must
+give the same bits), and for MLA (the latent decode at lengths
 0, 1, S_max and past it, an S_max that is no tile multiple, sequences
 split over up to 16 blocks, peaked and flat scores; prefill attention at
 q/k width 192 and v width 128), and for the Mamba2 models (the SSD chunk
@@ -26,9 +29,9 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (flash_attention, kv_write, mla_decode,
-                                 moe_gmm, ops, paged_attention, ref,
-                                 ssd_scan)
+from repro_torch.kernels import (_build, flash_attention, kv_write,
+                                 mla_decode, moe_gmm, ops, paged_attention,
+                                 ref, ssd_scan)
 from repro_torch.kernels.quant import dequantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -81,9 +84,11 @@ def test_decode_kernel_matches_plain(dev, case, dtype):
     got = paged_attention.block_paged_decode_attention(q, k, v, bt, lens)
     want = ref.block_paged_decode_attention_ref(q, k, v, bt, lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    # q_len == 1 through the mixed kernel is the same function (another
+    # kernel, whose sums run in another order)
     mixed = paged_attention.mixed_block_paged_attention(
         q[:, None].contiguous(), k, v, bt, lens, torch.ones_like(lens))
-    assert torch.equal(mixed[:, 0], got)               # q_len == 1 is decode
+    torch.testing.assert_close(mixed[:, 0].float(), got.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -332,6 +337,89 @@ def test_slot_decode_kernel_matches_plain(dev, case, dtype):
     got = paged_attention.paged_decode_attention(q, kc, vc, lens)
     want = ref.paged_decode_attention_ref(q, kc, vc, lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _assert_one_bf16_rounding(got, want32, what, atol=3e-5):
+    """bf16 ``got`` must be ``want32``, the f32 answer on the same inputs,
+    rounded once: within half a bf16 step of it (a step is 2^(e-8) for a
+    value in [2^(e-1), 2^e)), plus ``atol`` for f32 sums taken in another
+    order.  One bf16 rounding of the probabilities before P.V (each
+    moved by up to 2^-9 of itself) fails this at peaked scores."""
+    half = torch.ldexp(torch.ones_like(want32),
+                       torch.frexp(want32).exponent - 9)
+    excess = ((got.float() - want32).abs() - half).max().item()
+    assert excess <= atol, f"{what}: {excess:.3e} past one bf16 rounding"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("G", [1, 8, 16])
+@pytest.mark.parametrize("form", ["block", "slot"])
+def test_decode_splits_match_plain(dev, form, G, dtype):
+    """The split-context decode over both addressings: lengths one token
+    either side of a split boundary and on it, at the cap (the slot
+    cache's S_max rows, or the tables' MB * bs positions) and past it
+    (clamped), and 1; groups of 1, 8 and 16 query heads per kv head
+    (chatglm3-6b's 32 over 2); queries scaled so each score has a standard
+    deviation of 3 (a peaked softmax, as in decode, where a wrong score
+    moves the output by a row, not by the mean of the rows).  In bf16 the
+    output is the f32 answer rounded once.  A second launch reuses the
+    split counters the first left at zero and gives the same bits."""
+    CH = paged_attention.TOKENS_PER_BLOCK
+    KVH, hd, bs = 2, 128, 16
+    S_max = 3 * CH + 5
+    MB = -(-S_max // bs)
+    cap = S_max if form == "slot" else MB * bs      # 389 or 400
+    lengths = [CH - 1, CH, CH + 1, 2 * CH, 2 * CH + 1, cap, cap + 7, 1]
+    B, H = len(lengths), G * KVH
+    gen = torch.Generator().manual_seed(17)
+    q = _rand(gen, (B, H, hd), dtype, dev, 3.0)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if form == "slot":
+        kc = _rand(gen, (B, S_max, KVH, hd), dtype, dev)
+        vc = _rand(gen, (B, S_max, KVH, hd), dtype, dev)
+        args = (q, kc, vc, lens)
+        kern = paged_attention.paged_decode_attention
+        plain = ref.paged_decode_attention_ref
+    else:
+        NB = B * MB + 3
+        k = _rand(gen, (NB, bs, KVH, hd), dtype, dev)
+        v = _rand(gen, (NB, bs, KVH, hd), dtype, dev)
+        bt = _tables(gen, [min(n, cap) for n in lengths], NB, MB, bs)
+        args = (q, k, v, bt.to(dev), lens)
+        kern = paged_attention.block_paged_decode_attention
+        plain = ref.block_paged_decode_attention_ref
+    ops.reset_launch_counts()
+    got = kern(*args)
+    again = kern(*args)
+    assert ops.launch_counts()[kern.__name__] == 2
+    want = plain(*args)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        want32 = plain(*(t.float() if t.is_floating_point() else t
+                         for t in args))
+        _assert_one_bf16_rounding(got, want32, kern.__name__)
+    assert torch.equal(got, again)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not _build.split_counters(dev, stream, B * KVH)[:B * KVH].any()
+
+
+def test_decode_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    """More than 16 query heads per kv head, a head dim above 128 or not
+    in whole 16-byte pieces, and K/V off a 16-byte boundary."""
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    for H, KVH, hd in ((34, 2, 64), (4, 4, 256), (4, 4, 66)):
+        q = torch.randn(1, H, hd, device=dev, dtype=torch.bfloat16)
+        kc = torch.zeros(1, 8, KVH, hd, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            paged_attention.paged_decode_attention(q, kc, kc, lens)
+        bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError):
+            paged_attention.block_paged_decode_attention(q, kc, kc, bt, lens)
+    q = torch.randn(1, 4, 64, device=dev)
+    flat = torch.zeros(1 * 8 * 4 * 64 + 1, device=dev)
+    kc = flat[1:].view(1, 8, 4, 64)                    # 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention.paged_decode_attention(q, kc, kc, lens)
 
 
 @pytest.mark.parametrize("dtype", DTYPES + [torch.int8], ids=str)

@@ -153,3 +153,24 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     table = _t(np.array([2, 0, 2], np.int32))
     assert torch.equal(ops.paged_gmm(table, pool, x),
                        tref.paged_gmm_ref(table, pool, x))
+
+
+@pytest.mark.parametrize("source, name, module, attr", [
+    ("paged_decode", "CH", "paged_attention", "TOKENS_PER_BLOCK"),
+    ("mla_decode", "CH", "mla_decode", "TOKENS_PER_BLOCK"),
+    ("mla_decode", "HG", "mla_decode", "HEADS_PER_BLOCK"),
+])
+def test_split_wrappers_size_workspaces_by_the_kernels_constants(
+        source, name, module, attr):
+    """The split-merging decodes' wrappers size their workspaces and
+    counters from the kernels' blocking, which they mirror as Python
+    constants: each must equal the constant in its CUDA source."""
+    import importlib
+    import os
+    import re
+    from repro_torch.kernels import _build
+    with open(os.path.join(_build.CSRC, f"{source}.cu")) as f:
+        found = re.findall(rf"^constexpr int {name} = (\d+);", f.read(),
+                           re.M)
+    wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert found == [str(getattr(wrapper, attr))]

@@ -302,6 +302,56 @@ def test_forward_logits(model):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **_step_tol(cfg))
 
 
+# the hybrid with groups of several SSD layers: the shared block's K/V
+# rows and the logits pass up to 12 blocks, each a few ulps from XLA's
+ATTN_EVERY_TOL = {"logits": dict(atol=5e-5, rtol=1e-5),
+                  "attn_k": dict(atol=5e-5, rtol=1e-5),
+                  "attn_v": dict(atol=5e-5, rtol=1e-5),
+                  "conv": dict(atol=5e-5, rtol=1e-5),
+                  "state": dict(atol=2e-4, rtol=1e-5)}
+
+
+@pytest.mark.parametrize("layers,attn_every", [(4, 2), (6, 2), (6, 3),
+                                               (6, 6)])
+def test_hybrid_groups_of_several_ssd_layers(layers, attn_every):
+    """zamba2-2.7b reduced, but with ``attn_every`` > 1 (the full model
+    has groups of 6; ``reduced()`` sets 1): a prefill of two prompts and
+    three decode steps against the reference at f32, every cache leaf
+    after each.  Tolerances: logits and the shared block's K/V rows 5e-5,
+    the SSD state 2e-4 (its sums run over the whole prompt)."""
+    jcfg = dataclasses.replace(jax_config("zamba2-2.7b-smoke"),
+                               num_layers=layers, attn_every=attn_every)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b-smoke"),
+                              num_layers=layers, attn_every=attn_every)
+    jp = jax.tree.map(np.asarray,
+                      JM.init_params(jcfg, jax.random.PRNGKey(layers)))
+    tp = params_from_jax(jp)
+    rng = np.random.default_rng(10 * layers + attn_every)
+    B, S, max_len = 2, 32, 40
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lens = np.array([32, 17], np.int32)
+    jl, jc = JM.prefill(jcfg, jp, {"tokens": tokens, "lengths": lens},
+                        max_len)
+    tl, tc = TM.prefill(cfg, tp, {"tokens": _t(tokens), "lengths": _t(lens)},
+                        max_len)
+    assert tc["attn_k"].shape[0] == layers // attn_every
+
+    def check(tl, jl, tc, jc):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   **ATTN_EVERY_TOL["logits"])
+        assert set(tc) == set(jc) == _cache_leaves(cfg)
+        for n in tc:
+            np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]),
+                                       **ATTN_EVERY_TOL[n])
+
+    check(tl, jl, tc, jc)
+    for i in range(3):
+        step = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        jl, jc = JM.decode_step(jcfg, jp, step, jc, lens + i)
+        tl, tc = TM.decode_step(cfg, tp, _t(step), tc, _t(lens + i))
+        check(tl, jl, tc, jc)
+
+
 @pytest.mark.parametrize("name", ["mamba2-1.3b", "zamba2-2.7b", *MODELS])
 def test_param_count_and_config_equal_the_reference(name):
     assert get_config(name).param_count() == jax_config(name).param_count()
