@@ -1,41 +1,38 @@
-// Paged attention over the KV block pool for Hopper (sm_90a): the mixed
-// (chunked-prefill) attention, and the int8 decode.
+// Mixed (chunked-prefill) attention over the paged KV block pool, for
+// Hopper (sm_90a), over pools of q's type or int8 pools with scales.
 //
-// Replaces three Pallas TPU kernels of the reference package:
+// Replaces two Pallas TPU kernels of the reference package:
 //   * mixed_block_paged_attention         (src/repro/kernels/paged_attention.py:322)
-//   * quant_block_paged_decode_attention  (src/repro/kernels/paged_attention.py:217)
 //   * quant_mixed_block_paged_attention   (src/repro/kernels/paged_attention.py:430)
-// All are one kernel here, templated on the pools' storage type: the int8
-// decode is the int8 mixed case with one query row per sequence (q_len ==
-// 1), so the two agree exactly by construction.  The bf16/f32 decodes,
-// block_paged_decode_attention (paged_attention.py:123) and the
-// slot-contiguous paged_decode_attention (paged_attention.py:75), run the
-// split-context kernel of paged_decode.cu.
+// One kernel, templated on the pools' storage type.  The decodes run the
+// split-context kernel of paged_decode.cu: block_paged_decode_attention
+// (paged_attention.py:123), the slot-contiguous paged_decode_attention
+// (:75) and the int8 quant_block_paged_decode_attention (:217); at q_len
+// == 1 this kernel computes the same function with sums in another order.
 //
 // What it computes.  q [B,Sq,H,hd]; k/v pools [NB,bs,KVH,hd]; block tables
-// [B,MB] int32; ctx_lens [B]; q_lens [B] (decode: 1).  Query row i of
-// sequence b sits at position q_abs = ctx - q_len + i and attends to
-// positions pos < ctx && pos <= q_abs of its context, gathered block by
-// block through its table.  Online softmax in f32 (running max m, sum l,
-// accumulator acc), scale 1/sqrt(hd), masked scores -1e30, output
-// acc / max(l, 1e-30) cast to q's dtype — the Pallas kernel's arithmetic.
+// [B,MB] int32; ctx_lens [B]; q_lens [B].  Query row i of sequence b sits
+// at position q_abs = ctx - q_len + i and attends to positions pos < ctx &&
+// pos <= q_abs of its context, gathered block by block through its table.
+// Online softmax in f32 (running max m, sum l, accumulator acc), scale
+// 1/sqrt(hd), masked scores -1e30, output acc / max(l, 1e-30) cast to q's
+// dtype — the Pallas kernel's arithmetic.
 //
-// int8 pools (_quant_block_kernel / _quant_mixed_kernel of the reference).
-// Each token row of k and v has one f32 scale, in [NB,bs] scale pools read
-// through the same table entry as the rows.  The dequantization commutes
-// out of both contractions, as in the Pallas kernels: the int8 rows are
-// staged as f32 without their scale; the score is dot(q, k_i8) * sk[t] *
-// scale, in that order; the running sum l adds p, and the accumulator adds
-// (p * sv[t]) * v_i8, so sv never enters l.  Rows are loaded 8 int8 values
-// per thread (one 8-byte load; hd % 8 == 0 and 8-byte aligned pools, which
-// the wrapper checks).
+// int8 pools (_quant_mixed_kernel of the reference).  Each token row of k
+// and v has one f32 scale, in [NB,bs] scale pools read through the same
+// table entry as the rows.  The dequantization commutes out of both
+// contractions, as in the Pallas kernel: the int8 rows are staged as f32
+// without their scale; the score is dot(q, k_i8) * sk[t] * scale, in that
+// order; the running sum l adds p, and the accumulator adds (p * sv[t]) *
+// v_i8, so sv never enters l.  Rows are loaded 8 int8 values per thread
+// (one 8-byte load; hd % 8 == 0 and 8-byte aligned pools, which the
+// wrapper checks).
 //
 // Bound on an H100.  Memory: every K/V row of the context is read once per
 // (sequence, kv head), so the least time is (K+V bytes of the context + q +
-// out) / 3.35 TB/s.  int8 decode at B=8, ctx up to 2048 moves ~6 MB per
-// layer: ~1.8 us.  The arithmetic (4*hd FLOPs per query row and context
-// token) is far below the card's rate at decode and, at a 128-token chunk,
-// still under the memory time.
+// out) / 3.35 TB/s; the arithmetic (4*hd FLOPs per query row and context
+// token) is under that at a 128-token chunk: 2.03 us at qwen3-30b-a3b's
+// chunk of 104 rows over a 1,000-token context.
 //
 // Design.  One block of 128 threads per (row tile, kv head, sequence).  A
 // row tile holds up to ROWS_MAX query rows (the G = H/KVH grouped heads of
@@ -51,10 +48,10 @@
 // for later work: serial work inside the block, about 8 us per 16-token KV
 // block (the scores are hd scalar FMAs per thread from shared memory, the
 // softmax update runs on R of the 128 threads serially over the block's
-// tokens, four barriers per block); the int8 decode fills B*KVH = 32 blocks
-// of 132 SMs (no split over the context); no tensor cores or asynchronous
-// copies.  paged_decode.cu is the redesign of the bf16/f32 decode that
-// removes these gaps.
+// tokens, four barriers per block); no tensor cores or asynchronous
+// copies: 0.79 ms at the chunk above on an NVIDIA H100 80GB HBM3 at 700 W,
+// 11.7x SDPA.  paged_decode.cu's split-context design is what removed the
+// same gaps from the decodes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   const int tid = threadIdx.x;
 
   const int ctx = ctx_lens[b];
-  const int q_len = q_lens ? q_lens[b] : 1;
+  const int q_len = q_lens[b];
 
   for (int idx = tid; idx < R * hd; idx += THREADS) {
     const int r = idx / hd, d = idx - (idx / hd) * hd;
@@ -294,16 +291,6 @@ int mixed_block_paged_attention_launch(int dtype, const void* q,
 
 // int8 pools [NB,bs,KVH,hd] with f32 scale pools [NB,bs]; q and out of
 // type dtype.
-int quant_block_paged_decode_attention_launch(
-    int dtype, const void* q, const void* k_pool, const void* k_scale,
-    const void* v_pool, const void* v_scale, const void* tables,
-    const void* lengths, void* out, int B, int H, int KVH, int hd, int NB,
-    int bs, int MB, float scale, void* stream) {
-  return dispatch(dtype, true, q, k_pool, k_scale, v_pool, v_scale, tables,
-                  lengths, nullptr, out, B, 1, H, KVH, hd, NB, bs, MB, scale,
-                  stream);
-}
-
 int quant_mixed_block_paged_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* k_scale,
     const void* v_pool, const void* v_scale, const void* tables,

@@ -5,10 +5,14 @@ Port of the Pallas TPU kernel ``flash_attention``
 (``repro/kernels/flash_attention.py:72``); the kernel and its design note
 are in ``csrc/flash_attention.cu``.  The bound is the operations (4·hd
 per attended query, key and head: 8.6 GFLOP at S = 1024 on qwen3-30b-a3b,
-8.7 µs at the bf16 tensor-core rate); the kernel runs them as scalar f32
-FMAs on CUDA cores, one block per (64-row query tile, head, sequence)
-with the accumulator in registers and a loop over key tiles that stops at
-the causal limit.  The Pallas kernel needs S divisible by its tiles; this
+8.7 µs at the bf16 tensor-core rate).  In bf16, every served path's type,
+the kernel runs them on the tensor cores (``mma.sync`` m16n8k16, f32
+sums): one block per (64-row query tile, head, sequence), each warp's 16
+query rows and their output in registers, K/V tiles through a two-stage
+``cp.async`` ring, a loop over key tiles that stops at the causal limit,
+and the probabilities split into two bf16 parts before P·V so that the
+output is the f32 answer rounded once.  In f32, the parity type, it runs
+on CUDA cores.  The Pallas kernel needs S divisible by its tiles; this
 one masks a ragged last tile itself, so any S >= 1 works (the serving
 path's 64-token buckets are not all multiples of 128).  Head widths: q/k
 and v of 64, 80 (zamba2's shared attention block) or 128, or q/k 192 with

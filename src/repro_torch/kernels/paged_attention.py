@@ -5,15 +5,17 @@ Port of the Pallas TPU kernels ``block_paged_decode_attention``
 (``repro/kernels/paged_attention.py:123``), ``mixed_block_paged_attention``
 (``:322``), their int8 variants ``quant_block_paged_decode_attention``
 (``:217``) and ``quant_mixed_block_paged_attention`` (``:430``), and the
-slot-contiguous ``paged_decode_attention`` (``:75``).  The two bf16/f32
-decodes run the split-context kernel of ``csrc/paged_decode.cu``: one
-block per (context span of 128 tokens, kv head, sequence), the last block
-of a sequence merging the spans in a fixed order through a workspace and
-counters that ``_build.split_workspace`` / ``split_counters`` keep per
-stream.  The mixed attention and the int8 decode (the mixed kernel at one
-query row) run the kernel of ``csrc/paged_attention.cu``; each file
-carries its design note.  These wrappers take CUDA tensors only: they check device,
-dtype, shape and contiguity, allocate the output, launch on PyTorch's
+slot-contiguous ``paged_decode_attention`` (``:75``).  The three decodes
+(bf16/f32 rows over the pool or the slot cache, int8 rows with their
+scales over the pool) run the split-context kernel of
+``csrc/paged_decode.cu``: one block per (context span of 128 tokens, kv
+head, sequence), the last block of a sequence merging the spans in a
+fixed order through a workspace and counters that
+``_build.split_workspace`` / ``split_counters`` keep per stream.  The two
+mixed (chunked-prefill) attentions run the kernel of
+``csrc/paged_attention.cu``; each file carries its design note.  These
+wrappers take CUDA tensors only: they check device, dtype, shape,
+contiguity and alignment, allocate the output, launch on PyTorch's
 current stream and count the launch.  ``kernels/ops.py`` dispatches CPU
 tensors to the plain versions in ``kernels/ref.py``.
 """
@@ -30,8 +32,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mixed_block_paged_attention_launch":
         [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
-    "quant_block_paged_decode_attention_launch":
-        [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     "quant_mixed_block_paged_attention_launch":
         [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
 }
@@ -39,6 +39,8 @@ _DECODE_SIGNATURES = {
     "block_paged_decode_attention_launch":
         [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
     "paged_decode_attention_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+    "quant_block_paged_decode_attention_launch":
+        [_I] + [_P] * 11 + [_I] * 7 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the split-context decode's limits: query heads per kv head, head width
@@ -130,27 +132,31 @@ def _launch(wrapper, q, inputs, dims):
     return out
 
 
-def _decode_launch(wrapper, q, inputs, dims, context):
+def _decode_launch(wrapper, q, kv, inputs, dims, context, scales=()):
     """Launch the split-context decode ``<wrapper name>_launch(dtype, q,
     *inputs, out, ws_acc, ws_ml, done, *dims, 1/sqrt(hd), stream)`` of
     ``csrc/paged_decode.cu`` on PyTorch's current stream, with a workspace
     for every span of ``context`` a block reads (``ceil(context /
     TOKENS_PER_BLOCK)`` per sequence and kv head; the stream's own,
     ``_build.split_workspace``); raise on a CUDA error, and count the
-    launch on ``wrapper``.  ``inputs`` start with the K and V pools or
-    caches."""
+    launch on ``wrapper``.  ``kv`` are the K and V pools or caches and
+    ``scales`` the int8 pools' scale pools, all also among ``inputs``."""
     B, H, hd = q.shape
-    KVH = inputs[0].shape[2]
+    KVH = kv[0].shape[2]
     G = H // KVH
-    step = 16 if q.dtype == torch.bfloat16 else 4
+    # f32 and int8 rows in whole 16-byte pieces; bf16 in whole 16-value
+    # k-steps of the tensor-core products
+    step = 4 if q.dtype == kv[0].dtype == torch.float32 else 16
     if G > MAX_GROUP or hd > MAX_HEAD_DIM or hd % step:
         raise ValueError(f"{H} query heads over {KVH} kv heads of width "
                          f"{hd}: the decode kernel takes at most "
                          f"{MAX_GROUP} heads per kv head and a head dim of "
                          f"at most {MAX_HEAD_DIM}, a multiple of {step}")
-    if any(t.data_ptr() % 16 for t in (q, *inputs[:2])):
+    if any(t.data_ptr() % 16 for t in (q, *kv)):
         raise ValueError("q and K/V must be 16-byte aligned (read 16 bytes "
                          "at a time)")
+    if any(t.data_ptr() % 4 for t in scales):
+        raise ValueError("the scale pools must be 4-byte aligned")
     lib = _build.load("paged_decode", _DECODE_SIGNATURES)
     splits = max(1, -(-context // TOKENS_PER_BLOCK))
     n_acc = B * KVH * splits * G * hd       # then B*KVH*splits*G (m, l)
@@ -182,7 +188,7 @@ def block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
                                     [("lengths", lengths)])
     B, H, MB = _decode_dims(q, block_tables, lengths)
-    return _decode_launch(block_paged_decode_attention, q,
+    return _decode_launch(block_paged_decode_attention, q, (k_pool, v_pool),
                           (k_pool, v_pool, block_tables, lengths),
                           (B, H, KVH, hd, NB, bs, MB), MB * bs)
 
@@ -223,14 +229,19 @@ def quant_block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """:func:`block_paged_decode_attention` over int8 pools
     ``[NB,bs,KVH,hd]`` with f32 per-token scale pools ``k/v_scale``
     ``[NB,bs]`` (``quantize_rows`` over (KVH, hd)), read through the same
-    table.  q bf16 or f32 -> [B,H,hd] in q's dtype."""
+    table.  q bf16 or f32 -> [B,H,hd] in q's dtype.  At most 16 query
+    heads per kv head; hd at most 128 and a multiple of 16 (whole 16-byte
+    pieces of an int8 row); q and the pools 16-byte aligned."""
     NB, bs, KVH, hd = _check_common(
         q, k_pool, v_pool, block_tables, [("lengths", lengths)],
         scales=[("k_scale", k_scale), ("v_scale", v_scale)])
     B, H, MB = _decode_dims(q, block_tables, lengths)
-    return _launch(quant_block_paged_decode_attention, q,
-                   (k_pool, k_scale, v_pool, v_scale, block_tables, lengths),
-                   (B, H, KVH, hd, NB, bs, MB))
+    return _decode_launch(quant_block_paged_decode_attention, q,
+                          (k_pool, v_pool),
+                          (k_pool, k_scale, v_pool, v_scale, block_tables,
+                           lengths),
+                          (B, H, KVH, hd, NB, bs, MB), MB * bs,
+                          (k_scale, v_scale))
 
 
 quant_block_paged_decode_attention.launches = 0
@@ -245,7 +256,8 @@ def quant_mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                       q_lens: torch.Tensor) -> torch.Tensor:
     """:func:`mixed_block_paged_attention` over int8 pools with f32
     per-token scale pools, as :func:`quant_block_paged_decode_attention`.
-    At ``q_lens == 1`` it is the int8 decode, bit for bit."""
+    At ``q_lens == 1`` it computes the int8 decode's function (another
+    kernel, whose sums run in another order)."""
     NB, bs, KVH, hd = _check_common(
         q, k_pool, v_pool, block_tables,
         [("ctx_lens", ctx_lens), ("q_lens", q_lens)],
@@ -294,7 +306,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)}, {tuple(lengths.shape)}")
     B, H, hd = q.shape
     S_max, KVH = k_cache.shape[1], k_cache.shape[2]
-    return _decode_launch(paged_decode_attention, q,
+    return _decode_launch(paged_decode_attention, q, (k_cache, v_cache),
                           (k_cache, v_cache, lengths),
                           (B, H, KVH, hd, S_max), S_max)
 

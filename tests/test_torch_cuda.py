@@ -5,9 +5,11 @@ rows), for bf16/f32 pools and for int8 pools with f32 scales (rows whose
 scales differ by 100x, an all-zero scale row), for the slot-contiguous
 path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
 S_max, a dropped cache write), for the split-context decode over both
-addressings (lengths at and either side of a split boundary, at and past
-S_max, groups of 1 to 16 heads, peaked scores, a repeat launch that must
-give the same bits), and for MLA (the latent decode at lengths
+addressings and over int8 rows with their scales (lengths at and either
+side of a split boundary, at and past S_max, groups of 1 to 16 heads,
+peaked scores, a repeat launch that must give the same bits), for the
+prefill attention's four head-width instances at and either side of its
+64-row tiles with peaked scores, and for MLA (the latent decode at lengths
 0, 1, S_max and past it, an S_max that is no tile multiple, sequences
 split over up to 16 blocks, peaked and flat scores; prefill attention at
 q/k width 192 and v width 128), and for the Mamba2 models (the SSD chunk
@@ -21,7 +23,9 @@ from the repo root::
 
 Tolerance: f32 atol = rtol = 1e-4 (f32 sums in another order than the
 plain version's matmuls); bf16 atol = rtol = 2e-2 on f32-cast outputs
-(both round once from f32).  The SSD scan's outputs are f32 from f32 sums
+(both round once from f32); the split-context decodes and the prefill
+attention in bf16 also within 3e-5 past one bf16 rounding of the f32
+answer.  The SSD scan's outputs are f32 from f32 sums
 on both sides whatever the input type: atol = rtol = 1e-3 (sums of up to
 256 products, the decays' exps taken in another order).
 """
@@ -185,9 +189,11 @@ def test_quant_decode_kernel_matches_plain(dev, case, dtype):
     want = ref.quant_block_paged_decode_attention_ref(q, k, ks, v, vs, bt,
                                                       lens)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    # q_len == 1 through the int8 mixed kernel is the same function
+    # (another kernel, whose sums run in another order)
     mixed = paged_attention.quant_mixed_block_paged_attention(
         q[:, None].contiguous(), k, ks, v, vs, bt, lens, torch.ones_like(lens))
-    assert torch.equal(mixed[:, 0], got)               # q_len == 1 is decode
+    torch.testing.assert_close(mixed[:, 0].float(), got.float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -268,12 +274,32 @@ def test_quant_expert_ffn_and_counters(dev):
 
 
 def test_quant_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    """The int8 decode takes whole 16-byte pieces of a row (hd a multiple
+    of 16, pools 16-byte aligned), at most 16 query heads per kv head and
+    hd at most 128; the int8 mixed attention hd a multiple of 8."""
     gen = torch.Generator().manual_seed(9)
-    q = torch.randn(2, 4, 12, device=dev)
-    k, ks = _int8(gen, (6, 4, 2, 12), dev)             # hd 12: not 8-aligned
     bt = torch.zeros(2, 2, dtype=torch.int32, device=dev)
     lens = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    for H, KVH, hd in ((4, 2, 24), (34, 2, 64), (4, 4, 144)):
+        q = torch.randn(2, H, hd, device=dev)
+        k, ks = _int8(gen, (6, 4, KVH, hd), dev)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            paged_attention.quant_block_paged_decode_attention(
+                q, k, ks, k, ks, bt, lens)
+    q = torch.randn(2, 4, 12, device=dev)
+    k, ks = _int8(gen, (6, 4, 2, 12), dev)             # hd 12: not 8-aligned
     with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention.quant_block_paged_decode_attention(
+            q, k, ks, k, ks, bt, lens)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention.quant_mixed_block_paged_attention(
+            q[:, None].contiguous(), k, ks, k, ks, bt, lens, lens)
+    q = torch.randn(2, 4, 32, device=dev)
+    flat = torch.randint(-127, 128, (6 * 4 * 2 * 32 + 8,), generator=gen,
+                         dtype=torch.int8).to(dev)
+    k = flat[8:].view(6, 4, 2, 32)                     # 8 bytes off
+    ks = torch.rand(6, 4, generator=gen).to(dev) / 127
+    with pytest.raises(ValueError, match="aligned"):
         paged_attention.quant_block_paged_decode_attention(
             q, k, ks, k, ks, bt, lens)
     k8, ks8 = _int8(gen, (6, 4, 2, 8), dev)
@@ -315,6 +341,36 @@ def test_flash_attention_matches_plain(dev, case, dtype, causal):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dims", flash_attention.HEAD_DIMS,
+                         ids=lambda d: f"{d[0]}-{d[1]}")
+def test_flash_attention_tile_boundaries(dev, dims, G, dtype, causal):
+    """Every (hd, hdv) instance at S one token either side of the 64-row
+    query and key tiles and on them, at two tiles and one, and at 1; one
+    and eight query heads a kv head; queries scaled so each score has a
+    standard deviation of 3 (a peaked softmax, where a probability rounded
+    to bf16 before P.V moves the output by more than its own rounding).
+    In bf16 the output is the f32 answer rounded once."""
+    hd, hdv = dims
+    KVH = 2 if G == 1 else 1
+    gen = torch.Generator().manual_seed(20)
+    for S in (63, 64, 65, 129, 1):
+        q = _rand(gen, (2, S, G * KVH, hd), dtype, dev, 3.0)
+        k = _rand(gen, (2, S, KVH, hd), dtype, dev)
+        v = _rand(gen, (2, S, KVH, hdv), dtype, dev)
+        ops.reset_launch_counts()
+        got = flash_attention.flash_attention(q, k, v, causal)
+        assert ops.launch_counts()["flash_attention"] == 1
+        want = ref.flash_attention_ref(q, k, v, causal)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if dtype == torch.bfloat16:
+            want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             causal)
+            _assert_one_bf16_rounding(got, want32, f"flash_attention S={S}")
+
+
 SLOT = {  # H, KVH, hd, S_max, lengths
     "gqa8-hd128": (32, 4, 128, 256, [1, 256, 17, 300]),
     "mha-hd64-ragged-smax": (4, 4, 64, 50, [50, 1, 49]),
@@ -353,17 +409,19 @@ def _assert_one_bf16_rounding(got, want32, what, atol=3e-5):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("G", [1, 8, 16])
-@pytest.mark.parametrize("form", ["block", "slot"])
+@pytest.mark.parametrize("form", ["block", "slot", "int8"])
 def test_decode_splits_match_plain(dev, form, G, dtype):
-    """The split-context decode over both addressings: lengths one token
-    either side of a split boundary and on it, at the cap (the slot
-    cache's S_max rows, or the tables' MB * bs positions) and past it
-    (clamped), and 1; groups of 1, 8 and 16 query heads per kv head
-    (chatglm3-6b's 32 over 2); queries scaled so each score has a standard
-    deviation of 3 (a peaked softmax, as in decode, where a wrong score
-    moves the output by a row, not by the mean of the rows).  In bf16 the
-    output is the f32 answer rounded once.  A second launch reuses the
-    split counters the first left at zero and gives the same bits."""
+    """The split-context decode over both addressings and over int8 block
+    pools with their scales (one row of a live block with a zero scale,
+    row scales 100x apart): lengths one token either side of a split
+    boundary and on it, at the cap (the slot cache's S_max rows, or the
+    tables' MB * bs positions) and past it (clamped), and 1; groups of 1,
+    8 and 16 query heads per kv head (chatglm3-6b's 32 over 2); queries
+    scaled so each score has a standard deviation of 3 (a peaked softmax,
+    as in decode, where a wrong score moves the output by a row, not by
+    the mean of the rows).  In bf16 the output is the f32 answer rounded
+    once.  A second launch reuses the split counters the first left at
+    zero and gives the same bits."""
     CH = paged_attention.TOKENS_PER_BLOCK
     KVH, hd, bs = 2, 128, 16
     S_max = 3 * CH + 5
@@ -380,6 +438,15 @@ def test_decode_splits_match_plain(dev, form, G, dtype):
         args = (q, kc, vc, lens)
         kern = paged_attention.paged_decode_attention
         plain = ref.paged_decode_attention_ref
+    elif form == "int8":
+        NB = B * MB + 3
+        k, ks = _int8(gen, (NB, bs, KVH, hd), dev)      # pool row 0: scale 0
+        v, vs = _int8(gen, (NB, bs, KVH, hd), dev)
+        bt = _tables(gen, [min(n, cap) for n in lengths], NB, MB, bs)
+        bt[0, 0] = 0                                   # a live block
+        args = (q, k, ks, v, vs, bt.to(dev), lens)
+        kern = paged_attention.quant_block_paged_decode_attention
+        plain = ref.quant_block_paged_decode_attention_ref
     else:
         NB = B * MB + 3
         k = _rand(gen, (NB, bs, KVH, hd), dtype, dev)

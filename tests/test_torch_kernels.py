@@ -174,3 +174,39 @@ def test_split_wrappers_size_workspaces_by_the_kernels_constants(
                            re.M)
     wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
     assert found == [str(getattr(wrapper, attr))]
+
+
+def _source(name):
+    import os
+    from repro_torch.kernels import _build
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_mma_kernel",
+                                    "flash_attention_kernel"])
+def test_flash_attention_instances_match_head_dims(kernel):
+    """The wrapper refuses any (hd, hdv) outside ``HEAD_DIMS``; the CUDA
+    source dispatches exactly those instances, and each dispatched
+    instance launches both the bf16 (tensor-core) and the f32 kernel."""
+    import re
+    from repro_torch.kernels import flash_attention
+    src = _source("flash_attention")
+    found = re.findall(r"^  FA_LAUNCH\((\d+), (\d+)\)$", src, re.M)
+    assert tuple((int(a), int(b)) for a, b in found) == \
+        flash_attention.HEAD_DIMS
+    launch = src[src.index("int launch(int dtype"):
+                 src.index('extern "C"')]
+    assert f"{kernel}<HD, HDV>" in launch
+
+
+def test_int8_decode_lives_in_the_split_decode_source():
+    """The int8 decode is an instance of the split-context decode: its
+    entry point is defined in ``paged_decode.cu`` (and bound there by the
+    wrapper), no longer in ``paged_attention.cu``."""
+    from repro_torch.kernels import paged_attention
+    name = "quant_block_paged_decode_attention_launch"
+    assert f"int {name}(" in _source("paged_decode")
+    assert name not in _source("paged_attention")
+    assert name in paged_attention._DECODE_SIGNATURES
+    assert name not in paged_attention._SIGNATURES
