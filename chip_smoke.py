@@ -39,13 +39,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
    (hd, hdv) instances at a ragged S = 1000 with queries drawn for scores
    of standard deviation 3, where the bf16 output must be the f32 answer
    rounded once to bf16 (within 3e-5 past half a bf16 step).
-   The decode kernels run twice on the same inputs and must give the same
-   bits (the split-context decode's counters, which the first launch
+   The mixed attentions run at qwen3-30b-a3b's chunk of 128 rows: the
+   1,000-token prompt's last chunk (ctx 1000, q_len 104; the main case),
+   a full chunk at ctx 512 and a prompt's first chunk (ctx = q_len =
+   128).  The decode and mixed kernels run twice on the same inputs and
+   must give the same bits (the span counters, which the first launch
    leaves at zero, are reused).  Their queries, as MLA's, make scores of
-   standard deviation 3; the bf16 split-context decodes (bf16 and int8
-   rows) must also be the f32 answer rounded once to bf16.  At one query
-   row the mixed attentions must agree with the decodes within the
-   tolerance above (two kernels, sums in another order).
+   standard deviation 3; their bf16 outputs (bf16 and int8 rows) must
+   also be the f32 answer rounded once to bf16.  At one query row the
+   mixed attentions must agree with the decodes within the tolerance
+   above (two kernels, sums in another order).
    Where each kernel lives (``SOURCES``): the three decodes,
    ``block_paged_decode_attention``, ``paged_decode_attention`` and the
    int8 ``quant_block_paged_decode_attention``, are instances of the
@@ -79,7 +82,10 @@ Phases, each of which raises on failure (no phase's failure is caught):
    prefill serves qwen3-30b-a3b in bf16 with random weights from a seed: 8
    requests of 200-1000 prompt tokens, two sharing a prefix (prefix skip
    and copy-on-write run), 32 output tokens each.  Each bf16 kernel's
-   launch count, set to 0 just before, must be above zero after it.
+   launch count, set to 0 just before, must be above zero after it.  Each
+   chunk step must launch one mixed attention per layer.  After serving,
+   two chunk steps of the 1,000-token prompt's last chunk (ctx 1000,
+   q_len 104) run under the profiler.
 5. ``serve_int8``: the same requests on a server with
    ``kv_dtype="int8", expert_dtype="int8"``, after the bf16 server is freed
    (the two do not fit one card together); each int8 kernel's launch count
@@ -349,6 +355,8 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
              ref.block_paged_decode_attention_ref))
         kern = lambda: op(q, *pools, bt, lens)
         plain = lambda: plain_op(q, *pools, bt, lens)
+        plain32 = lambda: plain_op(q.float(), *(p.float() for p in pools),
+                                   bt, lens)
         ctx_tok = int(lengths.sum())
         attended = H * ctx_tok
         S = MB * BS
@@ -364,7 +372,9 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
     else:
         ctx, q_len = kind
         bt = _tables(gen, [ctx], NB, MB).cuda()
-        q = torch.randn(1, CHUNK, H, HD, generator=gen).to(dtype).cuda()
+        # scores of standard deviation 3, as in decode
+        q = (torch.randn(1, CHUNK, H, HD, generator=gen)
+             * DECODE_Q_STD).to(dtype).cuda()
         ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
         ql_t = torch.tensor([q_len], dtype=torch.int32, device="cuda")
         op, plain_op = (
@@ -374,6 +384,8 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
              ref.mixed_block_paged_attention_ref))
         kern = lambda: op(q, *pools, bt, ctx_t, ql_t)
         plain = lambda: plain_op(q, *pools, bt, ctx_t, ql_t)
+        plain32 = lambda: plain_op(q.float(), *(p.float() for p in pools),
+                                   bt, ctx_t, ql_t)
         ctx_tok = ctx
         q_abs = ctx - q_len + torch.arange(CHUNK)
         attended = H * int(torch.minimum(q_abs + 1,
@@ -388,28 +400,31 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
             kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
         lib = lambda: sdpa(ql, kl, vl, mask)
         io = nbytes(q, q, bt, ctx_t, ql_t)
-        label = f"B=1 Sq={CHUNK} ctx={ctx} q_len={q_len}"
+        label = f"B=1 Sq={CHUNK} ctx={ctx} q_len={q_len} peaked"
     got = kern()
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    # a second launch reuses the split counters the first left at 0
+    require(torch.equal(kern(), got), f"{op.__name__}: a second launch "
+            "differs from the first")
     excess = None
-    if kind == "decode":
-        # a second launch reuses the split counters the first left at 0
-        require(torch.equal(kern(), got), f"{op.__name__}: a second launch "
-                "differs from the first")
-        if dtype == torch.bfloat16:
-            excess = _require_one_bf16_rounding(
-                got, plain_op(q.float(), *(p.float() for p in pools), bt,
-                              lens), op.__name__)
+    if dtype == torch.bfloat16:
+        excess = _require_one_bf16_rounding(got, plain32(), op.__name__)
+    # the library call must compute the same function on its own inputs
+    # (int8: the pools dequantized to q's dtype), on valid rows
     if kind != "decode":
-        # the library call must compute the same function on valid rows
+        want_lib = ref.mixed_block_paged_attention_ref(q, k_lib, v_lib, bt,
+                                                       ctx_t, ql_t)
         lib_out = lib().transpose(1, 2)
         torch.testing.assert_close(lib_out.float()[:, :kind[1]],
-                                   want.float()[:, :kind[1]], **TOL[dtype])
+                                   want_lib.float()[:, :kind[1]],
+                                   **TOL[dtype])
     else:
-        torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
+        want_lib = ref.block_paged_decode_attention_ref(q, k_lib, v_lib, bt,
+                                                        lens)
+        torch.testing.assert_close(lib()[:, :, 0].float(), want_lib.float(),
                                    **TOL[dtype])
     # K/V rows (and int8 scales) of the context, read once
     kv_bytes = ctx_tok * kv_tok_bytes
@@ -809,7 +824,9 @@ def phase_kernels():
             rec, dec_inputs = _attention_case("decode", dtype, gen, timer,
                                               timed, quant)
             out[dec_name].append(rec)
-            for kind in ((1000, 104), (512, 128)):
+            # the 1,000-token prompt's last chunk (the main case), a full
+            # chunk, and a prompt's first chunk
+            for kind in ((1000, 104), (512, 128), (CHUNK, CHUNK)):
                 rec, _ = _attention_case(kind, dtype, gen, timer, timed,
                                          quant)
                 out[mix_name].append(rec)
@@ -1347,6 +1364,7 @@ def phase_serve(layers, phase="serve", profile=True):
     prof_rows = None
     prof_ticks = []
     prof_overhead_s = 0.0
+    n_chunks = 0                  # chunk executions (paged stores)
     t_start = time.perf_counter()
     tick = 0
     while True:
@@ -1376,6 +1394,8 @@ def phase_serve(layers, phase="serve", profile=True):
         te = time.perf_counter()
         ev = tracer.events()
         chunk_s = [e.dur for e in ev if e.name == "prefill.chunks"]
+        n_chunks += sum(e.args["chunks"] for e in ev
+                        if e.name == "chunk.plan")
         for e in ev:
             if e.name == "prefill.request":
                 prefills.append((e.args["S_pad"], e.dur * 1e3))
@@ -1430,6 +1450,14 @@ def phase_serve(layers, phase="serve", profile=True):
             f"decode step {counts['paged_decode_attention'] / steps:g} "
             f"paged_decode_attention, {counts['kv_cache_write'] / steps:g} "
             f"kv_cache_write")
+    if paged:
+        # each chunk step: one mixed attention per layer
+        mix = PATH_KERNELS[phase][1]
+        require(counts[mix] == cfg.num_layers * n_chunks,
+                f"{mix}: {counts[mix]} launches over {n_chunks} chunks of "
+                f"{cfg.num_layers} layers")
+        log(f"{tag} {n_chunks} chunk steps: "
+            f"{counts[mix] / n_chunks:g} {mix} launches each")
     for r in reqs:
         toks = eng.generated[r.rid]
         require(len(toks) == out_len, (r.rid, len(toks)))
@@ -1480,6 +1508,24 @@ def phase_serve(layers, phase="serve", profile=True):
                                           "preemptions")})
         pre_txt = (f"chunk step median {res['chunk_step_ms_median']:.2f} ms "
                    f"over {len(chunk)} chunks")
+        # two more chunk steps of the 1,000-token prompt's last chunk (ctx
+        # 1000, q_len 104) into freed pool rows 0.., traced
+        long = max(prompts, key=len)
+        S = len(long)
+        start = (S - 1) // CHUNK * CHUNK
+        toks = torch.zeros(1, CHUNK, dtype=torch.int32, device="cuda")
+        toks[0, :S - start] = torch.from_numpy(long[start:])
+        nblk = -(-S // BS)
+        tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
+                         device="cuda")
+        tbl[0, :nblk] = torch.arange(nblk)
+        ids = torch.arange(start // BS, start // BS + CHUNK // BS,
+                           dtype=torch.int32, device="cuda")
+        ids[ids >= nblk] = NB                    # past the prompt: dropped
+        step = eng.compiled[f"chunk_prefill_{CHUNK}"]
+        res["chunk_profile"], _ = _profile(
+            f"chunk steps of ctx {S}, q_len {S - start}",
+            lambda: step(eng.params, eng.cache, toks, start, S, tbl, ids), 2)
     else:
         # the server stamps a token with its tick's start; every request
         # arrived at 0, so its time to first token is its prefill's end

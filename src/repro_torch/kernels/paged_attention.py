@@ -9,15 +9,18 @@ slot-contiguous ``paged_decode_attention`` (``:75``).  The three decodes
 (bf16/f32 rows over the pool or the slot cache, int8 rows with their
 scales over the pool) run the split-context kernel of
 ``csrc/paged_decode.cu``: one block per (context span of 128 tokens, kv
-head, sequence), the last block of a sequence merging the spans in a
-fixed order through a workspace and counters that
-``_build.split_workspace`` / ``split_counters`` keep per stream.  The two
-mixed (chunked-prefill) attentions run the kernel of
-``csrc/paged_attention.cu``; each file carries its design note.  These
-wrappers take CUDA tensors only: they check device, dtype, shape,
-contiguity and alignment, allocate the output, launch on PyTorch's
-current stream and count the launch.  ``kernels/ops.py`` dispatches CPU
-tensors to the plain versions in ``kernels/ref.py``.
+head, sequence).  The two mixed (chunked-prefill) attentions run
+``csrc/paged_attention.cu``: in bf16 (bf16 or int8 pools) one block of
+four warps per (tile of 64 query rows, kv head and sequence, context
+span of 256 tokens) on the tensor cores; in f32 the CUDA-core kernel of
+the first port.  A decode or a bf16 mixed attention whose rows attend
+more than one span has its last block merge the spans in a fixed order
+through a workspace and counters that ``_build.split_workspace`` /
+``split_counters`` keep per stream.  Each source carries its design
+note.  These wrappers take CUDA tensors only: they check device, dtype,
+shape, contiguity and alignment, allocate the output, launch on
+PyTorch's current stream and count the launch.  ``kernels/ops.py``
+dispatches CPU tensors to the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ from repro_torch.kernels import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mixed_block_paged_attention_launch":
-        [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
+        [_I] + [_P] * 10 + [_I] * 8 + [_F, _P],
     "quant_mixed_block_paged_attention_launch":
-        [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+        [_I] + [_P] * 12 + [_I] * 8 + [_F, _P],
 }
 _DECODE_SIGNATURES = {
     "block_paged_decode_attention_launch":
@@ -44,10 +47,15 @@ _DECODE_SIGNATURES = {
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the split-context decode's limits: query heads per kv head, head width
+#: (the bf16 mixed attention's widest head too)
 MAX_GROUP, MAX_HEAD_DIM = 16, 128
 #: context tokens one block of the split-context decode reads, as ``CH``
 #: in ``csrc/paged_decode.cu``
 TOKENS_PER_BLOCK = 128
+#: the bf16 mixed attention's blocking, as ``TQ`` and ``SPAN`` in
+#: ``csrc/paged_attention.cu``: query rows ((position, head) pairs of a kv
+#: head) and context tokens a block reads
+MIXED_ROWS_PER_BLOCK, MIXED_TOKENS_PER_BLOCK = 64, 256
 
 
 def _lib():
@@ -115,18 +123,45 @@ def _mixed_dims(q, block_tables, ctx_lens, q_lens):
     return B, q.shape[1], q.shape[2], block_tables.shape[1]
 
 
-def _launch(wrapper, q, inputs, dims):
-    """Launch ``<wrapper name>_launch(dtype, q, *inputs, out, *dims,
-    1/sqrt(hd), stream)`` on PyTorch's current stream, raise on a CUDA
-    error, and count the launch on ``wrapper``."""
-    out = torch.empty_like(q)
+def _mixed_launch(wrapper, q, kv, inputs, dims):
+    """Launch ``<wrapper name>_launch(dtype, q, *inputs, out, ws_acc,
+    ws_ml, done, *dims, 1/sqrt(hd), stream)`` of ``csrc/paged_attention.cu``
+    on PyTorch's current stream, raise on a CUDA error, and count the
+    launch on ``wrapper``.  bf16 runs the tensor-core kernel, with the
+    stream's span workspace (``_build.split_workspace``) for every
+    (row tile, kv head, sequence) and span of its table's positions; f32
+    the CUDA-core kernel, which needs none.  ``kv`` are the K and V pools,
+    also among ``inputs``."""
+    B, Sq, H, hd = q.shape
+    bs, KVH = kv[0].shape[1], kv[0].shape[2]
+    MB = dims[-1]
+    if q.dtype == torch.bfloat16:
+        if hd % 16 or hd > MAX_HEAD_DIM:
+            raise ValueError(f"head dim {hd}: the bf16 mixed attention "
+                             f"takes a multiple of 16, at most "
+                             f"{MAX_HEAD_DIM} (whole k-steps of its "
+                             f"tensor-core products)")
+        if any(t.data_ptr() % 16 for t in (q, *kv)):
+            raise ValueError("q and the pools must be 16-byte aligned "
+                             "(read 16 bytes at a time)")
     lib = _lib()
+    out = torch.empty_like(q)
     name = wrapper.__name__
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws = (0, 0, 0)
+        if q.dtype == torch.bfloat16:
+            tiles = -(-Sq * (H // KVH) // MIXED_ROWS_PER_BLOCK)
+            spans = max(1, -(-MB * bs // MIXED_TOKENS_PER_BLOCK))
+            n_acc = B * KVH * tiles * spans * MIXED_ROWS_PER_BLOCK * hd
+            done = _build.split_counters(q.device, stream, B * KVH * tiles)
+            buf = _build.split_workspace(q.device, stream,
+                                         n_acc + 2 * n_acc // hd)
+            ws = (buf.data_ptr(), buf.data_ptr() + 4 * n_acc,
+                  done.data_ptr())
         rc = getattr(lib, f"{name}_launch")(
             _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in inputs),
-            out.data_ptr(), *dims, 1.0 / math.sqrt(q.shape[-1]), stream)
+            out.data_ptr(), *ws, *dims, 1.0 / math.sqrt(hd), stream)
     _build.check(lib, rc, name)
     wrapper.launches += 1
     return out
@@ -207,14 +242,15 @@ def mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     from position ``ctx_lens[b] - q_lens[b] + i``; rows ``i >= q_lens[b]``
     attend the whole context.  The kernel clamps the ``NB`` sentinel in
     the tables to ``NB - 1`` where it reads them; position masking keeps
-    such rows inert."""
+    such rows inert.  bf16: hd a multiple of 16, at most 128; q and the
+    pools 16-byte aligned."""
     NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
                                     [("ctx_lens", ctx_lens),
                                      ("q_lens", q_lens)])
     B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
-    return _launch(mixed_block_paged_attention, q,
-                   (k_pool, v_pool, block_tables, ctx_lens, q_lens),
-                   (B, Sq, H, KVH, hd, NB, bs, MB))
+    return _mixed_launch(mixed_block_paged_attention, q, (k_pool, v_pool),
+                         (k_pool, v_pool, block_tables, ctx_lens, q_lens),
+                         (B, Sq, H, KVH, hd, NB, bs, MB))
 
 
 mixed_block_paged_attention.launches = 0
@@ -257,16 +293,19 @@ def quant_mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """:func:`mixed_block_paged_attention` over int8 pools with f32
     per-token scale pools, as :func:`quant_block_paged_decode_attention`.
     At ``q_lens == 1`` it computes the int8 decode's function (another
-    kernel, whose sums run in another order)."""
+    kernel, whose sums run in another order).  bf16 q: the limits of
+    :func:`mixed_block_paged_attention`; f32 q: hd a multiple of 8 and
+    8-byte aligned pools."""
     NB, bs, KVH, hd = _check_common(
         q, k_pool, v_pool, block_tables,
         [("ctx_lens", ctx_lens), ("q_lens", q_lens)],
         scales=[("k_scale", k_scale), ("v_scale", v_scale)])
     B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
-    return _launch(quant_mixed_block_paged_attention, q,
-                   (k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens,
-                    q_lens),
-                   (B, Sq, H, KVH, hd, NB, bs, MB))
+    return _mixed_launch(quant_mixed_block_paged_attention, q,
+                         (k_pool, v_pool),
+                         (k_pool, k_scale, v_pool, v_scale, block_tables,
+                          ctx_lens, q_lens),
+                         (B, Sq, H, KVH, hd, NB, bs, MB))
 
 
 quant_mixed_block_paged_attention.launches = 0

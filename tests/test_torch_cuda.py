@@ -8,6 +8,10 @@ S_max, a dropped cache write), for the split-context decode over both
 addressings and over int8 rows with their scales (lengths at and either
 side of a split boundary, at and past S_max, groups of 1 to 16 heads,
 peaked scores, a repeat launch that must give the same bits), for the
+mixed (chunked-prefill) attentions over bf16 and int8 pools (contexts at
+and either side of a 64-key tile and a span edge, padding rows, a
+prompt's first chunk, a one-row sequence beside a chunk, groups of 4 and
+8 heads, head widths 64 and 128, peaked scores, a repeat launch), for the
 prefill attention's four head-width instances at and either side of its
 64-row tiles with peaked scores, and for MLA (the latent decode at lengths
 0, 1, S_max and past it, an S_max that is no tile multiple, sequences
@@ -23,9 +27,9 @@ from the repo root::
 
 Tolerance: f32 atol = rtol = 1e-4 (f32 sums in another order than the
 plain version's matmuls); bf16 atol = rtol = 2e-2 on f32-cast outputs
-(both round once from f32); the split-context decodes and the prefill
-attention in bf16 also within 3e-5 past one bf16 rounding of the f32
-answer.  The SSD scan's outputs are f32 from f32 sums
+(both round once from f32); the split-context decodes, the mixed
+attentions and the prefill attention in bf16 also within 3e-5 past one
+bf16 rounding of the f32 answer.  The SSD scan's outputs are f32 from f32 sums
 on both sides whatever the input type: atol = rtol = 1e-3 (sums of up to
 256 products, the decays' exps taken in another order).
 """
@@ -468,6 +472,102 @@ def test_decode_splits_match_plain(dev, form, G, dtype):
     assert torch.equal(got, again)
     stream = torch.cuda.current_stream().cuda_stream
     assert not _build.split_counters(dev, stream, B * KVH)[:B * KVH].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("form", ["block", "int8"])
+def test_mixed_spans_and_tiles_match_plain(dev, form, G, hd, dtype):
+    """The mixed attentions over bf16/f32 and int8 pools (a live block
+    with a zero scale, row scales 100x apart): contexts that end on and one
+    token either side of a 64-key tile edge and of a span edge, a longer
+    one over several spans; a chunk with padding rows (q_len < Sq) and a
+    full one (q_len = Sq); a prompt's first chunk (ctx = q_len); beside
+    each, a second sequence with one row (q_len = 1).  Queries scaled so
+    each score has a standard deviation of 3 (a peaked softmax); in bf16
+    the output is the f32 answer rounded once.  A second launch reuses the
+    span counters the first left at zero and gives the same bits."""
+    SPAN = paged_attention.MIXED_TOKENS_PER_BLOCK
+    KVH, bs, Sq = 2, 16, 40
+    H = G * KVH
+    cases = []   # (ctx, q_len) of sequence 0; sequence 1 has q_len 1
+    for ctx in (63, 64, 65, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN + 77):
+        cases += [(ctx, min(Sq, ctx)), (ctx, min(Sq - 9, ctx))]
+    cases += [(Sq, Sq), (Sq - 9, Sq - 9)]             # first chunks
+    MB = -(-max(c for c, _ in cases) // bs) + 1
+    NB = 2 * MB + 3
+    gen = torch.Generator().manual_seed(21)
+    if form == "int8":
+        k, ks = _int8(gen, (NB, bs, KVH, hd), dev)      # pool row 0: scale 0
+        v, vs = _int8(gen, (NB, bs, KVH, hd), dev)
+        pools = (k, ks, v, vs)
+        kern = paged_attention.quant_mixed_block_paged_attention
+        plain = ref.quant_mixed_block_paged_attention_ref
+    else:
+        pools = (_rand(gen, (NB, bs, KVH, hd), dtype, dev),
+                 _rand(gen, (NB, bs, KVH, hd), dtype, dev))
+        kern = paged_attention.mixed_block_paged_attention
+        plain = ref.mixed_block_paged_attention_ref
+    for ctx, q_len in cases:
+        ctxs = [ctx, ctx + 3]
+        bt = _tables(gen, ctxs, NB, MB, bs)
+        bt[0, 0] = 0                                   # a live block
+        bt = bt.to(dev)
+        q = _rand(gen, (2, Sq, H, hd), dtype, dev, 3.0)
+        args = (q, *pools, bt,
+                torch.tensor(ctxs, dtype=torch.int32, device=dev),
+                torch.tensor([q_len, 1], dtype=torch.int32, device=dev))
+        ops.reset_launch_counts()
+        got = kern(*args)
+        again = kern(*args)
+        assert ops.launch_counts()[kern.__name__] == 2
+        want = plain(*args)
+        what = f"{kern.__name__} ctx={ctx} q_len={q_len}"
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype],
+                                   msg=what)
+        if dtype == torch.bfloat16:
+            want32 = plain(*(t.float() if t.is_floating_point() else t
+                             for t in args))
+            _assert_one_bf16_rounding(got, want32, what)
+        assert torch.equal(got, again), what
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not _build.split_counters(dev, stream, 1).any()
+
+
+def test_mixed_wrappers_refuse_what_the_tensor_cores_do_not_take(dev):
+    """bf16 q: a head dim that is not a multiple of 16 or above 128, and
+    q or the pools off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(22)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    lens = torch.tensor([3], dtype=torch.int32, device=dev)
+    for hd in (40, 144):
+        q = torch.randn(1, 4, 4, hd, device=dev, dtype=torch.bfloat16)
+        kp = torch.zeros(4, 16, 2, hd, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention.mixed_block_paged_attention(q, kp, kp, bt, lens,
+                                                        lens)
+        k8, ks = _int8(gen, (4, 16, 2, hd), dev)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention.quant_mixed_block_paged_attention(
+                q, k8, ks, k8, ks, bt, lens, lens)
+    q = torch.randn(1, 4, 4, 64, device=dev, dtype=torch.bfloat16)
+    flat = torch.zeros(4 * 16 * 2 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    kp = flat[4:].view(4, 16, 2, 64)                   # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention.mixed_block_paged_attention(q, kp, kp, bt, lens, lens)
+    k8, ks = _int8(gen, (4, 16, 2, 64), dev)
+    flat8 = torch.zeros(4 * 16 * 2 * 64 + 8, device=dev, dtype=torch.int8)
+    k_off = flat8[8:].view(4, 16, 2, 64)               # 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention.quant_mixed_block_paged_attention(
+            q, k_off, ks, k8, ks, bt, lens, lens)
+    qflat = torch.zeros(4 * 4 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    q_off = qflat[4:].view(1, 4, 4, 64)                # 8 bytes off
+    kp = torch.zeros(4, 16, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention.mixed_block_paged_attention(q_off, kp, kp, bt, lens,
+                                                    lens)
 
 
 def test_decode_wrappers_refuse_what_the_kernel_does_not_take(dev):

@@ -75,6 +75,12 @@ MIXED_CASES = {
     "full-chunk": (1, 8, 4, 1, 8, 4, 10, 4, [16], [8]),
     "mixed-batch": (2, 4, 4, 2, 16, 4, 16, 6, [9, 18], [4, 1]),
     "q-len-one": (3, 1, 4, 2, 16, 4, 16, 5, [3, 11, 17], [1, 1, 1]),
+    # the served layout: 8 query heads a kv head, hd 128, blocks of 16
+    "served-layout-full-chunk": (1, 8, 16, 2, 128, 16, 12, 8, [100], [8]),
+    # a context over three 64-token tiles, 5 padding rows
+    "tiles-with-padding-rows": (1, 16, 8, 1, 64, 16, 16, 12, [190], [11]),
+    "chunk-beside-one-row": (2, 16, 16, 2, 128, 16, 24, 10, [150, 77],
+                             [16, 1]),
 }
 
 
@@ -159,12 +165,15 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
     ("paged_decode", "CH", "paged_attention", "TOKENS_PER_BLOCK"),
     ("mla_decode", "CH", "mla_decode", "TOKENS_PER_BLOCK"),
     ("mla_decode", "HG", "mla_decode", "HEADS_PER_BLOCK"),
+    ("paged_attention", "TQ", "paged_attention", "MIXED_ROWS_PER_BLOCK"),
+    ("paged_attention", "SPAN", "paged_attention", "MIXED_TOKENS_PER_BLOCK"),
 ])
 def test_split_wrappers_size_workspaces_by_the_kernels_constants(
         source, name, module, attr):
-    """The split-merging decodes' wrappers size their workspaces and
-    counters from the kernels' blocking, which they mirror as Python
-    constants: each must equal the constant in its CUDA source."""
+    """The split-merging wrappers (the decodes and the bf16 mixed
+    attention) size their workspaces and counters from the kernels'
+    blocking, which they mirror as Python constants: each must equal the
+    constant in its CUDA source."""
     import importlib
     import os
     import re

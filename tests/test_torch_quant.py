@@ -167,6 +167,12 @@ MIXED_CASES = {
     "chunk-with-padding-rows": (1, 8, 4, 2, 16, 4, 12, 6, [13], [5]),
     "mixed-batch": (2, 4, 4, 2, 16, 4, 16, 6, [9, 18], [4, 1]),
     "q-len-one": (3, 1, 4, 2, 16, 4, 16, 5, [3, 11, 17], [1, 1, 1]),
+    # the served layout: 8 query heads a kv head, hd 128, blocks of 16
+    "served-layout-full-chunk": (1, 8, 16, 2, 128, 16, 12, 8, [100], [8]),
+    # a context over three 64-token tiles, 5 padding rows
+    "tiles-with-padding-rows": (1, 16, 8, 1, 64, 16, 16, 12, [190], [11]),
+    "chunk-beside-one-row": (2, 16, 16, 2, 128, 16, 24, 10, [150, 77],
+                             [16, 1]),
 }
 
 
