@@ -26,12 +26,19 @@ Phases, each of which raises on failure (no phase's failure is caught):
    S_max, and an S_max of 1000 with a length of 0, with queries drawn so
    that the scores spread over several units (a peaked softmax, as in
    decode); ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
-   ``paged_gmm`` at deepseek-v2-lite's D = 2048, F = 1408, E = 64 too, at
-   C = 1 (decode) and C = 120 (a 1,024-token prefill's 6,144 routed rows
-   over 64 experts at capacity factor 1.25).  ``ssd_scan`` at mamba2-1.3b's
-   prefill shape (B = 1, S = 1024, H = 64, P = 64, N = 128, chunk 256; the
-   main case), zamba2-2.7b's (H = 80, N = 64, chunk 128), B = 2 with S =
-   512, a ragged S = 1000, and mamba2's shape in f32: its outputs are f32
+   the GMMs at qwen3-30b-a3b's three banks (E = 128; wi and wg 2048 x 768,
+   wo 768 x 2048) at C = 1 (decode), 5, and a chunk step's capacity
+   (``capacity_for(CHUNK)``, 10 rows an expert), and an aliased table; both
+   GMMs at deepseek-v2-lite's D = 2048, F = 1408, E = 64 too (int8 pages at
+   its wi bank), at C = 1 (decode) and C = 120 (a 1,024-token prefill's
+   6,144 routed rows over 64 experts at capacity factor 1.25,
+   ``capacity_for(1024)``); the bf16 GMM outputs must be the f32 answer
+   rounded once (within 3e-5 past half a bf16 step) and a second launch
+   must give the same bits.
+   ``ssd_scan`` at mamba2-1.3b's prefill shape (B = 1, S = 1024, H = 64,
+   P = 64, N = 128, chunk 256; the main case), zamba2-2.7b's (H = 80,
+   N = 64, chunk 128), B = 2 with S = 512, a ragged S = 1000, and
+   mamba2's shape in f32: its outputs are f32
    from f32 sums on both sides, atol = rtol = 1e-3 on y and the state; no
    single PyTorch call computes the scan, so it has no library time.
    ``flash_attention`` and ``paged_decode_attention`` at zamba2's shared
@@ -83,7 +90,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
    requests of 200-1000 prompt tokens, two sharing a prefix (prefix skip
    and copy-on-write run), 32 output tokens each.  Each bf16 kernel's
    launch count, set to 0 just before, must be above zero after it.  Each
-   chunk step must launch one mixed attention per layer.  After serving,
+   chunk step must launch one mixed attention per layer, and each chunk
+   step and decode step three GMMs per MoE layer (counted apart: at a
+   chunk's capacity of rows and at decode's one).  After serving,
    two chunk steps of the 1,000-token prompt's last chunk (ctx 1000,
    q_len 104) run under the profiler.
 5. ``serve_int8``: the same requests on a server with
@@ -168,7 +177,6 @@ D_MODEL, MOE_FF, N_EXP = 2048, 768, 128
 # v dim; experts and their width
 MLA_H, MLA_R, MLA_DR, MLA_DN, MLA_DV = 16, 512, 64, 128, 128
 MLA_FF, MLA_EXP = 1408, 64
-MLA_PREFILL_C = 120            # rows an expert in a 1,024-token prefill
 # the SSD scans of a 1,024-token prefill, (B, S, H, P, N, chunk):
 # mamba2-1.3b's and zamba2-2.7b's; zamba2's shared attention block's heads
 SSD_MAMBA2 = (1, 1024, 64, 64, 128, 256)
@@ -463,6 +471,8 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
                   / (127 * math.sqrt(Din))).cuda()
         kern = lambda: ops.quant_paged_gmm(table, pool, scales, x)
         plain = lambda: ref.quant_paged_gmm_ref(table, pool, scales, x)
+        plain32 = lambda: ref.quant_paged_gmm_ref(table, pool, scales,
+                                                  x.float())
         w = dequantize_rows(ref._gather_rows(pool, table),
                             ref._gather_rows(scales, table),
                             (-2, -1)).to(dtype)
@@ -472,15 +482,22 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
                 / math.sqrt(Din)).to(dtype).cuda()
         kern = lambda: ops.paged_gmm(table, pool, x)
         plain = lambda: ref.paged_gmm_ref(table, pool, x)
+        plain32 = lambda: ref.paged_gmm_ref(table, pool, x.float())
         w = ref._gather_rows(pool, table).contiguous()
         extra = 0
     lib = lambda: torch.bmm(x, w)
+    name = "quant_paged_gmm" if quant else "paged_gmm"
     got = kern()
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     torch.testing.assert_close(lib().float(), want.float(), **TOL[dtype])
+    require(torch.equal(kern(), got), f"{name}: a second launch differs "
+            "from the first")
+    excess = None
+    if dtype == torch.bfloat16:
+        excess = _require_one_bf16_rounding(got, plain32(), name)
     pages = int(torch.unique(table).numel())
     nb = pages * Din * Fout * pool.element_size() + extra \
         + nbytes(x, got, table)
@@ -490,6 +507,8 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
                    + (" aliased" if aliased else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "ops": ops_n}
+    if excess is not None:
+        rec["rounding_excess"] = excess
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
@@ -759,7 +778,13 @@ def _ssd_case(shape, dtype, gen, timer, do_time):
 
 
 def phase_kernels():
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity_for
+    # the GMMs' rows an expert at a chunk step (qwen3-30b-a3b: 10) and at
+    # a 1,024-token prefill (deepseek-v2-lite-16b: 120)
+    chunk_c = capacity_for(CHUNK, get_config("qwen3-30b-a3b"))
+    prefill_c = capacity_for(1024, get_config("deepseek-v2-lite-16b"))
     gen = torch.Generator().manual_seed(0)
     timer = Timer()
     out = {name: [] for name in REPLACES}
@@ -841,21 +866,24 @@ def phase_kernels():
                                        **TOL[dtype])
             del dec_inputs, q, pools, bt
             for bank in ("wi", "wg", "wo"):
-                for C in (1, 5):
+                for C in (1, 5, chunk_c):
                     out[gmm_name].append(_gmm_case(bank, C, dtype, False,
                                                    gen, timer, timed, quant))
             out[gmm_name].append(
                 _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
             torch.cuda.empty_cache()
     # deepseek-v2-lite's: decode (C = 1) and a 1,024-token prefill (C =
-    # 1024 * 6 / 64 * 1.25 = 120 rows an expert)
+    # 1024 * 6 / 64 * 1.25 = 120 rows an expert); int8 pages at its wi
     for dtype in (torch.bfloat16, torch.float32):
-        for C in (1, MLA_PREFILL_C):
+        for C in (1, prefill_c):
             for bank in ("wi", "wg", "wo"):
                 out["paged_gmm"].append(_gmm_case(
                     bank, C, dtype, False, gen, timer,
                     dtype == torch.bfloat16, shape=(MLA_EXP, D_MODEL,
                                                     MLA_FF)))
+            out["quant_paged_gmm"].append(_gmm_case(
+                "wi", C, dtype, False, gen, timer, dtype == torch.bfloat16,
+                quant=True, shape=(MLA_EXP, D_MODEL, MLA_FF)))
         torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
@@ -1451,13 +1479,21 @@ def phase_serve(layers, phase="serve", profile=True):
             f"paged_decode_attention, {counts['kv_cache_write'] / steps:g} "
             f"kv_cache_write")
     if paged:
-        # each chunk step: one mixed attention per layer
-        mix = PATH_KERNELS[phase][1]
+        # each chunk step: one mixed attention per layer; each chunk step
+        # and decode step: three GMMs per MoE layer
+        _, mix, gmm = PATH_KERNELS[phase]
         require(counts[mix] == cfg.num_layers * n_chunks,
                 f"{mix}: {counts[mix]} launches over {n_chunks} chunks of "
                 f"{cfg.num_layers} layers")
+        per_step = 3 * (cfg.num_layers - cfg.first_k_dense)
+        gmm_launches = {"decode": per_step * eng._step_count,
+                        "chunk": per_step * n_chunks}
+        require(counts[gmm] == sum(gmm_launches.values()),
+                f"{gmm}: {counts[gmm]} launches, {gmm_launches} expected")
         log(f"{tag} {n_chunks} chunk steps: "
-            f"{counts[mix] / n_chunks:g} {mix} launches each")
+            f"{counts[mix] / n_chunks:g} {mix} launches each; {gmm} "
+            f"{gmm_launches['chunk']} launches at a chunk's rows, "
+            f"{gmm_launches['decode']} at decode")
     for r in reqs:
         toks = eng.generated[r.rid]
         require(len(toks) == out_len, (r.rid, len(toks)))
@@ -1503,7 +1539,7 @@ def phase_serve(layers, phase="serve", profile=True):
     if paged:
         chunk = [t["chunk_ms"] / t["chunks"] for t in ticks if t["chunks"]]
         res.update(chunk_step_ms_median=statistics.median(chunk),
-                   chunk_steps=len(chunk),
+                   chunk_steps=len(chunk), gmm_launches=gmm_launches,
                    kv={k: kv[k] for k in ("shared_block_hits", "cow_copies",
                                           "preemptions")})
         pre_txt = (f"chunk step median {res['chunk_step_ms_median']:.2f} ms "

@@ -4,10 +4,14 @@ Port of the Pallas TPU kernels ``paged_gmm`` (``repro/kernels/moe_gmm.py:83``)
 and ``quant_paged_gmm`` (``:148``), and of ``paged_expert_ffn`` (``:131``)
 and ``quant_paged_expert_ffn`` (``:192``), which stay the same three-call
 compositions.  The kernels and their design note are in
-``csrc/moe_gmm.cu``.  The wrappers take CUDA tensors only: they check
-device, dtype, shape and contiguity, allocate the output, launch on
-PyTorch's current stream and count the launch.  ``kernels/ops.py`` dispatches CPU tensors to the plain
-versions in ``kernels/ref.py``.
+``csrc/moe_gmm.cu``: bf16 x runs on the tensor cores, one pass over each
+page for all of an expert's rows, over bf16 or int8 pages; f32 x and
+ragged shapes run on CUDA cores.  :func:`gmm_instance` picks the instance
+from the dtypes, D, F and the 16-byte alignment of x and the pool, never
+from a failure.  The wrappers take CUDA tensors only: they check device,
+dtype, shape and contiguity, allocate the output, launch on PyTorch's
+current stream and count the launch.  ``kernels/ops.py`` dispatches CPU
+tensors to the plain versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -18,9 +22,32 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"paged_gmm_launch": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+_SIGNATURES = {"paged_gmm_launch": [_I] + [_P] * 4 + [_I] * 6 + [_P],
                "quant_paged_gmm_launch": [_I] + [_P] * 5 + [_I] * 6 + [_P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel instances of ``csrc/moe_gmm.cu`` and their codes there: CUDA
+#: cores (int8 pages by byte loads), CUDA cores with int8 pages by char4
+#: loads, tensor cores
+INSTANCES = {"fma": 0, "fma_char4": 1, "mma": 2}
+
+
+def gmm_instance(x_dtype: torch.dtype, pool_dtype: torch.dtype, D: int,
+                 F: int, x_ptr: int, pool_ptr: int) -> str:
+    """The kernel instance that computes ``x @ page`` for x of ``x_dtype``
+    [.., D] and pages of ``pool_dtype`` [D, F] at device addresses
+    ``x_ptr`` and ``pool_ptr``: ``"mma"`` (tensor cores) for bf16 x whose
+    rows and whose pages' rows come in 16-byte pieces (D % 8 == 0; F % 8
+    == 0 for bf16 pages, F % 16 == 0 for int8) from 16-byte aligned
+    tensors, which every served shape is; else the CUDA cores:
+    ``"fma_char4"`` for int8 pages with F % 4 == 0 in a 4-byte aligned
+    pool, ``"fma"`` otherwise (f32 x, the parity type, always)."""
+    quant = pool_dtype == torch.int8
+    if (x_dtype == torch.bfloat16 and D % 8 == 0 and F % (16 if quant else 8)
+            == 0 and x_ptr % 16 == 0 and pool_ptr % 16 == 0):
+        return "mma"
+    if quant and F % 4 == 0 and pool_ptr % 4 == 0:
+        return "fma_char4"
+    return "fma"
 
 
 def _check(table, pool, x, scales=None):
@@ -69,12 +96,14 @@ def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
     out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if E == 0 or C == 0:
         return out
+    inst = INSTANCES[gmm_instance(x.dtype, pool.dtype, D, F, x.data_ptr(),
+                                  pool.data_ptr())]
     lib = _build.load("moe_gmm", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.paged_gmm_launch(_DTYPES[x.dtype], table.data_ptr(),
                                   x.data_ptr(), pool.data_ptr(),
-                                  out.data_ptr(), E, C, D, F, P, stream)
+                                  out.data_ptr(), E, C, D, F, P, inst, stream)
     _build.check(lib, rc, "paged_gmm")
     paged_gmm.launches += 1
     return out
@@ -94,14 +123,15 @@ def quant_paged_gmm(table: torch.Tensor, pool: torch.Tensor,
     out = torch.empty((E, C, F), dtype=x.dtype, device=dev)
     if E == 0 or C == 0:
         return out
-    vec = int(F % 4 == 0 and pool.data_ptr() % 4 == 0)
+    inst = INSTANCES[gmm_instance(x.dtype, pool.dtype, D, F, x.data_ptr(),
+                                  pool.data_ptr())]
     lib = _build.load("moe_gmm", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.quant_paged_gmm_launch(_DTYPES[x.dtype], table.data_ptr(),
                                         x.data_ptr(), pool.data_ptr(),
                                         scales.data_ptr(), out.data_ptr(), E,
-                                        C, D, F, P, vec, stream)
+                                        C, D, F, P, inst, stream)
     _build.check(lib, rc, "quant_paged_gmm")
     quant_paged_gmm.launches += 1
     return out

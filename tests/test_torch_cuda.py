@@ -1,9 +1,11 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes the serving path does not reach (ragged F and D tiles, odd
-token counts, other head dims and block sizes, aliased tables, sentinel
-rows), for bf16/f32 pools and for int8 pools with f32 scales (rows whose
-scales differ by 100x, an all-zero scale row), for the slot-contiguous
-path (ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at edge shapes the serving path does not reach (ragged F and D
+tiles, odd token counts, other head dims and block sizes, aliased
+tables, sentinel rows), for bf16/f32 pools and for int8 pools with f32
+scales (rows whose scales differ by 100x, an all-zero scale row), for
+both GMMs at x's row counts either side of the tensor-core kernel's
+tiles and at the served expert widths, for the slot-contiguous path
+(ragged prefill lengths, GQA groups 1 and 8, decode lengths of 1 and
 S_max, a dropped cache write), for the split-context decode over both
 addressings and over int8 rows with their scales (lengths at and either
 side of a split boundary, at and past S_max, groups of 1 to 16 heads,
@@ -11,15 +13,15 @@ peaked scores, a repeat launch that must give the same bits), for the
 mixed (chunked-prefill) attentions over bf16 and int8 pools (contexts at
 and either side of a 64-key tile and a span edge, padding rows, a
 prompt's first chunk, a one-row sequence beside a chunk, groups of 4 and
-8 heads, head widths 64 and 128, peaked scores, a repeat launch), for the
-prefill attention's four head-width instances at and either side of its
-64-row tiles with peaked scores, and for MLA (the latent decode at lengths
-0, 1, S_max and past it, an S_max that is no tile multiple, sequences
-split over up to 16 blocks, peaked and flat scores; prefill attention at
-q/k width 192 and v width 128), and for the Mamba2 models (the SSD chunk
-scan at ragged lengths, one token, fewer than 32 columns of P, chunks of
-16 to 256 rows, B and C in bf16 and f32; zamba2's attention at head width
-80).
+8 heads, head widths 64 and 128, peaked scores, a repeat launch), for
+the prefill attention's four head-width instances at and either side of
+its 64-row tiles with peaked scores, and for MLA (the latent decode at
+lengths 0, 1, S_max and past it, an S_max that is no tile multiple,
+sequences split over up to 16 blocks, peaked and flat scores; prefill
+attention at q/k width 192 and v width 128), and for the Mamba2 models
+(the SSD chunk scan at ragged lengths, one token, fewer than 32 columns
+of P, chunks of 16 to 256 rows, B and C in bf16 and f32; zamba2's
+attention at head width 80).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -28,10 +30,10 @@ from the repo root::
 Tolerance: f32 atol = rtol = 1e-4 (f32 sums in another order than the
 plain version's matmuls); bf16 atol = rtol = 2e-2 on f32-cast outputs
 (both round once from f32); the split-context decodes, the mixed
-attentions and the prefill attention in bf16 also within 3e-5 past one
-bf16 rounding of the f32 answer.  The SSD scan's outputs are f32 from f32 sums
-on both sides whatever the input type: atol = rtol = 1e-3 (sums of up to
-256 products, the decays' exps taken in another order).
+attentions, the prefill attention and the GMMs in bf16 also within 3e-5
+past one bf16 rounding of the f32 answer.  The SSD scan's outputs are f32
+from f32 sums on both sides whatever the input type: atol = rtol = 1e-3
+(sums of up to 256 products, the decays' exps taken in another order).
 """
 import pytest
 import torch
@@ -131,6 +133,58 @@ def test_paged_gmm_matches_plain(dev, E, C, D, F, dtype):
         got = moe_gmm.paged_gmm(table, pool, x)
         want = ref.paged_gmm_ref(table, pool, x)
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+GMM_WIDTHS = [(2048, 768), (768, 2048), (2048, 1408),      # served (D, F)
+              (64, 257), (260, 40)]                        # ragged
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["pages", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("D,F", GMM_WIDTHS)
+@pytest.mark.parametrize("C", [1, 7, 8, 9, 10, 16, 120, 129])
+def test_gmm_rows_and_widths_match_plain(dev, C, D, F, dtype, quant):
+    """Both GMMs at x's row counts either side of the tensor-core kernel's
+    8-row n-tiles and its 128-row blocks (C = 10: qwen3's chunk; 120:
+    deepseek-v2-lite's prefill), at the served widths (which take the
+    tensor cores in bf16) and ragged ones (CUDA cores); permuted, aliased
+    and all-one-page tables (int8: page 0, whose scale is 0; every int8
+    value in every page).  In bf16 the
+    output is the f32 answer rounded once; a second launch gives the same
+    bits."""
+    gen = torch.Generator().manual_seed(21)
+    E, P = 3, 5
+    x = _rand(gen, (E, C, D), dtype, dev)
+    if quant:
+        pool, scales = _int8(gen, (P, D, F), dev, top=3 * D ** -0.5)
+        # every int8 value, -128 too, in every page
+        pool.view(P, -1)[:, :256] = torch.arange(-128, 128, device=dev,
+                                                  dtype=torch.int8)
+        kern = lambda t, xx: moe_gmm.quant_paged_gmm(t, pool, scales, xx)
+        plain = lambda t, xx: ref.quant_paged_gmm_ref(t, pool, scales, xx)
+    else:
+        pool = _rand(gen, (P, D, F), dtype, dev, D ** -0.5)
+        kern = lambda t, xx: moe_gmm.paged_gmm(t, pool, xx)
+        plain = lambda t, xx: ref.paged_gmm_ref(t, pool, xx)
+    served = (D, F) in GMM_WIDTHS[:3]
+    want_inst = ("mma" if dtype == torch.bfloat16 and served
+                 else "fma_char4" if quant and F % 4 == 0 else "fma")
+    assert moe_gmm.gmm_instance(dtype, pool.dtype, D, F, x.data_ptr(),
+                                pool.data_ptr()) == want_inst
+    perm = torch.randperm(P, generator=gen)[:E]
+    for table in (perm, perm[torch.tensor([0, 0, 1])],  # permuted, aliased
+                  torch.zeros(E, dtype=torch.int64)):   # one page
+        table = table.to(torch.int32).to(dev)
+        got = kern(table, x)
+        assert torch.equal(kern(table, x), got)
+        want = plain(table, x)
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        if dtype == torch.bfloat16:
+            _assert_one_bf16_rounding(got, plain(table, x.float()),
+                                      "quant_paged_gmm" if quant
+                                      else "paged_gmm")
+        if quant and not table.any():
+            assert not got.any()                        # scale 0
 
 
 def test_expert_ffn_and_counters(dev):

@@ -121,7 +121,7 @@ GMM_TABLES = {
 
 
 @pytest.mark.parametrize("table_kind", sorted(GMM_TABLES))
-@pytest.mark.parametrize("C", [1, 3, 10])
+@pytest.mark.parametrize("C", [1, 3, 10, 120, 129])
 def test_paged_gmm_ref_matches_pallas(table_kind, C):
     E, P, D, F = 5, 8, 32, 24
     rng = np.random.default_rng(3)
@@ -131,6 +131,47 @@ def test_paged_gmm_ref_matches_pallas(table_kind, C):
     want = jax_paged_gmm(table, pool, x, interpret=True)
     got = tref.paged_gmm_ref(_t(table), _t(pool), _t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("x_dtype, pool_dtype, D, F, x_ptr, want", [
+    # served: qwen3-30b-a3b's wi/wg and wo, deepseek-v2-lite-16b's wi/wg
+    (torch.bfloat16, torch.bfloat16, 2048, 768, 0, "mma"),
+    (torch.bfloat16, torch.bfloat16, 768, 2048, 0, "mma"),
+    (torch.bfloat16, torch.bfloat16, 2048, 1408, 0, "mma"),
+    (torch.bfloat16, torch.int8, 2048, 768, 0, "mma"),
+    (torch.bfloat16, torch.int8, 768, 2048, 0, "mma"),
+    (torch.bfloat16, torch.int8, 2048, 1408, 0, "mma"),
+    # f32 x, the parity type: CUDA cores
+    (torch.float32, torch.float32, 2048, 768, 0, "fma"),
+    (torch.float32, torch.int8, 2048, 768, 0, "fma_char4"),
+    # ragged: the card tests' shapes and a misaligned x
+    (torch.bfloat16, torch.bfloat16, 512, 96, 0, "mma"),
+    (torch.bfloat16, torch.bfloat16, 64, 257, 0, "fma"),
+    (torch.bfloat16, torch.bfloat16, 260, 40, 0, "fma"),
+    (torch.bfloat16, torch.int8, 512, 40, 0, "fma_char4"),
+    (torch.bfloat16, torch.int8, 300, 130, 0, "fma"),
+    (torch.bfloat16, torch.bfloat16, 2048, 768, 8, "fma"),
+])
+def test_gmm_instance_by_shape(x_dtype, pool_dtype, D, F, x_ptr, want):
+    """The GMM wrappers pick the tensor-core instance for bf16 x at every
+    served width, the CUDA cores for f32 x and for shapes whose rows do not
+    come in 16-byte pieces, by shape alone (see ``csrc/moe_gmm.cu``)."""
+    from repro_torch.kernels import moe_gmm
+    got = moe_gmm.gmm_instance(x_dtype, pool_dtype, D, F, 4096 + x_ptr, 4096)
+    assert got == want
+    assert got in moe_gmm.INSTANCES
+
+
+def test_gmm_instance_codes_match_the_kernel():
+    """The wrapper's instance codes are the ones ``csrc/moe_gmm.cu``
+    dispatches on."""
+    import os
+    import re
+    from repro_torch.kernels import _build, moe_gmm
+    with open(os.path.join(_build.CSRC, "moe_gmm.cu")) as f:
+        found = re.findall(r"^constexpr int (FMA|FMA_CHAR4|MMA) = (\d+);",
+                           f.read(), re.M)
+    assert {k.lower(): int(v) for k, v in found} == moe_gmm.INSTANCES
 
 
 @pytest.mark.parametrize("C", [1, 5])

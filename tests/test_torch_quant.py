@@ -198,7 +198,7 @@ GMM_TABLES = {
 
 
 @pytest.mark.parametrize("table_kind", sorted(GMM_TABLES))
-@pytest.mark.parametrize("C", [1, 3, 10])
+@pytest.mark.parametrize("C", [1, 3, 10, 120, 129])
 def test_quant_paged_gmm_ref_matches_pallas(table_kind, C):
     E, P, D, F = 5, 8, 32, 24
     rng = np.random.default_rng(13)
