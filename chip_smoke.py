@@ -23,9 +23,12 @@ Phases, each of which raises on failure (no phase's failure is caught):
    MLA's q/k width 192 and v width 128 (S = 1024 and 192);
    ``mla_decode_attention`` at deepseek-v2-lite's decode shape (B = 8,
    H = 16, r = 512, dr = 64, S_max = 2048) and at lengths all 1, all
-   S_max, and an S_max of 1000 with a length of 0, with queries drawn so
+   S_max, an S_max of 1000 with a length of 0, and lengths either side of
+   one and two of the kernel's spans, with queries drawn so
    that the scores spread over several units (a peaked softmax, as in
-   decode); ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
+   decode), where the bf16 output must be the f32 answer rounded once
+   (within 3e-5 past half a bf16 step) and a second launch must give the
+   same bits; ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
    the GMMs at qwen3-30b-a3b's three banks (E = 128; wi and wg 2048 x 768,
    wo 768 x 2048) at C = 1 (decode), 5, and a chunk step's capacity
    (``capacity_for(CHUNK)``, 10 rows an expert), and an aliased table; both
@@ -37,9 +40,13 @@ Phases, each of which raises on failure (no phase's failure is caught):
    must give the same bits.
    ``ssd_scan`` at mamba2-1.3b's prefill shape (B = 1, S = 1024, H = 64,
    P = 64, N = 128, chunk 256; the main case), zamba2-2.7b's (H = 80,
-   N = 64, chunk 128), B = 2 with S = 512, a ragged S = 1000, and
+   N = 64, chunk 128), B = 2 with S = 512, a ragged S = 1000, 16 chunks
+   (S = 4096), mamba2's and zamba2's shapes with A twenty times steeper
+   (up to 140 of decay within 16 rows, as a served model's steepest
+   heads reach), and
    mamba2's shape in f32: its outputs are f32
-   from f32 sums on both sides, atol = rtol = 1e-3 on y and the state; no
+   from f32 sums on both sides, atol = rtol = 1e-3 on y and the state,
+   and a second launch must give the same bits; no
    single PyTorch call computes the scan, so it has no library time.
    ``flash_attention`` and ``paged_decode_attention`` at zamba2's shared
    block too (H = KVH = 32, head width 80), and ``flash_attention``'s four
@@ -716,6 +723,16 @@ def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
     for b, n in enumerate(lengths):
         if n == 0:
             require(not got[b].any(), "a length of 0 did not give zeros")
+    # a second launch reuses the split counters the first left at 0
+    require(torch.equal(kern(), got), "mla_decode_attention: a second "
+            "launch differs from the first")
+    excess = None
+    if dtype == torch.bfloat16:
+        excess = _require_one_bf16_rounding(
+            got, ref.mla_decode_attention_ref(qe.float(), qr.float(),
+                                              c.float(), kr.float(), lens,
+                                              scale),
+            "mla_decode_attention")
     if min(lengths) > 0:
         torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
                                    **TOL[dtype])
@@ -729,35 +746,51 @@ def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
                    f"lengths={lengths}",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if excess is not None:
+        rec["rounding_excess"] = excess
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
     return rec
 
 
-def _ssd_case(shape, dtype, gen, timer, do_time):
+def _ssd_case(shape, dtype, gen, timer, do_time, a_scale=1.0):
     """The SSD chunk scan at ``shape`` = (B, S, H, P, N, chunk) against its
     plain version: x, B and C in ``dtype``, dt and A f32 from the
     reference test's distributions (dt in [0.01, 0.51], A in [-1.5, -0.5]:
-    decays slow enough that the state carries across chunks); y and the
+    decays slow enough that the state carries across chunks), A times
+    ``a_scale`` (20: up to 15 of decay a row, 140 within 16 rows, where
+    a served mamba2's steepest head, A = -16 and dt near 0.69, decays 11
+    a row, and where an exp that overflows shows as NaN; there
+    the check runs the plain version on the CPU, whose f32 cumsum
+    accumulates in double, where the card's sums in f32); y and the
     state are f32 from f32 sums on both sides.  The bound counts C.Bᵀ once
     per (sequence, chunk), the least the work needs (the Pallas kernel
     computes it per head: both counts are kept).  No single PyTorch call
     computes the scan: no library time."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_instance
     B, S, nh, P, N, chunk = shape
     x = torch.randn(B, S, nh, P, generator=gen).to(dtype).cuda()
     dt = (torch.rand(B, S, nh, generator=gen) * 0.5 + 0.01).cuda()
-    A = (-(torch.rand(nh, generator=gen) + 0.5)).cuda()
+    A = (-(torch.rand(nh, generator=gen) + 0.5) * a_scale).cuda()
     Bm = torch.randn(B, S, N, generator=gen).to(dtype).cuda()
     Cm = torch.randn(B, S, N, generator=gen).to(dtype).cuda()
     kern = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, chunk)
     plain = lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
-    (y, st), (wy, ws) = kern(), plain()
+    y, st = kern()
+    if a_scale == 1.0:
+        wy, ws = plain()
+    else:
+        wy, ws = (t.cuda() for t in ref.ssd_scan_ref(
+            *(t.cpu() for t in (x, dt, A, Bm, Cm)), chunk))
     torch.cuda.synchronize()
     err = max((y - wy).abs().max().item(), (st - ws).abs().max().item())
     torch.testing.assert_close(y, wy, **SSD_TOL)
     torch.testing.assert_close(st, ws, **SSD_TOL)
+    y2, st2 = kern()
+    require(torch.equal(y2, y) and torch.equal(st2, st), "ssd_scan: a "
+            "second launch differs from the first")
     Q = min(chunk, S)
     nc = -(-S // Q)
     # per (sequence, head, chunk): M.x 2Q²P, C.state and the state update
@@ -768,7 +801,8 @@ def _ssd_case(shape, dtype, gen, timer, do_time):
     ops_pallas = B * nc * nh * (2 * Q * Q * N + per_head)
     io = nbytes(x, dt, A, Bm, Cm, y, st)
     b_ms, b_by = bound_ms(io, ops_n, dtype)
-    rec = {"case": f"B={B} S={S} H={nh} P={P} N={N} chunk={chunk}",
+    rec = {"case": f"B={B} S={S} H={nh} P={P} N={N} chunk={chunk} "
+                   f"A x{a_scale:g} ({ssd_instance(x, Bm, Cm)})",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n,
            "ops_pallas": ops_pallas, "library_ms": None}
@@ -779,7 +813,7 @@ def _ssd_case(shape, dtype, gen, timer, do_time):
 
 def phase_kernels():
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import mla_decode, ops
     from repro_torch.models.moe import capacity_for
     # the GMMs' rows an expert at a chunk step (qwen3-30b-a3b: 10) and at
     # a 1,024-token prefill (deepseek-v2-lite-16b: 120)
@@ -806,9 +840,14 @@ def phase_kernels():
         mla = out["mla_decode_attention"]
         mla.append(_mla_case(DECODE_LENGTHS, MAX_LEN, dtype, gen, timer,
                              timed))                     # the main case
+        span = (mla_decode.TOKENS_PER_BLOCK if dtype == torch.bfloat16
+                else mla_decode.F32_TOKENS_PER_BLOCK)
         for lengths, S_max in (([1] * BATCH, MAX_LEN),
                                ([MAX_LEN] * BATCH, MAX_LEN),
-                               ([1000, 999, 0, 1, 500, 64, 65, 1000], 1000)):
+                               ([1000, 999, 0, 1, 500, 64, 65, 1000], 1000),
+                               ([span - 1, span, span + 1, 2 * span - 1,
+                                 2 * span, 2 * span + 1, 0, 1],
+                                2 * span + 1)):
             mla.append(_mla_case(lengths, S_max, dtype, gen, timer, False))
         for S in (1024, 192):
             out["flash_attention"].append(_flash_case(
@@ -823,8 +862,12 @@ def phase_kernels():
     ssd = out["ssd_scan"]
     for shape, timed in ((SSD_MAMBA2, True), (SSD_ZAMBA2, True),
                          ((2, 512, 64, 64, 128, 256), False),
-                         ((1, 1000, 64, 64, 128, 256), False)):
+                         ((1, 1000, 64, 64, 128, 256), False),
+                         ((1, 4096, 64, 64, 128, 256), False)):
         ssd.append(_ssd_case(shape, torch.bfloat16, gen, timer, timed))
+    for shape in (SSD_MAMBA2, SSD_ZAMBA2):
+        ssd.append(_ssd_case(shape, torch.bfloat16, gen, timer, False,
+                             a_scale=20.0))
     ssd.append(_ssd_case(SSD_MAMBA2, torch.float32, gen, timer, False))
     for dtype in (torch.bfloat16, torch.float32):
         timed = dtype == torch.bfloat16

@@ -2,15 +2,18 @@
 wrapper.
 
 Port of the Pallas TPU kernel ``mla_decode_attention``
-(``repro/kernels/mla_decode.py:73``); the kernel and its design note are in
-``csrc/mla_decode.cu``.  The bytes bound it (every latent row up to each
+(``repro/kernels/mla_decode.py:73``); the kernels and their design note are
+in ``csrc/mla_decode.cu``.  The bytes bound it (every latent row up to each
 length read once: 6.64 MB for 5,764 context tokens of deepseek-v2-lite in
-bf16, 2 µs); the kernel runs one block of 8 warps per (sequence, 2 heads,
-256 tokens), each warp folding its own rows into an accumulator held in
-registers; the warps, then the blocks of a sequence, are merged in a fixed
-order, in the same launch (the last block of a sequence merges, through a
-workspace, and counts on a buffer of counters, which every launch leaves
-zero; ``_build`` keeps both per stream).
+bf16, 2 µs).  bf16 runs on the tensor cores: one block per (sequence,
+``TOKENS_PER_BLOCK`` tokens, ``HEADS_PER_BLOCK`` = 16 heads, the m of an
+mma product), which reads each latent row of its span once for all 16
+heads (a head count that is no multiple of 16 pads the last group).  f32
+runs on CUDA cores, a block per (sequence, ``F32_HEADS_PER_BLOCK`` heads,
+``F32_TOKENS_PER_BLOCK`` tokens).  Both merge a sequence's blocks in a
+fixed order in the same launch: the last block of a sequence merges,
+through a workspace, and counts on a buffer of counters, which every
+launch leaves zero; ``_build`` keeps both per stream.
 
 Two departures from the Pallas kernel, both kept by the plain version
 ``kernels/ref.py``'s ``mla_decode_attention_ref`` too:
@@ -18,9 +21,10 @@ Two departures from the Pallas kernel, both kept by the plain version
 * the scale is an argument (the model passes ``1/sqrt(dn+dr)``; the Pallas
   kernel derives ``1/sqrt(128+dr)`` or ``1/sqrt(r+dr)`` from the shapes,
   which differs from the model's on the reduced configs);
-* any S works (the Pallas kernel asserts ``S % block_k == 0``): there are
-  no tiles, every warp stops at the sequence's length; a length of 0 gives
-  zeros, as the Pallas kernel gives.
+* any S works (the Pallas kernel asserts ``S % block_k == 0``): the
+  kernels mask every token at or past the sequence's length (the staged
+  tiles are zero there); a length of 0 gives zeros, as the Pallas kernel
+  gives.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and alignment, allocates the output, launches on PyTorch's
@@ -42,17 +46,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (kv_lora_rank, qk_rope_dim) instances: deepseek-v2/v3 and their reduced
 #: configs
 SHAPES = ((512, 64), (64, 16))
-#: heads per block and tokens per block, as in ``csrc/mla_decode.cu``
-HEADS_PER_BLOCK, TOKENS_PER_BLOCK = 2, 256
+#: heads and tokens a block serves, as in ``csrc/mla_decode.cu``: the
+#: bf16 (tensor-core) kernel's and the f32 (CUDA-core) kernel's
+HEADS_PER_BLOCK, TOKENS_PER_BLOCK = 16, 128
+F32_HEADS_PER_BLOCK, F32_TOKENS_PER_BLOCK = 2, 256
 
 
 def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
                          c_cache: torch.Tensor, kr_cache: torch.Tensor,
                          lengths: torch.Tensor, scale: float
                          ) -> torch.Tensor:
-    """q_eff [B,H,r] (H even); q_rope [B,H,dr]; c_cache [B,S,r]; kr_cache
-    [B,S,dr]; lengths [B] int32 (clamped to [0, S]) -> latent context
-    [B,H,r] in q_eff's dtype."""
+    """q_eff [B,H,r] (H even in f32); q_rope [B,H,dr]; c_cache [B,S,r];
+    kr_cache [B,S,dr]; lengths [B] int32 (clamped to [0, S]) -> latent
+    context [B,H,r] in q_eff's dtype."""
     dev = q_eff.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -88,17 +94,23 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
     if (r, dr) not in SHAPES:
         raise ValueError(f"(kv_lora_rank, qk_rope_dim) = {(r, dr)} not in "
                          f"{SHAPES}")
-    if H % HEADS_PER_BLOCK:
-        raise ValueError(f"{H} heads: the kernel takes an even count")
+    if q_eff.dtype == torch.bfloat16:
+        groups = -(-H // HEADS_PER_BLOCK)
+        rows, span = groups * HEADS_PER_BLOCK, TOKENS_PER_BLOCK
+    elif H % F32_HEADS_PER_BLOCK:
+        raise ValueError(f"{H} heads: the f32 kernel takes an even count")
+    else:
+        groups = H // F32_HEADS_PER_BLOCK
+        rows, span = H, F32_TOKENS_PER_BLOCK
     out = torch.empty_like(q_eff)
-    # the splits of sequences longer than one block: [B,H,splits,r]
-    # accumulators, then [B,H,splits,2] (m, l)
-    splits = max(1, -(-S // TOKENS_PER_BLOCK))
-    n_acc = B * H * splits * r
+    # the splits of sequences longer than one block: [B,groups,splits,
+    # heads a group,r] accumulators, then the same with (m, l) for r
+    splits = max(1, -(-S // span))
+    n_acc = B * rows * splits * r
     lib = _build.load("mla_decode", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        done = _build.split_counters(dev, stream, B * H // HEADS_PER_BLOCK)
+        done = _build.split_counters(dev, stream, B * groups)
         ws = _build.split_workspace(dev, stream, n_acc + 2 * n_acc // r)
         rc = lib.mla_decode_attention_launch(
             _DTYPES[q_eff.dtype], q_eff.data_ptr(), q_rope.data_ptr(),

@@ -17,10 +17,15 @@ prompt's first chunk, a one-row sequence beside a chunk, groups of 4 and
 the prefill attention's four head-width instances at and either side of
 its 64-row tiles with peaked scores, and for MLA (the latent decode at
 lengths 0, 1, S_max and past it, an S_max that is no tile multiple,
-sequences split over up to 16 blocks, peaked and flat scores; prefill
-attention at q/k width 192 and v width 128), and for the Mamba2 models
-(the SSD chunk scan at ragged lengths, one token, fewer than 32 columns
-of P, chunks of 16 to 256 rows, B and C in bf16 and f32; zamba2's
+sequences split over up to 16 blocks, peaked and flat scores; the bf16
+tensor-core kernel at lengths either side of its span and at 4, 16 and
+128 heads, one bf16 rounding of the f32 answer and a repeat launch;
+prefill attention at q/k width 192 and v width 128), and for the Mamba2
+models (the SSD chunk scan at ragged lengths, one token, fewer than 32
+columns of P, chunks of 16 to 256 rows, B and C in bf16 and f32; the
+bf16 chunk-parallel tensor-core instance at 1, 4 and 16 chunks of
+mamba2's widths, zamba2's, a chunk of 100 rows, N and P that are no
+multiple of 16, A twenty times steeper, and a repeat launch; zamba2's
 attention at head width 80).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
@@ -743,6 +748,38 @@ def test_mla_decode_splits_match_plain(dev, dtype, S):
     assert torch.equal(got, again) and not got[0].any()
 
 
+@pytest.mark.parametrize("H", [4, 16, 128])
+def test_mla_decode_span_edges_match_plain(dev, H):
+    """The bf16 (tensor-core) kernel at lengths one short of a span, at a
+    span and one past it, at two spans and at 0, for 4 heads (one group
+    padded to 16 rows), deepseek-v2-lite's 16 and deepseek-v3's 128 (8
+    groups), with peaked scores: within TOL of the plain version, within
+    3e-5 past one bf16 rounding of the f32 answer, zeros at length 0, and
+    the same bits on a second launch (the span counters are reused)."""
+    gen = torch.Generator().manual_seed(21)
+    r, dr, span = 512, 64, mla_decode.TOKENS_PER_BLOCK
+    lengths = [span - 1, span, span + 1, 2 * span, 0]
+    B, S = len(lengths), 2 * span + 3
+    scale = (128 + dr) ** -0.5
+    qe = _rand(gen, (B, H, r), torch.bfloat16, dev,
+               3 * (128 + dr) ** 0.5 / r ** 0.5)
+    qr = _rand(gen, (B, H, dr), torch.bfloat16, dev,
+               3 * (128 + dr) ** 0.5 / dr ** 0.5)
+    c = _rand(gen, (B, S, r), torch.bfloat16, dev)
+    kr = _rand(gen, (B, S, dr), torch.bfloat16, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = mla_decode.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    again = mla_decode.mla_decode_attention(qe, qr, c, kr, lens, scale)
+    want = ref.mla_decode_attention_ref(qe, qr, c, kr, lens, scale)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    _assert_one_bf16_rounding(
+        got, ref.mla_decode_attention_ref(qe.float(), qr.float(), c.float(),
+                                          kr.float(), lens, scale),
+        f"mla_decode_attention H={H}")
+    assert torch.equal(got, again) and not got[-1].any()
+
+
 MLA_FLASH = {  # B, S, H
     "h16-ragged": (1, 200, 16),
     "h4-two-sequences-one-tile": (2, 64, 4),
@@ -808,12 +845,12 @@ SSD = {  # B, S, H, P, N, chunk
 }
 
 
-def _ssd_inputs(gen, B, S, H, P, N, dtype, dev):
+def _ssd_inputs(gen, B, S, H, P, N, dtype, dev, a_scale=1.0):
     """The reference test's distributions: dt in [0.01, 0.51], A in
-    [-1.5, -0.5]."""
+    [-1.5, -0.5] times ``a_scale``."""
     return (_rand(gen, (B, S, H, P), dtype, dev),
             (torch.rand(B, S, H, generator=gen) * 0.5 + 0.01).to(dev),
-            (-(torch.rand(H, generator=gen) + 0.5)).to(dev),
+            (-(torch.rand(H, generator=gen) + 0.5) * a_scale).to(dev),
             _rand(gen, (B, S, N), dtype, dev),
             _rand(gen, (B, S, N), dtype, dev))
 
@@ -834,6 +871,61 @@ def test_ssd_scan_matches_plain(dev, case, dtype):
     torch.testing.assert_close(st, ws, **SSD_TOL)
     again = ssd_scan.ssd_scan(*inputs, chunk)
     assert torch.equal(again[0], y) and torch.equal(again[1], st)
+
+
+SSD_MMA = {  # B, S, H, P, N, chunk: the tensor-core instance's edges
+    "mamba2-widths-1-chunk": (1, 256, 8, 64, 128, 256),
+    "mamba2-widths-4-chunks": (1, 1024, 8, 64, 128, 256),
+    "mamba2-widths-16-chunks": (1, 4096, 8, 64, 128, 256),
+    "ragged-s1000-b2": (2, 1000, 4, 64, 128, 256),
+    "zamba2-widths-c128": (1, 384, 16, 64, 64, 128),
+    "chunk-100-not-row-tiles": (2, 300, 4, 64, 128, 100),
+    "n-and-p-not-16-multiples": (1, 200, 4, 40, 24, 48),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_MMA))
+def test_ssd_scan_tensor_cores_match_plain(dev, case):
+    """The chunk-parallel tensor-core instance (bf16) at 1, 4 and 16
+    chunks of mamba2's widths, a ragged S with B = 2, zamba2's N = P = 64
+    at chunk 128, a chunk of 100 rows (no multiple of the 64-row tile),
+    N and P multiples of 8 but not 16: within SSD_TOL of the plain
+    version, and the same bits on a second launch."""
+    *shape, chunk = SSD_MMA[case]
+    gen = torch.Generator().manual_seed(22)
+    inputs = _ssd_inputs(gen, *shape, torch.bfloat16, dev)
+    assert ssd_scan.ssd_instance(inputs[0], inputs[3], inputs[4]) == \
+        "tensor_cores"
+    y, st = ssd_scan.ssd_scan(*inputs, chunk)
+    wy, ws = ref.ssd_scan_ref(*inputs, chunk)
+    torch.testing.assert_close(y, wy, **SSD_TOL)
+    torch.testing.assert_close(st, ws, **SSD_TOL)
+    again = ssd_scan.ssd_scan(*inputs, chunk)
+    assert torch.equal(again[0], y) and torch.equal(again[1], st)
+
+
+@pytest.mark.parametrize("case", ["mamba2-widths-4-chunks",
+                                  "zamba2-widths-c128", "ragged-s1000-b2"])
+def test_ssd_scan_tensor_cores_at_steep_decays(dev, case):
+    """A twenty times the reference test's, dt as drawn there (a row's
+    decay up to 15, up to 140 within a 16-row k-step; a served mamba2's
+    steepest head, A = -16 with dt near softplus(0) = 0.69, decays 11 a
+    row): no exp overflows into the products (a factor that did
+    gave NaN), within SSD_TOL of the plain version run on the CPU, whose
+    f32 cumsum accumulates in double (the card's sums it in f32, whose
+    rounding at |acs| in the thousands is not the kernel's to match).
+    dt ten times larger too would make |y| reach 660 from cancelling
+    terms, where the f32 plain version is itself 1.7 tolerances from an
+    f64 run: no f32 answer can be held to 1e-3 there."""
+    *shape, chunk = SSD_MMA[case]
+    gen = torch.Generator().manual_seed(23)
+    inputs = _ssd_inputs(gen, *shape, torch.bfloat16, dev, a_scale=20.0)
+    y, st = ssd_scan.ssd_scan(*inputs, chunk)
+    wy, ws = (t.to(dev) for t in ref.ssd_scan_ref(
+        *(t.cpu() for t in inputs), chunk))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, wy, **SSD_TOL)
+    torch.testing.assert_close(st, ws, **SSD_TOL)
 
 
 def test_ssd_scan_counts_and_use_reference(dev):

@@ -204,17 +204,24 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions():
 
 @pytest.mark.parametrize("source, name, module, attr", [
     ("paged_decode", "CH", "paged_attention", "TOKENS_PER_BLOCK"),
-    ("mla_decode", "CH", "mla_decode", "TOKENS_PER_BLOCK"),
-    ("mla_decode", "HG", "mla_decode", "HEADS_PER_BLOCK"),
+    ("mla_decode", "SPAN", "mla_decode", "TOKENS_PER_BLOCK"),
+    ("mla_decode", "MH", "mla_decode", "HEADS_PER_BLOCK"),
+    ("mla_decode", "CH", "mla_decode", "F32_TOKENS_PER_BLOCK"),
+    ("mla_decode", "HG", "mla_decode", "F32_HEADS_PER_BLOCK"),
     ("paged_attention", "TQ", "paged_attention", "MIXED_ROWS_PER_BLOCK"),
     ("paged_attention", "SPAN", "paged_attention", "MIXED_TOKENS_PER_BLOCK"),
+    ("ssd_scan", "MK", "ssd_scan", "PAD"),
+    ("ssd_scan", "MMA_N", "ssd_scan", "MMA_MAX_STATE"),
+    ("ssd_scan", "MMA_P", "ssd_scan", "MMA_MAX_HEAD_DIM"),
 ])
 def test_split_wrappers_size_workspaces_by_the_kernels_constants(
         source, name, module, attr):
-    """The split-merging wrappers (the decodes and the bf16 mixed
-    attention) size their workspaces and counters from the kernels'
-    blocking, which they mirror as Python constants: each must equal the
-    constant in its CUDA source."""
+    """The split-merging wrappers (the decodes, MLA's two kernels and the
+    bf16 mixed attention) size their workspaces and counters from the
+    kernels' blocking, and the SSD wrapper sizes its workspace from the
+    mma depth and picks its tensor-core instance by its largest N and P:
+    each wrapper mirrors these as Python constants, and each must equal
+    the constant in its CUDA source."""
     import importlib
     import os
     import re

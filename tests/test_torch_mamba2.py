@@ -135,6 +135,106 @@ def test_ssd_scan_ref_at_a_ragged_length_matches_the_oracle(S, chunk):
     np.testing.assert_allclose(s, np.asarray(os_), **ORACLE_TOL)
 
 
+# the chunk-parallel decomposition of the card's tensor-core instance
+# (B, S, H, P, N, chunk): 1, 3 and 8 chunks, and a ragged last chunk
+DECOMP_CASES = {
+    "1-chunk": (2, 16, 4, 32, 16, 16),
+    "3-chunks": (2, 48, 4, 32, 16, 16),
+    "8-chunks": (2, 128, 4, 32, 16, 16),
+    "ragged-s40": (2, 40, 4, 32, 16, 16),
+}
+
+
+def _split_bf16(t):
+    """An f32 operand as the kernel feeds it to the tensor cores: its bf16
+    rounding plus the bf16 rounding of what that left."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def _ssd_chunk_parallel(x, dt, A, Bm, Cm, chunk, split=lambda t: t):
+    """``csrc/ssd_scan.cu``'s tensor-core instance in plain f32: (1) C·Bᵀ
+    once per (sequence, chunk); (2) every chunk's own state input S_c =
+    (B ∘ exp(acs[-1] - acs) ∘ dt)ᵀ x at once; (3) the states passed in
+    chunk order, h_{c+1} = h_c exp(acs_c[-1]) + S_c; (4) every chunk's
+    rows at once, y = exp(acs) ∘ (C h_c) + (C·Bᵀ ∘ exp(acs_i - acs_j)[i >=
+    j] ∘ dt_j) x.  ``split`` is applied to the three f32 operands the
+    kernel splits into bf16 parts (the weighted B, h_c and M)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):         # [B,S,...] f32, zero-padded -> [B,nc,Q,...]
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((Bsz, pad, *t.shape[2:]))], 1)
+        return t.reshape(Bsz, nc, Q, *t.shape[2:])
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(Bm), chunks(Cm)
+    acs = torch.cumsum(dtc * A.float(), dim=2)                # [B,nc,Q,H]
+    last = acs[:, :, -1]                                      # [B,nc,H]
+    low = torch.ones(Q, Q, dtype=torch.bool).tril()
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc) * low        # phase 1
+    w = torch.exp(last[:, :, None] - acs) * dtc               # phase 2
+    s_c = torch.einsum("bcjhn,bcjhp->bchnp",
+                       split(bc[:, :, :, None] * w[..., None]), xc)
+    h = torch.zeros(Bsz, H, N, P)                             # phase 3
+    hs = []
+    for c in range(nc):
+        hs.append(h)
+        h = h * torch.exp(last[:, c])[:, :, None, None] + s_c[:, c]
+    hc = torch.stack(hs, 1)                                   # [B,nc,H,N,P]
+    y_off = torch.exp(acs)[..., None] * torch.einsum(        # phase 4
+        "bcin,bchnp->bcihp", cc, split(hc))
+    seg = acs[:, :, :, None] - acs[:, :, None, :]             # [B,nc,i,j,H]
+    L = torch.exp(torch.where(low[None, None, :, :, None], seg,
+                              float("-inf")))
+    M = cb[..., None] * L * dtc[:, :, None]
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", split(M), xc)
+    y = (y_off + y_diag).reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y, h
+
+
+@pytest.mark.parametrize("case", sorted(DECOMP_CASES))
+def test_ssd_chunk_parallel_decomposition_matches_pallas_and_plain(case):
+    """The four phases of the card's chunk-parallel scan, transcribed in
+    plain f32, against the Pallas kernel (interpret mode; it refuses a
+    ragged S, so that case meets the plain version alone) and the port's
+    plain version, at the reference shapes' tolerance (atol = rtol =
+    1e-5): the state passing carries each chunk's state exactly as the
+    sequential scan does."""
+    *shape, chunk = DECOMP_CASES[case]
+    inputs = _ssd_inputs(3, *shape)
+    y, s = _ssd_chunk_parallel(*(_t(a) for a in inputs), chunk)
+    wy, ws = _ref(inputs, chunk)
+    np.testing.assert_allclose(y.numpy(), wy, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(s.numpy(), ws, atol=1e-5, rtol=1e-5)
+    if shape[1] % chunk == 0:
+        py, ps = jops.ssd_scan(*inputs, chunk=chunk, interpret=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(py), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ps), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(DECOMP_CASES))
+def test_ssd_hi_lo_split_keeps_the_card_tolerance(case):
+    """The same phases with the weighted B, h_c and M each fed as two
+    bf16 parts (x, B and C rounded to bf16 as the served model stores
+    them) stay within the card's SSD tolerance (atol = rtol = 1e-3) of
+    the plain version on the same bf16 inputs (about 2e-5 off here); one
+    bf16 part alone (2^-9 of each entry) is 3e-2 off and fails."""
+    *shape, chunk = DECOMP_CASES[case]
+    x, dt, A, Bm, Cm = (_t(a) for a in _ssd_inputs(4, *shape))
+    x, Bm, Cm = (t.bfloat16() for t in (x, Bm, Cm))
+    y, s = _ssd_chunk_parallel(x, dt, A, Bm, Cm, chunk, split=_split_bf16)
+    wy, ws = tref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    torch.testing.assert_close(y, wy, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s, ws, atol=1e-3, rtol=1e-3)
+
+
 # ------------------------------------------------ layers and the model
 
 
