@@ -18,7 +18,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
    result against its plain PyTorch version (``kernels/ref.py``) on the
    same inputs: bf16 atol = rtol = 2e-2 on f32-cast outputs (both round
    once, from f32 sums taken in different orders); f32 atol = rtol = 1e-4;
-   ``kv_cache_write`` bit for bit.  ``flash_attention`` runs at the
+   ``kv_cache_write`` bit for bit, in every instance: the paged decode
+   write at qwen3-30b-a3b's decode shape (B = 8 rows of [4, 128] into a
+   [1024, 16, 4, 128] pool, slot 5 on the NB sentinel; the main case)
+   and the chunk write (8 blocks of 16 rows, the last on the sentinel),
+   each into bf16 pools and into int8 pools with their scales (the int8
+   rows and scales as the plain version computes them on the card), a
+   second launch giving the same bits; the slot pair write (K and V in
+   one launch).  ``flash_attention`` runs at the
    buckets S = 1024 (the main case), 192 (a ragged tile) and 64, and at
    MLA's q/k width 192 and v width 128 (S = 1024 and 192);
    ``mla_decode_attention`` at deepseek-v2-lite's decode shape (B = 8,
@@ -28,7 +35,8 @@ Phases, each of which raises on failure (no phase's failure is caught):
    that the scores spread over several units (a peaked softmax, as in
    decode), where the bf16 output must be the f32 answer rounded once
    (within 3e-5 past half a bf16 step) and a second launch must give the
-   same bits; ``kv_cache_write`` on latent rows of 1 KiB and 128 B too;
+   same bits; the slot pair write on MLA's latent rows of 1 KiB and
+   rope-key rows of 128 B too;
    the GMMs at qwen3-30b-a3b's three banks (E = 128; wi and wg 2048 x 768,
    wo 768 x 2048) at C = 1 (decode), 5, and a chunk step's capacity
    (``capacity_for(CHUNK)``, 10 rows an expert), and an aliased table; both
@@ -78,7 +86,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
 3. ``e2e``: a 2-layer qwen3-30b-a3b at full width, one prefill chunk and
    one decode step, through the kernels and through ``ops.use_reference()``
    from identical caches, with bf16/f32 stores and with int8 KV blocks and
-   int8 expert pages.  Layer 0's written KV rows (and int8 scales) must be
+   int8 expert pages.  The kernels' chunk and decode steps run under
+   ``torch.cuda.set_sync_debug_mode("error")``: no call may synchronise
+   with the host.  Layer 0's written KV rows (and int8 scales) must be
    equal on both paths.  Logits must agree: f32 atol = rtol = 1e-3; bf16
    relative Frobenius error below 0.25, because a one-ulp bf16 difference
    may flip a near-tied top-8 expert choice.  int8 f32 is held to the f32
@@ -99,7 +109,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
    launch count, set to 0 just before, must be above zero after it.  Each
    chunk step must launch one mixed attention per layer, and each chunk
    step and decode step three GMMs per MoE layer (counted apart: at a
-   chunk's capacity of rows and at decode's one).  After serving,
+   chunk's capacity of rows and at decode's one).  In every serve phase
+   ``kv_cache_write`` must launch exactly once per attention layer per
+   decode step and once per layer per chunk step.  After serving,
    two chunk steps of the 1,000-token prompt's last chunk (ctx 1000,
    q_len 104) run under the profiler.
 5. ``serve_int8``: the same requests on a server with
@@ -120,8 +132,8 @@ Phases, each of which raises on failure (no phase's failure is caught):
 8. ``serve_mla`` and ``serve_mla_pooled``: the same requests on
    deepseek-v2-lite-16b at full depth (27 layers) with the reference's
    default knobs, and with ``expert_mode="pooled"``; each decode step
-   must launch ``mla_decode_attention`` once and ``kv_cache_write`` twice
-   per layer, each prefill ``flash_attention`` once per layer, and the
+   must launch ``mla_decode_attention`` and ``kv_cache_write`` once per
+   layer, each prefill ``flash_attention`` once per layer, and the
    pooled store ``paged_gmm`` three times per MoE layer per step.
 9. ``e2e_ssm``: mamba2-1.3b and zamba2-2.7b at full width, 2 layers (the
    hybrid as two groups of one SSD layer, each led by the shared attention
@@ -137,8 +149,8 @@ Phases, each of which raises on failure (no phase's failure is caught):
    reference's default knobs and prefill buckets that are multiples of
    the SSD chunk (256 and 128 tokens) up to 1024; each prefill must launch
    ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
-   per group; each zamba2 decode step ``paged_decode_attention`` once and
-   ``kv_cache_write`` twice per group; mamba2 no attention kernel.
+   per group; each zamba2 decode step ``paged_decode_attention`` and
+   ``kv_cache_write`` once per group; mamba2 no attention kernel.
 
 The line before the last is ``{"kernels": [...]}`` (launches from the
 first serve phase of each kernel's path, ``PATH_KERNELS``); the last line
@@ -229,9 +241,10 @@ SOURCES = {
 # kernel's launches from the first phase listing it)
 PATH_KERNELS = {
     "serve": ("block_paged_decode_attention", "mixed_block_paged_attention",
-              "paged_gmm"),
+              "paged_gmm", "kv_cache_write"),
     "serve_int8": ("quant_block_paged_decode_attention",
-                   "quant_mixed_block_paged_attention", "quant_paged_gmm"),
+                   "quant_mixed_block_paged_attention", "quant_paged_gmm",
+                   "kv_cache_write"),
     "serve_dense": ("flash_attention", "paged_decode_attention",
                     "kv_cache_write"),
     "serve_mla": ("mla_decode_attention", "flash_attention",
@@ -637,51 +650,145 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     return rec
 
 
-def _kv_write_case(dtype, gen, timer, do_time, row=(KVH, HD)):
-    """One decode step's rows into a layer's slot cache [B, 2048, *row]
-    (k rows of qwen3-30b-a3b by default; MLA's latent rows (512,) and
-    rope-key rows (64,) too); slot 0 writes at position 0, slot 1 at 2048
-    (dropped).  Must equal its plain version bit for bit.  The library
-    yardstick is ``cache[rows, pos] = new`` over the rows that write
-    (picked before timing; an index of 2048 would fault there)."""
+def _kv_write_case(dtype, gen, timer, do_time, rows=((KVH, HD),) * 2):
+    """One decode step's rows into a layer's two slot caches [B, 2048,
+    *row] in one launch (``kv_cache_write_pair``): K and V of qwen3-30b-a3b
+    by default, MLA's latent rows (512,) and rope-key rows (64,) too; slot
+    0 writes at position 0, slot 1 at 2048 (dropped).  Must equal its
+    plain version bit for bit; no single PyTorch call writes two caches,
+    so it has no library time."""
     from repro_torch.kernels import ops, ref
-    cache = torch.randn(BATCH, MAX_LEN, *row, generator=gen).to(dtype) \
-        .cuda()
-    new = torch.randn(BATCH, *row, generator=gen).to(dtype).cuda()
+    caches = [torch.randn(BATCH, MAX_LEN, *r, generator=gen).to(dtype)
+              .cuda() for r in rows]
+    new = [torch.randn(BATCH, *r, generator=gen).to(dtype).cuda()
+           for r in rows]
     pos_l = [0, MAX_LEN] + torch.randint(1, MAX_LEN, (BATCH - 2,),
                                          generator=gen).tolist()
     pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
-    got = ops.kv_cache_write(cache.clone(), new, pos)
-    want = ref.kv_cache_write_ref(cache.clone(), new, pos)
+    got = ops.kv_cache_write_pair(caches[0].clone(), new[0],
+                                  caches[1].clone(), new[1], pos)
+    want = ref.kv_cache_write_pair_ref(caches[0].clone(), new[0],
+                                       caches[1].clone(), new[1], pos)
     torch.cuda.synchronize()
-    require(torch.equal(got, want), "kv_cache_write differs from its plain "
-            "version")
-    require(torch.equal(got[1], cache[1]), "the write at S_max was not "
-            "dropped")
-    kept = [b for b, p in enumerate(pos_l) if 0 <= p < MAX_LEN]
-    rows = torch.tensor(kept, device="cuda")
-    kpos = pos[rows].long()
-    knew = new[rows].contiguous()
-    lib_cache = cache.clone()
-
-    def lib():
-        lib_cache[rows, kpos] = knew
-    lib()
-    require(torch.equal(lib_cache, want))
-    err = (got.float() - want.float()).abs().max().item()
-    row = new[0].numel() * new.element_size()
-    io = 2 * len(kept) * row + nbytes(pos)
+    for g, w, c in zip(got, want, caches):
+        require(torch.equal(g, w), "kv_cache_write_pair differs from its "
+                "plain version")
+        require(torch.equal(g[1], c[1]), "the write at S_max was not "
+                "dropped")
+    kept = sum(0 <= p < MAX_LEN for p in pos_l)
+    row_b = [n[0].numel() * n.element_size() for n in new]
+    io = 2 * kept * sum(row_b) + nbytes(pos)
     b_ms, b_by = bound_ms(io, 0, dtype)
-    rec = {"case": f"B={BATCH} S={MAX_LEN} rows of {row} B, pos={pos_l}",
-           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+    rec = {"case": f"slot pair B={BATCH} S={MAX_LEN} rows of {row_b} B, "
+                   f"pos={pos_l}",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": 0.0,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": 0}
     if do_time:
-        kc = cache.clone()
-        rec.update(ms=timer(lambda: ops.kv_cache_write(kc, new, pos)),
-                   plain_ms=timer(lambda: ref.kv_cache_write_ref(kc, new,
-                                                                 pos),
-                                  iters=10),
-                   library_ms=timer(lib))
+        kc = [c.clone() for c in caches]
+        rec.update(ms=timer(lambda: ops.kv_cache_write_pair(
+                       kc[0], new[0], kc[1], new[1], pos)),
+                   plain_ms=timer(lambda: ref.kv_cache_write_pair_ref(
+                       kc[0], new[0], kc[1], new[1], pos), iters=10),
+                   library_ms=None)
+    return rec
+
+
+#: operations per value of an int8 write: |x| and the max, the division,
+#: the rounding, the clamp (f32, CUDA cores)
+QUANT_OPS = 5
+
+
+def _paged_write_case(kind, quant, gen, timer, do_time):
+    """The paged KV write at qwen3-30b-a3b's shapes into bf16 pools, or
+    int8 pools with their scales, from bf16 rows: ``"decode"`` is a decode
+    step's 8 rows (``kv_paged_write``; slot 5 inactive on the NB sentinel,
+    offsets ``DECODE_LENGTHS % 16``), ``"chunk"`` the 1,000-token prompt's
+    last chunk of 8 blocks of 16 rows (``kv_block_write``; 7 blocks
+    written, the eighth past the prompt on the sentinel).  Kernel and plain
+    version must agree bit for bit, int8 rows and scales included, and a
+    second launch must give the same bits.  Library yardstick (bf16 only):
+    one ``index_put_`` of the kept K rows into one pool (picked before
+    timing; the sentinel would fault there)."""
+    from repro_torch.kernels import ops, ref
+    NB = 1024
+    pools = []
+    for _ in range(2):
+        if quant:
+            pools += [torch.randint(-127, 128, (NB, BS, KVH, HD),
+                                    generator=gen, dtype=torch.int8).cuda(),
+                      (torch.rand(NB, BS, generator=gen) / 127).cuda()]
+        else:
+            pools += [torch.randn(NB, BS, KVH, HD, generator=gen)
+                      .to(torch.bfloat16).cuda(), None]
+    perm = torch.randperm(NB, generator=gen)[:BATCH].to(torch.int32)
+    if kind == "decode":
+        ids = perm.clone()
+        ids[5] = NB
+        lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32).cuda()
+        shape = (BATCH, 1, KVH, HD)
+    else:
+        ids = perm.clone()
+        ids[-1] = NB
+        lens = None
+        shape = (1, CHUNK, KVH, HD)
+    ids = ids.cuda()
+    new = [(torch.randn(shape, generator=gen)
+            * torch.exp(torch.randn(shape[:2] + (1, 1), generator=gen)))
+           .to(torch.bfloat16).cuda() for _ in range(2)]
+    if kind == "decode":
+        new = [t[:, 0] for t in new]                  # as the model's k[:, 0]
+        fns, tail = (ops.kv_paged_write, ref.kv_paged_write_ref), (ids, lens)
+    else:                                 # the pools as a one-layer stack
+        fns, tail = (ops.kv_block_write, ref.kv_block_write_ref), (ids,)
+
+    def call(fn, p):                                  # p = [k, ks, v, vs]
+        if kind == "chunk":
+            p = [None if t is None else t[None] for t in p]
+        fn(p[0], p[2], *new, *tail, p[1], p[3])
+    kern = lambda p: call(fns[0], p)
+    plain = lambda p: call(fns[1], p)
+    clone = lambda: [None if t is None else t.clone() for t in pools]
+    want = clone()
+    plain(want)
+    for _ in range(2):
+        got = clone()
+        kern(got)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            require(g is None or torch.equal(g, w),
+                    f"paged {kind} write ({'int8' if quant else 'bf16'}) "
+                    f"differs from its plain version")
+    live = int((ids < NB).sum())
+    rows = live * (1 if kind == "decode" else BS)
+    vals = rows * KVH * HD                             # a pool's values
+    io = 2 * vals * 2 + nbytes(ids) + (0 if lens is None else nbytes(lens))
+    io += 2 * vals * (1 if quant else 2) + (2 * rows * 4 if quant else 0)
+    ops_n = 2 * vals * QUANT_OPS if quant else 0
+    b_ms, b_by = bound_ms(io, ops_n,
+                          torch.float32 if quant else torch.bfloat16)
+    rec = {"case": f"paged {kind} write, {rows} of "
+                   f"{BATCH if kind == 'decode' else CHUNK} token rows "
+                   f"[{KVH},{HD}] bf16 into "
+                   f"{'int8 pools + scales' if quant else 'bf16 pools'} "
+                   f"[{NB},{BS},{KVH},{HD}]",
+           "dtype": "int8" if quant else "bfloat16", "max_abs_err": 0.0,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if do_time:
+        kp = clone()
+        lib = None
+        if not quant:
+            keep = (ids < NB).nonzero().flatten()
+            if kind == "decode":
+                index = (ids[keep].long(), (lens[keep] % BS).long())
+                src = new[0][keep].contiguous()
+            else:
+                index = (ids[keep].long(),)
+                src = new[0][0].reshape(-1, BS, KVH, HD)[keep].contiguous()
+            lp = pools[0].clone()
+            lib = timer(lambda: lp.index_put_(index, src))
+        rec.update(ms=timer(lambda: kern(kp)),
+                   plain_ms=timer(lambda: plain(kp), iters=10),
+                   library_ms=lib)
     return rec
 
 
@@ -823,6 +930,12 @@ def phase_kernels():
     timer = Timer()
     out = {name: [] for name in REPLACES}
     lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    # the paged KV writes of the serving path (the decode write first: the
+    # kernels line's main case), then the slot pairs below
+    for kind in ("decode", "chunk"):
+        for quant in (False, True):
+            out["kv_cache_write"].append(_paged_write_case(kind, quant, gen,
+                                                           timer, True))
     for dtype in (torch.bfloat16, torch.float32):
         timed = dtype == torch.bfloat16
         for S in (1024, 192, 64):          # the main case first
@@ -853,9 +966,8 @@ def phase_kernels():
             out["flash_attention"].append(_flash_case(
                 S, dtype, gen, timer, timed,
                 heads=(MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV)))
-        for row in ((MLA_R,), (MLA_DR,)):
-            out["kv_cache_write"].append(_kv_write_case(dtype, gen, timer,
-                                                        timed, row))
+        out["kv_cache_write"].append(_kv_write_case(
+            dtype, gen, timer, timed, ((MLA_R,), (MLA_DR,))))
         torch.cuda.empty_cache()
     # Mamba2: the SSD scan (mamba2-1.3b's shape first: the main case), and
     # zamba2-2.7b's shared attention block at head width 80
@@ -885,7 +997,7 @@ def phase_kernels():
     torch.cuda.empty_cache()
     for phase in ("serve", "serve_int8"):
         quant = phase == "serve_int8"
-        dec_name, mix_name, gmm_name = PATH_KERNELS[phase]
+        dec_name, mix_name, gmm_name = PATH_KERNELS[phase][:3]
         decode, mixed = getattr(ops, dec_name), getattr(ops, mix_name)
         for dtype in (torch.bfloat16, torch.float32):
             timed = dtype == torch.bfloat16
@@ -997,7 +1109,14 @@ def _e2e(dtype_name, quant=False):
                                     bt_dec, args[4])
         return torch.cat([lc, ld]).float(), c
 
-    got, c_got = run()
+    run()                                  # first calls: kernels loaded
+    # the kernels' chunk and decode steps make no device-to-host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, c_got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     with ops.use_reference():
         want, c_want = run()
     torch.cuda.synchronize()
@@ -1484,12 +1603,11 @@ def phase_serve(layers, phase="serve", profile=True):
     counts = ops.launch_counts()
     eng = srv.engine
     if cfg.use_mla:
-        # each decode step: one MLA decode and two latent-row writes per
-        # layer; each prefill: one flash attention per layer; pooled: three
-        # expert GMMs per MoE layer per step and prefill
+        # each decode step: one MLA decode per layer; each prefill: one
+        # flash attention per layer; pooled: three expert GMMs per MoE
+        # layer per step and prefill
         L, steps = cfg.num_layers, eng._step_count
         want = {"mla_decode_attention": L * steps,
-                "kv_cache_write": 2 * L * steps,
                 "flash_attention": L * len(prefills)}
         if pooled:
             want["paged_gmm"] = (3 * (L - cfg.first_k_dense)
@@ -1500,18 +1618,16 @@ def phase_serve(layers, phase="serve", profile=True):
         log(f"{tag} {steps} decode steps, {len(prefills)} prefills: "
             f"launches per decode step "
             f"{counts['mla_decode_attention'] / steps:g} "
-            f"mla_decode_attention, {counts['kv_cache_write'] / steps:g} "
-            f"kv_cache_write")
+            f"mla_decode_attention")
     if cfg.arch_type in ("ssm", "hybrid"):
         # each prefill: one SSD scan per layer and, in the hybrid, one
         # flash attention per group; each decode step: one slot decode
-        # and two KV writes per group (none in mamba2)
+        # per group (none in mamba2)
         steps, n_pre = eng._step_count, len(prefills)
         groups = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
         want = {"ssd_scan": cfg.num_layers * n_pre,
                 "flash_attention": groups * n_pre,
-                "paged_decode_attention": groups * steps,
-                "kv_cache_write": 2 * groups * steps}
+                "paged_decode_attention": groups * steps}
         for name, n in want.items():
             require(counts[name] == n, f"{name}: {counts[name]} launches, "
                     f"{n} expected")
@@ -1519,12 +1635,27 @@ def phase_serve(layers, phase="serve", profile=True):
             f"prefill {counts['ssd_scan'] / n_pre:g} ssd_scan, "
             f"{counts['flash_attention'] / n_pre:g} flash_attention; per "
             f"decode step {counts['paged_decode_attention'] / steps:g} "
-            f"paged_decode_attention, {counts['kv_cache_write'] / steps:g} "
-            f"kv_cache_write")
+            f"paged_decode_attention")
+    # every store: one KV write per attention layer per decode step (a slot
+    # cache's K/V or latent pair, a pool's K/V rows with their int8
+    # scales) and one per layer per chunk step (its blocks)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        attn_layers = (cfg.num_layers // cfg.attn_every if cfg.attn_every
+                       else 0)
+    else:
+        attn_layers = cfg.num_layers
+    want_kv = attn_layers * (eng._step_count + n_chunks)
+    require(counts["kv_cache_write"] == want_kv,
+            f"kv_cache_write: {counts['kv_cache_write']} launches over "
+            f"{eng._step_count} decode steps and {n_chunks} chunk steps of "
+            f"{attn_layers} attention layers, {want_kv} expected")
+    log(f"{tag} kv_cache_write: {counts['kv_cache_write']} launches, one "
+        f"per attention layer ({attn_layers}) per decode step "
+        f"({eng._step_count}) and chunk step ({n_chunks})")
     if paged:
         # each chunk step: one mixed attention per layer; each chunk step
         # and decode step: three GMMs per MoE layer
-        _, mix, gmm = PATH_KERNELS[phase]
+        _, mix, gmm = PATH_KERNELS[phase][:3]
         require(counts[mix] == cfg.num_layers * n_chunks,
                 f"{mix}: {counts[mix]} launches over {n_chunks} chunks of "
                 f"{cfg.num_layers} layers")

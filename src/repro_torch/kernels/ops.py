@@ -180,11 +180,52 @@ def paged_decode_attention(q, k_cache, v_cache, lengths):
 
 def kv_cache_write(cache, new, pos):
     """``cache[b, pos[b]] = new[b]`` in place, positions outside ``[0, S)``
-    dropped (every decode tick, twice per layer, with ``kv_mode="dense"``);
-    see ``kv_write.kv_cache_write``.  Returns ``cache``."""
+    dropped (the Pallas kernel's function); see
+    ``kv_write.kv_cache_write``.  Returns ``cache``."""
     if _plain(cache):
         return ref.kv_cache_write_ref(cache, new, pos)
     return kv_write.kv_cache_write(cache, new, pos)
+
+
+def kv_cache_write_pair(cache_a, new_a, cache_b, new_b, pos):
+    """:func:`kv_cache_write` of two slot caches at the same positions in
+    one launch (every decode tick, once per attention layer, with
+    ``kv_mode="dense"``: K and V, or MLA's latent and rope key); see
+    ``kv_write.kv_cache_write_pair``.  Returns ``(cache_a, cache_b)``."""
+    if _plain(cache_a):
+        return ref.kv_cache_write_pair_ref(cache_a, new_a, cache_b, new_b,
+                                           pos)
+    return kv_write.kv_cache_write_pair(cache_a, new_a, cache_b, new_b,
+                                        pos.to(torch.int32))
+
+
+def kv_paged_write(k_pool, v_pool, k_new, v_new, write_block, lengths,
+                   k_scale=None, v_scale=None):
+    """A decode step's K and V rows into one layer's block pools at
+    ``(write_block[b], lengths[b] % bs)``, quantized with their scales on
+    an int8 pool, blocks outside ``[0, NB)`` dropped (every decode tick,
+    once per layer, with ``kv_mode="paged"``); see
+    ``kv_write.kv_paged_write``.  In place."""
+    if _plain(k_pool):
+        return ref.kv_paged_write_ref(k_pool, v_pool, k_new, v_new,
+                                      write_block, lengths, k_scale, v_scale)
+    return kv_write.kv_paged_write(k_pool, v_pool, k_new, v_new,
+                                   write_block.to(torch.int32),
+                                   lengths.to(torch.int32), k_scale, v_scale)
+
+
+def kv_block_write(k_pool, v_pool, k_new, v_new, ids, k_scale=None,
+                   v_scale=None):
+    """Whole blocks of K and V rows into pool blocks ``ids`` of L layers'
+    pools, quantized with their scales on an int8 pool, ids outside ``[0,
+    NB)`` dropped (every prefill chunk, once per layer; every monolithic
+    prefill into the pool, once); see ``kv_write.kv_block_write``.  In
+    place."""
+    if _plain(k_pool):
+        return ref.kv_block_write_ref(k_pool, v_pool, k_new, v_new, ids,
+                                      k_scale, v_scale)
+    return kv_write.kv_block_write(k_pool, v_pool, k_new, v_new,
+                                   ids.to(torch.int32), k_scale, v_scale)
 
 
 def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, lengths, scale):

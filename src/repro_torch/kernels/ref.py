@@ -12,10 +12,12 @@ yardstick of speed.
 
 Gathers through a table clamp out-of-range rows to the last pool row,
 which is what a JAX gather does with the ``NB`` sentinel; position masking
-keeps such rows inert.
+keeps such rows inert.  The paged writes never clamp: an entry on the
+sentinel is masked out before the scatter (on the CPU ``torch.nonzero``
+syncs nothing), so it cannot land on a live row of block ``NB - 1``.
 
-In-place contract: ``kv_cache_write_ref`` updates the cache it is given
-and returns it, as the CUDA kernel does and as the Pallas kernel's output
+In-place contract: the ``kv_*write*_ref`` functions update the caches they
+are given, as the CUDA kernels do and as the Pallas kernel's output
 aliases its cache; every other function here allocates its output.
 """
 from __future__ import annotations
@@ -24,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.quant import dequantize_rows
+from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 
 NEG_INF = -1e30
 
@@ -123,6 +125,57 @@ def kv_cache_write_ref(cache, new, pos):
     keep = keep.reshape(B, *([1] * (new.dim() - 1)))
     cache[b, p] = torch.where(keep, new.to(cache.dtype), cache[b, p])
     return cache
+
+
+def kv_cache_write_pair_ref(cache_a, new_a, cache_b, new_b, pos):
+    """:func:`kv_cache_write_ref` of two caches at the same positions ->
+    ``(cache_a, cache_b)``."""
+    return (kv_cache_write_ref(cache_a, new_a, pos),
+            kv_cache_write_ref(cache_b, new_b, pos))
+
+
+def _scatter_rows(pool, scale, index, rows, row_dims: int):
+    """``pool[index] = rows`` in the pool's dtype, or, for an int8 pool,
+    the rows quantized over their last ``row_dims`` dims and their scales
+    into ``scale[index]``."""
+    if scale is None:
+        pool[index] = rows.to(pool.dtype)
+        return
+    q, s = quantize_rows(rows, tuple(range(-row_dims, 0)))
+    pool[index] = q
+    scale[index] = s
+
+
+def kv_paged_write_ref(k_pool, v_pool, k_new, v_new, write_block, lengths,
+                       k_scale=None, v_scale=None):
+    """Decode-step write into one layer's pools [NB,bs,*row] (int8 pools
+    with f32 scales [NB,bs]): row b of k_new / v_new [B,*row] goes to
+    ``(write_block[b], lengths[b] % bs)``; a block outside ``[0, NB)``
+    writes nothing (JAX's ``mode="drop"``).  In place."""
+    NB, bs = k_pool.shape[:2]
+    wb = write_block.long()
+    keep = torch.nonzero((wb >= 0) & (wb < NB)).flatten()
+    index = (wb[keep], (lengths.long() % bs)[keep])
+    for pool, scale, new in ((k_pool, k_scale, k_new),
+                             (v_pool, v_scale, v_new)):
+        _scatter_rows(pool, scale, index, new[keep], k_pool.dim() - 2)
+
+
+def kv_block_write_ref(k_pool, v_pool, k_new, v_new, ids, k_scale=None,
+                       v_scale=None):
+    """Whole-block write into the pools of L layers [L,NB,bs,*row] (int8
+    pools with f32 scales [L,NB,bs]): rows ``j*bs .. j*bs + bs - 1`` of
+    k_new / v_new [L, n*bs, *row] go to block ``ids[j]`` of every layer; an
+    id outside ``[0, NB)`` writes nothing.  In place."""
+    L, NB, bs = k_pool.shape[:3]
+    row = k_pool.shape[3:]
+    n = ids.shape[0]
+    idl = ids.long()
+    keep = torch.nonzero((idl >= 0) & (idl < NB)).flatten()
+    for pool, scale, new in ((k_pool, k_scale, k_new),
+                             (v_pool, v_scale, v_new)):
+        rows = new.reshape(L, n, bs, *row)[:, keep]
+        _scatter_rows(pool, scale, (slice(None), idl[keep]), rows, len(row))
 
 
 def paged_decode_attention_ref(q, k_cache, v_cache, lengths):

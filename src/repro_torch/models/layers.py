@@ -23,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.quant import quantize_rows
 
 # --------------------------------------------------------------------- utils
 
@@ -86,8 +85,9 @@ def rope_tables(positions: torch.Tensor, rot_dim: int, base: float = 10000.0):
     """positions [..., S] -> cos, sin [..., S, rot_dim/2] (f32)."""
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
                         device=positions.device) / rot_dim
-    inv = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # a fill, not a copy from host memory: no sync with the device
+    inv = 1.0 / torch.pow(torch.full((), base, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions[..., None].float() * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -148,10 +148,11 @@ def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
       (y [B,S,D], (k, v) [B,S,KVH,hd]).
     * Decode (``cache=(k_cache, v_cache)`` [B,max_len,KVH,hd], x [B,1,D]):
       the new k/v rows go to ``cache[b, write_pos[b]]`` in place
-      (``ops.kv_cache_write``; positions outside the cache drop), then the
-      token attends positions ``< kv_valid_len[b]`` (the decode step
-      passes lengths + 1, where the causal mask ends too) through
-      ``ops.paged_decode_attention``; returns (y [B,1,D], cache).
+      (``ops.kv_cache_write_pair``, one launch for both; positions outside
+      the cache drop), then the token attends positions ``<
+      kv_valid_len[b]`` (the decode step passes lengths + 1, where the
+      causal mask ends too) through ``ops.paged_decode_attention``;
+      returns (y [B,1,D], cache).
 
     Cross-attention (``kv_x``, or a cache without ``write_pos``) and
     windowed attention are outside this port and raise."""
@@ -169,19 +170,11 @@ def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
                                 v.contiguous(), causal)
         return linear(p["o"], o.reshape(B, Sq, H * hd)), (k, v)
     k_cache, v_cache = cache
-    pos = write_pos.to(torch.int32)
-    ops.kv_cache_write(k_cache, k[:, 0].to(k_cache.dtype).contiguous(), pos)
-    ops.kv_cache_write(v_cache, v[:, 0].to(v_cache.dtype).contiguous(), pos)
+    ops.kv_cache_write_pair(k_cache, k[:, 0].to(k_cache.dtype), v_cache,
+                            v[:, 0].to(v_cache.dtype), write_pos)
     o = ops.paged_decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                    kv_valid_len.to(torch.int32))
     return linear(p["o"], o.reshape(B, 1, H * hd)), cache
-
-
-def _kept_rows(ids: torch.Tensor, nb: int) -> torch.Tensor:
-    """Indices of ``ids`` below the ``NB`` sentinel: JAX's
-    ``.at[...].set(mode="drop")`` drops the sentinel writes, PyTorch
-    indexing would fault on them, so they are masked out first."""
-    return torch.nonzero(ids < nb).flatten()
 
 
 def paged_attention_apply(cfg, p, x, positions, *, cache, block_tables,
@@ -194,21 +187,15 @@ def paged_attention_apply(cfg, p, x, positions, *, cache, block_tables,
     (KVH, hd) as they are written; block_tables [B,MB]; write_block [B] =
     pool row receiving this step's k/v (``NB`` marks inactive slots, whose
     writes drop); lengths [B] = tokens already cached (the new token lands
-    at offset ``lengths % bs``).  Returns (y [B,1,D], cache)."""
+    at offset ``lengths % bs``).  The rows, and an int8 pool's scales, go
+    in with one ``ops.kv_paged_write``, which drops the sentinel on the
+    device.  Returns (y [B,1,D], cache)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.resolved_head_dim
-    NB, bs = cache["k"].shape[0], cache["k"].shape[1]
     q, k, v = _qkv_rope(cfg, p, x, positions)
-    rows = _kept_rows(write_block, NB)
-    wb, off = write_block[rows].long(), (lengths % bs)[rows].long()
     quant = "k_scale" in cache
-    for name, new in (("k", k), ("v", v)):
-        if quant:
-            qr, s = quantize_rows(new[rows, 0], (-2, -1))   # [n,KVH,hd]
-            cache[name][wb, off] = qr
-            cache[name + "_scale"][wb, off] = s
-        else:
-            cache[name][wb, off] = new[rows, 0].to(cache[name].dtype)
+    ops.kv_paged_write(cache["k"], cache["v"], k[:, 0], v[:, 0], write_block,
+                       lengths, cache.get("k_scale"), cache.get("v_scale"))
     # table padding holds the NB sentinel; the kernel and the plain version
     # clamp it to NB - 1 where they read (inactive slots' outputs are unused)
     qd, lens = q[:, 0].contiguous(), (lengths + 1).to(torch.int32)
@@ -233,23 +220,17 @@ def paged_chunk_attention_apply(cfg, p, x, positions, *, cache, block_tables,
     prefix rows, whose writes drop), then the chunk attends causally over
     the whole context through ``block_tables`` [1,MB].  ``cache`` is
     updated in place; int8 pools quantize each token row as it is written
-    and scatter its scale alongside, as :func:`paged_attention_apply`.
-    Returns (y [1,C,D], cache)."""
+    and scatter its scale alongside, as :func:`paged_attention_apply`, in
+    one ``ops.kv_block_write`` (the pools as a one-layer stack, the
+    chunk's C rows as its ``C/bs`` blocks).  Returns (y [1,C,D],
+    cache)."""
     B, C, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    NB, bs = cache["k"].shape[0], cache["k"].shape[1]
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _qkv_rope(cfg, p, x, positions)
-    rows = _kept_rows(chunk_block_ids, NB)
-    ids = chunk_block_ids[rows].long()
     quant = "k_scale" in cache
-    for name, new in (("k", k), ("v", v)):
-        blocks = new[0].reshape(C // bs, bs, KVH, hd)[rows]
-        if quant:
-            qr, s = quantize_rows(blocks, (-2, -1))          # [n,bs,KVH,hd]
-            cache[name][ids] = qr
-            cache[name + "_scale"][ids] = s
-        else:
-            cache[name][ids] = blocks.to(cache[name].dtype)
+    one = {n: t[None] for n, t in cache.items()}
+    ops.kv_block_write(one["k"], one["v"], k, v, chunk_block_ids,
+                       one.get("k_scale"), one.get("v_scale"))
     ctx1 = ctx_len.reshape(1).to(torch.int32)
     qlen1 = q_len.reshape(1).to(torch.int32)
     if quant:

@@ -102,19 +102,18 @@ def mla_prefill(cfg, p, x, positions):
 def mla_decode(cfg, p, x, positions, cache, write_pos, kv_valid_len):
     """Absorbed single-token decode.  x [B,1,D]; ``cache`` = (c [B,Smax,r],
     kr [B,Smax,dr]), written in place: the new latent rows land at
-    ``write_pos`` [B] (``ops.kv_cache_write``; positions outside the cache
-    drop), then the token attends positions ``< kv_valid_len[b]``
-    (``ops.mla_decode_attention``).  Returns (y [B,1,D], cache)."""
+    ``write_pos`` [B] (``ops.kv_cache_write_pair``, one launch for both;
+    positions outside the cache drop), then the token attends positions
+    ``< kv_valid_len[b]`` (``ops.mla_decode_attention``).  Returns (y
+    [B,1,D], cache)."""
     B = x.shape[0]
     H, dn, dv, r = (cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim,
                     cfg.kv_lora_rank)
     c_cache, kr_cache = cache
     q_nope, q_rope, c_new, kr_new = _latent(cfg, p, x, positions)
-    pos = write_pos.to(torch.int32)
-    ops.kv_cache_write(c_cache, c_new[:, 0].to(c_cache.dtype).contiguous(),
-                       pos)
-    ops.kv_cache_write(kr_cache,
-                       kr_new[:, 0].to(kr_cache.dtype).contiguous(), pos)
+    ops.kv_cache_write_pair(c_cache, c_new[:, 0].to(c_cache.dtype),
+                            kr_cache, kr_new[:, 0].to(kr_cache.dtype),
+                            write_pos)
     # absorb: q_eff[b,h] = q_nope[b,h] · W_uk[:, h]^T  (W_uk: [r, H*dn]);
     # one f32-accumulated product per head, rounded once to x's dtype
     w_uk = p["k_up"]["w"].reshape(r, H, dn).permute(1, 2, 0)      # [H,dn,r]

@@ -35,11 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.kernels.quant import quantize_rows
-from repro_torch.models.layers import (_kept_rows, apply_norm,
-                                       attention_apply, attention_init,
-                                       linear, linear_init, mlp_apply,
-                                       mlp_init, norm_init,
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (apply_norm, attention_apply,
+                                       attention_init, linear, linear_init,
+                                       mlp_apply, mlp_init, norm_init,
                                        paged_attention_apply,
                                        paged_chunk_attention_apply)
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
@@ -329,22 +328,12 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids):
     passes the sentinel for padding blocks and for CoW-shared prefix
     blocks, which hold another live sequence's tokens.  An int8 pool
     quantizes each token row as it is written and scatters its scale
-    through the same ids.  Returns ``cache``."""
-    NB, bs = cache["k"].shape[1], cache["k"].shape[2]
-    nb = block_ids.shape[0]
-    keep = _kept_rows(block_ids, NB)
-    ids = block_ids[keep].long()
-    for name in ("k", "v"):
-        small = dense_cache[name]
-        L = small.shape[0]
-        rows = small[:, 0, :nb * bs].reshape(L, nb, bs,
-                                             *small.shape[3:])[:, keep]
-        if name + "_scale" in cache:
-            q, sc = quantize_rows(rows, (-2, -1))
-            cache[name][:, ids] = q
-            cache[name + "_scale"][:, ids] = sc
-        else:
-            cache[name][:, ids] = rows.to(cache[name].dtype)
+    through the same ids.  Every layer's K and V go in with one
+    ``ops.kv_block_write``.  Returns ``cache``."""
+    rows = cache["k"].shape[2] * block_ids.shape[0]
+    ops.kv_block_write(cache["k"], cache["v"], dense_cache["k"][:, 0, :rows],
+                       dense_cache["v"][:, 0, :rows], block_ids,
+                       cache.get("k_scale"), cache.get("v_scale"))
     return cache
 
 
@@ -416,7 +405,7 @@ def prefill(cfg, params: Params, batch, max_len: int):
 def decode_step(cfg, params: Params, tokens, cache, lengths):
     """One decode step over the slot-contiguous cache.  tokens [B,1];
     lengths [B] int32 = tokens already cached: the new token's k/v (MLA:
-    latent rows) land at slot ``lengths`` (``ops.kv_cache_write``; past
+    latent rows) land at slot ``lengths`` (``ops.kv_cache_write_pair``; past
     the cache they drop) and it attends ``lengths + 1`` positions
     (``ops.paged_decode_attention``; MLA: ``ops.mla_decode_attention``).
     An SSD layer takes one recurrent step from its cached conv tail and
@@ -489,8 +478,9 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
     x = F.embedding(tokens.long(), params["embed"])
     positions = start + torch.arange(C, device=dev, dtype=torch.int32)[None]
     q_len = length - start
-    ctx_t = torch.tensor([length], dtype=torch.int32, device=dev)
-    qlen_t = torch.tensor([q_len], dtype=torch.int32, device=dev)
+    # fills, not copies from host memory: the step never syncs
+    ctx_t = torch.full((1,), length, dtype=torch.int32, device=dev)
+    qlen_t = torch.full((1,), q_len, dtype=torch.int32, device=dev)
     pool = params.get("moe_pool")
     for _, i, bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)

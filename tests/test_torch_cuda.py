@@ -40,6 +40,9 @@ past one bf16 rounding of the f32 answer.  The SSD scan's outputs are f32
 from f32 sums on both sides whatever the input type: atol = rtol = 1e-3
 (sums of up to 256 products, the decays' exps taken in another order).
 """
+import contextlib
+import dataclasses
+
 import pytest
 import torch
 
@@ -955,3 +958,271 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
     big = _ssd_inputs(gen, 1, 512, 2, 32, 16, torch.bfloat16, dev)
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan.ssd_scan(*big, 512)
+
+
+# -------------------------------------------------------------- KV writes
+
+def _write_rows(gen, shape, dtype, dev):
+    """Rows whose token rows' maxima spread over four decades, the first
+    token row all zeros (its int8 scale is the EPS floor's)."""
+    x = torch.randn(shape, generator=gen)
+    x = x * torch.exp(4.6 * torch.rand(shape[:-2] + (1, 1), generator=gen)
+                      - 2.3)
+    x.view(-1, *shape[-2:])[0] = 0.0
+    return x.to(dtype).to(dev)
+
+
+def _write_pools(gen, lead, row, store, dev):
+    """K/V pools [*lead, *row] with earlier contents, f32 scales [*lead] for
+    an int8 store (None otherwise)."""
+    out = []
+    for _ in range(2):
+        if store == torch.int8:
+            out.append(torch.randint(-127, 128, lead + row, generator=gen,
+                                     dtype=torch.int8).to(dev))
+            out.append((torch.rand(lead, generator=gen) + 0.01).to(dev))
+        else:
+            out.append(torch.randn(lead + row, generator=gen).to(store)
+                       .to(dev))
+            out.append(None)
+    return out                               # k, k_scale, v, v_scale
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+WRITE_ROWS = {"qwen3": (4, 128), "hd64": (4, 64), "odd": (3, 5)}
+STORES = [torch.float32, torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("row", sorted(WRITE_ROWS))
+@pytest.mark.parametrize("src", DTYPES, ids=str)
+@pytest.mark.parametrize("store", STORES, ids=str)
+def test_kv_paged_write_matches_plain_bit_for_bit(dev, store, src, row):
+    """A decode step's rows: live writes to blocks 3, NB - 1 and 0, two
+    inactive slots on the NB sentinel at the live NB - 1 row's offset (a
+    clamped sentinel would collide with it), K rows read through a batch
+    stride ([B, 2, ...][:, 1]).  The int8 rows and their scales are
+    the plain version's as it runs on the card, bit for bit; a second
+    launch gives the same bits."""
+    gen = torch.Generator().manual_seed(20)
+    NB, bs = 11, 16
+    shape = WRITE_ROWS[row]
+    pools = _write_pools(gen, (NB, bs), shape, store, dev)
+    wb = torch.tensor([3, NB, NB - 1, NB, 0], dtype=torch.int32, device=dev)
+    lens = torch.tensor([21, 2 + 3 * bs, 2 + bs, 2, 31], dtype=torch.int32,
+                        device=dev)
+    k = _write_rows(gen, (5, 2) + shape, src, dev)[:, 1]
+    v = _write_rows(gen, (5,) + shape, src, dev)
+    want = [None if t is None else t.clone() for t in pools]
+    ref.kv_paged_write_ref(want[0], want[2], k, v, wb, lens, want[1],
+                           want[3])
+    for _ in range(2):
+        got = [None if t is None else t.clone() for t in pools]
+        ops.reset_launch_counts()
+        kv_write.kv_paged_write(got[0], got[2], k, v, wb, lens, got[1],
+                                got[3])
+        assert ops.launch_counts()["kv_cache_write"] == 1
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+    assert not torch.equal(got[0][NB - 1, 2], pools[0][NB - 1, 2])
+
+
+@pytest.mark.parametrize("L,strided", [(1, False), (3, True)],
+                         ids=["chunk", "prefill-layers"])
+@pytest.mark.parametrize("row", sorted(WRITE_ROWS))
+@pytest.mark.parametrize("src", DTYPES, ids=str)
+@pytest.mark.parametrize("store", STORES, ids=str)
+def test_kv_block_write_matches_plain_bit_for_bit(dev, store, src, row, L,
+                                                  strided):
+    """Whole blocks: a chunk's 4 blocks into one layer (blocks 6 and NB - 1
+    written, a CoW-shared block and padding on the sentinel), and a
+    prefill's rows into 3 layers at once, read through the dense cache's
+    layer and token strides ([L, 1, S, ...][:, 0, :n * bs])."""
+    gen = torch.Generator().manual_seed(21)
+    NB, bs = 11, 16
+    shape = WRITE_ROWS[row]
+    pools = _write_pools(gen, (L, NB, bs), shape, store, dev)
+    ids = torch.tensor([6, NB, NB - 1, NB], dtype=torch.int32, device=dev)
+    n = ids.shape[0] * bs
+    if strided:
+        k = _write_rows(gen, (L, 1, n + 24) + shape, src, dev)[:, 0, :n]
+        v = _write_rows(gen, (L, 1, n + 24) + shape, src, dev)[:, 0, :n]
+    else:
+        k = _write_rows(gen, (L, n) + shape, src, dev)
+        v = _write_rows(gen, (L, n) + shape, src, dev)
+    want = [None if t is None else t.clone() for t in pools]
+    ref.kv_block_write_ref(want[0], want[2], k, v, ids, want[1], want[3])
+    for _ in range(2):
+        got = [None if t is None else t.clone() for t in pools]
+        kv_write.kv_block_write(got[0], got[2], k, v, ids, got[1], got[3])
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+
+
+@pytest.mark.parametrize("rows", [((4, 128), (4, 128)), ((512,), (64,)),
+                                  ((3, 5), (7,))],
+                         ids=["kv", "mla-latent", "odd"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kv_cache_write_pair_matches_plain_bit_for_bit(dev, dtype, rows):
+    """Two slot caches in one launch, each with its own row width: K and V
+    of qwen3-30b-a3b, MLA's latent (1 KiB in bf16) and rope-key (128 B)
+    rows, and odd byte counts; positions 0, S - 1, S (dropped) and -1
+    (dropped); rows read through a batch stride."""
+    gen = torch.Generator().manual_seed(22)
+    B, S = 4, 37
+    caches = [_rand(gen, (B, S) + r, dtype, dev) for r in rows]
+    new = [_rand(gen, (B, 2) + r, dtype, dev)[:, 1] for r in rows]
+    pos = torch.tensor([0, S - 1, S, -1], dtype=torch.int32, device=dev)
+    want = ref.kv_cache_write_pair_ref(caches[0].clone(), new[0],
+                                       caches[1].clone(), new[1], pos)
+    for _ in range(2):
+        ops.reset_launch_counts()
+        got = kv_write.kv_cache_write_pair(caches[0].clone(), new[0],
+                                           caches[1].clone(), new[1], pos)
+        assert ops.launch_counts()["kv_cache_write"] == 1
+        torch.cuda.synchronize()
+        _assert_same(got, want)
+
+
+def test_kv_write_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    pool = torch.zeros(4, 16, 2, 8, device=dev)
+    new = torch.zeros(2, 2, 8, device=dev)
+    i32 = torch.zeros(2, dtype=torch.int32, device=dev)
+    q8 = pool.to(torch.int8)
+    with pytest.raises(TypeError):
+        kv_write.kv_paged_write(pool, pool, new, new, i32.long(), i32)
+    with pytest.raises(ValueError, match="scale"):
+        kv_write.kv_paged_write(q8, q8, new, new, i32, i32)
+    with pytest.raises(ValueError, match="scale"):
+        kv_write.kv_paged_write(pool, pool, new, new, i32, i32,
+                                pool[..., 0, 0], pool[..., 0, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_write.kv_paged_write(pool, pool, new.transpose(1, 2).contiguous()
+                                .transpose(1, 2), new, i32, i32)
+    with pytest.raises(TypeError):
+        kv_write.kv_paged_write(pool.double(), pool.double(), new.double(),
+                                new.double(), i32, i32)
+    with pytest.raises(ValueError, match="expected"):
+        kv_write.kv_block_write(pool[None], pool[None], new[None], new[None],
+                                i32)
+    with pytest.raises(TypeError):
+        kv_write.kv_cache_write_pair(pool, pool[:, 0].bfloat16(), pool,
+                                     pool[:, 0], i32.new_zeros(4))
+
+
+# ---------------------------------------------------- steps with no syncs
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Any synchronising CUDA call inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _booted(name, dev, **knobs):
+    """A reduced (2-layer) model in bf16, booted on ``dev``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    cfg = dataclasses.replace(get_config(name + "-smoke"), dtype="bfloat16")
+    hmm = HMM(cfg, 1, batch_per_replica=4, max_len=128, seed=0,
+              device=dev, **knobs)
+    hmm.boot(ElasticConfig(1, 1, (0,)))
+    for leaf in hmm.cache.values():          # earlier contents
+        if leaf.dtype == torch.int8:
+            leaf.random_(-127, 128)
+        elif leaf.dtype == torch.float32 and leaf.dim() == 3:
+            leaf.uniform_(0.01, 0.03)        # int8 scales
+        else:
+            leaf.normal_()
+    return cfg, hmm.params, hmm.cache
+
+
+PAGED = dict(kv_mode="paged", kv_block_size=16, kv_blocks_per_replica=32,
+             expert_mode="pooled")
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_paged_steps_run_with_no_host_sync(dev, store):
+    """The paged decode step (the model's and the engine's greedy one) and
+    a chunk step of a 2-layer qwen3-30b-a3b, bf16 pools or int8 pools with
+    int8 expert pages, inputs already on the card: no call synchronises
+    with the host, and each step launches one KV write per layer."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _paged_decode_fn
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    cfg, params, cache = _booted("qwen3-30b-a3b", dev, **PAGED, **int8)
+    NB, bs, L = 32, 16, cfg.num_layers
+    bt = torch.full((4, 8), NB, dtype=torch.int32)
+    bt[0, :2], bt[1, :1], bt[2, :3], bt[3, :1] = (torch.tensor([5, 9]),
+                                                 torch.tensor([2]),
+                                                 torch.tensor([7, 1, 30]),
+                                                 torch.tensor([31]))
+    bt = bt.to(dev)
+    lens = torch.tensor([20, 3, 40, 0], dtype=torch.int32, device=dev)
+    wb = torch.tensor([9, 2, 30, NB], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4,), dtype=torch.int32,
+                           device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 32), dtype=torch.int32,
+                          device=dev)
+    ids = torch.tensor([7, NB], dtype=torch.int32, device=dev)
+
+    def steps():
+        M.paged_decode_step(cfg, params, tokens[:, None], cache, lens, bt,
+                            wb)
+        _paged_decode_fn(cfg, params, cache, tokens, lens, active, bt)
+        M.paged_chunk_prefill_step(cfg, params, chunk, cache, 0, 20, bt[2:3],
+                                   ids)
+    steps()                                  # builds and loads the kernels
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        steps()
+    assert ops.launch_counts()["kv_cache_write"] == 3 * L
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_write_prefill_to_blocks_runs_with_no_host_sync(dev, store):
+    from repro_torch.models import model as M
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    cfg, _, cache = _booted("qwen3-30b-a3b", dev, **PAGED, **int8)
+    L, KVH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    dense = {n: torch.randn(L, 1, 64, KVH, hd, device=dev)
+             .to(torch.bfloat16) for n in ("k", "v")}
+    ids = torch.tensor([4, 32, 31, 32], dtype=torch.int32, device=dev)
+    M.write_prefill_to_blocks(cache, dense, ids)
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        M.write_prefill_to_blocks(cache, dense, ids)
+    assert ops.launch_counts()["kv_cache_write"] == 1
+
+
+@pytest.mark.parametrize("model", ["qwen3-30b-a3b", "deepseek-v2-lite-16b",
+                                   "zamba2-2.7b"])
+def test_slot_decode_step_runs_with_no_host_sync(dev, model):
+    """``decode_step`` over the slot-contiguous cache (the default stores)
+    of a 2-layer qwen3 (K/V), deepseek-v2-lite (MLA latent) and zamba2
+    (the shared block's K/V per group), one slot full (its write drops):
+    no host sync, one KV write per attention layer."""
+    from repro_torch.models import model as M
+    cfg, params, cache = _booted(model, dev)
+    n_attn = len(next(iter(cache.values()))) if cfg.arch_type != "hybrid" \
+        else cache["attn_k"].shape[0]
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([5, 127, 128, 0], dtype=torch.int32, device=dev)
+    M.decode_step(cfg, params, tokens, cache, lens)
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        M.decode_step(cfg, params, tokens, cache, lens)
+    assert ops.launch_counts()["kv_cache_write"] == n_attn
