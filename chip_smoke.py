@@ -61,6 +61,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
    (hd, hdv) instances at a ragged S = 1000 with queries drawn for scores
    of standard deviation 3, where the bf16 output must be the f32 answer
    rounded once to bf16 (within 3e-5 past half a bf16 step).
+   Both GMMs also at the expert-parallel shapes of ``serve_scale``: a
+   device's table of 32 slots (DP4) or 22 with a pad slot on page 0
+   (DP6), over the rows n_ep * C of a decode step and of a chunk step.
    The mixed attentions run at qwen3-30b-a3b's chunk of 128 rows: the
    1,000-token prompt's last chunk (ctx 1000, q_len 104; the main case),
    a full chunk at ctx 512 and a prompt's first chunk (ctx = q_len =
@@ -151,9 +154,35 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
    per group; each zamba2 decode step ``paged_decode_attention`` and
    ``kv_cache_write`` once per group; mamba2 no attention kernel.
+11. ``e2e_scale``: several logical devices of the one card (every logical
+   device is ``cuda:0``; a move between two of them is a copy on the
+   card).  A 2-layer qwen3-30b-a3b at full width with paged KV and pooled
+   experts (f32, bf16, and bf16 with int8 KV blocks and expert pages)
+   booted on DP4 (tp = 1, 2 slots a replica): a chunk step on replica 1
+   and a decode step of all 8 slots, through the kernels (under
+   ``set_sync_debug_mode("error")``) and through ``ops.use_reference()``,
+   held to the e2e rules above, layer 0's written rows equal in every
+   shard; then ``HMM.scale`` to DP6 and ``commit``, and the same at DP6.
+12. ``serve_scale``: ``ElasticServer`` serving the ``serve`` requests
+   (8 prompts of 200-1000 tokens, 32 output tokens) on qwen3-30b-a3b at
+   full width and 8 layers with paged KV, pooled experts and chunked
+   prefill, booted on DP4; at the 5th tick ``stage_scale`` to DP6, one
+   tick, ``switchover``.  Every parameter shard of the four surviving
+   devices (but the rebuilt page-table arrays) and every KV shard must be
+   the same tensor after it (``data_ptr``); the staged expert bytes must
+   be the migrations' pages, the other staged copies the two new devices'
+   replicated leaves, and commit must move no weight byte.  Launches: one
+   decode attention per layer per replica per decode step, one mixed
+   attention per layer per chunk step, three GMMs per layer per logical
+   device per step, one KV write per layer per replica per decode step
+   and per layer per chunk step.  A decode step of every slot and a chunk
+   step (ctx 1000, q_len 104) are timed, unprofiled and profiled, at DP4
+   before serving and at DP6 after.  Then the same with int8 KV blocks
+   and int8 expert pages, its steps untimed.
 
-The line before the last is ``{"kernels": [...]}`` (launches from the
-first serve phase of each kernel's path, ``PATH_KERNELS``); the last line
+The line before the last is ``{"kernels": [...]}`` (each kernel's
+launches summed over the serve phases whose path runs it,
+``PATH_KERNELS``, each counted from 0 over its own run); the last line
 is
 ``{"ok": true, "device": {...}}``.  ``--layers N`` caps every served
 model's depth at N (a hybrid's at a multiple of its ``attn_every``); by
@@ -254,8 +283,17 @@ PATH_KERNELS = {
     "serve_mamba2": ("ssd_scan",),
     "serve_zamba2": ("ssd_scan", "flash_attention", "paged_decode_attention",
                      "kv_cache_write"),
+    "serve_scale": ("block_paged_decode_attention",
+                    "mixed_block_paged_attention", "paged_gmm",
+                    "quant_block_paged_decode_attention",
+                    "quant_mixed_block_paged_attention", "quant_paged_gmm",
+                    "kv_cache_write"),
 }
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
+# the scale phases: qwen3-30b-a3b at full width on logical devices of the
+# one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
+# layers (the pools of 48 would take 174 GB), e2e_scale at 2
+SCALE_LAYERS, SCALE_BPR, SCALE_DEVICES = 8, 2, 6
 
 
 def log(*a):
@@ -470,9 +508,11 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
 
 
 def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
-              shape=(N_EXP, D_MODEL, MOE_FF)):
+              shape=(N_EXP, D_MODEL, MOE_FF), pad=0):
     """One bank's paged GMM over ``shape`` = (experts, d_model, moe_d_ff):
-    qwen3-30b-a3b's by default, deepseek-v2-lite's (64, 2048, 1408) too."""
+    qwen3-30b-a3b's by default, deepseek-v2-lite's (64, 2048, 1408) too;
+    ``pad`` trailing table slots on page 0, as an expert-parallel device's
+    table is padded to ``Elm`` slots."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.quant import dequantize_rows
     n_exp, d_model, moe_ff = shape
@@ -481,7 +521,10 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
         (moe_ff, d_model)
     perm = torch.randperm(P, generator=gen).to(torch.int32)
     table = (perm[torch.arange(n_exp) % (n_exp // 2)] if aliased
-             else perm[:n_exp]).cuda()
+             else perm[:n_exp])
+    if pad:
+        table[n_exp - pad:] = 0
+    table = table.cuda()
     x = torch.randn(n_exp, C, Din, generator=gen).to(dtype).cuda()
     if quant:
         # page maxima in [0.3, 3] / sqrt(Din): weights of a normal layer
@@ -524,7 +567,8 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
     ops_n = 2 * n_exp * C * Din * Fout
     b_ms, b_by = bound_ms(nb, ops_n, dtype)
     rec = {"case": f"{bank} E={n_exp} C={C} [{Din}x{Fout}] pages={pages}"
-                   + (" aliased" if aliased else ""),
+                   + (" aliased" if aliased else "")
+                   + (f" pad={pad}" if pad else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb, "ops": ops_n}
     if excess is not None:
@@ -1027,6 +1071,20 @@ def phase_kernels():
             out[gmm_name].append(
                 _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
             torch.cuda.empty_cache()
+    # qwen3-30b-a3b's expert-parallel shapes (serve_scale): each device's
+    # table of Elm slots (32 at DP4; 22 at DP6, pad slots on page 0) over
+    # n_ep * C rows an expert, at decode (2 slots a replica) and a chunk
+    for ndev, pad in ((4, 0), (6, 1)):
+        elm = -(-N_EXP // ndev)
+        for T in (SCALE_BPR * ndev, CHUNK):
+            rows = ndev * capacity_for(-(-T // ndev), get_config(
+                "qwen3-30b-a3b"))
+            for quant in (False, True):
+                out["quant_paged_gmm" if quant else "paged_gmm"].append(
+                    _gmm_case("wi", rows, torch.bfloat16, False, gen, timer,
+                              False, quant, shape=(elm, D_MODEL, MOE_FF),
+                              pad=pad))
+    torch.cuda.empty_cache()
     # deepseek-v2-lite's: decode (C = 1) and a 1,024-token prefill (C =
     # 1024 * 6 / 64 * 1.25 = 120 rows an expert); int8 pages at its wi
     for dtype in (torch.bfloat16, torch.float32):
@@ -1763,6 +1821,427 @@ def phase_serve(layers, phase="serve", profile=True):
     return res
 
 
+# ------------------------------------------------------------ scale phases
+
+def _scale_cfgs():
+    from repro_torch.core.topology import ElasticConfig
+    return (ElasticConfig(4, 1, (0, 1, 2, 3)),
+            ElasticConfig(6, 1, tuple(range(6))))
+
+
+def _scale_ctx(ecfg, hmm):
+    from repro_torch.distributed.sharding import make_instance_mesh
+    from repro_torch.serving.engine import engine_parallel_ctx
+    return engine_parallel_ctx(make_instance_mesh(ecfg, hmm.all_devices))
+
+
+def _fill_pool(cache, gen):
+    """Random contents in every shard of a sharded KV pool: int8 entries,
+    scales with row maxima in [0.3, 3], N(0, 1) rows."""
+    for name, leaf in cache.items():
+        for t in leaf.shards.values():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+            elif name.endswith("_scale"):
+                t.copy_((0.3 + 2.7 * torch.rand(t.shape, generator=gen,
+                                                device="cuda")) / 127)
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def _clone_pool(cache):
+    from repro_torch.distributed.sharding import ShardedTensor
+    return {k: ShardedTensor(v.shape, v.sharding,
+                             {d: t.clone() for d, t in v.shards.items()})
+            for k, v in cache.items()}
+
+
+def _replica_tables(cg, lengths, dp, NB, extra=()):
+    """Each replica's two sequences' tables, ids local to its pool slice
+    of NB blocks; ``extra`` = (replica, length) of one more sequence
+    there, whose table comes back apart."""
+    MB = MAX_LEN // BS
+    rows, extra_row = [], None
+    for r in range(dp):
+        mine = lengths[r * SCALE_BPR:(r + 1) * SCALE_BPR]
+        first = [extra[1]] if extra and extra[0] == r else []
+        t = _tables(cg, first + mine, NB, MB, need_extra=1)
+        if first:
+            extra_row, t = t[:1], t[1:]
+        rows.append(t)
+    return torch.cat(rows), extra_row
+
+
+def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
+    """One chunk step (replica 1's sequence) and one decode step of every
+    replica's two slots on the HMM's instance on ``ecfg``, through the
+    kernels (under ``set_sync_debug_mode("error")``) and through
+    ``ops.use_reference()`` from identical pools, held to the e2e rules."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    _fill_pool(hmm.cache, torch.Generator(device="cuda").manual_seed(2))
+    ctx = _scale_ctx(ecfg, hmm)
+    NB = hmm.kv_blocks_per_replica
+    cg = torch.Generator().manual_seed(3)
+    B = ecfg.dp * SCALE_BPR
+    lengths = [1900, 5, 640, 1024, 77, 300, 1500, 16, 1000, 999, 64,
+               2040][:B]
+    start, length = 256, 360
+    bt_dec, bt_chunk = _replica_tables(cg, lengths, ecfg.dp, NB,
+                                       extra=(1, length))
+    ids = torch.full((CHUNK // BS,), NB, dtype=torch.int32)
+    for j in range(CHUNK // BS):
+        if start // BS + j < -(-length // BS):
+            ids[j] = bt_chunk[0, start // BS + j]
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    wb = bt_dec.gather(1, (lens.long() // BS)[:, None])[:, 0].clone()
+    wb[5] = NB                                        # inactive slot
+    tokens = torch.randint(0, cfg.vocab_size, (1, CHUNK), generator=cg)
+    dec_tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=cg)
+    args = [t.cuda() for t in (tokens, bt_chunk, ids, dec_tokens, lens,
+                               bt_dec, wb)]
+
+    def run():
+        c = _clone_pool(hmm.cache)
+        lc, c = M.paged_chunk_prefill_step(cfg, hmm.params, args[0], c,
+                                           start, length, args[1], args[2],
+                                           parallel=ctx, replica=1)
+        ld, c = M.paged_decode_step(cfg, hmm.params, args[3], c, args[4],
+                                    args[5], args[6], parallel=ctx)
+        return torch.cat([lc, ld]).float(), c
+
+    run()                                  # first calls: kernels loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, c_got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    require(got.shape == (1 + B, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    flips = max_q = 0
+    for k in c_got:
+        for d in c_got[k].shards:
+            require(torch.equal(c_got[k].shard(d)[0], c_want[k].shard(d)[0]),
+                    f"cache {k} on device {d} differs")
+            if quant and k in ("k", "v"):
+                q = (c_got[k].shard(d)[1].int()
+                     - c_want[k].shard(d)[1].int()).abs()
+                flips += int(q.count_nonzero())
+                max_q = max(max_q, int(q.max()))
+    if dtype_name == "float32":
+        require(max_q <= 1, f"layer 1 int8 rows differ by {max_q} quanta")
+    if dtype_name == "float32" and flips == 0:
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
+    name = f"{dtype_name}{' int8 KV + int8 experts' if quant else ''}"
+    log(f"[e2e_scale] 2-layer qwen3-30b-a3b {name} on {ecfg.describe()} "
+        f"(one card): chunk + decode logits {tuple(got.shape)}, "
+        f"max_abs_err {err:.3e}, rel {rel:.3e}"
+        + (f", layer-1 int8 entries that differ: {flips}" if quant else ""))
+    return {"dtype": dtype_name, "int8": quant, "config": ecfg.describe(),
+            "max_abs_err": err, "rel_err": rel,
+            "layer1_int8_differing": flips}
+
+
+def phase_e2e_scale():
+    """A 2-layer qwen3-30b-a3b at full width booted on DP4 (4 logical
+    devices of the card), a chunk step and a decode step held to the e2e
+    rules; then scaled to DP6 (stage, commit) and the same again."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    out = []
+    for dtype_name, quant in (("float32", False), ("bfloat16", False),
+                              ("bfloat16", True)):
+        cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
+                                  dtype=dtype_name)
+        store = "int8" if quant else None
+        c4, c6 = _scale_cfgs()
+        hmm = HMM(cfg, 1, batch_per_replica=SCALE_BPR, max_len=MAX_LEN,
+                  kv_mode="paged", kv_block_size=BS,
+                  kv_blocks_per_replica=256, expert_mode="pooled", seed=1,
+                  kv_dtype=store, expert_dtype=store, device="cuda",
+                  all_devices=["cuda:0"] * SCALE_DEVICES)
+        hmm.boot(c4)
+        out.append(_e2e_scale_steps(cfg, hmm, c4, dtype_name, quant))
+        st = hmm.scale(c6)
+        require(st.expert_p2p_bytes == len(hmm.last_migrations)
+                * hmm.expert_page_nbytes())
+        hmm.commit()
+        out.append(_e2e_scale_steps(cfg, hmm, c6, dtype_name, quant))
+        del hmm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scale_step_times(srv, tag):
+    """A decode step of every slot (ragged lengths, each replica's tables
+    in its own slice) and a chunk step of the 1,000-token prompt's last
+    chunk (ctx 1000, q_len 104) on replica 0, into free pool blocks, on
+    the engine's current instance: the median wall of 5 unprofiled calls
+    and the device time of 2 profiled ones each."""
+    eng = srv.engine
+    dp, NB, MB = eng.cfg.dp, eng.kv.blocks_per_partition, MAX_LEN // BS
+    cg = torch.Generator().manual_seed(4)
+    lengths = [600, 200, 1000, 431, 757, 318, 905, 264, 777, 64, 1500,
+               17][:dp * SCALE_BPR]
+    bt, _ = _replica_tables(cg, lengths, dp, NB)
+    n = len(lengths)
+    tokens = torch.randint(0, srv.mcfg.vocab_size, (n,), generator=cg)
+    args = [t.cuda() for t in (tokens, torch.tensor(lengths,
+                                                    dtype=torch.int32),
+                               torch.ones(n, dtype=torch.bool), bt)]
+    dec = eng.compiled["decode"]
+    S, start = 1000, 896
+    toks = torch.randint(0, srv.mcfg.vocab_size, (1, CHUNK), generator=cg)
+    toks[0, S - start:] = 0
+    nblk = -(-S // BS)
+    tbl = torch.full((1, MB), NB, dtype=torch.int32)
+    tbl[0, :nblk] = torch.arange(nblk)
+    ids = torch.arange(start // BS, start // BS + CHUNK // BS,
+                       dtype=torch.int32)
+    ids[ids >= nblk] = NB
+    chunk = eng.compiled[f"chunk_prefill_{CHUNK}"]
+    cargs = [t.cuda() for t in (toks, tbl, ids)]
+    out = {}
+    for name, fn in (
+            ("decode", lambda: dec(eng.params, eng.cache, *args)),
+            ("chunk", lambda: chunk(eng.params, eng.cache, cargs[0], start,
+                                    S, cargs[1], cargs[2], replica=0))):
+        fn()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        prof, _ = _profile(f"{tag} {name} steps", fn, 2)
+        out[name] = {"wall_ms_median": statistics.median(walls),
+                     "device_ms": prof["device_ms_per_call"],
+                     "profiled_wall_ms": prof["wall_ms_per_call"],
+                     "kernels": prof["kernels"][:12]}
+        log(f"{tag} {name} step: unprofiled wall median "
+            f"{out[name]['wall_ms_median']:.2f} ms, device "
+            f"{out[name]['device_ms']:.2f} ms")
+    return out
+
+
+def _shard_ptrs(tree, devices):
+    """(leaf path, logical device) -> data_ptr of the sharded leaves'
+    shards on ``devices``."""
+    from repro_torch.distributed.sharding import tree_leaves_with_path
+    return {(path, d): leaf.shard(d).data_ptr()
+            for path, leaf in tree_leaves_with_path(tree)
+            for d in devices}
+
+
+def _serve_scale(layers, store, timed):
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.kernels import ops
+    from repro_torch.serving.workload import Request
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    L = cfg.num_layers
+    tag = f"[serve_scale {store or 'bf16'}]"
+    c4, c6 = _scale_cfgs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = ElasticServer(cfg, tp=1, batch_per_replica=SCALE_BPR,
+                        max_len=MAX_LEN, seed=0, device="cuda",
+                        all_devices=["cuda:0"] * SCALE_DEVICES,
+                        kv_mode="paged", kv_block_size=BS,
+                        expert_mode="pooled", prefill_chunk=CHUNK,
+                        kv_dtype=store, expert_dtype=store)
+    t0 = time.perf_counter()
+    srv.boot(c4)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    log(f"{tag} qwen3-30b-a3b, {L} layers, full width, paged KV, pooled "
+        f"experts ({store or cfg.dtype}), chunked prefill, "
+        f"{c4.describe()} -> {c6.describe()}, every logical device on the "
+        f"one card; boot {boot_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    res = {"layers": L, "store": store or cfg.dtype, "boot_s": boot_s}
+    if timed:
+        res["steps_dp4"] = _scale_step_times(srv, tag + " DP4")
+
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    out_len = 32
+    reqs = [Request(rid=i, arrival_s=0.0, prompt_len=len(p),
+                    output_len=out_len, prompt=p)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    eng = srv.engine
+    tracer = obs.install(obs.Tracer())
+    ops.reset_launch_counts()
+    work = {4: [0, 0], 6: [0, 0]}           # dp -> [decode steps, chunks]
+    ticks = []
+    tick = 0
+    t_start = time.perf_counter()
+    while not all(r.finish_s is not None for r in reqs):
+        require(tick < 2000, "serving did not finish")
+        dp = eng.cfg.dp
+        steps0 = eng._step_count
+        tracer.clear()
+        ts = time.perf_counter()
+        if tick == 4:
+            # the 5th tick: stage DP6 while DP4 serves, one tick, switch
+            keep = _shard_ptrs({"params": eng.params, "cache": eng.cache},
+                               c4.devices)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            ev = srv.stage_scale(c6)
+            torch.cuda.synchronize()
+            stage_synced = time.perf_counter() - ts
+            staged = {f: getattr(ev.stats, f) for f in
+                      ev.stats.BYTE_FIELDS}
+            migs = len(srv.hmm.last_migrations)
+            srv.tick(time.perf_counter() - t_start)
+            torch.cuda.synchronize()
+            work[4][0] += eng._step_count - steps0
+            work[4][1] += sum(e.args["chunks"] for e in tracer.events()
+                              if e.name == "chunk.plan")
+            ts = time.perf_counter()
+            srv.switchover()
+            torch.cuda.synchronize()
+            switch_synced = time.perf_counter() - ts
+            res["scale"] = _check_scale(srv, ev, staged, migs, keep,
+                                        stage_synced, switch_synced, tag)
+            tick += 1
+            continue
+        srv.tick(ts - t_start)
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        ev_ = tracer.events()
+        chunks = sum(e.args["chunks"] for e in ev_ if e.name == "chunk.plan")
+        work[dp][0] += eng._step_count - steps0
+        work[dp][1] += chunks
+        ticks.append({"dp": dp, "ms": (te - ts) * 1e3, "chunks": chunks,
+                      "chunk_ms": sum(e.dur for e in ev_
+                                      if e.name == "prefill.chunks") * 1e3})
+        tick += 1
+    wall = time.perf_counter() - t_start
+    obs.install(None)
+    counts = ops.launch_counts()
+    q = "quant_" if store else ""
+    want = {
+        f"{q}block_paged_decode_attention":
+            L * sum(dp * w[0] for dp, w in work.items()),
+        f"{q}mixed_block_paged_attention":
+            L * sum(w[1] for w in work.values()),
+        f"{q}paged_gmm": 3 * L * sum(dp * (w[0] + w[1])
+                                     for dp, w in work.items()),
+        "kv_cache_write": L * sum(dp * w[0] + w[1] for dp, w in work.items()),
+    }
+    for name, n in want.items():
+        require(counts[name] == n, f"{name}: {counts[name]} launches, {n} "
+                f"expected over {work} (dp: [decode steps, chunk steps])")
+        require(n > 0, f"{name} was not launched")
+    for r in reqs:
+        toks = eng.generated[r.rid]
+        require(len(toks) == out_len, (r.rid, len(toks)))
+        require(all(0 <= t < cfg.vocab_size for t in toks))
+    if timed:
+        res["steps_dp6"] = _scale_step_times(srv, tag + " DP6")
+    dec = {dp: [t["ms"] for t in ticks if t["dp"] == dp and not t["chunks"]]
+           for dp in (4, 6)}
+    chk = {dp: [t["chunk_ms"] / t["chunks"] for t in ticks
+                if t["dp"] == dp and t["chunks"]] for dp in (4, 6)}
+    gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
+    res.update(
+        launches=counts, work=work, serve_s=wall,
+        output_tok_s=gen_tokens / wall,
+        decode_tick_ms_median={dp: statistics.median(v) if v else None
+                               for dp, v in dec.items()},
+        chunk_step_ms_median={dp: statistics.median(v) if v else None
+                              for dp, v in chk.items()},
+        ticks=len(ticks) + 1,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"{tag} {len(reqs)} requests, {gen_tokens} tokens in {wall:.2f} s; "
+        f"decode ticks (no chunk) median {res['decode_tick_ms_median']} ms, "
+        f"chunk step median {res['chunk_step_ms_median']} ms by dp; "
+        f"[decode steps, chunk steps] by dp {work}; max_memory_allocated "
+        f"{res['max_memory_allocated_gib']:.2f} GiB")
+    log(f"{tag} launches " + str({k: counts[k] for k in want}))
+    del srv, eng
+    return res
+
+
+def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
+                 tag):
+    """The switchover's invariants on the card: every parameter shard of
+    the surviving devices but the rebuilt index arrays, and every KV
+    shard, is the same tensor as before; the staged expert bytes are
+    exactly the migrations' pages, the rest of the copies exactly the two
+    new devices' replicated leaves, and commit moved no weight byte."""
+    from repro_torch.distributed.sharding import tree_leaves_with_path
+    eng, hmm = srv.engine, srv.hmm
+    now = _shard_ptrs({"params": eng.params, "cache": eng.cache},
+                      sorted({d for _, d in keep}))
+    index = ("tables", "edest", "eslot", "gtable")
+    moved = [k for k, p in keep.items()
+             if now[k] != p and not k[0].endswith(index)]
+    require(not moved, f"shards not reused: {moved[:5]}")
+    page = hmm.expert_page_nbytes()
+    E, Lm = hmm.mcfg.num_experts, hmm._n_moe_layers
+    repl = sum(leaf.shard(0).nbytes
+               for path, leaf in tree_leaves_with_path(eng.params)
+               if not path.startswith("moe_pool")
+               and not path.endswith(index))
+    require(staged["expert_p2p_bytes"] == migs * page,
+            (staged["expert_p2p_bytes"], migs, page))
+    require(staged["expert_zero_copy_bytes"] == (Lm * E - migs) * page)
+    require(staged["p2p_bytes"] == migs * page + 2 * repl)
+    require(staged["zero_copy_bytes"] == (Lm * E - migs) * page + 4 * repl)
+    require(staged["local_bytes"] == staged["init_bytes"] == 0)
+    final = {f: getattr(ev.stats, f) for f in ev.stats.BYTE_FIELDS}
+    require(final["p2p_bytes"] == staged["p2p_bytes"]
+            and final["expert_p2p_bytes"] == staged["expert_p2p_bytes"],
+            "commit moved weight bytes")
+    kv = sum(leaf.nbytes for leaf in eng.cache.values())
+    require(final["init_bytes"] == kv // 3,          # 2 new of 6 replicas
+            (final["init_bytes"], kv))
+    nonzero = {f: v for f, v in final.items() if v}
+    rate = staged["p2p_bytes"] / stage_synced / 1e9
+    log(f"{tag} scale DP4 -> DP6: stage_s {ev.stage_s:.3f} (host), "
+        f"{stage_synced:.3f} s with the card synchronised; switch_s "
+        f"{ev.switch_s:.4f} (host), {switch_synced:.4f} s synchronised; "
+        f"{migs} expert pages moved (copies between logical devices on "
+        f"one card); bytes {nonzero}; staged copies "
+        f"{staged['p2p_bytes'] / 1e9:.3f} GB at {rate:.1f} GB/s")
+    return {"stage_s": ev.stage_s, "stage_synced_s": stage_synced,
+            "switch_s": ev.switch_s, "switch_synced_s": switch_synced,
+            "migrations": migs, "staged_bytes": staged,
+            "final_bytes": final, "copy_gb_s": rate}
+
+
+def phase_serve_scale(layers):
+    """``serve_scale``: the bf16 server, its steps timed at DP4 and DP6,
+    then (after it is freed) the int8 one; the launches are their sum."""
+    res = {}
+    for store in (None, "int8"):
+        res[store or "bf16"] = _serve_scale(layers, store, store is None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    names = PATH_KERNELS["serve_scale"]
+    res["launches"] = {n: sum(r["launches"][n] for r in res.values())
+                       for n in names}
+    return res
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -1807,9 +2286,10 @@ def main():
                          "zamba2-2.7b); a hybrid's cap is rounded down to a "
                          "multiple of its attn_every")
     ap.add_argument("--phases",
-                    default="build,kernels,e2e,e2e_mla,e2e_ssm,serve,"
-                            "serve_int8,serve_dense,serve_mla,"
-                            "serve_mla_pooled,serve_mamba2,serve_zamba2")
+                    default="build,kernels,e2e,e2e_mla,e2e_ssm,e2e_scale,"
+                            "serve,serve_int8,serve_dense,serve_mla,"
+                            "serve_mla_pooled,serve_mamba2,serve_zamba2,"
+                            "serve_scale")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -1829,20 +2309,19 @@ def main():
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    res = {"card": smi, "torch": torch.__version__}
-    if "build" in phases:
-        res["build"] = phase_build()
-    if "kernels" in phases:
-        res["kernels"] = phase_kernels()
-    if "e2e" in phases:
-        res["e2e"] = phase_e2e()
-    if "e2e_mla" in phases:
-        res["e2e_mla"] = phase_e2e_mla()
-    if "e2e_ssm" in phases:
-        res["e2e_ssm"] = phase_e2e_ssm()
-    for phase in SERVE_STORES:
+    res = {"card": smi, "torch": torch.__version__, "phase_seconds": {}}
+    runs = [("build", phase_build), ("kernels", phase_kernels),
+            ("e2e", phase_e2e), ("e2e_mla", phase_e2e_mla),
+            ("e2e_ssm", phase_e2e_ssm), ("e2e_scale", phase_e2e_scale)]
+    runs += [(p, lambda p=p: phase_serve(args.layers, p))
+             for p in SERVE_STORES]
+    runs.append(("serve_scale", lambda: phase_serve_scale(args.layers)))
+    for phase, run in runs:
         if phase in phases:
-            res[phase] = phase_serve(args.layers, phase)
+            tp = time.perf_counter()
+            res[phase] = run()
+            res["phase_seconds"][phase] = time.perf_counter() - tp
+            log(f"[time] {phase}: {res['phase_seconds'][phase]:.1f} s")
     res["seconds"] = time.perf_counter() - t0
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -1851,13 +2330,14 @@ def main():
             json.dump(res, f, indent=1, default=str)
 
     if "kernels" in res:
-        # each kernel's launches come from the first serve phase of its
-        # path
+        # each kernel's launches: the sum over the serve phases whose path
+        # runs it, each counted from 0 over its own run
         launches = {}
         for phase, names in PATH_KERNELS.items():
             if phase in res:
                 for n in names:
-                    launches.setdefault(n, res[phase]["launches"][n])
+                    launches[n] = (launches.get(n, 0)
+                                   + res[phase]["launches"][n])
         line = []
         for name, recs in res["kernels"].items():
             r = recs[0]                       # the main case, bf16, timed

@@ -1,31 +1,71 @@
-"""The serving half of ``ElasticServer`` on one device — the port of
-``repro.core.elastic_engine.ElasticServer``'s ``__init__``, ``boot``,
-``submit``, ``tick``, ``step``, ``queue_depth`` and ``utilization``.
+"""``ElasticServer`` — the port of ``repro.core.elastic_engine
+.ElasticServer``'s ``__init__``, ``boot``, ``submit``, ``tick``, ``step``,
+``queue_depth``, ``utilization``, and its scale-up: ``stage_scale``,
+``switchover`` and ``scale_to``.
 
-One ``ElasticConfig(1, 1, (0,))`` instance serves a standard-attention
-decoder, an MLA decoder (over its latent cache) or a Mamba2 model,
-attention-free or hybrid (over its per-slot SSD state and, hybrid, the
-shared block's K/V); the last two with dense KV and monolithic prefill
-only, as in the reference.  The defaults are the
-reference's: the slot-contiguous KV cache
+On one device (``ElasticConfig(1, 1, (0,))``) an instance serves a
+standard-attention decoder, an MLA decoder (over its latent cache) or a
+Mamba2 model, attention-free or hybrid (over its per-slot SSD state and,
+hybrid, the shared block's K/V); the last two with dense KV and monolithic
+prefill only, as in the reference.  On several logical devices
+(``all_devices``) a standard-attention decoder serves at tp = 1: each DP
+replica runs its attention on its own shards and slots, the MoE runs
+expert-parallel across every device, and the server scales DP up while it
+serves: ``stage_scale`` stages the target's weights between ticks (the
+engine keeps serving on the old instance), ``switchover`` commits them and
+rebinds the engine, whose surviving slots continue on the same KV shards.
+
+The defaults are the reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
-modes.  Dense KV with chunked prefill is not ported yet and raises.
-The elastic half — scale events, KV migration, rebalancing, parking —
-exists only across devices and belongs to the multi-card slice: its knobs
-keep the reference's names and raise ``NotImplementedError``.
+modes.  Dense KV with chunked prefill is not ported yet and raises.  So do
+serving at tp > 1, a server-level scale-down (it needs Slice B's KV
+migration or drain), overlapped staging, rebalancing and parking: their
+knobs keep the reference's names and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Dict, List, Optional
 
 from repro_torch import obs
-from repro_torch.core.hmm import HMM, not_ported
+from repro_torch.core.hmm import (HMM, REBALANCE, SLICE_B, SLICE_C,
+                                  TELEMETRY, TransferStats, not_ported)
 from repro_torch.core.topology import ElasticConfig
+from repro_torch.distributed.sharding import make_instance_mesh
 from repro_torch.models.model import chunk_prefill_supported
-from repro_torch.serving.engine import InferenceEngine, compile_step_functions
+from repro_torch.serving.engine import (InferenceEngine,
+                                        compile_step_functions,
+                                        engine_parallel_ctx)
 from repro_torch.serving.workload import Request
+
+
+@dataclasses.dataclass
+class ScaleEvent:
+    """One scale event.  ``stats`` is the HMM's ``last_stats``: the
+    staging's bytes, and after ``switchover`` also the commit's.
+    ``compile_hit``: whether the target's step functions were ready
+    without compiling — always True in the port, whose eager step
+    functions are built in microseconds at switchover (the reference
+    reports its IMM's executable cache).  ``stall_s`` is the serve loop's
+    time blocked on staging (all of ``stage_s`` with serial staging);
+    ``stage_wall_s`` freezes the staging's wall time, which ``stats``
+    later adds the commit to.  ``migrated_blocks`` and ``migration_bytes``
+    count a scale-down's live KV moves (Slice B; 0 here)."""
+    t: float
+    src: str
+    dst: str
+    stats: TransferStats
+    compile_hit: bool
+    stage_s: float
+    switch_s: float
+    stall_s: float = 0.0
+    staging: str = "serial"
+    stage_wall_s: float = 0.0
+    migrated_blocks: int = 0
+    migration_bytes: int = 0
 
 
 class ElasticServer:
@@ -47,12 +87,20 @@ class ElasticServer:
                  kv_dtype: Optional[str] = None,
                  expert_dtype: Optional[str] = None,
                  imm_cache=None, device="cuda"):
-        not_ported("policy", policy, None)
-        not_ported("scaledown", scaledown, "migrate")
-        not_ported("routing_sample_every", routing_sample_every, 0)
-        not_ported("rebalance", rebalance, None)
-        not_ported("imm_cache", imm_cache, None)
-        not_ported("expert_slot_slack", expert_slot_slack or 0, 0)
+        not_ported("policy", policy, None, SLICE_C)
+        not_ported("scaledown", scaledown, "migrate", SLICE_B)
+        not_ported("routing_sample_every", routing_sample_every, 0,
+                   TELEMETRY)
+        not_ported("rebalance", rebalance, None, REBALANCE)
+        not_ported("imm_cache", imm_cache, None, SLICE_B)
+        not_ported("expert_slot_slack", expert_slot_slack or 0, 0,
+                   REBALANCE)
+        if tp != 1:
+            raise NotImplementedError(
+                "serving at tp > 1 (attention, MLP, embedding and LM head "
+                "split over the TP ranks, with explicit sums between them) "
+                "is not ported yet: it is the TP-serving slice, Slice A2 "
+                "(ROADMAP §0 item 1)")
         if prefill_chunk and not chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
                              f"(as in the reference)")
@@ -87,20 +135,77 @@ class ElasticServer:
                                       device=self.hmm.device)
         self.queue: List[Request] = []
         self.requests: Dict[int, Request] = {}
+        self.events: List[ScaleEvent] = []
+        self._staged_cfg: Optional[ElasticConfig] = None
 
     # ------------------------------------------------------------ lifecycle
     def boot(self, cfg: ElasticConfig, params=None):
-        """Boot on ``cfg`` (one device): the HMM draws the weights on the
-        device, or adopts ``params`` (the reference's converted parameters,
-        as the tests pass them), then the engine binds the pool."""
+        """Boot on ``cfg``: the HMM draws the weights on the devices, or
+        adopts ``params`` (the reference's converted global parameters, as
+        the tests pass them), then the engine binds the instance."""
         self.hmm.boot(cfg, params)
+        self._bind(cfg)
+
+    def _bind(self, cfg: ElasticConfig):
+        """Bind the engine to the HMM's active instance on ``cfg``; the
+        cache's ownership moves to the engine."""
+        parallel = None
+        if cfg.ndev > 1:
+            parallel = engine_parallel_ctx(
+                make_instance_mesh(cfg, self.hmm.all_devices))
         compiled, _ = compile_step_functions(
             self.mcfg, max_len=self.hmm.max_len,
             prefill_buckets=self.prefill_buckets, kv_mode=self.kv_mode,
-            prefill_chunk=self.prefill_chunk)
+            prefill_chunk=self.prefill_chunk, parallel=parallel)
         self.engine.bind(cfg, self.hmm.params, self.hmm.cache, compiled,
-                         kv=self.hmm.kv_blocks)
-        self.hmm.cache = None  # ownership moves to the engine
+                         kv=self.hmm.kv_blocks, parallel=parallel)
+        self.hmm.cache = None
+
+    def scale_to(self, new_cfg: ElasticConfig) -> ScaleEvent:
+        """Stage and switch over; the engine may serve between the two
+        (``stage_scale`` then ``switchover``)."""
+        ev = self.stage_scale(new_cfg)
+        self.switchover()
+        return ev
+
+    def stage_scale(self, new_cfg: ElasticConfig) -> ScaleEvent:
+        """Stage ``new_cfg``'s weights (all increments back to back) while
+        the active instance stays serveable.  Scale-up only: a server
+        scale-down needs Slice B's KV migration or drain."""
+        if self.engine.cfg is None:
+            raise RuntimeError("boot() the server before scaling it")
+        if new_cfg.ndev < self.engine.cfg.ndev:
+            raise NotImplementedError(
+                "a server scale-down is not ported yet: it needs the live "
+                "KV migration (scaledown='migrate') or the drain of "
+                f"{SLICE_B} (HMM.begin_scale toward fewer devices, then "
+                f"commit or abort, is ported)")
+        t0 = time.perf_counter()
+        self.hmm.scale(new_cfg)                  # weights only; serving free
+        return self._record_stage(new_cfg, time.perf_counter() - t0)
+
+    def _record_stage(self, new_cfg: ElasticConfig, stage_s: float
+                      ) -> ScaleEvent:
+        self._staged_cfg = new_cfg
+        ev = ScaleEvent(t=time.time(), src=self.hmm.active_cfg.describe(),
+                        dst=new_cfg.describe(), stats=self.hmm.last_stats,
+                        compile_hit=True, stage_s=stage_s, switch_s=0.0,
+                        stall_s=stage_s, stage_wall_s=self.hmm.last_stats.wall_s)
+        self.events.append(ev)
+        return ev
+
+    def switchover(self):
+        """Commit the staged instance (the live cache grows: surviving
+        replicas' shards are reused, new ones zeroed) and rebind the
+        engine to it; the surviving slots continue where they were."""
+        if self._staged_cfg is None:
+            raise RuntimeError("nothing is staged: stage_scale first")
+        t0 = time.perf_counter()
+        new_cfg = self._staged_cfg
+        self.hmm.commit(live_cache=self.engine.cache)
+        self._bind(new_cfg)
+        self._staged_cfg = None
+        self.events[-1].switch_s = time.perf_counter() - t0
 
     # -------------------------------------------------------------- serving
     def submit(self, req: Request):

@@ -1,5 +1,5 @@
-"""HBM Management Module on one device — the port of ``HMM.__init__`` and
-``HMM.boot`` of ``repro.core.hmm``.
+"""HBM Management Module — the port of ``repro.core.hmm``: boot on one or
+several logical devices, and the scale path (stage, commit, abort).
 
 The HMM owns the model weights and the KV cache independently of the
 serving instance.  Two expert stores (``expert_mode``): dense banks
@@ -20,14 +20,39 @@ expert banks as int8 pages with per-page f32 scale banks
 (``moe_pool/{wi,wg,wo}_scale``) addressed by the same page table.  As in
 the reference, they need the paged KV pool and the pooled store.
 
-Scaling (``begin_scale``/``commit``, P2P page moves, KV migration),
-rebalancing and parking need several devices or belong to later slices;
-their knobs raise ``NotImplementedError``.
+On one device the parameters and the cache are plain tensors.  On several
+logical devices (``all_devices``, indexed by the configuration's device
+ids) they are trees of ``distributed.sharding.ShardedTensor`` laid out as
+the reference's ``param_shardings`` / ``cache_shardings`` lay them out:
+TP splits over 'tp', experts (dense bank E axis, pool page axis, table
+rows) over ('dp', 'tp') = EP, the rest replicated (``param_sharding``, one
+leaf's rule); the cache splits its batch or block axis over 'dp'
+(``cache_sharding``).
+
+``scale`` (``begin_scale`` + ``stage_increment``) stages the target's
+weights while the old instance serves: a shard whose (index, logical
+device) is unchanged is reused — the same tensor, zero-copy; a shard that
+exists on another logical device is copied (``p2p``); dense expert banks
+regroup page by page (``_assemble_rows``); the pooled store moves exactly
+the min-move ``Migration`` list, one page at a time.  ``commit`` grows the
+live cache (survivors' shards reused, new replicas zeroed) and swaps the
+page table; ``abort`` drops the staged state.  The byte accounting
+(``TransferStats``) follows the reference's field for field.  All of it
+goes by logical id: two logical devices on one card are two devices, and a
+move between them is a real copy.
+
+Staging runs serially on the caller's thread (``staging="serial"``);
+overlapped staging, KV migration, rebalancing and parking are later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import re
 import time
-from typing import Any, Optional
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +60,12 @@ import torch
 from repro_torch import obs
 from repro_torch.core.expert_pages import ExpertPageTable, pooled_layout
 from repro_torch.core.topology import ElasticConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import logical_devices, resolve_device, torch_dtype
+from repro_torch.distributed.sharding import (Mesh, NamedSharding,
+                                              ShardedTensor, check_devices,
+                                              index_shape, make_instance_mesh,
+                                              place, tree_leaves_with_path,
+                                              tree_map_with_path)
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models.model import (dense_cache_supported, init_cache,
                                       init_expert_bank, init_paged_cache,
@@ -43,15 +73,133 @@ from repro_torch.models.model import (dense_cache_supported, init_cache,
 from repro_torch.serving.kv_blocks import KVBlockManager
 
 
-def not_ported(knob: str, value, default) -> None:
-    """Refuse a knob of the reference outside this slice."""
+def not_ported(knob: str, value, default, where: str) -> None:
+    """Refuse a knob of the reference outside the ported slices, naming
+    the slice (ROADMAP §1) that will port it."""
     if value != default:
         raise NotImplementedError(
-            f"{knob}={value!r} is not ported yet (only {default!r})")
+            f"{knob}={value!r} is not ported yet (only {default!r}): {where}")
 
+
+SLICE_B = "Slice B, scaling while serving (ROADMAP §1 item 2)"
+SLICE_C = "Slice C, the closed loop (ROADMAP §1 item 3)"
+TELEMETRY = "routing telemetry (ROADMAP §1 item 4)"
+REBALANCE = "the rebalancer and host tier (ROADMAP §1 item 5)"
+
+
+def _idx_key(index) -> tuple:
+    return tuple((s.start, s.stop, s.step) for s in index)
+
+
+@dataclasses.dataclass
+class TransferStats:
+    """Bytes a boot, scale or commit moved, as the reference counts them.
+    The rebalancer's and the parking tier's fields stay 0 in the port."""
+    zero_copy_bytes: int = 0
+    p2p_bytes: int = 0
+    local_bytes: int = 0
+    init_bytes: int = 0
+    zero_copy_count: int = 0
+    p2p_count: int = 0
+    wall_s: float = 0.0
+    op_s: float = 0.0
+    # expert-weight sub-accounting (included in the totals above)
+    expert_p2p_bytes: int = 0
+    expert_zero_copy_bytes: int = 0
+    expert_local_bytes: int = 0
+    expert_replica_bytes: int = 0
+    expert_d2h_bytes: int = 0
+    expert_h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    h2d_bytes: int = 0
+
+    #: the additive byte / count fields (timing fields excluded)
+    BYTE_FIELDS = ("zero_copy_bytes", "p2p_bytes", "local_bytes",
+                   "init_bytes", "zero_copy_count", "p2p_count",
+                   "expert_p2p_bytes", "expert_zero_copy_bytes",
+                   "expert_local_bytes", "expert_replica_bytes",
+                   "expert_d2h_bytes", "expert_h2d_bytes",
+                   "d2h_bytes", "h2d_bytes")
+
+    def merge(self, o: "TransferStats"):
+        for f in self.BYTE_FIELDS + ("wall_s", "op_s"):
+            setattr(self, f, getattr(self, f) + getattr(o, f))
+
+
+# --------------------------------------------------------- reshard-with-reuse
+
+def reshard_with_reuse(arr: ShardedTensor, new_sharding: NamedSharding,
+                       stats: TransferStats,
+                       expert_dim: Optional[int] = None) -> ShardedTensor:
+    """Rebuild ``arr`` under ``new_sharding``, reusing each shard that
+    already lives on the right logical device with the right index (the
+    same tensor), copying one that lives on another logical device, and —
+    with ``expert_dim`` — assembling a shard whose slice boundaries changed
+    piece by piece along that dimension."""
+    shape = arr.shape
+    old: Dict[tuple, List[Tuple[int, torch.Tensor]]] = {}
+    for dev, index, data in arr.addressable_shards:
+        old.setdefault(_idx_key(index), []).append((dev, data))
+    mesh = new_sharding.mesh
+    out = {}
+    for dev, index in new_sharding.devices_indices_map(shape).items():
+        holders = old.get(_idx_key(index), [])
+        same = [h for h in holders if h[0] == dev]
+        if same:
+            data = same[0][1]
+            stats.zero_copy_bytes += data.nbytes
+            stats.zero_copy_count += 1
+        elif holders:
+            src = holders[0][1]
+            data = place(src, mesh.torch_device(dev))
+            stats.p2p_bytes += src.nbytes
+            stats.p2p_count += 1
+        elif expert_dim is not None:
+            data = _assemble_rows(arr, index, expert_dim, dev,
+                                  mesh.torch_device(dev), stats)
+        else:
+            raise ValueError(f"no source for shard {_idx_key(index)} of "
+                             f"{shape}")
+        out[dev] = data
+    return ShardedTensor(shape, new_sharding, out)
+
+
+def _assemble_rows(arr: ShardedTensor, index, dim: int, dev: int,
+                   tdev: torch.device, stats: TransferStats) -> torch.Tensor:
+    """Piecewise (per-page) assembly of one target shard along ``dim``:
+    every old shard's overlap with the target slice is copied in, counted
+    as local when that shard is on logical device ``dev`` and as p2p
+    otherwise."""
+    n = arr.shape[dim]
+    lo, hi, _ = index[dim].indices(n)
+    pieces = []
+    for sdev, sindex, data in arr.addressable_shards:
+        slo, shi, _ = sindex[dim].indices(n)
+        olo, ohi = max(lo, slo), min(hi, shi)
+        if olo >= ohi:
+            continue
+        sub = data.narrow(dim, olo - slo, ohi - olo)
+        if sdev == dev:
+            stats.local_bytes += sub.nbytes
+        else:
+            stats.p2p_bytes += sub.nbytes
+            stats.p2p_count += 1
+        pieces.append((olo, sub))
+    if sum(p.shape[dim] for _, p in pieces) != hi - lo:
+        raise ValueError(f"the old shards of {arr.shape} cover rows "
+                         f"{lo}:{hi} of dim {dim} more or less than once")
+    want = list(index_shape(arr.shape, index))
+    out = torch.empty(want, dtype=arr.dtype, device=tdev)
+    for olo, sub in pieces:
+        out.narrow(dim, olo - lo, sub.shape[dim]).copy_(sub)
+    return out
+
+
+# ---------------------------------------------------------------------- HMM
 
 class HMM:
-    """Holds the weights and the KV cache of a one-device instance."""
+    """Holds the weights and the KV cache of an instance on one or several
+    logical devices, and stages and commits its scale events."""
 
     def __init__(self, mcfg, tp: int, *, batch_per_replica: int,
                  max_len: int, all_devices=None, seed: int = 0,
@@ -65,10 +213,9 @@ class HMM:
                  expert_dtype: Optional[str] = None,
                  staging: str = "serial", transfer_workers: int = 4,
                  device="cuda"):
-        not_ported("staging", staging, "serial")
-        not_ported("expert_slot_slack", expert_slot_slack, 0)
-        not_ported("expert_host_pages", expert_host_pages, None)
-        not_ported("all_devices", all_devices, None)
+        not_ported("staging", staging, "serial", SLICE_B)
+        not_ported("expert_slot_slack", expert_slot_slack, 0, REBALANCE)
+        not_ported("expert_host_pages", expert_host_pages, None, REBALANCE)
         if kv_mode not in ("dense", "paged"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if expert_mode not in ("dense", "pooled"):
@@ -101,6 +248,8 @@ class HMM:
         self.kv_dtype = kv_dtype
         self.expert_dtype = expert_dtype
         self.device = resolve_device(device)
+        # logical device id -> torch.device; several ids may name one card
+        self.all_devices = logical_devices(all_devices, self.device)
         self.mcfg = mcfg
         self.tp = tp
         self.batch_per_replica = batch_per_replica
@@ -115,13 +264,18 @@ class HMM:
         self.kv_blocks_per_replica = (
             kv_blocks_per_replica
             or batch_per_replica * (max_len // kv_block_size))
+        # per-device pool pages, fixed at boot for the HMM's lifetime
         self.expert_pool_pages = expert_pool_pages
         self.page_table: Optional[ExpertPageTable] = None
         self.kv_blocks: Optional[KVBlockManager] = None
         self.active_cfg: Optional[ElasticConfig] = None
         self.params: Any = None
         self.cache: Any = None
+        self.staged: Optional[Tuple] = None
         self.boot_s = 0.0
+        self.last_stats: Optional[TransferStats] = None
+        self.last_migrations: Optional[List] = None
+        self._reset_stage_session()
 
     @property
     def _n_moe_layers(self) -> int:
@@ -135,59 +289,158 @@ class HMM:
         scale = 3 * 4 if self.expert_dtype is not None else 0
         return 3 * self.mcfg.d_model * self.mcfg.moe_d_ff * bpe + scale
 
+    # ----------------------------------------------------------- shardings
+    def param_sharding(self, path: str, shape, mesh: Mesh) -> NamedSharding:
+        """TP over 'tp'; experts over ('dp','tp') = EP; the rest replicated
+        over 'dp' (attention replicas) — the reference's rules."""
+        stacked = 1 if ("blocks/" in path or "cross_blocks/" in path) else 0
+        ntp = mesh.tp
+        nep = mesh.dp * mesh.tp
+        s: List[Any] = [None] * len(shape)
+        ep = ("dp", "tp")
+        if re.search(r"moe/w[igo]$", path):
+            if shape[stacked] % nep == 0:
+                s[stacked] = ep
+        elif re.search(r"moe_pool/w[igo](_scale)?$", path):
+            if shape[0] % nep == 0:
+                s[0] = ep
+        elif re.search(r"moe/tables$", path):
+            if shape[stacked] % nep == 0:
+                s[stacked] = ep
+        elif not re.search(r"moe/(edest|eslot|gtable)$", path):
+            rules = [
+                (r"attn/q/w$|attn/q_up/w$|xattn/q/w$", stacked + 1),
+                (r"attn/(k|v)/w$|xattn/(k|v)/w$", stacked + 1),
+                (r"attn/o/w$|xattn/o/w$", stacked + 0),
+                (r"attn/(k|v)_up/w$", stacked + 1),
+                (r"(mlp|shared)/(up|gate)/w$", stacked + 1),
+                (r"(mlp|shared)/down/w$", stacked + 0),
+                (r"lm_head/w$", 1),
+                (r"embed$", 0),
+            ]
+            for pat, dim in rules:
+                if re.search(pat, path) and dim < len(shape) \
+                        and shape[dim] % ntp == 0 and shape[dim] >= ntp:
+                    s[dim] = "tp"
+                    break
+        return NamedSharding(mesh, tuple(s))
+
+    @staticmethod
+    def cache_sharding(shape, mesh: Mesh) -> NamedSharding:
+        """[L, B or NB, ...]: the batch or block axis over 'dp'."""
+        s: List[Any] = [None] * len(shape)
+        if len(shape) >= 2 and shape[1] % mesh.dp == 0:
+            s[1] = "dp"
+        return NamedSharding(mesh, tuple(s))
+
+    def _cache_template(self, cfg: ElasticConfig) -> Dict[str, Tuple]:
+        """name -> (shape, dtype) of ``cfg``'s cache (nothing allocated)."""
+        cache = self.make_cache(cfg, device="meta")
+        return {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
+
+    def make_cache(self, cfg: ElasticConfig, device=None):
+        """Freshly zeroed decode cache for ``cfg`` on ``device`` (dense rows
+        or the paged block pool, per ``kv_mode``)."""
+        device = self.device if device is None else device
+        if self.kv_mode == "paged":
+            return init_paged_cache(
+                self.mcfg, cfg.dp * self.kv_blocks_per_replica,
+                self.kv_block_size, device=device, kv_dtype=self.kv_dtype)
+        return init_cache(self.mcfg, cfg.dp * self.batch_per_replica,
+                          self.max_len, device=device)
+
+    def _sharded_cache(self, cfg: ElasticConfig, mesh: Mesh):
+        """``cfg``'s cache as zeroed shards, made on each device."""
+        out = {}
+        for name, (shape, dtype) in self._cache_template(cfg).items():
+            sh = self.cache_sharding(shape, mesh)
+            out[name] = ShardedTensor(shape, sh, {
+                d: torch.zeros(index_shape(shape, idx), dtype=dtype,
+                               device=mesh.torch_device(d))
+                for d, idx in sh.devices_indices_map(shape).items()})
+        return out
+
+    def _pooled_index_arrays(self, table, cfg: ElasticConfig):
+        return pooled_layout(table, cfg, self._n_moe_layers,
+                             self.mcfg.num_experts, self.expert_pool_pages)
+
+    # ----------------------------------------------------------------- boot
     @obs.traced("hmm.boot", cat="hmm")
     def boot(self, cfg: ElasticConfig, params=None) -> float:
-        """First boot on one device: draw the parameters on the device (or
-        take ``params``, the reference's converted parameters in this HMM's
-        expert layout — ``convert.params_from_jax``), fill the expert
-        store, and create the KV cache (and, paged, its block manager).
-        Returns the seconds it took."""
-        if cfg.ndev != 1 or cfg.tp != 1 or self.tp != 1:
+        """First boot: draw the parameters on the devices (or take
+        ``params``, the reference's converted global parameters in this
+        HMM's expert layout — ``convert.params_from_jax`` — and shard
+        them), fill the expert store, and create the KV cache (and, paged,
+        its block manager).  Returns the seconds it took."""
+        check_devices(cfg, self.all_devices)
+        if cfg.tp != self.tp:
+            raise ValueError(f"{cfg.describe()}: the HMM was built for "
+                             f"tp={self.tp}")
+        if cfg.ndev > 1 and not paged_cache_supported(self.mcfg):
             raise NotImplementedError(
-                f"{cfg.describe()} (tp={self.tp}): configurations with more "
-                f"than one device are not ported yet")
+                f"{self.mcfg.name}: MLA and Mamba2 models on more than one "
+                f"device are not ported yet (the multi-device MLA and "
+                f"Mamba2 slice, ROADMAP §0 item 3)")
         t0 = time.perf_counter()
-        if self.expert_mode == "pooled":
+        layout = None
+        if self.mcfg.is_moe:
             L, E = self._n_moe_layers, self.mcfg.num_experts
-            # one device: every (layer, expert) page lives in the one pool
-            self.expert_pool_pages = self.expert_pool_pages or L * E
+            pooled = self.expert_mode == "pooled"
+            if pooled and self.expert_pool_pages is None:
+                # room for staging (active + migrated-in pages) and for
+                # scaling down to half the boot device count
+                self.expert_pool_pages = min(
+                    2 * L * math.ceil(E / cfg.ndev), L * E)
             self.page_table = ExpertPageTable(
-                L, E, pool_pages_per_device=self.expert_pool_pages)
+                L, E, pool_pages_per_device=(self.expert_pool_pages
+                                             if pooled else 0))
             self.page_table.initial_place(cfg)
-            layout = pooled_layout(self.page_table.active, cfg, L, E,
-                                   self.expert_pool_pages)
+            if pooled:
+                layout = self._pooled_index_arrays(self.page_table.active,
+                                                   cfg)
+        if cfg.ndev == 1:
+            self._boot_one(cfg, params, layout)
+        else:
+            mesh = make_instance_mesh(cfg, self.all_devices)
+            self.params = (self._init_sharded_params(cfg, mesh, layout)
+                           if params is None
+                           else self._adopt_sharded(params, mesh, layout))
+            self.cache = self._sharded_cache(cfg, mesh)
+        if self.kv_mode == "paged":
+            self.kv_blocks = KVBlockManager(cfg.dp,
+                                            self.kv_blocks_per_replica,
+                                            self.kv_block_size)
+        self.active_cfg = cfg
+        self.boot_s = time.perf_counter() - t0
+        self.last_stats = TransferStats(wall_s=self.boot_s)
+        return self.boot_s
+
+    def _boot_one(self, cfg: ElasticConfig, params, layout):
+        """One device: plain tensors on it."""
+        self.device = self.all_devices[cfg.devices[0]]
+        if self.expert_mode == "pooled":
             params = (self._init_pooled_params(cfg, layout) if params is None
                       else self._adopt(params, layout))
         else:
             params = (self._init_dense_params() if params is None
                       else self._adopt(params))
         self.params = params
-        if self.kv_mode == "paged":
-            self.cache = init_paged_cache(
-                self.mcfg, cfg.dp * self.kv_blocks_per_replica,
-                self.kv_block_size, device=self.device,
-                kv_dtype=self.kv_dtype)
-            self.kv_blocks = KVBlockManager(cfg.dp,
-                                            self.kv_blocks_per_replica,
-                                            self.kv_block_size)
-        else:
-            self.cache = init_cache(self.mcfg,
-                                    cfg.dp * self.batch_per_replica,
-                                    self.max_len, device=self.device)
-        self.active_cfg = cfg
-        self.boot_s = time.perf_counter() - t0
-        return self.boot_s
+        self.cache = self.make_cache(cfg)
 
-    def _expert_banks(self):
+    def _expert_banks(self, dev):
         """Yield each MoE layer's freshly drawn routed expert bank
-        ``(l, {wi, wg, wo})`` on the device, from one generator seeded
-        with ``seed + 1``: both stores hold the same numbers."""
-        mcfg, dev = self.mcfg, self.device
+        ``(l, {wi, wg, wo})`` on ``dev``, from one generator seeded with
+        ``seed + 1``: every store and device count holds the same
+        numbers."""
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.seed + 1)
         for l in range(self._n_moe_layers):
-            yield l, init_expert_bank(mcfg, gen, torch_dtype(mcfg.dtype),
-                                      dev)
+            yield l, init_expert_bank(self.mcfg, gen,
+                                      torch_dtype(self.mcfg.dtype), dev)
+
+    def _bank_shapes(self):
+        D, Fd = self.mcfg.d_model, self.mcfg.moe_d_ff
+        return {"wi": (D, Fd), "wg": (D, Fd), "wo": (Fd, D)}
 
     def _init_dense_params(self):
         """Random parameters with dense expert banks ``blocks/moe/{wi, wg,
@@ -198,59 +451,67 @@ class HMM:
         if not mcfg.is_moe:
             return params
         L, E = self._n_moe_layers, mcfg.num_experts
-        D, Fd = mcfg.d_model, mcfg.moe_d_ff
         dtype = torch_dtype(mcfg.dtype)
         moe = params["blocks"]["moe"]
-        for k, shape in (("wi", (D, Fd)), ("wg", (D, Fd)), ("wo", (Fd, D))):
+        for k, shape in self._bank_shapes().items():
             moe[k] = torch.empty((L, E, *shape), dtype=dtype, device=dev)
-        for l, bank in self._expert_banks():
+        for l, bank in self._expert_banks(dev):
             for k in ("wi", "wg", "wo"):
                 moe[k][l] = bank.pop(k)
             del bank
         return params
 
+    def _pool_banks(self, rows: int, dev):
+        """Zeroed page pools of ``rows`` pages (and, int8, their scale
+        banks) on ``dev``."""
+        quant = self.expert_dtype is not None
+        pdt = torch.int8 if quant else torch_dtype(self.mcfg.dtype)
+        pool = {k: torch.zeros((rows, *shape), dtype=pdt, device=dev)
+                for k, shape in self._bank_shapes().items()}
+        if quant:
+            for k in list(pool):
+                pool[k + "_scale"] = torch.zeros((rows,), dtype=torch.float32,
+                                                 device=dev)
+        return pool
+
+    def _write_pages(self, pool, bank, pages, experts=None):
+        """Write ``bank``'s experts ``experts`` (all by default) into pool
+        rows ``pages`` (int8: quantized on the device, one scale per
+        page)."""
+        dev = pool["wi"].device
+        pages = pages.to(dev)
+        for k in self._bank_shapes():
+            w = bank.pop(k)
+            if experts is not None:
+                w = w[experts]
+            if self.expert_dtype is not None:
+                q, sc = quantize_rows(w, (-2, -1))
+                pool[k][pages] = q.to(dev)
+                pool[k + "_scale"][pages] = sc.to(dev)
+            else:
+                pool[k][pages] = w.to(dev)
+
     def _init_pooled_params(self, cfg: ElasticConfig, layout):
         """Random parameters with the experts written layer by layer
         straight into their ``initial_place`` pages: the dense banks are
         never held beside the pool (at full size that would be the 58 GB
-        of expert weights twice).  With ``expert_dtype="int8"`` each
-        layer's freshly drawn bank is quantized on the device, one scale
-        per (layer, expert) page, and its int8 pages and scales are written
-        through the same rows."""
+        of expert weights twice)."""
         mcfg, dev = self.mcfg, self.device
-        dtype = torch_dtype(mcfg.dtype)
         params = init_params(mcfg, self.seed, device=dev)
-        rows = cfg.ndev * self.expert_pool_pages
-        D, Fd = mcfg.d_model, mcfg.moe_d_ff
-        quant = self.expert_dtype is not None
-        pdt = torch.int8 if quant else dtype
-        pool = {"wi": torch.zeros((rows, D, Fd), dtype=pdt, device=dev),
-                "wg": torch.zeros((rows, D, Fd), dtype=pdt, device=dev),
-                "wo": torch.zeros((rows, Fd, D), dtype=pdt, device=dev)}
-        banks = list(pool)
-        if quant:
-            for k in banks:
-                pool[k + "_scale"] = torch.zeros((rows,), dtype=torch.float32,
-                                                 device=dev)
-        for l, bank in self._expert_banks():
+        pool = self._pool_banks(cfg.ndev * self.expert_pool_pages, dev)
+        for l, bank in self._expert_banks(dev):
             pages = torch.from_numpy(layout["gtable"][l].astype(np.int64)
                                      ).to(dev)
-            for k in banks:
-                if quant:
-                    pool[k][pages], pool[k + "_scale"][pages] = \
-                        quantize_rows(bank.pop(k), (-2, -1))
-                else:
-                    pool[k][pages] = bank.pop(k)
-            del bank
+            self._write_pages(pool, bank, pages)
         params["blocks"]["moe"].update(
             {k: torch.from_numpy(v).to(dev) for k, v in layout.items()})
         params["moe_pool"] = pool
         return params
 
-    def _adopt(self, params, layout=None):
-        """Move given parameters to the device, checking that they are in
-        this HMM's expert layout: dense banks (``layout`` None), or the
-        pooled store whose page tables are this HMM's placement."""
+    def _check_layout(self, params, layout) -> None:
+        """Given parameters must be in this HMM's expert layout: dense
+        banks (``layout`` None), or the pooled store whose page tables are
+        this HMM's placement and whose pages are of its store dtype."""
         moe = params["blocks"].get("moe", {})
         if layout is None:
             if "moe_pool" in params or (self.mcfg.is_moe
@@ -258,26 +519,349 @@ class HMM:
                 raise ValueError("params must hold dense expert banks "
                                  "(blocks/moe/wi, wg, wo) for "
                                  "expert_mode='dense'")
-        else:
-            if "moe_pool" not in params or "gtable" not in moe:
-                raise ValueError("params must be in the pooled layout "
-                                 "(moe_pool + blocks/moe/gtable)")
-            got = moe["gtable"].cpu().numpy()
-            if not np.array_equal(got, layout["gtable"]):
-                raise ValueError("params' page tables differ from the "
-                                 "initial placement of this configuration")
-            pool = params["moe_pool"]
-            quant = self.expert_dtype is not None
-            if (pool["wi"].dtype == torch.int8) != quant \
-                    or ("wi_scale" in pool) != quant:
-                raise ValueError(f"params' expert pool ({pool['wi'].dtype}, "
-                                 f"scales: {'wi_scale' in pool}) does not "
-                                 f"match expert_dtype={self.expert_dtype!r}")
+            return
+        if "moe_pool" not in params or "gtable" not in moe:
+            raise ValueError("params must be in the pooled layout "
+                             "(moe_pool + blocks/moe/gtable)")
+        got = moe["gtable"].cpu().numpy()
+        if not np.array_equal(got, layout["gtable"]):
+            raise ValueError("params' page tables differ from the "
+                             "initial placement of this configuration")
+        pool = params["moe_pool"]
+        quant = self.expert_dtype is not None
+        if (pool["wi"].dtype == torch.int8) != quant \
+                or ("wi_scale" in pool) != quant:
+            raise ValueError(f"params' expert pool ({pool['wi'].dtype}, "
+                             f"scales: {'wi_scale' in pool}) does not "
+                             f"match expert_dtype={self.expert_dtype!r}")
 
-        def move(t):
-            if isinstance(t, dict):
-                return {k: move(v) for k, v in t.items()}
-            if isinstance(t, list):
-                return [move(v) for v in t]
-            return t.to(self.device).contiguous()
-        return move(params)
+    def _adopt(self, params, layout=None):
+        """Move given parameters to the device, checking their layout."""
+        self._check_layout(params, layout)
+        return tree_map_with_path(
+            lambda _, t: t.to(self.device).contiguous(), params)
+
+    def _init_sharded_params(self, cfg: ElasticConfig, mesh: Mesh, layout):
+        """Random parameters over several logical devices: the non-expert
+        leaves drawn once on the first device and sharded (that device
+        keeps the whole-tensor shards it drew), the experts drawn layer by
+        layer there and written into each device's shard — the same
+        numbers as a one-device boot."""
+        first = cfg.devices[0]
+        dev0 = mesh.torch_device(first)
+        params = init_params(self.mcfg, self.seed, device=dev0)
+        if layout is not None:
+            params["blocks"]["moe"].update(
+                {k: torch.from_numpy(v) for k, v in layout.items()})
+        out = tree_map_with_path(
+            lambda path, t: ShardedTensor.from_tensor(
+                t.to(dev0), self.param_sharding(path, t.shape, mesh),
+                keep_on=first),
+            params)
+        if not self.mcfg.is_moe:
+            return out
+        L, E = self._n_moe_layers, self.mcfg.num_experts
+        if layout is not None:
+            ppd = self.expert_pool_pages
+            pools = {d: self._pool_banks(ppd, mesh.torch_device(d))
+                     for d in cfg.devices}
+            owned = defaultdict(list)       # (layer, device) -> [(page, e)]
+            for (l, e), ref in self.page_table.active.items():
+                owned[(l, ref.device)].append((ref.page, e))
+            for l, bank in self._expert_banks(dev0):
+                for d in cfg.devices:
+                    if not owned[(l, d)]:
+                        continue            # more devices than experts
+                    pages, experts = zip(*owned[(l, d)])
+                    self._write_pages(pools[d], dict(bank),
+                                      torch.tensor(pages),
+                                      torch.tensor(experts, device=dev0))
+                del bank
+            out["moe_pool"] = {}
+            for k in pools[first]:
+                shape = (cfg.ndev * ppd,) + tuple(pools[first][k].shape[1:])
+                out["moe_pool"][k] = ShardedTensor(
+                    shape, self.param_sharding(f"moe_pool/{k}", shape, mesh),
+                    {d: pools[d][k] for d in cfg.devices})
+            return out
+        dtype = torch_dtype(self.mcfg.dtype)
+        moe = out["blocks"]["moe"]
+        for k, shape in self._bank_shapes().items():
+            full = (L, E) + shape
+            sh = self.param_sharding(f"blocks/moe/{k}", full, mesh)
+            moe[k] = ShardedTensor(full, sh, {
+                d: torch.empty(index_shape(full, idx), dtype=dtype,
+                               device=mesh.torch_device(d))
+                for d, idx in sh.devices_indices_map(full).items()})
+        for l, bank in self._expert_banks(dev0):
+            for k in self._bank_shapes():
+                for d, idx, shard in moe[k].addressable_shards:
+                    shard[l] = bank[k][idx[1]]
+            del bank
+        return out
+
+    def _adopt_sharded(self, params, mesh: Mesh, layout):
+        """Shard given global parameters over the logical devices, each
+        device taking a copy of its pieces."""
+        self._check_layout(params, layout)
+        return tree_map_with_path(
+            lambda path, t: ShardedTensor.from_tensor(
+                t, self.param_sharding(path, t.shape, mesh)),
+            params)
+
+    # ---------------------------------------------------------------- scale
+    def scale(self, new_cfg: ElasticConfig) -> TransferStats:
+        """Stage ``new_cfg``'s weights while the old instance keeps serving
+        (``begin_scale``, then ``stage_increment`` to the end).  The KV
+        cache grows at ``commit``.  Returns the staging's stats."""
+        self.begin_scale(new_cfg)
+        while self.stage_increment():
+            pass
+        return self.last_stats
+
+    @obs.traced("hmm.begin_scale", cat="hmm")
+    def begin_scale(self, new_cfg: ElasticConfig) -> int:
+        """Open a staging session toward ``new_cfg`` (one work unit per
+        parameter leaf; nothing moves yet) and return the number of units.
+        The pooled store stages its page remap here (``stage_remap(
+        min_move=True)``), so each pool bank's unit moves exactly the
+        ``Migration`` list."""
+        if self.active_cfg is None:
+            raise RuntimeError("boot() the HMM before scaling it")
+        if self._stage_work is not None:
+            raise RuntimeError("staging already in progress")
+        if new_cfg.tp != self.tp:
+            raise ValueError("TP is fixed during scaling (§4.1)")
+        if self.active_cfg.ndev == 1 or new_cfg.ndev == 1:
+            raise NotImplementedError(
+                "scaling from or to one device is not ported yet (boot on "
+                "two or more logical devices)")
+        t0 = time.perf_counter()
+        mesh = make_instance_mesh(new_cfg, self.all_devices)
+        if self.expert_mode == "pooled":
+            self.last_migrations = self.page_table.stage_remap(
+                new_cfg, min_move=True)
+            self._stage_layout = self._pooled_index_arrays(
+                self.page_table.staged, new_cfg)
+        work = []
+        for path, leaf in tree_leaves_with_path(self.params):
+            sh = self.param_sharding(path, leaf.shape, mesh)
+            kind, expert_dim = "reshard", None
+            if re.search(r"moe/w[igo]$", path):
+                # dense banks regroup at page granularity
+                expert_dim = 1 if "blocks/" in path else 0
+                kind = "expert_bank"
+            elif re.search(r"moe_pool/(w[igo](?:_scale)?)$", path):
+                kind = "pool:" + path.rsplit("/", 1)[1]
+            elif re.search(r"moe/(tables|edest|eslot|gtable)$", path):
+                kind = "index:" + path.rsplit("/", 1)[1]
+            work.append((path, leaf, sh, expert_dim, kind))
+        self._stage_work = work
+        self._stage_cursor = 0
+        self._stage_out = {}
+        self._stage_target = (new_cfg, mesh)
+        self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
+        return len(work)
+
+    def _stage_unit(self, leaf, sh, expert_dim, kind, new_cfg: ElasticConfig,
+                    mesh: Mesh, stats: TransferStats):
+        """Execute ONE unit of staging work; returns the staged leaf and
+        adds its bytes to ``stats``."""
+        if kind.startswith("pool:"):
+            return self._migrate_pool_bank(leaf, new_cfg, mesh, stats)
+        if kind.startswith("index:"):
+            # the staged index arrays were built once in begin_scale; no
+            # weight bytes move here
+            name = kind.split(":", 1)[1]
+            arr = torch.from_numpy(np.asarray(self._stage_layout[name],
+                                              np.int32))
+            spec = (None, ("dp", "tp"), None) if name == "tables" else ()
+            return ShardedTensor.from_tensor(arr, NamedSharding(mesh, spec))
+        if kind == "expert_bank":
+            # track the expert sub-bytes, so that the dense regroup and the
+            # pooled remap compare directly
+            sub = TransferStats()
+            out = reshard_with_reuse(leaf, sh, sub, expert_dim=expert_dim)
+            sub.expert_p2p_bytes = sub.p2p_bytes
+            sub.expert_zero_copy_bytes = sub.zero_copy_bytes
+            sub.expert_local_bytes = sub.local_bytes
+            stats.merge(sub)
+            return out
+        return reshard_with_reuse(leaf, sh, stats, expert_dim=expert_dim)
+
+    @obs.traced("hmm.stage_increment", cat="hmm")
+    def stage_increment(self, max_tensors: int = 1) -> bool:
+        """Stage up to ``max_tensors`` parameter leaves toward the target
+        opened by ``begin_scale``.  Safe between serving ticks: staging
+        only reads the live weights (a pool bank's migrated-in pages land
+        in pages the active table leaves free), and the KV cache is not
+        touched until ``commit``.  Returns True while units remain; the
+        last one assembles the staged tree, after which ``attach_staged``
+        and ``commit`` are legal."""
+        if self._stage_work is None:
+            raise RuntimeError("no staging session open")
+        t0 = time.perf_counter()
+        stats = self._stage_stats
+        new_cfg, mesh = self._stage_target
+        end = min(self._stage_cursor + max(1, max_tensors),
+                  len(self._stage_work))
+        for path, leaf, sh, expert_dim, kind in self._stage_work[
+                self._stage_cursor:end]:
+            u0 = time.perf_counter()
+            self._stage_out[path] = self._stage_unit(
+                leaf, sh, expert_dim, kind, new_cfg, mesh, stats)
+            stats.op_s += time.perf_counter() - u0
+        self._stage_cursor = end
+        stats.wall_s += time.perf_counter() - t0
+        if self._stage_cursor < len(self._stage_work):
+            return True
+        self._finalize_staging()
+        return False
+
+    def _finalize_staging(self):
+        """Assemble the staged tree; the dense banks record the contiguous
+        placement they now hold as the staged page table (the pooled store
+        staged its min-move remap in ``begin_scale``)."""
+        t0 = time.perf_counter()
+        stats = self._stage_stats
+        new_cfg, mesh = self._stage_target
+        out = self._stage_out
+        new_params = tree_map_with_path(lambda path, _: out[path],
+                                        self.params)
+        if self.page_table is not None and self.page_table.staged is None:
+            self.page_table.stage_remap(new_cfg, min_move=False)
+        self.staged = (new_cfg, mesh, new_params)
+        stats.wall_s += time.perf_counter() - t0
+        self.last_stats = stats
+        self._reset_stage_session()
+
+    def _migrate_pool_bank(self, leaf: ShardedTensor, new_cfg: ElasticConfig,
+                           mesh: Mesh, stats: TransferStats) -> ShardedTensor:
+        """Rebuild one pooled bank for ``new_cfg``: every surviving
+        device's pool slice is reused, new devices start from zeros, and
+        exactly the staged ``Migration`` list is copied, one page per copy
+        between logical devices.  A migrated-in page is written into its
+        destination slice in place: its page is one the active table
+        leaves free, so the serving instance never reads it (the
+        reference's immutable arrays take a new buffer instead)."""
+        ppd = self.expert_pool_pages
+        row_shape = leaf.shape[1:]
+        row_bytes = math.prod(row_shape) * leaf.dtype.itemsize
+        migs_by_dst: Dict[int, List] = defaultdict(list)
+        for m in self.last_migrations:
+            migs_by_dst[m.dst.device].append(m)
+        # pages that stay put are this bank's zero-copy reuse
+        staged, active = self.page_table.staged, self.page_table.active
+        unchanged = sum(1 for k, r in active.items() if staged.get(k) == r)
+        stats.zero_copy_bytes += unchanged * row_bytes
+        stats.zero_copy_count += unchanged
+        stats.expert_zero_copy_bytes += unchanged * row_bytes
+
+        shape = (new_cfg.ndev * ppd,) + tuple(row_shape)
+        sharding = NamedSharding(mesh, (("dp", "tp"),))
+        shards = {}
+        for dev in new_cfg.devices:
+            local = leaf.shards.get(dev)
+            if local is None:
+                local = torch.zeros((ppd, *row_shape), dtype=leaf.dtype,
+                                    device=mesh.torch_device(dev))
+            for m in migs_by_dst.get(dev, ()):
+                local[m.dst.page].copy_(leaf.shards[m.src.device][m.src.page])
+                stats.p2p_bytes += row_bytes
+                stats.p2p_count += 1
+                stats.expert_p2p_bytes += row_bytes
+            shards[dev] = local
+        return ShardedTensor(shape, sharding, shards)
+
+    def _reset_stage_session(self):
+        self._stage_work: Optional[List[Tuple]] = None
+        self._stage_cursor = 0
+        self._stage_out: Dict[str, Any] = {}
+        self._stage_target: Optional[Tuple] = None
+        self._stage_stats: Optional[TransferStats] = None
+        self._stage_layout: Optional[Dict[str, np.ndarray]] = None
+
+    def _grow_cache(self, new_cfg: ElasticConfig, mesh: Mesh,
+                    stats: TransferStats):
+        """Reuse surviving replicas' KV shards; zero new replicas'.  Dense
+        rows split the batch axis, the paged pool the block axis: either
+        way a surviving shard keeps its (index, logical device) and is
+        adopted as it is — every live block table stays valid."""
+        out = {}
+        for name, (shape, dtype) in self._cache_template(new_cfg).items():
+            leaf = self.cache[name]
+            sh = self.cache_sharding(shape, mesh)
+            old: Dict[tuple, List[Tuple[int, torch.Tensor]]] = {}
+            for dev, index, data in leaf.addressable_shards:
+                old.setdefault(_idx_key(index), []).append((dev, data))
+            shards = {}
+            for dev, index in sh.devices_indices_map(shape).items():
+                want = index_shape(shape, index)
+                same = [h for h in old.get(_idx_key(index), [])
+                        if h[0] == dev]
+                if same and tuple(same[0][1].shape) == want:
+                    data = same[0][1]
+                    stats.zero_copy_bytes += data.nbytes
+                    stats.zero_copy_count += 1
+                else:
+                    data = torch.zeros(want, dtype=dtype,
+                                       device=mesh.torch_device(dev))
+                    stats.init_bytes += data.nbytes
+                shards[dev] = data
+            out[name] = ShardedTensor(shape, sh, shards)
+        return out
+
+    # --------------------------------------------------------------- attach
+    def attach_staged(self):
+        """The staged instance's handles: (cfg, mesh, params, cache)."""
+        if self.staged is None:
+            raise RuntimeError("nothing is staged")
+        new_cfg, mesh, params = self.staged
+        return new_cfg, mesh, params, self.cache
+
+    def attach_active(self):
+        return (self.active_cfg,
+                make_instance_mesh(self.active_cfg, self.all_devices),
+                self.params, self.cache)
+
+    @obs.traced("hmm.commit", cat="hmm")
+    def commit(self, live_cache=None) -> TransferStats:
+        """Switchover: the staged weights become active, and the live KV
+        cache (``live_cache``, the engine's; surviving replicas' shards
+        reused as they are, new replicas zeroed) takes the new replica
+        count.  Shrinking the block pool needs the evicted partitions
+        free.  Old-only buffers become unreferenced (the paper's deferred
+        FREE)."""
+        if self.staged is None:
+            raise RuntimeError("nothing is staged: begin_scale and "
+                               "stage_increment first")
+        new_cfg, mesh, params = self.staged
+        stats = TransferStats()
+        t0 = time.perf_counter()
+        if live_cache is not None:
+            self.cache = live_cache
+        self.cache = self._grow_cache(new_cfg, mesh, stats)
+        if self.kv_blocks is not None:
+            if new_cfg.dp >= self.kv_blocks.num_partitions:
+                self.kv_blocks.grow_partitions(new_cfg.dp)
+            else:
+                self.kv_blocks.shrink_partitions(new_cfg.dp)
+        self.active_cfg = new_cfg
+        self.params = params
+        self.staged = None
+        if self.page_table is not None and self.page_table.staged is not None:
+            self.page_table.commit()
+        stats.wall_s = time.perf_counter() - t0
+        if self.last_stats is not None:
+            self.last_stats.merge(stats)
+        return stats
+
+    @obs.traced("hmm.abort", cat="hmm")
+    def abort(self):
+        """Abandon any staged state.  Idempotent; frees every staged-only
+        page exactly once (``ExpertPageTable.abort``)."""
+        self.staged = None
+        self.last_migrations = None
+        self._reset_stage_session()
+        if self.page_table is not None:
+            self.page_table.abort()

@@ -1,5 +1,6 @@
 """Elastic instance topology: the port's own copy of the parts of
-``repro.core.topology`` the one-card serving path uses.
+``repro.core.topology`` the serving and scaling paths use (the logical
+tensor descriptions that the cost planner reads are not ported).
 
 Conventions (paper §2.1, §4.1): an instance runs on ``dp * tp`` devices,
 experts are EP-distributed with ``ep = dp * tp``.
@@ -33,6 +34,15 @@ class ElasticConfig:
 
     def slot(self, device: int) -> int:
         return self.devices.index(device)
+
+    def tp_rank(self, device: int) -> int:
+        return self.slot(device) % self.tp
+
+    def dp_rank(self, device: int) -> int:
+        return self.slot(device) // self.tp
+
+    def ep_rank(self, device: int) -> int:
+        return self.slot(device)       # one EP rank per device
 
     def describe(self) -> str:
         return f"DP{self.dp}-TP{self.tp}-EP{self.ep}@{list(self.devices)}"

@@ -31,6 +31,25 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def logical_devices(all_devices, device="cuda"):
+    """The list of ``torch.device``s that logical device ids index: the
+    given ``all_devices`` (each resolved), or one entry per card, ``cuda:0
+    ... cuda:{n-1}``, when ``device`` names CUDA, or ``[device]`` on the
+    CPU.  A CUDA entry without an index means the current card."""
+    if all_devices is None:
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return [dev]
+        all_devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    out = []
+    for d in all_devices:
+        d = resolve_device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    return out
+
+
 def torch_dtype(name) -> torch.dtype:
     """A dtype name of the configs ("bfloat16", "float32") as torch dtype."""
     if isinstance(name, torch.dtype):

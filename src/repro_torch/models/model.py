@@ -26,6 +26,17 @@ Python loop over layers replaces the reference's ``lax.scan``.
 
 The steps that take a cache update it in place (the reference donates it
 to its jitted steps) and return the same dict.
+
+With ``parallel`` (``distributed.sharding.ParallelCtx``, several logical
+devices) the parameters and the cache are trees of ``ShardedTensor``s, as
+``HMM`` lays them out: each DP replica runs its embedding, norms,
+attention and LM head on its own shards, over its own rows and its own
+slice of the cache (the slot cache split on its batch axis, the block pool
+on its block axis: block tables and block ids are local to that slice),
+and every MoE layer runs ``moe_ep`` across all logical devices.  A decode
+step's rows are the replicas' slots in order; a prefill or a chunk belongs
+to one replica (``replica``).  Only standard-attention decoders at tp = 1
+are ported across devices.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import local_view
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_norm, attention_apply,
                                        attention_init, linear, linear_init,
@@ -44,7 +56,8 @@ from repro_torch.models.layers import (apply_norm, attention_apply,
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
                                        mamba2_init)
 from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
-from repro_torch.models.moe import moe_local, moe_local_pooled, router_init
+from repro_torch.models.moe import (moe_ep, moe_local, moe_local_pooled,
+                                    router_init)
 
 Params = Dict[str, Any]
 
@@ -321,7 +334,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, dtype=None, *,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def write_prefill_to_blocks(cache, dense_cache, block_ids):
+def write_prefill_to_blocks(cache, dense_cache, block_ids, *, parallel=None,
+                            replica: int = 0):
     """Scatter one sequence's prefill KV (``dense_cache`` {'k','v': [L, 1,
     S, KVH, hd]}) into its pool blocks, in place.  ``block_ids`` [S/bs]
     holds the pool row per prompt block; entries == NB drop — the engine
@@ -329,17 +343,95 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids):
     blocks, which hold another live sequence's tokens.  An int8 pool
     quantizes each token row as it is written and scatters its scale
     through the same ids.  Every layer's K and V go in with one
-    ``ops.kv_block_write``.  Returns ``cache``."""
-    rows = cache["k"].shape[2] * block_ids.shape[0]
-    ops.kv_block_write(cache["k"], cache["v"], dense_cache["k"][:, 0, :rows],
+    ``ops.kv_block_write``.  With ``parallel`` the rows go into replica
+    ``replica``'s slice of the sharded pool, ``block_ids`` local to it.
+    Returns ``cache``."""
+    pools = cache
+    if parallel is not None:
+        owner = parallel.replicas[replica]
+        pools = local_view(cache, owner)
+        block_ids = block_ids.to(parallel.torch_device(owner))
+    rows = pools["k"].shape[2] * block_ids.shape[0]
+    ops.kv_block_write(pools["k"], pools["v"], dense_cache["k"][:, 0, :rows],
                        dense_cache["v"][:, 0, :rows], block_ids,
-                       cache.get("k_scale"), cache.get("v_scale"))
+                       pools.get("k_scale"), pools.get("v_scale"))
     return cache
+
+
+# ------------------------------------------------------------ DP replicas
+
+def _check_parallel(cfg, parallel) -> None:
+    if parallel.tp != 1:
+        raise NotImplementedError(
+            "serving at tp > 1 (attention, MLP, embedding and LM head split "
+            "over the TP ranks, with explicit sums between them) is not "
+            "ported yet: it is the TP-serving slice, Slice A2 (ROADMAP "
+            "§0 item 1)")
+    if not paged_cache_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA and Mamba2 models on more than one device are "
+            f"not ported yet (the multi-device MLA and Mamba2 slice, "
+            f"ROADMAP §0 item 3)")
+
+
+def _dp_layers(cfg, params, parallel, owners, tokens, attn):
+    """Run the decoder over row groups, group g on logical device
+    ``owners[g]`` with ``tokens[g]`` [b, S] there: its embedding, norms and
+    attention (``attn(g, layer, its block params, h)`` -> the attention
+    output) on that device's shards, then every group's feed-forward
+    together — ``moe_ep`` across all logical devices in a MoE layer.
+    Returns each group's final-normed hidden states and its parameter
+    view."""
+    _check_parallel(cfg, parallel)
+    local = [local_view(params, d) for d in owners]
+    xs = [F.embedding(t.long(), lp["embed"]) for t, lp in zip(tokens, local)]
+    pool = params.get("moe_pool")
+    nk = cfg.first_k_dense if cfg.is_moe else 0
+    for blocks in zip(*(_layers(cfg, lp) for lp in local)):
+        _, i, _, moe = blocks[0]
+        hs = []
+        for g, (_, _, bp, _) in enumerate(blocks):
+            h = apply_norm(bp["ln1"], xs[g], cfg.norm_type)
+            xs[g] = xs[g] + attn(g, i, bp, h)
+            hs.append(apply_norm(bp["ln2"], xs[g], cfg.norm_type))
+        if moe:
+            ys = moe_ep(cfg, layer_params(params["blocks"]["moe"], i - nk),
+                        hs, parallel, pool=pool, owners=owners)
+            if cfg.dense_residual:
+                ys = [y + mlp_apply(b[2]["mlp"], h, cfg.mlp_gated)
+                      for y, b, h in zip(ys, blocks, hs)]
+        else:
+            ys = [mlp_apply(b[2]["mlp"], h, cfg.mlp_gated)
+                  for b, h in zip(blocks, hs)]
+        xs = [x + y for x, y in zip(xs, ys)]
+    return ([apply_norm(lp["final_norm"], x, cfg.norm_type)
+             for lp, x in zip(local, xs)], local)
+
+
+def _replica_rows(parallel, *ts):
+    """Split batch-major tensors into the DP replicas' row groups, each on
+    its replica's device -> (owners, [[t rows of replica r] ...])."""
+    owners = list(parallel.replicas)
+    n = ts[0].shape[0] // len(owners)
+    return owners, [[t[r * n:(r + 1) * n].to(parallel.torch_device(d))
+                     for t in ts] for r, d in enumerate(owners)]
+
+
+def _gather_rows(parallel, owners, ts):
+    """The replicas' row groups as one batch on the first one's device."""
+    dev = parallel.torch_device(owners[0])
+    return torch.cat([t.to(dev) for t in ts])
+
+
+def _one_replica(parallel, replica, *ts):
+    owner = parallel.replicas[replica]
+    dev = parallel.torch_device(owner)
+    return owner, dev, [t.to(dev) for t in ts]
 
 
 # ------------------------------------------------------------------- steps
 
-def forward(cfg, params: Params, batch):
+def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
     """Full-sequence forward: tokens [B,S] -> logits [B,S,V].  Every
     sequence attends causally over its S tokens (``ops.flash_attention``);
     an SSD layer scans them from a zero state (``ops.ssd_scan``).  The
@@ -350,6 +442,14 @@ def forward(cfg, params: Params, batch):
                                   f"MLA and Mamba2 decoders are ported")
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if parallel is not None:     # the batch on replica ``replica``
+        owner, dev, (tokens,) = _one_replica(parallel, replica, tokens)
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
+        hs, local = _dp_layers(
+            cfg, params, parallel, [owner], [tokens],
+            lambda g, i, bp, h: attention_apply(cfg, bp["attn"], h,
+                                                positions)[0])
+        return linear(local[0]["lm_head"], hs[0])
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     pool = params.get("moe_pool")
@@ -363,7 +463,8 @@ def forward(cfg, params: Params, batch):
     return linear(params["lm_head"], x)
 
 
-def prefill(cfg, params: Params, batch, max_len: int):
+def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,
+            replica: int = 0):
     """Monolithic prefill of left-aligned prompts padded to one length.
 
     batch: tokens [B,S], optional lengths [B] (true prompt lengths).  Every
@@ -374,8 +475,12 @@ def prefill(cfg, params: Params, batch, max_len: int):
     first S rows (the last ``max_len`` when S is longer) and zeros
     after).  An SSD layer scans all S tokens, padding included, so its
     cached conv tail and state are those after S tokens, as in the
-    reference; decode continues from there."""
+    reference; decode continues from there.  With ``parallel`` the batch
+    runs on replica ``replica``, which holds the returned logits and
+    cache."""
     _check_dense_kv(cfg)
+    if parallel is not None:
+        return _prefill_dp(cfg, params, batch, max_len, parallel, replica)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
@@ -402,7 +507,30 @@ def prefill(cfg, params: Params, batch, max_len: int):
     return linear(params["lm_head"], last), cache
 
 
-def decode_step(cfg, params: Params, tokens, cache, lengths):
+def _prefill_dp(cfg, params, batch, max_len, parallel, replica):
+    tokens, lengths = batch["tokens"], batch.get("lengths")
+    B, S = tokens.shape
+    owner, dev, (tokens,) = _one_replica(parallel, replica, tokens)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    n = min(S, max_len)
+    cache = init_cache(cfg, B, max_len, params["embed"].dtype, device=dev)
+
+    def attn(g, i, bp, h):
+        a, (k, v) = attention_apply(cfg, bp["attn"], h, positions)
+        cache["k"][i, :, :n] = k[:, S - n:]
+        cache["v"][i, :, :n] = v[:, S - n:]
+        return a
+    hs, local = _dp_layers(cfg, params, parallel, [owner], [tokens], attn)
+    x = hs[0]
+    if lengths is None:
+        last = x[:, -1]
+    else:
+        last = x[torch.arange(B, device=dev), lengths.to(dev).long() - 1]
+    return linear(local[0]["lm_head"], last), cache
+
+
+def decode_step(cfg, params: Params, tokens, cache, lengths, *,
+                parallel=None):
     """One decode step over the slot-contiguous cache.  tokens [B,1];
     lengths [B] int32 = tokens already cached: the new token's k/v (MLA:
     latent rows) land at slot ``lengths`` (``ops.kv_cache_write_pair``; past
@@ -412,8 +540,24 @@ def decode_step(cfg, params: Params, tokens, cache, lengths):
     state; a hybrid's shared block writes at ``lengths % max_len`` and
     attends ``min(lengths + 1, max_len)`` positions, as the reference's
     hybrid branch does.  Updates ``cache`` in place; returns (logits
-    [B,V], cache)."""
+    [B,V], cache).  With ``parallel`` each replica decodes its own slots
+    over its slice of the cache."""
     _check_dense_kv(cfg)
+    if parallel is not None:
+        owners, rows = _replica_rows(parallel, tokens, lengths)
+        caches = [local_view(cache, d) for d in owners]
+
+        def attn(g, i, bp, h):
+            lens = rows[g][1]
+            return attention_apply(
+                cfg, bp["attn"], h, lens[:, None],
+                cache=(caches[g]["k"][i], caches[g]["v"][i]),
+                write_pos=_cache_slot(cfg, lens), kv_valid_len=lens + 1)[0]
+        hs, local = _dp_layers(cfg, params, parallel, owners,
+                               [r[0] for r in rows], attn)
+        return _gather_rows(parallel, owners, [
+            linear(lp["lm_head"], h[:, 0]) for lp, h in zip(local, hs)]), \
+            cache
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     write_pos = _cache_slot(cfg, lengths)
@@ -438,12 +582,30 @@ def decode_step(cfg, params: Params, tokens, cache, lengths):
 
 
 def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
-                      block_tables, write_block):
+                      block_tables, write_block, *, parallel=None):
     """One decode step over the paged KV pool.  tokens [B,1]; lengths [B]
     int32 (tokens already cached); block_tables [B,MB] int32; write_block
     [B] int32 = row receiving this token's k/v (``NB`` for inactive slots
     -> dropped).  Updates ``cache`` in place; returns (logits [B,V],
-    cache)."""
+    cache).  With ``parallel`` each replica decodes its own slots over its
+    pool slice: its rows' tables, write blocks and ``NB`` are local to
+    it."""
+    if parallel is not None:
+        owners, rows = _replica_rows(parallel, tokens, lengths, block_tables,
+                                     write_block)
+        caches = [local_view(cache, d) for d in owners]
+
+        def attn(g, i, bp, h):
+            _, lens, bt, wb = rows[g]
+            return paged_attention_apply(
+                cfg, bp["attn"], h, lens[:, None],
+                cache={n: v[i] for n, v in caches[g].items()},
+                block_tables=bt, write_block=wb, lengths=lens)[0]
+        hs, local = _dp_layers(cfg, params, parallel, owners,
+                               [r[0] for r in rows], attn)
+        return _gather_rows(parallel, owners, [
+            linear(lp["lm_head"], h[:, 0]) for lp, h in zip(local, hs)]), \
+            cache
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     pool = params.get("moe_pool")
@@ -462,7 +624,8 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
 
 
 def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
-                             length: int, block_tables, chunk_block_ids):
+                             length: int, block_tables, chunk_block_ids, *,
+                             parallel=None, replica: int = 0):
     """One chunked-prefill step for a single sequence over the paged pool.
 
     tokens [1,C] — one prompt chunk at positions start..start+C-1 (rows at
@@ -471,16 +634,33 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
     block_tables [1,MB] = the sequence's table; chunk_block_ids [C/bs] =
     pool rows receiving this chunk's k/v (``NB`` for padding / CoW-shared
     rows -> dropped).  Updates ``cache`` in place; returns (logits [1,V] at
-    position ``length-1``, cache)."""
+    position ``length-1``, cache).  With ``parallel`` the sequence belongs
+    to replica ``replica``: its table and ids are local to that replica's
+    pool slice."""
     start, length = int(start), int(length)
     C = tokens.shape[1]
     dev = tokens.device
-    x = F.embedding(tokens.long(), params["embed"])
+    if parallel is not None:
+        owner, dev, (tokens, block_tables, chunk_block_ids) = _one_replica(
+            parallel, replica, tokens, block_tables, chunk_block_ids)
     positions = start + torch.arange(C, device=dev, dtype=torch.int32)[None]
     q_len = length - start
     # fills, not copies from host memory: the step never syncs
     ctx_t = torch.full((1,), length, dtype=torch.int32, device=dev)
     qlen_t = torch.full((1,), q_len, dtype=torch.int32, device=dev)
+    if parallel is not None:
+        pools = local_view(cache, owner)
+
+        def attn(g, i, bp, h):
+            return paged_chunk_attention_apply(
+                cfg, bp["attn"], h, positions,
+                cache={n: v[i] for n, v in pools.items()},
+                block_tables=block_tables, chunk_block_ids=chunk_block_ids,
+                ctx_len=ctx_t, q_len=qlen_t)[0]
+        hs, local = _dp_layers(cfg, params, parallel, [owner], [tokens],
+                               attn)
+        return linear(local[0]["lm_head"], hs[0][:, q_len - 1]), cache
+    x = F.embedding(tokens.long(), params["embed"])
     pool = params.get("moe_pool")
     for _, i, bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)

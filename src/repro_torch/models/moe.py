@@ -1,6 +1,7 @@
-"""Mixture-of-Experts layer on one shard — the port of the single-shard
-paths of ``repro.models.moe`` (router, capacity dispatch, combine, and the
-dense-bank and pooled-store expert FFNs).
+"""Mixture-of-Experts layer — the port of ``repro.models.moe``: router,
+capacity dispatch and combine, the single-shard paths over dense banks and
+the pooled store, and ``moe_ep``, the expert-parallel path across logical
+devices.
 
 Capacity convention (GShard): every expert gets ``C = ceil(T * top_k / E *
 capacity_factor)`` slots; slots come from a cumulative count over the
@@ -28,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_view
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dot, mlp_apply
 
@@ -99,6 +101,32 @@ def _expert_ffn(xg, wi, wg, wo):
     return dot(h, wo)
 
 
+def _scatter(x, k: int, lead, where, C: int):
+    """Dispatch buffer ``lead + [C, D]`` holding each kept (token, k) entry
+    at ``where`` (index tensors over ``lead``, then the slot); dropped
+    entries (slot ``C``) land in an overflow slot that is cut off."""
+    T, D = x.shape
+    token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((*lead, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[where] = x[token_idx]
+    return buf[..., :C, :]
+
+
+def _combine(yg, where, topk_w, keep):
+    """Each token's k expert outputs from ``yg`` (``lead + [C, D]``, read
+    at ``where``; dropped entries read a zero slot), weighted and summed
+    over k in order in the working dtype -> [T, D]."""
+    T, k = topk_w.shape
+    D = yg.shape[-1]
+    yg = torch.cat([yg, yg.new_zeros((*yg.shape[:-2], 1, D))], dim=-2)
+    w_flat = topk_w.reshape(T * k).to(yg.dtype)
+    contrib = (yg[where] * (w_flat * keep)[:, None]).reshape(T, k, D)
+    y = contrib[:, 0]
+    for j in range(1, k):                          # in order, working dtype
+        y = y + contrib[:, j]
+    return y
+
+
 def _moe_local_body(cfg, p, x, capacity, expert_ffn):
     """Single-shard dispatch / combine shared by the dense banks and the
     pooled store; ``expert_ffn(xg [E, C, D]) -> [E, C, D]`` is the only
@@ -109,19 +137,9 @@ def _moe_local_body(cfg, p, x, capacity, expert_ffn):
     C = capacity or capacity_for(T, cfg)
     _, topk_idx, topk_w = _topk(p["router"], x, k)
     expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
-    token_idx = torch.arange(T, device=x.device).repeat_interleave(k)
-
-    xg = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    xg[expert_flat, slot] = x[token_idx]           # slot C: dropped entries
-    yg = expert_ffn(xg[:, :C].contiguous())
-    yg = torch.cat([yg, yg.new_zeros((E, 1, D))], dim=1)   # zero fill slot
-
-    w_flat = topk_w.reshape(T * k).to(x.dtype)
-    contrib = yg[expert_flat, slot] * (w_flat * keep)[:, None]
-    contrib = contrib.reshape(T, k, D)
-    y = contrib[:, 0]
-    for j in range(1, k):                          # in order, working dtype
-        y = y + contrib[:, j]
+    where = (expert_flat, slot)
+    yg = expert_ffn(_scatter(x, k, (E,), where, C).contiguous())
+    y = _combine(yg, where, topk_w, keep)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x)
     return y
@@ -142,14 +160,151 @@ def moe_local_pooled(cfg, p, pool, x, capacity=None):
     paged-GMM launches on the card).  An int8 store also holds the
     per-page f32 scale banks ``{wi,wg,wo}_scale`` [pages], read through the
     same table (``ops.quant_paged_expert_ffn``).  x [T, D] -> [T, D]."""
-    gt = p["gtable"]
+    return _moe_local_body(cfg, p, x, capacity,
+                           _paged_ffn(p["gtable"], pool))
+
+
+def _paged_ffn(table, pool):
+    """The expert FFN over ``pool``'s pages ``table`` [E]: xg [E, C, D] ->
+    [E, C, D]; int8 pages with their scale banks if the pool has them."""
     if "wi_scale" in pool:
-        def ffn(xg):
-            return ops.quant_paged_expert_ffn(
-                gt, gt, gt, pool["wi"], pool["wg"], pool["wo"],
-                pool["wi_scale"], pool["wg_scale"], pool["wo_scale"], xg)
+        return lambda xg: ops.quant_paged_expert_ffn(
+            table, table, table, pool["wi"], pool["wg"], pool["wo"],
+            pool["wi_scale"], pool["wg_scale"], pool["wo_scale"], xg)
+    return lambda xg: ops.paged_expert_ffn(table, table, table, pool["wi"],
+                                           pool["wg"], pool["wo"], xg)
+
+
+# ---------------------------------------------------------------- EP path
+
+def _rows_to_shards(xs, n: int, devices):
+    """Rows of the groups ``xs`` (in order, one global token list) padded
+    with zero rows to ``n`` a device and split into one [n, D] shard per
+    device in ``devices``, each built on its device.  A shard that is one
+    group's rows on that device already is that group's view."""
+    out, groups, base = [], [], 0
+    for x in xs:
+        groups.append((base, x))
+        base += x.shape[0]
+    for i, dev in enumerate(devices):
+        lo, hi = i * n, (i + 1) * n
+        pieces = [x[max(lo, a) - a:min(hi, a + x.shape[0]) - a]
+                  for a, x in groups if a < hi and a + x.shape[0] > lo]
+        if len(pieces) == 1 and pieces[0].shape[0] == n \
+                and pieces[0].device == dev:
+            out.append(pieces[0])
+            continue
+        pieces = [t.to(dev) for t in pieces]
+        got = sum(t.shape[0] for t in pieces)
+        if got < n:
+            pieces.append(xs[0].new_zeros((n - got, xs[0].shape[1]),
+                                          device=dev))
+        out.append(torch.cat(pieces))
+    return out
+
+
+def _shards_to_rows(ys, n: int, xs):
+    """The inverse of ``_rows_to_shards``: each group's rows back on its
+    own device."""
+    out, base = [], 0
+    for x in xs:
+        a, b = base, base + x.shape[0]
+        base = b
+        pieces = [y[max(a, i * n) - i * n:min(b, (i + 1) * n) - i * n]
+                  for i, y in enumerate(ys)
+                  if i * n < b and (i + 1) * n > a]
+        if len(pieces) == 1 and pieces[0].device == x.device:
+            out.append(pieces[0])
+        else:
+            out.append(torch.cat([t.to(x.device) for t in pieces]))
+    return out
+
+
+def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
+    """Expert-parallel MoE across ``parallel``'s logical devices
+    (``distributed.sharding.ParallelCtx``), EP = DP x TP in slot order.
+
+    ``x`` is [B, S, D], or a list of such row groups that together make the
+    global batch in order (one group per DP replica at decode, each on its
+    replica's device); the result has the same form.  ``p`` is one layer's
+    sharded MoE parameters: the router, replicated; and either dense banks
+    ``{wi, wg, wo}`` [E, D, F|D] split over the E axis, or, with ``pool``
+    (the sharded page pools ``[ndev * pages, D, F|D]``, and their per-page
+    scale banks for int8), the page-table index arrays ``tables`` [ndev,
+    Elm] (one row per device) and ``edest`` / ``eslot`` [E].  ``owners``
+    names each group's logical device (default: the first whose
+    ``torch.device`` holds it); shared experts run there on its shards.
+
+    As the reference's shard_map body: the T rows are padded to a multiple
+    of n_ep with zero rows (which are routed too — every expert ties, the
+    first k win — and take capacity) and split into n_ep even shards; each
+    device routes its shard with capacity ``capacity_for(T_pad / n_ep)``
+    and fills a send buffer [n_ep, Elm, C, D]; the all-to-all is an
+    explicit copy of each buffer's block j onto device j; device j runs
+    its experts on [Elm, n_ep * C, D] (``ops.paged_expert_ffn`` over its
+    pool slice and table row, or the dense banks); the outputs go back the
+    same way and each device combines its own rows."""
+    single = torch.is_tensor(x)
+    xs = [x] if single else list(x)
+    D = xs[0].shape[-1]
+    flat = [t.reshape(-1, D) for t in xs]
+    devs = [parallel.torch_device(d) for d in parallel.devices]
+    n_ep = len(devs)
+    T = sum(t.shape[0] for t in flat)
+    T_pad = -(-T // n_ep) * n_ep
+    t_local = max(1, T_pad // n_ep)
+    C = capacity or capacity_for(t_local, cfg)
+    E, k = cfg.num_experts, cfg.top_k
+    pooled = pool is not None and "tables" in p
+    if pooled:
+        elm = p["tables"].shape[-1]
     else:
-        def ffn(xg):
-            return ops.paged_expert_ffn(gt, gt, gt, pool["wi"], pool["wg"],
-                                        pool["wo"], xg)
-    return _moe_local_body(cfg, p, x, capacity, ffn)
+        if not p["wi"].sharding.axes(0):
+            raise ValueError(f"dense banks of {E} experts are not split "
+                             f"over {n_ep} devices (E % n_ep != 0)")
+        elm = E // n_ep
+
+    shards = _rows_to_shards(flat, t_local, devs)
+    sends, wheres, gates = [], [], []
+    for dev, xi in zip(parallel.devices, shards):
+        _, topk_idx, topk_w = _topk({"w": p["router"]["w"].shard(dev)}, xi,
+                                    k)
+        expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
+        if pooled:
+            dest = p["edest"].shard(dev).long()[expert_flat]
+            e_loc = p["eslot"].shard(dev).long()[expert_flat]
+        else:
+            dest, e_loc = expert_flat // elm, expert_flat % elm
+        where = (dest, e_loc, slot)
+        sends.append(_scatter(xi, k, (n_ep, elm), where, C))
+        wheres.append(where)
+        gates.append((topk_w, keep))
+
+    backs = []
+    for j, (dev, tdev) in enumerate(zip(parallel.devices, devs)):
+        recv = torch.stack([s[j].to(tdev) for s in sends])   # all-to-all
+        xg = recv.transpose(0, 1).reshape(elm, n_ep * C, D).contiguous()
+        if pooled:
+            yg = _paged_ffn(p["tables"].shard(dev)[0],
+                            local_view(pool, dev))(xg)
+        else:
+            yg = _expert_ffn(xg, p["wi"].shard(dev), p["wg"].shard(dev),
+                             p["wo"].shard(dev))
+        backs.append(yg.reshape(elm, n_ep, C, D).transpose(0, 1))
+
+    ys = []
+    for i, tdev in enumerate(devs):
+        ret = torch.stack([b[i].to(tdev) for b in backs])   # all-to-all
+        topk_w, keep = gates[i]
+        ys.append(_combine(ret, wheres[i], topk_w, keep))
+
+    out = _shards_to_rows(ys, t_local, flat)
+    out = [y.reshape(t.shape) for y, t in zip(out, xs)]
+    if "shared" in p:
+        if owners is None:
+            owners = [next(d for d in parallel.devices
+                           if parallel.torch_device(d) == t.device)
+                      for t in xs]
+        for g, (t, dev) in enumerate(zip(xs, owners)):
+            out[g] = out[g] + mlp_apply(local_view(p["shared"], dev), t)
+    return out[0] if single else out

@@ -21,6 +21,14 @@ The step functions are plain callables keyed like the reference's compiled
 executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``);
 PyTorch runs them eagerly.  They update the cache in place: the reference
 donates it to its jitted steps, here the rows are written directly.
+
+On several logical devices (``parallel``, from ``engine_parallel_ctx``)
+the cache is sharded per DP replica and each replica's steps address its
+own slice: the engine keeps global block ids (the block manager's) and
+hands each replica its tables and ids local to its pool slice, with that
+slice's size as the ``NB`` sentinel; a dense-KV prefill writes the slot's
+row in its replica's slice.  A rebind (``bind`` after a scale event) keeps
+the surviving slots, their lengths, tokens and block tables.
 """
 from __future__ import annotations
 
@@ -34,99 +42,134 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.distributed.sharding import ParallelCtx, ShardedTensor
 from repro_torch.models import model as M
 from repro_torch.serving.kv_blocks import KVBlockManager
 from repro_torch.serving.scheduler import (PrefillJob, TokenBudgetScheduler,
                                            prefix_skip)
 
 
-def _decode_fn(mcfg, params, cache, tokens, lengths, active):
+def engine_parallel_ctx(mesh) -> ParallelCtx:
+    """The engine's context on a mesh: EP over every device, the expert
+    FFN unsplit."""
+    return ParallelCtx(devices=mesh.devices, dp=mesh.dp, tp=mesh.tp,
+                       all_devices=mesh.all_devices)
+
+
+def _local_rows(leaf) -> int:
+    """Rows of the batch / block axis one replica holds."""
+    if isinstance(leaf, ShardedTensor):
+        return next(iter(leaf.shards.values())).shape[1]
+    return leaf.shape[1]
+
+
+def _decode_fn(mcfg, params, cache, tokens, lengths, active, *,
+               parallel=None):
     """Greedy decode over the slot-contiguous cache; inactive slots keep
     their token (their rows are rewritten by the next prefill)."""
     logits, cache = M.decode_step(mcfg, params, tokens[:, None], cache,
-                                  lengths)
+                                  lengths, parallel=parallel)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     return torch.where(active, nxt, tokens), cache
 
 
 def _paged_decode_fn(mcfg, params, cache, tokens, lengths, active,
-                     block_tables):
+                     block_tables, *, parallel=None):
     """Greedy paged decode: the write block comes from each sequence's
     length; inactive slots write to the ``NB`` sentinel row (dropped) and
-    keep their token."""
-    NB, bs = cache["k"].shape[1], cache["k"].shape[2]
+    keep their token.  ``block_tables`` and ``NB`` are each replica's
+    local ones."""
+    NB, bs = _local_rows(cache["k"]), cache["k"].shape[2]
     col = (lengths.long() // bs).clamp(max=block_tables.shape[1] - 1)
     wb = block_tables.gather(1, col[:, None])[:, 0]
     wb = torch.where(active, wb, torch.full_like(wb, NB))
     logits, cache = M.paged_decode_step(mcfg, params, tokens[:, None], cache,
-                                        lengths, block_tables, wb)
+                                        lengths, block_tables, wb,
+                                        parallel=parallel)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     return torch.where(active, nxt, tokens), cache
 
 
-def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot):
+def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot, *,
+                parallel=None):
     """Prefill one request (padded to a bucket) into cache row ``slot``:
     the whole row is overwritten, zeros past the bucket, as the
     reference's update of its ``max_len``-padded cache does.  Returns (the
-    argmax token at position ``length - 1``, cache)."""
+    argmax token at position ``length - 1``, cache).  With ``parallel``
+    the slot's replica runs it and its slice takes the row."""
+    replica, row, rows = 0, slot, cache
+    if parallel is not None:
+        replica, row = divmod(slot, _local_rows(next(iter(cache.values()))))
+        rows = {n: v.shard(parallel.replicas[replica])
+                for n, v in cache.items()}
     logits, small = M.prefill(mcfg, params,
                               {"tokens": tokens, "lengths": length[None]},
-                              max_len=max_len)
-    for name, leaf in cache.items():
-        leaf[:, slot] = small[name][:, 0]
+                              max_len=max_len, parallel=parallel,
+                              replica=replica)
+    for name, leaf in rows.items():
+        leaf[:, row] = small[name][:, 0]
     return int(torch.argmax(logits, dim=-1)[0]), cache
 
 
-def _paged_prefill_fn(mcfg, params, cache, tokens, length, block_ids):
+def _paged_prefill_fn(mcfg, params, cache, tokens, length, block_ids, *,
+                      parallel=None, replica: int = 0):
     """Prefill one request and scatter its KV into pool blocks
     ``block_ids`` [S_pad/bs] (``NB`` marks padding and CoW-shared prefix
     blocks, which already hold the same tokens — or a co-owner's tokens
-    beyond this prompt — and are not rewritten)."""
+    beyond this prompt — and are not rewritten); with ``parallel``, on
+    replica ``replica``, ids local to its slice."""
     S_pad = tokens.shape[1]
     logits, small = M.prefill(mcfg, params,
                               {"tokens": tokens, "lengths": length[None]},
-                              max_len=S_pad)
-    cache = M.write_prefill_to_blocks(cache, small, block_ids)
+                              max_len=S_pad, parallel=parallel,
+                              replica=replica)
+    cache = M.write_prefill_to_blocks(cache, small, block_ids,
+                                      parallel=parallel, replica=replica)
     return int(torch.argmax(logits, dim=-1)[0]), cache
 
 
 def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
-                            block_tables, chunk_ids):
+                            block_tables, chunk_ids, *, parallel=None,
+                            replica: int = 0):
     """One paged prefill chunk: the chunk's KV lands in pool rows
     ``chunk_ids`` (``NB`` = padding or CoW-shared block; dropped) and
-    attention reads the whole context through ``block_tables`` [1, MB].
-    The returned token is the argmax at the last valid position."""
+    attention reads the whole context through ``block_tables`` [1, MB]
+    (with ``parallel``: on replica ``replica``, local to its slice).  The
+    returned token is the argmax at the last valid position."""
     logits, cache = M.paged_chunk_prefill_step(mcfg, params, tokens, cache,
                                                start, length, block_tables,
-                                               chunk_ids)
+                                               chunk_ids, parallel=parallel,
+                                               replica=replica)
     return int(torch.argmax(logits, dim=-1)[0]), cache
 
 
 def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
-                           kv_mode: str = "dense", prefill_chunk: int = 0
+                           kv_mode: str = "dense", prefill_chunk: int = 0,
+                           parallel: Optional[ParallelCtx] = None
                            ) -> Tuple[Dict[str, Callable], float]:
     """The step callables of an instance, keyed like the reference's
     executables: ``decode``, ``prefill_{S_pad}`` for each bucket and, with
-    ``prefill_chunk``, ``chunk_prefill_{C}``.  Eager PyTorch needs no
-    compilation; returns (callables, seconds) as the reference does."""
+    ``prefill_chunk``, ``chunk_prefill_{C}``; ``parallel`` for an instance
+    on several logical devices.  Eager PyTorch needs no compilation;
+    returns (callables, seconds) as the reference does."""
     t0 = time.perf_counter()
     paged = kv_mode == "paged"
     if prefill_chunk and not paged:
         raise NotImplementedError(
             "dense KV with prefill_chunk > 0 is not ported yet")
     if paged:
-        out = {"decode": partial(_paged_decode_fn, mcfg)}
-        prefill = partial(_paged_prefill_fn, mcfg)
+        out = {"decode": partial(_paged_decode_fn, mcfg, parallel=parallel)}
+        prefill = partial(_paged_prefill_fn, mcfg, parallel=parallel)
     else:
-        out = {"decode": partial(_decode_fn, mcfg)}
-        prefill = partial(_prefill_fn, mcfg, max_len)
+        out = {"decode": partial(_decode_fn, mcfg, parallel=parallel)}
+        prefill = partial(_prefill_fn, mcfg, max_len, parallel=parallel)
     for S_pad in prefill_buckets:
         out[f"prefill_{S_pad}"] = prefill
     if prefill_chunk:
         if not M.chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported")
         out[f"chunk_prefill_{prefill_chunk}"] = partial(
-            _paged_chunk_prefill_fn, mcfg)
+            _paged_chunk_prefill_fn, mcfg, parallel=parallel)
     return out, time.perf_counter() - t0
 
 
@@ -175,6 +218,7 @@ class InferenceEngine:
         self.tokens: Optional[np.ndarray] = None
         self.generated: Dict[int, List[int]] = {}
         self.kv: Optional[KVBlockManager] = None
+        self.parallel: Optional[ParallelCtx] = None
         self.block_tables: Optional[np.ndarray] = None
         self._preempted_pending: List[int] = []   # rids awaiting re-queue
         self._resume_rids: set = set()            # preempted at least once
@@ -192,13 +236,20 @@ class InferenceEngine:
         return self.kv is not None
 
     def bind(self, cfg, params, cache, compiled,
-             kv: Optional[KVBlockManager] = None):
+             kv: Optional[KVBlockManager] = None,
+             parallel: Optional[ParallelCtx] = None):
         """Attach the instance's parameters, cache and step functions;
-        ``kv`` is the block manager of a paged pool (None: dense KV)."""
+        ``kv`` is the block manager of a paged pool (None: dense KV),
+        ``parallel`` the context of an instance on several logical
+        devices.  A rebind keeps the surviving slots' requests, lengths,
+        tokens and block tables (their KV stays where it is)."""
+        old_slots, old_lengths = self.slots, self.lengths
+        old_tokens, old_tables = self.tokens, self.block_tables
         self.cfg = cfg
         self.params, self.cache = params, cache
         self.compiled = compiled
         self.kv = kv
+        self.parallel = parallel
         n = self.num_slots
         self.slots = [SlotState() for _ in range(n)]
         self.lengths = np.zeros((n,), np.int32)
@@ -218,10 +269,23 @@ class InferenceEngine:
                                  "prefill_chunk must be block-size "
                                  "multiples")
             # padding rows hold the NB sentinel (never block id 0, a valid
-            # row)
+            # row); NB tracks the current pool, so a rebind rebuilds the
+            # tables from the block manager
             self.block_tables = np.full((n, self.max_len // bs),
                                         kv.num_blocks, np.int32)
-        self._lazy_prefill = OrderedDict()
+        for i in range(min(len(old_slots), n)):
+            self.slots[i] = old_slots[i]
+            self.lengths[i] = old_lengths[i]
+            self.tokens[i] = old_tokens[i]
+            if self.paged and old_tables is not None \
+                    and self.slots[i].active:
+                tbl = self.kv.block_table(self.slots[i].rid)
+                self.block_tables[i, :len(tbl)] = tbl
+        # chunk jobs survive a rebind slot for slot
+        self._prefilling = [j for j in self._prefilling if j.slot < n]
+        self._chunk_ctx = {s: c for s, c in self._chunk_ctx.items() if s < n}
+        self._lazy_prefill = OrderedDict(
+            (k, None) for k in self._lazy_prefill if k in compiled)
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if not s.active]
@@ -253,6 +317,24 @@ class InferenceEngine:
     # ------------------------------------------------------------- serving
     def _partition(self, slot: int) -> int:
         return slot // self.batch_per_replica
+
+    def _local_ids(self, ids: np.ndarray, replicas) -> np.ndarray:
+        """Global block ids (rows of ``ids``, the NB sentinel included) ->
+        ids in each row's replica's pool slice, ``replicas`` giving each
+        row's replica; unchanged on one device."""
+        if self.parallel is None:
+            return ids
+        bpp = self.kv.blocks_per_partition
+        base = (np.asarray(replicas) * bpp).reshape(
+            (-1,) + (1,) * (ids.ndim - 1))
+        return np.where(ids >= self.kv.num_blocks, bpp,
+                        ids - base).astype(np.int32)
+
+    def _replica_kw(self, slot: int) -> Dict[str, int]:
+        """The step's ``replica`` argument for a request in ``slot``."""
+        if self.parallel is None:
+            return {}
+        return {"replica": self._partition(slot)}
 
     def _full_prompt(self, req, prompt: np.ndarray) -> np.ndarray:
         """Preemption resume (recompute mode): the effective prompt is the
@@ -313,9 +395,11 @@ class InferenceEngine:
                 for j, b in enumerate(alloc.blocks):
                     if j >= alloc.num_shared:  # shared prefix: not rewritten
                         ids[j] = b
+                r = self._partition(slot)
                 first, self.cache = self._prefill(S_pad)(
                     self.params, self.cache, self._to_device(toks), length,
-                    self._to_device(ids))
+                    self._to_device(self._local_ids(ids, [r])),
+                    **self._replica_kw(slot))
                 # the NB sentinel, never block 0 (a valid row), clears the
                 # previous occupant's rows
                 self.block_tables[slot, :] = self.kv.num_blocks
@@ -397,7 +481,8 @@ class InferenceEngine:
         if not self.paged:
             raise KeyError(f"no prefill step for bucket {S_pad} (dense KV "
                            f"serves only the prefill_buckets it was given)")
-        self.compiled[key] = partial(_paged_prefill_fn, self.mcfg)
+        self.compiled[key] = partial(_paged_prefill_fn, self.mcfg,
+                                     parallel=self.parallel)
         self._lazy_prefill[key] = None
         while len(self._lazy_prefill) > self.MAX_LAZY_PREFILL:
             old, _ = self._lazy_prefill.popitem(last=False)
@@ -437,9 +522,17 @@ class InferenceEngine:
     def _copy_block(self, src: int, dst: int) -> None:
         """Physical copy-on-write: duplicate pool row ``src`` into ``dst``
         across all layers, in place (one block row moved, not a pool
-        copy)."""
+        copy); both rows lie in one partition, in its replica's slice."""
         for leaf in self.cache.values():
-            leaf[:, dst] = leaf[:, src]
+            if isinstance(leaf, ShardedTensor):
+                bpp = self.kv.blocks_per_partition
+                r = src // bpp
+                for d in self.parallel.devices[r * self.parallel.tp:
+                                               (r + 1) * self.parallel.tp]:
+                    t = leaf.shard(d)
+                    t[:, dst - r * bpp] = t[:, src - r * bpp]
+            else:
+                leaf[:, dst] = leaf[:, src]
 
     def _ensure_append(self, slot: int) -> bool:
         """Reserve the write slot for this sequence's next token, preempting
@@ -504,9 +597,12 @@ class InferenceEngine:
             tbl = np.full((1, self.max_len // bs), NB, np.int32)
             bt = self.kv.block_table(job.rid)
             tbl[0, :len(bt)] = bt
+            r = [self._partition(slot)]
             first, self.cache = self._chunk_prefill()(
                 self.params, self.cache, self._to_device(toks), plan.start,
-                upto, self._to_device(tbl), self._to_device(ids))
+                upto, self._to_device(self._local_ids(tbl, r)),
+                self._to_device(self._local_ids(ids, r)),
+                **self._replica_kw(slot))
             job.pos = upto
             # written blocks become matchable for later arrivals
             self.kv.register_written(job.rid, [int(t) for t in full], upto)
@@ -563,7 +659,9 @@ class InferenceEngine:
         args = [self._to_device(a) for a in (self.tokens, self.lengths,
                                              active)]
         if self.paged:
-            args.append(self._to_device(self.block_tables))
+            parts = np.arange(len(self.slots)) // self.batch_per_replica
+            args.append(self._to_device(self._local_ids(self.block_tables,
+                                                         parts)))
         nxt, self.cache = self.compiled["decode"](self.params, self.cache,
                                                   *args)
         nxt = nxt.cpu().numpy()

@@ -17,8 +17,9 @@ table* — an ordered list of pool indices:
   lowest-priority sequence (``victim``/``preempt``) and recomputes it on
   resume.
 
-Live migration across partitions belongs to the multi-card slice and is not
-ported yet.
+A scale event grows or shrinks the pool by whole partitions
+(``grow_partitions`` / ``shrink_partitions``).  Live migration across
+partitions belongs to Slice B and is not ported yet.
 """
 from __future__ import annotations
 
@@ -96,6 +97,28 @@ class KVBlockManager:
     def _add_partition(self):
         base = self.num_blocks
         self._free.append(list(range(base, base + self.blocks_per_partition)))
+
+    def grow_partitions(self, num_partitions: int) -> None:
+        """Scale-up: append fresh partitions.  Existing block ids — and
+        therefore every live block table — stay valid verbatim."""
+        if num_partitions < self.num_partitions:
+            raise ValueError(f"grow_partitions({num_partitions}) below the "
+                             f"current {self.num_partitions}")
+        while self.num_partitions < num_partitions:
+            self._add_partition()
+
+    def shrink_partitions(self, num_partitions: int) -> None:
+        """Scale-down: drop trailing partitions.  They must be fully free:
+        live sequences leave them first (sharing is partition-local, so no
+        survivor can hold a doomed block)."""
+        if not 0 < num_partitions <= self.num_partitions:
+            raise ValueError(f"shrink_partitions({num_partitions}) outside "
+                             f"1..{self.num_partitions}")
+        for p in range(num_partitions, self.num_partitions):
+            if len(self._free[p]) != self.blocks_per_partition:
+                raise RuntimeError(f"partition {p} still has allocated "
+                                   f"blocks")
+        self._free = self._free[:num_partitions]
 
     # ------------------------------------------------------------- queries
     def free_blocks(self, partition: Optional[int] = None) -> int:

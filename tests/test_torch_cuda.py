@@ -1226,3 +1226,105 @@ def test_slot_decode_step_runs_with_no_host_sync(dev, model):
     with _no_host_sync():
         M.decode_step(cfg, params, tokens, cache, lens)
     assert ops.launch_counts()["kv_cache_write"] == n_attn
+
+
+# ----------------------------------------------- several logical devices
+
+def _booted_dp(dev, ndev, **knobs):
+    """A reduced (2-layer) qwen3-30b-a3b in bf16 booted on ``ndev``
+    logical devices of the one card (DP = ndev, tp = 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.distributed.sharding import make_instance_mesh
+    from repro_torch.serving.engine import engine_parallel_ctx
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b-smoke"),
+                              dtype="bfloat16")
+    ecfg = ElasticConfig(ndev, 1, tuple(range(ndev)))
+    hmm = HMM(cfg, 1, batch_per_replica=2, max_len=128, seed=0,
+              all_devices=[dev] * ndev, device=dev, **knobs)
+    hmm.boot(ecfg)
+    ctx = engine_parallel_ctx(make_instance_mesh(ecfg, hmm.all_devices))
+    return cfg, hmm, ctx
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+@pytest.mark.parametrize("ndev", [4, 6])
+def test_moe_ep_matches_plain(dev, store, ndev):
+    """``moe_ep`` over pooled pages split over 4 and 6 logical devices of
+    the card (6: two devices own no expert, their table rows all pad),
+    through the paged GMM kernels and through their plain versions; three
+    GMM launches per device."""
+    from repro_torch.models.model import layer_params
+    from repro_torch.models.moe import moe_ep
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    cfg, hmm, ctx = _booted_dp(dev, ndev, **PAGED, **int8)
+    p = layer_params(hmm.params["blocks"]["moe"], 0)
+    pool = hmm.params["moe_pool"]
+    gen = torch.Generator().manual_seed(0)
+    x = _rand(gen, (2 * ndev + 1, 3, cfg.d_model), torch.bfloat16, dev)
+    ops.reset_launch_counts()
+    got = moe_ep(cfg, p, x, ctx, pool=pool)
+    gmm = "quant_paged_gmm" if int8 else "paged_gmm"
+    assert ops.launch_counts()[gmm] == 3 * ndev
+    with ops.use_reference():
+        want = moe_ep(cfg, p, x, ctx, pool=pool)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8", "dense"])
+def test_multi_device_steps_run_with_no_host_sync(dev, store):
+    """On 3 logical devices of the card: the paged decode step (the
+    engine's), a chunk step and a prefill written into the pool of replica
+    1, bf16 or int8 stores; or, with the default stores on 4 devices (the
+    dense banks' 4 experts split evenly), the slot decode step and a
+    prefill on replica 2.  No call synchronises with the host;
+    a decode step writes KV once per layer per replica, a chunk step once
+    per layer, the pool write of a prefill once."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _paged_decode_fn
+    knobs = {} if store == "dense" else dict(PAGED)
+    if store == "int8":
+        knobs.update(kv_dtype="int8", expert_dtype="int8")
+    ndev = 4 if store == "dense" else 3
+    cfg, hmm, ctx = _booted_dp(dev, ndev, **knobs)
+    params, cache, L = hmm.params, hmm.cache, cfg.num_layers
+    tokens = torch.randint(0, cfg.vocab_size, (2 * ndev,), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([20, 3, 40, 0, 7, 127, 64, 1][:2 * ndev],
+                        dtype=torch.int32, device=dev)
+    active = torch.tensor([True] * 5 + [False], device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 32), dtype=torch.int32,
+                          device=dev)
+    if store == "dense":
+        def steps():
+            M.decode_step(cfg, params, tokens[:, None], cache, lens,
+                          parallel=ctx)
+            M.prefill(cfg, params, {"tokens": chunk, "lengths": lens[1:2]},
+                      128, parallel=ctx, replica=2)
+        writes = ndev * L
+    else:
+        NB = 32                                # one replica's pool slice
+        bt = torch.full((6, 8), NB, dtype=torch.int32)
+        for i, row in enumerate([[5, 9], [2], [7, 1, 30], [31], [4], []]):
+            bt[i, :len(row)] = torch.tensor(row, dtype=torch.int32)
+        bt = bt.to(dev)
+        ids = torch.tensor([7, NB], dtype=torch.int32, device=dev)
+
+        def steps():
+            _paged_decode_fn(cfg, params, cache, tokens, lens, active, bt,
+                             parallel=ctx)
+            M.paged_chunk_prefill_step(cfg, params, chunk, cache, 0, 20,
+                                       bt[2:3], ids, parallel=ctx, replica=1)
+            _, small = M.prefill(cfg, params, {"tokens": chunk}, 32,
+                                 parallel=ctx, replica=1)
+            M.write_prefill_to_blocks(cache, small, ids, parallel=ctx,
+                                      replica=1)
+        writes = 3 * L + L + 1
+    steps()                                  # builds and loads the kernels
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        steps()
+    assert ops.launch_counts()["kv_cache_write"] == writes
