@@ -61,6 +61,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    (hd, hdv) instances at a ragged S = 1000 with queries drawn for scores
    of standard deviation 3, where the bf16 output must be the f32 answer
    rounded once to bf16 (within 3e-5 past half a bf16 step).
+   The two decodes, the slot decode and the two mixed attentions also
+   at a TP rank's heads of the replicated cache (``kv_head_offset``):
+   qwen3-30b-a3b's 16 query and 2 kv heads (tp = 2) and 8 and 1 (tp =
+   4) from head 0 and past it (heads 2 and 3), bf16 and int8 rows, held
+   to the same rules and timed past head 0.
    Both GMMs also at the expert-parallel shapes of ``serve_scale``: a
    device's table of 32 slots (DP4) or 22 with a pad slot on page 0
    (DP6), over the rows n_ep * C of a decode step and of a chunk step.
@@ -163,6 +168,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``set_sync_debug_mode("error")``) and through ``ops.use_reference()``,
    held to the e2e rules above, layer 0's written rows equal in every
    shard; then ``HMM.scale`` to DP6 and ``commit``, and the same at DP6.
+   Each case prints the rows whose top-k expert set differs between the
+   two runs and the logits' relative error of the decode rows with and
+   without such a flip (a flip tells a near-tied choice from a fault).
 12. ``serve_scale``: ``ElasticServer`` serving the ``serve`` requests
    (8 prompts of 200-1000 tokens, 32 output tokens) on qwen3-30b-a3b at
    full width and 8 layers with paged KV, pooled experts and chunked
@@ -179,6 +187,21 @@ Phases, each of which raises on failure (no phase's failure is caught):
    step (ctx 1000, q_len 104) are timed, unprofiled and profiled, at DP4
    before serving and at DP6 after.  Then the same with int8 KV blocks
    and int8 expert pages, its steps untimed.
+13. ``e2e_tp``: the ``e2e_scale`` steps on DP2 x TP2 and DP1 x TP4 (4
+   logical devices of the card; a TP sum or gather is a copy and an add
+   on the card): each replica's ranks split its attention heads (from
+   the cache's head ``t * KVH / tp``), embedding rows and LM head
+   columns, f32, bf16 and bf16 with int8 stores, held to the e2e rules;
+   every rank's copy of the cache must equal rank 0's after the steps.
+14. ``serve_tp``: the ``serve_scale`` server and requests at tp = 2,
+   booted on DP2 x TP2 and scaled to DP3 x TP2 at the 5th tick, bf16
+   then int8; the same invariants with each rank's shards (the staged
+   non-expert copies are the two new devices' TP shards, the new
+   replica's KV slice zeroed once per rank), and a decode attention, a
+   mixed attention and a KV write per layer per rank; the TP copies of
+   the cache equal at the end; the TP sums and gathers at a decode and a
+   chunk step's shapes, each timed alone (their per-step figure is the
+   sum of those times over a step's calls, not a reading from a step).
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -289,6 +312,7 @@ PATH_KERNELS = {
                     "quant_mixed_block_paged_attention", "quant_paged_gmm",
                     "kv_cache_write"),
 }
+PATH_KERNELS["serve_tp"] = PATH_KERNELS["serve_scale"]
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # the scale phases: qwen3-30b-a3b at full width on logical devices of the
 # one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
@@ -403,15 +427,24 @@ def _kv_pools(gen, dtype, quant, NB):
     return tuple(pools), lib, 2 * (KVH * HD + 4)
 
 
-def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
+def _attention_case(kind, dtype, gen, timer, do_time, quant=False,
+                    heads=None):
+    """``heads`` = (query heads, kv heads, offset): a TP rank's kv heads
+    of the 4-head pool from the offset (``kv_head_offset``); default all
+    of qwen3-30b-a3b's 32 and 4."""
     from repro_torch.kernels import ops, ref
     NB, MB = 1024, MAX_LEN // BS
+    nq, nkv, off = heads or (H, KVH, 0)
+    rng = dict(kv_head_offset=off, kv_heads=nkv)
     pools, (k_lib, v_lib), kv_tok_bytes = _kv_pools(gen, dtype, quant, NB)
+    k_lib, v_lib = (t[:, :, off:off + nkv] for t in (k_lib, v_lib))
+    kv_tok_bytes = (2 * nkv * HD * pools[0].element_size()
+                    + (8 if quant else 0))
     if kind == "decode":
         lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
         bt = _tables(gen, lengths.tolist(), NB, MB).cuda()
         # each score with a standard deviation of 3, a peaked softmax
-        q = (torch.randn(BATCH, H, HD, generator=gen)
+        q = (torch.randn(BATCH, nq, HD, generator=gen)
              * DECODE_Q_STD).to(dtype).cuda()
         lens = lengths.cuda()
         op, plain_op = (
@@ -419,15 +452,15 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
              ref.quant_block_paged_decode_attention_ref) if quant else
             (ops.block_paged_decode_attention,
              ref.block_paged_decode_attention_ref))
-        kern = lambda: op(q, *pools, bt, lens)
-        plain = lambda: plain_op(q, *pools, bt, lens)
+        kern = lambda: op(q, *pools, bt, lens, **rng)
+        plain = lambda: plain_op(q, *pools, bt, lens, **rng)
         plain32 = lambda: plain_op(q.float(), *(p.float() for p in pools),
-                                   bt, lens)
+                                   bt, lens, **rng)
         ctx_tok = int(lengths.sum())
-        attended = H * ctx_tok
+        attended = nq * ctx_tok
         S = MB * BS
-        kg = ref._gather_rows(k_lib, bt).reshape(BATCH, S, KVH, HD)
-        vg = ref._gather_rows(v_lib, bt).reshape(BATCH, S, KVH, HD)
+        kg = ref._gather_rows(k_lib, bt).reshape(BATCH, S, nkv, HD)
+        vg = ref._gather_rows(v_lib, bt).reshape(BATCH, S, nkv, HD)
         mask = (torch.arange(S, device="cuda")[None, :]
                 < lens.long()[:, None])[:, None, None, :]
         ql, kl, vl = q[:, :, None], kg.transpose(1, 2).contiguous(), \
@@ -439,7 +472,7 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
         ctx, q_len = kind
         bt = _tables(gen, [ctx], NB, MB).cuda()
         # scores of standard deviation 3, as in decode
-        q = (torch.randn(1, CHUNK, H, HD, generator=gen)
+        q = (torch.randn(1, CHUNK, nq, HD, generator=gen)
              * DECODE_Q_STD).to(dtype).cuda()
         ctx_t = torch.tensor([ctx], dtype=torch.int32, device="cuda")
         ql_t = torch.tensor([q_len], dtype=torch.int32, device="cuda")
@@ -448,17 +481,17 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
              ref.quant_mixed_block_paged_attention_ref) if quant else
             (ops.mixed_block_paged_attention,
              ref.mixed_block_paged_attention_ref))
-        kern = lambda: op(q, *pools, bt, ctx_t, ql_t)
-        plain = lambda: plain_op(q, *pools, bt, ctx_t, ql_t)
+        kern = lambda: op(q, *pools, bt, ctx_t, ql_t, **rng)
+        plain = lambda: plain_op(q, *pools, bt, ctx_t, ql_t, **rng)
         plain32 = lambda: plain_op(q.float(), *(p.float() for p in pools),
-                                   bt, ctx_t, ql_t)
+                                   bt, ctx_t, ql_t, **rng)
         ctx_tok = ctx
         q_abs = ctx - q_len + torch.arange(CHUNK)
-        attended = H * int(torch.minimum(q_abs + 1,
-                                         torch.tensor(ctx)).sum())
+        attended = nq * int(torch.minimum(q_abs + 1,
+                                          torch.tensor(ctx)).sum())
         S = MB * BS
-        kg = ref._gather_rows(k_lib, bt).reshape(1, S, KVH, HD)
-        vg = ref._gather_rows(v_lib, bt).reshape(1, S, KVH, HD)
+        kg = ref._gather_rows(k_lib, bt).reshape(1, S, nkv, HD)
+        vg = ref._gather_rows(v_lib, bt).reshape(1, S, nkv, HD)
         t = torch.arange(S, device="cuda")
         qa = q_abs.cuda()
         mask = ((t[None, :] < ctx) & (t[None, :] <= qa[:, None]))[None, None]
@@ -467,6 +500,8 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False):
         lib = lambda: sdpa(ql, kl, vl, mask)
         io = nbytes(q, q, bt, ctx_t, ql_t)
         label = f"B=1 Sq={CHUNK} ctx={ctx} q_len={q_len} peaked"
+    if heads:
+        label += f" H={nq} KVH={nkv} of {KVH} from head {off}"
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -642,25 +677,30 @@ def _require_one_bf16_rounding(got, want32, what, atol=3e-5):
     return excess
 
 
-def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
+def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD),
+                      kv_range=None):
     """Decode over the slot-contiguous cache [B, 2048, KVH, hd] at ragged
     lengths, against its plain version and SDPA with a length mask over
     the cache's rows; ``heads`` = (query heads, kv heads, width):
-    qwen3-30b-a3b's by default, zamba2-2.7b's (32, 32, 80) too."""
+    qwen3-30b-a3b's by default, zamba2-2.7b's (32, 32, 80) too;
+    ``kv_range`` = (kv heads, offset): a TP rank's heads of the cache."""
     from repro_torch.kernels import ops, ref
     nh, nkv, hd = heads
+    n, off = kv_range or (nkv, 0)
+    rng = dict(kv_head_offset=off, kv_heads=n)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
     kc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
     vc = torch.randn(BATCH, MAX_LEN, nkv, hd, generator=gen).to(dtype).cuda()
     q = (torch.randn(BATCH, nh, hd, generator=gen)
          * DECODE_Q_STD).to(dtype).cuda()
     lens = lengths.cuda()
-    kern = lambda: ops.paged_decode_attention(q, kc, vc, lens)
-    plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, lens)
+    kern = lambda: ops.paged_decode_attention(q, kc, vc, lens, **rng)
+    plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, lens, **rng)
     mask = (torch.arange(MAX_LEN, device="cuda")[None, :]
             < lens.long()[:, None])[:, None, None, :]
-    ql, kl, vl = q[:, :, None], kc.transpose(1, 2).contiguous(), \
-        vc.transpose(1, 2).contiguous()
+    ql, kl, vl = q[:, :, None], \
+        kc[:, :, off:off + n].transpose(1, 2).contiguous(), \
+        vc[:, :, off:off + n].transpose(1, 2).contiguous()
     lib = lambda: sdpa(ql, kl, vl, mask)
     got = kern()
     want = plain()
@@ -673,17 +713,18 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD)):
     if dtype == torch.bfloat16:
         excess = _require_one_bf16_rounding(
             got, ref.paged_decode_attention_ref(q.float(), kc.float(),
-                                                vc.float(), lens),
+                                                vc.float(), lens, **rng),
             "paged_decode_attention")
     torch.testing.assert_close(lib()[:, :, 0].float(), want.float(),
                                **TOL[dtype])
     ctx_tok = int(lengths.sum())
-    kv_bytes = ctx_tok * 2 * nkv * hd * kc.element_size()
+    kv_bytes = ctx_tok * 2 * n * hd * kc.element_size()
     io = nbytes(q, got, lens) + kv_bytes
     ops_n = 4 * hd * nh * ctx_tok
     b_ms, b_by = bound_ms(io, ops_n, dtype)
     rec = {"case": f"B={BATCH} H={nh} KVH={nkv} hd={hd} S_max={MAX_LEN} "
-                   f"lengths={DECODE_LENGTHS}",
+                   f"lengths={DECODE_LENGTHS}"
+                   + (f" kv heads {n} from {off}" if kv_range else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
     if excess is not None:
@@ -1071,6 +1112,22 @@ def phase_kernels():
             out[gmm_name].append(
                 _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
             torch.cuda.empty_cache()
+    # a TP rank's heads of the replicated cache (e2e_tp, serve_tp):
+    # qwen3-30b-a3b's 16 query and 2 kv heads at tp = 2 and 8 and 1 at tp
+    # = 4, from head 0 and past it, bf16 and int8 rows (timed past 0)
+    for phase in ("serve", "serve_int8"):
+        dec_name, mix_name = PATH_KERNELS[phase][:2]
+        for nq, n, off in ((16, 2, 0), (16, 2, 2), (8, 1, 0), (8, 1, 3)):
+            for kind, name in (("decode", dec_name), ((1000, 104), mix_name)):
+                rec, _ = _attention_case(kind, torch.bfloat16, gen, timer,
+                                         off > 0, phase == "serve_int8",
+                                         heads=(nq, n, off))
+                out[name].append(rec)
+    for nq, n, off in ((16, 2, 0), (16, 2, 2), (8, 1, 0), (8, 1, 3)):
+        out["paged_decode_attention"].append(_slot_decode_case(
+            torch.bfloat16, gen, timer, off > 0, heads=(nq, KVH, HD),
+            kv_range=(n, off)))
+    torch.cuda.empty_cache()
     # qwen3-30b-a3b's expert-parallel shapes (serve_scale): each device's
     # table of Elm slots (32 at DP4; 22 at DP6, pad slots on page 0) over
     # n_ep * C rows an expert, at decode (2 slots a replica) and a chunk
@@ -1823,10 +1880,24 @@ def phase_serve(layers, phase="serve", profile=True):
 
 # ------------------------------------------------------------ scale phases
 
-def _scale_cfgs():
+def _scale_cfgs(tp=1):
+    """The scale phases' source and target: DP4 -> DP6 at tp = 1, DP2 x
+    TP2 -> DP3 x TP2 at tp = 2 (4 -> 6 logical devices either way)."""
     from repro_torch.core.topology import ElasticConfig
-    return (ElasticConfig(4, 1, (0, 1, 2, 3)),
-            ElasticConfig(6, 1, tuple(range(6))))
+    return (ElasticConfig(4 // tp, tp, (0, 1, 2, 3)),
+            ElasticConfig(6 // tp, tp, tuple(range(6))))
+
+
+def _require_copies_equal(cache, ecfg, what):
+    """Every TP rank's copy of each replica's cache slice is rank 0's, bit
+    for bit."""
+    for name, leaf in cache.items():
+        for r in range(ecfg.dp):
+            devs = ecfg.devices[r * ecfg.tp:(r + 1) * ecfg.tp]
+            for d in devs[1:]:
+                require(torch.equal(leaf.shard(d), leaf.shard(devs[0])),
+                        f"{what}: cache {name} on device {d} differs from "
+                        f"rank 0's copy on {devs[0]}")
 
 
 def _scale_ctx(ecfg, hmm):
@@ -1835,12 +1906,15 @@ def _scale_ctx(ecfg, hmm):
     return engine_parallel_ctx(make_instance_mesh(ecfg, hmm.all_devices))
 
 
-def _fill_pool(cache, gen):
+def _fill_pool(cache, gen, tp=1):
     """Random contents in every shard of a sharded KV pool: int8 entries,
-    scales with row maxima in [0.3, 3], N(0, 1) rows."""
+    scales with row maxima in [0.3, 3], N(0, 1) rows; at tp > 1 the same
+    contents in every TP rank's copy of a replica's slice."""
     for name, leaf in cache.items():
-        for t in leaf.shards.values():
-            if t.dtype == torch.int8:
+        for i, t in enumerate(leaf.shards.values()):
+            if i % tp:
+                t.copy_(list(leaf.shards.values())[i - i % tp])
+            elif t.dtype == torch.int8:
                 t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
                                       device="cuda", dtype=torch.int8))
             elif name.endswith("_scale"):
@@ -1873,14 +1947,67 @@ def _replica_tables(cg, lengths, dp, NB, extra=()):
     return torch.cat(rows), extra_row
 
 
-def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
-    """One chunk step (replica 1's sequence) and one decode step of every
-    replica's two slots on the HMM's instance on ``ecfg``, through the
-    kernels (under ``set_sync_debug_mode("error")``) and through
-    ``ops.use_reference()`` from identical pools, held to the e2e rules."""
+class _Routing:
+    """While active, keeps the sorted top-k expert ids of every
+    ``moe_ep`` shard, in call order (a wrapper around
+    ``repro_torch.models.moe._topk``; device tensors, no host sync): it
+    tells a near-tied expert choice that flipped from a numeric fault."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.calls = moe, moe._topk, []
+
+        def topk(p, x, k):
+            out = self.orig(p, x, k)
+            self.calls.append(out[1].sort(-1).values)
+            return out
+        moe._topk = topk
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.moe._topk = self.orig
+
+
+def _routing_flips(r_got, r_want, n_ep, layers, q_len, B, got, want):
+    """The rows whose top-k expert set differs between two runs of a
+    chunk step (``layers`` MoE calls over its rows, ``q_len`` real) then
+    a decode step of ``B`` rows, each call ``n_ep`` shards in row order;
+    and the logits' relative error of the decode rows (``got[1:]``) with
+    no flip in any layer, and of those with one."""
+    calls = [[torch.cat(r[i:i + n_ep]) for i in range(0, len(r), n_ep)]
+             for r in (r_got, r_want)]
+    require(len(calls[0]) == len(calls[1]) == 2 * layers,
+            f"{len(calls[0])} MoE calls recorded, expected {2 * layers}")
+    diff = [(a != b).any(-1) for a, b in zip(*calls)]
+    chunk = sum(int(d[:q_len].sum()) for d in diff[:layers])
+    per_row = torch.stack([d[:B] for d in diff[layers:]]).any(0)
+
+    def rel(rows):
+        if not rows.any():
+            return None
+        g, w = got[1:][rows], want[1:][rows]
+        return ((g - w).norm() / w.norm()).item()
+    return {"chunk_rows": q_len * layers, "chunk_rows_flipped": chunk,
+            "decode_rows": B * layers,
+            "decode_rows_flipped": sum(int(d[:B].sum())
+                                       for d in diff[layers:]),
+            "rel_err_unflipped": rel(~per_row),
+            "rel_err_flipped": rel(per_row),
+            "rel_err_chunk": ((got[0] - want[0]).norm()
+                              / want[0].norm()).item()}
+
+
+def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant, tag="[e2e_scale]"):
+    """One chunk step (replica 1's sequence; replica 0's on one replica)
+    and one decode step of every replica's two slots on the HMM's instance
+    on ``ecfg``, through the kernels (under ``set_sync_debug_mode
+    ("error")``) and through ``ops.use_reference()`` from identical pools,
+    held to the e2e rules; at tp > 1 every rank's copy of the cache must
+    equal rank 0's after them."""
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
-    _fill_pool(hmm.cache, torch.Generator(device="cuda").manual_seed(2))
+    _fill_pool(hmm.cache, torch.Generator(device="cuda").manual_seed(2),
+               ecfg.tp)
     ctx = _scale_ctx(ecfg, hmm)
     NB = hmm.kv_blocks_per_replica
     cg = torch.Generator().manual_seed(3)
@@ -1888,15 +2015,16 @@ def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
     lengths = [1900, 5, 640, 1024, 77, 300, 1500, 16, 1000, 999, 64,
                2040][:B]
     start, length = 256, 360
+    replica = min(1, ecfg.dp - 1)
     bt_dec, bt_chunk = _replica_tables(cg, lengths, ecfg.dp, NB,
-                                       extra=(1, length))
+                                       extra=(replica, length))
     ids = torch.full((CHUNK // BS,), NB, dtype=torch.int32)
     for j in range(CHUNK // BS):
         if start // BS + j < -(-length // BS):
             ids[j] = bt_chunk[0, start // BS + j]
     lens = torch.tensor(lengths, dtype=torch.int32)
     wb = bt_dec.gather(1, (lens.long() // BS)[:, None])[:, 0].clone()
-    wb[5] = NB                                        # inactive slot
+    wb[min(5, B - 1)] = NB                            # inactive slot
     tokens = torch.randint(0, cfg.vocab_size, (1, CHUNK), generator=cg)
     dec_tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=cg)
     args = [t.cuda() for t in (tokens, bt_chunk, ids, dec_tokens, lens,
@@ -1906,7 +2034,7 @@ def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
         c = _clone_pool(hmm.cache)
         lc, c = M.paged_chunk_prefill_step(cfg, hmm.params, args[0], c,
                                            start, length, args[1], args[2],
-                                           parallel=ctx, replica=1)
+                                           parallel=ctx, replica=replica)
         ld, c = M.paged_decode_step(cfg, hmm.params, args[3], c, args[4],
                                     args[5], args[6], parallel=ctx)
         return torch.cat([lc, ld]).float(), c
@@ -1915,16 +2043,22 @@ def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got, c_got = run()
+        with _Routing() as r_got:
+            got, c_got = run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    with ops.use_reference():
+    with ops.use_reference(), _Routing() as r_want:
         want, c_want = run()
     torch.cuda.synchronize()
     require(got.shape == (1 + B, cfg.vocab_size))
     require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    if ecfg.tp > 1:
+        _require_copies_equal(c_got, ecfg, f"{tag} kernels")
+        _require_copies_equal(c_want, ecfg, f"{tag} plain versions")
     err = (got - want).abs().max().item()
     rel = ((got - want).norm() / want.norm()).item()
+    routing = _routing_flips(r_got, r_want, ecfg.dp * ecfg.tp,
+                             cfg.num_layers, length - start, B, got, want)
     flips = max_q = 0
     for k in c_got:
         for d in c_got[k].shards:
@@ -1942,13 +2076,21 @@ def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant):
     else:
         require(rel < E2E_BF16_REL, f"{dtype_name} logits rel err {rel}")
     name = f"{dtype_name}{' int8 KV + int8 experts' if quant else ''}"
-    log(f"[e2e_scale] 2-layer qwen3-30b-a3b {name} on {ecfg.describe()} "
+    log(f"{tag} 2-layer qwen3-30b-a3b {name} on {ecfg.describe()} "
         f"(one card): chunk + decode logits {tuple(got.shape)}, "
         f"max_abs_err {err:.3e}, rel {rel:.3e}"
         + (f", layer-1 int8 entries that differ: {flips}" if quant else ""))
+    log(f"{tag} {name} on {ecfg.describe()}: top-k expert sets that differ "
+        f"between the kernels' and the plain run: chunk rows "
+        f"{routing['chunk_rows_flipped']} of {routing['chunk_rows']}, "
+        f"decode rows {routing['decode_rows_flipped']} of "
+        f"{routing['decode_rows']} (over the layers); logits rel err of "
+        f"the decode rows with no flip {routing['rel_err_unflipped']}, "
+        f"with one {routing['rel_err_flipped']}, of the chunk row "
+        f"{routing['rel_err_chunk']:.3e}")
     return {"dtype": dtype_name, "int8": quant, "config": ecfg.describe(),
             "max_abs_err": err, "rel_err": rel,
-            "layer1_int8_differing": flips}
+            "layer1_int8_differing": flips, "routing": routing}
 
 
 def phase_e2e_scale():
@@ -1979,6 +2121,36 @@ def phase_e2e_scale():
         del hmm
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_e2e_tp():
+    """A 2-layer qwen3-30b-a3b at full width booted on DP2 x TP2 and on DP1
+    x TP4 (4 logical devices of the card): a chunk step and a decode step
+    through the kernels and the plain versions, held to the e2e rules, and
+    every rank's copy of the cache equal to rank 0's after them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    out = []
+    for dtype_name, quant in (("float32", False), ("bfloat16", False),
+                              ("bfloat16", True)):
+        cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
+                                  dtype=dtype_name)
+        store = "int8" if quant else None
+        for dp, tp in ((2, 2), (1, 4)):
+            ecfg = ElasticConfig(dp, tp, (0, 1, 2, 3))
+            hmm = HMM(cfg, tp, batch_per_replica=SCALE_BPR, max_len=MAX_LEN,
+                      kv_mode="paged", kv_block_size=BS,
+                      kv_blocks_per_replica=256, expert_mode="pooled",
+                      seed=1, kv_dtype=store, expert_dtype=store,
+                      device="cuda", all_devices=["cuda:0"] * 4)
+            hmm.boot(ecfg)
+            out.append(_e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant,
+                                        tag="[e2e_tp]"))
+            del hmm
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2044,7 +2216,9 @@ def _shard_ptrs(tree, devices):
             for d in devices}
 
 
-def _serve_scale(layers, store, timed):
+def _serve_scale(layers, store, timed, tp=1):
+    """``serve_scale`` (tp = 1, DP4 -> DP6) or ``serve_tp`` (tp = 2, DP2 x
+    TP2 -> DP3 x TP2) with one store."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.elastic_engine import ElasticServer
@@ -2053,29 +2227,31 @@ def _serve_scale(layers, store, timed):
     cfg = _capped(get_config("qwen3-30b-a3b"),
                   min(SCALE_LAYERS, layers or SCALE_LAYERS))
     L = cfg.num_layers
-    tag = f"[serve_scale {store or 'bf16'}]"
-    c4, c6 = _scale_cfgs()
+    tag = f"[{'serve_tp' if tp > 1 else 'serve_scale'} {store or 'bf16'}]"
+    c0, c1 = _scale_cfgs(tp)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    srv = ElasticServer(cfg, tp=1, batch_per_replica=SCALE_BPR,
+    srv = ElasticServer(cfg, tp=tp, batch_per_replica=SCALE_BPR,
                         max_len=MAX_LEN, seed=0, device="cuda",
                         all_devices=["cuda:0"] * SCALE_DEVICES,
                         kv_mode="paged", kv_block_size=BS,
                         expert_mode="pooled", prefill_chunk=CHUNK,
                         kv_dtype=store, expert_dtype=store)
     t0 = time.perf_counter()
-    srv.boot(c4)
+    srv.boot(c0)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     log(f"{tag} qwen3-30b-a3b, {L} layers, full width, paged KV, pooled "
         f"experts ({store or cfg.dtype}), chunked prefill, "
-        f"{c4.describe()} -> {c6.describe()}, every logical device on the "
+        f"{c0.describe()} -> {c1.describe()}, every logical device on the "
         f"one card; boot {boot_s:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    res = {"layers": L, "store": store or cfg.dtype, "boot_s": boot_s}
+    res = {"layers": L, "store": store or cfg.dtype, "boot_s": boot_s,
+           "boot_allocated_gib": torch.cuda.memory_allocated() / 2**30}
     if timed:
-        res["steps_dp4"] = _scale_step_times(srv, tag + " DP4")
+        res[f"steps_dp{c0.dp}"] = _scale_step_times(
+            srv, f"{tag} {c0.describe()}")
 
     prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
     out_len = 32
@@ -2087,7 +2263,7 @@ def _serve_scale(layers, store, timed):
     eng = srv.engine
     tracer = obs.install(obs.Tracer())
     ops.reset_launch_counts()
-    work = {4: [0, 0], 6: [0, 0]}           # dp -> [decode steps, chunks]
+    work = {c0.dp: [0, 0], c1.dp: [0, 0]}   # dp -> [decode steps, chunks]
     ticks = []
     tick = 0
     t_start = time.perf_counter()
@@ -2098,12 +2274,13 @@ def _serve_scale(layers, store, timed):
         tracer.clear()
         ts = time.perf_counter()
         if tick == 4:
-            # the 5th tick: stage DP6 while DP4 serves, one tick, switch
+            # the 5th tick: stage the target while the source serves, one
+            # tick, switch
             keep = _shard_ptrs({"params": eng.params, "cache": eng.cache},
-                               c4.devices)
+                               c0.devices)
             torch.cuda.synchronize()
             ts = time.perf_counter()
-            ev = srv.stage_scale(c6)
+            ev = srv.stage_scale(c1)
             torch.cuda.synchronize()
             stage_synced = time.perf_counter() - ts
             staged = {f: getattr(ev.stats, f) for f in
@@ -2111,15 +2288,16 @@ def _serve_scale(layers, store, timed):
             migs = len(srv.hmm.last_migrations)
             srv.tick(time.perf_counter() - t_start)
             torch.cuda.synchronize()
-            work[4][0] += eng._step_count - steps0
-            work[4][1] += sum(e.args["chunks"] for e in tracer.events()
-                              if e.name == "chunk.plan")
+            work[c0.dp][0] += eng._step_count - steps0
+            work[c0.dp][1] += sum(e.args["chunks"] for e in tracer.events()
+                                  if e.name == "chunk.plan")
             ts = time.perf_counter()
             srv.switchover()
             torch.cuda.synchronize()
             switch_synced = time.perf_counter() - ts
             res["scale"] = _check_scale(srv, ev, staged, migs, keep,
-                                        stage_synced, switch_synced, tag)
+                                        stage_synced, switch_synced, tag,
+                                        c0, c1)
             tick += 1
             continue
         srv.tick(ts - t_start)
@@ -2137,14 +2315,17 @@ def _serve_scale(layers, store, timed):
     obs.install(None)
     counts = ops.launch_counts()
     q = "quant_" if store else ""
+    # every TP rank attends and writes its own copy of the KV; the GMMs
+    # run on every logical device
     want = {
         f"{q}block_paged_decode_attention":
-            L * sum(dp * w[0] for dp, w in work.items()),
+            L * tp * sum(dp * w[0] for dp, w in work.items()),
         f"{q}mixed_block_paged_attention":
-            L * sum(w[1] for w in work.values()),
-        f"{q}paged_gmm": 3 * L * sum(dp * (w[0] + w[1])
-                                     for dp, w in work.items()),
-        "kv_cache_write": L * sum(dp * w[0] + w[1] for dp, w in work.items()),
+            L * tp * sum(w[1] for w in work.values()),
+        f"{q}paged_gmm": 3 * L * tp * sum(dp * (w[0] + w[1])
+                                          for dp, w in work.items()),
+        "kv_cache_write": L * tp * sum(dp * w[0] + w[1]
+                                       for dp, w in work.items()),
     }
     for name, n in want.items():
         require(counts[name] == n, f"{name}: {counts[name]} launches, {n} "
@@ -2155,11 +2336,15 @@ def _serve_scale(layers, store, timed):
         require(len(toks) == out_len, (r.rid, len(toks)))
         require(all(0 <= t < cfg.vocab_size for t in toks))
     if timed:
-        res["steps_dp6"] = _scale_step_times(srv, tag + " DP6")
+        res[f"steps_dp{c1.dp}"] = _scale_step_times(
+            srv, f"{tag} {c1.describe()}")
+    if tp > 1:
+        _require_copies_equal(eng.cache, c1, tag)
+        res["collectives"] = _collective_times(cfg, eng, tag)
     dec = {dp: [t["ms"] for t in ticks if t["dp"] == dp and not t["chunks"]]
-           for dp in (4, 6)}
+           for dp in work}
     chk = {dp: [t["chunk_ms"] / t["chunks"] for t in ticks
-                if t["dp"] == dp and t["chunks"]] for dp in (4, 6)}
+                if t["dp"] == dp and t["chunks"]] for dp in work}
     gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
     res.update(
         launches=counts, work=work, serve_s=wall,
@@ -2180,13 +2365,60 @@ def _serve_scale(layers, store, timed):
     return res
 
 
+def _collective_times(cfg, eng, tag):
+    """The TP sums and gathers of the engine's instance at its step shapes,
+    each timed alone with CUDA events (copies and adds on the one card),
+    and ``per_step_ms``: the sum of those isolated times over the calls a
+    step makes, not a reading from a step.  Per layer and replica one sum
+    of the attention output, two gathers (the K and V rows) and one
+    broadcast of the MoE output; per replica one sum of the embedding and
+    one gather of the logits.  A decode step runs them for every replica
+    (2 rows each), a chunk step for one (128 rows)."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.distributed.sharding import (tp_all_gather,
+                                                  tp_all_reduce,
+                                                  tp_broadcast)
+    timer = Timer()
+    par = eng.parallel
+    devs = [par.torch_device(d) for d in par.replica_devices(0)]
+    tp, L, dt = par.tp, cfg.num_layers, torch_dtype(cfg.dtype)
+    kvh, hd = cfg.num_kv_heads // tp, cfg.resolved_head_dim
+    out = {}
+    for name, rows, reps in (("decode", (SCALE_BPR, 1), par.dp),
+                             ("chunk", (1, CHUNK), 1)):
+        x = [torch.randn(*rows, cfg.d_model, device="cuda").to(dt)
+             for _ in devs]
+        kv = [torch.randn(*rows, kvh, hd, device="cuda").to(dt)
+              for _ in devs]
+        lg = [torch.randn(rows[0], cfg.vocab_size // tp,
+                          device="cuda").to(dt) for _ in devs]
+        t = {"all_reduce_ms": timer(lambda: tp_all_reduce(x, devs)),
+             "all_gather_kv_ms": timer(lambda: tp_all_gather(kv, devs, 2)),
+             "broadcast_ms": timer(lambda: tp_broadcast(x[0], devs)),
+             "all_gather_logits_ms": timer(
+                 lambda: tp_all_gather(lg, devs, -1))}
+        t["per_step_ms"] = reps * (
+            L * (t["all_reduce_ms"] + 2 * t["all_gather_kv_ms"]
+                 + t["broadcast_ms"])
+            + t["all_reduce_ms"] + t["all_gather_logits_ms"])
+        out[name] = t
+        log(f"{tag} TP sums and gathers at a {name} step's shapes, each "
+            f"timed alone (copies and adds on the one card; per_step_ms "
+            f"sums them over the step's calls): " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in t.items()))
+    del timer
+    return out
+
+
 def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
-                 tag):
+                 tag, c0, c1):
     """The switchover's invariants on the card: every parameter shard of
     the surviving devices but the rebuilt index arrays, and every KV
     shard, is the same tensor as before; the staged expert bytes are
     exactly the migrations' pages, the rest of the copies exactly the two
-    new devices' replicated leaves, and commit moved no weight byte."""
+    new devices' non-expert shards (at tp = 2 each its TP rank's), commit
+    moved no weight byte and zeroed the new replica's KV slice in each of
+    its ranks' copies."""
     from repro_torch.distributed.sharding import tree_leaves_with_path
     eng, hmm = srv.engine, srv.hmm
     now = _shard_ptrs({"params": eng.params, "cache": eng.cache},
@@ -2204,19 +2436,22 @@ def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
     require(staged["expert_p2p_bytes"] == migs * page,
             (staged["expert_p2p_bytes"], migs, page))
     require(staged["expert_zero_copy_bytes"] == (Lm * E - migs) * page)
-    require(staged["p2p_bytes"] == migs * page + 2 * repl)
-    require(staged["zero_copy_bytes"] == (Lm * E - migs) * page + 4 * repl)
+    n_new = c1.ndev - c0.ndev
+    require(staged["p2p_bytes"] == migs * page + n_new * repl)
+    require(staged["zero_copy_bytes"]
+            == (Lm * E - migs) * page + c0.ndev * repl)
     require(staged["local_bytes"] == staged["init_bytes"] == 0)
     final = {f: getattr(ev.stats, f) for f in ev.stats.BYTE_FIELDS}
     require(final["p2p_bytes"] == staged["p2p_bytes"]
             and final["expert_p2p_bytes"] == staged["expert_p2p_bytes"],
             "commit moved weight bytes")
     kv = sum(leaf.nbytes for leaf in eng.cache.values())
-    require(final["init_bytes"] == kv // 3,          # 2 new of 6 replicas
-            (final["init_bytes"], kv))
+    require(final["init_bytes"] == kv // c1.dp * (c1.dp - c0.dp) * c1.tp,
+            (final["init_bytes"], kv))             # the new replicas' copies
     nonzero = {f: v for f, v in final.items() if v}
     rate = staged["p2p_bytes"] / stage_synced / 1e9
-    log(f"{tag} scale DP4 -> DP6: stage_s {ev.stage_s:.3f} (host), "
+    log(f"{tag} scale {c0.describe()} -> {c1.describe()}: stage_s "
+        f"{ev.stage_s:.3f} (host), "
         f"{stage_synced:.3f} s with the card synchronised; switch_s "
         f"{ev.switch_s:.4f} (host), {switch_synced:.4f} s synchronised; "
         f"{migs} expert pages moved (copies between logical devices on "
@@ -2228,15 +2463,16 @@ def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
             "final_bytes": final, "copy_gb_s": rate}
 
 
-def phase_serve_scale(layers):
-    """``serve_scale``: the bf16 server, its steps timed at DP4 and DP6,
-    then (after it is freed) the int8 one; the launches are their sum."""
+def phase_serve_scale(layers, tp=1):
+    """``serve_scale`` (tp = 1) or ``serve_tp`` (tp = 2): the bf16 server,
+    its steps timed before and after the scale, then (after it is freed)
+    the int8 one; the launches are their sum."""
     res = {}
     for store in (None, "int8"):
-        res[store or "bf16"] = _serve_scale(layers, store, store is None)
+        res[store or "bf16"] = _serve_scale(layers, store, store is None, tp)
         gc.collect()
         torch.cuda.empty_cache()
-    names = PATH_KERNELS["serve_scale"]
+    names = PATH_KERNELS["serve_tp" if tp > 1 else "serve_scale"]
     res["launches"] = {n: sum(r["launches"][n] for r in res.values())
                        for n in names}
     return res
@@ -2287,9 +2523,9 @@ def main():
                          "multiple of its attn_every")
     ap.add_argument("--phases",
                     default="build,kernels,e2e,e2e_mla,e2e_ssm,e2e_scale,"
-                            "serve,serve_int8,serve_dense,serve_mla,"
+                            "e2e_tp,serve,serve_int8,serve_dense,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
-                            "serve_scale")
+                            "serve_scale,serve_tp")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2312,10 +2548,12 @@ def main():
     res = {"card": smi, "torch": torch.__version__, "phase_seconds": {}}
     runs = [("build", phase_build), ("kernels", phase_kernels),
             ("e2e", phase_e2e), ("e2e_mla", phase_e2e_mla),
-            ("e2e_ssm", phase_e2e_ssm), ("e2e_scale", phase_e2e_scale)]
+            ("e2e_ssm", phase_e2e_ssm), ("e2e_scale", phase_e2e_scale),
+            ("e2e_tp", phase_e2e_tp)]
     runs += [(p, lambda p=p: phase_serve(args.layers, p))
              for p in SERVE_STORES]
     runs.append(("serve_scale", lambda: phase_serve_scale(args.layers)))
+    runs.append(("serve_tp", lambda: phase_serve_scale(args.layers, 2)))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -7,22 +7,24 @@ On one device (``ElasticConfig(1, 1, (0,))``) an instance serves a
 standard-attention decoder, an MLA decoder (over its latent cache) or a
 Mamba2 model, attention-free or hybrid (over its per-slot SSD state and,
 hybrid, the shared block's K/V); the last two with dense KV and monolithic
-prefill only, as in the reference.  On several logical devices
-(``all_devices``) a standard-attention decoder serves at tp = 1: each DP
-replica runs its attention on its own shards and slots, the MoE runs
-expert-parallel across every device, and the server scales DP up while it
-serves: ``stage_scale`` stages the target's weights between ticks (the
-engine keeps serving on the old instance), ``switchover`` commits them and
-rebinds the engine, whose surviving slots continue on the same KV shards.
+prefill only, as in the reference. On several logical devices
+(``all_devices``) a standard-attention decoder serves at any tp whose split
+keeps every head whole: each DP replica runs its attention on its own
+shards and slots (at tp > 1 split over its TP ranks, with explicit sums
+between them), the MoE runs expert-parallel across every device, and the
+server scales DP up while it serves: ``stage_scale`` stages the target's
+weights between ticks (the engine keeps serving on the old instance),
+``switchover`` commits them and rebinds the engine, whose surviving slots
+continue on the same KV shards.
 
 The defaults are the reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
 modes.  Dense KV with chunked prefill is not ported yet and raises.  So do
-serving at tp > 1, a server-level scale-down (it needs Slice B's KV
-migration or drain), overlapped staging, rebalancing and parking: their
-knobs keep the reference's names and raise ``NotImplementedError``.
+a TP degree that cuts a head, a server-level scale-down (it needs Slice
+B's KV migration or drain), overlapped staging, rebalancing and parking:
+their knobs keep the reference's names and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.core.hmm import (HMM, REBALANCE, SLICE_B, SLICE_C,
                                   TELEMETRY, TransferStats, not_ported)
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.distributed.sharding import make_instance_mesh
-from repro_torch.models.model import chunk_prefill_supported
+from repro_torch.models.model import check_tp_heads, chunk_prefill_supported
 from repro_torch.serving.engine import (InferenceEngine,
                                         compile_step_functions,
                                         engine_parallel_ctx)
@@ -95,12 +97,7 @@ class ElasticServer:
         not_ported("imm_cache", imm_cache, None, SLICE_B)
         not_ported("expert_slot_slack", expert_slot_slack or 0, 0,
                    REBALANCE)
-        if tp != 1:
-            raise NotImplementedError(
-                "serving at tp > 1 (attention, MLP, embedding and LM head "
-                "split over the TP ranks, with explicit sums between them) "
-                "is not ported yet: it is the TP-serving slice, Slice A2 "
-                "(ROADMAP §0 item 1)")
+        check_tp_heads(mcfg, tp)
         if prefill_chunk and not chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
                              f"(as in the reference)")

@@ -27,7 +27,10 @@ the reference's ``param_shardings`` / ``cache_shardings`` lay them out:
 TP splits over 'tp', experts (dense bank E axis, pool page axis, table
 rows) over ('dp', 'tp') = EP, the rest replicated (``param_sharding``, one
 leaf's rule); the cache splits its batch or block axis over 'dp'
-(``cache_sharding``).
+(``cache_sharding``), so each TP rank of a replica holds a copy of its
+slice.  A configuration whose TP split would cut a query or kv head
+raises at boot (``models.model.check_tp_heads``): the model steps compute
+head-aligned splits only.
 
 ``scale`` (``begin_scale`` + ``stage_increment``) stages the target's
 weights while the old instance serves: a shard whose (index, logical
@@ -67,9 +70,10 @@ from repro_torch.distributed.sharding import (Mesh, NamedSharding,
                                               place, tree_leaves_with_path,
                                               tree_map_with_path)
 from repro_torch.kernels.quant import quantize_rows
-from repro_torch.models.model import (dense_cache_supported, init_cache,
-                                      init_expert_bank, init_paged_cache,
-                                      init_params, paged_cache_supported)
+from repro_torch.models.model import (check_tp_heads, dense_cache_supported,
+                                      init_cache, init_expert_bank,
+                                      init_paged_cache, init_params,
+                                      paged_cache_supported)
 from repro_torch.serving.kv_blocks import KVBlockManager
 
 
@@ -380,7 +384,8 @@ class HMM:
             raise NotImplementedError(
                 f"{self.mcfg.name}: MLA and Mamba2 models on more than one "
                 f"device are not ported yet (the multi-device MLA and "
-                f"Mamba2 slice, ROADMAP §0 item 3)")
+                f"Mamba2 slice, ROADMAP §0 item 2)")
+        check_tp_heads(self.mcfg, cfg.tp)
         t0 = time.perf_counter()
         layout = None
         if self.mcfg.is_moe:

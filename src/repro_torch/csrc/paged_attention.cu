@@ -232,7 +232,8 @@ __global__ void __launch_bounds__(MMA_THREADS) mixed_mma_kernel(
     const int32_t* __restrict__ ctx_lens, const int32_t* __restrict__ q_lens,
     __nv_bfloat16* __restrict__ out, float* __restrict__ ws_acc,
     float* __restrict__ ws_ml, int* __restrict__ done, int Sq, int H,
-    int KVH, int hd_arg, int NB, int bs, int MB, float scale) {
+    int KVH, int KVHP, int KOFF, int hd_arg, int NB, int bs, int MB,
+    float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   // HD: the head width, or 0 for any multiple of 16 up to MAX_HD (the
   // loops then guard each k-step and n-tile at run time)
@@ -334,7 +335,8 @@ __global__ void __launch_bounds__(MMA_THREADS) mixed_mma_kernel(
         const int t = tid / LPR + i * (MMA_THREADS / LPR);
         const int row = rows_t[t];
         const size_t off =
-            row < 0 ? 0 : ((size_t)row * KVH + kvh) * hd + piece * VEC;
+            row < 0 ? 0
+                    : ((size_t)row * KVHP + KOFF + kvh) * hd + piece * VEC;
         cp_async16(kd + t * rb + piece * 16, k_pool + off, row >= 0);
         cp_async16(vd + t * rb + piece * 16, v_pool + off, row >= 0);
       }
@@ -646,15 +648,16 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 // grid (row tiles, KVH, B); dynamic shared memory: see smem_bytes().  KV is
 // the pools' storage type: float, or int8_t with f32 scale pools k_scale /
 // v_scale [NB, bs] (unused, and null, otherwise); block pools
-// [NB, bs, KVH, hd] read through the tables.
+// [NB, bs, KVHP, hd] read through the tables, the block's kv head head KOFF
+// + kvh of a row.
 template <typename KV>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const float* __restrict__ q, const KV* __restrict__ k_pool,
     const float* __restrict__ k_scale, const KV* __restrict__ v_pool,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ ctx_lens, const int32_t* __restrict__ q_lens,
-    float* __restrict__ out, int Sq, int H, int KVH, int hd, int NB, int bs,
-    int MB, int R, float scale) {
+    float* __restrict__ out, int Sq, int H, int KVH, int KVHP, int KOFF,
+    int hd, int NB, int bs, int MB, int R, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   extern __shared__ float smem[];
   const int G = H / KVH;
@@ -704,7 +707,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
       const int hd8 = hd >> 3;
       for (int idx = tid; idx < bs * hd8; idx += THREADS) {
         const int t = idx / hd8, d = (idx - t * hd8) << 3;
-        const size_t off = (((size_t)phys * bs + t) * KVH + kvh) * hd + d;
+        const size_t off =
+            (((size_t)phys * bs + t) * KVHP + KOFF + kvh) * hd + d;
         const int2 kw = *reinterpret_cast<const int2*>(k_pool + off);
         const int2 vw = *reinterpret_cast<const int2*>(v_pool + off);
 #pragma unroll
@@ -722,7 +726,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     } else {
       for (int idx = tid; idx < bs * hd; idx += THREADS) {
         const int t = idx / hd, d = idx - (idx / hd) * hd;
-        const size_t off = (((size_t)phys * bs + t) * KVH + kvh) * hd + d;
+        const size_t off =
+            (((size_t)phys * bs + t) * KVHP + KOFF + kvh) * hd + d;
         k_s[t * hdp + d] = to_f32(k_pool[off]);
         v_s[idx] = to_f32(v_pool[off]);
       }
@@ -795,8 +800,9 @@ struct Args {
 };
 
 template <typename KV, int HD>
-int launch_mma(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
-               int bs, int MB, float scale, cudaStream_t stream) {
+int launch_mma(const Args& a, int B, int Sq, int H, int KVH, int KVHP,
+               int KOFF, int hd, int NB, int bs, int MB, float scale,
+               cudaStream_t stream) {
   const int rows = Sq * (H / KVH);
   const int cap = MB * bs;
   const dim3 grid((rows + TQ - 1) / TQ, B * KVH,
@@ -834,26 +840,31 @@ int launch_mma(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
       static_cast<const int32_t*>(a.q_lens),
       static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.ws_acc),
       static_cast<float*>(a.ws_ml), static_cast<int*>(a.done), Sq, H, KVH,
-      hd, NB, bs, MB, scale);
+      KVHP, KOFF, hd, NB, bs, MB, scale);
   return (int)cudaGetLastError();
 }
 
 // the served head widths (64, 128) as their own instances; any other
 // multiple of 16 up to MAX_HD through the guarded one
 template <typename KV>
-int by_width(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
-             int bs, int MB, float scale, cudaStream_t s) {
+int by_width(const Args& a, int B, int Sq, int H, int KVH, int KVHP,
+             int KOFF, int hd, int NB, int bs, int MB, float scale,
+             cudaStream_t s) {
   if (hd % 16 || hd <= 0 || hd > MAX_HD) return (int)cudaErrorInvalidValue;
   if (hd == 128)
-    return launch_mma<KV, 128>(a, B, Sq, H, KVH, hd, NB, bs, MB, scale, s);
+    return launch_mma<KV, 128>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs, MB,
+                               scale, s);
   if (hd == 64)
-    return launch_mma<KV, 64>(a, B, Sq, H, KVH, hd, NB, bs, MB, scale, s);
-  return launch_mma<KV, 0>(a, B, Sq, H, KVH, hd, NB, bs, MB, scale, s);
+    return launch_mma<KV, 64>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs, MB,
+                              scale, s);
+  return launch_mma<KV, 0>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs, MB,
+                           scale, s);
 }
 
 template <typename KV>
-int launch_f32(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
-               int bs, int MB, float scale, cudaStream_t stream) {
+int launch_f32(const Args& a, int B, int Sq, int H, int KVH, int KVHP,
+               int KOFF, int hd, int NB, int bs, int MB, float scale,
+               cudaStream_t stream) {
   const int rows = Sq * (H / KVH);
   const int R = rows < ROWS_MAX ? rows : ROWS_MAX;
   const dim3 grid((rows + R - 1) / R, KVH, B);
@@ -872,7 +883,7 @@ int launch_f32(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
       static_cast<const int32_t*>(a.tables),
       static_cast<const int32_t*>(a.ctx_lens),
       static_cast<const int32_t*>(a.q_lens), static_cast<float*>(a.out), Sq,
-      H, KVH, hd, NB, bs, MB, R, scale);
+      H, KVH, KVHP, KOFF, hd, NB, bs, MB, R, scale);
   return (int)cudaGetLastError();
 }
 
@@ -880,21 +891,22 @@ int launch_f32(const Args& a, int B, int Sq, int H, int KVH, int hd, int NB,
 // cores); quant: int8 pools + scales (else pools of q's type and null
 // scales).
 int dispatch(int dtype, bool quant, const Args& a, int B, int Sq, int H,
-             int KVH, int hd, int NB, int bs, int MB, float scale,
-             void* stream) {
+             int KVH, int KVHP, int KOFF, int hd, int NB, int bs, int MB,
+             float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  if (KVH <= 0 || H % KVH || KOFF < 0 || KOFF + KVH > KVHP)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return quant ? launch_f32<int8_t>(a, B, Sq, H, KVH, hd, NB, bs, MB,
-                                      scale, s)
-                 : launch_f32<float>(a, B, Sq, H, KVH, hd, NB, bs, MB, scale,
-                                     s);
+    return quant ? launch_f32<int8_t>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB,
+                                      bs, MB, scale, s)
+                 : launch_f32<float>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs,
+                                     MB, scale, s);
   if (dtype == 1)
-    return quant ? by_width<int8_t>(a, B, Sq, H, KVH, hd, NB, bs, MB,
-                                    scale, s)
-                 : by_width<__nv_bfloat16>(a, B, Sq, H, KVH, hd, NB, bs, MB,
-                                           scale, s);
+    return quant ? by_width<int8_t>(a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs,
+                                    MB, scale, s)
+                 : by_width<__nv_bfloat16>(a, B, Sq, H, KVH, KVHP, KOFF, hd,
+                                           NB, bs, MB, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -903,6 +915,9 @@ int dispatch(int dtype, bool quant, const Args& a, int B, int Sq, int H,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, out and, unquantized, the pools).
+// The launch attends KVH kv heads from head KOFF of pool rows of KVHP
+// heads (a TP rank's heads of a pool that holds them all; KVHP = KVH,
+// KOFF = 0 for the whole pool); q and out hold H = G * KVH heads.
 // bf16: hd a multiple of 16, at most 128; q and the pools 16-byte
 // aligned.  Workspace (f32, bf16 only; null for f32): ws_acc holds B * KVH
 // * ceil(Sq * H / KVH / TQ) * ceil(MB * bs / SPAN) * TQ * hd values
@@ -917,13 +932,14 @@ int mixed_block_paged_attention_launch(int dtype, const void* q,
                                        const void* ctx_lens,
                                        const void* q_lens, void* out,
                                        void* ws_acc, void* ws_ml, void* done,
-                                       int B, int Sq, int H, int KVH, int hd,
-                                       int NB, int bs, int MB, float scale,
+                                       int B, int Sq, int H, int KVH,
+                                       int KVHP, int KOFF, int hd, int NB,
+                                       int bs, int MB, float scale,
                                        void* stream) {
   const Args a{q,      k_pool, nullptr, v_pool, nullptr, tables,
                ctx_lens, q_lens, out,   ws_acc, ws_ml,   done};
-  return dispatch(dtype, false, a, B, Sq, H, KVH, hd, NB, bs, MB, scale,
-                  stream);
+  return dispatch(dtype, false, a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs, MB,
+                  scale, stream);
 }
 
 // int8 pools [NB,bs,KVH,hd] with f32 scale pools [NB,bs] (4-byte
@@ -933,12 +949,12 @@ int quant_mixed_block_paged_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* k_scale,
     const void* v_pool, const void* v_scale, const void* tables,
     const void* ctx_lens, const void* q_lens, void* out, void* ws_acc,
-    void* ws_ml, void* done, int B, int Sq, int H, int KVH, int hd, int NB,
-    int bs, int MB, float scale, void* stream) {
+    void* ws_ml, void* done, int B, int Sq, int H, int KVH, int KVHP,
+    int KOFF, int hd, int NB, int bs, int MB, float scale, void* stream) {
   const Args a{q,      k_pool, k_scale, v_pool, v_scale, tables,
                ctx_lens, q_lens, out,   ws_acc, ws_ml,   done};
-  return dispatch(dtype, true, a, B, Sq, H, KVH, hd, NB, bs, MB, scale,
-                  stream);
+  return dispatch(dtype, true, a, B, Sq, H, KVH, KVHP, KOFF, hd, NB, bs, MB,
+                  scale, stream);
 }
 
 const char* cuda_error_string(int code) {

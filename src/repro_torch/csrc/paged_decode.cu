@@ -300,11 +300,12 @@ __host__ __device__ __forceinline__ int row_bytes(int hd) {
 // smem_bytes().  KV is the pools' storage type: T, or int8_t with f32
 // scale pools k_scale / v_scale [NB, bs] (null otherwise) read through the
 // same table entries as the rows.  SLOT: k/v are slot caches
-// [B,S_max,KVH,hd] (tables null), else pools [NB,bs,KVH,hd] read through
-// tables [B,MB].  ws_acc [B, KVH, gridDim.z, G, hd] and ws_ml [B, KVH,
-// gridDim.z, G, 2] (f32) hold the splits of a sequence longer than CH;
-// done [B * KVH] int32 is zero at the start, and the merging block leaves
-// it zero at the end.
+// [B,S_max,KVHP,hd] (tables null), else pools [NB,bs,KVHP,hd] read through
+// tables [B,MB]; the block's kv head is head KOFF + kvh of a row (KVH of
+// the KVHP heads from KOFF: a TP rank's).  ws_acc [B, KVH, gridDim.z, G,
+// hd] and ws_ml [B, KVH, gridDim.z, G, 2] (f32) hold the splits of a
+// sequence longer than CH; done [B * KVH] int32 is zero at the start, and
+// the merging block leaves it zero at the end.
 template <typename T, typename KV, bool SLOT, int GP>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const T* __restrict__ q, const KV* __restrict__ k,
@@ -312,8 +313,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
     const int32_t* __restrict__ lengths, T* __restrict__ out,
     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
-    int* __restrict__ done, int H, int KVH, int hd, int NB, int bs, int MB,
-    int S_max, float scale) {
+    int* __restrict__ done, int H, int KVH, int KVHP, int KOFF, int hd,
+    int NB, int bs, int MB, int S_max, float scale) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   static_assert(!(QUANT && SLOT), "int8 rows come from block pools");
   constexpr int VEC = 16 / sizeof(KV);   // K/V values a 16-byte piece
@@ -363,7 +364,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
       } else {
         row = (size_t)tab_s[pos / bs - blk0] * bs + pos % bs;
       }
-      off = (long long)((row * KVH + kvh) * hd);
+      off = (long long)((row * KVHP + KOFF + kvh) * hd);
     }
     if constexpr (QUANT) cp_async4(sc_dst + r0 + lane, sc_src + row, off >= 0);
     int t = lane / chk, piece = lane - t * chk;  // piece c = t * chk + piece
@@ -890,8 +891,9 @@ struct Args {
 };
 
 template <typename T, typename KV, bool SLOT, int GP>
-int launch(const Args& a, int B, int H, int KVH, int hd, int NB, int bs,
-           int MB, int S_max, float scale, cudaStream_t stream) {
+int launch(const Args& a, int B, int H, int KVH, int KVHP, int KOFF, int hd,
+           int NB, int bs, int MB, int S_max, float scale,
+           cudaStream_t stream) {
   const int cap = SLOT ? S_max : MB * bs;
   // the splits slowest: every sequence's first span is scheduled first,
   // and the blocks past a short sequence's length come last
@@ -927,19 +929,22 @@ int launch(const Args& a, int B, int H, int KVH, int hd, int NB, int bs,
       static_cast<const int32_t*>(a.tables),
       static_cast<const int32_t*>(a.lengths), static_cast<T*>(a.out),
       static_cast<float*>(a.ws_acc), static_cast<float*>(a.ws_ml),
-      static_cast<int*>(a.done), H, KVH, hd, NB, bs, MB, S_max, scale);
+      static_cast<int*>(a.done), H, KVH, KVHP, KOFF, hd, NB, bs, MB, S_max,
+      scale);
   return (int)cudaGetLastError();
 }
 
 // GP: the group size H / KVH rounded up to a power of two (f32), or 1, 2
 // and else 16, the tensor-core tiles' rows (bf16)
 template <typename T, typename KV, bool SLOT>
-int by_group(const Args& a, int B, int H, int KVH, int hd, int NB, int bs,
-             int MB, int S_max, float scale, cudaStream_t s) {
+int by_group(const Args& a, int B, int H, int KVH, int KVHP, int KOFF,
+             int hd, int NB, int bs, int MB, int S_max, float scale,
+             cudaStream_t s) {
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   const int G = H / KVH;
 #define PD_LAUNCH(GP) \
-  launch<T, KV, SLOT, GP>(a, B, H, KVH, hd, NB, bs, MB, S_max, scale, s)
+  launch<T, KV, SLOT, GP>(a, B, H, KVH, KVHP, KOFF, hd, NB, bs, MB, S_max, \
+                          scale, s)
   if (G <= 1) return PD_LAUNCH(1);
   if (G <= 2) return PD_LAUNCH(2);
   if constexpr (!BF16) {
@@ -954,21 +959,23 @@ int by_group(const Args& a, int B, int H, int KVH, int hd, int NB, int bs,
 // quant: int8 rows with f32 scales (block pools only), else rows of q's
 // type
 template <bool SLOT, bool QUANT = false>
-int dispatch(int dtype, const Args& a, int B, int H, int KVH, int hd, int NB,
-             int bs, int MB, int S_max, float scale, void* stream) {
+int dispatch(int dtype, const Args& a, int B, int H, int KVH, int KVHP,
+             int KOFF, int hd, int NB, int bs, int MB, int S_max, float scale,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0) return 0;
-  if (KVH <= 0 || H % KVH || hd <= 0 || hd > MAX_HD)
+  if (KVH <= 0 || H % KVH || hd <= 0 || hd > MAX_HD || KOFF < 0 ||
+      KOFF + KVH > KVHP)
     return (int)cudaErrorInvalidValue;
   using F32KV = typename std::conditional<QUANT, int8_t, float>::type;
   using BF16KV =
       typename std::conditional<QUANT, int8_t, __nv_bfloat16>::type;
   if (dtype == 0 && hd % (QUANT ? 16 : 4) == 0)
-    return by_group<float, F32KV, SLOT>(a, B, H, KVH, hd, NB, bs, MB, S_max,
-                                        scale, s);
+    return by_group<float, F32KV, SLOT>(a, B, H, KVH, KVHP, KOFF, hd, NB, bs,
+                                        MB, S_max, scale, s);
   if (dtype == 1 && hd % 16 == 0)
-    return by_group<__nv_bfloat16, BF16KV, SLOT>(a, B, H, KVH, hd, NB, bs,
-                                                 MB, S_max, scale, s);
+    return by_group<__nv_bfloat16, BF16KV, SLOT>(a, B, H, KVH, KVHP, KOFF, hd,
+                                                 NB, bs, MB, S_max, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -977,7 +984,10 @@ int dispatch(int dtype, const Args& a, int B, int H, int KVH, int hd, int NB,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, out and the pools); tables and
-// lengths int32.  G = H / KVH at most 16; hd at most 128 and a multiple of
+// lengths int32.  The launch attends KVH kv heads from head KOFF of rows
+// of KVHP heads (a TP rank's heads of a pool that holds them all; KVHP =
+// KVH, KOFF = 0 for the whole pool); q and out hold H = G * KVH heads.
+// G = H / KVH at most 16; hd at most 128 and a multiple of
 // 16 bytes; pools 16-byte aligned.  Workspace (f32): ws_acc holds B * KVH
 // * ceil(MB * bs / 128) * G * hd values, ws_ml the same count over hd times
 // 2; done holds B * KVH int32 zeros, which the launch leaves zero; two
@@ -987,12 +997,12 @@ extern "C" {
 int block_paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* lengths, void* out, void* ws_acc,
-    void* ws_ml, void* done, int B, int H, int KVH, int hd, int NB, int bs,
-    int MB, float scale, void* stream) {
+    void* ws_ml, void* done, int B, int H, int KVH, int KVHP, int KOFF,
+    int hd, int NB, int bs, int MB, float scale, void* stream) {
   const Args a{q,      k_pool, v_pool, nullptr, nullptr, tables,
                lengths, out,   ws_acc, ws_ml,   done};
-  return dispatch<false>(dtype, a, B, H, KVH, hd, NB, bs, MB, 0, scale,
-                         stream);
+  return dispatch<false>(dtype, a, B, H, KVH, KVHP, KOFF, hd, NB, bs, MB, 0,
+                         scale, stream);
 }
 
 // int8 pools [NB,bs,KVH,hd] with f32 scale pools [NB,bs] (4-byte
@@ -1002,12 +1012,12 @@ int quant_block_paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* k_scale,
     const void* v_pool, const void* v_scale, const void* tables,
     const void* lengths, void* out, void* ws_acc, void* ws_ml, void* done,
-    int B, int H, int KVH, int hd, int NB, int bs, int MB, float scale,
-    void* stream) {
+    int B, int H, int KVH, int KVHP, int KOFF, int hd, int NB, int bs,
+    int MB, float scale, void* stream) {
   const Args a{q,      k_pool, v_pool, k_scale, v_scale, tables,
                lengths, out,   ws_acc, ws_ml,   done};
-  return dispatch<false, true>(dtype, a, B, H, KVH, hd, NB, bs, MB, 0, scale,
-                               stream);
+  return dispatch<false, true>(dtype, a, B, H, KVH, KVHP, KOFF, hd, NB, bs,
+                               MB, 0, scale, stream);
 }
 
 // Slot-contiguous caches [B,S_max,KVH,hd] of q's type; lengths [B]
@@ -1016,12 +1026,13 @@ int paged_decode_attention_launch(int dtype, const void* q,
                                   const void* k_cache, const void* v_cache,
                                   const void* lengths, void* out,
                                   void* ws_acc, void* ws_ml, void* done,
-                                  int B, int H, int KVH, int hd, int S_max,
-                                  float scale, void* stream) {
+                                  int B, int H, int KVH, int KVHP, int KOFF,
+                                  int hd, int S_max, float scale,
+                                  void* stream) {
   const Args a{q,      k_cache, v_cache, nullptr, nullptr, nullptr,
                lengths, out,    ws_acc,  ws_ml,   done};
-  return dispatch<true>(dtype, a, B, H, KVH, hd, 0, 1, 0, S_max, scale,
-                        stream);
+  return dispatch<true>(dtype, a, B, H, KVH, KVHP, KOFF, hd, 0, 1, 0, S_max,
+                        scale, stream);
 }
 
 const char* cuda_error_string(int code) {

@@ -19,7 +19,10 @@ placement goes by logical id, never by ``torch.device``:
   where two logical devices share a card.  Placing a shard on a logical
   device is a real copy (``place``), never ``.to(device)``, which returns
   the tensor itself on the same device;
-* ``ParallelCtx`` says how a model step maps onto the logical devices.
+* ``ParallelCtx`` says how a model step maps onto the logical devices;
+* ``tp_all_reduce``, ``tp_gather``, ``tp_all_gather`` and ``tp_broadcast``
+  carry the sums and gathers between the TP ranks of a replica, in rank
+  order.
 
 Parameter and cache trees are nested dicts and lists; ``tree_*`` walk them
 in JAX's order (dict keys sorted, list items in order).
@@ -253,3 +256,62 @@ class ParallelCtx:
 
     def torch_device(self, device: int) -> torch.device:
         return self.all_devices[device]
+
+    def replica_devices(self, replica: int) -> Tuple[int, ...]:
+        """Replica ``replica``'s logical devices, TP rank 0 first."""
+        return self.devices[replica * self.tp:(replica + 1) * self.tp]
+
+
+# ------------------------------------------------------------- collectives
+#
+# The sums and gathers between the TP ranks of one replica: the port's
+# counterparts of the collectives GSPMD inserts where a TP-split product
+# meets replicated activations.  Each takes one tensor per rank, in rank
+# order, and returns one result per rank, on that rank's device, in a
+# fixed order (no reduction order depends on timing).  On one card they are
+# copies and adds; a multi-card build may replace them by NCCL collectives
+# with the same signatures.
+
+def tp_all_reduce(parts: Sequence[torch.Tensor],
+                  devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The sum of ``parts`` (one per rank, rank 0 first, added in that
+    order) on every rank's device: each rank r > 0 sends its part to rank
+    0 (``place``, a copy also where the two ranks share a card), which
+    adds it and sends the sum back.  One rank: its part itself."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + place(p, devices[0])
+    return tp_broadcast(total, devices)
+
+
+def tp_gather(parts: Sequence[torch.Tensor], devices: Sequence[torch.device],
+              dim: int) -> torch.Tensor:
+    """``parts`` (one per rank) joined along ``dim`` in rank order on rank
+    0's device: each part is copied into its slice of the result.  One
+    rank: its part itself."""
+    if len(parts) == 1:
+        return parts[0]
+    sizes = [p.shape[dim] for p in parts]
+    shape = list(parts[0].shape)
+    shape[dim] = sum(sizes)
+    whole = torch.empty(shape, dtype=parts[0].dtype, device=devices[0])
+    for p, piece in zip(parts, whole.split(sizes, dim)):
+        piece.copy_(p)
+    return whole
+
+
+def tp_all_gather(parts: Sequence[torch.Tensor],
+                  devices: Sequence[torch.device],
+                  dim: int) -> List[torch.Tensor]:
+    """``parts`` (one per rank) joined along ``dim`` in rank order, on
+    every rank's device (:func:`tp_gather`, then :func:`tp_broadcast`).
+    One rank: its part itself."""
+    return tp_broadcast(tp_gather(parts, devices, dim), devices)
+
+
+def tp_broadcast(t: torch.Tensor,
+                 devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """Rank 0's ``t`` on every rank's device: ``t`` itself for rank 0, a
+    copy for each other rank (the replication over 'tp' of rows the
+    expert-parallel MoE returned to rank 0)."""
+    return [t] + [place(t, d) for d in devices[1:]]

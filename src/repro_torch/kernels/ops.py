@@ -6,6 +6,11 @@ and no environment switch.  The one explicit way to run the plain versions
 on the card is the ``use_reference()`` context manager, which the tests and
 ``chip_smoke.py``'s comparison phase use.
 
+The three decodes and the two mixed attentions take ``kv_head_offset``
+and ``kv_heads``: the kv heads ``[kv_head_offset, kv_head_offset +
+kv_heads)`` of a pool that holds more (a TP rank's heads of the replicated
+cache; ``kernels/ref.py``'s module note), read in place.
+
 Launch counts live on the kernel wrappers (``<wrapper>.launches``, one per
 launch and nowhere else); ``launch_counts`` reads and
 ``reset_launch_counts`` zeroes them.
@@ -74,26 +79,29 @@ def _plain(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def block_paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+def block_paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                                 kv_head_offset=0, kv_heads=None):
     """Block-table paged decode attention (every decode tick, every
     layer); see ``paged_attention.block_paged_decode_attention``."""
     if _plain(q):
-        return ref.block_paged_decode_attention_ref(q, k_pool, v_pool,
-                                                    block_tables, lengths)
+        return ref.block_paged_decode_attention_ref(
+            q, k_pool, v_pool, block_tables, lengths, kv_head_offset,
+            kv_heads)
     return paged_attention.block_paged_decode_attention(
-        q, k_pool, v_pool, block_tables, lengths)
+        q, k_pool, v_pool, block_tables, lengths, kv_head_offset, kv_heads)
 
 
 def mixed_block_paged_attention(q, k_pool, v_pool, block_tables, ctx_lens,
-                                q_lens):
+                                q_lens, kv_head_offset=0, kv_heads=None):
     """Mixed chunked-prefill / decode attention (every prefill chunk,
     every layer); see ``paged_attention.mixed_block_paged_attention``."""
     if _plain(q):
-        return ref.mixed_block_paged_attention_ref(q, k_pool, v_pool,
-                                                   block_tables, ctx_lens,
-                                                   q_lens)
+        return ref.mixed_block_paged_attention_ref(
+            q, k_pool, v_pool, block_tables, ctx_lens, q_lens,
+            kv_head_offset, kv_heads)
     return paged_attention.mixed_block_paged_attention(
-        q, k_pool, v_pool, block_tables, ctx_lens, q_lens)
+        q, k_pool, v_pool, block_tables, ctx_lens, q_lens, kv_head_offset,
+        kv_heads)
 
 
 def paged_gmm(table, pool, x):
@@ -114,28 +122,33 @@ def paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o, x):
 
 
 def quant_block_paged_decode_attention(q, k_pool, k_scale, v_pool, v_scale,
-                                       block_tables, lengths):
+                                       block_tables, lengths,
+                                       kv_head_offset=0, kv_heads=None):
     """Int8 block-table paged decode attention (every decode tick, every
     layer, with ``kv_dtype="int8"``); see
     ``paged_attention.quant_block_paged_decode_attention``."""
     if _plain(q):
         return ref.quant_block_paged_decode_attention_ref(
-            q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths)
+            q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths,
+            kv_head_offset, kv_heads)
     return paged_attention.quant_block_paged_decode_attention(
-        q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths)
+        q, k_pool, k_scale, v_pool, v_scale, block_tables, lengths,
+        kv_head_offset, kv_heads)
 
 
 def quant_mixed_block_paged_attention(q, k_pool, k_scale, v_pool, v_scale,
-                                      block_tables, ctx_lens, q_lens):
+                                      block_tables, ctx_lens, q_lens,
+                                      kv_head_offset=0, kv_heads=None):
     """Int8 mixed chunked-prefill / decode attention (every prefill chunk,
     every layer, with ``kv_dtype="int8"``); see
     ``paged_attention.quant_mixed_block_paged_attention``."""
     if _plain(q):
         return ref.quant_mixed_block_paged_attention_ref(
             q, k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens,
-            q_lens)
+            q_lens, kv_head_offset, kv_heads)
     return paged_attention.quant_mixed_block_paged_attention(
-        q, k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens, q_lens)
+        q, k_pool, k_scale, v_pool, v_scale, block_tables, ctx_lens, q_lens,
+        kv_head_offset, kv_heads)
 
 
 def quant_paged_gmm(table, pool, scales, x):
@@ -168,14 +181,16 @@ def flash_attention(q, k, v, causal=True, scale=None):
     return _flash.flash_attention(q, k, v, causal, scale)
 
 
-def paged_decode_attention(q, k_cache, v_cache, lengths):
+def paged_decode_attention(q, k_cache, v_cache, lengths, kv_head_offset=0,
+                           kv_heads=None):
     """Decode attention over the slot-contiguous cache (every decode tick,
     every layer, with ``kv_mode="dense"``); see
     ``paged_attention.paged_decode_attention``."""
     if _plain(q):
-        return ref.paged_decode_attention_ref(q, k_cache, v_cache, lengths)
-    return paged_attention.paged_decode_attention(q, k_cache, v_cache,
-                                                  lengths)
+        return ref.paged_decode_attention_ref(q, k_cache, v_cache, lengths,
+                                              kv_head_offset, kv_heads)
+    return paged_attention.paged_decode_attention(
+        q, k_cache, v_cache, lengths, kv_head_offset, kv_heads)
 
 
 def kv_cache_write(cache, new, pos):

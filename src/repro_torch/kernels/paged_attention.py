@@ -21,6 +21,14 @@ note.  These wrappers take CUDA tensors only: they check device, dtype,
 shape, contiguity and alignment, allocate the output, launch on
 PyTorch's current stream and count the launch.  ``kernels/ops.py``
 dispatches CPU tensors to the plain versions in ``kernels/ref.py``.
+
+Every one of the five takes ``kv_head_offset`` and ``kv_heads``: it attends
+kv heads ``[kv_head_offset, kv_head_offset + kv_heads)`` of a pool or cache
+whose rows hold more (a TP rank's heads of the cache, which is replicated
+over the ranks), reading them in place: the kernels step over a row of
+the pool's full width and start at the offset head.  q carries ``kv_heads
+* G`` heads.  The offset head's first byte is 16-byte aligned wherever
+the head width is allowed at all.
 """
 from __future__ import annotations
 
@@ -34,16 +42,16 @@ from repro_torch.kernels import _build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mixed_block_paged_attention_launch":
-        [_I] + [_P] * 10 + [_I] * 8 + [_F, _P],
+        [_I] + [_P] * 10 + [_I] * 10 + [_F, _P],
     "quant_mixed_block_paged_attention_launch":
-        [_I] + [_P] * 12 + [_I] * 8 + [_F, _P],
+        [_I] + [_P] * 12 + [_I] * 10 + [_F, _P],
 }
 _DECODE_SIGNATURES = {
     "block_paged_decode_attention_launch":
-        [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
-    "paged_decode_attention_launch": [_I] + [_P] * 8 + [_I] * 5 + [_F, _P],
+        [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
+    "paged_decode_attention_launch": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
     "quant_block_paged_decode_attention_launch":
-        [_I] + [_P] * 11 + [_I] * 7 + [_F, _P],
+        [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the split-context decode's limits: query heads per kv head, head width
@@ -62,9 +70,30 @@ def _lib():
     return _build.load("paged_attention", _SIGNATURES)
 
 
-def _check_common(q, k_pool, v_pool, block_tables, ints, scales=()):
+def _head_range(q, pool, kv_head_offset, kv_heads):
+    """Check the kv heads ``[kv_head_offset, kv_head_offset + kv_heads)``
+    of ``pool`` [..., KVH, hd] against q's H heads -> (KVH, kv_heads)."""
+    KVH, hd = pool.shape[-2], pool.shape[-1]
+    off = int(kv_head_offset)
+    n = KVH - off if kv_heads is None else int(kv_heads)
+    if off < 0 or n <= 0 or off + n > KVH:
+        raise ValueError(f"kv heads [{off}, {off}+{n}) outside the pool's "
+                         f"{KVH}")
+    if q.shape[-2] % n:
+        raise ValueError(f"{q.shape[-2]} query heads do not group over "
+                         f"{n} kv heads")
+    if off * hd * pool.element_size() % 16:
+        raise ValueError(f"kv head {off} does not start 16-byte aligned in "
+                         f"a row (head width {hd})")
+    return KVH, n
+
+
+def _check_common(q, k_pool, v_pool, block_tables, ints, scales=(),
+                  kv_head_offset=0, kv_heads=None):
     """Checks shared by the four wrappers; ``scales`` are the int8 pools'
-    ``(name, [NB,bs] f32)`` pairs (empty: pools of q's dtype)."""
+    ``(name, [NB,bs] f32)`` pairs (empty: pools of q's dtype).  Returns
+    (NB, bs, KVH, kv_heads, hd): the pools' kv heads and the attended
+    ones from ``kv_head_offset``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -95,13 +124,14 @@ def _check_common(q, k_pool, v_pool, block_tables, ints, scales=()):
                          f"{tuple(k_pool.shape)} vs {tuple(v_pool.shape)}")
     H, hd = q.shape[-2], q.shape[-1]
     NB, bs, KVH, hd2 = k_pool.shape
-    if hd2 != hd or H % KVH:
+    if hd2 != hd:
         raise ValueError(f"q heads/dim {H}/{hd} do not fit pool "
                          f"KVH/hd {KVH}/{hd2}")
+    _, n = _head_range(q, k_pool, kv_head_offset, kv_heads)
     if scales and (hd % 8 or k_pool.data_ptr() % 8 or v_pool.data_ptr() % 8):
         raise ValueError("int8 pools are read 8 values at a time: hd must "
                          "be a multiple of 8 and the pools 8-byte aligned")
-    return NB, bs, KVH, hd
+    return NB, bs, KVH, n, hd
 
 
 def _decode_dims(q, block_tables, lengths):
@@ -126,6 +156,8 @@ def _mixed_dims(q, block_tables, ctx_lens, q_lens):
 def _mixed_launch(wrapper, q, kv, inputs, dims):
     """Launch ``<wrapper name>_launch(dtype, q, *inputs, out, ws_acc,
     ws_ml, done, *dims, 1/sqrt(hd), stream)`` of ``csrc/paged_attention.cu``
+    (``dims`` = B, Sq, H, the attended kv heads, the pool's kv heads, the
+    offset, hd, NB, bs, MB)
     on PyTorch's current stream, raise on a CUDA error, and count the
     launch on ``wrapper``.  bf16 runs the tensor-core kernel, with the
     stream's span workspace (``_build.split_workspace``) for every
@@ -133,7 +165,7 @@ def _mixed_launch(wrapper, q, kv, inputs, dims):
     the CUDA-core kernel, which needs none.  ``kv`` are the K and V pools,
     also among ``inputs``."""
     B, Sq, H, hd = q.shape
-    bs, KVH = kv[0].shape[1], kv[0].shape[2]
+    bs, KVH = kv[0].shape[1], dims[3]
     MB = dims[-1]
     if q.dtype == torch.bfloat16:
         if hd % 16 or hd > MAX_HEAD_DIM:
@@ -175,9 +207,11 @@ def _decode_launch(wrapper, q, kv, inputs, dims, context, scales=()):
     TOKENS_PER_BLOCK)`` per sequence and kv head; the stream's own,
     ``_build.split_workspace``); raise on a CUDA error, and count the
     launch on ``wrapper``.  ``kv`` are the K and V pools or caches and
-    ``scales`` the int8 pools' scale pools, all also among ``inputs``."""
+    ``scales`` the int8 pools' scale pools, all also among ``inputs``;
+    ``dims`` = B, H, the attended kv heads, the pool's kv heads, the
+    offset, hd, then the layout's sizes."""
     B, H, hd = q.shape
-    KVH = kv[0].shape[2]
+    KVH = dims[2]
     G = H // KVH
     # f32 and int8 rows in whole 16-byte pieces; bf16 in whole 16-value
     # k-steps of the tensor-core products
@@ -214,18 +248,23 @@ def _decode_launch(wrapper, q, kv, inputs, dims, context, scales=()):
 def block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor,
                                  block_tables: torch.Tensor,
-                                 lengths: torch.Tensor) -> torch.Tensor:
+                                 lengths: torch.Tensor, kv_head_offset=0,
+                                 kv_heads=None) -> torch.Tensor:
     """q [B,H,hd]; k/v_pool [NB,bs,KVH,hd]; block_tables [B,MB] int32;
     lengths [B] int32, clamped to MB * bs -> [B,H,hd].  Block ``ki`` of
     sequence ``b`` is pool row ``block_tables[b, ki]``; blocks at or past
     ``lengths[b]`` are never read.  At most 16 query heads per kv head;
-    hd at most 128, a multiple of 16 (bf16) or 4 (f32)."""
-    NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
-                                    [("lengths", lengths)])
+    hd at most 128, a multiple of 16 (bf16) or 4 (f32).  Kv heads from
+    ``kv_head_offset`` (module note)."""
+    NB, bs, KVH, n, hd = _check_common(q, k_pool, v_pool, block_tables,
+                                       [("lengths", lengths)],
+                                       kv_head_offset=kv_head_offset,
+                                       kv_heads=kv_heads)
     B, H, MB = _decode_dims(q, block_tables, lengths)
     return _decode_launch(block_paged_decode_attention, q, (k_pool, v_pool),
                           (k_pool, v_pool, block_tables, lengths),
-                          (B, H, KVH, hd, NB, bs, MB), MB * bs)
+                          (B, H, n, KVH, kv_head_offset, hd, NB, bs, MB),
+                          MB * bs)
 
 
 block_paged_decode_attention.launches = 0
@@ -235,7 +274,8 @@ def mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_pool: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 ctx_lens: torch.Tensor,
-                                q_lens: torch.Tensor) -> torch.Tensor:
+                                q_lens: torch.Tensor, kv_head_offset=0,
+                                kv_heads=None) -> torch.Tensor:
     """Mixed chunked-prefill / decode attention.  q [B,Sq,H,hd];
     k/v_pool [NB,bs,KVH,hd]; block_tables [B,MB]; ctx_lens, q_lens [B]
     int32 -> [B,Sq,H,hd].  Row ``i`` of sequence ``b`` attends causally
@@ -243,14 +283,17 @@ def mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     attend the whole context.  The kernel clamps the ``NB`` sentinel in
     the tables to ``NB - 1`` where it reads them; position masking keeps
     such rows inert.  bf16: hd a multiple of 16, at most 128; q and the
-    pools 16-byte aligned."""
-    NB, bs, KVH, hd = _check_common(q, k_pool, v_pool, block_tables,
-                                    [("ctx_lens", ctx_lens),
-                                     ("q_lens", q_lens)])
+    pools 16-byte aligned.  Kv heads from ``kv_head_offset`` (module
+    note)."""
+    NB, bs, KVH, n, hd = _check_common(q, k_pool, v_pool, block_tables,
+                                       [("ctx_lens", ctx_lens),
+                                        ("q_lens", q_lens)],
+                                       kv_head_offset=kv_head_offset,
+                                       kv_heads=kv_heads)
     B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
     return _mixed_launch(mixed_block_paged_attention, q, (k_pool, v_pool),
                          (k_pool, v_pool, block_tables, ctx_lens, q_lens),
-                         (B, Sq, H, KVH, hd, NB, bs, MB))
+                         (B, Sq, H, n, KVH, kv_head_offset, hd, NB, bs, MB))
 
 
 mixed_block_paged_attention.launches = 0
@@ -261,23 +304,28 @@ def quant_block_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                        v_pool: torch.Tensor,
                                        v_scale: torch.Tensor,
                                        block_tables: torch.Tensor,
-                                       lengths: torch.Tensor) -> torch.Tensor:
+                                       lengths: torch.Tensor,
+                                       kv_head_offset=0,
+                                       kv_heads=None) -> torch.Tensor:
     """:func:`block_paged_decode_attention` over int8 pools
     ``[NB,bs,KVH,hd]`` with f32 per-token scale pools ``k/v_scale``
     ``[NB,bs]`` (``quantize_rows`` over (KVH, hd)), read through the same
     table.  q bf16 or f32 -> [B,H,hd] in q's dtype.  At most 16 query
     heads per kv head; hd at most 128 and a multiple of 16 (whole 16-byte
-    pieces of an int8 row); q and the pools 16-byte aligned."""
-    NB, bs, KVH, hd = _check_common(
+    pieces of an int8 row); q and the pools 16-byte aligned.  Kv heads
+    from ``kv_head_offset`` (module note), each token's scale covering its
+    whole row."""
+    NB, bs, KVH, n, hd = _check_common(
         q, k_pool, v_pool, block_tables, [("lengths", lengths)],
-        scales=[("k_scale", k_scale), ("v_scale", v_scale)])
+        scales=[("k_scale", k_scale), ("v_scale", v_scale)],
+        kv_head_offset=kv_head_offset, kv_heads=kv_heads)
     B, H, MB = _decode_dims(q, block_tables, lengths)
     return _decode_launch(quant_block_paged_decode_attention, q,
                           (k_pool, v_pool),
                           (k_pool, k_scale, v_pool, v_scale, block_tables,
                            lengths),
-                          (B, H, KVH, hd, NB, bs, MB), MB * bs,
-                          (k_scale, v_scale))
+                          (B, H, n, KVH, kv_head_offset, hd, NB, bs, MB),
+                          MB * bs, (k_scale, v_scale))
 
 
 quant_block_paged_decode_attention.launches = 0
@@ -289,23 +337,27 @@ def quant_mixed_block_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                       v_scale: torch.Tensor,
                                       block_tables: torch.Tensor,
                                       ctx_lens: torch.Tensor,
-                                      q_lens: torch.Tensor) -> torch.Tensor:
+                                      q_lens: torch.Tensor,
+                                      kv_head_offset=0,
+                                      kv_heads=None) -> torch.Tensor:
     """:func:`mixed_block_paged_attention` over int8 pools with f32
     per-token scale pools, as :func:`quant_block_paged_decode_attention`.
     At ``q_lens == 1`` it computes the int8 decode's function (another
     kernel, whose sums run in another order).  bf16 q: the limits of
     :func:`mixed_block_paged_attention`; f32 q: hd a multiple of 8 and
-    8-byte aligned pools."""
-    NB, bs, KVH, hd = _check_common(
+    8-byte aligned pools.  Kv heads from ``kv_head_offset`` (module
+    note)."""
+    NB, bs, KVH, n, hd = _check_common(
         q, k_pool, v_pool, block_tables,
         [("ctx_lens", ctx_lens), ("q_lens", q_lens)],
-        scales=[("k_scale", k_scale), ("v_scale", v_scale)])
+        scales=[("k_scale", k_scale), ("v_scale", v_scale)],
+        kv_head_offset=kv_head_offset, kv_heads=kv_heads)
     B, Sq, H, MB = _mixed_dims(q, block_tables, ctx_lens, q_lens)
     return _mixed_launch(quant_mixed_block_paged_attention, q,
                          (k_pool, v_pool),
                          (k_pool, k_scale, v_pool, v_scale, block_tables,
                           ctx_lens, q_lens),
-                         (B, Sq, H, KVH, hd, NB, bs, MB))
+                         (B, Sq, H, n, KVH, kv_head_offset, hd, NB, bs, MB))
 
 
 quant_mixed_block_paged_attention.launches = 0
@@ -313,12 +365,14 @@ quant_mixed_block_paged_attention.launches = 0
 
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor, kv_head_offset=0,
+                           kv_heads=None) -> torch.Tensor:
     """Decode attention over the slot-contiguous cache (the dense-KV
     serving mode).  q [B,H,hd]; k/v_cache [B,S_max,KVH,hd] of q's dtype;
     lengths [B] int32, clamped to S_max -> [B,H,hd].  Positions at or past
     ``lengths[b]`` are never read.  The limits of
-    :func:`block_paged_decode_attention` hold."""
+    :func:`block_paged_decode_attention` hold; kv heads from
+    ``kv_head_offset`` (module note)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -338,16 +392,16 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
             or k_cache.shape[3] != q.shape[2] \
-            or q.shape[1] % k_cache.shape[2] \
             or lengths.shape != (q.shape[0],):
         raise ValueError(f"shapes: q [B,H,hd], caches [B,S_max,KVH,hd], "
                          f"lengths [B]; got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(lengths.shape)}")
+    KVH, n = _head_range(q, k_cache, kv_head_offset, kv_heads)
     B, H, hd = q.shape
-    S_max, KVH = k_cache.shape[1], k_cache.shape[2]
+    S_max = k_cache.shape[1]
     return _decode_launch(paged_decode_attention, q, (k_cache, v_cache),
                           (k_cache, v_cache, lengths),
-                          (B, H, KVH, hd, S_max), S_max)
+                          (B, H, n, KVH, kv_head_offset, hd, S_max), S_max)
 
 
 paged_decode_attention.launches = 0

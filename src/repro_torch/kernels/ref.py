@@ -19,6 +19,14 @@ syncs nothing), so it cannot land on a live row of block ``NB - 1``.
 In-place contract: the ``kv_*write*_ref`` functions update the caches they
 are given, as the CUDA kernels do and as the Pallas kernel's output
 aliases its cache; every other function here allocates its output.
+
+Head ranges: the three decodes and the two mixed attentions take
+``kv_head_offset`` and ``kv_heads`` (default: every pool head from the
+offset on).  They attend kv heads ``[kv_head_offset, kv_head_offset +
+kv_heads)`` of a pool or cache that holds more (a TP rank's heads of the
+replicated cache), q carrying ``kv_heads * G`` heads; the result equals the
+plain version on those heads sliced out.  An int8 row's scale covers the
+whole row, every head of the pool.
 """
 from __future__ import annotations
 
@@ -178,9 +186,23 @@ def kv_block_write_ref(k_pool, v_pool, k_new, v_new, ids, k_scale=None,
         _scatter_rows(pool, scale, (slice(None), idl[keep]), rows, len(row))
 
 
-def paged_decode_attention_ref(q, k_cache, v_cache, lengths):
+def _heads(pool, kv_head_offset: int, kv_heads):
+    """Kv heads ``[kv_head_offset, kv_head_offset + kv_heads)`` of a pool
+    or cache [..., KVH, hd] (a view)."""
+    n = pool.shape[-2] - kv_head_offset if kv_heads is None else kv_heads
+    if kv_head_offset < 0 or n <= 0 \
+            or kv_head_offset + n > pool.shape[-2]:
+        raise ValueError(f"kv heads [{kv_head_offset}, {kv_head_offset}+{n})"
+                         f" outside the pool's {pool.shape[-2]}")
+    return pool[..., kv_head_offset:kv_head_offset + n, :]
+
+
+def paged_decode_attention_ref(q, k_cache, v_cache, lengths,
+                               kv_head_offset=0, kv_heads=None):
     """q [B,H,hd]; caches [B,S,KVH,hd]; lengths [B] (clamped to S) ->
-    [B,H,hd]."""
+    [B,H,hd]; kv heads from ``kv_head_offset`` (module note)."""
+    k_cache = _heads(k_cache, kv_head_offset, kv_heads)
+    v_cache = _heads(v_cache, kv_head_offset, kv_heads)
     B, H, hd = q.shape
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
@@ -194,11 +216,15 @@ def paged_decode_attention_ref(q, k_cache, v_cache, lengths):
 
 
 def block_paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
-                                     lengths):
+                                     lengths, kv_head_offset=0,
+                                     kv_heads=None):
     """Block-table paged decode: q [B,H,hd]; k/v_pool [NB,bs,KVH,hd];
     block_tables [B,MB]; lengths [B] -> [B,H,hd].  Gathers each sequence's
     K/V through its table into a contiguous view, then runs the dense
-    masked decode attention."""
+    masked decode attention.  Kv heads from ``kv_head_offset`` (module
+    note)."""
+    k_pool = _heads(k_pool, kv_head_offset, kv_heads)
+    v_pool = _heads(v_pool, kv_head_offset, kv_heads)
     B, H, hd = q.shape
     bs, KVH = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -208,13 +234,17 @@ def block_paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
 
 
 def mixed_block_paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                    ctx_lens, q_lens):
+                                    ctx_lens, q_lens, kv_head_offset=0,
+                                    kv_heads=None):
     """Mixed chunked-prefill / decode attention over the block pool.
 
     q [B,Sq,H,hd]: row ``i`` of sequence ``b`` is the query at absolute
     position ``ctx_lens[b] - q_lens[b] + i``; mask ``pos < ctx & pos <=
     q_abs``.  Rows ``i >= q_lens[b]`` are padding and attend over the whole
-    context.  ``q_lens[b] == 1`` is plain paged decode."""
+    context.  ``q_lens[b] == 1`` is plain paged decode.  Kv heads from
+    ``kv_head_offset`` (module note)."""
+    k_pool = _heads(k_pool, kv_head_offset, kv_heads)
+    v_pool = _heads(v_pool, kv_head_offset, kv_heads)
     B, Sq, H, hd = q.shape
     bs, KVH = k_pool.shape[1], k_pool.shape[2]
     MB = block_tables.shape[1]
@@ -236,22 +266,29 @@ def mixed_block_paged_attention_ref(q, k_pool, v_pool, block_tables,
 
 
 def quant_block_paged_decode_attention_ref(q, k_pool, k_scale, v_pool,
-                                           v_scale, block_tables, lengths):
+                                           v_scale, block_tables, lengths,
+                                           kv_head_offset=0, kv_heads=None):
     """Dequantize-then-delegate for the int8 block-table decode: k/v_pool
     int8 [NB,bs,KVH,hd], k/v_scale f32 [NB,bs] (one per token row,
-    ``quantize_rows`` over (KVH, hd))."""
-    k = dequantize_rows(k_pool, k_scale, (-2, -1))
-    v = dequantize_rows(v_pool, v_scale, (-2, -1))
+    ``quantize_rows`` over (KVH, hd)); the heads from ``kv_head_offset``
+    (module note) are dequantized with their rows' scales."""
+    k = dequantize_rows(_heads(k_pool, kv_head_offset, kv_heads), k_scale,
+                        (-2, -1))
+    v = dequantize_rows(_heads(v_pool, kv_head_offset, kv_heads), v_scale,
+                        (-2, -1))
     return block_paged_decode_attention_ref(q, k, v, block_tables, lengths)
 
 
 def quant_mixed_block_paged_attention_ref(q, k_pool, k_scale, v_pool,
                                           v_scale, block_tables, ctx_lens,
-                                          q_lens):
+                                          q_lens, kv_head_offset=0,
+                                          kv_heads=None):
     """Dequantize-then-delegate for the int8 mixed prefill/decode
-    attention (same scale layout as the int8 decode)."""
-    k = dequantize_rows(k_pool, k_scale, (-2, -1))
-    v = dequantize_rows(v_pool, v_scale, (-2, -1))
+    attention (same scale layout and head range as the int8 decode)."""
+    k = dequantize_rows(_heads(k_pool, kv_head_offset, kv_heads), k_scale,
+                        (-2, -1))
+    v = dequantize_rows(_heads(v_pool, kv_head_offset, kv_heads), v_scale,
+                        (-2, -1))
     return mixed_block_paged_attention_ref(q, k, v, block_tables, ctx_lens,
                                            q_lens)
 

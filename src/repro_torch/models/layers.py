@@ -14,6 +14,21 @@ Conventions (the reference's, kept at every public function):
 The attention functions that take a cache update the layer's views in
 place (the reference donates the cache to its jitted steps; PyTorch writes
 the rows directly) and return the same dict or tuple.
+
+The ``*_tp`` forms run one DP replica's TP ranks (Megatron-style, the
+shards of ``HMM.param_sharding``): they take one parameter view, one copy
+of the input and one ``torch.device`` per rank, rank 0 first, and return
+one copy of the output per rank.  Rank t computes its query and kv heads
+(columns of q, k, v; its slice of a replicated bias) and its columns of
+the MLP's up and gate; its rows of ``o`` and ``down`` give a partial
+output that ``tp_all_reduce`` sums over the ranks.  The cache is
+replicated over the ranks: the new k/v rows of all heads
+(``tp_all_gather``) go into every rank's copy, and rank t attends kv
+heads ``[t * KVH/tp, (t+1) * KVH/tp)`` of its copy in place (the kernels'
+``kv_head_offset``).  Only head-aligned splits are computed (``H`` and
+``KVH`` divisible by tp; ``models.model.check_tp_heads``).  The
+one-device forms are the case of one rank: the sums and gathers then
+return the rank's own tensor, and it attends all its kv heads.
 """
 from __future__ import annotations
 
@@ -22,6 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (tp_all_gather, tp_all_reduce,
+                                              tp_gather)
 from repro_torch.kernels import ops
 
 # --------------------------------------------------------------------- utils
@@ -54,6 +71,16 @@ def linear(p, x):
     y = dot(x, p["w"])
     if "b" in p:
         y = y + p["b"]
+    return y
+
+
+def linear_cols(p, x, rank: int):
+    """A linear whose weight is TP rank ``rank``'s column shard: ``x`` @
+    the shard, plus the rank's columns of the replicated bias."""
+    y = dot(x, p["w"])
+    if "b" in p:
+        n, b = p["w"].shape[-1], p["b"]
+        y = y + (b if b.shape[-1] == n else b[..., rank * n:(rank + 1) * n])
     return y
 
 
@@ -124,12 +151,15 @@ def attention_init(gen, cfg, dtype, device, lead=()):
     }
 
 
-def _qkv_rope(cfg, p, x, positions):
+def _qkv_rope(cfg, p, x, positions, rank: int = 0, tp: int = 1):
+    """q, k, v [B,S,heads,hd] with rope applied: all heads, or at ``tp`` >
+    1 TP rank ``rank``'s (``p`` its column shards)."""
     B, S, _ = x.shape
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = linear(p["q"], x).reshape(B, S, H, hd)
-    k = linear(p["k"], x).reshape(B, S, KVH, hd)
-    v = linear(p["v"], x).reshape(B, S, KVH, hd)
+    H, KVH = cfg.num_heads // tp, cfg.num_kv_heads // tp
+    hd = cfg.resolved_head_dim
+    q = linear_cols(p["q"], x, rank).reshape(B, S, H, hd)
+    k = linear_cols(p["k"], x, rank).reshape(B, S, KVH, hd)
+    v = linear_cols(p["v"], x, rank).reshape(B, S, KVH, hd)
     rot_dim = int(cfg.resolved_head_dim * cfg.rope_fraction) // 2 * 2
     if rot_dim:
         cos, sin = rope_tables(positions, rot_dim)
@@ -140,19 +170,13 @@ def _qkv_rope(cfg, p, x, positions):
 
 def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
                     kv_valid_len=None, kv_x=None, causal=None, window=None):
-    """Self-attention, with or without the slot-contiguous KV cache.
+    """Self-attention, with or without the slot-contiguous KV cache: the
+    one-device case of :func:`attention_apply_tp`.
 
-    * Prefill / forward (``cache=None``): x [B,S,D] at ``positions``
-      ``arange(S)`` attends causally (``cfg.causal`` unless ``causal`` is
-      given) over its own k/v through ``ops.flash_attention``; returns
-      (y [B,S,D], (k, v) [B,S,KVH,hd]).
+    * Prefill / forward (``cache=None``): x [B,S,D] -> (y [B,S,D], (k, v)
+      [B,S,KVH,hd]).
     * Decode (``cache=(k_cache, v_cache)`` [B,max_len,KVH,hd], x [B,1,D]):
-      the new k/v rows go to ``cache[b, write_pos[b]]`` in place
-      (``ops.kv_cache_write_pair``, one launch for both; positions outside
-      the cache drop), then the token attends positions ``<
-      kv_valid_len[b]`` (the decode step passes lengths + 1, where the
-      causal mask ends too) through ``ops.paged_decode_attention``;
-      returns (y [B,1,D], cache).
+      -> (y [B,1,D], cache), updated in place.
 
     Cross-attention (``kv_x``, or a cache without ``write_pos``) and
     windowed attention are outside this port and raise."""
@@ -161,87 +185,180 @@ def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
     window = cfg.attn_window if window is None else window
     if window is not None:
         raise NotImplementedError("windowed attention is not ported yet")
-    causal = cfg.causal if causal is None else causal
-    B, Sq, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _qkv_rope(cfg, p, x, positions)
-    if cache is None:
-        o = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal)
-        return linear(p["o"], o.reshape(B, Sq, H * hd)), (k, v)
-    k_cache, v_cache = cache
-    ops.kv_cache_write_pair(k_cache, k[:, 0].to(k_cache.dtype), v_cache,
-                            v[:, 0].to(v_cache.dtype), write_pos)
-    o = ops.paged_decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                                   kv_valid_len.to(torch.int32))
-    return linear(p["o"], o.reshape(B, 1, H * hd)), cache
+    ys, kv = attention_apply_tp(
+        cfg, [p], [x], positions, [x.device],
+        caches=None if cache is None else [cache], write_pos=write_pos,
+        kv_valid_len=kv_valid_len, causal=causal)
+    return ys[0], kv if cache is None else cache
 
 
 def paged_attention_apply(cfg, p, x, positions, *, cache, block_tables,
                           write_block, lengths):
-    """Decode-step attention over the paged KV pool.
-
-    x [B,1,D]; ``cache`` = this layer's pools {'k','v': [NB,bs,KVH,hd]},
-    updated in place — int8 pools carry f32 per-token scale pools
-    {'k_scale','v_scale': [NB,bs]} and the new rows are quantized over
-    (KVH, hd) as they are written; block_tables [B,MB]; write_block [B] =
-    pool row receiving this step's k/v (``NB`` marks inactive slots, whose
-    writes drop); lengths [B] = tokens already cached (the new token lands
-    at offset ``lengths % bs``).  The rows, and an int8 pool's scales, go
-    in with one ``ops.kv_paged_write``, which drops the sentinel on the
-    device.  Returns (y [B,1,D], cache)."""
-    B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _qkv_rope(cfg, p, x, positions)
-    quant = "k_scale" in cache
-    ops.kv_paged_write(cache["k"], cache["v"], k[:, 0], v[:, 0], write_block,
-                       lengths, cache.get("k_scale"), cache.get("v_scale"))
-    # table padding holds the NB sentinel; the kernel and the plain version
-    # clamp it to NB - 1 where they read (inactive slots' outputs are unused)
-    qd, lens = q[:, 0].contiguous(), (lengths + 1).to(torch.int32)
-    if quant:
-        o = ops.quant_block_paged_decode_attention(
-            qd, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-            block_tables, lens)
-    else:
-        o = ops.block_paged_decode_attention(qd, cache["k"], cache["v"],
-                                             block_tables, lens)
-    return linear(p["o"], o.reshape(B, 1, H * hd)), cache
+    """Decode-step attention over the paged KV pool: the one-device case
+    of :func:`paged_attention_apply_tp`.  x [B,1,D]; ``cache`` = this
+    layer's pools, updated in place.  Returns (y [B,1,D], cache)."""
+    ys, _ = paged_attention_apply_tp(
+        cfg, [p], [x], positions, [x.device], caches=[cache],
+        block_tables=block_tables, write_block=write_block, lengths=lengths)
+    return ys[0], cache
 
 
 def paged_chunk_attention_apply(cfg, p, x, positions, *, cache, block_tables,
                                 chunk_block_ids, ctx_len, q_len):
-    """Chunked-prefill attention over the paged KV pool (one sequence).
+    """Chunked-prefill attention over the paged KV pool (one sequence): the
+    one-device case of :func:`paged_chunk_attention_apply_tp`.  x [1,C,D];
+    ``cache`` = this layer's pools, updated in place.  Returns (y [1,C,D],
+    cache)."""
+    ys, _ = paged_chunk_attention_apply_tp(
+        cfg, [p], [x], positions, [x.device], caches=[cache],
+        block_tables=block_tables, chunk_block_ids=chunk_block_ids,
+        ctx_len=ctx_len, q_len=q_len)
+    return ys[0], cache
+
+
+# ------------------------------------------------------ attention bodies
+
+def _tp_qkv(cfg, ps, xs, positions, devices):
+    """Each rank's q, k, v over its own heads (rope is per head: local)."""
+    tp = len(ps)
+    return [_qkv_rope(cfg, p, x, positions.to(d), t, tp)
+            for t, (p, x, d) in enumerate(zip(ps, xs, devices))]
+
+
+def _tp_out(ps, os_, devices):
+    """Each rank's attention rows [B,S,H/tp,hd] through its rows of ``o``
+    (which carries no bias), summed over the ranks."""
+    return tp_all_reduce([dot(o.reshape(*o.shape[:2], -1), p["o"]["w"])
+                          for p, o in zip(ps, os_)], devices)
+
+
+def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
+                       write_pos=None, kv_valid_len=None, causal=None):
+    """Self-attention over one replica's TP ranks (module note), with or
+    without the slot-contiguous KV cache.
+
+    * Prefill / forward (``caches`` None): x [B,S,D] at ``positions``
+      ``arange(S)``; each rank attends causally (``cfg.causal`` unless
+      ``causal`` is given) over its own heads' fresh k/v
+      (``ops.flash_attention``); returns (the outputs, one per rank, (k,
+      v) of all heads [B,S,KVH,hd] on rank 0's device).
+    * Decode (``caches[t]`` = rank t's copy ``(k_cache, v_cache)``
+      [B,max_len,KVH,hd], x [B,1,D]): all heads' new rows go into every
+      copy at ``cache[b, write_pos[b]]`` in place
+      (``ops.kv_cache_write_pair``, one launch for both, once per copy;
+      positions outside the cache drop), then rank t attends its kv heads
+      of its copy, positions ``< kv_valid_len[b]`` (the decode step passes
+      lengths + 1, where the causal mask ends too), through
+      ``ops.paged_decode_attention`` from kv head ``t * KVH/tp``; returns
+      (the outputs, ``caches``)."""
+    tp = len(ps)
+    kvh = cfg.num_kv_heads // tp
+    causal = cfg.causal if causal is None else causal
+    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
+    if caches is None:
+        os_ = [ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal)
+               for q, k, v in qkv]
+        return _tp_out(ps, os_, devices), tuple(
+            tp_gather([t[j] for t in qkv], devices, 2) for j in (1, 2))
+    ks = tp_all_gather([k[:, 0] for _, k, _ in qkv], devices, 1)
+    vs = tp_all_gather([v[:, 0] for _, _, v in qkv], devices, 1)
+    os_ = []
+    for t, ((q, _, _), (kc, vc), d) in enumerate(zip(qkv, caches, devices)):
+        ops.kv_cache_write_pair(kc, ks[t].to(kc.dtype), vc,
+                                vs[t].to(vc.dtype), write_pos.to(d))
+        os_.append(ops.paged_decode_attention(
+            q[:, 0].contiguous(), kc, vc, kv_valid_len.to(d, torch.int32),
+            kv_head_offset=t * kvh, kv_heads=kvh)[:, None])
+    return _tp_out(ps, os_, devices), caches
+
+
+def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
+                             block_tables, write_block, lengths):
+    """Decode-step attention over the paged KV pool, over one replica's TP
+    ranks (module note).
+
+    x [B,1,D]; ``caches[t]`` = rank t's copy of this layer's pools
+    {'k','v': [NB,bs,KVH,hd]}, updated in place — int8 pools carry f32
+    per-token scale pools {'k_scale','v_scale': [NB,bs]} and the new rows
+    are quantized over all (KVH, hd) as they are written; block_tables
+    [B,MB]; write_block [B] = pool row receiving this step's k/v (``NB``
+    marks inactive slots, whose writes drop); lengths [B] = tokens already
+    cached (the new token lands at offset ``lengths % bs``).  All heads'
+    rows, and an int8 pool's scales, go into every copy with one
+    ``ops.kv_paged_write`` each, which drops the sentinel on the device;
+    then rank t attends its kv heads of its copy.  Returns (the outputs,
+    one per rank, ``caches``)."""
+    tp = len(ps)
+    kvh = cfg.num_kv_heads // tp
+    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
+    ks = tp_all_gather([k[:, 0] for _, k, _ in qkv], devices, 1)
+    vs = tp_all_gather([v[:, 0] for _, _, v in qkv], devices, 1)
+    os_ = []
+    for t, ((q, _, _), cache, d) in enumerate(zip(qkv, caches, devices)):
+        lens = lengths.to(d)
+        ops.kv_paged_write(cache["k"], cache["v"], ks[t], vs[t],
+                           write_block.to(d), lens, cache.get("k_scale"),
+                           cache.get("v_scale"))
+        # table padding holds the NB sentinel; the kernel and the plain
+        # version clamp it to NB - 1 where they read (inactive slots'
+        # outputs are unused)
+        qd, bt = q[:, 0].contiguous(), block_tables.to(d)
+        lens = (lens + 1).to(torch.int32)
+        heads = dict(kv_head_offset=t * kvh, kv_heads=kvh)
+        if "k_scale" in cache:
+            o = ops.quant_block_paged_decode_attention(
+                qd, cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], bt, lens, **heads)
+        else:
+            o = ops.block_paged_decode_attention(qd, cache["k"], cache["v"],
+                                                 bt, lens, **heads)
+        os_.append(o[:, None])
+    return _tp_out(ps, os_, devices), caches
+
+
+def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
+                                   caches, block_tables, chunk_block_ids,
+                                   ctx_len, q_len):
+    """Chunked-prefill attention over the paged KV pool (one sequence),
+    over one replica's TP ranks (module note).
 
     x [1,C,D] is one prefill chunk — the last ``q_len`` (<= C) of the
     sequence's first ``ctx_len`` tokens; ``positions`` [1,C] their absolute
-    positions.  The chunk's k/v are written into pool rows
-    ``chunk_block_ids`` [C/bs] first (``NB`` marks padding and CoW-shared
-    prefix rows, whose writes drop), then the chunk attends causally over
-    the whole context through ``block_tables`` [1,MB].  ``cache`` is
-    updated in place; int8 pools quantize each token row as it is written
-    and scatter its scale alongside, as :func:`paged_attention_apply`, in
-    one ``ops.kv_block_write`` (the pools as a one-layer stack, the
-    chunk's C rows as its ``C/bs`` blocks).  Returns (y [1,C,D],
-    cache)."""
-    B, C, _ = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _qkv_rope(cfg, p, x, positions)
-    quant = "k_scale" in cache
-    one = {n: t[None] for n, t in cache.items()}
-    ops.kv_block_write(one["k"], one["v"], k, v, chunk_block_ids,
-                       one.get("k_scale"), one.get("v_scale"))
-    ctx1 = ctx_len.reshape(1).to(torch.int32)
-    qlen1 = q_len.reshape(1).to(torch.int32)
-    if quant:
-        o = ops.quant_mixed_block_paged_attention(
-            q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
-            cache["v_scale"], block_tables, ctx1, qlen1)
-    else:
-        o = ops.mixed_block_paged_attention(q.contiguous(), cache["k"],
-                                            cache["v"], block_tables, ctx1,
-                                            qlen1)
-    return linear(p["o"], o.reshape(B, C, H * hd)), cache
+    positions.  The chunk's k/v of all heads are written into pool rows
+    ``chunk_block_ids`` [C/bs] of every rank's copy first (``NB`` marks
+    padding and CoW-shared prefix rows, whose writes drop; int8 pools
+    quantize each token row and scatter its scale alongside), one
+    ``ops.kv_block_write`` a copy (the pools as a one-layer stack, the
+    chunk's C rows as its ``C/bs`` blocks); then rank t's heads attend
+    causally over the whole context through ``block_tables`` [1,MB], its
+    kv heads of its copy.  Returns (the outputs, one per rank,
+    ``caches``)."""
+    tp = len(ps)
+    kvh = cfg.num_kv_heads // tp
+    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
+    ks = tp_all_gather([k for _, k, _ in qkv], devices, 2)
+    vs = tp_all_gather([v for _, _, v in qkv], devices, 2)
+    os_ = []
+    for t, ((q, _, _), cache, d) in enumerate(zip(qkv, caches, devices)):
+        one = {n: c[None] for n, c in cache.items()}
+        ops.kv_block_write(one["k"], one["v"], ks[t], vs[t],
+                           chunk_block_ids.to(d), one.get("k_scale"),
+                           one.get("v_scale"))
+        bt = block_tables.to(d)
+        ctx1 = ctx_len.to(d).reshape(1).to(torch.int32)
+        qlen1 = q_len.to(d).reshape(1).to(torch.int32)
+        heads = dict(kv_head_offset=t * kvh, kv_heads=kvh)
+        if "k_scale" in cache:
+            o = ops.quant_mixed_block_paged_attention(
+                q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], bt, ctx1, qlen1, **heads)
+        else:
+            o = ops.mixed_block_paged_attention(q.contiguous(), cache["k"],
+                                                cache["v"], bt, ctx1, qlen1,
+                                                **heads)
+        os_.append(o)
+    return _tp_out(ps, os_, devices), caches
 
 
 # ----------------------------------------------------------------------- mlp
@@ -254,10 +371,25 @@ def mlp_init(gen, d_model, d_ff, dtype, device, gated=True, lead=()):
     return p
 
 
-def mlp_apply(p, x, gated=True):
-    h = linear(p["up"], x)
+def _mlp_hidden(p, x, gated, rank: int = 0):
+    """up(x) * silu(gate(x)), or gelu(up(x)): all columns, or TP rank
+    ``rank``'s (``p`` its column shards)."""
+    h = linear_cols(p["up"], x, rank)
     if gated:
-        h = h * F.silu(linear(p["gate"], x))
-    else:
-        h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    return linear(p["down"], h)
+        return h * F.silu(linear_cols(p["gate"], x, rank))
+    return F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+
+
+def mlp_apply(p, x, gated=True):
+    return linear(p["down"], _mlp_hidden(p, x, gated))
+
+
+def mlp_apply_tp(ps, xs, devices, d_ff: int, gated=True):
+    """:func:`mlp_apply` over one replica's TP ranks: rank t's columns of
+    up (and gate) and its rows of down, summed over the ranks.  An MLP
+    whose ``d_ff`` does not split over the ranks is replicated by the
+    sharding rule: each rank then computes it whole."""
+    if ps[0]["up"]["w"].shape[-1] == d_ff:
+        return [mlp_apply(p, x, gated) for p, x in zip(ps, xs)]
+    return tp_all_reduce([dot(_mlp_hidden(p, x, gated, t), p["down"]["w"])
+                          for t, (p, x) in enumerate(zip(ps, xs))], devices)

@@ -33,10 +33,16 @@ devices) the parameters and the cache are trees of ``ShardedTensor``s, as
 attention and LM head on its own shards, over its own rows and its own
 slice of the cache (the slot cache split on its batch axis, the block pool
 on its block axis: block tables and block ids are local to that slice),
-and every MoE layer runs ``moe_ep`` across all logical devices.  A decode
-step's rows are the replicas' slots in order; a prefill or a chunk belongs
-to one replica (``replica``).  Only standard-attention decoders at tp = 1
-are ported across devices.
+and every MoE layer runs ``moe_ep`` across all logical devices, each
+replica's rows once.  A decode step's rows are the replicas' slots in
+order; a prefill or a chunk belongs to one replica (``replica``).  At tp >
+1 a replica's TP ranks split it Megatron-style (``layers``' ``*_tp``
+forms): each rank holds a copy of the activations between blocks and of
+the replica's cache slice; the embedding gives each rank's vocab rows
+(zeros elsewhere) summed over the ranks, the LM head each rank's vocab
+columns gathered; every step writes every rank's copy of the cache.  Only
+standard-attention decoders whose heads split evenly over tp are ported
+across devices.
 """
 from __future__ import annotations
 
@@ -46,13 +52,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.distributed.sharding import local_view
+from repro_torch.distributed.sharding import (local_view, tp_all_gather,
+                                              tp_all_reduce)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_norm, attention_apply,
-                                       attention_init, linear, linear_init,
-                                       mlp_apply, mlp_init, norm_init,
-                                       paged_attention_apply,
-                                       paged_chunk_attention_apply)
+                                       attention_apply_tp, attention_init,
+                                       linear, linear_cols, linear_init,
+                                       mlp_apply, mlp_apply_tp, mlp_init,
+                                       norm_init, paged_attention_apply,
+                                       paged_attention_apply_tp,
+                                       paged_chunk_attention_apply,
+                                       paged_chunk_attention_apply_tp)
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
                                        mamba2_init)
 from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
@@ -344,89 +354,153 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids, *, parallel=None,
     quantizes each token row as it is written and scatters its scale
     through the same ids.  Every layer's K and V go in with one
     ``ops.kv_block_write``.  With ``parallel`` the rows go into replica
-    ``replica``'s slice of the sharded pool, ``block_ids`` local to it.
-    Returns ``cache``."""
-    pools = cache
+    ``replica``'s slice of the sharded pool, ``block_ids`` local to it, in
+    every copy its TP ranks hold (one write each).  Returns ``cache``."""
+    views = [(cache, block_ids)]
     if parallel is not None:
-        owner = parallel.replicas[replica]
-        pools = local_view(cache, owner)
-        block_ids = block_ids.to(parallel.torch_device(owner))
-    rows = pools["k"].shape[2] * block_ids.shape[0]
-    ops.kv_block_write(pools["k"], pools["v"], dense_cache["k"][:, 0, :rows],
-                       dense_cache["v"][:, 0, :rows], block_ids,
-                       pools.get("k_scale"), pools.get("v_scale"))
+        views = [(local_view(cache, d),
+                  block_ids.to(parallel.torch_device(d)))
+                 for d in parallel.replica_devices(replica)]
+    for pools, ids in views:
+        rows = pools["k"].shape[2] * ids.shape[0]
+        dev = pools["k"].device
+        ops.kv_block_write(pools["k"], pools["v"],
+                           dense_cache["k"][:, 0, :rows].to(dev),
+                           dense_cache["v"][:, 0, :rows].to(dev), ids,
+                           pools.get("k_scale"), pools.get("v_scale"))
     return cache
 
 
 # ------------------------------------------------------------ DP replicas
 
-def _check_parallel(cfg, parallel) -> None:
-    if parallel.tp != 1:
+HEAD_CUT = ("the head-cutting TP slice (ROADMAP §0 item 4): the reference "
+            "shards q, k and v wherever their widths divide by tp, also "
+            "inside a head")
+
+
+def check_tp_heads(cfg, tp: int) -> None:
+    """Raise for a TP degree that does not split the query and kv heads
+    evenly over the ranks: the port computes head-aligned splits only."""
+    if tp > 1 and (cfg.num_heads % tp or cfg.num_kv_heads % tp):
         raise NotImplementedError(
-            "serving at tp > 1 (attention, MLP, embedding and LM head split "
-            "over the TP ranks, with explicit sums between them) is not "
-            "ported yet: it is the TP-serving slice, Slice A2 (ROADMAP "
-            "§0 item 1)")
+            f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} kv "
+            f"heads do not split evenly over tp = {tp}; serving where the "
+            f"TP split cuts a head is not ported yet: it is {HEAD_CUT}")
+
+
+def _check_parallel(cfg, parallel) -> None:
     if not paged_cache_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: MLA and Mamba2 models on more than one device are "
             f"not ported yet (the multi-device MLA and Mamba2 slice, "
-            f"ROADMAP §0 item 3)")
+            f"ROADMAP §0 item 2)")
+    check_tp_heads(cfg, parallel.tp)
 
 
-def _dp_layers(cfg, params, parallel, owners, tokens, attn):
-    """Run the decoder over row groups, group g on logical device
-    ``owners[g]`` with ``tokens[g]`` [b, S] there: its embedding, norms and
-    attention (``attn(g, layer, its block params, h)`` -> the attention
-    output) on that device's shards, then every group's feed-forward
-    together — ``moe_ep`` across all logical devices in a MoE layer.
-    Returns each group's final-normed hidden states and its parameter
-    view."""
+def _embed_tp(cfg, tables, tokens, devices):
+    """Each rank's embedding: its vocab rows' lookups, zeros for the tokens
+    outside them, summed over the ranks (exactly one rank contributes to
+    each token); a table the sharding left whole (vocab % tp != 0) is
+    looked up by every rank on its own."""
+    n = tables[0].shape[0]
+    if n == cfg.vocab_size:
+        return [F.embedding(tokens.to(d).long(), w)
+                for w, d in zip(tables, devices)]
+    parts = []
+    for t, (w, d) in enumerate(zip(tables, devices)):
+        tok = tokens.to(d).long() - t * n
+        inside = ((tok >= 0) & (tok < n))[..., None]
+        e = F.embedding(tok.clamp(0, n - 1), w)
+        parts.append(torch.where(inside, e, torch.zeros((), dtype=e.dtype,
+                                                        device=d)))
+    return tp_all_reduce(parts, devices)
+
+
+def _lm_head_tp(cfg, ps, hs, devices):
+    """The logits [.., V] on rank 0's device: each rank's vocab columns
+    gathered in rank order, or rank 0's whole head where the sharding left
+    it whole."""
+    if ps[0]["w"].shape[-1] == cfg.vocab_size:
+        return linear(ps[0], hs[0])
+    return tp_all_gather([linear_cols(p, h, t) for t, (p, h)
+                          in enumerate(zip(ps, hs))], devices, -1)[0]
+
+
+def _dp_layers(cfg, params, parallel, replicas, tokens, attn):
+    """Run the decoder over row groups, group g on DP replica
+    ``replicas[g]`` with ``tokens[g]`` [b, S] on its TP rank 0's device:
+    on each of the replica's ranks its embedding, norms and attention
+    shards (``attn(g, layer, the ranks' block params, the ranks' normed
+    inputs, the ranks' devices)`` -> the attention output, one copy per
+    rank), then every group's feed-forward together — ``moe_ep`` across
+    all logical devices in a MoE layer, each group's rows once — and the
+    ranks' MLP shards.  Returns each group's final-normed hidden states and
+    its ranks' parameter views, one per rank."""
     _check_parallel(cfg, parallel)
-    local = [local_view(params, d) for d in owners]
-    xs = [F.embedding(t.long(), lp["embed"]) for t, lp in zip(tokens, local)]
+    ranks = [parallel.replica_devices(r) for r in replicas]
+    devs = [[parallel.torch_device(d) for d in rk] for rk in ranks]
+    local = [[local_view(params, d) for d in rk] for rk in ranks]
+    xs = [_embed_tp(cfg, [lp["embed"] for lp in lps], t, dv)
+          for lps, t, dv in zip(local, tokens, devs)]
+    blocks = [[list(_layers(cfg, lp)) for lp in lps] for lps in local]
     pool = params.get("moe_pool")
     nk = cfg.first_k_dense if cfg.is_moe else 0
-    for blocks in zip(*(_layers(cfg, lp) for lp in local)):
-        _, i, _, moe = blocks[0]
+    for li, (_, i, _, moe) in enumerate(blocks[0][0]):
+        bps = [[b[li][2] for b in bg] for bg in blocks]
         hs = []
-        for g, (_, _, bp, _) in enumerate(blocks):
-            h = apply_norm(bp["ln1"], xs[g], cfg.norm_type)
-            xs[g] = xs[g] + attn(g, i, bp, h)
-            hs.append(apply_norm(bp["ln2"], xs[g], cfg.norm_type))
+        for g, (bp, dv) in enumerate(zip(bps, devs)):
+            h = [apply_norm(p["ln1"], x, cfg.norm_type)
+                 for p, x in zip(bp, xs[g])]
+            xs[g] = [x + a for x, a in zip(xs[g], attn(g, i, bp, h, dv))]
+            hs.append([apply_norm(p["ln2"], x, cfg.norm_type)
+                       for p, x in zip(bp, xs[g])])
         if moe:
             ys = moe_ep(cfg, layer_params(params["blocks"]["moe"], i - nk),
-                        hs, parallel, pool=pool, owners=owners)
-            if cfg.dense_residual:
-                ys = [y + mlp_apply(b[2]["mlp"], h, cfg.mlp_gated)
-                      for y, b, h in zip(ys, blocks, hs)]
-        else:
-            ys = [mlp_apply(b[2]["mlp"], h, cfg.mlp_gated)
-                  for b, h in zip(blocks, hs)]
-        xs = [x + y for x, y in zip(xs, ys)]
-    return ([apply_norm(lp["final_norm"], x, cfg.norm_type)
-             for lp, x in zip(local, xs)], local)
+                        hs, parallel, pool=pool, owners=ranks)
+        if not moe or cfg.dense_residual:
+            mlp = [mlp_apply_tp([p["mlp"] for p in bp], h, dv, cfg.d_ff,
+                                cfg.mlp_gated)
+                   for bp, h, dv in zip(bps, hs, devs)]
+            ys = ([[y + m for y, m in zip(yg, mg)]
+                   for yg, mg in zip(ys, mlp)] if moe else mlp)
+        xs = [[x + y for x, y in zip(xg, yg)] for xg, yg in zip(xs, ys)]
+    return ([[apply_norm(lp["final_norm"], x, cfg.norm_type)
+              for lp, x in zip(lps, xg)] for lps, xg in zip(local, xs)],
+            local, devs)
+
+
+def _logits(cfg, local, devs, hs):
+    """Each group's logits from its ranks' final hidden states ``hs``."""
+    return [_lm_head_tp(cfg, [lp["lm_head"] for lp in lps], h, dv)
+            for lps, h, dv in zip(local, hs, devs)]
+
+
+def _rank_caches(cache, parallel, replica):
+    """Replica ``replica``'s cache slice as each of its TP ranks holds a
+    copy of it, rank 0 first."""
+    return [local_view(cache, d) for d in parallel.replica_devices(replica)]
 
 
 def _replica_rows(parallel, *ts):
     """Split batch-major tensors into the DP replicas' row groups, each on
-    its replica's device -> (owners, [[t rows of replica r] ...])."""
-    owners = list(parallel.replicas)
+    its replica's TP rank 0 device -> (replica ids, [[t rows of replica r]
+    ...])."""
+    owners = parallel.replicas
     n = ts[0].shape[0] // len(owners)
-    return owners, [[t[r * n:(r + 1) * n].to(parallel.torch_device(d))
-                     for t in ts] for r, d in enumerate(owners)]
+    return list(range(len(owners))), [
+        [t[r * n:(r + 1) * n].to(parallel.torch_device(d)) for t in ts]
+        for r, d in enumerate(owners)]
 
 
-def _gather_rows(parallel, owners, ts):
+def _gather_rows(parallel, ts):
     """The replicas' row groups as one batch on the first one's device."""
-    dev = parallel.torch_device(owners[0])
+    dev = parallel.torch_device(parallel.replicas[0])
     return torch.cat([t.to(dev) for t in ts])
 
 
 def _one_replica(parallel, replica, *ts):
-    owner = parallel.replicas[replica]
-    dev = parallel.torch_device(owner)
-    return owner, dev, [t.to(dev) for t in ts]
+    dev = parallel.torch_device(parallel.replicas[replica])
+    return dev, [t.to(dev) for t in ts]
 
 
 # ------------------------------------------------------------------- steps
@@ -443,13 +517,13 @@ def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
     tokens = batch["tokens"]
     B, S = tokens.shape
     if parallel is not None:     # the batch on replica ``replica``
-        owner, dev, (tokens,) = _one_replica(parallel, replica, tokens)
+        dev, (tokens,) = _one_replica(parallel, replica, tokens)
         positions = torch.arange(S, device=dev)[None].expand(B, S)
-        hs, local = _dp_layers(
-            cfg, params, parallel, [owner], [tokens],
-            lambda g, i, bp, h: attention_apply(cfg, bp["attn"], h,
-                                                positions)[0])
-        return linear(local[0]["lm_head"], hs[0])
+        hs, local, devs = _dp_layers(
+            cfg, params, parallel, [replica], [tokens],
+            lambda g, i, bp, h, dv: attention_apply_tp(
+                cfg, [p["attn"] for p in bp], h, positions, dv)[0])
+        return _logits(cfg, local, devs, hs)[0]
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     pool = params.get("moe_pool")
@@ -508,25 +582,30 @@ def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,
 
 
 def _prefill_dp(cfg, params, batch, max_len, parallel, replica):
+    """The prefill on replica ``replica``: the returned cache (all heads)
+    lies on its TP rank 0's device; the caller writes it into every rank's
+    copy."""
     tokens, lengths = batch["tokens"], batch.get("lengths")
     B, S = tokens.shape
-    owner, dev, (tokens,) = _one_replica(parallel, replica, tokens)
+    dev, (tokens,) = _one_replica(parallel, replica, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     n = min(S, max_len)
     cache = init_cache(cfg, B, max_len, params["embed"].dtype, device=dev)
 
-    def attn(g, i, bp, h):
-        a, (k, v) = attention_apply(cfg, bp["attn"], h, positions)
+    def attn(g, i, bp, h, dv):
+        a, (k, v) = attention_apply_tp(cfg, [p["attn"] for p in bp], h,
+                                       positions, dv)
         cache["k"][i, :, :n] = k[:, S - n:]
         cache["v"][i, :, :n] = v[:, S - n:]
         return a
-    hs, local = _dp_layers(cfg, params, parallel, [owner], [tokens], attn)
-    x = hs[0]
+    hs, local, devs = _dp_layers(cfg, params, parallel, [replica], [tokens],
+                                 attn)
     if lengths is None:
-        last = x[:, -1]
+        last = [x[:, -1] for x in hs[0]]
     else:
-        last = x[torch.arange(B, device=dev), lengths.to(dev).long() - 1]
-    return linear(local[0]["lm_head"], last), cache
+        last = [x[torch.arange(B, device=x.device),
+                  lengths.to(x.device).long() - 1] for x in hs[0]]
+    return _logits(cfg, local, devs, [last])[0], cache
 
 
 def decode_step(cfg, params: Params, tokens, cache, lengths, *,
@@ -544,20 +623,19 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
     over its slice of the cache."""
     _check_dense_kv(cfg)
     if parallel is not None:
-        owners, rows = _replica_rows(parallel, tokens, lengths)
-        caches = [local_view(cache, d) for d in owners]
+        groups, rows = _replica_rows(parallel, tokens, lengths)
+        caches = [_rank_caches(cache, parallel, r) for r in groups]
 
-        def attn(g, i, bp, h):
+        def attn(g, i, bp, h, dv):
             lens = rows[g][1]
-            return attention_apply(
-                cfg, bp["attn"], h, lens[:, None],
-                cache=(caches[g]["k"][i], caches[g]["v"][i]),
+            return attention_apply_tp(
+                cfg, [p["attn"] for p in bp], h, lens[:, None], dv,
+                caches=[(c["k"][i], c["v"][i]) for c in caches[g]],
                 write_pos=_cache_slot(cfg, lens), kv_valid_len=lens + 1)[0]
-        hs, local = _dp_layers(cfg, params, parallel, owners,
-                               [r[0] for r in rows], attn)
-        return _gather_rows(parallel, owners, [
-            linear(lp["lm_head"], h[:, 0]) for lp, h in zip(local, hs)]), \
-            cache
+        hs, local, devs = _dp_layers(cfg, params, parallel, groups,
+                                     [r[0] for r in rows], attn)
+        return _gather_rows(parallel, _logits(
+            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     write_pos = _cache_slot(cfg, lengths)
@@ -591,21 +669,20 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
     pool slice: its rows' tables, write blocks and ``NB`` are local to
     it."""
     if parallel is not None:
-        owners, rows = _replica_rows(parallel, tokens, lengths, block_tables,
+        groups, rows = _replica_rows(parallel, tokens, lengths, block_tables,
                                      write_block)
-        caches = [local_view(cache, d) for d in owners]
+        caches = [_rank_caches(cache, parallel, r) for r in groups]
 
-        def attn(g, i, bp, h):
+        def attn(g, i, bp, h, dv):
             _, lens, bt, wb = rows[g]
-            return paged_attention_apply(
-                cfg, bp["attn"], h, lens[:, None],
-                cache={n: v[i] for n, v in caches[g].items()},
+            return paged_attention_apply_tp(
+                cfg, [p["attn"] for p in bp], h, lens[:, None], dv,
+                caches=[{n: v[i] for n, v in c.items()} for c in caches[g]],
                 block_tables=bt, write_block=wb, lengths=lens)[0]
-        hs, local = _dp_layers(cfg, params, parallel, owners,
-                               [r[0] for r in rows], attn)
-        return _gather_rows(parallel, owners, [
-            linear(lp["lm_head"], h[:, 0]) for lp, h in zip(local, hs)]), \
-            cache
+        hs, local, devs = _dp_layers(cfg, params, parallel, groups,
+                                     [r[0] for r in rows], attn)
+        return _gather_rows(parallel, _logits(
+            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     pool = params.get("moe_pool")
@@ -641,7 +718,7 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
     C = tokens.shape[1]
     dev = tokens.device
     if parallel is not None:
-        owner, dev, (tokens, block_tables, chunk_block_ids) = _one_replica(
+        dev, (tokens, block_tables, chunk_block_ids) = _one_replica(
             parallel, replica, tokens, block_tables, chunk_block_ids)
     positions = start + torch.arange(C, device=dev, dtype=torch.int32)[None]
     q_len = length - start
@@ -649,17 +726,18 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
     ctx_t = torch.full((1,), length, dtype=torch.int32, device=dev)
     qlen_t = torch.full((1,), q_len, dtype=torch.int32, device=dev)
     if parallel is not None:
-        pools = local_view(cache, owner)
+        copies = _rank_caches(cache, parallel, replica)
 
-        def attn(g, i, bp, h):
-            return paged_chunk_attention_apply(
-                cfg, bp["attn"], h, positions,
-                cache={n: v[i] for n, v in pools.items()},
+        def attn(g, i, bp, h, dv):
+            return paged_chunk_attention_apply_tp(
+                cfg, [p["attn"] for p in bp], h, positions, dv,
+                caches=[{n: v[i] for n, v in c.items()} for c in copies],
                 block_tables=block_tables, chunk_block_ids=chunk_block_ids,
                 ctx_len=ctx_t, q_len=qlen_t)[0]
-        hs, local = _dp_layers(cfg, params, parallel, [owner], [tokens],
-                               attn)
-        return linear(local[0]["lm_head"], hs[0][:, q_len - 1]), cache
+        hs, local, devs = _dp_layers(cfg, params, parallel, [replica],
+                                     [tokens], attn)
+        return _logits(cfg, local, devs,
+                       [[x[:, q_len - 1] for x in hs[0]]])[0], cache
     x = F.embedding(tokens.long(), params["embed"])
     pool = params.get("moe_pool")
     for _, i, bp, moe in _layers(cfg, params):

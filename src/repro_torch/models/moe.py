@@ -29,9 +29,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import local_view
+from repro_torch.distributed.sharding import local_view, tp_broadcast
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dot, mlp_apply
+from repro_torch.models.layers import dot, mlp_apply, mlp_apply_tp
 
 
 def router_init(gen, d_model, num_experts, device, lead=()):
@@ -226,14 +226,20 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
 
     ``x`` is [B, S, D], or a list of such row groups that together make the
     global batch in order (one group per DP replica at decode, each on its
-    replica's device); the result has the same form.  ``p`` is one layer's
+    replica's device); the result has the same form.  At tp > 1 a group is
+    the list of its replica's TP ranks' copies of the same rows, rank 0
+    first: the rows are routed once, from rank 0's copy, and the group's
+    result is one copy per rank (``tp_broadcast``), each with the shared
+    expert's output split over the ranks and summed (``mlp_apply_tp``).
+    ``p`` is one layer's
     sharded MoE parameters: the router, replicated; and either dense banks
     ``{wi, wg, wo}`` [E, D, F|D] split over the E axis, or, with ``pool``
     (the sharded page pools ``[ndev * pages, D, F|D]``, and their per-page
     scale banks for int8), the page-table index arrays ``tables`` [ndev,
     Elm] (one row per device) and ``edest`` / ``eslot`` [E].  ``owners``
     names each group's logical device (default: the first whose
-    ``torch.device`` holds it); shared experts run there on its shards.
+    ``torch.device`` holds it), or for a group of rank copies its ranks'
+    logical devices; shared experts run there on its shards.
 
     As the reference's shard_map body: the T rows are padded to a multiple
     of n_ep with zero rows (which are routed too — every expert ties, the
@@ -245,7 +251,9 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
     pool slice and table row, or the dense banks); the outputs go back the
     same way and each device combines its own rows."""
     single = torch.is_tensor(x)
-    xs = [x] if single else list(x)
+    groups = [x] if single else list(x)
+    ranked = [g if isinstance(g, (list, tuple)) else None for g in groups]
+    xs = [g[0] if r is not None else g for g, r in zip(groups, ranked)]
     D = xs[0].shape[-1]
     flat = [t.reshape(-1, D) for t in xs]
     devs = [parallel.torch_device(d) for d in parallel.devices]
@@ -300,11 +308,20 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
 
     out = _shards_to_rows(ys, t_local, flat)
     out = [y.reshape(t.shape) for y, t in zip(out, xs)]
-    if "shared" in p:
-        if owners is None:
-            owners = [next(d for d in parallel.devices
-                           if parallel.torch_device(d) == t.device)
-                      for t in xs]
-        for g, (t, dev) in enumerate(zip(xs, owners)):
-            out[g] = out[g] + mlp_apply(local_view(p["shared"], dev), t)
+    if owners is None:
+        owners = [next(d for d in parallel.devices
+                       if parallel.torch_device(d) == t.device)
+                  for t in xs]
+    for g, (t, dev) in enumerate(zip(xs, owners)):
+        if ranked[g] is None:
+            if "shared" in p:
+                out[g] = out[g] + mlp_apply(local_view(p["shared"], dev), t)
+            continue
+        tdevs = [parallel.torch_device(d) for d in dev]
+        out[g] = tp_broadcast(out[g], tdevs)
+        if "shared" in p:
+            sh = mlp_apply_tp([local_view(p["shared"], d) for d in dev],
+                              ranked[g], tdevs,
+                              cfg.moe_d_ff * cfg.num_shared_experts)
+            out[g] = [y + s for y, s in zip(out[g], sh)]
     return out[0] if single else out

@@ -22,12 +22,14 @@ executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``);
 PyTorch runs them eagerly.  They update the cache in place: the reference
 donates it to its jitted steps, here the rows are written directly.
 
-On several logical devices (``parallel``, from ``engine_parallel_ctx``)
-the cache is sharded per DP replica and each replica's steps address its
-own slice: the engine keeps global block ids (the block manager's) and
-hands each replica its tables and ids local to its pool slice, with that
-slice's size as the ``NB`` sentinel; a dense-KV prefill writes the slot's
-row in its replica's slice.  A rebind (``bind`` after a scale event) keeps
+On several logical devices (``parallel``, from ``engine_parallel_ctx``) the
+cache is sharded per DP replica and each replica's steps address its own
+slice: the engine keeps global block ids (the block manager's) and hands
+each replica its tables and ids local to its pool slice, with that slice's
+size as the ``NB`` sentinel; a dense-KV prefill writes the slot's row in
+its replica's slice. At tp > 1 each TP rank of a replica holds a copy of
+its slice, and every write (a prefill's row, a step's KV, a copy-on-write
+block) goes into every copy. A rebind (``bind`` after a scale event) keeps
 the surviving slots, their lengths, tokens and block tables.
 """
 from __future__ import annotations
@@ -96,18 +98,20 @@ def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot, *,
     the whole row is overwritten, zeros past the bucket, as the
     reference's update of its ``max_len``-padded cache does.  Returns (the
     argmax token at position ``length - 1``, cache).  With ``parallel``
-    the slot's replica runs it and its slice takes the row."""
-    replica, row, rows = 0, slot, cache
+    the slot's replica runs it and its slice takes the row, in every copy
+    its TP ranks hold."""
+    replica, row, copies = 0, slot, [cache]
     if parallel is not None:
         replica, row = divmod(slot, _local_rows(next(iter(cache.values()))))
-        rows = {n: v.shard(parallel.replicas[replica])
-                for n, v in cache.items()}
+        copies = [{n: v.shard(d) for n, v in cache.items()}
+                  for d in parallel.replica_devices(replica)]
     logits, small = M.prefill(mcfg, params,
                               {"tokens": tokens, "lengths": length[None]},
                               max_len=max_len, parallel=parallel,
                               replica=replica)
-    for name, leaf in rows.items():
-        leaf[:, row] = small[name][:, 0]
+    for rows in copies:
+        for name, leaf in rows.items():
+            leaf[:, row] = small[name][:, 0]
     return int(torch.argmax(logits, dim=-1)[0]), cache
 
 

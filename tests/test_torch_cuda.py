@@ -1230,9 +1230,9 @@ def test_slot_decode_step_runs_with_no_host_sync(dev, model):
 
 # ----------------------------------------------- several logical devices
 
-def _booted_dp(dev, ndev, **knobs):
+def _booted_dp(dev, ndev, tp=1, **knobs):
     """A reduced (2-layer) qwen3-30b-a3b in bf16 booted on ``ndev``
-    logical devices of the one card (DP = ndev, tp = 1)."""
+    logical devices of the one card (DP = ndev / tp)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hmm import HMM
     from repro_torch.core.topology import ElasticConfig
@@ -1240,8 +1240,8 @@ def _booted_dp(dev, ndev, **knobs):
     from repro_torch.serving.engine import engine_parallel_ctx
     cfg = dataclasses.replace(get_config("qwen3-30b-a3b-smoke"),
                               dtype="bfloat16")
-    ecfg = ElasticConfig(ndev, 1, tuple(range(ndev)))
-    hmm = HMM(cfg, 1, batch_per_replica=2, max_len=128, seed=0,
+    ecfg = ElasticConfig(ndev // tp, tp, tuple(range(ndev)))
+    hmm = HMM(cfg, tp, batch_per_replica=2, max_len=128, seed=0,
               all_devices=[dev] * ndev, device=dev, **knobs)
     hmm.boot(ecfg)
     ctx = engine_parallel_ctx(make_instance_mesh(ecfg, hmm.all_devices))
@@ -1328,3 +1328,172 @@ def test_multi_device_steps_run_with_no_host_sync(dev, store):
     with _no_host_sync():
         steps()
     assert ops.launch_counts()["kv_cache_write"] == writes
+
+
+# ------------------------------------------------- a TP rank's head range
+
+# (query heads of the rank, its kv heads, the pool's kv heads, offset):
+# qwen3-30b-a3b's (16, 2) at tp = 2 and (8, 1) at tp = 4 over its 4 heads
+HEAD_RANGES = [(16, 2, 4, 0), (16, 2, 4, 2), (8, 1, 4, 0), (8, 1, 4, 3)]
+
+
+def _offset_pools(gen, shape, store, dev):
+    """K and V rows of ``shape`` (int8 with scales, or bf16 / f32) -> (k,
+    k_scale, v, v_scale); the scales None unless int8."""
+    if store == "int8":
+        k, ks = _int8(gen, shape, dev)
+        v, vs = _int8(gen, shape, dev)
+        return k, ks, v, vs
+    dtype = getattr(torch, store)
+    return (_rand(gen, shape, dtype, dev), None, _rand(gen, shape, dtype, dev),
+            None)
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("heads", HEAD_RANGES,
+                         ids=[f"H{h}-kv{n}of{p}-off{o}"
+                              for h, n, p, o in HEAD_RANGES])
+def test_head_offset_kernels_match_plain_and_a_sliced_pool(dev, heads,
+                                                           store):
+    """The two paged decodes, the slot decode and the two mixed attentions
+    at a rank's kv heads ``[off, off + n)`` of a pool of 4 heads: within
+    the tolerance of the plain version with the same offset, and bit for
+    bit the kernel on those heads copied out into a pool of their own
+    (the same blocks, the same sums)."""
+    H, n, KVH, off = heads
+    hd, bs, NB = 128, 16, 48
+    qdt = torch.float32 if store == "float32" else torch.bfloat16
+    gen = torch.Generator().manual_seed(off + 10 * n)
+    lengths = [1, 130, 300, 17]
+    MB = -(-max(lengths) // bs) + 1
+    k, ks, v, vs = _offset_pools(gen, (NB, bs, KVH, hd), store, dev)
+    sl = [t[:, :, off:off + n].contiguous() for t in (k, v)]
+    scales = (ks, vs)
+    bt = _tables(gen, lengths, NB, MB, bs).to(dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = _rand(gen, (len(lengths), H, hd), qdt, dev, 3.0)
+    qm = _rand(gen, (1, 40, H, hd), qdt, dev, 3.0)
+    c = torch.tensor([300], dtype=torch.int32, device=dev)
+    ql = torch.tensor([33], dtype=torch.int32, device=dev)
+    rng = dict(kv_head_offset=off, kv_heads=n)
+    if store == "int8":
+        dec, mix = (paged_attention.quant_block_paged_decode_attention,
+                    paged_attention.quant_mixed_block_paged_attention)
+        pdec, pmix = (ref.quant_block_paged_decode_attention_ref,
+                      ref.quant_mixed_block_paged_attention_ref)
+
+        def kv(pair):
+            return pair[0], scales[0], pair[1], scales[1]
+    else:
+        dec, mix = (paged_attention.block_paged_decode_attention,
+                    paged_attention.mixed_block_paged_attention)
+        pdec, pmix = (ref.block_paged_decode_attention_ref,
+                      ref.mixed_block_paged_attention_ref)
+
+        def kv(pair):
+            return pair
+    calls = [(dec, pdec, (q,), (bt, lens)), (mix, pmix, (qm,), (bt[2:3], c,
+                                                                 ql))]
+    if store != "int8":
+        S_max = 320
+        kc, _, vc, _ = _offset_pools(gen, (len(lengths), S_max, KVH, hd),
+                                     store, dev)
+        calls.append((paged_attention.paged_decode_attention,
+                      ref.paged_decode_attention_ref, (q,), (lens,),
+                      (kc, vc)))
+    for call in calls:
+        fn, plain, head, tail = call[:4]
+        pools = call[4] if len(call) > 4 else kv((k, v))
+        cut = (tuple(t[:, :, off:off + n].contiguous() for t in call[4])
+               if len(call) > 4 else kv(tuple(sl)))
+        got = fn(*head, *pools, *tail, **rng)
+        torch.testing.assert_close(
+            got.float(), plain(*head, *pools, *tail, **rng).float(),
+            **TOL[qdt])
+        assert torch.equal(got, fn(*head, *cut, *tail)), fn.__name__
+
+
+def test_head_offset_wrappers_refuse_a_range_past_the_pool(dev):
+    q = torch.zeros(2, 8, 128, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(4, 16, 4, 128, dtype=torch.bfloat16, device=dev)
+    bt = torch.zeros(2, 1, dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    for off, n in ((3, 2), (-1, 1), (0, 3)):     # past, negative, 8 % 3
+        with pytest.raises(ValueError):
+            paged_attention.block_paged_decode_attention(
+                q, k, k, bt, lens, kv_head_offset=off, kv_heads=n)
+        with pytest.raises(ValueError):
+            paged_attention.paged_decode_attention(
+                q, k[:2], k[:2], lens, kv_head_offset=off, kv_heads=n)
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8", "dense"])
+def test_tp_steps_run_with_no_host_sync(dev, store):
+    """DP2 x TP2 on 4 logical devices of the card (the reduced qwen3's 4
+    query and 4 kv heads, 2 a rank): the engine's paged decode step, a
+    chunk step and a prefill written into replica 1's pool, bf16 or int8
+    stores; or, the default stores, the slot decode step and a prefill.
+    No call synchronises with the host; every rank writes its own copy of
+    the cache (a decode step L * dp * tp KV writes, a chunk L * tp, a
+    pool prefill tp), the copies stay equal, and the logits agree with
+    the plain versions'."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _paged_decode_fn
+    knobs = {} if store == "dense" else dict(PAGED)
+    if store == "int8":
+        knobs.update(kv_dtype="int8", expert_dtype="int8")
+    cfg, hmm, ctx = _booted_dp(dev, 4, tp=2, **knobs)
+    params, cache, L = hmm.params, hmm.cache, cfg.num_layers
+    tokens = torch.randint(0, cfg.vocab_size, (4,), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([20, 3, 40, 7], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 32), dtype=torch.int32,
+                          device=dev)
+    if store == "dense":
+        def steps():
+            a, _ = M.decode_step(cfg, params, tokens[:, None], cache, lens,
+                                 parallel=ctx)
+            b, _ = M.prefill(cfg, params, {"tokens": chunk,
+                                           "lengths": lens[1:2]},
+                             128, parallel=ctx, replica=1)
+            return torch.cat([a, b]).float()
+        writes = 2 * 2 * L
+    else:
+        NB = 32
+        bt = torch.full((4, 8), NB, dtype=torch.int32)
+        for i, row in enumerate([[5, 9], [2], [7, 1, 30], [31]]):
+            bt[i, :len(row)] = torch.tensor(row, dtype=torch.int32)
+        bt = bt.to(dev)
+        ids = torch.tensor([7, NB], dtype=torch.int32, device=dev)
+
+        def steps():
+            nxt, _ = _paged_decode_fn(cfg, params, cache, tokens, lens,
+                                      active, bt, parallel=ctx)
+            a, _ = M.paged_chunk_prefill_step(cfg, params, chunk, cache, 0,
+                                              20, bt[2:3], ids, parallel=ctx,
+                                              replica=1)
+            b, small = M.prefill(cfg, params, {"tokens": chunk}, 32,
+                                 parallel=ctx, replica=1)
+            M.write_prefill_to_blocks(cache, small, ids, parallel=ctx,
+                                      replica=1)
+            return torch.cat([a, b]).float()
+        writes = 2 * 2 * L + 2 * L + 2
+    steps()                                  # builds and loads the kernels
+    snapshot = {n: {d: t.clone() for d, t in leaf.shards.items()}
+                for n, leaf in cache.items()}
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        got = steps()
+    assert ops.launch_counts()["kv_cache_write"] == writes
+    for leaf in cache.values():
+        for r in (0, 1):
+            assert torch.equal(leaf.shard(2 * r), leaf.shard(2 * r + 1))
+    for n, leaf in cache.items():                 # the same steps, plain
+        for d, t in leaf.shards.items():
+            t.copy_(snapshot[n][d])
+    with ops.use_reference():
+        want = steps()
+    # chip_smoke.py's e2e rule for bf16: a one-ulp difference may flip a
+    # near-tied expert choice
+    assert ((got - want).norm() / want.norm()).item() < 0.25

@@ -343,18 +343,19 @@ def test_int8_cache_of_other_dtype_raises():
 
 
 def test_more_than_one_device_raises():
-    """Several logical devices serve a standard-attention decoder at tp = 1
-    (``tests/test_torch_scale.py``).  What they do not serve yet raises
-    ``NotImplementedError`` naming its slice — tp > 1 serving, MLA and
-    Mamba2 models — and a configuration naming a logical device that
-    ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
+    """Several logical devices serve a standard-attention decoder at any
+    tp that keeps every head whole (``tests/test_torch_scale.py``,
+    ``tests/test_torch_tp.py``).  What they do not serve yet raises
+    ``NotImplementedError`` naming its slice — a tp that cuts a kv head,
+    MLA and Mamba2 models — and a configuration naming a logical device
+    that ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
     another device."""
     from repro_torch.configs import get_config
     srv = ElasticServer(MCFG, **SERVER_KW, device="cpu")
     with pytest.raises(ValueError, match="not in all_devices"):
         srv.boot(ElasticConfig(2, 1, (0, 1)))
-    with pytest.raises(NotImplementedError, match="TP-serving slice"):
-        ElasticServer(MCFG, **{**SERVER_KW, "tp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
+        ElasticServer(MCFG, **{**SERVER_KW, "tp": 4}, device="cpu")
     cpu2 = [torch.device("cpu")] * 2
     for name in ("deepseek-v2-lite-16b-smoke", "mamba2-1.3b-smoke"):
         hmm = HMM(get_config(name), 1, batch_per_replica=2, max_len=64,
