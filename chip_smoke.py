@@ -202,6 +202,37 @@ Phases, each of which raises on failure (no phase's failure is caught):
    the cache equal at the end; the TP sums and gathers at a decode and a
    chunk step's shapes, each timed alone (their per-step figure is the
    sum of those times over a step's calls, not a reading from a step).
+15. ``serve_overlap``: the ``serve_scale`` server and requests with
+   ``staging="overlap"`` and 4 transfer workers (each issuing its copies
+   on its own side CUDA stream), bf16 then int8: ``start_scale`` to DP6
+   before the 5th tick, a tick between every two ``advance`` polls until
+   DONE; the decode steps of the ticks served while the staging's ops are
+   in flight run under ``set_sync_debug_mode("error")``.  The staged
+   ``TransferStats`` byte fields must equal this call's ``serve_scale``
+   (serial ``stage_scale``) field by field, and the greedy tokens its
+   tokens where every tick ran on the same configuration in both runs
+   (else the phase prints where they part: the tick, each run's device
+   count, the rows whose top-k expert set differs).  Prints
+   ``stage_wall_s``, ``op_s``, ``overlap_efficiency``, ``stall_s``, the
+   ticks served in STAGING and their wall and device times (a profile:
+   the step kernels', all kernels' and the copies') against two ticks
+   before the scale.
+16. ``serve_down``: DP6 -> DP4 while serving 12 requests (the eight
+   survivor slots' short ones finish early; the four doomed slots hold
+   the 1,000-token prompt and prompts of 600, 431 and 757 tokens, 40
+   tokens out), the task (overlapped staging) opened once every doomed
+   sequence has decoded 4 tokens: bf16 with ``scaledown="migrate"`` (no
+   preemption allowed; every moved block's rows and scales held bit for
+   bit, in each TP copy, against its source block before the cut-over;
+   ``migration_bytes`` = blocks x ``block_nbytes``), then with
+   ``"drain"``, int8 migrate; each store also unscaled on DP4, whose
+   tokens each run is compared with (printed: capacity drops depend on
+   the device count).  Prints the blocks and bytes moved, the MIGRATING
+   wall, the wall from ``start_scale`` to DONE, the drain's ticks and the
+   copy rate.
+17. ``serve_down_tp``: the same at DP3 x TP2 -> DP2 x TP2 (6 requests,
+   two doomed), bf16, migrate and unscaled; every TP copy of the cache
+   equal after the scale.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -312,7 +343,8 @@ PATH_KERNELS = {
                     "quant_mixed_block_paged_attention", "quant_paged_gmm",
                     "kv_cache_write"),
 }
-PATH_KERNELS["serve_tp"] = PATH_KERNELS["serve_scale"]
+for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
+    PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # the scale phases: qwen3-30b-a3b at full width on logical devices of the
 # one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
@@ -2218,10 +2250,12 @@ def _shard_ptrs(tree, devices):
 
 def _serve_scale(layers, store, timed, tp=1):
     """``serve_scale`` (tp = 1, DP4 -> DP6) or ``serve_tp`` (tp = 2, DP2 x
-    TP2 -> DP3 x TP2) with one store."""
+    TP2 -> DP3 x TP2) with one store.  The result keeps the greedy tokens
+    and, under ``"_trace"`` (not written to the JSON), each tick's
+    configuration, token counts and top-k expert sets (``_Ticks``), which
+    ``serve_overlap`` compares its overlapped run with."""
     from repro_torch import obs
     from repro_torch.configs import get_config
-    from repro_torch.core.elastic_engine import ElasticServer
     from repro_torch.kernels import ops
     from repro_torch.serving.workload import Request
     cfg = _capped(get_config("qwen3-30b-a3b"),
@@ -2229,15 +2263,8 @@ def _serve_scale(layers, store, timed, tp=1):
     L = cfg.num_layers
     tag = f"[{'serve_tp' if tp > 1 else 'serve_scale'} {store or 'bf16'}]"
     c0, c1 = _scale_cfgs(tp)
-    gc.collect()
-    torch.cuda.empty_cache()
+    srv = _scale_server(cfg, store, tp)
     torch.cuda.reset_peak_memory_stats()
-    srv = ElasticServer(cfg, tp=tp, batch_per_replica=SCALE_BPR,
-                        max_len=MAX_LEN, seed=0, device="cuda",
-                        all_devices=["cuda:0"] * SCALE_DEVICES,
-                        kv_mode="paged", kv_block_size=BS,
-                        expert_mode="pooled", prefill_chunk=CHUNK,
-                        kv_dtype=store, expert_dtype=store)
     t0 = time.perf_counter()
     srv.boot(c0)
     torch.cuda.synchronize()
@@ -2266,8 +2293,10 @@ def _serve_scale(layers, store, timed, tp=1):
     work = {c0.dp: [0, 0], c1.dp: [0, 0]}   # dp -> [decode steps, chunks]
     ticks = []
     tick = 0
+    trace = _Ticks(eng, reqs)
     t_start = time.perf_counter()
     while not all(r.finish_s is not None for r in reqs):
+        trace.mark()
         require(tick < 2000, "serving did not finish")
         dp = eng.cfg.dp
         steps0 = eng._step_count
@@ -2312,6 +2341,7 @@ def _serve_scale(layers, store, timed, tp=1):
                                       if e.name == "prefill.chunks") * 1e3})
         tick += 1
     wall = time.perf_counter() - t_start
+    trace.close()
     obs.install(None)
     counts = ops.launch_counts()
     q = "quant_" if store else ""
@@ -2348,6 +2378,8 @@ def _serve_scale(layers, store, timed, tp=1):
     gen_tokens = sum(len(eng.generated[r.rid]) for r in reqs)
     res.update(
         launches=counts, work=work, serve_s=wall,
+        tokens={r.rid: list(eng.generated[r.rid]) for r in reqs},
+        _trace=trace,
         output_tok_s=gen_tokens / wall,
         decode_tick_ms_median={dp: statistics.median(v) if v else None
                                for dp, v in dec.items()},
@@ -2478,6 +2510,523 @@ def phase_serve_scale(layers, tp=1):
     return res
 
 
+# -------------------------------------------- scaling while serving
+
+# the symbols of the hand-written kernels a paged serve step launches (a
+# tick's path-kernel time is the device time of these, all on the default
+# stream)
+STEP_SYMBOLS = ("mma_gmm_kernel", "paged_decode_kernel", "mixed_mma_kernel",
+                "paged_write_kernel")
+
+
+class _Ticks:
+    """A serve loop's per-tick record: the logical device count each tick
+    ran on (the MoE's n_ep), each request's token count at each tick's
+    start, and the sorted top-k expert ids of every MoE shard it routed
+    (``_Routing``: device tensors, no host sync until ``close``)."""
+
+    def __init__(self, eng, reqs):
+        self.eng, self.reqs = eng, reqs
+        self._routing = _Routing()
+        self.calls = self._routing.__enter__()
+        self.ticks = []             # (ndev, index of the tick's first call)
+        self.lengths = []           # rid -> tokens, at each tick's start
+
+    def _lengths(self):
+        return {r.rid: len(self.eng.generated.get(r.rid, ()))
+                for r in self.reqs}
+
+    def mark(self):
+        """A tick starts."""
+        self.ticks.append((self.eng.cfg.ndev, len(self.calls)))
+        self.lengths.append(self._lengths())
+
+    def close(self):
+        """The loop ended: keep host copies, release the engine (and with
+        it the server's device memory)."""
+        self._routing.__exit__(None, None, None)
+        self.lengths.append(self._lengths())
+        self.calls = [c.cpu() for c in self.calls]
+        self.eng = self.reqs = None
+
+    def tick_calls(self, i):
+        """(n_ep, [the top-k sets of each MoE call's rows]) of tick i."""
+        ndev, lo = self.ticks[i]
+        hi = (self.ticks[i + 1][1] if i + 1 < len(self.ticks)
+              else len(self.calls))
+        cs = self.calls[lo:hi]
+        return ndev, [torch.cat(cs[j:j + ndev])
+                      for j in range(0, len(cs), ndev)]
+
+    def tick_of(self, rid, j):
+        """The tick that produced request ``rid``'s token ``j``."""
+        return next(t for t in range(len(self.ticks))
+                    if self.lengths[t + 1][rid] > j)
+
+
+def _divergence(a, b, tok_a, tok_b):
+    """Where two serve runs' greedy tokens part: each differing request's
+    first differing token and the tick that produced it, and for every
+    tick up to the last such one where the runs differ (the device count
+    the tick ran on, or rows whose top-k expert set differs between the
+    runs, over all its MoE calls)."""
+    first = {}
+    for rid, ta in tok_a.items():
+        tb = tok_b[rid]
+        if ta == tb:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 min(len(ta), len(tb)))
+        first[rid] = (j, a.tick_of(rid, j), b.tick_of(rid, j))
+    ticks = []
+    last = max((max(t[1], t[2]) for t in first.values()), default=-1)
+    for t in range(min(last + 1, len(a.ticks), len(b.ticks))):
+        na, ca = a.tick_calls(t)
+        nb, cb = b.tick_calls(t)
+        flipped = sum(int((x[:n] != y[:n]).any(-1).sum())
+                      for x, y in zip(ca, cb)
+                      for n in [min(len(x), len(y))])
+        if na != nb or flipped or len(ca) != len(cb):
+            ticks.append({"tick": t, "ndev": [na, nb],
+                          "moe_calls": [len(ca), len(cb)],
+                          "rows_flipped": flipped})
+    return {"requests_differing": first, "ticks": ticks}
+
+
+def _strict_steps(eng):
+    """Run the engine's decode step under ``set_sync_debug_mode("error")``
+    (a step that synchronises with the host raises) until the returned
+    undo is called.  The mode is global: the TransferEngine's workers run
+    under it too.  (The engine's chunk callable ends in the first token's
+    ``int()``, a sync by design; its model step is checked in ``e2e``.)"""
+    saved = {"decode": eng.compiled["decode"]}
+
+    def strict(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+    compiled = eng.compiled
+    compiled.update({k: strict(f) for k, f in saved.items()})
+    return lambda: compiled.update(saved)
+
+
+def _device_split(prof, ticks):
+    """Device ms a tick of a profiled window: the step kernels', all
+    kernels' and the copies' (``Memcpy`` rows: the staging's side-stream
+    copies are these and elementwise copy kernels); and the host's top
+    rows by self time over every thread (CUDA runtime calls among them:
+    ``cudaMalloc``, ``cudaEventSynchronize``), ms a tick."""
+    step = total = copies = 0.0
+    host = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((ev.self_cpu_time_total / 1e3, ev.key[:60],
+                         ev.count))
+            continue
+        ms = ev.self_device_time_total / 1e3
+        total += ms
+        if any(s in ev.key for s in STEP_SYMBOLS):
+            step += ms
+        if "Memcpy" in ev.key or "copy" in ev.key.lower():
+            copies += ms
+    n = max(ticks, 1)
+    host.sort(reverse=True)
+    return {"step_kernels_ms": step / n, "device_ms": total / n,
+            "copies_ms": copies / n,
+            "host_top_ms": [(k, round(ms / n, 3), c) for ms, k, c
+                            in host[:8]]}
+
+
+def _scale_server(cfg, store, tp, **kw):
+    from repro_torch.core.elastic_engine import ElasticServer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ElasticServer(cfg, tp=tp, batch_per_replica=SCALE_BPR,
+                         max_len=MAX_LEN, seed=0, device="cuda",
+                         all_devices=["cuda:0"] * SCALE_DEVICES,
+                         kv_mode="paged", kv_block_size=BS,
+                         expert_mode="pooled", prefill_chunk=CHUNK,
+                         kv_dtype=store, expert_dtype=store, **kw)
+
+
+def _path_launches(counts, store, tag):
+    """Each of the path's four kernels (bf16 or int8) was launched."""
+    q = "quant_" if store else ""
+    names = (f"{q}block_paged_decode_attention",
+             f"{q}mixed_block_paged_attention", f"{q}paged_gmm",
+             "kv_cache_write")
+    for n in names:
+        require(counts[n] > 0, f"{tag}: {n} was not launched")
+    return {n: counts[n] for n in names}
+
+
+def _serve_overlap(layers, store, serial):
+    """``serve_overlap`` with one store: the ``serve_scale`` server and
+    requests, DP4 -> DP6 with ``staging="overlap"`` and 4 transfer
+    workers, the task opened before the 5th tick (where ``serve_scale``
+    stages), a tick between every two polls; the ticks while ops are in
+    flight run their decode steps under sync-debug "error".  Two ticks before
+    the scale and the staging window are profiled.  ``serial`` is
+    ``serve_scale``'s run of the same store in this call: its staged
+    bytes and its tokens."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import ScalePhase
+    from repro_torch.serving.workload import Request
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    tag = f"[serve_overlap {store or 'bf16'}]"
+    c0, c1 = _scale_cfgs()
+    srv = _scale_server(cfg, store, 1, staging="overlap", transfer_workers=4)
+    srv.boot(c0)
+    srv.preinitialize(c1)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    reqs = [Request(rid=i, arrival_s=0.0, prompt_len=len(p), output_len=32,
+                    prompt=p) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    eng = srv.engine
+    tracer = obs.install(obs.Tracer())
+    ops.reset_launch_counts()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    trace = _Ticks(eng, reqs)
+    before, during, polls, in_flight = [], [], 0, 0
+    task, prof_before, prof_during = None, None, None
+    t_start = time.perf_counter()
+
+    def timed_tick(out):
+        trace.mark()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        srv.tick(ts - t_start)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - ts) * 1e3)
+
+    while not all(r.finish_s is not None for r in reqs):
+        require(len(trace.ticks) < 2000, "serving did not finish")
+        n = len(trace.ticks)
+        if n == 2:
+            with profile(activities=acts) as prof_before:
+                timed_tick(before)
+                timed_tick(before)
+            continue
+        if n == 4 and task is None:
+            with profile(activities=acts) as prof_during:
+                t_task = time.perf_counter()
+                task = srv.start_scale(c1)
+                while task.phase is ScalePhase.STAGING:
+                    in_flight += srv.hmm.staging_in_flight
+                    undo = _strict_steps(eng)
+                    try:
+                        timed_tick(during)
+                    finally:
+                        undo()
+                    task.advance(time.perf_counter() - t_start)
+                    polls += 1
+                    if task.phase is ScalePhase.COMMITTING:
+                        # the commit right after the poll that saw the
+                        # copies land: the next tick runs on DP6, as in
+                        # serve_scale (stage, one tick, switch)
+                        task.advance(time.perf_counter() - t_start)
+                torch.cuda.synchronize()
+                task_wall = time.perf_counter() - t_task
+            require(task.phase is ScalePhase.DONE, task.phase)
+            require(in_flight > 0, f"{tag} no tick started while the "
+                    f"staging's ops were in flight")
+            continue
+        trace.mark()
+        srv.tick(time.perf_counter() - t_start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    trace.close()
+    obs.install(None)
+    counts = ops.launch_counts()
+    launches = _path_launches(counts, store, tag)
+    st, ev = task.stage_stats, srv.events[-1]
+    staged = {f: getattr(st, f) for f in st.BYTE_FIELDS}
+    require(staged == serial["scale"]["staged_bytes"],
+            f"{tag} staged bytes {staged} differ from the serial "
+            f"stage_scale's {serial['scale']['staged_bytes']}")
+    tokens = {r.rid: list(eng.generated[r.rid]) for r in reqs}
+    for r in reqs:
+        require(len(tokens[r.rid]) == 32, (r.rid, len(tokens[r.rid])))
+    same_ticks = ([nd for nd, _ in trace.ticks]
+                  == [nd for nd, _ in serial["_trace"].ticks])
+    div = _divergence(trace, serial["_trace"], tokens, serial["tokens"])
+    if same_ticks:
+        # every tick ran on the configuration it ran on in the serial
+        # run: the steps are the same, so the tokens must be
+        require(tokens == serial["tokens"],
+                f"{tag} tokens differ from the serial run's: {div}")
+    spans = {e.name: e.dur for e in tracer.events() if e.tid == "scale"}
+    dev_before = _device_split(prof_before, len(before))
+    dev_during = _device_split(prof_during, len(during))
+    res = {"store": store or cfg.dtype, "layers": cfg.num_layers,
+           "stage_wall_s": st.wall_s, "op_s": st.op_s,
+           "overlap_efficiency": task.overlap_efficiency,
+           "stall_s": task.stall_s, "task_wall_s": task_wall,
+           "stage_s": ev.stage_s, "switch_s": ev.switch_s,
+           "compile_hit": ev.compile_hit, "polls": polls,
+           "ticks_during_staging": len(during),
+           "ticks_started_in_flight": in_flight,
+           "tick_ms_before": before, "tick_ms_during": during,
+           "device_before": dev_before, "device_during": dev_during,
+           "phase_spans_s": spans, "staged_bytes": staged,
+           "tokens_equal_serial": tokens == serial["tokens"],
+           "same_configs_per_tick": same_ticks, "divergence": div,
+           "launches": counts, "path_launches": launches, "serve_s": wall}
+    log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, {c0.describe()} "
+        f"-> {c1.describe()} (every logical device cuda:0: the staged "
+        f"copies are copies on the one card), staging='overlap', 4 "
+        f"workers on side streams: stage_wall_s {st.wall_s:.4f}, op_s "
+        f"{st.op_s:.4f}, overlap_efficiency "
+        f"{task.overlap_efficiency:.3f}, stall_s {task.stall_s:.4f} "
+        f"(serial stage_s in this call {serial['scale']['stage_s']:.4f}), "
+        f"start_scale to DONE {task_wall:.4f} s, switch_s "
+        f"{ev.switch_s:.4f}, compile_hit {ev.compile_hit}")
+    log(f"{tag} {len(during)} tick(s) served in STAGING, {in_flight} of "
+        f"them started with ops in flight (their decode steps under "
+        f"sync-debug 'error'), wall ms {during} against "
+        f"{before} before the scale (both profiled); device ms a tick "
+        f"before {dev_before}, during {dev_during}")
+    log(f"{tag} staged bytes equal the serial stage_scale's: {staged}")
+    log(f"{tag} tokens equal the serial run's: "
+        f"{res['tokens_equal_serial']} (each tick on the same "
+        f"configuration as there: {same_ticks}); where they part: {div}")
+    log(f"{tag} phase spans (s): {spans}; launches {launches}")
+    srv.hmm.close()
+    del srv, eng
+    return res
+
+
+def phase_serve_overlap(layers, serial):
+    """bf16, then int8 (after the bf16 server is freed); ``serial`` is
+    this call's ``serve_scale`` result."""
+    res = {}
+    for store in (None, "int8"):
+        res[store or "bf16"] = _serve_overlap(layers, store,
+                                              serial[store or "bf16"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = {n: sum(r["launches"][n] for r in res.values())
+                       for n in PATH_KERNELS["serve_overlap"]}
+    return res
+
+
+def _down_requests(cfg, c_from, c_to):
+    """The survivors' slots (below ``c_to``'s) take short requests (one
+    128-token chunk, 4 tokens out) that finish early and leave their slots
+    free; the doomed slots take the 1,000-token prompt and three more
+    (600, 431, 757 tokens), 40 tokens out, still decoding at the scale."""
+    from repro_torch.serving.workload import Request
+    rng = np.random.default_rng(5)
+    keep = c_to.dp * SCALE_BPR
+    doomed = c_from.dp * SCALE_BPR - keep
+    lens = [128] * keep + [1000, 600, 431, 757][:doomed]
+    outs = [4] * keep + [40] * doomed
+    return [Request(rid=i, arrival_s=0.0, prompt_len=n, output_len=o,
+                    prompt=rng.integers(0, cfg.vocab_size, n).astype(
+                        np.int32))
+            for i, (n, o) in enumerate(zip(lens, outs))]
+
+
+def _block_rows(eng, block):
+    """Every leaf's rows of pool block ``block`` in each TP rank's copy of
+    its replica's slice (views)."""
+    bpp = eng.kv.blocks_per_partition
+    r, tp = block // bpp, eng.parallel.tp
+    return [leaf.shard(eng.parallel.devices[r * tp + t])[:, block - r * bpp]
+            for leaf in eng.cache.values() for t in range(tp)]
+
+
+def _checked_copies(eng):
+    """Wrap ``finish_migration`` to hold, before the cut-over, every moved
+    block's rows (and scales) in each TP copy of the destination against
+    the source block's, which are frozen from the planning on (their
+    sequences are paused, and commit frees them only in this call): the
+    comparisons stay on the card, counted into one device tensor read
+    after the run.  Returns [blocks compared, mismatching rows]."""
+    finish = eng.finish_migration
+    out = [0, torch.zeros((), dtype=torch.int64, device=eng.device)]
+
+    def finish_migration(job):
+        for src, dst in job.ticket.pairs:
+            for g, w in zip(_block_rows(eng, dst), _block_rows(eng, src)):
+                out[1] += (g != w).any()
+            out[0] += 1
+        finish(job)
+    eng.finish_migration = finish_migration
+    return out
+
+
+def _serve_down(layers, store, mode, tp=1, scale=True):
+    """One ``serve_down`` run: DP6 -> DP4 (tp = 1) or DP3 x TP2 -> DP2 x
+    TP2 (tp = 2) while serving ``_down_requests``, the task (overlapped
+    staging, 4 workers) opened at the first tick where every doomed slot's
+    sequence has decoded 4 tokens; ``scale=False`` serves the same
+    requests unscaled on the target."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import ScalePhase
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    c_from = ElasticConfig(6 // tp, tp, tuple(range(6)))
+    c_to = ElasticConfig(4 // tp, tp, (0, 1, 2, 3))
+    what = mode if scale else "unscaled"
+    tag = (f"[serve_down{'_tp' if tp > 1 else ''} {store or 'bf16'} "
+           f"{what}]")
+    # overlapped staging: the weights land within a tick or two, so the
+    # doomed sequences are still mid-decode when MIGRATING begins (serial
+    # staging takes one unit a poll, about 30 ticks)
+    srv = _scale_server(cfg, store, tp, scaledown=mode, staging="overlap",
+                        transfer_workers=4)
+    srv.boot(c_from if scale else c_to)
+    reqs = _down_requests(cfg, c_from, c_to)
+    for r in reqs:
+        srv.submit(r)
+    eng = srv.engine
+    keep = c_to.dp * SCALE_BPR
+    doomed = range(keep, c_from.dp * SCALE_BPR)
+    checked = _checked_copies(eng)
+    tracer = obs.install(obs.Tracer())
+    ops.reset_launch_counts()
+    task, ticks, t_task, task_wall, drain_ticks = None, 0, 0.0, 0.0, 0
+    at_scale = None
+    t_start = time.perf_counter()
+    while not all(r.finish_s is not None for r in reqs) or (
+            task is not None and not task.done):
+        require(ticks < 3000, "serving did not finish")
+        if scale and task is None and all(
+                eng.slots[s].active and not eng.slots[s].prefilling
+                and len(eng.generated.get(eng.slots[s].rid, ())) >= 4
+                for s in doomed):
+            at_scale = {"tick": ticks, "doomed": {
+                eng.slots[s].rid: {"slot": s,
+                                   "tokens": int(eng.lengths[s]),
+                                   "blocks": len(eng.kv.block_table(
+                                       eng.slots[s].rid))}
+                for s in doomed},
+                "free_survivor_slots": len(eng.free_slots())}
+            torch.cuda.synchronize()
+            t_task = time.perf_counter()
+            task = srv.start_scale(c_to)
+        srv.tick(time.perf_counter() - t_start)
+        ticks += 1
+        if task is not None and not task.done:
+            if task.phase is ScalePhase.DRAINING:
+                drain_ticks += 1
+            task.advance(time.perf_counter() - t_start)
+            if task.done:
+                torch.cuda.synchronize()
+                task_wall = time.perf_counter() - t_task
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    obs.install(None)
+    counts = ops.launch_counts()
+    launches = _path_launches(counts, store, tag)
+    tokens = {r.rid: list(eng.generated[r.rid]) for r in reqs}
+    for r in reqs:
+        require(len(tokens[r.rid]) == r.output_len,
+                (r.rid, len(tokens[r.rid])))
+        require(all(0 <= t < cfg.vocab_size for t in tokens[r.rid]))
+    res = {"store": store or cfg.dtype, "mode": what, "tp": tp,
+           "tokens": tokens, "launches": counts, "path_launches": launches,
+           "serve_s": wall, "ticks": ticks}
+    if scale:
+        require(task.phase is ScalePhase.DONE and srv.hmm.active_cfg == c_to,
+                f"{tag} ended in {task.phase}")
+        srv.hmm.kv_blocks.check_invariants()
+        require(srv.hmm.kv_blocks.num_partitions == c_to.dp)
+        spans = {e.name: e.dur for e in tracer.events() if e.tid == "scale"}
+        mig_s = spans.get("scale.MIGRATING", 0.0)
+        res.update(at_scale=at_scale, task_wall_s=task_wall,
+                   phase_spans_s=spans, migrated_blocks=task.migrated_blocks,
+                   migration_bytes=task.migration_bytes,
+                   blocks_checked=checked[0],
+                   block_nbytes=eng.block_nbytes(),
+                   preemptions=eng.preemptions, drain_ticks=drain_ticks,
+                   stall_s=task.stall_s,
+                   copy_gb_s=(task.migration_bytes / mig_s / 1e9
+                              if mig_s else None))
+        if mode == "migrate":
+            require(eng.preemptions == 0, f"{tag} preempted "
+                    f"{eng.preemptions} sequence(s) instead of moving them")
+            require(task.migrated_blocks > 0 and "scale.MIGRATING" in spans)
+            require(checked[0] == task.migrated_blocks,
+                    (checked[0], task.migrated_blocks))
+            require(int(checked[1]) == 0, f"{tag} {int(checked[1])} moved "
+                    f"rows differ from their source rows")
+            require(task.migration_bytes
+                    == task.migrated_blocks * eng.block_nbytes())
+        else:
+            require(task.migrated_blocks == 0 and drain_ticks > 0)
+        if tp > 1:
+            _require_copies_equal(eng.cache, c_to, tag)
+        log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, "
+            f"{c_from.describe()} -> {c_to.describe()} (every logical "
+            f"device cuda:0: a block move is a copy on the one card), "
+            f"scaledown='{mode}': at the scale {at_scale}; "
+            f"migrated_blocks {task.migrated_blocks} "
+            f"({checked[0]} held bit for bit against their source "
+            f"rows: equal), migration_bytes {task.migration_bytes} "
+            f"({eng.block_nbytes()} B a block), MIGRATING "
+            f"{mig_s * 1e3:.2f} ms, start_scale to DONE "
+            f"{task_wall * 1e3:.2f} ms, drain ticks {drain_ticks}, "
+            f"preemptions {eng.preemptions}, stall_s {task.stall_s:.4f}, "
+            f"copy rate {res['copy_gb_s']} GB/s; phase spans (s) {spans}")
+    log(f"{tag} {len(reqs)} requests in {ticks} ticks, {wall:.2f} s; "
+        f"launches {launches}")
+    srv.hmm.close()
+    del srv, eng
+    return res
+
+
+def _compare_tokens(got, want, tag, what):
+    same = [rid for rid in got if got[rid] == want[rid]]
+    parts = {rid: next((i for i, (x, y) in enumerate(zip(got[rid],
+                                                         want[rid]))
+                        if x != y), None)
+             for rid in got if rid not in same}
+    log(f"{tag} tokens equal to {what}'s for {len(same)} of {len(got)} "
+        f"requests; first differing position of the others {parts}")
+    return {"equal": len(same), "of": len(got), "first_differing": parts}
+
+
+def phase_serve_down(layers, tp=1):
+    """``serve_down`` (tp = 1): bf16 with ``scaledown="migrate"``, with
+    ``"drain"`` and unscaled on DP4; int8 migrate and unscaled.
+    ``serve_down_tp`` (tp = 2): bf16 migrate and unscaled."""
+    res = {}
+    runs = ([(None, "migrate"), (None, "drain"), ("int8", "migrate")]
+            if tp == 1 else [(None, "migrate")])
+    for store, mode in runs:
+        key = f"{store or 'bf16'}_{mode}"
+        res[key] = _serve_down(layers, store, mode, tp)
+        if mode == "migrate":
+            res[f"{store or 'bf16'}_unscaled"] = _serve_down(
+                layers, store, mode, tp, scale=False)
+    tag = f"[serve_down{'_tp' if tp > 1 else ''}]"
+    for key, r in list(res.items()):
+        if r["mode"] == "unscaled":
+            continue
+        base = res[f"{key.split('_')[0]}_unscaled"]
+        r["vs_unscaled"] = _compare_tokens(r["tokens"], base["tokens"],
+                                           f"{tag} {key}", "the unscaled "
+                                           "run")
+    names = PATH_KERNELS["serve_down_tp" if tp > 1 else "serve_down"]
+    res["launches"] = {n: sum(r["launches"][n] for r in res.values())
+                       for n in names}
+    return res
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -2525,7 +3074,8 @@ def main():
                     default="build,kernels,e2e,e2e_mla,e2e_ssm,e2e_scale,"
                             "e2e_tp,serve,serve_int8,serve_dense,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
-                            "serve_scale,serve_tp")
+                            "serve_scale,serve_tp,serve_overlap,serve_down,"
+                            "serve_down_tp")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2554,6 +3104,13 @@ def main():
              for p in SERVE_STORES]
     runs.append(("serve_scale", lambda: phase_serve_scale(args.layers)))
     runs.append(("serve_tp", lambda: phase_serve_scale(args.layers, 2)))
+    # serve_overlap holds its staged bytes and tokens against this call's
+    # serve_scale (serial staging of the same server and requests)
+    runs.append(("serve_overlap", lambda: phase_serve_overlap(
+        args.layers, res.get("serve_scale")
+        or phase_serve_scale(args.layers))))
+    runs.append(("serve_down", lambda: phase_serve_down(args.layers)))
+    runs.append(("serve_down_tp", lambda: phase_serve_down(args.layers, 2)))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()
@@ -2561,6 +3118,9 @@ def main():
             res["phase_seconds"][phase] = time.perf_counter() - tp
             log(f"[time] {phase}: {res['phase_seconds'][phase]:.1f} s")
     res["seconds"] = time.perf_counter() - t0
+    for r in res.get("serve_scale", {}).values():
+        if isinstance(r, dict):
+            r.pop("_trace", None)           # tensors: not for the JSON
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

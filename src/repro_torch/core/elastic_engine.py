@@ -1,46 +1,59 @@
-"""``ElasticServer`` — the port of ``repro.core.elastic_engine
-.ElasticServer``'s ``__init__``, ``boot``, ``submit``, ``tick``, ``step``,
-``queue_depth``, ``utilization``, and its scale-up: ``stage_scale``,
-``switchover`` and ``scale_to``.
+"""``ElasticServer`` — the port of ``repro.core.elastic_engine``: a
+server that boots on one or several logical devices, serves, and scales
+while it serves.
 
 On one device (``ElasticConfig(1, 1, (0,))``) an instance serves a
 standard-attention decoder, an MLA decoder (over its latent cache) or a
 Mamba2 model, attention-free or hybrid (over its per-slot SSD state and,
 hybrid, the shared block's K/V); the last two with dense KV and monolithic
-prefill only, as in the reference. On several logical devices
+prefill only, as in the reference.  On several logical devices
 (``all_devices``) a standard-attention decoder serves at any tp whose split
 keeps every head whole: each DP replica runs its attention on its own
 shards and slots (at tp > 1 split over its TP ranks, with explicit sums
-between them), the MoE runs expert-parallel across every device, and the
-server scales DP up while it serves: ``stage_scale`` stages the target's
-weights between ticks (the engine keeps serving on the old instance),
-``switchover`` commits them and rebinds the engine, whose surviving slots
-continue on the same KV shards.
+between them), and the MoE runs expert-parallel across every device.
+
+Scaling (the paper's §5): ``start_scale(target)`` opens an
+``EngineScalingTask`` whose ``advance(now)`` is a non-blocking poll, and
+``tick()`` serves between any two polls; ``scale_to`` and ``stage_scale``
++ ``switchover`` are the blocking forms.  The phases are the reference's
+(``serving/driver.ScalePhase``): STAGING (the HMM stages the target's
+weights — serially, one unit a poll, or with ``staging="overlap"`` on the
+background ``TransferEngine``, on the card on side CUDA streams, while the
+default stream keeps decoding) -> COMPILING (the IMM's step functions for
+the target) -> on a scale-down MIGRATING (``scaledown="migrate"``, paged
+KV: the doomed slots' live sequences have their KV blocks copied onto
+survivor partitions while the survivors decode; the doomed devices release
+as soon as the copies land) or DRAINING (``scaledown="drain"``, and any
+dense-KV server: the doomed slots stop admitting and run to completion) ->
+COMMITTING (``switchover``: the surviving slots continue on the same KV
+shards) -> DONE, or ABORTED.  While a task is in flight new admissions
+pause and in-flight decodes continue (``admission_during_scale``).
 
 The defaults are the reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
 modes.  Dense KV with chunked prefill is not ported yet and raises.  So do
-a TP degree that cuts a head, a server-level scale-down (it needs Slice
-B's KV migration or drain), overlapped staging, rebalancing and parking:
-their knobs keep the reference's names and raise ``NotImplementedError``.
+a TP degree that cuts a head, the autoscaling policy, rebalancing, routing
+telemetry and parking: their knobs keep the reference's names and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from typing import Dict, List, Optional
 
 from repro_torch import obs
-from repro_torch.core.hmm import (HMM, REBALANCE, SLICE_B, SLICE_C,
-                                  TELEMETRY, TransferStats, not_ported)
+from repro_torch.core.hmm import (HMM, REBALANCE, SLICE_C, TELEMETRY,
+                                  TransferStats, not_ported)
+from repro_torch.core.imm import IMM
 from repro_torch.core.topology import ElasticConfig
-from repro_torch.distributed.sharding import make_instance_mesh
+from repro_torch.core.transfer import TransferOp
 from repro_torch.models.model import check_tp_heads, chunk_prefill_supported
-from repro_torch.serving.engine import (InferenceEngine,
-                                        compile_step_functions,
-                                        engine_parallel_ctx)
+from repro_torch.serving.driver import ScalePhase, admission_during_scale
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.workload import Request
 
 
@@ -48,14 +61,13 @@ from repro_torch.serving.workload import Request
 class ScaleEvent:
     """One scale event.  ``stats`` is the HMM's ``last_stats``: the
     staging's bytes, and after ``switchover`` also the commit's.
-    ``compile_hit``: whether the target's step functions were ready
-    without compiling — always True in the port, whose eager step
-    functions are built in microseconds at switchover (the reference
-    reports its IMM's executable cache).  ``stall_s`` is the serve loop's
-    time blocked on staging (all of ``stage_s`` with serial staging);
+    ``compile_hit``: whether the IMM held the target's step functions
+    already.  ``stall_s`` is the serve loop's time blocked on staging
+    work: all of ``stage_s`` on the blocking forms, the time spent inside
+    ``advance`` polls for a task (near zero when overlapped).
     ``stage_wall_s`` freezes the staging's wall time, which ``stats``
     later adds the commit to.  ``migrated_blocks`` and ``migration_bytes``
-    count a scale-down's live KV moves (Slice B; 0 here)."""
+    count a scale-down's live KV moves (0 for a scale-up or a drain)."""
     t: float
     src: str
     dst: str
@@ -68,6 +80,251 @@ class ScaleEvent:
     stage_wall_s: float = 0.0
     migrated_blocks: int = 0
     migration_bytes: int = 0
+
+
+class EngineScalingTask:
+    """A resumable scale transition over the engine (``driver.ScalingTask``).
+
+    ``advance`` is a non-blocking completion poll; what runs inside it
+    depends on the HMM's staging mode:
+
+    * ``staging="serial"`` — one staging unit per ``advance``, then a
+      COMPILING advance (the IMM's step functions for the target);
+    * ``staging="overlap"`` — the units already run on the background
+      ``TransferEngine`` (submitted at ``start_scale``); the first
+      ``advance`` builds the target's step functions on the serving thread
+      while the copies proceed (STAGING with COMPILING), later ones poll.
+
+    A scale-down continues into MIGRATING (``scaledown="migrate"``: the
+    live sequences' blocks are copied onto survivor partitions as
+    per-block ops on the HMM's TransferEngine while decode ticks proceed)
+    or DRAINING, then COMMITTING (``switchover``) and DONE.  ``tick()`` is
+    legal between every two ``advance`` calls.
+    """
+
+    def __init__(self, server: "ElasticServer", target: ElasticConfig):
+        if server._active_task is not None \
+                and not server._active_task.phase.terminal:
+            raise RuntimeError("a scale event is already in flight")
+        self.server = server
+        self.target = target
+        self.phase = ScalePhase.STAGING
+        self.staging_mode = server.hmm.staging_mode
+        self.increments_total = server.hmm.begin_scale(target) + 1  # +compile
+        self.increments_done = 0
+        self.stats: TransferStats = server.hmm._stage_stats
+        # the staging-only snapshot, frozen when STAGING completes
+        # (``stats`` keeps accumulating: commit merges the KV grow into it)
+        self.stage_stats: Optional[TransferStats] = None
+        self.event: Optional[ScaleEvent] = None
+        self.stall_s = 0.0      # serve-loop time spent inside advance()
+        self._compile_hit: Optional[bool] = None
+        self._down = target.ndev < server.engine.cfg.ndev
+        self._keep = target.dp * server.engine.batch_per_replica
+        self._migrate = self._down and server.scaledown_mode == "migrate"
+        self._mig_inflight: List = []   # (MigrationJob, TransferSession)
+        self._mig_warm = False
+        self.migrated_blocks = 0
+        self.migration_bytes = 0
+        if self._down:
+            # stop admitting into doomed slots right away, so the drain
+            # overlaps the staging instead of following it
+            server.engine.admit_limit = self._keep
+        server._active_task = self
+
+    @property
+    def phase(self) -> ScalePhase:
+        return self._phase
+
+    @phase.setter
+    def phase(self, new: ScalePhase) -> None:
+        """Every transition emits one ``scale.<PHASE>`` span on the
+        ``"scale"`` lane (ABORTED unwinds included)."""
+        tr = obs.get_tracer()
+        now = tr.now()
+        old = getattr(self, "_phase", None)
+        self._phase = new
+        if old is not None and old is not new:
+            tr.complete(f"scale.{old.name}", self._phase_t0, now,
+                        cat="scale", tid="scale",
+                        args={"target": self.target.describe(),
+                              "next": new.name})
+        self._phase_t0 = now
+
+    @property
+    def done(self) -> bool:
+        return self.phase.terminal
+
+    @property
+    def overlap_efficiency(self) -> Optional[float]:
+        """Sum of the transfer ops' times over the staging wall (> 1: the
+        copies overlapped each other); None until staging completed."""
+        st = self.stage_stats
+        if st is None or st.wall_s <= 0 or st.op_s <= 0:
+            return None
+        return st.op_s / st.wall_s
+
+    def _finish_staging(self):
+        """STAGING complete: freeze the snapshot, record the event (the
+        IMM was consulted on the first overlapped poll) and move on."""
+        self.stage_stats = dataclasses.replace(self.stats)
+        self.event = self.server._record_stage(self.target,
+                                               self.stats.wall_s)
+        if self._compile_hit is not None:
+            self.event.compile_hit = self._compile_hit
+        self.phase = self._scaledown_phase()
+
+    def _scaledown_phase(self) -> ScalePhase:
+        if not self._down:
+            return ScalePhase.COMMITTING
+        return (ScalePhase.MIGRATING if self._migrate
+                else ScalePhase.DRAINING)
+
+    def _unwind_failed(self):
+        """A staging, compile or migration step raised: release the task's
+        state so the server keeps serving on the active configuration
+        (``hmm.abort`` is idempotent)."""
+        self.server.hmm.abort()
+        if self._down:
+            self.server.engine.admit_limit = None
+        self.server._staged_cfg = None
+        self.server._active_task = None
+        self.phase = ScalePhase.ABORTED
+
+    def advance(self, now: float) -> ScalePhase:
+        ph = self.phase
+        if ph is ScalePhase.STAGING:
+            t0 = time.perf_counter()
+            try:
+                if self.staging_mode == "overlap":
+                    if self._compile_hit is None:
+                        # on the serving thread while the TransferEngine
+                        # moves the bytes
+                        self._compile_hit = self.server.imm.has(self.target)
+                        self.server.imm.preinitialize(self.target)
+                    if self.server.hmm.poll_staging():
+                        self.increments_done = self.increments_total
+                        self._finish_staging()
+                    else:
+                        self.increments_done = (
+                            self.increments_total - 1
+                            - self.server.hmm.staging_remaining)
+                else:
+                    more = self.server.hmm.stage_increment()
+                    self.increments_done += 1
+                    if not more:
+                        self.stage_stats = dataclasses.replace(self.stats)
+                        self.phase = ScalePhase.COMPILING
+            except BaseException:
+                self._unwind_failed()
+                raise
+            self.stall_s += time.perf_counter() - t0
+        elif ph is ScalePhase.COMPILING:
+            t0 = time.perf_counter()
+            self.increments_done += 1
+            try:
+                # the staging's own time (the HMM's), not the wall since
+                # the task opened, which holds the ticks between polls
+                self.event = self.server._record_stage(self.target,
+                                                       self.stats.wall_s)
+            except BaseException:
+                self._unwind_failed()
+                raise
+            self.phase = self._scaledown_phase()
+            self.stall_s += time.perf_counter() - t0
+        elif ph is ScalePhase.MIGRATING:
+            t0 = time.perf_counter()
+            try:
+                if self._advance_migration():
+                    self.phase = ScalePhase.COMMITTING
+            except BaseException:
+                self._cancel_migrations()
+                self._unwind_failed()
+                raise
+            self.stall_s += time.perf_counter() - t0
+        elif ph is ScalePhase.DRAINING:
+            if self.server.engine.drained(self._keep):
+                self.phase = ScalePhase.COMMITTING
+        elif ph is ScalePhase.COMMITTING:
+            self.server.switchover()
+            self.phase = ScalePhase.DONE
+            self.server._active_task = None
+        if self.event is not None:
+            self.event.stall_s = self.stall_s
+        return self.phase
+
+    def _advance_migration(self) -> bool:
+        """One MIGRATING poll: harvest the landed copy sessions (cut their
+        slots over), submit new component moves, and report whether every
+        doomed partition is empty.  The copies run as TransferOps on the
+        HMM's TransferEngine (on the card on side streams that first wait
+        for the step that last wrote the source rows), so decode ticks
+        between polls overlap them."""
+        eng = self.server.engine
+        for job, sess in list(self._mig_inflight):
+            if not sess.finished():
+                continue
+            self._mig_inflight.remove((job, sess))
+            failed = sess.failed_ops()
+            if failed:
+                eng.cancel_migration(job)
+                raise RuntimeError(
+                    f"KV migration copy op {failed[0].label!r} failed "
+                    f"({len(failed)} op(s)); scale-down aborted"
+                ) from failed[0].error
+            # finished() means landed: the cut-over's first step reads
+            # destination rows that are written
+            eng.finish_migration(job)
+            self.migrated_blocks += job.ticket.num_blocks
+            self.migration_bytes += job.ticket.num_blocks * eng.block_nbytes()
+            if self.event is not None:
+                # per harvest: a committed component stays moved even if
+                # a later abort lands
+                self.event.migrated_blocks = self.migrated_blocks
+                self.event.migration_bytes = self.migration_bytes
+        while True:
+            job = eng.plan_migration()
+            if job is None:
+                break
+            if not self._mig_warm:
+                eng.prewarm_block_copy()
+                self._mig_warm = True
+            ops = [TransferOp(index=i, label=f"kvmig:{s}->{d}",
+                              fn=partial(eng.copy_block, s, d),
+                              devices=tuple(job.ready))
+                   for i, (s, d) in enumerate(job.ticket.pairs)]
+            sess = self.server.hmm.transfer_engine().submit(ops,
+                                                            after=job.ready)
+            self._mig_inflight.append((job, sess))
+        if self._mig_inflight:
+            # a bounded yield to the copy workers, as poll_staging gives:
+            # with the doomed sequences paused and the survivors idle the
+            # serve loop is a pure Python spin that would starve them
+            self._mig_inflight[0][1].join(timeout=0.002)
+        return not self._mig_inflight and not eng.doomed_active_slots()
+
+    def _cancel_migrations(self):
+        """Abort barrier for in-flight migrations: cancel-or-join every
+        copy session first (no worker touches the cache afterwards), then
+        unwind the tickets and slots — the tables were never flipped, so
+        the paused sequences resume where they were."""
+        for job, sess in self._mig_inflight:
+            sess.cancel()
+            self.server.engine.cancel_migration(job)
+        self._mig_inflight = []
+
+    def abort(self):
+        if self.phase not in (ScalePhase.STAGING, ScalePhase.COMPILING,
+                              ScalePhase.MIGRATING, ScalePhase.DRAINING):
+            raise RuntimeError(f"cannot abort a task in {self.phase.name}")
+        self._cancel_migrations()
+        self.server.hmm.abort()
+        if self._down:
+            # re-open the slots closed in __init__
+            self.server.engine.admit_limit = None
+        self.server._staged_cfg = None
+        self.server._active_task = None
+        self.phase = ScalePhase.ABORTED
 
 
 class ElasticServer:
@@ -90,13 +347,13 @@ class ElasticServer:
                  expert_dtype: Optional[str] = None,
                  imm_cache=None, device="cuda"):
         not_ported("policy", policy, None, SLICE_C)
-        not_ported("scaledown", scaledown, "migrate", SLICE_B)
         not_ported("routing_sample_every", routing_sample_every, 0,
                    TELEMETRY)
         not_ported("rebalance", rebalance, None, REBALANCE)
-        not_ported("imm_cache", imm_cache, None, SLICE_B)
         not_ported("expert_slot_slack", expert_slot_slack or 0, 0,
                    REBALANCE)
+        if scaledown not in ("migrate", "drain"):
+            raise ValueError(f"unknown scaledown {scaledown!r}")
         check_tp_heads(mcfg, tp)
         if prefill_chunk and not chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
@@ -113,6 +370,14 @@ class ElasticServer:
         self.expert_mode = expert_mode
         self.prefill_chunk = prefill_chunk
         self.prefill_buckets = tuple(prefill_buckets)
+        # scale-down: 'migrate' (paged KV only: live sequences' blocks are
+        # copied onto survivor partitions) or 'drain' (the doomed slots
+        # run to completion).  The dense layout has no block indirection
+        # to rewrite, so it always drains.
+        self.scaledown_mode = scaledown if kv_mode == "paged" else "drain"
+        # 'overlap': staging runs on the HMM's background TransferEngine
+        # while tick() keeps serving
+        self.staging_mode = staging
         self.hmm = HMM(mcfg, tp, batch_per_replica=batch_per_replica,
                        max_len=max_len, all_devices=all_devices, seed=seed,
                        kv_mode=kv_mode, kv_block_size=kv_block_size,
@@ -123,6 +388,11 @@ class ElasticServer:
                        expert_host_pages=expert_host_pages,
                        kv_dtype=kv_dtype, expert_dtype=expert_dtype,
                        device=device)
+        # ``imm_cache``: an OrderedDict shared across a fleet's servers, so
+        # the standby LRU is bounded once (keys carry the model identity)
+        self.imm = IMM(mcfg, self.hmm, batch_per_replica=batch_per_replica,
+                       max_len=max_len, prefill_buckets=prefill_buckets,
+                       prefill_chunk=prefill_chunk, shared_cache=imm_cache)
         self.engine = InferenceEngine(mcfg,
                                       batch_per_replica=batch_per_replica,
                                       max_len=max_len,
@@ -134,75 +404,101 @@ class ElasticServer:
         self.requests: Dict[int, Request] = {}
         self.events: List[ScaleEvent] = []
         self._staged_cfg: Optional[ElasticConfig] = None
+        self._active_task: Optional[EngineScalingTask] = None
 
     # ------------------------------------------------------------ lifecycle
     def boot(self, cfg: ElasticConfig, params=None):
         """Boot on ``cfg``: the HMM draws the weights on the devices, or
         adopts ``params`` (the reference's converted global parameters, as
-        the tests pass them), then the engine binds the instance."""
+        the tests pass them), then the IMM's instance binds the engine."""
         self.hmm.boot(cfg, params)
-        self._bind(cfg)
+        self._bind(*self.imm.activate(cfg)[:3])
 
-    def _bind(self, cfg: ElasticConfig):
-        """Bind the engine to the HMM's active instance on ``cfg``; the
-        cache's ownership moves to the engine."""
-        parallel = None
-        if cfg.ndev > 1:
-            parallel = engine_parallel_ctx(
-                make_instance_mesh(cfg, self.hmm.all_devices))
-        compiled, _ = compile_step_functions(
-            self.mcfg, max_len=self.hmm.max_len,
-            prefill_buckets=self.prefill_buckets, kv_mode=self.kv_mode,
-            prefill_chunk=self.prefill_chunk, parallel=parallel)
-        self.engine.bind(cfg, self.hmm.params, self.hmm.cache, compiled,
-                         kv=self.hmm.kv_blocks, parallel=parallel)
+    def _bind(self, inst, params, cache):
+        """Bind the engine to an activated instance; the cache's ownership
+        moves to the engine."""
+        self.engine.bind(inst.cfg, params, cache, inst.compiled,
+                         kv=self.hmm.kv_blocks, parallel=inst.parallel)
         self.hmm.cache = None
+
+    def preinitialize(self, cfg: ElasticConfig):
+        """Warm the IMM for an anticipated configuration."""
+        self.imm.preinitialize(cfg)
+
+    def prewarm(self, target: ElasticConfig) -> None:
+        self.preinitialize(target)
 
     def scale_to(self, new_cfg: ElasticConfig) -> ScaleEvent:
         """Stage and switch over; the engine may serve between the two
-        (``stage_scale`` then ``switchover``)."""
+        (``stage_scale`` then ``switchover``).  A scale-down's doomed slots
+        must be idle by then (``start_scale`` migrates or drains them)."""
         ev = self.stage_scale(new_cfg)
         self.switchover()
         return ev
 
     def stage_scale(self, new_cfg: ElasticConfig) -> ScaleEvent:
-        """Stage ``new_cfg``'s weights (all increments back to back) while
-        the active instance stays serveable.  Scale-up only: a server
-        scale-down needs Slice B's KV migration or drain."""
+        """Stage ``new_cfg``'s weights (all units back to back, or joined
+        when overlapped) while the active instance stays serveable.  The
+        incremental form is ``start_scale``; both record through
+        ``_record_stage``."""
         if self.engine.cfg is None:
             raise RuntimeError("boot() the server before scaling it")
-        if new_cfg.ndev < self.engine.cfg.ndev:
-            raise NotImplementedError(
-                "a server scale-down is not ported yet: it needs the live "
-                "KV migration (scaledown='migrate') or the drain of "
-                f"{SLICE_B} (HMM.begin_scale toward fewer devices, then "
-                f"commit or abort, is ported)")
         t0 = time.perf_counter()
         self.hmm.scale(new_cfg)                  # weights only; serving free
         return self._record_stage(new_cfg, time.perf_counter() - t0)
 
     def _record_stage(self, new_cfg: ElasticConfig, stage_s: float
                       ) -> ScaleEvent:
+        hit = self.imm.has(new_cfg)
+        t0 = time.perf_counter()
+        self.imm.preinitialize(new_cfg)          # no-op when cached
+        stage_s += time.perf_counter() - t0
         self._staged_cfg = new_cfg
+        if new_cfg.ndev < self.engine.cfg.ndev:
+            # scale-down: stop admitting into the slots that are evicted
+            self.engine.admit_limit = (new_cfg.dp
+                                       * self.engine.batch_per_replica)
         ev = ScaleEvent(t=time.time(), src=self.hmm.active_cfg.describe(),
                         dst=new_cfg.describe(), stats=self.hmm.last_stats,
-                        compile_hit=True, stage_s=stage_s, switch_s=0.0,
-                        stall_s=stage_s, stage_wall_s=self.hmm.last_stats.wall_s)
+                        compile_hit=hit, stage_s=stage_s, switch_s=0.0,
+                        # blocking callers stall for the whole stage; a
+                        # task overwrites it with its measured polls
+                        stall_s=stage_s, staging=self.staging_mode,
+                        stage_wall_s=self.hmm.last_stats.wall_s)
         self.events.append(ev)
         return ev
 
     def switchover(self):
-        """Commit the staged instance (the live cache grows: surviving
-        replicas' shards are reused, new ones zeroed) and rebind the
-        engine to it; the surviving slots continue where they were."""
+        """Commit the staged instance (the live cache grows or shrinks:
+        surviving replicas' shards are reused, new ones zeroed) and rebind
+        the engine to it; the surviving slots continue where they were.
+        A scale-down needs its doomed slots empty (migrated or drained)."""
         if self._staged_cfg is None:
             raise RuntimeError("nothing is staged: stage_scale first")
-        t0 = time.perf_counter()
         new_cfg = self._staged_cfg
+        keep = new_cfg.dp * self.engine.batch_per_replica
+        if new_cfg.ndev < self.engine.cfg.ndev and (
+                not self.engine.drained(keep)
+                or any(s.reserved for s in self.engine.slots[keep:])):
+            raise RuntimeError(
+                f"slots from {keep} on are still live: migrate or drain "
+                f"them (start_scale) before the switchover")
+        t0 = time.perf_counter()
         self.hmm.commit(live_cache=self.engine.cache)
-        self._bind(new_cfg)
+        inst, params, cache, hit = self.imm.activate(new_cfg)
+        self._bind(inst, params, cache)
+        self.engine.admit_limit = None
         self._staged_cfg = None
-        self.events[-1].switch_s = time.perf_counter() - t0
+        if self.events:
+            self.events[-1].switch_s = time.perf_counter() - t0
+            self.events[-1].compile_hit = hit
+
+    def start_scale(self, target: ElasticConfig) -> EngineScalingTask:
+        """Open a resumable scaling task; ``advance`` it between ticks
+        (``scale_to`` is the blocking equivalent)."""
+        if self.engine.cfg is None:
+            raise RuntimeError("boot() the server before scaling it")
+        return EngineScalingTask(self, target)
 
     # -------------------------------------------------------------- serving
     def submit(self, req: Request):
@@ -223,11 +519,18 @@ class ElasticServer:
         paged: gated by free KV blocks, the head request tries every free
         slot, longest registered prefix first) — a monolithic prefill runs
         here and gives the first token — then one engine tick of prefill
-        chunks and decode.  Sequences preempted under pool pressure re-enter
-        at the front of the queue.  Returns rids finished this tick."""
+        chunks and decode.  While a scaling task is in flight new
+        admissions pause and in-flight decodes continue (the shared
+        ``admission_during_scale`` gate).  Sequences preempted under pool
+        pressure re-enter at the front of the queue.  Returns rids
+        finished this tick."""
         tr = obs.get_tracer()
+        admitting = True
+        if self._active_task is not None \
+                and not self._active_task.phase.terminal:
+            _, admitting = admission_during_scale("elastic")
         free = self.engine.free_slots()
-        while self.queue and free:
+        while admitting and self.queue and free:
             req = self.queue[0]
             slot = next((s for s in
                          self.engine.preferred_slots(req, req.prompt, free)
@@ -285,3 +588,28 @@ class ElasticServer:
     def kv_stats(self):
         """Block-pool stats (None for the dense layout)."""
         return self.engine.kv_stats()
+
+    def scaling_summary(self) -> Optional[dict]:
+        """Staging-overlap and migration totals over the recorded scale
+        events (None before the first): ``decode_stall_s`` the serve
+        loop's time blocked on staging, ``overlap_efficiency`` the mean of
+        the ops' summed time over the staging wall."""
+        if not self.events:
+            return None
+        effs = [ev.stats.op_s / ev.stage_wall_s for ev in self.events
+                if ev.stage_wall_s > 0 and ev.stats.op_s > 0]
+        return {"staging_mode": self.staging_mode,
+                "scaledown_mode": self.scaledown_mode,
+                "decode_stall_s": sum(ev.stall_s for ev in self.events),
+                "overlap_efficiency":
+                    sum(effs) / len(effs) if effs else None,
+                "migrated_blocks": sum(ev.migrated_blocks
+                                       for ev in self.events),
+                "migration_bytes": sum(ev.migration_bytes
+                                       for ev in self.events)}
+
+    def current_config(self) -> Optional[ElasticConfig]:
+        return self.hmm.active_cfg
+
+    def capacity(self, cfg: ElasticConfig) -> int:
+        return cfg.dp * self.engine.batch_per_replica

@@ -44,15 +44,20 @@ page table; ``abort`` drops the staged state.  The byte accounting
 goes by logical id: two logical devices on one card are two devices, and a
 move between them is a real copy.
 
-Staging runs serially on the caller's thread (``staging="serial"``);
-overlapped staging, KV migration, rebalancing and parking are later
-slices and raise ``NotImplementedError``.
+Staging runs serially on the caller's thread (``staging="serial"``, one
+unit per ``stage_increment``) or on the background ``TransferEngine``
+(``staging="overlap"``: ``begin_scale`` submits every unit and
+``poll_staging`` observes them; on the card each worker issues its copies
+on a side CUDA stream, ``core/transfer.py``).  Both run the same
+``_stage_unit`` calls, so their byte accounting is equal field by field.
+Rebalancing and parking are later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import re
+import threading
 import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Tuple
@@ -74,6 +79,8 @@ from repro_torch.models.model import (check_tp_heads, dense_cache_supported,
                                       init_cache, init_expert_bank,
                                       init_paged_cache, init_params,
                                       paged_cache_supported)
+from repro_torch.core.transfer import (TransferEngine, TransferOp,
+                                      cuda_devices, ready_events)
 from repro_torch.serving.kv_blocks import KVBlockManager
 
 
@@ -85,7 +92,6 @@ def not_ported(knob: str, value, default, where: str) -> None:
             f"{knob}={value!r} is not ported yet (only {default!r}): {where}")
 
 
-SLICE_B = "Slice B, scaling while serving (ROADMAP §1 item 2)"
 SLICE_C = "Slice C, the closed loop (ROADMAP §1 item 3)"
 TELEMETRY = "routing telemetry (ROADMAP §1 item 4)"
 REBALANCE = "the rebalancer and host tier (ROADMAP §1 item 5)"
@@ -217,7 +223,8 @@ class HMM:
                  expert_dtype: Optional[str] = None,
                  staging: str = "serial", transfer_workers: int = 4,
                  device="cuda"):
-        not_ported("staging", staging, "serial", SLICE_B)
+        if staging not in ("serial", "overlap"):
+            raise ValueError(f"unknown staging {staging!r}")
         not_ported("expert_slot_slack", expert_slot_slack, 0, REBALANCE)
         not_ported("expert_host_pages", expert_host_pages, None, REBALANCE)
         if kv_mode not in ("dense", "paged"):
@@ -259,7 +266,12 @@ class HMM:
         self.batch_per_replica = batch_per_replica
         self.max_len = max_len
         self.seed = seed
+        # 'overlap': staging units run on the background TransferEngine
+        # while the serving thread keeps ticking
+        self.staging_mode = staging
         self.transfer_workers = transfer_workers
+        self._transfer: Optional[TransferEngine] = None  # created lazily
+        self._stage_lock = threading.Lock()
         self.kv_mode = kv_mode
         self.expert_mode = expert_mode
         self.kv_block_size = kv_block_size
@@ -617,20 +629,26 @@ class HMM:
     # ---------------------------------------------------------------- scale
     def scale(self, new_cfg: ElasticConfig) -> TransferStats:
         """Stage ``new_cfg``'s weights while the old instance keeps serving
-        (``begin_scale``, then ``stage_increment`` to the end).  The KV
-        cache grows at ``commit``.  Returns the staging's stats."""
+        (``begin_scale``, then ``stage_increment`` to the end, or
+        ``join_staging`` when overlapped).  The KV cache grows at
+        ``commit``.  Returns the staging's stats."""
         self.begin_scale(new_cfg)
-        while self.stage_increment():
-            pass
+        if self.staging_mode == "overlap":
+            self.join_staging()
+        else:
+            while self.stage_increment():
+                pass
         return self.last_stats
 
     @obs.traced("hmm.begin_scale", cat="hmm")
     def begin_scale(self, new_cfg: ElasticConfig) -> int:
         """Open a staging session toward ``new_cfg`` (one work unit per
-        parameter leaf; nothing moves yet) and return the number of units.
-        The pooled store stages its page remap here (``stage_remap(
-        min_move=True)``), so each pool bank's unit moves exactly the
-        ``Migration`` list."""
+        parameter leaf) and return the number of units.  Serial: nothing
+        moves yet, ``stage_increment`` runs the units.  Overlap: every unit
+        is submitted to the background ``TransferEngine`` now; drive it
+        with ``poll_staging`` (or block on ``join_staging``).  The pooled
+        store stages its page remap here (``stage_remap(min_move=True)``),
+        so each pool bank's unit moves exactly the ``Migration`` list."""
         if self.active_cfg is None:
             raise RuntimeError("boot() the HMM before scaling it")
         if self._stage_work is not None:
@@ -666,7 +684,67 @@ class HMM:
         self._stage_out = {}
         self._stage_target = (new_cfg, mesh)
         self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
+        if self.staging_mode == "overlap":
+            self._stage_t0 = t0
+            devs = cuda_devices(self.all_devices[d] for d in
+                                set(self.active_cfg.devices)
+                                | set(new_cfg.devices))
+            ops = [TransferOp(index=i, label=path, devices=devs,
+                              fn=self._make_stage_op(leaf, sh, expert_dim,
+                                                     kind, new_cfg, mesh))
+                   for i, (path, leaf, sh, expert_dim, kind)
+                   in enumerate(work)]
+            # the side streams wait for everything the serving thread has
+            # issued so far (the boot's writes included) before they read
+            self._stage_session = self.transfer_engine().submit(
+                ops, after=ready_events(devs))
         return len(work)
+
+    def transfer_engine(self) -> TransferEngine:
+        """The HMM's background TransferEngine (created lazily, kept across
+        scale events): overlapped staging's units and, in every staging
+        mode, a scale-down's live KV block copies ride it."""
+        if self._transfer is None:
+            self._transfer = TransferEngine(self.transfer_workers)
+        return self._transfer
+
+    def close(self) -> None:
+        """Stop the TransferEngine's worker threads (after any session)."""
+        if self._transfer is not None:
+            self._transfer.shutdown()
+            self._transfer = None
+
+    @property
+    def staging_remaining(self) -> int:
+        if self._stage_work is None:
+            return 0
+        if self._stage_session is not None:
+            return self._stage_session.remaining()
+        return len(self._stage_work) - self._stage_cursor
+
+    @property
+    def staging_in_flight(self) -> bool:
+        """True while an overlapped session has ops pending or running."""
+        return (self._stage_session is not None
+                and not self._stage_session.finished())
+
+    def _make_stage_op(self, leaf, sh, expert_dim, kind,
+                       new_cfg: ElasticConfig, mesh: Mesh):
+        """One background op: ``_stage_unit`` into a private TransferStats,
+        merged into the session's under the lock (addition commutes, so the
+        totals equal the serial order's).  The op's time (to its copies'
+        landing) is added to ``op_s`` when the session completes."""
+        session_stats = self._stage_stats
+
+        def run():
+            sub = TransferStats()
+            out = self._stage_unit(leaf, sh, expert_dim, kind, new_cfg,
+                                   mesh, sub)
+            with self._stage_lock:
+                session_stats.merge(sub)
+            return out
+
+        return run
 
     def _stage_unit(self, leaf, sh, expert_dim, kind, new_cfg: ElasticConfig,
                     mesh: Mesh, stats: TransferStats):
@@ -678,8 +756,8 @@ class HMM:
             # the staged index arrays were built once in begin_scale; no
             # weight bytes move here
             name = kind.split(":", 1)[1]
-            arr = torch.from_numpy(np.asarray(self._stage_layout[name],
-                                              np.int32))
+            arr = _upload(np.asarray(self._stage_layout[name], np.int32),
+                          mesh.torch_device(new_cfg.devices[0]))
             spec = (None, ("dp", "tp"), None) if name == "tables" else ()
             return ShardedTensor.from_tensor(arr, NamedSharding(mesh, spec))
         if kind == "expert_bank":
@@ -702,9 +780,15 @@ class HMM:
         in pages the active table leaves free), and the KV cache is not
         touched until ``commit``.  Returns True while units remain; the
         last one assembles the staged tree, after which ``attach_staged``
-        and ``commit`` are legal."""
+        and ``commit`` are legal.  An overlapped session is driven with
+        ``poll_staging`` / ``join_staging`` instead."""
         if self._stage_work is None:
             raise RuntimeError("no staging session open")
+        if self._stage_session is not None:
+            raise RuntimeError(
+                "the staging session is overlapped (background "
+                "TransferEngine); drive it with poll_staging() or "
+                "join_staging(), not stage_increment()")
         t0 = time.perf_counter()
         stats = self._stage_stats
         new_cfg, mesh = self._stage_target
@@ -723,6 +807,55 @@ class HMM:
         self._finalize_staging()
         return False
 
+    def poll_staging(self) -> bool:
+        """Overlap: a bounded completion poll (at most about 2 ms).  True
+        once every op has landed and the staged tree is assembled
+        (``attach_staged`` and ``commit`` legal); False while ops are in
+        flight.  A failed op aborts the whole session and re-raises.
+
+        The poll waits a little rather than returning at once: a serve loop
+        spinning on an idle engine is pure Python and would otherwise keep
+        the interpreter from the worker threads."""
+        if self._stage_work is None:
+            return self.staged is not None
+        if self._stage_session is None:
+            raise RuntimeError(
+                "the staging session is serial; drive it with "
+                "stage_increment()")
+        sess = self._stage_session
+        if not sess.finished():
+            sess.join(timeout=0.002)    # bounded yield to the workers
+            if not sess.finished():
+                return False
+        failed = sess.failed_ops()
+        if failed:
+            err = failed[0].error
+            self.abort()
+            raise RuntimeError(
+                f"staging transfer op {failed[0].label!r} failed "
+                f"({len(failed)} op(s)); session aborted") from err
+        self._stage_out = {path: op.result for (path, *_), op
+                           in zip(self._stage_work, sess.ops)}
+        # the staging window: begin_scale to the last op's landing; op_s
+        # the sum of the ops' own times, for the overlap efficiency
+        stats = self._stage_stats
+        stats.op_s += sess.op_seconds
+        stats.wall_s = max(sess.last_done_t - self._stage_t0, stats.wall_s)
+        self._finalize_staging()
+        return True
+
+    def join_staging(self) -> bool:
+        """Overlap: block until the session completes, then finalize (the
+        committing barrier).  True if a staged tree is ready."""
+        if self._stage_work is None:
+            return self.staged is not None
+        if self._stage_session is None:
+            raise RuntimeError(
+                "the staging session is serial; drive it with "
+                "stage_increment()")
+        self._stage_session.join()
+        return self.poll_staging()
+
     def _finalize_staging(self):
         """Assemble the staged tree; the dense banks record the contiguous
         placement they now hold as the staged page table (the pooled store
@@ -733,6 +866,8 @@ class HMM:
         out = self._stage_out
         new_params = tree_map_with_path(lambda path, _: out[path],
                                         self.params)
+        if self._stage_session is not None:
+            _adopt_on_default_streams(self._stage_session, new_params)
         if self.page_table is not None and self.page_table.staged is None:
             self.page_table.stage_remap(new_cfg, min_move=False)
         self.staged = (new_cfg, mesh, new_params)
@@ -779,6 +914,8 @@ class HMM:
         return ShardedTensor(shape, sharding, shards)
 
     def _reset_stage_session(self):
+        self._stage_session = None          # overlap only
+        self._stage_t0 = 0.0
         self._stage_work: Optional[List[Tuple]] = None
         self._stage_cursor = 0
         self._stage_out: Dict[str, Any] = {}
@@ -837,6 +974,8 @@ class HMM:
         count.  Shrinking the block pool needs the evicted partitions
         free.  Old-only buffers become unreferenced (the paper's deferred
         FREE)."""
+        if self._stage_session is not None:
+            self.join_staging()         # committing is a barrier
         if self.staged is None:
             raise RuntimeError("nothing is staged: begin_scale and "
                                "stage_increment first")
@@ -863,10 +1002,43 @@ class HMM:
 
     @obs.traced("hmm.abort", cat="hmm")
     def abort(self):
-        """Abandon any staged state.  Idempotent; frees every staged-only
-        page exactly once (``ExpertPageTable.abort``)."""
+        """Abandon any staged state, also a session with ops in flight:
+        cancel-or-join first (pending ops never start, running ones land),
+        then unwind the page table, so no worker sees the unwound table.
+        Idempotent; frees every staged-only page exactly once
+        (``ExpertPageTable.abort``)."""
+        if self._stage_session is not None:
+            self._stage_session.cancel()
         self.staged = None
         self.last_migrations = None
         self._reset_stage_session()
         if self.page_table is not None:
             self.page_table.abort()
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``.  On the card through pinned memory with an
+    async copy: a pageable copy synchronises the stream, which a worker
+    must not do while the serving thread runs under
+    ``set_sync_debug_mode("error")`` (the mode is global)."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _adopt_on_default_streams(session, tree) -> None:
+    """Hand an overlapped session's results to the default streams: each
+    waits on every op's (completed) events, and every CUDA tensor of the
+    staged tree records the default stream, so the caching allocator never
+    gives a block a side stream allocated back to that side stream while
+    the default stream still reads it."""
+    for op in session.ops:
+        for dev, ev in op.events.items():
+            torch.cuda.current_stream(dev).wait_event(ev)
+    for _, leaf in tree_leaves_with_path(tree):
+        shards = (leaf.shards.values() if isinstance(leaf, ShardedTensor)
+                  else [leaf])
+        for t in shards:
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))

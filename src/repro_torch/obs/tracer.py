@@ -10,29 +10,38 @@ decode-tick and prefill spans and request lifecycle instants into a bounded
 ring buffer.  Disabled by default: the global is :data:`NULL_TRACER`, whose
 methods return immediately, and :func:`traced` short-circuits on an
 identity check.  ``deque.append`` is atomic under the GIL, so recording
-needs no lock.  Timestamps are seconds of ``time.perf_counter``.
+needs no lock: ``TransferEngine`` worker threads and the serve loop record
+into one buffer.  Every event has a lane (``tid``): the recording thread's
+ident (its name captured at first sighting, so the ``hmm-transfer-*``
+workers are told apart), or a named lane such as ``"scale"`` for the
+scaling task's phase spans.  Timestamps are seconds of
+``time.perf_counter``.
 """
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from collections import deque
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
+
+Lane = Union[int, str]
 
 
 class TraceEvent:
     """One recorded event: ``ph`` ``"X"`` is a complete span
-    (``t0``..``t1``), ``"i"`` an instant (``t0``)."""
+    (``t0``..``t1``), ``"i"`` an instant (``t0``); ``tid`` its lane."""
 
-    __slots__ = ("name", "cat", "ph", "t0", "t1", "args")
+    __slots__ = ("name", "cat", "ph", "t0", "t1", "tid", "args")
 
     def __init__(self, name: str, cat: str, ph: str, t0: float, t1: float,
-                 args: Optional[dict]):
+                 tid: Lane, args: Optional[dict]):
         self.name = name
         self.cat = cat
         self.ph = ph
         self.t0 = t0
         self.t1 = t1
+        self.tid = tid
         self.args = args
 
     @property
@@ -70,11 +79,29 @@ class Tracer:
 
     def __init__(self, *, capacity: int = 65536):
         self._events: deque = deque(maxlen=capacity)
+        self._thread_names: Dict[int, str] = {}
+        self._name_lock = threading.Lock()
+
+    def now(self) -> float:
+        return time.perf_counter()
+
+    def _resolve_tid(self, tid: Optional[Lane]) -> Lane:
+        if tid is not None:
+            return tid
+        ident = threading.get_ident()
+        if ident not in self._thread_names:
+            with self._name_lock:
+                self._thread_names.setdefault(
+                    ident, threading.current_thread().name)
+        return ident
 
     def complete(self, name: str, t0: float, t1: float, *, cat: str = "",
-                 args: Optional[dict] = None) -> None:
-        """Record an already-measured span."""
-        self._events.append(TraceEvent(name, cat, "X", t0, t1, args))
+                 args: Optional[dict] = None,
+                 tid: Optional[Lane] = None) -> None:
+        """Record an already-measured span, on ``tid``'s lane (default:
+        the calling thread's)."""
+        self._events.append(TraceEvent(name, cat, "X", t0, t1,
+                                       self._resolve_tid(tid), args))
 
     def span(self, name: str, *, cat: str = "",
              args: Optional[dict] = None) -> _Span:
@@ -84,10 +111,16 @@ class Tracer:
     def instant(self, name: str, *, cat: str = "",
                 args: Optional[dict] = None) -> None:
         t = time.perf_counter()
-        self._events.append(TraceEvent(name, cat, "i", t, t, args))
+        self._events.append(TraceEvent(name, cat, "i", t, t,
+                                       self._resolve_tid(None), args))
 
     def events(self) -> List[TraceEvent]:
         return list(self._events)
+
+    def thread_names(self) -> Dict[int, str]:
+        """Thread ident -> name of every thread that recorded an event."""
+        with self._name_lock:
+            return dict(self._thread_names)
 
     def clear(self) -> None:
         self._events.clear()
@@ -111,6 +144,9 @@ class NullTracer:
 
     enabled = False
 
+    def now(self) -> float:
+        return time.perf_counter()
+
     def complete(self, *a: Any, **k: Any) -> None:
         pass
 
@@ -122,6 +158,9 @@ class NullTracer:
 
     def events(self) -> List[TraceEvent]:
         return []
+
+    def thread_names(self) -> Dict[int, str]:
+        return {}
 
     def clear(self) -> None:
         pass

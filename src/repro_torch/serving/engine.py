@@ -31,6 +31,16 @@ its replica's slice. At tp > 1 each TP rank of a replica holds a copy of
 its slice, and every write (a prefill's row, a step's KV, a copy-on-write
 block) goes into every copy. A rebind (``bind`` after a scale event) keeps
 the surviving slots, their lengths, tokens and block tables.
+
+A scale-down first empties the doomed slots (``admit_limit`` and above):
+they drain, or their sequences migrate (``plan_migration`` reserves a
+sharing component's blocks on a survivor partition and pauses its
+sequences; ``copy_block`` copies each block pair on a ``TransferEngine``
+worker; ``finish_migration`` re-homes the slots).  No step replaces a leaf
+of ``engine.cache``: every step, prefill and copy writes rows in place, so
+a copy on a worker thread and a step on the serving thread touch disjoint
+rows of the same tensors and need no lock (the reference's jitted steps
+donate the cache and replace its handle, hence its ``_cache_lock``).
 """
 from __future__ import annotations
 
@@ -44,9 +54,10 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.transfer import ready_events
 from repro_torch.distributed.sharding import ParallelCtx, ShardedTensor
 from repro_torch.models import model as M
-from repro_torch.serving.kv_blocks import KVBlockManager
+from repro_torch.serving.kv_blocks import KVBlockManager, MigrationTicket
 from repro_torch.serving.scheduler import (PrefillJob, TokenBudgetScheduler,
                                            prefix_skip)
 
@@ -183,9 +194,27 @@ class SlotState:
     remaining: int = 0
     active: bool = False
     priority: int = 0
+    # live KV migration (scale-down): a migrating slot's sequence is paused
+    # (its blocks are frozen while the copies are in flight); a reserved
+    # slot is the migration's destination and admits nothing else
+    migrating: bool = False
+    reserved: bool = False
     # chunked prefill: admitted but not fully prefilled — occupies the slot
     # (and its KV blocks) but is excluded from decode until the final chunk
     prefilling: bool = False
+
+
+@dataclasses.dataclass
+class MigrationJob:
+    """One in-flight slot migration: a sharing component of doomed slots
+    moving to reserved survivor slots.  ``ticket.pairs`` is the copy list;
+    ``moves`` maps each sequence to its (src_slot, dst_slot); ``ready``
+    maps each CUDA device the copies run on to an event recorded on its
+    default stream at planning, after the last step that wrote the source
+    rows (the copies' side streams wait on it; empty on the CPU)."""
+    ticket: MigrationTicket
+    moves: List[Tuple[int, int, int]]      # (rid, src_slot, dst_slot)
+    ready: Dict = dataclasses.field(default_factory=dict)
 
 
 class InferenceEngine:
@@ -229,6 +258,7 @@ class InferenceEngine:
         self._finished_at_admission: List[int] = []
         self.preemptions = 0
         self._step_count = 0
+        self.admit_limit: Optional[int] = None  # scale-down barrier
 
     # ------------------------------------------------------------- binding
     @property
@@ -292,17 +322,34 @@ class InferenceEngine:
             (k, None) for k in self._lazy_prefill if k in compiled)
 
     def free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.slots) if not s.active]
+        """Slots that may admit: inactive, not reserved for a migration,
+        and below ``admit_limit`` during a scale-down."""
+        lim = (self.admit_limit if self.admit_limit is not None
+               else len(self.slots))
+        return [i for i, s in enumerate(self.slots)
+                if not s.active and not s.reserved and i < lim]
+
+    def drained(self, keep: int) -> bool:
+        """True when every slot from ``keep`` on is inactive (a scale-down
+        may commit)."""
+        return all(not s.active for s in self.slots[keep:])
 
     def active_count(self) -> int:
         return sum(1 for s in self.slots if s.active)
 
     def utilization(self) -> float:
-        """Occupied share of the serving capacity (drives load
-        estimation): block-pool occupancy paged, slot occupancy dense."""
+        """Occupied share of the admissible serving capacity (drives load
+        estimation): block-pool occupancy paged, slot occupancy dense;
+        during a scale-down the capacity is what survives it."""
         if self.paged:
-            return self.kv.used_blocks() / max(self.kv.num_blocks, 1)
-        return self.active_count() / max(len(self.slots), 1)
+            cap = self.kv.num_blocks
+            if self.admit_limit is not None:
+                parts = max(1, self.admit_limit // self.batch_per_replica)
+                cap = min(cap, parts * self.kv.blocks_per_partition)
+            return self.kv.used_blocks() / max(cap, 1)
+        lim = (len(self.slots) if self.admit_limit is None
+               else max(1, min(self.admit_limit, len(self.slots))))
+        return self.active_count() / max(lim, 1)
 
     def block_nbytes(self) -> int:
         """Device bytes of ONE pool block across all layers/tensors."""
@@ -316,6 +363,7 @@ class InferenceEngine:
         st = self.kv.stats()
         st["preemptions"] = self.preemptions
         st["block_bytes"] = self.block_nbytes()
+        st["migration_bytes"] = self.kv.migrated_blocks * self.block_nbytes()
         return st
 
     # ------------------------------------------------------------- serving
@@ -523,20 +571,146 @@ class InferenceEngine:
         out, self._preempted_pending = self._preempted_pending, []
         return out
 
-    def _copy_block(self, src: int, dst: int) -> None:
-        """Physical copy-on-write: duplicate pool row ``src`` into ``dst``
-        across all layers, in place (one block row moved, not a pool
-        copy); both rows lie in one partition, in its replica's slice."""
+    # ------------------------------------- live migration (scale-down)
+    def doomed_active_slots(self) -> List[int]:
+        """Active slots the pending scale-down evicts (at or above
+        ``admit_limit``), migrating ones included."""
+        if self.admit_limit is None:
+            raise RuntimeError("no scale-down is pending")
+        return [i for i, s in enumerate(self.slots)
+                if s.active and i >= self.admit_limit]
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy pool row ``src`` of replica ``src // bpp`` into row ``dst``
+        of replica ``dst // bpp`` in place, every layer and leaf (an int8
+        pool's scale rows too), each TP rank's copy of the source slice
+        into the same rank's copy of the destination slice, so the copies
+        stay bitwise equal.  A copy-on-write block stays in its partition
+        (on the serving thread); a migration copy crosses replicas (on a
+        TransferEngine worker, on the card under its side stream) and
+        writes only a reserved block."""
+        bpp = self.kv.blocks_per_partition
+        r, q = src // bpp, dst // bpp
         for leaf in self.cache.values():
             if isinstance(leaf, ShardedTensor):
-                bpp = self.kv.blocks_per_partition
-                r = src // bpp
-                for d in self.parallel.devices[r * self.parallel.tp:
-                                               (r + 1) * self.parallel.tp]:
-                    t = leaf.shard(d)
-                    t[:, dst - r * bpp] = t[:, src - r * bpp]
+                tp = self.parallel.tp
+                for t in range(tp):
+                    s_t = leaf.shard(self.parallel.devices[r * tp + t])
+                    d_t = leaf.shard(self.parallel.devices[q * tp + t])
+                    d_t[:, dst - q * bpp].copy_(s_t[:, src - r * bpp])
             else:
-                leaf[:, dst] = leaf[:, src]
+                leaf[:, dst].copy_(leaf[:, src])
+
+    def prewarm_block_copy(self) -> None:
+        """The reference builds its block-copy executable here, on the
+        serving thread, before the workers issue it.  The port's copy is
+        eager: a self-copy of block 0 (a content no-op) runs the path
+        once."""
+        self.copy_block(0, 0)
+
+    def plan_migration(self) -> Optional[MigrationJob]:
+        """Plan ONE component move off a doomed partition, or None.
+
+        Takes the first doomed partition with unmigrated live sequences,
+        groups them into block-sharing components (the unit that keeps CoW
+        refcounts) and places each onto a survivor partition with enough
+        free slots and free blocks.  A component no survivor can ever hold
+        falls back to recompute preemption (freed and re-queued, restarted
+        after the switchover); one waiting only on survivor slots is left
+        for a later call (admission is paused, so slots only free up)."""
+        if not self.paged or self.admit_limit is None:
+            raise RuntimeError("migration needs paged KV and a pending "
+                               "scale-down")
+        keep_parts = self.admit_limit // self.batch_per_replica
+        bpr = self.batch_per_replica
+        slot_of = {s.rid: i for i, s in enumerate(self.slots) if s.active}
+        for part in range(keep_parts, self.kv.num_partitions):
+            for comp in self.kv.share_components(part):
+                if any(self.kv.migrating(s) for s in comp):
+                    continue
+                if any(r not in slot_of for r in comp):
+                    continue            # finishing this tick; skip
+                need = self.kv.migration_need(comp)
+                placed = None
+                for q in range(keep_parts):
+                    free = [i for i in range(q * bpr, (q + 1) * bpr)
+                            if not self.slots[i].active
+                            and not self.slots[i].reserved
+                            and i < self.admit_limit]
+                    if len(free) >= len(comp) \
+                            and self.kv.free_blocks(q) >= need:
+                        placed = (q, free)
+                        break
+                if placed is None:
+                    if len(comp) <= bpr and any(
+                            self.kv.free_blocks(q) >= need
+                            for q in range(keep_parts)):
+                        continue        # blocks exist; waiting on slots
+                    # no survivor can ever hold this component: recompute
+                    for rid in sorted(comp):
+                        self._preempt_slot(slot_of[rid])
+                    continue
+                q, free = placed
+                ticket = self.kv.begin_migration(comp, q)
+                moves = []
+                for rid, dst in zip(sorted(comp), free):
+                    src = slot_of[rid]
+                    self.slots[src].migrating = True
+                    self.slots[dst] = SlotState(reserved=True)
+                    moves.append((rid, src, dst))
+                # the copies read the source rows the last step wrote on
+                # the default stream: their side streams wait for this
+                return MigrationJob(ticket=ticket, moves=moves,
+                                    ready=ready_events(self._devices()))
+        return None
+
+    def _devices(self) -> List[torch.device]:
+        if self.parallel is None:
+            return [self.device]
+        return [self.parallel.torch_device(d) for d in self.parallel.devices]
+
+    def finish_migration(self, job: MigrationJob) -> None:
+        """Cut-over after every pair of ``job.ticket`` landed: commit the
+        block-table rewrite, re-home each slot's state to its survivor
+        slot, and resume decoding there."""
+        obs.get_tracer().instant(
+            "kv.migrate", cat="serve",
+            args={"rids": sorted(r for r, _, _ in job.moves),
+                  "blocks": len(job.ticket.pairs)})
+        self.kv.commit_migration(job.ticket)
+        NB = self.kv.num_blocks
+        for rid, src, dst in job.moves:
+            st = self.slots[src]
+            if st.rid != rid or not st.migrating:
+                raise RuntimeError(f"slot {src} no longer holds migrating "
+                                   f"seq {rid}")
+            st.migrating = False
+            self.slots[dst] = st
+            self.slots[src] = SlotState()
+            self.lengths[dst] = self.lengths[src]
+            self.tokens[dst] = self.tokens[src]
+            tbl = self.kv.block_table(rid)
+            self.block_tables[dst, :] = NB
+            self.block_tables[dst, :len(tbl)] = tbl
+            self.block_tables[src, :] = NB
+            # a mid-prefill sequence resumes chunking on its survivor slot
+            # (chunk ids come from the committed block table at execution)
+            for j in self._prefilling:
+                if j.slot == src:
+                    j.slot = dst
+            if src in self._chunk_ctx:
+                self._chunk_ctx[dst] = self._chunk_ctx.pop(src)
+
+    def cancel_migration(self, job: MigrationJob) -> None:
+        """Abort an in-flight migration: the reservation unwinds, the
+        source tables were never touched, and the paused sequences resume
+        decoding in place."""
+        self.kv.abort_migration(job.ticket)
+        for _, src, dst in job.moves:
+            if self.slots[src].migrating:
+                self.slots[src].migrating = False
+            if self.slots[dst].reserved:
+                self.slots[dst] = SlotState()
 
     def _ensure_append(self, slot: int) -> bool:
         """Reserve the write slot for this sequence's next token, preempting
@@ -558,7 +732,7 @@ class InferenceEngine:
                 self._preempt_slot(self._slot_of(victim))
         if r is not None:
             if r.cow_src is not None:
-                self._copy_block(r.cow_src, r.block)
+                self.copy_block(r.cow_src, r.block)
                 obs.get_tracer().instant(
                     "kv.cow_copy", cat="serve",
                     args={"src": r.cow_src, "dst": r.block})
@@ -574,7 +748,10 @@ class InferenceEngine:
         """The tick's prefill phase: at most ``prefill_budget`` prompt
         tokens as ``prefill_chunk``-token chunks in admission order.  Chunk
         block ids are derived from the block manager at execution time.
-        Returns first-token events for jobs whose final chunk landed."""
+        Returns first-token events for jobs whose final chunk landed.  A
+        migrating sequence's job is paused until its move lands."""
+        for job in self._prefilling:
+            job.paused = self.slots[job.slot].migrating
         plans = self.scheduler.plan(self._prefilling)
         out: List[Tuple[int, int, bool]] = []
         C = self.prefill_chunk
@@ -640,8 +817,10 @@ class InferenceEngine:
         """One engine tick: the prefill phase when chunking (at most
         ``prefill_budget`` prompt tokens), then one decode step for every
         runnable slot — decode runs every tick regardless of prefill
-        backlog.  Returns [(rid, token, finished)]; prefill completions
-        come first."""
+        backlog.  Runnable: active, not mid-prefill and not paused by an
+        in-flight migration (its blocks are frozen until the copies land,
+        then it resumes on its survivor slot).  Returns [(rid, token,
+        finished)]; prefill completions come first."""
         pre: List[Tuple[int, int, bool]] = []
         if self.scheduler is not None and self._prefilling:
             pre = self._run_prefill_chunks()
@@ -649,13 +828,15 @@ class InferenceEngine:
             # highest priority first, oldest first on ties: pressure
             # evicts from the low-priority/young end before it reaches them
             order = sorted((i for i, s in enumerate(self.slots)
-                            if s.active and not s.prefilling),
+                            if s.active and not s.migrating
+                            and not s.prefilling),
                            key=lambda i: (-self.slots[i].priority,
                                           self.slots[i].rid))
             for slot in order:
                 if self.slots[slot].active:
                     self._ensure_append(slot)
-        runnable = [s.active and not s.prefilling for s in self.slots]
+        runnable = [s.active and not s.migrating and not s.prefilling
+                    for s in self.slots]
         if not any(runnable):
             return pre
         active = np.array(runnable)

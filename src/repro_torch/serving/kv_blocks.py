@@ -1,6 +1,6 @@
-"""Paged KV-cache block manager — the port's own copy of the parts of
-``repro.serving.kv_blocks`` the one-card serving path uses (pure host-side
-bookkeeping; the port imports nothing of the JAX package).
+"""Paged KV-cache block manager — the port's own copy of
+``repro.serving.kv_blocks`` (pure host-side bookkeeping; the port imports
+nothing of the JAX package).
 
 The physical cache is a fixed pool of fixed-size *blocks* (``[L,
 num_blocks, block_size, KVH, hd]`` on the device, see
@@ -18,8 +18,17 @@ table* — an ordered list of pool indices:
   resume.
 
 A scale event grows or shrinks the pool by whole partitions
-(``grow_partitions`` / ``shrink_partitions``).  Live migration across
-partitions belongs to Slice B and is not ported yet.
+(``grow_partitions`` / ``shrink_partitions``).
+
+**Live migration (scale-down without a drain).**  ``begin_migration``
+*reserves* blocks on a survivor partition for a whole sharing component of
+live sequences (two-phase: the sequences keep reading their source blocks
+while the engine copies the rows in the background), and
+``commit_migration`` rewrites the block tables, moves the CoW refcounts
+block for block, re-keys the prefix-registry chains to the destination
+partition's hash seed and frees the source blocks.  ``abort_migration``
+returns the reservation untouched.  Migration is component-granular so
+that refcounted sharing survives the move.
 """
 from __future__ import annotations
 
@@ -32,6 +41,19 @@ def blocks_for(num_tokens: int, block_size: int) -> int:
     return max(1, -(-num_tokens // block_size))
 
 
+def block_bytes(mcfg, block_size: int, kv_dtype: Optional[str] = None) -> int:
+    """Device bytes of ONE KV block across all layers — the unit of
+    admission, migration and CoW accounting.  ``kv_dtype="int8"`` stores
+    1-byte entries plus the per-token f32 (k, v) scale rows that travel
+    with the block.  Equals ``InferenceEngine.block_nbytes()`` (one copy
+    of the live pool)."""
+    from repro_torch.device import torch_dtype
+    kv_bpe = torch_dtype(kv_dtype or mcfg.dtype).itemsize
+    scale = 2 * 4 if kv_dtype is not None else 0
+    return mcfg.num_layers * block_size * (
+        2 * mcfg.num_kv_heads * mcfg.resolved_head_dim * kv_bpe + scale)
+
+
 @dataclasses.dataclass
 class SeqBlocks:
     """One sequence's view of the pool."""
@@ -41,6 +63,28 @@ class SeqBlocks:
     blocks: List[int]
     num_tokens: int                    # tokens currently stored
     num_shared: int = 0                # leading blocks adopted via prefix match
+
+
+@dataclasses.dataclass
+class MigrationTicket:
+    """An in-flight cross-partition move of one sharing component.
+
+    ``pairs`` is the device copy list: the caller copies every ``src``
+    block's rows into its ``dst`` block (in any order; the blocks are
+    frozen: migrating sequences may not append) before
+    ``commit_migration``.  Until the commit every sequence still reads its
+    source blocks — the ticket only holds a reservation on the destination
+    partition, so ``abort_migration`` is a pure unwind."""
+    tid: int
+    seqs: List[int]
+    src_partition: int
+    dst_partition: int
+    pairs: List[Tuple[int, int]]           # (src_block, dst_block)
+    mapping: Dict[int, int]                # src_block -> dst_block
+
+    @property
+    def num_blocks(self) -> int:
+        return len(self.pairs)
 
 
 @dataclasses.dataclass
@@ -82,6 +126,10 @@ class KVBlockManager:
         self.preemptions = 0
         self.cow_copies = 0
         self.shared_block_hits = 0
+        # live migrations (scale-down): tid -> MigrationTicket
+        self._migrations: Dict[int, MigrationTicket] = {}
+        self._next_tid = 0
+        self.migrated_blocks = 0
         for _ in range(num_partitions):
             self._add_partition()
 
@@ -109,11 +157,15 @@ class KVBlockManager:
 
     def shrink_partitions(self, num_partitions: int) -> None:
         """Scale-down: drop trailing partitions.  They must be fully free:
-        live sequences leave them first (sharing is partition-local, so no
-        survivor can hold a doomed block)."""
+        live sequences leave them first — migrated onto survivors, or
+        drained (sharing is partition-local, so no survivor can hold a
+        doomed block)."""
         if not 0 < num_partitions <= self.num_partitions:
             raise ValueError(f"shrink_partitions({num_partitions}) outside "
                              f"1..{self.num_partitions}")
+        if self._migrations:
+            raise RuntimeError("cannot shrink with migrations in flight "
+                               "(commit or abort them first)")
         for p in range(num_partitions, self.num_partitions):
             if len(self._free[p]) != self.blocks_per_partition:
                 raise RuntimeError(f"partition {p} still has allocated "
@@ -272,6 +324,8 @@ class KVBlockManager:
         (possibly CoW-copied) block.  Raises MemoryError when a new block is
         needed and the partition is dry."""
         sb = self._seqs[seq]
+        if self.migrating(seq):
+            raise RuntimeError(f"seq {seq} is mid-migration (blocks frozen)")
         pos = sb.num_tokens
         j = pos // self.block_size
         if j == len(sb.blocks):                       # crosses into new block
@@ -304,6 +358,9 @@ class KVBlockManager:
     def free(self, seq: int) -> List[int]:
         """Release a sequence.  Returns the blocks actually returned to the
         pool (shared blocks survive until their last holder frees them)."""
+        if self.migrating(seq):
+            raise RuntimeError(f"seq {seq} is mid-migration "
+                               f"(abort_migration first)")
         sb = self._seqs.pop(seq)
         released = []
         for b in sb.blocks:
@@ -322,7 +379,7 @@ class KVBlockManager:
         (highest seq id) on ties — vLLM's recompute-preemption order."""
         pool = [s for s in (candidates if candidates is not None
                             else self._seqs) if s not in exclude
-                and s in self._seqs]
+                and s in self._seqs and not self.migrating(s)]
         if not pool:
             return None
         return min(pool, key=lambda s: (self._seqs[s].priority, -s))
@@ -332,9 +389,153 @@ class KVBlockManager:
         self.preemptions += 1
         return self.free(seq)
 
+    # ----------------------------------------------------------- migration
+    def migrating(self, seq: int) -> bool:
+        return any(seq in t.seqs for t in self._migrations.values())
+
+    @property
+    def migrations_pending(self) -> int:
+        return len(self._migrations)
+
+    def share_components(self, partition: int) -> List[List[int]]:
+        """Live sequences of ``partition`` grouped into connected components
+        of the block-sharing graph (CoW'd prefixes): the migration unit,
+        since moving a component whole keeps every refcount intact.
+        Deterministic: components and members sorted by sequence id."""
+        holders: Dict[int, List[int]] = {}
+        for s, sb in self._seqs.items():
+            if sb.partition != partition:
+                continue
+            for b in sb.blocks:
+                holders.setdefault(b, []).append(s)
+        parent: Dict[int, int] = {}
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for seqs in holders.values():
+            for s in seqs:
+                parent.setdefault(s, s)
+            for s in seqs[1:]:
+                parent[find(seqs[0])] = find(s)
+        comps: Dict[int, List[int]] = {}
+        for s in parent:
+            comps.setdefault(find(s), []).append(s)
+        return sorted((sorted(c) for c in comps.values()), key=lambda c: c[0])
+
+    def migration_need(self, seqs: Sequence[int]) -> int:
+        """Blocks a ``begin_migration`` of ``seqs`` would reserve (the
+        component's unique blocks: a shared block counts once)."""
+        return len({b for s in seqs for b in self._seqs[s].blocks})
+
+    def begin_migration(self, seqs: Sequence[int],
+                        dst_partition: int) -> MigrationTicket:
+        """Reserve destination blocks for a whole sharing component: one
+        per unique source block.  The component must be closed (every
+        co-owner of each of its blocks in ``seqs``: otherwise the move
+        would strand a survivor's table).  No sequence state changes: the
+        caller copies ``ticket.pairs`` and then commits.  Raises
+        MemoryError when the destination partition lacks free blocks."""
+        if not seqs:
+            raise ValueError("empty migration")
+        parts = {self._seqs[s].partition for s in seqs}
+        if len(parts) != 1:
+            raise ValueError(f"component spans partitions {parts}")
+        src_partition = parts.pop()
+        if dst_partition == src_partition \
+                or not 0 <= dst_partition < self.num_partitions:
+            raise ValueError(f"bad destination partition {dst_partition}")
+        for s in seqs:
+            if self.migrating(s):
+                raise RuntimeError(f"seq {s} already migrating")
+        order: List[int] = []
+        seen = set()
+        for s in seqs:
+            for b in self._seqs[s].blocks:
+                if b not in seen:
+                    seen.add(b)
+                    order.append(b)
+        for s, sb in self._seqs.items():
+            if s not in seqs and seen & set(sb.blocks):
+                raise ValueError(f"seq {s} shares blocks with the migrating "
+                                 f"component")
+        if len(self._free[dst_partition]) < len(order):
+            raise MemoryError(
+                f"survivor partition {dst_partition} lacks free blocks for "
+                f"migration: need {len(order)}, "
+                f"free {len(self._free[dst_partition])}")
+        dst = [self._free[dst_partition].pop() for _ in order]
+        ticket = MigrationTicket(
+            tid=self._next_tid, seqs=sorted(seqs),
+            src_partition=src_partition, dst_partition=dst_partition,
+            pairs=list(zip(order, dst)), mapping=dict(zip(order, dst)))
+        self._next_tid += 1
+        self._migrations[ticket.tid] = ticket
+        return ticket
+
+    def commit_migration(self, ticket: MigrationTicket) -> List[int]:
+        """Cut-over after the caller copied every pair: rewrite the
+        component's block tables to the destination blocks, move refcounts
+        block for block, re-key the prefix-registry chains onto the
+        destination partition's hash seed, and free the source blocks.
+        Returns them."""
+        t = self._migrations.pop(ticket.tid)
+        # 1. the registered prefix chains, read against the pristine
+        #    registry (chain hash = fold of chunk contents from the
+        #    partition seed)
+        moves: Dict[int, Tuple[Tuple[int, int], Tuple[int, ...]]] = {}
+        for s in t.seqs:
+            h_old, h_new = t.src_partition, t.dst_partition
+            for b in self._seqs[s].blocks:
+                if self._block_prefix_key.get(b) != (t.src_partition, h_old):
+                    break            # unregistered tail / diverged chain
+                chunk = next((c for bb, c
+                              in self._prefix.get((t.src_partition, h_old),
+                                                  []) if bb == b), None)
+                if chunk is None:
+                    break
+                moves.setdefault(b, ((t.dst_partition, h_new), chunk))
+                if len(chunk) < self.block_size:
+                    break
+                h_old = hash((h_old, chunk))
+                h_new = hash((h_new, chunk))
+        # 2. re-key the matched chains; 3. drop any stragglers (no stale
+        #    entry may reference a block returning to the free list)
+        for b_src, (new_key, chunk) in moves.items():
+            self._unregister_block(b_src)
+            b_dst = t.mapping[b_src]
+            self._prefix.setdefault(new_key, []).append((b_dst, chunk))
+            self._block_prefix_key[b_dst] = new_key
+        for b_src in t.mapping:
+            if b_src in self._block_prefix_key:
+                self._unregister_block(b_src)
+        # 4. refcounts and tables
+        for b_src, b_dst in t.mapping.items():
+            self._refcount[b_dst] = self._refcount.pop(b_src)
+        for s in t.seqs:
+            sb = self._seqs[s]
+            sb.blocks = [t.mapping[b] for b in sb.blocks]
+            sb.partition = t.dst_partition
+        released = sorted(t.mapping)
+        self._free[t.src_partition].extend(released)
+        self.migrated_blocks += len(t.pairs)
+        return released
+
+    def abort_migration(self, ticket: MigrationTicket) -> None:
+        """Drop the reservation; no sequence state changed, so this is a
+        pure free-list unwind (idempotent for a resolved ticket)."""
+        t = self._migrations.pop(ticket.tid, None)
+        if t is None:
+            return
+        self._free[t.dst_partition].extend(d for _, d in t.pairs)
+
     # ------------------------------------------------------------- checking
     def check_invariants(self) -> None:
-        """No block leaked, double-owned, or double-free."""
+        """No block leaked, double-owned or double-free; a migration's
+        reserved destination blocks are neither held nor free."""
         bpp = self.blocks_per_partition
         holders: Dict[int, int] = {}
         for sb in self._seqs.values():
@@ -346,10 +547,24 @@ class KVBlockManager:
                 holders[b] = holders.get(b, 0) + 1
         assert holders == self._refcount, (holders, self._refcount)
         seen = set(holders)
+        reserved = set()
+        for t in self._migrations.values():
+            srcs = set()
+            for s in t.seqs:
+                assert s in self._seqs, f"migrating seq {s} vanished"
+                srcs |= set(self._seqs[s].blocks)
+            assert srcs == set(t.mapping), (srcs, t.mapping)
+            for _, d in t.pairs:
+                assert d // bpp == t.dst_partition, (d, t.dst_partition)
+                assert d not in holders and d not in reserved, \
+                    f"migration-reserved block {d} double-owned"
+                reserved.add(d)
+        seen |= reserved
         for p, free in enumerate(self._free):
             assert len(set(free)) == len(free), f"double-free in partition {p}"
             for b in free:
-                assert b // bpp == p and b not in holders, b
+                assert b // bpp == p and b not in holders \
+                    and b not in reserved, b
                 seen.add(b)
         assert seen == set(range(self.num_blocks)), "blocks leaked"
         for block, key in self._block_prefix_key.items():
@@ -366,4 +581,6 @@ class KVBlockManager:
             "cow_copies": self.cow_copies,
             "shared_block_hits": self.shared_block_hits,
             "live_seqs": len(self._seqs),
+            "migrated_blocks": self.migrated_blocks,
+            "migrations_pending": self.migrations_pending,
         }

@@ -26,7 +26,11 @@ columns of P, chunks of 16 to 256 rows, B and C in bf16 and f32; the
 bf16 chunk-parallel tensor-core instance at 1, 4 and 16 chunks of
 mamba2's widths, zamba2's, a chunk of 100 rows, N and P that are no
 multiple of 16, A twenty times steeper, and a repeat launch; zamba2's
-attention at head width 80).
+attention at head width 80), and for scaling while serving (overlapped
+staging on the TransferEngine's side streams while decode steps run
+under sync-debug "error", its shards equal to a serial staging's; a KV
+block copied between replicas and TP copies, int8 scales included; a
+transfer session that counts as finished only once its copies landed).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -1497,3 +1501,178 @@ def test_tp_steps_run_with_no_host_sync(dev, store):
     # chip_smoke.py's e2e rule for bf16: a one-ulp difference may flip a
     # near-tied expert choice
     assert ((got - want).norm() / want.norm()).item() < 0.25
+
+
+# ------------------------------------------------ scaling while serving
+
+def _scale_hmm(dev, staging, store="bf16"):
+    """A reduced (2-layer) qwen3-30b-a3b in bf16 with pooled pages booted
+    on DP4 of 6 logical devices of the card, ``staging`` serial or
+    overlap."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b-smoke"),
+                              dtype="bfloat16")
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    hmm = HMM(cfg, 1, batch_per_replica=2, max_len=128, seed=0,
+              all_devices=[dev] * 6, device=dev, staging=staging,
+              transfer_workers=2, **PAGED, **int8)
+    hmm.boot(ElasticConfig(4, 1, (0, 1, 2, 3)))
+    return cfg, hmm
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_overlapped_staging_beside_strict_steps(dev, store):
+    """DP4 -> DP6 staged on the TransferEngine's side streams (each unit
+    slowed, so the ops are in flight) while the engine's paged decode step
+    runs again and again under ``set_sync_debug_mode("error")`` on the
+    default stream: no step and no op synchronises with the host (the mode
+    is global, so the workers run under it too), and every staged shard
+    equals a serial staging's bit for bit, with the same bytes."""
+    import time
+    from repro_torch.core.hmm import TransferStats
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.distributed.sharding import (make_instance_mesh,
+                                                  tree_leaves_with_path)
+    from repro_torch.serving.engine import (_paged_decode_fn,
+                                            engine_parallel_ctx)
+    c6 = ElasticConfig(6, 1, tuple(range(6)))
+    _, serial = _scale_hmm(dev, "serial", store)
+    st_serial = serial.scale(c6)
+    want = {p: leaf for p, leaf in
+            tree_leaves_with_path(serial.attach_staged()[2])}
+    cfg, hmm = _scale_hmm(dev, "overlap", store)
+    ctx = engine_parallel_ctx(make_instance_mesh(hmm.active_cfg,
+                                                 hmm.all_devices))
+    NB = 32
+    bt = torch.full((8, 8), NB, dtype=torch.int32)
+    for i, row in enumerate([[5, 9], [2], [7, 1, 30], [31], [4], [], [3],
+                             [8]]):
+        bt[i, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    bt = bt.to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (8,), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([20, 3, 40, 7, 1, 0, 9, 12], dtype=torch.int32,
+                        device=dev)
+    active = torch.tensor([True] * 5 + [False] + [True] * 2, device=dev)
+
+    def step():
+        _paged_decode_fn(cfg, hmm.params, hmm.cache, tokens, lens, active,
+                         bt, parallel=ctx)
+    step()                                   # builds and loads the kernels
+    unit = hmm._stage_unit
+
+    def slow(*a, **k):
+        time.sleep(0.005)
+        return unit(*a, **k)
+    hmm._stage_unit = slow
+    steps = 0
+    with _no_host_sync():
+        hmm.begin_scale(c6)
+        while hmm.staging_in_flight:
+            step()
+            steps += 1
+    assert steps > 0
+    assert hmm.poll_staging() and not hmm.staging_in_flight
+    st = hmm.last_stats
+    for f in TransferStats.BYTE_FIELDS:
+        assert getattr(st, f) == getattr(st_serial, f), f
+    got = dict(tree_leaves_with_path(hmm.attach_staged()[2]))
+    assert got.keys() == want.keys()
+    for p, leaf in got.items():
+        for d, t in leaf.shards.items():
+            assert torch.equal(t, want[p].shard(d)), (p, d)
+    hmm.commit()
+    hmm.close()
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_copy_block_between_replicas_on_a_side_stream(dev, store):
+    """At DP3 x TP2, a block of replica 2 copied into a block of replica 0
+    by a TransferOp on a worker's side stream (after the default stream's
+    ready event): both of replica 0's TP copies take the source rows, and
+    an int8 pool's scale rows, bit for bit; nothing else changes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.core.transfer import (TransferEngine, TransferOp,
+                                           cuda_devices, ready_events)
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b-smoke"),
+                              dtype="bfloat16")
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    srv = ElasticServer(cfg, tp=2, batch_per_replica=2, max_len=128,
+                        seed=0, all_devices=[dev] * 6, device=dev,
+                        **PAGED, **int8)
+    srv.boot(ElasticConfig(3, 2, tuple(range(6))))
+    eng = srv.engine
+    for leaf in eng.cache.values():
+        for r in range(3):
+            devs = eng.parallel.replica_devices(r)
+            rows = leaf.shard(devs[0])
+            if rows.dtype == torch.int8:
+                rows.random_(-127, 128)
+            else:
+                rows.normal_()
+            for d in devs[1:]:
+                leaf.shard(d).copy_(rows)
+    before = {n: leaf.gather(dev) for n, leaf in eng.cache.items()}
+    bpp = eng.kv.blocks_per_partition
+    src, dst = 2 * bpp + 3, 1
+    pool = TransferEngine(1)
+    devs = cuda_devices([dev])
+    sess = pool.submit([TransferOp(0, "kvmig", lambda: eng.copy_block(src,
+                                                                      dst),
+                                   devices=devs)], after=ready_events(devs))
+    assert sess.join(timeout=60) and not sess.failed_ops()
+    pool.shutdown()
+    assert len(eng.cache) == (4 if int8 else 2)
+    for n, leaf in eng.cache.items():
+        want = before[n].clone()
+        want[:, dst] = before[n][:, src]
+        for r in range(3):
+            for d in eng.parallel.replica_devices(r):
+                assert torch.equal(leaf.shard(d),
+                                   want[:, r * bpp:(r + 1) * bpp]), (n, d)
+
+
+def test_a_session_finishes_when_its_copies_have_landed(dev):
+    """A large copy's op returns from ``fn`` as soon as the copies are
+    enqueued; the op waits for its side stream's event (under sync-debug
+    "error", which neither ``Event.synchronize`` nor ``Event.query``
+    trips), so its ``seconds`` cover the copies' event-timed duration and
+    the session counts as finished only once they completed."""
+    from repro_torch.core.transfer import (TransferEngine, TransferOp,
+                                           cuda_devices)
+    src = torch.randn(256 << 20, device=dev)         # 1 GiB
+    dst = torch.empty_like(src)
+    marks = {}
+
+    def copies():
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(8):
+            dst.copy_(src)
+        e.record()
+        marks.update(start=s, end=e)
+        return e.query()                 # enqueued, not landed
+
+    pool = TransferEngine(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess = pool.submit([TransferOp(0, "big", copies,
+                                       devices=cuda_devices([dev]))])
+        assert sess.join(timeout=60)
+        (op,) = sess.ops
+        assert op.state == "done", op.error
+        assert marks["end"].query()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        pool.shutdown()
+    assert op.result is False            # fn returned before the copies
+    copy_s = marks["start"].elapsed_time(marks["end"]) / 1e3
+    assert op.seconds >= copy_s, (op.seconds, copy_s)
+    assert torch.equal(dst, src)

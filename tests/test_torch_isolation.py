@@ -8,7 +8,9 @@ import os
 import pkgutil
 import subprocess
 import sys
+from collections import OrderedDict
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +23,7 @@ from repro_torch.device import exact_matmuls
 from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
                                  paged_attention, ref, ssd_scan)
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.workload import Request
 from repro_torch.models import model as M
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,8 +50,10 @@ def _sources():
 
 
 def test_imports_without_jax():
-    """Every module imports with ``jax`` made unimportable, and none of them
-    loads the reference package."""
+    """Every module imports with ``jax`` made unimportable (the scaling
+    modules among them), and none of them loads the reference package."""
+    assert {"repro_torch.core.transfer", "repro_torch.core.imm",
+            "repro_torch.serving.driver"} <= set(_modules())
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             f"for m in {_modules()!r}:\n"
@@ -285,9 +290,8 @@ def test_use_reference_is_scoped():
 NOT_PORTED = {
     # dense KV with SERVER_KW's chunked prefill (the reference's
     # chunk_prefill_step) is outside the ported slices
-    "kv_mode": "dense", "scaledown": "drain", "expert_host_pages": 4,
-    "staging": "overlap", "rebalance": object(), "routing_sample_every": 4,
-    "imm_cache": object(),
+    "kv_mode": "dense", "expert_host_pages": 4,
+    "rebalance": object(), "routing_sample_every": 4,
 }
 
 
@@ -296,6 +300,34 @@ def test_knobs_outside_the_slice_raise(knob):
     with pytest.raises(NotImplementedError):
         ElasticServer(MCFG, **{**SERVER_KW, knob: NOT_PORTED[knob]},
                       device="cpu")
+
+
+SCALING_KNOBS = {"scaledown": "drain", "staging": "overlap",
+                 "imm_cache": OrderedDict()}
+
+
+@pytest.mark.parametrize("knob", sorted(SCALING_KNOBS))
+def test_scaling_knobs_are_accepted(knob):
+    """The knobs of scaling while serving are ported: each reaches the
+    part of the server that acts on it, and a booted server serves."""
+    value = SCALING_KNOBS[knob]
+    srv = ElasticServer(MCFG, **{**SERVER_KW, knob: value}, device="cpu")
+    srv.boot(ElasticConfig(1, 1, (0,)))
+    if knob == "staging":
+        assert srv.staging_mode == srv.hmm.staging_mode == "overlap"
+    elif knob == "scaledown":
+        assert srv.scaledown_mode == "drain"
+    else:
+        assert srv.imm._cache is value and len(value) == 1
+        assert srv.engine.compiled is next(iter(value.values())).compiled
+    srv.submit(Request(0, 0.0, 5, 3, prompt=np.arange(5, dtype=np.int32)))
+    for t in range(8):
+        srv.tick(float(t))
+    assert len(srv.engine.generated[0]) == 3
+    if knob != "imm_cache":
+        with pytest.raises(ValueError):
+            ElasticServer(MCFG, **{**SERVER_KW, knob: "bogus"},
+                          device="cpu")
 
 
 @pytest.mark.parametrize("knob", ["kv_dtype", "expert_dtype"])

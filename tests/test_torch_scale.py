@@ -561,16 +561,17 @@ def test_scale_up_tokens_equal_unscaled_and_reference(ref, name):
 
 
 def test_server_refuses_what_is_not_ported(ref):
-    """A server scale-down and a TP degree that cuts a kv head name the
-    slices that will port them; the HMM's own scale-down is ported
-    (above), and so is serving at a head-aligned tp > 1
-    (``tests/test_torch_tp.py``)."""
+    """Scaling to (or from) one device and a TP degree that cuts a kv head
+    are refused, naming what is missing; a server scale-down is ported
+    (``tests/test_torch_scaledown.py``), and so is serving at a
+    head-aligned tp > 1 (``tests/test_torch_tp.py``)."""
     srv = ElasticServer(_mcfg(), tp=1, batch_per_replica=2, max_len=128,
                         all_devices=CPU8, device="cpu",
                         prefill_buckets=(32, 64))
     srv.boot(_cfg(3), params=_tree(ref / "serve_defaults.npz"))
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        srv.stage_scale(_cfg(2))
+    with pytest.raises(NotImplementedError, match="one device"):
+        srv.stage_scale(_cfg(1))
+    assert srv.hmm.staged is None and srv.engine.admit_limit is None
     with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
         ElasticServer(_mcfg(num_kv_heads=2), tp=4, batch_per_replica=2,
                       max_len=128, all_devices=CPU8, device="cpu")
