@@ -159,6 +159,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
    per group; each zamba2 decode step ``paged_decode_attention`` and
    ``kv_cache_write`` once per group; mamba2 no attention kernel.
+   Every serve phase runs its decode step and chunk step as the IMM's
+   CUDA graphs (captured at boot, replayed by the engine; each replay
+   counts the launches its capture recorded), its prefills eagerly.
+   ``serve_graphs``: ``serve`` and ``serve_mamba2`` again with
+   ``cuda_graphs=False`` (the eager steps), one server at a time, held
+   against this call's graphed runs: the greedy tokens must be equal;
+   prints each run's decode tick (unprofiled median and p90, device ms
+   and idle share of 3 profiled ticks), ``serve``'s chunk step
+   (unprofiled wall, device ms, idle share), the capture seconds and
+   ``max_memory_allocated``.
 11. ``e2e_scale``: several logical devices of the one card (every logical
    device is ``cuda:0``; a move between two of them is a copy on the
    card).  A 2-layer qwen3-30b-a3b at full width with paged KV and pooled
@@ -174,9 +184,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
 12. ``serve_scale``: ``ElasticServer`` serving the ``serve`` requests
    (8 prompts of 200-1000 tokens, 32 output tokens) on qwen3-30b-a3b at
    full width and 8 layers with paged KV, pooled experts and chunked
-   prefill, booted on DP4; at the 5th tick ``stage_scale`` to DP6, one
-   tick, ``switchover``.  Every parameter shard of the four surviving
-   devices (but the rebuilt page-table arrays) and every KV shard must be
+   prefill, booted on DP4; at the 5th tick ``stage_scale`` to DP6, seven
+   ticks (as many as ``serve_overlap`` serves while it captures the
+   target's seven graphs, one a poll), ``switchover``.  Every parameter
+   shard of the four surviving devices (but the rebuilt page-table
+   arrays) and every KV shard must be
    the same tensor after it (``data_ptr``); the staged expert bytes must
    be the migrations' pages, the other staged copies the two new devices'
    replicated leaves, and commit must move no weight byte.  Launches: one
@@ -185,8 +197,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    device per step, one KV write per layer per replica per decode step
    and per layer per chunk step.  A decode step of every slot and a chunk
    step (ctx 1000, q_len 104) are timed, unprofiled and profiled, at DP4
-   before serving and at DP6 after.  Then the same with int8 KV blocks
-   and int8 expert pages, its steps untimed.
+   before serving and at DP6 after, eager and replayed from the
+   instance's graphs, whose decode tokens must equal the eager step's on
+   the same inputs and state (DP6: the target, captured while staging).
+   Then the same with int8 KV blocks and int8 expert pages, its steps
+   untimed.
 13. ``e2e_tp``: the ``e2e_scale`` steps on DP2 x TP2 and DP1 x TP4 (4
    logical devices of the card; a TP sum or gather is a copy and an add
    on the card): each replica's ranks split its attention heads (from
@@ -194,7 +209,8 @@ Phases, each of which raises on failure (no phase's failure is caught):
    columns, f32, bf16 and bf16 with int8 stores, held to the e2e rules;
    every rank's copy of the cache must equal rank 0's after the steps.
 14. ``serve_tp``: the ``serve_scale`` server and requests at tp = 2,
-   booted on DP2 x TP2 and scaled to DP3 x TP2 at the 5th tick, bf16
+   booted on DP2 x TP2 and scaled to DP3 x TP2 at the 5th tick (four
+   ticks between ``stage_scale`` and ``switchover``), bf16
    then int8; the same invariants with each rank's shards (the staged
    non-expert copies are the two new devices' TP shards, the new
    replica's KV slice zeroed once per rank), and a decode attention, a
@@ -216,7 +232,9 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``stage_wall_s``, ``op_s``, ``overlap_efficiency``, ``stall_s``, the
    ticks served in STAGING and their wall and device times (a profile:
    the step kernels', all kernels' and the copies') against two ticks
-   before the scale.
+   before the scale, ``switch_s`` beside the capture of the target's
+   graphs (over STAGING's polls, one graph a poll, a tick between two
+   polls) and the longest poll; ``compile_hit`` must be true.
 16. ``serve_down``: DP6 -> DP4 while serving 12 requests (the eight
    survivor slots' short ones finish early; the four doomed slots hold
    the 1,000-token prompt and prompts of 600, 431 and 757 tokens, 40
@@ -1643,7 +1661,7 @@ def _describe(cfg, knobs, store):
                            else ", monolithic prefill"))
 
 
-def phase_serve(layers, phase="serve", profile=True):
+def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core.elastic_engine import ElasticServer
@@ -1656,16 +1674,24 @@ def phase_serve(layers, phase="serve", profile=True):
     tag = f"[{phase}]"
     paged = knobs.get("kv_mode") == "paged"
     pooled = knobs.get("expert_mode") == "pooled"
-    log(f"{tag} {model}, {_describe(cfg, knobs, store)}")
+    if not cuda_graphs:
+        tag = f"[{phase} eager]"
+    log(f"{tag} {model}, {_describe(cfg, knobs, store)}, "
+        f"{'CUDA graphs' if cuda_graphs else 'eager steps'}")
     gc.collect()                  # an earlier server's pools are freed
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     srv = ElasticServer(cfg, tp=1, batch_per_replica=BATCH, max_len=MAX_LEN,
-                        seed=0, device="cuda", **knobs)
+                        seed=0, device="cuda", cuda_graphs=cuda_graphs,
+                        **knobs)
     t0 = time.perf_counter()
     srv.boot(ElasticConfig(1, 1, (0,)))
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    # the steps' warm-up and capture (the IMM's compile), inside boot_s
+    capture_s = srv.imm.stats["compile_s_total"]
+    require((srv.engine.graphs is not None) == cuda_graphs,
+            f"{tag} graphs bound: {srv.engine.graphs is not None}")
     mem_boot = torch.cuda.memory_allocated()
     held = 0
     stack = [srv.engine.params]
@@ -1677,8 +1703,8 @@ def phase_serve(layers, phase="serve", profile=True):
             stack += t
         elif t.is_floating_point() or t.dtype == torch.int8:
             held += t.numel()
-    log(f"{tag} boot {boot_s:.2f} s, {mem_boot / 2**30:.2f} GiB allocated, "
-        f"{held:,} parameters held")
+    log(f"{tag} boot {boot_s:.2f} s (capture {capture_s:.3f} s), "
+        f"{mem_boot / 2**30:.2f} GiB allocated, {held:,} parameters held")
 
     prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
     out_len = 32
@@ -1847,6 +1873,8 @@ def phase_serve(layers, phase="serve", profile=True):
         "layers": cfg.num_layers, "store": store or cfg.dtype,
         "knobs": {k: v for k, v in knobs.items() if k != "prefill_buckets"},
         "boot_s": boot_s, "boot_allocated_gib": mem_boot / 2**30,
+        "cuda_graphs": cuda_graphs, "capture_s": capture_s,
+        "tokens": {r.rid: list(eng.generated[r.rid]) for r in reqs},
         "ticks": len(ticks) + len(prof_ticks),
         "decode_tick_ms_median": statistics.median(dec),
         "decode_tick_ms_p90": float(np.percentile(dec, 90)),
@@ -1879,10 +1907,29 @@ def phase_serve(layers, phase="serve", profile=True):
         ids = torch.arange(start // BS, start // BS + CHUNK // BS,
                            dtype=torch.int32, device="cuda")
         ids[ids >= nblk] = NB                    # past the prompt: dropped
-        step = eng.compiled[f"chunk_prefill_{CHUNK}"]
+        if eng.graphs is not None:
+            # the graph's replay, as the engine runs it: the inputs from
+            # host arrays, the token read back
+            host = [t.cpu().numpy() for t in (toks, tbl, ids)]
+
+            def step():
+                int(eng.graphs.chunk(0, host[0], start, S, host[1],
+                                     host[2])[0])
+        else:
+            eager = eng.compiled[f"chunk_prefill_{CHUNK}"]
+
+            def step():
+                int(eager(eng.params, eng.cache, toks, start, S, tbl,
+                          ids)[0][0])
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        res["chunk_step_wall_ms"] = statistics.median(walls)
         res["chunk_profile"], _ = _profile(
-            f"chunk steps of ctx {S}, q_len {S - start}",
-            lambda: step(eng.params, eng.cache, toks, start, S, tbl, ids), 2)
+            f"chunk steps of ctx {S}, q_len {S - start}", step, 2)
     else:
         # the server stamps a token with its tick's start; every request
         # arrived at 0, so its time to first token is its prefill's end
@@ -1907,6 +1954,51 @@ def phase_serve(layers, phase="serve", profile=True):
         f"{pre_txt}; max_memory_allocated "
         f"{res['max_memory_allocated_gib']:.2f} GiB")
     log(f"{tag} launches {counts}" + (f"; kv {res['kv']}" if paged else ""))
+    return res
+
+
+def phase_serve_graphs(layers, done):
+    """``serve`` and ``serve_mamba2`` (the most host-bound store) served
+    eagerly (``cuda_graphs=False``) beside their graphed runs of this
+    call (``done``; run here if their phases were not selected), one
+    server at a time: the greedy tokens must be equal; prints each run's
+    decode tick (unprofiled median and p90, device ms and idle share of 3
+    profiled ticks), the chunk step (``serve``: unprofiled wall, device ms
+    and idle share of the 1,000-token prompt's last chunk), the capture
+    seconds and ``max_memory_allocated``."""
+    res = {}
+    for phase in ("serve", "serve_mamba2"):
+        graphed = done.get(phase) or phase_serve(layers, phase)
+        eager = phase_serve(layers, phase, cuda_graphs=False)
+        require(graphed["tokens"] == eager["tokens"],
+                f"[serve_graphs] {phase}: the graphed server's tokens "
+                f"differ from the eager one's")
+        row = {}
+        for name, r in (("eager", eager), ("graphs", graphed)):
+            prof = r["profile"]
+            row[name] = {
+                "decode_tick_ms_median": r["decode_tick_ms_median"],
+                "decode_tick_ms_p90": r["decode_tick_ms_p90"],
+                "decode_device_ms": prof["device_ms_per_call"],
+                "decode_idle": 1 - prof["device_ms_per_call"]
+                / prof["wall_ms_per_call"],
+                "capture_s": r["capture_s"],
+                "max_memory_allocated_gib": r["max_memory_allocated_gib"]}
+            if "chunk_profile" in r:
+                cp = r["chunk_profile"]
+                row[name].update(
+                    chunk_wall_ms=r["chunk_step_wall_ms"],
+                    chunk_step_ms_median=r["chunk_step_ms_median"],
+                    chunk_device_ms=cp["device_ms_per_call"],
+                    chunk_idle=1 - cp["device_ms_per_call"]
+                    / cp["wall_ms_per_call"])
+            log(f"[serve_graphs] {phase} {name}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row[name].items()))
+        log(f"[serve_graphs] {phase}: graphed tokens equal the eager "
+            f"server's ({len(eager['tokens'])} requests)")
+        res[phase] = row
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1983,7 +2075,10 @@ class _Routing:
     """While active, keeps the sorted top-k expert ids of every
     ``moe_ep`` shard, in call order (a wrapper around
     ``repro_torch.models.moe._topk``; device tensors, no host sync): it
-    tells a near-tied expert choice that flipped from a numeric fault."""
+    tells a near-tied expert choice that flipped from a numeric fault.  A
+    call inside a CUDA graph's capture computes nothing and is not kept
+    (nor is its sort captured); a replay calls no Python, so the graphed
+    steps leave no record."""
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -1991,7 +2086,8 @@ class _Routing:
 
         def topk(p, x, k):
             out = self.orig(p, x, k)
-            self.calls.append(out[1].sort(-1).values)
+            if not torch.cuda.is_current_stream_capturing():
+                self.calls.append(out[1].sort(-1).values)
             return out
         moe._topk = topk
         return self.calls
@@ -2190,8 +2286,11 @@ def _scale_step_times(srv, tag):
     """A decode step of every slot (ragged lengths, each replica's tables
     in its own slice) and a chunk step of the 1,000-token prompt's last
     chunk (ctx 1000, q_len 104) on replica 0, into free pool blocks, on
-    the engine's current instance: the median wall of 5 unprofiled calls
-    and the device time of 2 profiled ones each."""
+    the engine's current instance, eager and, where the engine holds its
+    CUDA graphs, replayed: the median wall of 5 unprofiled calls and the
+    device time of 2 profiled ones each.  The graphed decode's tokens must
+    equal the eager one's on the same inputs and state (both write the
+    same rows)."""
     eng = srv.engine
     dp, NB, MB = eng.cfg.dp, eng.kv.blocks_per_partition, MAX_LEN // BS
     cg = torch.Generator().manual_seed(4)
@@ -2215,11 +2314,23 @@ def _scale_step_times(srv, tag):
     ids[ids >= nblk] = NB
     chunk = eng.compiled[f"chunk_prefill_{CHUNK}"]
     cargs = [t.cuda() for t in (toks, tbl, ids)]
+    steps = [("decode", lambda: dec(eng.params, eng.cache, *args)),
+             ("chunk", lambda: chunk(eng.params, eng.cache, cargs[0], start,
+                                     S, cargs[1], cargs[2], replica=0))]
+    if eng.graphs is not None:
+        host = [t.numpy() for t in (tokens.to(torch.int32),
+                                    torch.tensor(lengths, dtype=torch.int32),
+                                    torch.ones(n, dtype=torch.bool), bt)]
+        want = dec(eng.params, eng.cache, *args)[0].cpu()
+        got = eng.graphs.decode(*host).cpu()
+        require(torch.equal(got, want), f"{tag} the graphed decode step's "
+                f"tokens differ from the eager one's: {got} {want}")
+        log(f"{tag} graphed decode step: tokens equal the eager step's")
+        steps += [("graphed decode", lambda: eng.graphs.decode(*host)),
+                  ("graphed chunk", lambda: eng.graphs.chunk(
+                      0, toks.numpy(), start, S, tbl.numpy(), ids.numpy()))]
     out = {}
-    for name, fn in (
-            ("decode", lambda: dec(eng.params, eng.cache, *args)),
-            ("chunk", lambda: chunk(eng.params, eng.cache, cargs[0], start,
-                                    S, cargs[1], cargs[2], replica=0))):
+    for name, fn in steps:
         fn()
         walls = []
         for _ in range(5):
@@ -2250,10 +2361,15 @@ def _shard_ptrs(tree, devices):
 
 def _serve_scale(layers, store, timed, tp=1):
     """``serve_scale`` (tp = 1, DP4 -> DP6) or ``serve_tp`` (tp = 2, DP2 x
-    TP2 -> DP3 x TP2) with one store.  The result keeps the greedy tokens
-    and, under ``"_trace"`` (not written to the JSON), each tick's
-    configuration, token counts and top-k expert sets (``_Ticks``), which
-    ``serve_overlap`` compares its overlapped run with."""
+    TP2 -> DP3 x TP2) with one store, ``stage_scale`` at the 5th tick and
+    ``switchover`` after as many ticks as the target has graphs (its
+    decode step and a chunk step per replica): an overlapped staging
+    captures one a poll with a tick between two polls, so
+    ``serve_overlap``'s ticks run on the configurations these run on.
+    The result keeps the greedy tokens and, under ``"_trace"`` (not
+    written to the JSON), each tick's configuration, token counts and
+    top-k expert sets (``_Ticks``), which ``serve_overlap`` compares its
+    overlapped run with."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -2303,8 +2419,8 @@ def _serve_scale(layers, store, timed, tp=1):
         tracer.clear()
         ts = time.perf_counter()
         if tick == 4:
-            # the 5th tick: stage the target while the source serves, one
-            # tick, switch
+            # the 5th tick: stage the target while the source serves a
+            # tick for each of the target's graphs, switch
             keep = _shard_ptrs({"params": eng.params, "cache": eng.cache},
                                c0.devices)
             torch.cuda.synchronize()
@@ -2315,7 +2431,10 @@ def _serve_scale(layers, store, timed, tp=1):
             staged = {f: getattr(ev.stats, f) for f in
                       ev.stats.BYTE_FIELDS}
             migs = len(srv.hmm.last_migrations)
-            srv.tick(time.perf_counter() - t_start)
+            for k in range(1 + c1.dp):
+                if k:
+                    trace.mark()    # the loop marked the first
+                srv.tick(time.perf_counter() - t_start)
             torch.cuda.synchronize()
             work[c0.dp][0] += eng._step_count - steps0
             work[c0.dp][1] += sum(e.args["chunks"] for e in tracer.events()
@@ -2594,13 +2713,12 @@ def _divergence(a, b, tok_a, tok_b):
 
 
 def _strict_steps(eng):
-    """Run the engine's decode step under ``set_sync_debug_mode("error")``
-    (a step that synchronises with the host raises) until the returned
-    undo is called.  The mode is global: the TransferEngine's workers run
-    under it too.  (The engine's chunk callable ends in the first token's
-    ``int()``, a sync by design; its model step is checked in ``e2e``.)"""
-    saved = {"decode": eng.compiled["decode"]}
-
+    """Run the engine's decode step (its graph's input fill and replay,
+    or the eager step) under ``set_sync_debug_mode("error")`` (a step that
+    synchronises with the host raises) until the returned undo is called.
+    The mode is global: the TransferEngine's workers run under it too.
+    (The engine reads a final chunk's token, a sync by design; the chunk's
+    model step is checked in ``e2e``.)"""
     def strict(fn):
         def run(*a, **kw):
             torch.cuda.set_sync_debug_mode("error")
@@ -2609,6 +2727,11 @@ def _strict_steps(eng):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         return run
+    if eng.graphs is not None:
+        graphs = eng.graphs
+        graphs.decode = strict(graphs.decode)
+        return lambda: vars(graphs).pop("decode")
+    saved = {"decode": eng.compiled["decode"]}
     compiled = eng.compiled
     compiled.update({k: strict(f) for k, f in saved.items()})
     return lambda: compiled.update(saved)
@@ -2696,7 +2819,7 @@ def _serve_overlap(layers, store, serial):
     ops.reset_launch_counts()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     trace = _Ticks(eng, reqs)
-    before, during, polls, in_flight = [], [], 0, 0
+    before, during, poll_ms, in_flight = [], [], [], 0
     task, prof_before, prof_during = None, None, None
     t_start = time.perf_counter()
 
@@ -2718,6 +2841,7 @@ def _serve_overlap(layers, store, serial):
             continue
         if n == 4 and task is None:
             with profile(activities=acts) as prof_during:
+                cap0 = srv.imm.stats["compile_s_total"]
                 t_task = time.perf_counter()
                 task = srv.start_scale(c1)
                 while task.phase is ScalePhase.STAGING:
@@ -2727,8 +2851,9 @@ def _serve_overlap(layers, store, serial):
                         timed_tick(during)
                     finally:
                         undo()
-                    task.advance(time.perf_counter() - t_start)
-                    polls += 1
+                    tp = time.perf_counter()
+                    task.advance(tp - t_start)
+                    poll_ms.append((time.perf_counter() - tp) * 1e3)
                     if task.phase is ScalePhase.COMMITTING:
                         # the commit right after the poll that saw the
                         # copies land: the next tick runs on DP6, as in
@@ -2736,7 +2861,12 @@ def _serve_overlap(layers, store, serial):
                         task.advance(time.perf_counter() - t_start)
                 torch.cuda.synchronize()
                 task_wall = time.perf_counter() - t_task
+                # the target's graphs, captured over STAGING's polls
+                capture_s = srv.imm.stats["compile_s_total"] - cap0
             require(task.phase is ScalePhase.DONE, task.phase)
+            require(task.event.compile_hit and eng.graphs is not None,
+                    f"{tag} the target's graphs were not ready at the "
+                    f"switchover")
             require(in_flight > 0, f"{tag} no tick started while the "
                     f"staging's ops were in flight")
             continue
@@ -2772,7 +2902,9 @@ def _serve_overlap(layers, store, serial):
            "overlap_efficiency": task.overlap_efficiency,
            "stall_s": task.stall_s, "task_wall_s": task_wall,
            "stage_s": ev.stage_s, "switch_s": ev.switch_s,
-           "compile_hit": ev.compile_hit, "polls": polls,
+           "capture_s": capture_s,
+           "compile_hit": ev.compile_hit, "polls": len(poll_ms),
+           "poll_ms": poll_ms,
            "ticks_during_staging": len(during),
            "ticks_started_in_flight": in_flight,
            "tick_ms_before": before, "tick_ms_during": during,
@@ -2789,7 +2921,9 @@ def _serve_overlap(layers, store, serial):
         f"{task.overlap_efficiency:.3f}, stall_s {task.stall_s:.4f} "
         f"(serial stage_s in this call {serial['scale']['stage_s']:.4f}), "
         f"start_scale to DONE {task_wall:.4f} s, switch_s "
-        f"{ev.switch_s:.4f}, compile_hit {ev.compile_hit}")
+        f"{ev.switch_s:.4f} beside the target's capture {capture_s:.4f} s "
+        f"(in STAGING, one graph a poll), compile_hit {ev.compile_hit}; "
+        f"{len(poll_ms)} STAGING polls, the longest {max(poll_ms):.1f} ms")
     log(f"{tag} {len(during)} tick(s) served in STAGING, {in_flight} of "
         f"them started with ops in flight (their decode steps under "
         f"sync-debug 'error'), wall ms {during} against "
@@ -3074,6 +3208,7 @@ def main():
                     default="build,kernels,e2e,e2e_mla,e2e_ssm,e2e_scale,"
                             "e2e_tp,serve,serve_int8,serve_dense,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
+                            "serve_graphs,"
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
                             "serve_down_tp")
     ap.add_argument("--json", help="write every measurement to this file")
@@ -3102,6 +3237,10 @@ def main():
             ("e2e_tp", phase_e2e_tp)]
     runs += [(p, lambda p=p: phase_serve(args.layers, p))
              for p in SERVE_STORES]
+    # the eager twins of serve and serve_mamba2, held against this call's
+    # graphed runs
+    runs.append(("serve_graphs", lambda: phase_serve_graphs(args.layers,
+                                                            res)))
     runs.append(("serve_scale", lambda: phase_serve_scale(args.layers)))
     runs.append(("serve_tp", lambda: phase_serve_scale(args.layers, 2)))
     # serve_overlap holds its staged bytes and tokens against this call's

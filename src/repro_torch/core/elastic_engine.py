@@ -19,14 +19,16 @@ Scaling (the paper's §5): ``start_scale(target)`` opens an
 (``serving/driver.ScalePhase``): STAGING (the HMM stages the target's
 weights — serially, one unit a poll, or with ``staging="overlap"`` on the
 background ``TransferEngine``, on the card on side CUDA streams, while the
-default stream keeps decoding) -> COMPILING (the IMM's step functions for
-the target) -> on a scale-down MIGRATING (``scaledown="migrate"``, paged
-KV: the doomed slots' live sequences have their KV blocks copied onto
-survivor partitions while the survivors decode; the doomed devices release
-as soon as the copies land) or DRAINING (``scaledown="drain"``, and any
+default stream keeps decoding) -> COMPILING (the IMM captures the target's
+CUDA graphs over its staged tensors; overlapped, on the serving thread
+while the copies run, one graph a poll) -> on a scale-down MIGRATING
+(``scaledown="migrate"``, paged KV: the doomed slots' live sequences have
+their KV blocks copied onto survivor partitions while the survivors
+decode; the doomed devices release as soon as the copies land) or DRAINING (``scaledown="drain"``, and any
 dense-KV server: the doomed slots stop admitting and run to completion) ->
 COMMITTING (``switchover``: the surviving slots continue on the same KV
-shards) -> DONE, or ABORTED.  While a task is in flight new admissions
+shards, and the target's graphs are bound, not captured) -> DONE, or
+ABORTED.  While a task is in flight new admissions
 pause and in-flight decodes continue (``admission_during_scale``).
 
 The defaults are the reference's: the slot-contiguous KV cache
@@ -61,10 +63,13 @@ from repro_torch.serving.workload import Request
 class ScaleEvent:
     """One scale event.  ``stats`` is the HMM's ``last_stats``: the
     staging's bytes, and after ``switchover`` also the commit's.
-    ``compile_hit``: whether the IMM held the target's step functions
-    already.  ``stall_s`` is the serve loop's time blocked on staging
-    work: all of ``stage_s`` on the blocking forms, the time spent inside
-    ``advance`` polls for a task (near zero when overlapped).
+    ``compile_hit``: whether the target's step set (on the card its CUDA
+    graphs) was ready before ``switchover``.  ``stall_s`` is the serve
+    loop's time blocked on staging work: all of ``stage_s`` on the
+    blocking forms, the time spent inside ``advance`` polls for a task.
+    Overlapped, the copies add next to nothing to it, but the target's
+    capture on the serving thread does (on an H100 about a second for
+    eight of qwen3-30b-a3b's layers at DP6), one graph a poll.
     ``stage_wall_s`` freezes the staging's wall time, which ``stats``
     later adds the commit to.  ``migrated_blocks`` and ``migration_bytes``
     count a scale-down's live KV moves (0 for a scale-up or a drain)."""
@@ -89,11 +94,12 @@ class EngineScalingTask:
     depends on the HMM's staging mode:
 
     * ``staging="serial"`` — one staging unit per ``advance``, then a
-      COMPILING advance (the IMM's step functions for the target);
+      COMPILING advance (the IMM captures the target's step set);
     * ``staging="overlap"`` — the units already run on the background
-      ``TransferEngine`` (submitted at ``start_scale``); the first
-      ``advance`` builds the target's step functions on the serving thread
-      while the copies proceed (STAGING with COMPILING), later ones poll.
+      ``TransferEngine`` (submitted at ``start_scale``); each ``advance``
+      captures one graph of the target's step set on the serving thread
+      while the copies proceed (STAGING with COMPILING), so ticks run
+      between the captures; once all are captured, later ones poll.
 
     A scale-down continues into MIGRATING (``scaledown="migrate"``: the
     live sequences' blocks are copied onto survivor partitions as
@@ -119,6 +125,7 @@ class EngineScalingTask:
         self.event: Optional[ScaleEvent] = None
         self.stall_s = 0.0      # serve-loop time spent inside advance()
         self._compile_hit: Optional[bool] = None
+        self._captured = False  # the target's step set, overlapped
         self._down = target.ndev < server.engine.cfg.ndev
         self._keep = target.dp * server.engine.batch_per_replica
         self._migrate = self._down and server.scaledown_mode == "migrate"
@@ -166,7 +173,8 @@ class EngineScalingTask:
 
     def _finish_staging(self):
         """STAGING complete: freeze the snapshot, record the event (the
-        IMM was consulted on the first overlapped poll) and move on."""
+        target's step set was captured over the overlapped polls) and move
+        on."""
         self.stage_stats = dataclasses.replace(self.stats)
         self.event = self.server._record_stage(self.target,
                                                self.stats.wall_s)
@@ -197,12 +205,17 @@ class EngineScalingTask:
             t0 = time.perf_counter()
             try:
                 if self.staging_mode == "overlap":
+                    imm = self.server.imm
                     if self._compile_hit is None:
-                        # on the serving thread while the TransferEngine
-                        # moves the bytes
-                        self._compile_hit = self.server.imm.has(self.target)
-                        self.server.imm.preinitialize(self.target)
-                    if self.server.hmm.poll_staging():
+                        self._compile_hit = imm.has(self.target)
+                    if not self._captured:
+                        # one graph a poll, on the serving thread while the
+                        # TransferEngine moves the bytes
+                        imm.preinitialize(self.target,
+                                          *self.server._staged_tensors(),
+                                          limit=1)
+                        self._captured = imm.ready(self.target)
+                    if self._captured and self.server.hmm.poll_staging():
                         self.increments_done = self.increments_total
                         self._finish_staging()
                     else:
@@ -345,7 +358,7 @@ class ElasticServer:
                  expert_host_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  expert_dtype: Optional[str] = None,
-                 imm_cache=None, device="cuda"):
+                 imm_cache=None, cuda_graphs: bool = True, device="cuda"):
         not_ported("policy", policy, None, SLICE_C)
         not_ported("routing_sample_every", routing_sample_every, 0,
                    TELEMETRY)
@@ -389,10 +402,13 @@ class ElasticServer:
                        kv_dtype=kv_dtype, expert_dtype=expert_dtype,
                        device=device)
         # ``imm_cache``: an OrderedDict shared across a fleet's servers, so
-        # the standby LRU is bounded once (keys carry the model identity)
+        # the standby LRU is bounded once (keys carry the model identity);
+        # ``cuda_graphs=False``: the eager steps on the card (the twin that
+        # tests and chip_smoke.py compare the graphs with)
         self.imm = IMM(mcfg, self.hmm, batch_per_replica=batch_per_replica,
                        max_len=max_len, prefill_buckets=prefill_buckets,
-                       prefill_chunk=prefill_chunk, shared_cache=imm_cache)
+                       prefill_chunk=prefill_chunk, shared_cache=imm_cache,
+                       cuda_graphs=cuda_graphs)
         self.engine = InferenceEngine(mcfg,
                                       batch_per_replica=batch_per_replica,
                                       max_len=max_len,
@@ -418,8 +434,14 @@ class ElasticServer:
         """Bind the engine to an activated instance; the cache's ownership
         moves to the engine."""
         self.engine.bind(inst.cfg, params, cache, inst.compiled,
-                         kv=self.hmm.kv_blocks, parallel=inst.parallel)
+                         kv=self.hmm.kv_blocks, parallel=inst.parallel,
+                         graphs=inst.graphs)
         self.hmm.cache = None
+
+    def _staged_tensors(self):
+        """The staging target's parameters and the cache its commit will
+        adopt (the IMM captures its graphs over them)."""
+        return self.hmm.staged_tensors(self.engine.cache)[2:]
 
     def preinitialize(self, cfg: ElasticConfig):
         """Warm the IMM for an anticipated configuration."""
@@ -451,7 +473,8 @@ class ElasticServer:
                       ) -> ScaleEvent:
         hit = self.imm.has(new_cfg)
         t0 = time.perf_counter()
-        self.imm.preinitialize(new_cfg)          # no-op when cached
+        # the target's graphs, over its staged tensors (no-op when bound)
+        self.imm.preinitialize(new_cfg, *self._staged_tensors())
         stage_s += time.perf_counter() - t0
         self._staged_cfg = new_cfg
         if new_cfg.ndev < self.engine.cfg.ndev:

@@ -37,9 +37,14 @@ weights while the old instance serves: a shard whose (index, logical
 device) is unchanged is reused — the same tensor, zero-copy; a shard that
 exists on another logical device is copied (``p2p``); dense expert banks
 regroup page by page (``_assemble_rows``); the pooled store moves exactly
-the min-move ``Migration`` list, one page at a time.  ``commit`` grows the
-live cache (survivors' shards reused, new replicas zeroed) and swaps the
-page table; ``abort`` drops the staged state.  The byte accounting
+the min-move ``Migration`` list, one page at a time.  ``begin_scale``
+allocates every staged destination and every new replica's zeroed KV
+shard on the caller's (serving) thread, so the staging units only copy,
+and the target's tensors exist — for its CUDA graphs to be captured over —
+before they are filled (``staged_tensors``).  ``commit`` grows the live
+cache (survivors' shards reused, the new replicas' shards made at
+``begin_scale`` adopted) and swaps the page table; ``abort`` drops the
+staged state.  The byte accounting
 (``TransferStats``) follows the reference's field for field.  All of it
 goes by logical id: two logical devices on one card are two devices, and a
 move between them is a real copy.
@@ -72,7 +77,7 @@ from repro_torch.device import logical_devices, resolve_device, torch_dtype
 from repro_torch.distributed.sharding import (Mesh, NamedSharding,
                                               ShardedTensor, check_devices,
                                               index_shape, make_instance_mesh,
-                                              place, tree_leaves_with_path,
+                                              tree_leaves_with_path,
                                               tree_map_with_path)
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models.model import (check_tp_heads, dense_cache_supported,
@@ -138,48 +143,69 @@ class TransferStats:
 
 # --------------------------------------------------------- reshard-with-reuse
 
-def reshard_with_reuse(arr: ShardedTensor, new_sharding: NamedSharding,
-                       stats: TransferStats,
-                       expert_dim: Optional[int] = None) -> ShardedTensor:
-    """Rebuild ``arr`` under ``new_sharding``, reusing each shard that
-    already lives on the right logical device with the right index (the
-    same tensor), copying one that lives on another logical device, and —
-    with ``expert_dim`` — assembling a shard whose slice boundaries changed
-    piece by piece along that dimension."""
-    shape = arr.shape
-    old: Dict[tuple, List[Tuple[int, torch.Tensor]]] = {}
+def _holders(arr: ShardedTensor) -> Dict[tuple, List[Tuple[int, Any]]]:
+    """Shard index -> [(logical device, shard)] of ``arr``."""
+    old: Dict[tuple, List[Tuple[int, Any]]] = {}
     for dev, index, data in arr.addressable_shards:
         old.setdefault(_idx_key(index), []).append((dev, data))
+    return old
+
+
+def reshard_destination(arr: ShardedTensor, new_sharding: NamedSharding,
+                        expert_dim: Optional[int] = None) -> ShardedTensor:
+    """``arr`` under ``new_sharding`` before anything is copied: each shard
+    that already lives on the right logical device with the right index is
+    that tensor; every other one is allocated here (uninitialised), for
+    ``reshard_with_reuse`` to fill.  Raises where a shard has no source."""
+    shape = arr.shape
+    old = _holders(arr)
     mesh = new_sharding.mesh
     out = {}
     for dev, index in new_sharding.devices_indices_map(shape).items():
-        holders = old.get(_idx_key(index), [])
-        same = [h for h in holders if h[0] == dev]
+        same = [h for h in old.get(_idx_key(index), []) if h[0] == dev]
         if same:
-            data = same[0][1]
-            stats.zero_copy_bytes += data.nbytes
-            stats.zero_copy_count += 1
-        elif holders:
-            src = holders[0][1]
-            data = place(src, mesh.torch_device(dev))
-            stats.p2p_bytes += src.nbytes
-            stats.p2p_count += 1
-        elif expert_dim is not None:
-            data = _assemble_rows(arr, index, expert_dim, dev,
-                                  mesh.torch_device(dev), stats)
+            out[dev] = same[0][1]
+        elif old.get(_idx_key(index)) or expert_dim is not None:
+            out[dev] = torch.empty(index_shape(shape, index),
+                                   dtype=arr.dtype,
+                                   device=mesh.torch_device(dev))
         else:
             raise ValueError(f"no source for shard {_idx_key(index)} of "
                              f"{shape}")
-        out[dev] = data
     return ShardedTensor(shape, new_sharding, out)
 
 
+def reshard_with_reuse(arr: ShardedTensor, new_sharding: NamedSharding,
+                       stats: TransferStats, expert_dim: Optional[int],
+                       dst: ShardedTensor) -> ShardedTensor:
+    """Rebuild ``arr`` under ``new_sharding`` into ``dst``
+    (``reshard_destination``'s), reusing each shard that already lives on
+    the right logical device with the right index (the same tensor),
+    copying one that lives on another logical device, and — with
+    ``expert_dim`` — assembling a shard whose slice boundaries changed
+    piece by piece along that dimension."""
+    old = _holders(arr)
+    for dev, index in new_sharding.devices_indices_map(arr.shape).items():
+        holders = old.get(_idx_key(index), [])
+        data = dst.shard(dev)
+        if any(h[0] == dev for h in holders):
+            stats.zero_copy_bytes += data.nbytes
+            stats.zero_copy_count += 1
+        elif holders:
+            data.copy_(holders[0][1])
+            stats.p2p_bytes += data.nbytes
+            stats.p2p_count += 1
+        else:
+            _assemble_rows(arr, index, expert_dim, dev, data, stats)
+    return dst
+
+
 def _assemble_rows(arr: ShardedTensor, index, dim: int, dev: int,
-                   tdev: torch.device, stats: TransferStats) -> torch.Tensor:
-    """Piecewise (per-page) assembly of one target shard along ``dim``:
-    every old shard's overlap with the target slice is copied in, counted
-    as local when that shard is on logical device ``dev`` and as p2p
-    otherwise."""
+                   out: torch.Tensor, stats: TransferStats) -> torch.Tensor:
+    """Piecewise (per-page) assembly of one target shard along ``dim`` into
+    ``out``: every old shard's overlap with the target slice is copied in,
+    counted as local when that shard is on logical device ``dev`` and as
+    p2p otherwise."""
     n = arr.shape[dim]
     lo, hi, _ = index[dim].indices(n)
     pieces = []
@@ -198,8 +224,6 @@ def _assemble_rows(arr: ShardedTensor, index, dim: int, dev: int,
     if sum(p.shape[dim] for _, p in pieces) != hi - lo:
         raise ValueError(f"the old shards of {arr.shape} cover rows "
                          f"{lo}:{hi} of dim {dim} more or less than once")
-    want = list(index_shape(arr.shape, index))
-    out = torch.empty(want, dtype=arr.dtype, device=tdev)
     for olo, sub in pieces:
         out.narrow(dim, olo - lo, sub.shape[dim]).copy_(sub)
     return out
@@ -270,7 +294,8 @@ class HMM:
         # while the serving thread keeps ticking
         self.staging_mode = staging
         self.transfer_workers = transfer_workers
-        self._transfer: Optional[TransferEngine] = None  # created lazily
+        self._transfer: Optional[TransferEngine] = None
+        self.transfer_engine()      # its side streams, before any staging
         self._stage_lock = threading.Lock()
         self.kv_mode = kv_mode
         self.expert_mode = expert_mode
@@ -291,6 +316,9 @@ class HMM:
         self.boot_s = 0.0
         self.last_stats: Optional[TransferStats] = None
         self.last_migrations: Optional[List] = None
+        # begin_scale to commit or abort: (cfg, mesh, the staged parameter
+        # tree, {cache leaf: {logical device: new zeroed KV shard}})
+        self._scale_target: Optional[Tuple] = None
         self._reset_stage_session()
 
     @property
@@ -667,6 +695,7 @@ class HMM:
             self._stage_layout = self._pooled_index_arrays(
                 self.page_table.staged, new_cfg)
         work = []
+        dst = {}
         for path, leaf in tree_leaves_with_path(self.params):
             sh = self.param_sharding(path, leaf.shape, mesh)
             kind, expert_dim = "reshard", None
@@ -678,22 +707,26 @@ class HMM:
                 kind = "pool:" + path.rsplit("/", 1)[1]
             elif re.search(r"moe/(tables|edest|eslot|gtable)$", path):
                 kind = "index:" + path.rsplit("/", 1)[1]
-            work.append((path, leaf, sh, expert_dim, kind))
+            # every destination is made here, on the caller's thread
+            dst[path] = self._stage_destination(leaf, sh, expert_dim, kind,
+                                                new_cfg, mesh)
+            work.append((path, leaf, sh, expert_dim, kind, dst[path]))
         self._stage_work = work
         self._stage_cursor = 0
-        self._stage_out = {}
-        self._stage_target = (new_cfg, mesh)
+        self._scale_target = (
+            new_cfg, mesh,
+            tree_map_with_path(lambda path, _: dst[path], self.params),
+            self._new_kv_shards(new_cfg, mesh))
         self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
         if self.staging_mode == "overlap":
             self._stage_t0 = t0
             devs = cuda_devices(self.all_devices[d] for d in
                                 set(self.active_cfg.devices)
                                 | set(new_cfg.devices))
-            ops = [TransferOp(index=i, label=path, devices=devs,
-                              fn=self._make_stage_op(leaf, sh, expert_dim,
-                                                     kind, new_cfg, mesh))
-                   for i, (path, leaf, sh, expert_dim, kind)
-                   in enumerate(work)]
+            ops = [TransferOp(index=i, label=unit[0], devices=devs,
+                              fn=self._make_stage_op(unit[1:], new_cfg,
+                                                     mesh))
+                   for i, unit in enumerate(work)]
             # the side streams wait for everything the serving thread has
             # issued so far (the boot's writes included) before they read
             self._stage_session = self.transfer_engine().submit(
@@ -701,11 +734,13 @@ class HMM:
         return len(work)
 
     def transfer_engine(self) -> TransferEngine:
-        """The HMM's background TransferEngine (created lazily, kept across
-        scale events): overlapped staging's units and, in every staging
-        mode, a scale-down's live KV block copies ride it."""
+        """The HMM's background TransferEngine (made with the HMM, and
+        again after ``close``; kept across scale events): overlapped
+        staging's units and, in every staging mode, a scale-down's live KV
+        block copies ride it."""
         if self._transfer is None:
-            self._transfer = TransferEngine(self.transfer_workers)
+            self._transfer = TransferEngine(self.transfer_workers,
+                                            devices=self.all_devices)
         return self._transfer
 
     def close(self) -> None:
@@ -728,49 +763,69 @@ class HMM:
         return (self._stage_session is not None
                 and not self._stage_session.finished())
 
-    def _make_stage_op(self, leaf, sh, expert_dim, kind,
-                       new_cfg: ElasticConfig, mesh: Mesh):
+    def _make_stage_op(self, unit, new_cfg: ElasticConfig, mesh: Mesh):
         """One background op: ``_stage_unit`` into a private TransferStats,
         merged into the session's under the lock (addition commutes, so the
         totals equal the serial order's).  The op's time (to its copies'
         landing) is added to ``op_s`` when the session completes."""
         session_stats = self._stage_stats
+        leaf, sh, expert_dim, kind, dst = unit
 
         def run():
             sub = TransferStats()
             out = self._stage_unit(leaf, sh, expert_dim, kind, new_cfg,
-                                   mesh, sub)
+                                   mesh, sub, dst)
             with self._stage_lock:
                 session_stats.merge(sub)
             return out
 
         return run
 
-    def _stage_unit(self, leaf, sh, expert_dim, kind, new_cfg: ElasticConfig,
-                    mesh: Mesh, stats: TransferStats):
-        """Execute ONE unit of staging work; returns the staged leaf and
-        adds its bytes to ``stats``."""
+    def _stage_destination(self, leaf, sh, expert_dim, kind,
+                           new_cfg: ElasticConfig, mesh: Mesh
+                           ) -> ShardedTensor:
+        """A staging unit's staged leaf, allocated (not filled) on the
+        caller's thread: a reused shard is the live tensor, a copied or
+        assembled one is new, a pool bank's new device slice is zeroed;
+        the index arrays are uploaded whole (no weight bytes)."""
         if kind.startswith("pool:"):
-            return self._migrate_pool_bank(leaf, new_cfg, mesh, stats)
+            ppd = self.expert_pool_pages
+            shape = (new_cfg.ndev * ppd,) + tuple(leaf.shape[1:])
+            sharding = NamedSharding(mesh, (("dp", "tp"),))
+            return ShardedTensor(shape, sharding, {
+                dev: (leaf.shards[dev] if dev in leaf.shards
+                      else torch.zeros((ppd, *leaf.shape[1:]),
+                                       dtype=leaf.dtype,
+                                       device=mesh.torch_device(dev)))
+                for dev in new_cfg.devices})
         if kind.startswith("index:"):
-            # the staged index arrays were built once in begin_scale; no
-            # weight bytes move here
             name = kind.split(":", 1)[1]
             arr = _upload(np.asarray(self._stage_layout[name], np.int32),
                           mesh.torch_device(new_cfg.devices[0]))
             spec = (None, ("dp", "tp"), None) if name == "tables" else ()
             return ShardedTensor.from_tensor(arr, NamedSharding(mesh, spec))
+        return reshard_destination(leaf, sh, expert_dim)
+
+    def _stage_unit(self, leaf, sh, expert_dim, kind, new_cfg: ElasticConfig,
+                    mesh: Mesh, stats: TransferStats, dst: ShardedTensor):
+        """Execute ONE unit of staging work: copy into ``dst``, the staged
+        leaf ``_stage_destination`` made, return it, and add its bytes to
+        ``stats``."""
+        if kind.startswith("pool:"):
+            return self._migrate_pool_bank(leaf, new_cfg, stats, dst)
+        if kind.startswith("index:"):
+            return dst          # uploaded in begin_scale; no weight bytes
         if kind == "expert_bank":
             # track the expert sub-bytes, so that the dense regroup and the
             # pooled remap compare directly
             sub = TransferStats()
-            out = reshard_with_reuse(leaf, sh, sub, expert_dim=expert_dim)
+            reshard_with_reuse(leaf, sh, sub, expert_dim, dst)
             sub.expert_p2p_bytes = sub.p2p_bytes
             sub.expert_zero_copy_bytes = sub.zero_copy_bytes
             sub.expert_local_bytes = sub.local_bytes
             stats.merge(sub)
-            return out
-        return reshard_with_reuse(leaf, sh, stats, expert_dim=expert_dim)
+            return dst
+        return reshard_with_reuse(leaf, sh, stats, expert_dim, dst)
 
     @obs.traced("hmm.stage_increment", cat="hmm")
     def stage_increment(self, max_tensors: int = 1) -> bool:
@@ -791,14 +846,12 @@ class HMM:
                 "join_staging(), not stage_increment()")
         t0 = time.perf_counter()
         stats = self._stage_stats
-        new_cfg, mesh = self._stage_target
+        new_cfg, mesh = self._scale_target[:2]
         end = min(self._stage_cursor + max(1, max_tensors),
                   len(self._stage_work))
-        for path, leaf, sh, expert_dim, kind in self._stage_work[
-                self._stage_cursor:end]:
+        for _, *unit in self._stage_work[self._stage_cursor:end]:
             u0 = time.perf_counter()
-            self._stage_out[path] = self._stage_unit(
-                leaf, sh, expert_dim, kind, new_cfg, mesh, stats)
+            self._stage_unit(*unit[:4], new_cfg, mesh, stats, unit[4])
             stats.op_s += time.perf_counter() - u0
         self._stage_cursor = end
         stats.wall_s += time.perf_counter() - t0
@@ -834,8 +887,6 @@ class HMM:
             raise RuntimeError(
                 f"staging transfer op {failed[0].label!r} failed "
                 f"({len(failed)} op(s)); session aborted") from err
-        self._stage_out = {path: op.result for (path, *_), op
-                           in zip(self._stage_work, sess.ops)}
         # the staging window: begin_scale to the last op's landing; op_s
         # the sum of the ops' own times, for the overlap efficiency
         stats = self._stage_stats
@@ -857,17 +908,18 @@ class HMM:
         return self.poll_staging()
 
     def _finalize_staging(self):
-        """Assemble the staged tree; the dense banks record the contiguous
-        placement they now hold as the staged page table (the pooled store
-        staged its min-move remap in ``begin_scale``)."""
+        """The staged tree (``begin_scale``'s destinations, now filled) is
+        ready; the dense banks record the contiguous placement they now
+        hold as the staged page table (the pooled store staged its
+        min-move remap in ``begin_scale``)."""
         t0 = time.perf_counter()
         stats = self._stage_stats
-        new_cfg, mesh = self._stage_target
-        out = self._stage_out
-        new_params = tree_map_with_path(lambda path, _: out[path],
-                                        self.params)
+        new_cfg, mesh, new_params, _ = self._scale_target
         if self._stage_session is not None:
-            _adopt_on_default_streams(self._stage_session, new_params)
+            # the default streams read what the side streams wrote
+            for op in self._stage_session.ops:
+                for dev, ev in op.events.items():
+                    torch.cuda.current_stream(dev).wait_event(ev)
         if self.page_table is not None and self.page_table.staged is None:
             self.page_table.stage_remap(new_cfg, min_move=False)
         self.staged = (new_cfg, mesh, new_params)
@@ -876,15 +928,15 @@ class HMM:
         self._reset_stage_session()
 
     def _migrate_pool_bank(self, leaf: ShardedTensor, new_cfg: ElasticConfig,
-                           mesh: Mesh, stats: TransferStats) -> ShardedTensor:
-        """Rebuild one pooled bank for ``new_cfg``: every surviving
-        device's pool slice is reused, new devices start from zeros, and
-        exactly the staged ``Migration`` list is copied, one page per copy
-        between logical devices.  A migrated-in page is written into its
+                           stats: TransferStats, dst: ShardedTensor
+                           ) -> ShardedTensor:
+        """Rebuild one pooled bank for ``new_cfg`` into ``dst``: every
+        surviving device's pool slice is reused, new devices start from
+        zeros, and exactly the staged ``Migration`` list is copied, one
+        page per copy between logical devices.  A migrated-in page is written into its
         destination slice in place: its page is one the active table
         leaves free, so the serving instance never reads it (the
         reference's immutable arrays take a new buffer instead)."""
-        ppd = self.expert_pool_pages
         row_shape = leaf.shape[1:]
         row_bytes = math.prod(row_shape) * leaf.dtype.itemsize
         migs_by_dst: Dict[int, List] = defaultdict(list)
@@ -897,63 +949,85 @@ class HMM:
         stats.zero_copy_count += unchanged
         stats.expert_zero_copy_bytes += unchanged * row_bytes
 
-        shape = (new_cfg.ndev * ppd,) + tuple(row_shape)
-        sharding = NamedSharding(mesh, (("dp", "tp"),))
-        shards = {}
         for dev in new_cfg.devices:
-            local = leaf.shards.get(dev)
-            if local is None:
-                local = torch.zeros((ppd, *row_shape), dtype=leaf.dtype,
-                                    device=mesh.torch_device(dev))
+            local = dst.shard(dev)
             for m in migs_by_dst.get(dev, ()):
                 local[m.dst.page].copy_(leaf.shards[m.src.device][m.src.page])
                 stats.p2p_bytes += row_bytes
                 stats.p2p_count += 1
                 stats.expert_p2p_bytes += row_bytes
-            shards[dev] = local
-        return ShardedTensor(shape, sharding, shards)
+        return dst
 
     def _reset_stage_session(self):
         self._stage_session = None          # overlap only
         self._stage_t0 = 0.0
         self._stage_work: Optional[List[Tuple]] = None
         self._stage_cursor = 0
-        self._stage_out: Dict[str, Any] = {}
-        self._stage_target: Optional[Tuple] = None
         self._stage_stats: Optional[TransferStats] = None
         self._stage_layout: Optional[Dict[str, np.ndarray]] = None
 
-    def _grow_cache(self, new_cfg: ElasticConfig, mesh: Mesh,
-                    stats: TransferStats):
-        """Reuse surviving replicas' KV shards; zero new replicas'.  Dense
-        rows split the batch axis, the paged pool the block axis: either
-        way a surviving shard keeps its (index, logical device) and is
-        adopted as it is — every live block table stays valid."""
-        out = {}
+    def _new_kv_shards(self, new_cfg: ElasticConfig, mesh: Mesh
+                       ) -> Dict[str, Dict[int, torch.Tensor]]:
+        """The zeroed KV shards of ``new_cfg``'s cache that no live shard
+        provides: each (index, logical device) of its sharding that the
+        active configuration's sharding does not hold (a new replica's
+        slice, each TP rank's copy)."""
+        old_mesh = make_instance_mesh(self.active_cfg, self.all_devices)
+        old_tpl = self._cache_template(self.active_cfg)
+        out: Dict[str, Dict[int, torch.Tensor]] = {}
         for name, (shape, dtype) in self._cache_template(new_cfg).items():
-            leaf = self.cache[name]
+            old_shape = old_tpl[name][0]
+            held = {(d, _idx_key(i)) for d, i in self.cache_sharding(
+                old_shape, old_mesh).devices_indices_map(old_shape).items()}
+            out[name] = {
+                dev: torch.zeros(index_shape(shape, index), dtype=dtype,
+                                 device=mesh.torch_device(dev))
+                for dev, index in self.cache_sharding(
+                    shape, mesh).devices_indices_map(shape).items()
+                if (dev, _idx_key(index)) not in held}
+        return out
+
+    def _target_cache(self, live_cache, new_cfg: ElasticConfig, mesh: Mesh,
+                      new_kv, stats: TransferStats):
+        """``new_cfg``'s cache: the surviving replicas' shards of
+        ``live_cache`` as they are, the new replicas' from ``new_kv``
+        (``_new_kv_shards``).  Dense rows split the batch axis, the paged
+        pool the block axis: either way a surviving shard keeps its (index,
+        logical device) and is adopted as it is — every live block table
+        stays valid."""
+        out = {}
+        for name, (shape, _) in self._cache_template(new_cfg).items():
+            old = _holders(live_cache[name])
             sh = self.cache_sharding(shape, mesh)
-            old: Dict[tuple, List[Tuple[int, torch.Tensor]]] = {}
-            for dev, index, data in leaf.addressable_shards:
-                old.setdefault(_idx_key(index), []).append((dev, data))
             shards = {}
             for dev, index in sh.devices_indices_map(shape).items():
-                want = index_shape(shape, index)
-                same = [h for h in old.get(_idx_key(index), [])
-                        if h[0] == dev]
-                if same and tuple(same[0][1].shape) == want:
-                    data = same[0][1]
+                if dev in new_kv[name]:
+                    data = new_kv[name][dev]
+                    stats.init_bytes += data.nbytes
+                else:
+                    data = next(t for d, t in old[_idx_key(index)]
+                                if d == dev)
                     stats.zero_copy_bytes += data.nbytes
                     stats.zero_copy_count += 1
-                else:
-                    data = torch.zeros(want, dtype=dtype,
-                                       device=mesh.torch_device(dev))
-                    stats.init_bytes += data.nbytes
                 shards[dev] = data
             out[name] = ShardedTensor(shape, sh, shards)
         return out
 
     # --------------------------------------------------------------- attach
+    def staged_tensors(self, live_cache):
+        """The scale target's (cfg, mesh, params, cache) from
+        ``begin_scale`` until ``commit`` or ``abort``: the staged tree (its
+        copies may still be in flight) and the cache ``commit`` adopts —
+        ``live_cache``'s surviving shards and the new replicas' zeroed
+        ones.  Nothing may read them before the staging has landed; a CUDA
+        graph may be captured over them."""
+        if self._scale_target is None:
+            raise RuntimeError("no scale is staging")
+        new_cfg, mesh, params, new_kv = self._scale_target
+        return (new_cfg, mesh, params,
+                self._target_cache(live_cache, new_cfg, mesh, new_kv,
+                                   TransferStats()))
+
     def attach_staged(self):
         """The staged instance's handles: (cfg, mesh, params, cache)."""
         if self.staged is None:
@@ -984,7 +1058,9 @@ class HMM:
         t0 = time.perf_counter()
         if live_cache is not None:
             self.cache = live_cache
-        self.cache = self._grow_cache(new_cfg, mesh, stats)
+        self.cache = self._target_cache(self.cache, new_cfg, mesh,
+                                        self._scale_target[3], stats)
+        self._scale_target = None
         if self.kv_blocks is not None:
             if new_cfg.dp >= self.kv_blocks.num_partitions:
                 self.kv_blocks.grow_partitions(new_cfg.dp)
@@ -1010,6 +1086,7 @@ class HMM:
         if self._stage_session is not None:
             self._stage_session.cancel()
         self.staged = None
+        self._scale_target = None
         self.last_migrations = None
         self._reset_stage_session()
         if self.page_table is not None:
@@ -1018,27 +1095,11 @@ class HMM:
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on ``dev``.  On the card through pinned memory with an
-    async copy: a pageable copy synchronises the stream, which a worker
-    must not do while the serving thread runs under
-    ``set_sync_debug_mode("error")`` (the mode is global)."""
+    async copy: a pageable copy synchronises the stream, which
+    ``begin_scale`` must not do while the serving loop runs under
+    ``set_sync_debug_mode("error")``."""
     t = torch.from_numpy(a)
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
     return t.to(dev)
 
-
-def _adopt_on_default_streams(session, tree) -> None:
-    """Hand an overlapped session's results to the default streams: each
-    waits on every op's (completed) events, and every CUDA tensor of the
-    staged tree records the default stream, so the caching allocator never
-    gives a block a side stream allocated back to that side stream while
-    the default stream still reads it."""
-    for op in session.ops:
-        for dev, ev in op.events.items():
-            torch.cuda.current_stream(dev).wait_event(ev)
-    for _, leaf in tree_leaves_with_path(tree):
-        shards = (leaf.shards.values() if isinstance(leaf, ShardedTensor)
-                  else [leaf])
-        for t in shards:
-            if t.is_cuda:
-                t.record_stream(torch.cuda.current_stream(t.device))

@@ -1,17 +1,30 @@
 """Inference Management Module — the port of ``repro.core.imm`` (paper
-§4.5), thin.
+§4.5).
 
 Keeps an LRU cache of *pre-initialized* inference instances.  In the paper
 a standby instance is an inference process that has done every one-time
 setup except binding weights; in the reference it is the AOT-compiled step
-functions of an instance's (mesh, shapes).  The port's step functions are
-eager PyTorch callables: a standby instance holds the dict of
-``serving.engine.compile_step_functions`` for its configuration (bound to
-its mesh's parallel context) and no weights, and ``activate`` binds it to
-the HMM's live tensors — a metadata-only step.  ``ScaleEvent.compile_hit``
-reports whether the target was already in the cache.  Capturing the step
-functions as CUDA graphs, the counterpart of the reference's compile, is
-left to a later slice.
+functions of an instance's (mesh, shapes), and ``activate`` binds them to
+the HMM's arrays, a metadata-only step.  In the port a standby instance
+holds the step callables of ``serving.engine.compile_step_functions`` for
+its configuration (bound to its mesh's parallel context) and, once it is
+given tensors, their ``core/graphs.StepGraphs``: the decode step and the
+chunk steps captured as CUDA graphs over exactly those tensors, the
+counterpart of the reference's compile (on the CPU no graph is captured
+and the eager steps serve).
+
+``preinitialize(cfg, params, cache, limit)`` captures the set where the
+instance holds none over these tensors, at most ``limit`` graphs a call;
+a scale captures its target's set during staging, on the serving thread,
+over the staged tensors (``HMM.staged_tensors``): overlapped, one graph a
+poll, so the server's ticks run between the captures.  ``activate`` binds a cached set only if the
+tensors it attaches are exactly those the set was captured over
+(``graphs.Binding``), else it captures afresh and counts a miss.  The
+capture time goes into ``compile_s_total`` and the instance's
+``compile_s``; evicting an instance drops its graphs.
+``ScaleEvent.compile_hit`` reports whether the target's set was ready
+before ``switchover``.  ``cuda_graphs=False`` keeps the eager steps on the
+card: the comparison twin of tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +33,11 @@ import time
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
+import torch
+
+from repro_torch.core.graphs import Binding, StepGraphs
 from repro_torch.core.topology import ElasticConfig
+from repro_torch.core.transfer import cuda_devices
 from repro_torch.distributed.sharding import ParallelCtx, make_instance_mesh
 from repro_torch.serving.engine import (compile_step_functions,
                                         engine_parallel_ctx)
@@ -34,6 +51,15 @@ class StandbyInstance:
     compile_s: float
     parallel: Optional[ParallelCtx] = None   # None on one device
     activations: int = 0
+    # the tensors the step set was built over, and its CUDA graphs (None
+    # on the CPU or with cuda_graphs=False)
+    binding: Optional[Binding] = None
+    graphs: Optional[StepGraphs] = None
+
+    def release(self) -> None:
+        """Drop the graphs and the binding (an evicted or stale set)."""
+        self.graphs = None
+        self.binding = None
 
 
 class IMM:
@@ -41,7 +67,8 @@ class IMM:
                  prefill_buckets=(64,), prefill_chunk: int = 0,
                  lru_capacity: int = 4,
                  shared_cache: Optional[
-                     "OrderedDict[Tuple, StandbyInstance]"] = None):
+                     "OrderedDict[Tuple, StandbyInstance]"] = None,
+                 cuda_graphs: bool = True):
         self.mcfg = mcfg
         self.hmm = hmm
         self.batch_per_replica = batch_per_replica
@@ -54,7 +81,17 @@ class IMM:
         self._cache: "OrderedDict[Tuple, StandbyInstance]" = (
             shared_cache if shared_cache is not None else OrderedDict())
         self.stats = {"preinit_hits": 0, "preinit_misses": 0,
-                      "compile_s_total": 0.0}
+                      "compile_s_total": 0.0, "captures": 0}
+        # on the card: one capture stream and one graph memory pool.  The
+        # stream comes from the high-priority pool, the TransferEngine's
+        # from the default-priority one, so it is neither theirs nor the
+        # default stream
+        self.cuda_graphs = cuda_graphs and hmm.device.type == "cuda"
+        self._stream = self._pool = None
+        self._warm = False     # the capture stream has run every step
+        if self.cuda_graphs:
+            self._stream = torch.cuda.Stream(device=hmm.device, priority=-1)
+            self._pool = torch.cuda.graph_pool_handle()
 
     def _key(self, cfg: ElasticConfig) -> Tuple:
         """Everything that shapes an instance's step functions: the model,
@@ -73,13 +110,19 @@ class IMM:
         neither the LRU order nor the counters)."""
         return self._key(cfg) in self._cache
 
-    def preinitialize(self, cfg: ElasticConfig) -> StandbyInstance:
+    def preinitialize(self, cfg: ElasticConfig, params=None, cache=None,
+                      limit: Optional[int] = None) -> StandbyInstance:
         """Build (or fetch) a standby instance for ``cfg``: its step
-        functions, no weights."""
+        functions and, given ``params`` and ``cache``, its step set bound
+        to exactly those tensors, capturing at most ``limit`` of its
+        pending graphs (None: all of them)."""
         key = self._key(cfg)
         if key in self._cache:
             self._cache.move_to_end(key)
-            return self._cache[key]
+            inst = self._cache[key]
+            if params is not None:
+                self._bind(inst, params, cache, limit)
+            return inst
         t0 = time.perf_counter()
         mesh = make_instance_mesh(cfg, self.hmm.all_devices)
         parallel = engine_parallel_ctx(mesh) if cfg.ndev > 1 else None
@@ -92,20 +135,74 @@ class IMM:
         self._cache[key] = inst
         self.stats["compile_s_total"] += dt
         while len(self._cache) > self.lru_capacity:
-            self._cache.popitem(last=False)
+            self._cache.popitem(last=False)[1].release()
+        if params is not None:
+            self._bind(inst, params, cache, limit)
         return inst
 
+    def ready(self, cfg: ElasticConfig) -> bool:
+        """True if ``cfg``'s instance is cached and holds a bound step set
+        with every graph captured."""
+        inst = self._cache.get(self._key(cfg))
+        return (inst is not None and inst.binding is not None
+                and (inst.graphs is None or not inst.graphs.pending))
+
+    def _bind(self, inst: StandbyInstance, params, cache,
+              limit: Optional[int] = None) -> bool:
+        """Bind ``inst``'s step set to ``params`` and ``cache`` and, on the
+        card, capture at most ``limit`` of its pending graphs (None: all).
+        True if the set was already complete over exactly these tensors;
+        else a set over other tensors is dropped for a fresh one, and
+        False."""
+        t0 = time.perf_counter()
+        if inst.binding is None or not inst.binding.matches(params, cache):
+            inst.release()      # a stale set's pool memory is reusable
+            if self.cuda_graphs:
+                devs = cuda_devices(inst.mesh.torch_device(d)
+                                    for d in inst.cfg.devices)
+                if len(devs) != 1:
+                    raise NotImplementedError(
+                        f"CUDA graphs of an instance on {len(devs)} cards "
+                        f"are not ported (pass cuda_graphs=False)")
+                hmm = self.hmm
+                paged = hmm.kv_mode == "paged"
+                inst.graphs = StepGraphs(
+                    inst.compiled, params, cache,
+                    slots=inst.cfg.dp * self.batch_per_replica,
+                    max_len=self.max_len, paged=paged,
+                    block_size=hmm.kv_block_size,
+                    nb=hmm.kv_blocks_per_replica if paged else 0,
+                    chunk=self.prefill_chunk, replicas=inst.cfg.dp,
+                    device=devs[0], stream=self._stream, pool=self._pool,
+                    warmup=not self._warm)
+                self._warm = True
+            inst.binding = Binding(params, cache)
+            self.stats["captures"] += 1
+        elif inst.graphs is None or not inst.graphs.pending:
+            return True
+        if inst.graphs is not None:
+            try:
+                inst.graphs.capture(limit)
+            except BaseException:
+                inst.release()
+                raise
+        dt = time.perf_counter() - t0
+        inst.compile_s += dt
+        self.stats["compile_s_total"] += dt
+        return False
+
     def activate(self, cfg: ElasticConfig, staged: bool = False):
-        """Attach a standby instance to the HMM's tensors.  Returns
-        (instance, params, cache, was_preinitialized)."""
+        """Attach a standby instance to the HMM's tensors: bind its step
+        set if it was captured over exactly these, else capture it now.
+        Returns (instance, params, cache, was_preinitialized)."""
         key = self._key(cfg)
-        hit = key in self._cache
-        self.stats["preinit_hits" if hit else "preinit_misses"] += 1
-        inst = self.preinitialize(cfg)
-        inst.activations += 1
         attached, _, params, cache = (self.hmm.attach_staged() if staged
                                       else self.hmm.attach_active())
         if self._key(attached) != key:
             raise RuntimeError(f"the HMM holds {attached.describe()}, not "
                                f"{cfg.describe()}")
+        inst = self.preinitialize(cfg)
+        hit = self._bind(inst, params, cache)
+        self.stats["preinit_hits" if hit else "preinit_misses"] += 1
+        inst.activations += 1
         return inst, params, cache, hit

@@ -13,8 +13,10 @@ running ops are joined — after it returns no worker touches the caller's
 state.
 
 On the card each worker thread owns one side ``torch.cuda.Stream`` (per
-CUDA device an op names), and an op with ``devices`` runs under it while
-the serving thread issues its steps on the default stream:
+CUDA device an op names; created with the engine, for the ``devices`` it
+is given, so no stream is created while a staging runs), and an op with
+``devices`` runs under it while the serving thread issues its steps on the
+default stream:
 
 * **ordering** — the session's ``after`` events, recorded on the
   submitting thread's current (default) stream, are waited on by the side
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import queue
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -148,13 +151,19 @@ class TransferSession:
 class TransferEngine:
     """Bounded worker pool issuing transfer ops off the serving thread.
     One per HMM, kept across scale events; ``max_workers`` bounds the
-    copies' contention with the serving hot path."""
+    copies' contention with the serving hot path.  ``devices``: the CUDA
+    devices whose side streams (one per worker) are created here."""
 
-    def __init__(self, max_workers: int = 4):
+    def __init__(self, max_workers: int = 4, devices: Iterable = ()):
         self.max_workers = max(1, int(max_workers))
         self._pool = ThreadPoolExecutor(max_workers=self.max_workers,
                                         thread_name_prefix="hmm-transfer")
         self._local = threading.local()     # a worker's side streams
+        devs = cuda_devices(devices)
+        # each worker thread takes one set on its first op
+        self._free: "queue.SimpleQueue[Dict]" = queue.SimpleQueue()
+        for _ in range(self.max_workers if devs else 0):
+            self._free.put({d: torch.cuda.Stream(device=d) for d in devs})
 
     def submit(self, ops: List[TransferOp],
                after: Optional[Dict[torch.device, Any]] = None
@@ -167,7 +176,11 @@ class TransferEngine:
     def _side_stream(self, device: torch.device):
         streams = getattr(self._local, "streams", None)
         if streams is None:
-            streams = self._local.streams = {}
+            try:
+                streams = self._free.get_nowait()
+            except queue.Empty:
+                streams = {}
+            self._local.streams = streams
         if device not in streams:
             streams[device] = torch.cuda.Stream(device=device)
         return streams[device]

@@ -11,9 +11,20 @@ never loads a stale library.  ``build()`` starts one ``nvcc`` per source,
 all at once.  The build directory lies inside the package and is listed in
 ``.gitignore``.  Nothing here runs at import time: this module imports on
 machines without ``nvcc`` or a card, and only a CUDA tensor reaches it.
+
+Each wrapper counts its launches through ``count_launch``.  While a CUDA
+graph is captured on the calling thread (``capturing``), nothing is
+launched: the count goes to the capture's tally instead, and the graph adds
+the tally to the wrappers' counts at each replay, when the kernels run.
+Nor does a capture grow the split counters or workspaces: a zero fill
+captured into a graph would run only at its replays, so a capture that
+finds them too small records the sizes it needs (``Tally.short``) and
+gets scratch; the caller grows them with ``reserve`` and captures again.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -21,7 +32,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Iterator, List, Sequence
 
 import torch
 
@@ -41,6 +52,12 @@ _counters: Dict[tuple, torch.Tensor] = {}
 #: (device index, stream) -> the f32 split workspace of that stream's
 #: launches
 _workspaces: Dict[tuple, torch.Tensor] = {}
+#: counters and workspaces a larger one replaced: a captured CUDA graph
+#: may still name them, so they are never freed
+_retired: List[torch.Tensor] = []
+#: the ``Tally`` of the CUDA graph being captured on this thread
+_tally: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_launch_tally", default=None)
 
 
 def _nvcc() -> str:
@@ -114,17 +131,43 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         return lib
 
 
+class Tally:
+    """What the wrappers did during a capture: the launches each replay
+    will make (wrapper -> count), and the split buffers found too small
+    ((device, stream) -> [counters, workspace values] needed)."""
+
+    def __init__(self):
+        self.launches: Dict = {}
+        self.short: Dict[tuple, List[int]] = {}
+
+
+def _split_buffer(table: Dict[tuple, torch.Tensor], slot: int,
+                  dev: torch.device, stream: int, n: int,
+                  dtype) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = table.get(key)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    tally = _tally.get()
+    if tally is not None:
+        # capturing: no buffer that outlives this graph is made here
+        need = tally.short.setdefault((dev, stream), [0, 0])
+        need[slot] = max(need[slot], n)
+        return torch.empty(n, dtype=dtype, device=dev)
+    if buf is not None:
+        _retired.append(buf)
+    buf = table[key] = torch.zeros(n, dtype=dtype, device=dev)
+    return buf
+
+
 def split_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 zeros on ``dev`` for the split-merging kernels
     launched on ``stream``: the last block of each group of splits counts
     on them and resets its counter to zero, so every launch leaves them
     zero and one buffer per (device, stream) serves every launch there
-    (launches on one stream never overlap) without a memset."""
-    key = (dev.index, stream)
-    done = _counters.get(key)
-    if done is None or done.numel() < n:
-        done = _counters[key] = torch.zeros(n, dtype=torch.int32, device=dev)
-    return done
+    (launches on one stream never overlap) without a memset.  During a
+    capture a buffer too small is not grown (see ``Tally``)."""
+    return _split_buffer(_counters, 0, dev, stream, n, torch.int32)
 
 
 def split_workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -132,13 +175,42 @@ def split_workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     launched on ``stream`` store each split's partial sums.  A launch
     writes every split it reads before its last block reads them, so one
     buffer per (device, stream), grown when a launch needs more, serves
-    every launch there; launches on one stream never overlap."""
-    key = (dev.index, stream)
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < n:
-        ws = _workspaces[key] = torch.empty(n, dtype=torch.float32,
-                                            device=dev)
-    return ws
+    every launch there; launches on one stream never overlap.  During a
+    capture a buffer too small is not grown (see ``Tally``)."""
+    return _split_buffer(_workspaces, 1, dev, stream, n, torch.float32)
+
+
+def reserve(short: Dict[tuple, List[int]]) -> None:
+    """Grow the split counters and workspaces to a capture's ``short``
+    sizes, outside any capture: the counters are zeroed on the calling
+    thread's current stream, where the graphs replay."""
+    for (dev, stream), (n_counters, n_ws) in short.items():
+        split_counters(dev, stream, n_counters)
+        split_workspace(dev, stream, n_ws)
+
+
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: on ``wrapper.launches``, or,
+    while a CUDA graph is captured on this thread, on the capture's
+    tally."""
+    tally = _tally.get()
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally.launches[wrapper] = tally.launches.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Tally]:
+    """Inside the block the wrappers count into the yielded ``Tally``
+    instead of their own counts, and leave the split buffers as they are:
+    a graph's capture, which launches nothing."""
+    tally = Tally()
+    token = _tally.set(tally)
+    try:
+        yield tally
+    finally:
+        _tally.reset(token)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

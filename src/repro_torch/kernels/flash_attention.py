@@ -83,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), B, S, H, KVH, hd, hdv, int(causal), scale,
             stream)
     _build.check(lib, rc, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -79,7 +79,7 @@ def _launch(fn: str, *args) -> None:
     lib = _build.load("kv_write", _SIGNATURES)
     stream = torch.cuda.current_stream().cuda_stream
     _build.check(lib, getattr(lib, fn)(*args, stream), fn)
-    kv_cache_write.launches += 1
+    _build.count_launch(kv_cache_write)
 
 
 def _slot_args(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

@@ -118,7 +118,7 @@ def mla_decode_attention(q_eff: torch.Tensor, q_rope: torch.Tensor,
             out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
             done.data_ptr(), B, H, S, r, dr, float(scale), stream)
     _build.check(lib, rc, "mla_decode_attention")
-    mla_decode_attention.launches += 1
+    _build.count_launch(mla_decode_attention)
     return out
 
 

@@ -105,7 +105,7 @@ def paged_gmm(table: torch.Tensor, pool: torch.Tensor,
                                   x.data_ptr(), pool.data_ptr(),
                                   out.data_ptr(), E, C, D, F, P, inst, stream)
     _build.check(lib, rc, "paged_gmm")
-    paged_gmm.launches += 1
+    _build.count_launch(paged_gmm)
     return out
 
 
@@ -133,7 +133,7 @@ def quant_paged_gmm(table: torch.Tensor, pool: torch.Tensor,
                                         scales.data_ptr(), out.data_ptr(), E,
                                         C, D, F, P, inst, stream)
     _build.check(lib, rc, "quant_paged_gmm")
-    quant_paged_gmm.launches += 1
+    _build.count_launch(quant_paged_gmm)
     return out
 
 

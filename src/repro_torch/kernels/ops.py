@@ -12,7 +12,8 @@ kv_heads)`` of a pool that holds more (a TP rank's heads of the replicated
 cache; ``kernels/ref.py``'s module note), read in place.
 
 Launch counts live on the kernel wrappers (``<wrapper>.launches``, one per
-launch and nowhere else); ``launch_counts`` reads and
+launch and nowhere else; a CUDA graph's replay adds the launches its
+capture recorded, ``_build.count_launch``); ``launch_counts`` reads and
 ``reset_launch_counts`` zeroes them.
 """
 from __future__ import annotations

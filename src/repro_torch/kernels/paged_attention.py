@@ -195,7 +195,7 @@ def _mixed_launch(wrapper, q, kv, inputs, dims):
             _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in inputs),
             out.data_ptr(), *ws, *dims, 1.0 / math.sqrt(hd), stream)
     _build.check(lib, rc, name)
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return out
 
 
@@ -241,7 +241,7 @@ def _decode_launch(wrapper, q, kv, inputs, dims, context, scales=()):
             out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
             done.data_ptr(), *dims, 1.0 / math.sqrt(hd), stream)
     _build.check(lib, rc, name)
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return out
 
 

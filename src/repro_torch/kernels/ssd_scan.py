@@ -119,7 +119,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
             state.data_ptr(), ws.data_ptr(), B, S, H, P, N, Q, stream)
     _build.check(lib, rc, "ssd_scan")
-    ssd_scan.launches += 1
+    _build.count_launch(ssd_scan)
     return y, state
 
 

@@ -700,31 +700,40 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
     return linear(params["lm_head"], x[:, 0]), cache
 
 
-def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
-                             length: int, block_tables, chunk_block_ids, *,
+def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start,
+                             length, block_tables, chunk_block_ids, *,
                              parallel=None, replica: int = 0):
     """One chunked-prefill step for a single sequence over the paged pool.
 
     tokens [1,C] — one prompt chunk at positions start..start+C-1 (rows at
     or beyond the prompt length are padding); ``start`` = chunk offset
-    (block-aligned); ``length`` = context tokens after this chunk;
-    block_tables [1,MB] = the sequence's table; chunk_block_ids [C/bs] =
-    pool rows receiving this chunk's k/v (``NB`` for padding / CoW-shared
-    rows -> dropped).  Updates ``cache`` in place; returns (logits [1,V] at
-    position ``length-1``, cache).  With ``parallel`` the sequence belongs
-    to replica ``replica``: its table and ids are local to that replica's
-    pool slice."""
-    start, length = int(start), int(length)
+    (block-aligned); ``length`` = context tokens after this chunk; both [1]
+    int32 tensors on the tokens' device, as a captured CUDA graph reads
+    them (a Python int is filled into one); block_tables [1,MB] = the
+    sequence's table; chunk_block_ids [C/bs] = pool rows receiving this
+    chunk's k/v (``NB`` for padding / CoW-shared rows -> dropped).  Updates
+    ``cache`` in place; returns (logits [1,V] at position ``length-1``,
+    gathered by a device index, cache).  With ``parallel`` the sequence
+    belongs to replica ``replica``: its table and ids are local to that
+    replica's pool slice."""
     C = tokens.shape[1]
     dev = tokens.device
-    if parallel is not None:
-        dev, (tokens, block_tables, chunk_block_ids) = _one_replica(
-            parallel, replica, tokens, block_tables, chunk_block_ids)
-    positions = start + torch.arange(C, device=dev, dtype=torch.int32)[None]
-    q_len = length - start
     # fills, not copies from host memory: the step never syncs
-    ctx_t = torch.full((1,), length, dtype=torch.int32, device=dev)
-    qlen_t = torch.full((1,), q_len, dtype=torch.int32, device=dev)
+    start, length = (
+        v if torch.is_tensor(v)
+        else torch.full((1,), int(v), dtype=torch.int32, device=dev)
+        for v in (start, length))
+    if parallel is not None:
+        dev, (tokens, block_tables, chunk_block_ids, start, length) = \
+            _one_replica(parallel, replica, tokens, block_tables,
+                         chunk_block_ids, start, length)
+    start = start.reshape(1).to(torch.int32)
+    ctx_t = length.reshape(1).to(torch.int32)
+    positions = start[:, None] + torch.arange(C, device=dev,
+                                              dtype=torch.int32)[None]
+    qlen_t = ctx_t - start
+    # the logits row of the last valid position, q_len - 1
+    last = (qlen_t - 1).long()
     if parallel is not None:
         copies = _rank_caches(cache, parallel, replica)
 
@@ -737,7 +746,8 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
         hs, local, devs = _dp_layers(cfg, params, parallel, [replica],
                                      [tokens], attn)
         return _logits(cfg, local, devs,
-                       [[x[:, q_len - 1] for x in hs[0]]])[0], cache
+                       [[x.index_select(1, last.to(x.device))[:, 0]
+                         for x in hs[0]]])[0], cache
     x = F.embedding(tokens.long(), params["embed"])
     pool = params.get("moe_pool")
     for _, i, bp, moe in _layers(cfg, params):
@@ -751,4 +761,4 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start: int,
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
         x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    return linear(params["lm_head"], x[:, q_len - 1]), cache
+    return linear(params["lm_head"], x.index_select(1, last)[:, 0]), cache

@@ -18,8 +18,11 @@ is prefilled at admission.  Every tick ends with one decode step for every
 runnable slot.
 
 The step functions are plain callables keyed like the reference's compiled
-executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``);
-PyTorch runs them eagerly.  They update the cache in place: the reference
+executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``).  On
+the card the IMM captures the decode step and the chunk step as CUDA graphs
+(``core/graphs.py``) and ``bind`` hands them over: the engine then fills
+their static inputs and replays them in place of the eager calls; the
+prefills stay eager.  The steps update the cache in place: the reference
 donates it to its jitted steps, here the rows are written directly.
 
 On several logical devices (``parallel``, from ``engine_parallel_ctx``) the
@@ -149,13 +152,15 @@ def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
     """One paged prefill chunk: the chunk's KV lands in pool rows
     ``chunk_ids`` (``NB`` = padding or CoW-shared block; dropped) and
     attention reads the whole context through ``block_tables`` [1, MB]
-    (with ``parallel``: on replica ``replica``, local to its slice).  The
-    returned token is the argmax at the last valid position."""
+    (with ``parallel``: on replica ``replica``, local to its slice);
+    ``start`` and ``length`` are [1] int32 tensors.  Returns (the argmax
+    token at the last valid position as a [1] int32 tensor, cache): the
+    caller reads it, outside a captured graph."""
     logits, cache = M.paged_chunk_prefill_step(mcfg, params, tokens, cache,
                                                start, length, block_tables,
                                                chunk_ids, parallel=parallel,
                                                replica=replica)
-    return int(torch.argmax(logits, dim=-1)[0]), cache
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
 def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
@@ -246,6 +251,9 @@ class InferenceEngine:
         self.params = None
         self.cache = None
         self.compiled: Dict[str, Callable] = {}
+        # the configuration's CUDA graphs (``core/graphs.StepGraphs``), or
+        # None: the eager steps
+        self.graphs = None
         self.slots: List[SlotState] = []
         self.lengths: Optional[np.ndarray] = None
         self.tokens: Optional[np.ndarray] = None
@@ -271,17 +279,20 @@ class InferenceEngine:
 
     def bind(self, cfg, params, cache, compiled,
              kv: Optional[KVBlockManager] = None,
-             parallel: Optional[ParallelCtx] = None):
+             parallel: Optional[ParallelCtx] = None, graphs=None):
         """Attach the instance's parameters, cache and step functions;
         ``kv`` is the block manager of a paged pool (None: dense KV),
         ``parallel`` the context of an instance on several logical
-        devices.  A rebind keeps the surviving slots' requests, lengths,
-        tokens and block tables (their KV stays where it is)."""
+        devices, ``graphs`` its decode and chunk steps captured over these
+        very tensors (None: the eager steps).  A rebind keeps the
+        surviving slots' requests, lengths, tokens and block tables (their
+        KV stays where it is)."""
         old_slots, old_lengths = self.slots, self.lengths
         old_tokens, old_tables = self.tokens, self.block_tables
         self.cfg = cfg
         self.params, self.cache = params, cache
         self.compiled = compiled
+        self.graphs = graphs
         self.kv = kv
         self.parallel = parallel
         n = self.num_slots
@@ -779,11 +790,17 @@ class InferenceEngine:
             bt = self.kv.block_table(job.rid)
             tbl[0, :len(bt)] = bt
             r = [self._partition(slot)]
-            first, self.cache = self._chunk_prefill()(
-                self.params, self.cache, self._to_device(toks), plan.start,
-                upto, self._to_device(self._local_ids(tbl, r)),
-                self._to_device(self._local_ids(ids, r)),
-                **self._replica_kw(slot))
+            tbl, ids = self._local_ids(tbl, r), self._local_ids(ids, r)
+            if self.graphs is not None:
+                first = self.graphs.chunk(r[0], toks, plan.start, upto, tbl,
+                                          ids)
+            else:
+                first, self.cache = self._chunk_prefill()(
+                    self.params, self.cache, self._to_device(toks),
+                    self._to_device(np.array([plan.start], np.int32)),
+                    self._to_device(np.array([upto], np.int32)),
+                    self._to_device(tbl), self._to_device(ids),
+                    **self._replica_kw(slot))
             job.pos = upto
             # written blocks become matchable for later arrivals
             self.kv.register_written(job.rid, [int(t) for t in full], upto)
@@ -841,14 +858,15 @@ class InferenceEngine:
             return pre
         active = np.array(runnable)
         self._step_count += 1
-        args = [self._to_device(a) for a in (self.tokens, self.lengths,
-                                             active)]
+        args = [self.tokens, self.lengths, active]
         if self.paged:
             parts = np.arange(len(self.slots)) // self.batch_per_replica
-            args.append(self._to_device(self._local_ids(self.block_tables,
-                                                         parts)))
-        nxt, self.cache = self.compiled["decode"](self.params, self.cache,
-                                                  *args)
+            args.append(self._local_ids(self.block_tables, parts))
+        if self.graphs is not None:
+            nxt = self.graphs.decode(*args)
+        else:
+            nxt, self.cache = self.compiled["decode"](
+                self.params, self.cache, *map(self._to_device, args))
         nxt = nxt.cpu().numpy()
         out = []
         for i, s in enumerate(self.slots):

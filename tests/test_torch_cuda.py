@@ -30,7 +30,13 @@ attention at head width 80), and for scaling while serving (overlapped
 staging on the TransferEngine's side streams while decode steps run
 under sync-debug "error", its shards equal to a serial staging's; a KV
 block copied between replicas and TP copies, int8 scales included; a
-transfer session that counts as finished only once its copies landed).
+transfer session that counts as finished only once its copies landed),
+and for the IMM's CUDA graphs (graphed servers against their eager twins,
+``cuda_graphs=False``, over paged bf16 and int8, dense, MLA and Mamba2
+stores on one device and DP2 x TP2, greedy tokens and launch counts
+equal; the paged decode and chunk steps' logits replayed bit for bit; a
+scale up, down and up that captures each target afresh; a capture on the
+serving thread while an overlapped staging's workers copy).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -1676,3 +1682,294 @@ def test_a_session_finishes_when_its_copies_have_landed(dev):
     copy_s = marks["start"].elapsed_time(marks["end"]) / 1e3
     assert op.seconds >= copy_s, (op.seconds, copy_s)
     assert torch.equal(dst, src)
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+def _graph_model(name):
+    """The served model of a graph test in bf16: ``TEST_MOE``'s widths (2
+    layers, 24 experts top-2, 4 heads of 16; the chunked paged path), or
+    a reduced model (2 layers; the monolithic prefill's flash attention
+    takes head widths of 64 and more, so the reduced MLA model keeps
+    deepseek-v2-lite's head and latent widths)."""
+    from repro_torch.configs import ModelConfig, get_config
+    if name == "test-moe":
+        return ModelConfig(name="test-moe", arch_type="moe", num_layers=2,
+                           d_model=64, vocab_size=128, num_heads=4,
+                           num_kv_heads=4, head_dim=16, d_ff=128,
+                           num_experts=24, top_k=2, moe_d_ff=32,
+                           dtype="bfloat16", capacity_factor=100.0)
+    cfg = dataclasses.replace(get_config(name + "-smoke"), dtype="bfloat16")
+    if cfg.use_mla:
+        cfg = dataclasses.replace(cfg, kv_lora_rank=512, qk_nope_dim=128,
+                                  qk_rope_dim=64, v_head_dim=128)
+    return cfg
+
+
+GRAPH_PAGED = dict(kv_mode="paged", kv_block_size=16, expert_mode="pooled",
+                   prefill_chunk=32, prefill_budget=64, prefill_buckets=(32,))
+# store: (model, tp, logical devices, boot dp, server knobs)
+GRAPH_SERVERS = {
+    "paged_bf16": ("test-moe", 1, 1, 1, GRAPH_PAGED),
+    "paged_int8": ("test-moe", 1, 1, 1, dict(GRAPH_PAGED, kv_dtype="int8",
+                                             expert_dtype="int8")),
+    "dense": ("qwen3-30b-a3b", 1, 1, 1, dict(prefill_buckets=(32, 64))),
+    "mla": ("deepseek-v2-lite-16b", 1, 1, 1,
+            dict(prefill_buckets=(32, 64))),
+    "mamba2": ("mamba2-1.3b", 1, 1, 1, dict(prefill_buckets=(32, 64))),
+    "dp2_tp2": ("test-moe", 2, 6, 2, GRAPH_PAGED),
+}
+GRAPH_REQS = [(n, out) for n, out in zip([10, 37, 16, 23, 30, 45],
+                                         [20, 12, 24, 9, 15, 18])]
+
+
+def _graph_server(dev, store, graphs, **kw):
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    model, tp, ndev, dp, knobs = GRAPH_SERVERS[store]
+    srv = ElasticServer(_graph_model(model), tp=tp, batch_per_replica=2,
+                        max_len=128, seed=0, all_devices=[dev] * ndev,
+                        device=dev, cuda_graphs=graphs, **knobs, **kw)
+    srv.boot(ElasticConfig(dp, tp, tuple(range(dp * tp))))
+    return srv
+
+
+def _graph_requests(vocab):
+    from repro_torch.serving.workload import Request
+    gen = torch.Generator().manual_seed(0)
+    return [Request(i, 0.0, n, out,
+                    prompt=torch.randint(0, vocab, (n,), generator=gen)
+                    .numpy().astype("int32"))
+            for i, (n, out) in enumerate(GRAPH_REQS)]
+
+
+def _drive(srv, scale=None):
+    """Serve ``GRAPH_REQS`` to the end; ``scale(srv, tick)`` runs before
+    every tick and returns True while it has work left, which the ticks
+    then go on for.  Returns each request's tokens."""
+    reqs = _graph_requests(srv.mcfg.vocab_size)
+    for r in reqs:
+        srv.submit(r)
+    n, busy = 0, scale is not None
+    while busy or any(r.finish_s is None for r in reqs):
+        busy = scale is not None and scale(srv, n)
+        srv.tick(n * .1)
+        n += 1
+        assert n < 1000
+    return {r.rid: srv.engine.generated[r.rid] for r in reqs}
+
+
+@pytest.mark.parametrize("store", sorted(GRAPH_SERVERS))
+def test_graphed_server_tokens_equal_eager(dev, store):
+    """The same requests on a server with the CUDA graphs (the default)
+    and on its eager twin (``cuda_graphs=False``): the greedy tokens are
+    equal; the graphed one replays its graphs (the engine holds them) and
+    launched every kernel the eager one did, as many times."""
+    counts, tokens = {}, {}
+    for graphs in (False, True):
+        srv = _graph_server(dev, store, graphs)
+        assert (srv.engine.graphs is not None) == graphs
+        ops.reset_launch_counts()
+        tokens[graphs] = _drive(srv)
+        counts[graphs] = ops.launch_counts()
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
+    assert counts[True] == counts[False]
+
+
+def _step_inputs(dev, cfg, NB):
+    gen = torch.Generator().manual_seed(3)
+    bt = torch.full((4, 8), NB, dtype=torch.int32)
+    bt[0, :2], bt[1, :1], bt[2, :3] = (torch.tensor([5, 9]),
+                                       torch.tensor([2]),
+                                       torch.tensor([7, 1, 30]))
+    return dict(
+        tokens=torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                             dtype=torch.int32).to(dev),
+        lens=torch.tensor([20, 3, 40, 0], dtype=torch.int32, device=dev),
+        wb=torch.tensor([9, 2, 30, NB], dtype=torch.int32, device=dev),
+        bt=bt.to(dev),
+        chunk=torch.randint(0, cfg.vocab_size, (1, 32), generator=gen,
+                            dtype=torch.int32).to(dev),
+        ids=torch.tensor([7, NB], dtype=torch.int32, device=dev),
+        start=torch.tensor([0], dtype=torch.int32, device=dev),
+        length=torch.tensor([20], dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_graphed_steps_give_the_eager_logits_bit_for_bit(dev, store):
+    """A 2-layer qwen3-30b-a3b's paged decode step and chunk step captured
+    with ``core.graphs.capture`` (its thread-local mode, a side stream, a
+    pool): each replay's logits equal the eager step's on the same inputs
+    and cache bit for bit (the same kernels on the same bytes; both write
+    the same rows), and a replay counts the launches its capture
+    tallied."""
+    from repro_torch.core.graphs import capture
+    from repro_torch.models import model as M
+    int8 = dict(kv_dtype="int8", expert_dtype="int8") if store == "int8" \
+        else {}
+    cfg, params, cache = _booted("qwen3-30b-a3b", dev, **PAGED, **int8)
+    x = _step_inputs(dev, cfg, 32)
+    steps = {
+        "decode": lambda: M.paged_decode_step(
+            cfg, params, x["tokens"][:, None], cache, x["lens"], x["bt"],
+            x["wb"])[0],
+        "chunk": lambda: M.paged_chunk_prefill_step(
+            cfg, params, x["chunk"], cache, x["start"], x["length"],
+            x["bt"][2:3], x["ids"])[0]}
+    stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+    for name, fn in steps.items():
+        want = fn().clone()
+        ops.reset_launch_counts()
+        g = capture(fn, stream, pool)
+        assert sum(ops.launch_counts().values()) == 0     # nothing ran
+        for _ in range(2):
+            got = g.replay().clone()
+            assert torch.equal(got, want), (name, (got - want).abs().max())
+        assert ops.launch_counts()["kv_cache_write"] == 2 * cfg.num_layers
+
+
+def _scale_schedule(targets):
+    """From tick 3 on, every 3 ticks: ``stage_scale`` to the next of
+    ``targets``, then ``switchover`` once the doomed slots of a
+    scale-down have drained (staging stops their admission)."""
+    from repro_torch.core.topology import ElasticConfig
+    todo, state = list(targets), {"last": 0}
+
+    def scale(srv, n):
+        if srv._staged_cfg is not None:
+            keep = srv._staged_cfg.dp * srv.engine.batch_per_replica
+            if srv.engine.drained(keep):
+                srv.switchover()
+                state["last"] = n
+        elif todo and n - state["last"] >= 3:
+            dp = todo.pop(0)
+            srv.stage_scale(ElasticConfig(dp, 1, tuple(range(dp))))
+        return bool(todo) or srv._staged_cfg is not None
+    return scale
+
+
+def test_scale_up_down_up_captures_afresh(dev):
+    """DP2 -> DP3 -> DP2 -> DP3 while serving: every target's graphs are
+    captured during its staging over its staged tensors and bound at the
+    switchover (a hit); the second DP3 set is a fresh capture (the first's
+    tensors were freed at the scale-down, so its record refuses the new
+    ones); the tokens equal the eager twin's on the same schedule."""
+    tokens = {}
+    for graphs in (False, True):
+        srv = _dp_server(dev, graphs)
+        tokens[graphs] = _drive(srv, _scale_schedule([3, 2, 3]))
+        assert [e.dst.split("-")[0] for e in srv.events] == \
+            ["DP3", "DP2", "DP3"]
+        assert all(e.compile_hit for e in srv.events)
+        st = srv.imm.stats
+        assert (st["captures"], st["preinit_misses"]) == (4, 1)
+        assert (srv.engine.graphs is not None) == graphs
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
+
+
+def _dp_server(dev, graphs, **kw):
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    srv = ElasticServer(_graph_model("test-moe"), tp=1, batch_per_replica=2,
+                        max_len=128, seed=0, all_devices=[dev] * 4,
+                        device=dev, cuda_graphs=graphs, **GRAPH_PAGED, **kw)
+    srv.boot(ElasticConfig(2, 1, (0, 1)))
+    return srv
+
+
+def test_capture_beside_an_overlapped_staging(dev):
+    """DP2 -> DP3 with ``staging="overlap"``, each unit slowed: the polls
+    capture the target's graphs on the serving thread, one a poll with
+    ticks between them, while the workers copy on their side streams and
+    wait on their events (capture in thread-local mode); the switchover
+    binds them, and the tokens equal the eager twin's."""
+    import time
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.serving.driver import ScalePhase
+    tokens = {}
+    for graphs in (False, True):
+        srv = _dp_server(dev, graphs, staging="overlap", transfer_workers=2)
+        unit = srv.hmm._stage_unit
+
+        def slow(*a, **k):
+            time.sleep(0.02)
+            return unit(*a, **k)
+        srv.hmm._stage_unit = slow
+        seen = {}
+
+        def scale(srv, n, seen=seen):
+            task = seen.get("task")
+            if n == 3:
+                seen["task"] = srv.start_scale(ElasticConfig(3, 1,
+                                                             (0, 1, 2)))
+            elif task is not None and not task.done:
+                before = srv.imm.stats["captures"]
+                in_flight = srv.hmm.staging_in_flight
+                ready = srv.imm.ready(task.target)
+                task.advance(n * .1)
+                if srv.imm.stats["captures"] > before:
+                    seen["captured_in_flight"] = in_flight \
+                        and srv.hmm.staging_in_flight
+                if not ready:
+                    seen["capture_polls"] = seen.get("capture_polls", 0) + 1
+        tokens[graphs] = _drive(srv, scale)
+        task = seen["task"]
+        while not task.done:
+            task.advance(0.0)
+        assert task.phase is ScalePhase.DONE and task.event.compile_hit
+        if graphs:
+            assert seen["captured_in_flight"]
+            # the decode graph and three chunk graphs, one a poll
+            assert seen["capture_polls"] == 4
+            assert srv.engine.graphs is not None
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
+
+
+def test_a_target_that_outgrows_the_split_buffers_replays_a_chunk_first(
+        dev):
+    """DP2 -> DP3 where the target's steps need more split counters and
+    workspace than the capture stream holds: the stream's buffers are set
+    aside first (kept alive, as the boot's graphs name them), the case of
+    a target whose steps need more than any step captured before.  Its
+    capture then grows them outside the capture, counters zeroed, and
+    captures again over them; they are zero before any replay.  The first
+    graph of the target that replays is a chunk step (the requests that
+    wait are admitted into the new slots at the switchover), whose merge
+    counts on those zeros.  The tokens equal the eager twin's."""
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import _build
+    tokens, order = {}, []
+    for graphs in (False, True):
+        srv = _dp_server(dev, graphs)
+
+        def scale(srv, n, graphs=graphs):
+            if n == 3:
+                if graphs:
+                    s = srv.imm._stream.cuda_stream
+                    for table in (_build._counters, _build._workspaces):
+                        for key in [k for k in table if k[1] == s]:
+                            _build._retired.append(table.pop(key))
+                srv.stage_scale(ElasticConfig(3, 1, (0, 1, 2)))
+                if graphs:
+                    torch.cuda.synchronize()
+                    done = [c for (_, s), c in _build._counters.items()
+                            if s == srv.imm._stream.cuda_stream]
+                    assert len(done) == 1 and not done[0].any()
+            elif n == 4:
+                assert srv.queue            # they wait for the new slots
+                srv.switchover()
+                g = srv.engine.graphs
+                for name in ("decode", "chunk") if graphs else ():
+                    def logged(*a, _f=getattr(g, name), _n=name):
+                        order.append(_n)
+                        return _f(*a)
+                    setattr(g, name, logged)
+            return n < 4
+        tokens[graphs] = _drive(srv, scale)
+        assert srv.events[0].compile_hit
+        srv.hmm.close()
+    assert order[0] == "chunk"
+    assert tokens[True] == tokens[False]
