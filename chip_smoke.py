@@ -27,9 +27,12 @@ Phases, each of which raises on failure (no phase's failure is caught):
    second launch giving the same bits; the slot pair write (K and V in
    one launch).  ``flash_attention`` runs at the
    buckets S = 1024 (the main case), 192 (a ragged tile) and 64, and at
-   MLA's q/k width 192 and v width 128 (S = 1024 and 192);
+   MLA's q/k width 192 and v width 128 (S = 1024 and 192; and 1024 at
+   a TP rank's 8 heads, ``serve_scale_mla``'s prefill);
    ``mla_decode_attention`` at deepseek-v2-lite's decode shape (B = 8,
-   H = 16, r = 512, dr = 64, S_max = 2048) and at lengths all 1, all
+   H = 16, r = 512, dr = 64, S_max = 2048), at a TP rank's 8 heads as
+   ``serve_scale_mla`` gives them (a replica's B = 2 slots, and B = 4;
+   lengths 1900, 5, 640, 1024) and at lengths all 1, all
    S_max, an S_max of 1000 with a length of 0, and lengths either side of
    one and two of the kernel's spans, with queries drawn so
    that the scores spread over several units (a peaked softmax, as in
@@ -251,6 +254,42 @@ Phases, each of which raises on failure (no phase's failure is caught):
 17. ``serve_down_tp``: the same at DP3 x TP2 -> DP2 x TP2 (6 requests,
    two doomed), bf16, migrate and unscaled; every TP copy of the cache
    equal after the scale.
+18. ``serve_scale_mla``: the dense layout on several logical devices:
+   deepseek-v2-lite-16b at full width and 8 layers (the pools the HMM
+   reserves, ``2 L ceil(E / ndev)`` pages a device, outgrow the card at
+   full depth), pooled expert pages, the latent slot cache, monolithic
+   prefill, bf16, booted on DP2 x TP2 (each rank 8 of the 16 heads): the
+   first decode step of every slot on random cache contents is held
+   against the one-device step at the same weights (the e2e bf16 rule),
+   its rows' expert choices compared layer by layer (``_Routing``): the
+   rows whose top-k sets all agree, and the one-device step run again
+   routed as the devices routed, must be within
+   ``E2E_BF16_SAME_ROUTES_REL`` (0.05);
+   then ``c1.dp * 2 + 2`` requests (prompts of 64-1000 tokens, 32 out),
+   ``stage_scale`` to DP3 x TP2 at the 9th tick, three ticks served on
+   the source with the target staged, ``switchover``, and six ticks on
+   the target later ``start_scale`` back to DP2 x TP2, which drains (the
+   dense layout has no blocks to migrate).  Every TP rank's copy of the
+   cache must equal rank 0's after every tick.  Launches: one
+   ``mla_decode_attention`` and one ``kv_cache_write`` per layer, rank
+   and replica per decode step, one ``flash_attention`` per layer and
+   rank per prefill, ``paged_gmm`` in every MoE layer.  The same requests
+   and schedule on the eager twin (``cuda_graphs=False``) must give the
+   same tokens and launch counts.  Prints the scales' ``TransferStats``
+   bytes, ``stage_s`` and ``switch_s``, the decode tick's median (ticks
+   with no prefill) before, during and after the scale-up, in the drain
+   and after it, the drain's seconds and the card; the graphed run also
+   profiles three replays of the source's decode graph (every slot
+   active) before the requests arrive, the cache restored after them.
+19. ``serve_scale_zamba2``: the same on zamba2-2.7b at full width and
+   depth (54 layers), bf16, DP4 -> DP6 -> DP4 at tp = 1 (14 requests, 16
+   tokens out):
+   the scale-up is zero-copy reuse plus whole-replica copies (no
+   experts; the staged copies must be exactly the two new devices'
+   replicas).  Launches: one ``ssd_scan`` per layer per prefill, one
+   ``flash_attention`` per group per prefill, one
+   ``paged_decode_attention`` and one ``kv_cache_write`` per group and
+   replica per decode step.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -288,6 +327,10 @@ TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
        torch.float32: dict(atol=1e-4, rtol=1e-4)}
 E2E_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 E2E_BF16_REL = 0.25
+# bf16 logits of two runs that route every row to the same experts and
+# differ only in the order of their sums (measured 0.008-0.011 for
+# qwen3-30b-a3b's unflipped rows in e2e_scale and e2e_tp)
+E2E_BF16_SAME_ROUTES_REL = 0.05
 
 # qwen3-30b-a3b serving shapes
 H, KVH, HD, BS = 32, 4, 128, 16
@@ -355,6 +398,10 @@ PATH_KERNELS = {
     "serve_mamba2": ("ssd_scan",),
     "serve_zamba2": ("ssd_scan", "flash_attention", "paged_decode_attention",
                      "kv_cache_write"),
+    "serve_scale_mla": ("mla_decode_attention", "flash_attention",
+                        "kv_cache_write", "paged_gmm"),
+    "serve_scale_zamba2": ("ssd_scan", "flash_attention",
+                           "paged_decode_attention", "kv_cache_write"),
     "serve_scale": ("block_paged_decode_attention",
                     "mixed_block_paged_attention", "paged_gmm",
                     "quant_block_paged_decode_attention",
@@ -368,6 +415,9 @@ DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
 # layers (the pools of 48 would take 174 GB), e2e_scale at 2
 SCALE_LAYERS, SCALE_BPR, SCALE_DEVICES = 8, 2, 6
+# the lengths of serve_scale_mla's one-device check, whose DP2 x TP2
+# decode gives each rank's MLA decode a replica's 2 slots at 8 heads
+RANK_LENGTHS = [1900, 5, 640, 1024]
 
 
 def log(*a):
@@ -669,8 +719,9 @@ def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD),
     """Causal prefill attention of one prompt of S tokens (a serving
     bucket) against its plain version and causal SDPA, at ``heads`` =
     (query heads, kv heads, q/k width, v width): qwen3-30b-a3b's (32, 4,
-    128, 128) by default, deepseek-v2-lite's MLA (16, 16, 192, 128) or
-    zamba2-2.7b's shared block (32, 32, 80, 80); scale 1/sqrt(q/k
+    128, 128) by default, deepseek-v2-lite's MLA (16, 16, 192, 128; a
+    TP rank's 8, 8, 192, 128 at tp = 2) or zamba2-2.7b's shared block
+    (32, 32, 80, 80); scale 1/sqrt(q/k
     width).  ``peaked``: queries drawn for scores of standard deviation 3,
     and a bf16 output held to one rounding of the f32 answer."""
     from repro_torch.kernels import ops, ref
@@ -927,9 +978,10 @@ def _paged_write_case(kind, quant, gen, timer, do_time):
     return rec
 
 
-def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
-    """Absorbed MLA decode over deepseek-v2-lite's latent cache [B, S_max,
-    512] + [B, S_max, 64] at the model's scale, against its plain version
+def _mla_case(lengths, S_max, dtype, gen, timer, do_time, heads=MLA_H):
+    """Absorbed MLA decode of ``heads`` query heads (the model's 16, or a
+    TP rank's share) over deepseek-v2-lite's latent cache [B, S_max, 512]
+    + [B, S_max, 64] at the model's scale, against its plain version
     and one SDPA call over the cache laid out as one kv head: q =
     [q_eff | q_rope], k = [c | kr], v = c, a length mask (a row of length
     0 has no SDPA counterpart: SDPA is held only where every length is
@@ -941,9 +993,9 @@ def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
     B = len(lengths)
     scale = (MLA_DN + MLA_DR) ** -0.5
     spread = 3 / scale
-    qe = (torch.randn(B, MLA_H, MLA_R, generator=gen)
+    qe = (torch.randn(B, heads, MLA_R, generator=gen)
           * spread * MLA_R ** -0.5).to(dtype).cuda()
-    qr = (torch.randn(B, MLA_H, MLA_DR, generator=gen)
+    qr = (torch.randn(B, heads, MLA_DR, generator=gen)
           * spread * MLA_DR ** -0.5).to(dtype).cuda()
     c = torch.randn(B, S_max, MLA_R, generator=gen).to(dtype).cuda()
     kr = torch.randn(B, S_max, MLA_DR, generator=gen).to(dtype).cuda()
@@ -982,9 +1034,9 @@ def _mla_case(lengths, S_max, dtype, gen, timer, do_time):
     ctx_tok = sum(min(n, S_max) for n in lengths)
     io = ctx_tok * (MLA_R + MLA_DR) * c.element_size() + nbytes(qe, qr, got,
                                                                lens)
-    ops_n = 2 * MLA_H * (2 * MLA_R + MLA_DR) * ctx_tok
+    ops_n = 2 * heads * (2 * MLA_R + MLA_DR) * ctx_tok
     b_ms, b_by = bound_ms(io, ops_n, dtype)
-    rec = {"case": f"B={B} H={MLA_H} r={MLA_R} dr={MLA_DR} S_max={S_max} "
+    rec = {"case": f"B={B} H={heads} r={MLA_R} dr={MLA_DR} S_max={S_max} "
                    f"lengths={lengths}",
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
@@ -1097,10 +1149,15 @@ def phase_kernels():
                                  2 * span, 2 * span + 1, 0, 1],
                                 2 * span + 1)):
             mla.append(_mla_case(lengths, S_max, dtype, gen, timer, False))
-        for S in (1024, 192):
+        # a TP rank's 8 heads (serve_scale_mla, tp = 2): a replica's 2
+        # slots, as the phase gives them, and 4
+        for lengths in (RANK_LENGTHS[:SCALE_BPR], RANK_LENGTHS):
+            mla.append(_mla_case(lengths, MAX_LEN, dtype, gen, timer, timed,
+                                 heads=MLA_H // 2))
+        for S, nh in ((1024, MLA_H), (192, MLA_H), (1024, MLA_H // 2)):
             out["flash_attention"].append(_flash_case(
                 S, dtype, gen, timer, timed,
-                heads=(MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV)))
+                heads=(nh, nh, MLA_DN + MLA_DR, MLA_DV)))
         out["kv_cache_write"].append(_kv_write_case(
             dtype, gen, timer, timed, ((MLA_R,), (MLA_DR,))))
         torch.cuda.empty_cache()
@@ -2078,7 +2135,12 @@ class _Routing:
     tells a near-tied expert choice that flipped from a numeric fault.  A
     call inside a CUDA graph's capture computes nothing and is not kept
     (nor is its sort captured); a replay calls no Python, so the graphed
-    steps leave no record."""
+    steps leave no record.  With ``force`` (one [T, k] id tensor a call)
+    call i routes its rows to ``force[i]``'s experts instead, each weighed
+    by its own router's probabilities renormalised over them."""
+
+    def __init__(self, force=None):
+        self.force = force
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2086,6 +2148,10 @@ class _Routing:
 
         def topk(p, x, k):
             out = self.orig(p, x, k)
+            if self.force is not None:
+                idx = self.force[len(self.calls)].to(out[1].device)
+                w = out[0].gather(-1, idx)
+                out = out[0], idx, w / w.sum(-1, keepdim=True)
             if not torch.cuda.is_current_stream_capturing():
                 self.calls.append(out[1].sort(-1).values)
             return out
@@ -3161,6 +3227,362 @@ def phase_serve_down(layers, tp=1):
     return res
 
 
+# ------------------------------------------ the dense layout, scaled
+
+# phase: (model, depth cap, tp, output tokens, server knobs); DP(4/tp) x
+# TPtp -> DP(6/tp) x TPtp -> back, by drain.  zamba2's eager twin ticks at
+# about 0.5 s (54 layers, every replica launching its own SSD kernels),
+# so its requests are shorter: the drain still waits on the new
+# replicas' sequences
+DENSE_SCALE = {
+    "serve_scale_mla": ("deepseek-v2-lite-16b", SCALE_LAYERS, 2, 32,
+                        dict(prefill_buckets=DENSE_BUCKETS,
+                             expert_mode="pooled")),
+    "serve_scale_zamba2": ("zamba2-2.7b", None, 1, 16,
+                           dict(prefill_buckets=tuple(range(128, 1025,
+                                                            128)))),
+}
+# the ticks the scales start at: up at the 9th, switchover three ticks
+# later, the drain back six ticks after that
+UP_TICK, STAGED_TICKS, DOWN_AFTER = 8, 3, 6
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
+def _dense_vs_one_device(cfg, srv, ecfg, knobs, tag):
+    """The first decode step of every slot of the server's instance on
+    ``ecfg``, on random cache contents (the same in every TP copy), held
+    against the one-device step at the same weights (an HMM with the same
+    seed and expert store on one device) to the e2e bf16 rule; every TP
+    rank's copy of the cache must equal rank 0's after it.  Both steps
+    run the model with no capacity drops: which routed entries a capacity
+    drops depends on how the experts are split over the devices, and
+    this check holds the split arithmetic (the TP sums, the expert
+    parallel dispatch) against one device's.  A near-tied top-k choice
+    that flips between the two moves a row by the size of an expert's
+    output, so the rows are sorted by whether any layer's choice differs,
+    and the one-device step runs a second time from the same cache with
+    every layer routed as the devices routed: both its logits and those
+    of the rows with no flip must be within ``E2E_BF16_SAME_ROUTES_REL``
+    of the split step's."""
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.models import model as M
+    eng = srv.engine
+    B = ecfg.dp * SCALE_BPR
+    one = HMM(cfg, 1, batch_per_replica=B, max_len=MAX_LEN, seed=0,
+              device="cuda", expert_mode=knobs.get("expert_mode", "dense"))
+    one.boot(ElasticConfig(1, 1, (0,)))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    multi = _clone_pool(eng.cache)
+    for n, leaf in one.cache.items():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+        for _, idx, t in multi[n].addressable_shards:
+            t.copy_(leaf[idx])
+    cg = torch.Generator().manual_seed(3)
+    lengths = torch.tensor((RANK_LENGTHS + [77, 300, 1500, 16])[:B],
+                           dtype=torch.int32).cuda()
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=cg,
+                           dtype=torch.int32).cuda()
+    whole = dataclasses.replace(cfg, capacity_factor=100.0)
+    with _Routing() as r_multi:
+        got, multi = M.decode_step(whole, eng.params, tokens, multi, lengths,
+                                   parallel=eng.parallel)
+    again = {n: leaf.clone() for n, leaf in one.cache.items()}
+    with _Routing() as r_one:
+        want, _ = M.decode_step(whole, one.params, tokens, one.cache, lengths)
+    _require_copies_equal(multi, ecfg, f"{tag} one-device check")
+    # each MoE layer's top-k sets of the B rows: ecfg.ndev shards a layer
+    # across the devices, in row order (padding rows last), one call on
+    # one device
+    routes = [torch.cat(r_multi[i:i + ecfg.ndev])[:B]
+              for i in range(0, len(r_multi), ecfg.ndev)]
+    n_moe = cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
+    require(len(routes) == len(r_one) == n_moe,
+            (len(r_multi), len(r_one), n_moe))
+    flipped = torch.zeros(B, dtype=torch.bool, device=got.device)
+    for a, b in zip(routes, r_one):
+        flipped |= (a != b).any(-1)
+    # the one-device step again from the same cache, routed as the devices
+    # routed: only the order of the sums differs
+    with _Routing(force=routes):
+        same, _ = M.decode_step(whole, one.params, tokens, again, lengths)
+    got, want, same = got.float(), want.float(), same.float()
+    require(got.shape == want.shape == (B, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+
+    def rel_of(ref, rows):
+        if not rows.any():
+            return None
+        return ((got[rows] - ref[rows]).norm() / ref[rows].norm()).item()
+    err = (got - want).abs().max().item()
+    rel = rel_of(want, torch.ones_like(flipped))
+    res = {"max_abs_err": err, "rel_err": rel,
+           "rows_flipped": int(flipped.sum()), "moe_layers": n_moe,
+           "rel_err_unflipped": rel_of(want, ~flipped),
+           "rel_err_flipped": rel_of(want, flipped),
+           "rel_err_same_routes": rel_of(same, torch.ones_like(flipped))}
+    require(rel < E2E_BF16_REL, f"{tag} logits rel err {rel} against the "
+            f"one-device step")
+    for k in ("rel_err_unflipped", "rel_err_same_routes"):
+        require(res[k] is None or res[k] < E2E_BF16_SAME_ROUTES_REL,
+                f"{tag} {k} {res[k]} against the one-device step")
+    log(f"{tag} first decode step of {B} slots on {ecfg.describe()} "
+        f"against the one-device step at the same weights: max_abs_err "
+        f"{err:.3e}, rel {rel:.3e}; rows whose top-k expert set differs in "
+        f"some of the {n_moe} MoE layers: {res['rows_flipped']} of {B}; "
+        f"rel of the rows with no flip {res['rel_err_unflipped']}, with "
+        f"one {res['rel_err_flipped']}; rel against the one-device step "
+        f"routed as the devices routed {res['rel_err_same_routes']:.3e} "
+        f"(limit {E2E_BF16_SAME_ROUTES_REL})")
+    del one, multi, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _decode_profile(srv, tag):
+    """Three replays of the source configuration's decode graph with every
+    slot active (ragged lengths), profiled before any request arrives; the
+    cache is restored after them, so the served run starts from the state
+    its eager twin starts from."""
+    eng = srv.engine
+    B = eng.num_slots
+    saved = {n: {d: t.clone() for d, t in leaf.shards.items()}
+             for n, leaf in eng.cache.items()}
+    lengths = np.array([600, 200, 1000, 431, 757, 318, 905, 264][:B],
+                       np.int32)
+    tokens, active = np.arange(B, dtype=np.int32), np.ones(B, np.int32)
+    prof, _ = _profile(f"{tag} graphed decode steps of {B} slots on "
+                       f"{eng.cfg.describe()}",
+                       lambda: eng.graphs.decode(tokens, lengths, active), 3)
+    for n, leaf in eng.cache.items():
+        for d, t in leaf.shards.items():
+            t.copy_(saved[n][d])
+    del saved
+    return prof
+
+
+def _medians(ticks, stage):
+    ms = [t["ms"] for t in ticks if t["stage"] == stage and t["steps"]
+          and not t["prefills"]]
+    return statistics.median(ms) if ms else None
+
+
+def _serve_scale_dense(layers, phase, cuda_graphs):
+    """One run of ``serve_scale_mla`` or ``serve_scale_zamba2`` (module
+    note), graphed or its eager twin."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import ScalePhase
+    from repro_torch.serving.workload import Request
+    model, cap, tp, out_len, knobs = DENSE_SCALE[phase]
+    cfg = _capped(get_config(model),
+                  layers if cap is None else min(cap, layers or cap))
+    c0, c1 = _scale_cfgs(tp)
+    tag = f"[{phase}{'' if cuda_graphs else ' eager'}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = ElasticServer(cfg, tp=tp, batch_per_replica=SCALE_BPR,
+                        max_len=MAX_LEN, seed=0, device="cuda",
+                        all_devices=["cuda:0"] * SCALE_DEVICES,
+                        cuda_graphs=cuda_graphs, **knobs)
+    t0 = time.perf_counter()
+    srv.boot(c0)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    eng = srv.engine
+    log(f"{tag} {model}, {_describe(cfg, knobs, None)}, {c0.describe()} -> "
+        f"{c1.describe()} -> {c0.describe()} (drain), every logical device "
+        f"on the one card, {'CUDA graphs' if cuda_graphs else 'eager'}; "
+        f"boot {boot_s:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    res = {"layers": cfg.num_layers, "boot_s": boot_s, "card": _card()}
+    if cuda_graphs:
+        res["one_device"] = _dense_vs_one_device(cfg, srv, c0, knobs, tag)
+        res["profile"] = _decode_profile(srv, tag)
+    rng = np.random.default_rng(0)
+    lens = [600, 200, 1000, 431, 757, 318, 905, 264, 777, 64, 512, 333,
+            128, 960][:c1.dp * SCALE_BPR + 2]
+    reqs = [Request(rid=i, arrival_s=0.0, prompt_len=n, output_len=out_len,
+                    prompt=rng.integers(0, cfg.vocab_size, n).astype(
+                        np.int32))
+            for i, n in enumerate(lens)]
+    for r in reqs:
+        srv.submit(r)
+    tracer = obs.install(obs.Tracer())
+    ops.reset_launch_counts()
+    ticks, stage, task, events = [], "before", None, {}
+    drain_s = drain_ticks = None
+    n = 0
+    t_start = time.perf_counter()
+    while any(r.finish_s is None for r in reqs) or (
+            task is not None and not task.done):
+        require(n < 3000, "serving did not finish")
+        if n == UP_TICK:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            ev = srv.stage_scale(c1)
+            torch.cuda.synchronize()
+            events["up"] = {"stage_synced_s": time.perf_counter() - ts,
+                            "staged": {f: getattr(ev.stats, f)
+                                       for f in ev.stats.BYTE_FIELDS}}
+            stage = "during"
+        elif n == UP_TICK + STAGED_TICKS:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            srv.switchover()
+            torch.cuda.synchronize()
+            events["up"]["switch_synced_s"] = time.perf_counter() - ts
+            stage = "after"
+        elif n == UP_TICK + STAGED_TICKS + DOWN_AFTER:
+            torch.cuda.synchronize()
+            t_task = time.perf_counter()
+            task = srv.start_scale(c0)
+            while task.phase in (ScalePhase.STAGING, ScalePhase.COMPILING):
+                task.advance(time.perf_counter() - t_start)
+            stage, drain_ticks = "drain", 0
+        dp, steps0 = eng.cfg.dp, eng._step_count
+        tracer.clear()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        srv.tick(ts - t_start)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - ts) * 1e3
+        prefills = sum(1 for e in tracer.events()
+                       if e.name == "prefill.request")
+        ticks.append({"stage": stage, "dp": dp, "ms": ms,
+                      "prefills": prefills,
+                      "steps": eng._step_count - steps0})
+        if task is not None and not task.done:
+            drain_ticks += 1
+            task.advance(time.perf_counter() - t_start)
+            if task.done:
+                torch.cuda.synchronize()
+                drain_s = time.perf_counter() - t_task
+                stage = "final"
+        # every rank's copy of the cache, after every step
+        _require_copies_equal(eng.cache, eng.cfg, f"{tag} tick {n}")
+        n += 1
+    wall = time.perf_counter() - t_start
+    obs.install(None)
+    counts = ops.launch_counts()
+    require(task.phase is ScalePhase.DONE and srv.hmm.active_cfg == c0,
+            f"{tag} the scale-down ended in {task.phase}")
+    require(task.migrated_blocks == 0 and srv.scaledown_mode == "drain")
+    require(len(srv.events) == 2, [e.dst for e in srv.events])
+    up, down = srv.events
+    for name, ev in (("up", up), ("down", down)):
+        events.setdefault(name, {}).update(
+            stage_s=ev.stage_s, switch_s=ev.switch_s,
+            final={f: getattr(ev.stats, f) for f in ev.stats.BYTE_FIELDS})
+    # the scale-up's copies: the two new devices' shards; commit zeroed the
+    # new replica's KV slice in each rank's copy
+    st, fin = events["up"]["staged"], events["up"]["final"]
+    require(st["p2p_bytes"] > 0 and st["zero_copy_bytes"] > 0)
+    replica_kv = sum(leaf.nbytes for leaf in eng.cache.values()) // c0.dp
+    require(fin["init_bytes"] == replica_kv * (c1.dp - c0.dp) * c1.tp,
+            (fin["init_bytes"], replica_kv))
+    if not cfg.is_moe:
+        # no experts: everything is replicated, so the staged copies are
+        # two whole replicas and the rest is reused
+        repl = sum(leaf.shard(0).nbytes for leaf in _leaves(eng.params))
+        require(st["p2p_bytes"] == (c1.ndev - c0.ndev) * repl
+                and st["zero_copy_bytes"] == c0.ndev * repl,
+                (st, repl))
+    # launches from the ticks' work: decode steps by replica count, and
+    # prefills (each on one replica's ranks)
+    L = cfg.num_layers
+    dec = sum(t["dp"] * t["steps"] for t in ticks)
+    pre = sum(t["prefills"] for t in ticks)
+    require(pre == len(reqs), (pre, len(reqs)))
+    if cfg.use_mla:
+        want = {"mla_decode_attention": L * tp * dec,
+                "kv_cache_write": L * tp * dec,
+                "flash_attention": L * tp * pre}
+    else:
+        groups = L // cfg.attn_every
+        want = {"paged_decode_attention": groups * tp * dec,
+                "kv_cache_write": groups * tp * dec,
+                "flash_attention": groups * tp * pre,
+                "ssd_scan": L * tp * pre}
+    for name in PATH_KERNELS[phase]:
+        require(counts[name] > 0, f"{tag} {name} was not launched")
+        require(name not in want or counts[name] == want[name],
+                f"{tag} {name}: {counts[name]} launches, {want.get(name)} "
+                f"expected")
+    tokens = {r.rid: list(eng.generated[r.rid]) for r in reqs}
+    for r in reqs:
+        require(len(tokens[r.rid]) == r.output_len
+                and all(0 <= t < cfg.vocab_size for t in tokens[r.rid]),
+                (r.rid, len(tokens[r.rid])))
+    med = {s: _medians(ticks, s)
+           for s in ("before", "during", "after", "drain", "final")}
+    res.update(tokens=tokens, launches=counts, serve_s=wall,
+               ticks=len(ticks), decode_tick_ms_median=med, scale=events,
+               drain_s=drain_s, drain_ticks=drain_ticks,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2**30)
+    for name in ("up", "down"):
+        e = events[name]
+        nonzero = {f: v for f, v in e["final"].items() if v}
+        log(f"{tag} scale {name}: stage_s {e['stage_s']:.4f}, switch_s "
+            f"{e['switch_s']:.4f} (host clock); bytes {nonzero}"
+            + (f"; staged {e['staged']['p2p_bytes']} B copied, "
+               f"{e['staged']['zero_copy_bytes']} B reused; with the card "
+               f"synchronised stage {e['stage_synced_s']:.4f} s, switch "
+               f"{e['switch_synced_s']:.4f} s" if name == "up" else ""))
+    log(f"{tag} {len(reqs)} requests, {len(ticks)} ticks, {wall:.2f} s; "
+        f"decode tick median (no prefill) by stage {med} ms; drain "
+        f"{drain_s:.3f} s over {drain_ticks} ticks; max_memory_allocated "
+        f"{res['max_memory_allocated_gib']:.2f} GiB; card {res['card']}")
+    log(f"{tag} launches " + str({k: counts[k] for k in PATH_KERNELS[phase]}))
+    srv.hmm.close()
+    del srv, eng
+    return res
+
+
+def _leaves(tree):
+    from repro_torch.distributed.sharding import tree_leaves_with_path
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def phase_serve_scale_dense(layers, phase):
+    """``serve_scale_mla`` or ``serve_scale_zamba2``: the graphed run, then
+    its eager twin on the same requests and schedule; the tokens and the
+    launch counts must be equal.  The kernels line takes the graphed
+    run's launches."""
+    graphed = _serve_scale_dense(layers, phase, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = _serve_scale_dense(layers, phase, False)
+    require(graphed["tokens"] == eager["tokens"],
+            f"[{phase}] the graphed server's tokens differ from the eager "
+            f"twin's")
+    names = PATH_KERNELS[phase]
+    require({n: graphed["launches"][n] for n in names}
+            == {n: eager["launches"][n] for n in names},
+            f"[{phase}] launch counts differ from the eager twin's")
+    log(f"[{phase}] graphed tokens equal the eager twin's "
+        f"({len(eager['tokens'])} requests, the same scale schedule); "
+        f"decode tick median by stage: graphed "
+        f"{graphed['decode_tick_ms_median']}, eager "
+        f"{eager['decode_tick_ms_median']} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"graphs": graphed, "eager": eager,
+            "launches": {n: graphed["launches"][n] for n in names}}
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -3210,16 +3632,15 @@ def main():
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
                             "serve_graphs,"
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
-                            "serve_down_tp")
+                            "serve_down_tp,serve_scale_mla,"
+                            "serve_scale_zamba2")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device is available")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     log(smi)
     sys.path.insert(0, os.path.join(HERE, "src"))
     # fails outside a checkout of the repo; on the card, sets the matmul
@@ -3250,6 +3671,8 @@ def main():
         or phase_serve_scale(args.layers))))
     runs.append(("serve_down", lambda: phase_serve_down(args.layers)))
     runs.append(("serve_down_tp", lambda: phase_serve_down(args.layers, 2)))
+    runs += [(p, lambda p=p: phase_serve_scale_dense(args.layers, p))
+             for p in DENSE_SCALE]
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -80,10 +80,10 @@ from repro_torch.distributed.sharding import (Mesh, NamedSharding,
                                               tree_leaves_with_path,
                                               tree_map_with_path)
 from repro_torch.kernels.quant import quantize_rows
-from repro_torch.models.model import (check_tp_heads, dense_cache_supported,
-                                      init_cache, init_expert_bank,
-                                      init_paged_cache, init_params,
-                                      paged_cache_supported)
+from repro_torch.models.model import (check_mla_heads, check_tp_heads,
+                                      dense_cache_supported, init_cache,
+                                      init_expert_bank, init_paged_cache,
+                                      init_params, paged_cache_supported)
 from repro_torch.core.transfer import (TransferEngine, TransferOp,
                                       cuda_devices, ready_events)
 from repro_torch.serving.kv_blocks import KVBlockManager
@@ -420,12 +420,9 @@ class HMM:
         if cfg.tp != self.tp:
             raise ValueError(f"{cfg.describe()}: the HMM was built for "
                              f"tp={self.tp}")
-        if cfg.ndev > 1 and not paged_cache_supported(self.mcfg):
-            raise NotImplementedError(
-                f"{self.mcfg.name}: MLA and Mamba2 models on more than one "
-                f"device are not ported yet (the multi-device MLA and "
-                f"Mamba2 slice, ROADMAP §0 item 2)")
         check_tp_heads(self.mcfg, cfg.tp)
+        check_mla_heads(self.mcfg, cfg.tp,
+                        [self.all_devices[d] for d in cfg.devices])
         t0 = time.perf_counter()
         layout = None
         if self.mcfg.is_moe:

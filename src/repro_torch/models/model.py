@@ -40,9 +40,13 @@ order; a prefill or a chunk belongs to one replica (``replica``).  At tp >
 forms): each rank holds a copy of the activations between blocks and of
 the replica's cache slice; the embedding gives each rank's vocab rows
 (zeros elsewhere) summed over the ranks, the LM head each rank's vocab
-columns gathered; every step writes every rank's copy of the cache.  Only
-standard-attention decoders whose heads split evenly over tp are ported
-across devices.
+columns gathered; every step writes every rank's copy of the cache.  An
+MLA layer splits its heads the same way (``mla_*_tp``: every rank
+computes the same latent and writes its own copy); an SSD layer is
+replicated, each rank running it on its copy of the activations and its
+copy of the layer's conv tail and state; a hybrid's shared block splits
+as standard attention does.  Heads must split evenly over tp
+(``check_tp_heads``); the paged steps stay standard-attention only.
 """
 from __future__ import annotations
 
@@ -65,7 +69,8 @@ from repro_torch.models.layers import (apply_norm, attention_apply,
                                        paged_chunk_attention_apply_tp)
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
                                        mamba2_init)
-from repro_torch.models.mla import mla_decode, mla_init, mla_prefill
+from repro_torch.models.mla import (mla_decode, mla_decode_tp, mla_init,
+                                    mla_prefill, mla_prefill_tp)
 from repro_torch.models.moe import (moe_ep, moe_local, moe_local_pooled,
                                     router_init)
 
@@ -302,6 +307,17 @@ def _cache_slot(cfg, lengths):
     return lengths % cfg.attn_window
 
 
+def _decode_slots(cfg, cache, lengths):
+    """A decode step's (write slot, valid length) per sequence: slot
+    ``lengths`` over ``lengths + 1`` positions; a hybrid's shared block
+    writes at ``lengths % max_len`` over at most ``max_len``, as the
+    reference's hybrid branch does."""
+    if cfg.arch_type == "hybrid":
+        win = cache["attn_k"].shape[2]
+        return lengths % win, (lengths + 1).clamp(max=win)
+    return _cache_slot(cfg, lengths), lengths + 1
+
+
 def paged_cache_supported(cfg) -> bool:
     """The block-managed KV layout covers standard-attention decoders
     (dense + MoE)."""
@@ -388,12 +404,25 @@ def check_tp_heads(cfg, tp: int) -> None:
             f"TP split cuts a head is not ported yet: it is {HEAD_CUT}")
 
 
-def _check_parallel(cfg, parallel) -> None:
-    if not paged_cache_supported(cfg):
+def check_mla_heads(cfg, tp: int, devices) -> None:
+    """Raise for an f32 MLA model on a card whose TP ranks would each hold
+    an odd number of heads: the f32 ``mla_decode_attention`` takes an even
+    count only (ROADMAP §3, "MLA head count"), so such a configuration
+    would fail at its first decode or capture."""
+    heads = cfg.num_heads // tp
+    if (cfg.use_mla and cfg.dtype == "float32" and heads % 2
+            and any(torch.device(d).type == "cuda" for d in devices)):
         raise NotImplementedError(
-            f"{cfg.name}: MLA and Mamba2 models on more than one device are "
-            f"not ported yet (the multi-device MLA and Mamba2 slice, "
-            f"ROADMAP §0 item 2)")
+            f"{cfg.name}: {heads} heads a rank at tp = {tp}; the f32 MLA "
+            f"decode kernel takes an even head count (ROADMAP §3, \"MLA "
+            f"head count\"): serve it at bf16 or at a tp that leaves each "
+            f"rank an even count")
+
+
+def _check_parallel(cfg, parallel) -> None:
+    if not dense_cache_supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: only standard-attention, "
+                                  f"MLA and Mamba2 decoders are ported")
     check_tp_heads(cfg, parallel.tp)
 
 
@@ -426,17 +455,40 @@ def _lm_head_tp(cfg, ps, hs, devices):
                           in enumerate(zip(ps, hs))], devices, -1)[0]
 
 
-def _dp_layers(cfg, params, parallel, replicas, tokens, attn):
-    """Run the decoder over row groups, group g on DP replica
-    ``replicas[g]`` with ``tokens[g]`` [b, S] on its TP rank 0's device:
-    on each of the replica's ranks its embedding, norms and attention
-    shards (``attn(g, layer, the ranks' block params, the ranks' normed
-    inputs, the ranks' devices)`` -> the attention output, one copy per
-    rank), then every group's feed-forward together — ``moe_ep`` across
-    all logical devices in a MoE layer, each group's rows once — and the
-    ranks' MLP shards.  Returns each group's final-normed hidden states and
-    its ranks' parameter views, one per rank."""
+def _attention_tp(cfg, ps, hs, positions, devices, caches=None,
+                  write_pos=None, kv_valid_len=None):
+    """The layer's self-attention over one replica's TP ranks: MLA
+    (``mla_*_tp``) or standard (``layers.attention_apply_tp``), a prefill
+    when ``caches`` is None, else a decode step into the ranks' copies;
+    returns (the outputs, one per rank, the new k/v or latent of rank 0,
+    or the caches)."""
+    if not cfg.use_mla:
+        return attention_apply_tp(cfg, ps, hs, positions, devices,
+                                  caches=caches, write_pos=write_pos,
+                                  kv_valid_len=kv_valid_len)
+    if caches is None:
+        return mla_prefill_tp(cfg, ps, hs, positions, devices)
+    return mla_decode_tp(cfg, ps, hs, positions, devices, caches=caches,
+                         write_pos=write_pos, kv_valid_len=kv_valid_len)
+
+
+def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None):
+    """Run the model over row groups, group g on DP replica ``replicas[g]``
+    with ``tokens[g]`` [b, S] on its TP rank 0's device: on each of the
+    replica's ranks its embedding, then block by block.  An attention
+    block runs the ranks' norms and attention shards (``attn(g, cache row,
+    the ranks' block params, the ranks' normed inputs, the ranks'
+    devices)`` -> the attention output, one copy per rank), then every
+    group's feed-forward together — ``moe_ep`` across all logical devices
+    in a MoE layer, each group's rows once — and the ranks' MLP shards.
+    An SSD block is replicated over the ranks: ``ssm(g, layer, the ranks'
+    block params, the ranks' inputs)`` runs it on each rank's copy (from a
+    zero state when ``ssm`` is None) -> the block's output, one copy per
+    rank.  Returns each group's final-normed hidden states and its ranks'
+    parameter views, one per rank."""
     _check_parallel(cfg, parallel)
+    ssm = ssm or (lambda g, i, ps, xs: [_ssm_block(cfg, p, x)[0]
+                                        for p, x in zip(ps, xs)])
     ranks = [parallel.replica_devices(r) for r in replicas]
     devs = [[parallel.torch_device(d) for d in rk] for rk in ranks]
     local = [[local_view(params, d) for d in rk] for rk in ranks]
@@ -445,8 +497,11 @@ def _dp_layers(cfg, params, parallel, replicas, tokens, attn):
     blocks = [[list(_layers(cfg, lp)) for lp in lps] for lps in local]
     pool = params.get("moe_pool")
     nk = cfg.first_k_dense if cfg.is_moe else 0
-    for li, (_, i, _, moe) in enumerate(blocks[0][0]):
+    for li, (kind, i, _, moe) in enumerate(blocks[0][0]):
         bps = [[b[li][2] for b in bg] for bg in blocks]
+        if kind == "ssm":
+            xs = [ssm(g, i, bp, xg) for g, (bp, xg) in enumerate(zip(bps, xs))]
+            continue
         hs = []
         for g, (bp, dv) in enumerate(zip(bps, devs)):
             h = [apply_norm(p["ln1"], x, cfg.norm_type)
@@ -521,7 +576,7 @@ def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
         positions = torch.arange(S, device=dev)[None].expand(B, S)
         hs, local, devs = _dp_layers(
             cfg, params, parallel, [replica], [tokens],
-            lambda g, i, bp, h, dv: attention_apply_tp(
+            lambda g, i, bp, h, dv: _attention_tp(
                 cfg, [p["attn"] for p in bp], h, positions, dv)[0])
         return _logits(cfg, local, devs, hs)[0]
     x = F.embedding(tokens.long(), params["embed"])
@@ -582,24 +637,32 @@ def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,
 
 
 def _prefill_dp(cfg, params, batch, max_len, parallel, replica):
-    """The prefill on replica ``replica``: the returned cache (all heads)
-    lies on its TP rank 0's device; the caller writes it into every rank's
-    copy."""
+    """The prefill on replica ``replica``: the returned cache (all heads,
+    every leaf of ``init_cache``: k/v or the latent, an SSD layer's conv
+    tail and state, a hybrid's shared-block k/v) lies on its TP rank 0's
+    device, written from rank 0's results; the caller writes it into every
+    rank's copy."""
     tokens, lengths = batch["tokens"], batch.get("lengths")
     B, S = tokens.shape
     dev, (tokens,) = _one_replica(parallel, replica, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     n = min(S, max_len)
     cache = init_cache(cfg, B, max_len, params["embed"].dtype, device=dev)
+    names = cache_names(cfg)
 
     def attn(g, i, bp, h, dv):
-        a, (k, v) = attention_apply_tp(cfg, [p["attn"] for p in bp], h,
-                                       positions, dv)
-        cache["k"][i, :, :n] = k[:, S - n:]
-        cache["v"][i, :, :n] = v[:, S - n:]
+        a, kv = _attention_tp(cfg, [p["attn"] for p in bp], h, positions, dv)
+        for name, new in zip(names, kv):
+            cache[name][i, :, :n] = new[:, S - n:]
         return a
+
+    def ssm(g, i, ps, xs):
+        outs = [_ssm_block(cfg, p, x) for p, x in zip(ps, xs)]
+        cache["conv"][i] = outs[0][1]["conv"]
+        cache["state"][i] = outs[0][1]["state"]
+        return [y for y, _ in outs]
     hs, local, devs = _dp_layers(cfg, params, parallel, [replica], [tokens],
-                                 attn)
+                                 attn, ssm)
     if lengths is None:
         last = [x[:, -1] for x in hs[0]]
     else:
@@ -622,29 +685,36 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
     [B,V], cache).  With ``parallel`` each replica decodes its own slots
     over its slice of the cache."""
     _check_dense_kv(cfg)
+    names = cache_names(cfg)
     if parallel is not None:
         groups, rows = _replica_rows(parallel, tokens, lengths)
         caches = [_rank_caches(cache, parallel, r) for r in groups]
+        slots = [_decode_slots(cfg, caches[g][0], lens)
+                 for g, (_, lens) in enumerate(rows)]
 
         def attn(g, i, bp, h, dv):
-            lens = rows[g][1]
-            return attention_apply_tp(
-                cfg, [p["attn"] for p in bp], h, lens[:, None], dv,
-                caches=[(c["k"][i], c["v"][i]) for c in caches[g]],
-                write_pos=_cache_slot(cfg, lens), kv_valid_len=lens + 1)[0]
+            return _attention_tp(
+                cfg, [p["attn"] for p in bp], h, rows[g][1][:, None], dv,
+                caches=[tuple(c[n][i] for n in names) for c in caches[g]],
+                write_pos=slots[g][0], kv_valid_len=slots[g][1])[0]
+
+        def ssm(g, i, ps, xs):
+            out = []
+            for p, x, c in zip(ps, xs, caches[g]):
+                y, new = _ssm_block(cfg, p, x, {"conv": c["conv"][i],
+                                                "state": c["state"][i]})
+                c["conv"][i] = new["conv"]
+                c["state"][i] = new["state"]
+                out.append(y)
+            return out
         hs, local, devs = _dp_layers(cfg, params, parallel, groups,
-                                     [r[0] for r in rows], attn)
+                                     [r[0] for r in rows], attn, ssm)
         return _gather_rows(parallel, _logits(
             cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
-    write_pos = _cache_slot(cfg, lengths)
-    valid = lengths + 1
-    if cfg.arch_type == "hybrid":
-        win = cache["attn_k"].shape[2]
-        write_pos, valid = lengths % win, valid.clamp(max=win)
+    write_pos, valid = _decode_slots(cfg, cache, lengths)
     pool = params.get("moe_pool")
-    names = cache_names(cfg)
     for kind, i, bp, moe in _layers(cfg, params):
         if kind == "ssm":
             x, new = _ssm_block(cfg, bp, x, {"conv": cache["conv"][i],

@@ -33,8 +33,9 @@ block copied between replicas and TP copies, int8 scales included; a
 transfer session that counts as finished only once its copies landed),
 and for the IMM's CUDA graphs (graphed servers against their eager twins,
 ``cuda_graphs=False``, over paged bf16 and int8, dense, MLA and Mamba2
-stores on one device and DP2 x TP2, greedy tokens and launch counts
-equal; the paged decode and chunk steps' logits replayed bit for bit; a
+stores on one device and DP2 x TP2, and the MLA and zamba2 models on
+DP2 x TP2 through a scale up and a drain back, greedy tokens and launch
+counts equal; the paged decode and chunk steps' logits replayed bit for bit; a
 scale up, down and up that captures each target afresh; a capture on the
 serving thread while an overlapped staging's workers copy).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
@@ -1771,6 +1772,90 @@ def test_graphed_server_tokens_equal_eager(dev, store):
         assert (srv.engine.graphs is not None) == graphs
         ops.reset_launch_counts()
         tokens[graphs] = _drive(srv)
+        counts[graphs] = ops.launch_counts()
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
+    assert counts[True] == counts[False]
+
+
+@pytest.mark.parametrize("model", ["deepseek-v2-lite-16b", "zamba2-2.7b"])
+def test_dp2_tp2_dense_layout_graphs_equal_eager(dev, model):
+    """deepseek-v2-lite (the MLA latent cache, pooled pages of 12
+    experts) and zamba2 (SSD layers replicated over a replica's ranks,
+    the shared block split) on DP2 x TP2 logical devices of the card: the
+    engine's decode step over the bound tensors runs with no host sync and
+    writes once per attention layer, rank and replica; the decode graph's
+    replay gives the eager step's tokens on the same inputs and state; the
+    graphed server's tokens through a scale to DP3 x TP2 and a drain back
+    equal its eager twin's, with the same launch counts, and every rank's
+    copy of the cache is rank 0's after every tick."""
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.serving.driver import ScalePhase
+    from test_torch_scale_mla import assert_copies_equal
+    cfg = _graph_model(model)
+    knobs = dict(prefill_buckets=(32, 64))
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, num_experts=12)
+        knobs["expert_mode"] = "pooled"
+    c4 = ElasticConfig(2, 2, (0, 1, 2, 3))
+    c6 = ElasticConfig(3, 2, tuple(range(6)))
+    n_attn = (cfg.num_layers if cfg.use_mla
+              else cfg.num_layers // cfg.attn_every)
+
+    tokens, counts = {}, {}
+    for graphs in (False, True):
+        srv = ElasticServer(cfg, tp=2, batch_per_replica=2, max_len=128,
+                            seed=0, all_devices=[dev] * 6, device=dev,
+                            cuda_graphs=graphs, **knobs)
+        srv.boot(c4)
+        eng = srv.engine
+        if graphs:
+            gen = torch.Generator().manual_seed(1)
+            host = [torch.randint(0, cfg.vocab_size, (4,), generator=gen,
+                                  dtype=torch.int32),
+                    torch.tensor([5, 60, 0, 17], dtype=torch.int32),
+                    torch.ones(4, dtype=torch.bool)]
+            args = [t.to(dev) for t in host]
+            state = {n: {d: t.clone() for d, t in leaf.shards.items()}
+                     for n, leaf in eng.cache.items()}
+            ops.reset_launch_counts()
+            with _no_host_sync():
+                want = eng.compiled["decode"](eng.params, eng.cache,
+                                              *args)[0]
+            assert ops.launch_counts()["kv_cache_write"] == n_attn * 2 * 2
+            for n, leaf in eng.cache.items():       # the same state again
+                for d, t in leaf.shards.items():
+                    t.copy_(state[n][d])
+            got = eng.graphs.decode(*[t.numpy() for t in host])
+            assert torch.equal(got.cpu(), want.cpu())
+            assert_copies_equal(eng.cache, eng.parallel)
+        reqs = _graph_requests(cfg.vocab_size)
+        for r in reqs:
+            srv.submit(r)
+        ops.reset_launch_counts()
+        n, task = 0, None
+        while any(r.finish_s is None for r in reqs) or (
+                task is not None and not task.done):
+            if n == 3:
+                srv.stage_scale(c6)
+            elif n == 5:
+                srv.switchover()
+            elif n == 8:
+                task = srv.start_scale(c4)
+                while task.phase in (ScalePhase.STAGING,
+                                     ScalePhase.COMPILING):
+                    task.advance(n * .1)
+            srv.tick(n * .1)
+            n += 1
+            if task is not None and not task.done:
+                task.advance(n * .1)
+            assert_copies_equal(eng.cache, eng.parallel)
+            assert n < 1000
+        assert task.phase is ScalePhase.DONE and task.migrated_blocks == 0
+        assert srv.hmm.active_cfg == c4
+        assert (eng.graphs is not None) == graphs
+        tokens[graphs] = {r.rid: eng.generated[r.rid] for r in reqs}
         counts[graphs] = ops.launch_counts()
         srv.hmm.close()
     assert tokens[True] == tokens[False]

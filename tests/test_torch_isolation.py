@@ -377,10 +377,12 @@ def test_int8_cache_of_other_dtype_raises():
 def test_more_than_one_device_raises():
     """Several logical devices serve a standard-attention decoder at any
     tp that keeps every head whole (``tests/test_torch_scale.py``,
-    ``tests/test_torch_tp.py``).  What they do not serve yet raises
-    ``NotImplementedError`` naming its slice — a tp that cuts a kv head,
-    MLA and Mamba2 models — and a configuration naming a logical device
-    that ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
+    ``tests/test_torch_tp.py``), and the MLA and Mamba2 models too
+    (``tests/test_torch_scale_mla.py``, ``tests/test_torch_scale_ssm.py``):
+    deepseek-v2-lite and mamba2-1.3b boot on two.  What they do not serve
+    yet raises ``NotImplementedError`` naming its slice — a tp that cuts a
+    kv head — and a configuration naming a logical device that
+    ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
     another device."""
     from repro_torch.configs import get_config
     srv = ElasticServer(MCFG, **SERVER_KW, device="cpu")
@@ -392,5 +394,6 @@ def test_more_than_one_device_raises():
     for name in ("deepseek-v2-lite-16b-smoke", "mamba2-1.3b-smoke"):
         hmm = HMM(get_config(name), 1, batch_per_replica=2, max_len=64,
                   all_devices=cpu2, device="cpu")
-        with pytest.raises(NotImplementedError, match="MLA and Mamba2"):
-            hmm.boot(ElasticConfig(2, 1, (0, 1)))
+        hmm.boot(ElasticConfig(2, 1, (0, 1)))
+        assert hmm.active_cfg == ElasticConfig(2, 1, (0, 1))
+        assert all(len(leaf.shards) == 2 for leaf in hmm.cache.values())
