@@ -290,6 +290,39 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``flash_attention`` per group per prefill, one
    ``paged_decode_attention`` and one ``kv_cache_write`` per group and
    replica per decode step.
+20. ``serve_closed_loop``: the paper's Coordinator drives the scaling
+   (``serving/driver.py``'s ``ClusterDriver``, ``core/coordinator.py``'s
+   estimator, ``core/costmodel.py``'s projections): the ``serve_scale``
+   server (8 layers, paged bf16 KV, pooled bf16 pages, chunks of 128,
+   ``staging="overlap"`` with 4 workers, scale-down by migrate, CUDA
+   graphs) boots on DP4 in a ``DevicePool`` of 6 logical devices
+   (``min_dp=4``, ``max_step_dp=2``, ``settle_s=1``, no prewarm; SLO TTFT
+   1 s, TPOT 0.1 s; window 8, cooldown 1 s, queue 4; ``CLOSED_LOOP``)
+   under ``make_workload``'s arrivals: 2 rps, a one-second burst of 16
+   rps at t = 2, then 2 rps to t = 20 (driver seconds; prompts 200-1000
+   tokens, 16-48 out, seed 0).  The driver's clock is virtual (0.05 s a
+   tick); the phase records each tick's wall and maps every request's
+   virtual timestamps onto the wall of the ticks that produced them.  It
+   prints each ``DriverEvent`` with the cost model's projection (the paper
+   cluster's constants, not the card's) and its plan's P2P, zero-copy and
+   KV bytes beside what the card measured (``stage_s``, ``switch_s``,
+   ``stall_s``, ``start_scale`` to DONE, the ``TransferStats`` bytes,
+   migrated blocks), ``summarize`` in driver seconds, TTFT p50 / p99,
+   TPOT p50 and ITL p99 in wall ms, output tokens a wall second, the tick
+   wall inside and outside a scale task and ``max_memory_allocated``.  It
+   requires an up and a down, every request finished with its tokens, DP4
+   at the end with nothing staged and every device's pages in use equal
+   to the pages it owns, the STAGING ticks' steps under sync-debug
+   "error", and ``serve_scale``'s launch counts.
+21. ``launch_serve``: ``python -m repro_torch.launch.serve``'s ``main`` on
+   the card (f32 smoke configs, 8 logical devices on ``cuda:0``):
+   deepseek-v2-lite-16b at tp = 2 with 8 requests (flash at MLA's reduced
+   widths 48 / 32, the MLA decode), which serves without a scale (the
+   reference launcher's traffic does not scale it either), then
+   qwen1.5-0.5b at tp = 2 with 32 requests, which scales up once (the
+   smoke MoE's 4 experts do not split over DP3's 6 devices in either
+   package).  Every request finishes; each summary is printed in driver
+   seconds and wall ms.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -410,6 +443,11 @@ PATH_KERNELS = {
 }
 for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
     PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
+PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
+# the launcher's f32 smoke runs: deepseek-v2-lite's MLA with the dense
+# stores, and qwen1.5-0.5b's slot decode
+PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
+                                "paged_decode_attention", "kv_cache_write")
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # the scale phases: qwen3-30b-a3b at full width on logical devices of the
 # one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
@@ -418,6 +456,13 @@ SCALE_LAYERS, SCALE_BPR, SCALE_DEVICES = 8, 2, 6
 # the lengths of serve_scale_mla's one-device check, whose DP2 x TP2
 # decode gives each rank's MLA decode a replica's 2 slots at 8 heads
 RANK_LENGTHS = [1900, 5, 640, 1024]
+# the f32 smoke runs' prefill attention: the launcher's 32-token bucket
+# at a TP rank's 2 of 4 heads (tp = 2) of deepseek-v2-lite-smoke's MLA
+# (q/k 48, v 32) and qwen1.5-0.5b-smoke (64); the test MoE's width 16
+# (the card test's closed loop), whole and a rank's
+LAUNCH_BUCKET = 32
+SMOKE_FLASH_HEADS = ((2, 2, 48, 32), (4, 4, 48, 32), (2, 2, 64, 64),
+                     (2, 2, 16, 16), (4, 4, 16, 16))
 
 
 def log(*a):
@@ -721,8 +766,8 @@ def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD),
     (query heads, kv heads, q/k width, v width): qwen3-30b-a3b's (32, 4,
     128, 128) by default, deepseek-v2-lite's MLA (16, 16, 192, 128; a
     TP rank's 8, 8, 192, 128 at tp = 2) or zamba2-2.7b's shared block
-    (32, 32, 80, 80); scale 1/sqrt(q/k
-    width).  ``peaked``: queries drawn for scores of standard deviation 3,
+    (32, 32, 80, 80), or a smoke config's (``SMOKE_FLASH_HEADS``);
+    scale 1/sqrt(q/k width).  ``peaked``: queries drawn for scores of standard deviation 3,
     and a bf16 output held to one rounding of the f32 answer."""
     from repro_torch.kernels import ops, ref
     nh, nkv, hd, hdv = heads
@@ -1183,9 +1228,16 @@ def phase_kernels():
     # each flash instance at peaked scores and a ragged S: the bf16 output
     # is the f32 answer rounded once
     for heads in ((H, KVH, HD, HD), (MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV),
-                  (ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD), (H, KVH, 64, 64)):
+                  (ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD), (H, KVH, 64, 64),
+                  (4, 4, 48, 32), (4, 4, 16, 16)):
         out["flash_attention"].append(_flash_case(
             1000, torch.bfloat16, gen, timer, False, heads, peaked=True))
+    # the smoke configs' instances at launch_serve's shapes (f32, as it
+    # runs them) and in bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for heads in SMOKE_FLASH_HEADS:
+            out["flash_attention"].append(_flash_case(
+                LAUNCH_BUCKET, dtype, gen, timer, False, heads))
     torch.cuda.empty_cache()
     for phase in ("serve", "serve_int8"):
         quant = phase == "serve_int8"
@@ -3583,6 +3635,331 @@ def phase_serve_scale_dense(layers, phase):
             "launches": {n: graphed["launches"][n] for n in names}}
 
 
+# ------------------------------------------------------- the closed loop
+
+# serve_closed_loop: the paper's Coordinator over the serve_scale server
+# (qwen3-30b-a3b, full width, SCALE_LAYERS deep, paged bf16 KV, pooled
+# bf16 pages, chunks of CHUNK, overlapped staging with 4 workers,
+# scale-down by migrate, CUDA graphs), DP4 in a pool of 6 logical devices
+CLOSED_LOOP = dict(
+    slo=dict(ttft_s=1.0, tpot_s=0.1),
+    policy=dict(window=8, cooldown_s=1.0, queue_scale_up=4),
+    driver=dict(dt=0.05, min_dp=4, max_step_dp=2, settle_s=1.0,
+                prewarm_next=False),
+    # a calm base, a one-second burst to about twice DP4's 8 slots, a calm
+    # tail that refills the estimator's window
+    workload=dict(duration_s=20.0, burst=(2.0, 16.0, 2.0, 1.0),
+                  prompt_len=(200, 1000), output_range=(16, 48), seed=0))
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else float("nan")
+
+
+def _wall_latencies(reqs, ticks):
+    """Each request's TTFT, TPOT and inter-token gaps in wall ms: a
+    virtual timestamp maps to the wall time at the end of the tick that
+    produced it (``ticks``: (virtual t, wall at the step's start, at its
+    end)); an arrival maps to the start of the first tick at or after it,
+    where the driver submits it."""
+    end = {t: w1 for t, _, w1 in ticks}
+    starts = [(t, w0) for t, w0, _ in ticks]
+    ttft, tpot, itl = [], [], []
+    for r in reqs:
+        t_arr = next(w0 for t, w0 in starts if t >= r.arrival_s)
+        first = end[r.first_token_s]
+        ttft.append((first - t_arr) * 1e3)
+        if r.output_len > 1:
+            tpot.append((end[r.finish_s] - first) * 1e3
+                        / (r.output_len - 1))
+        walls = [end[t] for t in r.token_times]
+        itl += [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+    return {"ttft_p50": _pct(ttft, 50), "ttft_p99": _pct(ttft, 99),
+            "tpot_p50": _pct(tpot, 50), "itl_p99": _pct(itl, 99)}
+
+
+def _projected_bytes(driver, old, new):
+    """The bytes of the driver's projection of ``old -> new``: the plan
+    that ``transition_cost`` costs, from the driver's own inputs
+    (``ClusterDriver.projection``): P2P, zero-copy, and a migrating
+    scale-down's projected KV."""
+    from repro_torch.core.scaling_plan import Op
+    from repro_torch.serving.driver import transition_plan
+    kw = driver.projection(old, new)
+    mig = kw.pop("kv_migration_bytes")
+    kw.pop("staging")
+    plan, _ = transition_plan(driver.mcfg, driver.tp, old, new, **kw)
+    by_op = plan.bytes_by_op()
+    return {"p2p_bytes": by_op.get(Op.P2P, 0),
+            "zero_copy_bytes": by_op.get(Op.ZERO_COPY, 0),
+            "kv_migration_bytes": mig}
+
+
+def phase_serve_closed_loop(layers):
+    """``serve_closed_loop``: a ``ClusterDriver`` scales the serve_scale
+    server on its own decisions under a burst of arrivals, up and back
+    down to DP4; driver seconds beside wall ms."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.coordinator import ScalingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import (ClusterDriver, DevicePool,
+                                            DriverConfig, ScalePhase,
+                                            ServingBackend)
+    from repro_torch.serving.metrics import SLO, summarize
+    from repro_torch.serving.workload import burst, make_workload
+    tag = "[serve_closed_loop]"
+    cl = CLOSED_LOOP
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    c0, _ = _scale_cfgs()
+    torch.cuda.reset_peak_memory_stats()
+    srv = _scale_server(cfg, None, 1, staging="overlap", transfer_workers=4,
+                        scaledown="migrate")
+    srv.boot(c0)
+    require(isinstance(srv, ServingBackend), "not a ServingBackend")
+    eng = srv.engine
+    slo = SLO(**cl["slo"])
+    driver = ClusterDriver(srv, ScalingPolicy(slo=slo, **cl["policy"]),
+                           mcfg=cfg, tp=1,
+                           device_pool=DevicePool(range(SCALE_DEVICES)),
+                           config=DriverConfig(**cl["driver"]))
+    wl = cl["workload"]
+    reqs = make_workload(duration_s=wl["duration_s"],
+                         rps_fn=burst(*wl["burst"]),
+                         prompt_len=wl["prompt_len"],
+                         output_range=wl["output_range"], seed=wl["seed"],
+                         vocab_size=cfg.vocab_size)
+
+    # instrumentation around the server, none inside the package: each
+    # tick's wall, its work by dp (the serve_scale launch rules), the
+    # STAGING ticks' steps under sync-debug "error"; each scale's wall
+    # from start_scale to DONE and the plan of the driver's projection
+    ticks, work, strict, scales = [], {}, [0], []
+    step, start_scale = srv.step, srv.start_scale
+    tracer = obs.install(obs.Tracer())
+
+    def timed_step(now):
+        task = driver.task
+        in_task = task is not None
+        staging = in_task and task.phase is ScalePhase.STAGING
+        dp, steps0 = eng.cfg.dp, eng._step_count
+        tracer.clear()
+        undo = _strict_steps(eng) if staging else None
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        try:
+            out = step(now)
+        finally:
+            if undo is not None:
+                undo()
+        torch.cuda.synchronize()
+        w1 = time.perf_counter()
+        strict[0] += staging
+        w = work.setdefault(dp, [0, 0])
+        w[0] += eng._step_count - steps0
+        w[1] += sum(e.args["chunks"] for e in tracer.events()
+                    if e.name == "chunk.plan")
+        ticks.append((now, w0, w1, in_task))
+        return out
+
+    def timed_start(target):
+        rec = {"projected_bytes": _projected_bytes(
+            driver, srv.current_config(), target)}
+        torch.cuda.synchronize()
+        rec["w0"] = time.perf_counter()
+        task = start_scale(target)
+        advance = task.advance
+
+        def timed_advance(now):
+            phase = advance(now)
+            if phase.terminal and "wall_s" not in rec:
+                torch.cuda.synchronize()
+                rec["wall_s"] = time.perf_counter() - rec["w0"]
+                rec["phase"] = phase.name
+            return phase
+        task.advance = timed_advance
+        scales.append(rec)
+        return task
+
+    srv.step, srv.start_scale = timed_step, timed_start
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    until = 0.0
+    while any(r.finish_s is None for r in reqs) or driver.task is not None:
+        until += 5.0
+        driver.run(reqs if until == 5.0 else [], until=until)
+        require(until < 120.0, f"{tag} serving did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = ops.launch_counts()
+    obs.install(None)
+    srv.step, srv.start_scale = step, start_scale
+
+    # what the loop must have done
+    dirs = [e.direction for e in driver.events]
+    require("up" in dirs and "down" in dirs,
+            f"{tag} the loop did not go up and back down: {dirs}")
+    require(len(scales) == len(driver.events) == len(srv.events)
+            and all(s.get("phase") == "DONE" for s in scales),
+            f"{tag} a scale did not complete: {scales}")
+    for r in reqs:
+        toks = eng.generated[r.rid]
+        require(r.finish_s is not None and len(toks) == r.output_len,
+                (r.rid, len(toks), r.output_len))
+        require(all(0 <= t < cfg.vocab_size for t in toks))
+    require(srv.hmm.active_cfg == c0, f"{tag} ended on "
+            f"{srv.hmm.active_cfg.describe()}, not {c0.describe()}; "
+            f"events {[(e.t, e.direction, e.dst) for e in driver.events]}")
+    table = srv.hmm.page_table
+    require(srv._staged_cfg is None and srv.hmm.staged is None
+            and table.staged is None and not srv.hmm.staging_in_flight,
+            f"{tag} staged state left behind")
+    # DP4's devices hold the pages they own; the devices the scale-downs
+    # released hold none
+    for d in range(SCALE_DEVICES):
+        owned = sum(1 for ref in table.active.values() if ref.device == d)
+        require(owned == 0 or d in c0.devices,
+                f"{tag} released device {d} owns {owned} pages")
+        require(table.pages_in_use(d) == owned,
+                f"{tag} device {d}: {table.pages_in_use(d)} pages in use, "
+                f"{owned} owned")
+    require(strict[0] > 0, f"{tag} no tick was served in STAGING")
+    L = cfg.num_layers
+    want = {
+        "block_paged_decode_attention":
+            L * sum(dp * w[0] for dp, w in work.items()),
+        "mixed_block_paged_attention": L * sum(w[1] for w in work.values()),
+        "paged_gmm": 3 * L * sum(dp * (w[0] + w[1])
+                                 for dp, w in work.items()),
+        "kv_cache_write": L * sum(dp * w[0] + w[1] for dp, w in work.items()),
+    }
+    for name, n in want.items():
+        require(counts[name] == n, f"{tag} {name}: {counts[name]} launches, "
+                f"{n} expected over {work} (dp: [decode steps, chunks])")
+        require(n > 0, f"{tag} {name} was not launched")
+
+    # what it measured
+    summary = summarize(reqs, slo, backend=srv)
+    wall_lat = _wall_latencies(reqs, [t[:3] for t in ticks])
+    tokens = sum(r.output_len for r in reqs)
+    tick_ms = {k: [(w1 - w0) * 1e3 for _, w0, w1, in_task in ticks
+                   if in_task == k] for k in (True, False)}
+    tick_stats = {("in_scale" if k else "outside"):
+                  {"n": len(v), "median_ms": _pct(v, 50),
+                   "p90_ms": _pct(v, 90)} for k, v in tick_ms.items()}
+    events = []
+    for e, ev, rec in zip(driver.events, srv.events, scales):
+        measured = {"stage_s": ev.stage_s, "switch_s": ev.switch_s,
+                    "stall_s": ev.stall_s,
+                    "start_scale_to_done_s": rec["wall_s"],
+                    "bytes": {f: getattr(ev.stats, f)
+                              for f in ev.stats.BYTE_FIELDS},
+                    "migrated_blocks": ev.migrated_blocks,
+                    "migration_bytes": ev.migration_bytes}
+        events.append({"t": e.t, "direction": e.direction, "src": e.src,
+                       "dst": e.dst,
+                       "projected_scale_s_paper_cluster":
+                           e.projected_scale_s,
+                       "projected_bytes": rec["projected_bytes"],
+                       "measured": measured})
+        log(f"{tag} t={e.t:.2f} (driver s) {e.direction} {e.src} -> "
+            f"{e.dst}: projected_scale_s {e.projected_scale_s:.4f} (cost "
+            f"model, the paper cluster's constants, not the card's; plan "
+            f"P2P {rec['projected_bytes']['p2p_bytes']} B, zero-copy "
+            f"{rec['projected_bytes']['zero_copy_bytes']} B, KV migration "
+            f"{rec['projected_bytes']['kv_migration_bytes']} B)")
+        log(f"{tag}   measured on the card: stage_s {ev.stage_s:.4f}, "
+            f"switch_s {ev.switch_s:.4f}, stall_s {ev.stall_s:.4f}, "
+            f"start_scale to DONE {rec['wall_s']:.4f} s; bytes "
+            f"{ {k: v for k, v in measured['bytes'].items() if v} }; "
+            f"migrated {ev.migrated_blocks} blocks, {ev.migration_bytes} B")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} qwen3-30b-a3b, {L} layers, {len(reqs)} requests over "
+        f"{wl['duration_s']} driver s (burst {wl['burst']}), SLO "
+        f"{cl['slo']} driver s: summarize {summary}")
+    log(f"{tag} wall ms: TTFT p50 {wall_lat['ttft_p50']:.1f}, p99 "
+        f"{wall_lat['ttft_p99']:.1f}; TPOT p50 {wall_lat['tpot_p50']:.2f}; "
+        f"ITL p99 {wall_lat['itl_p99']:.2f}; {tokens} output tokens in "
+        f"{wall:.2f} s wall, {tokens / wall:.1f} tokens a wall second")
+    log(f"{tag} tick wall ms: {tick_stats}; {strict[0]} STAGING ticks "
+        f"under sync-debug 'error'; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; launches {want}")
+    srv.hmm.close()
+    del srv, eng, driver
+    return {"events": events, "summary_driver_s": summary,
+            "wall_ms": wall_lat, "tokens": tokens, "serve_wall_s": wall,
+            "tokens_per_wall_s": tokens / wall, "ticks": tick_stats,
+            "strict_ticks": strict[0], "work": work, "launches": counts,
+            "max_memory_allocated": peak, "requests": len(reqs),
+            "params": CLOSED_LOOP}
+
+
+# launch_serve: the launcher's main on the card (f32 smoke configs, 8
+# logical devices on cuda:0); deepseek-v2-lite as the launcher's default
+# traffic gives it (no scale), then a dense decoder with enough requests
+# to scale up (the smoke MoE's 4 experts do not split over DP3's 6)
+LAUNCH_RUNS = {
+    "deepseek-v2-lite-16b": ["--arch", "deepseek-v2-lite-16b", "--tp", "2",
+                             "--autoscale", "--requests", "8"],
+    "qwen1.5-0.5b": ["--arch", "qwen1.5-0.5b", "--tp", "2", "--autoscale",
+                     "--requests", "32"],
+}
+
+
+def phase_launch_serve():
+    """``launch_serve``: ``repro_torch.launch.serve.main`` on the card;
+    every request finishes, the dense run scales, each prefill attention
+    is at a shape the kernels phase held (``SMOKE_FLASH_HEADS``), and
+    each run's summary is printed in driver seconds and in wall
+    seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    os.environ["REPRO_SERVE_DEVICES"] = "8"
+    res, counts, shapes = {}, {}, set()
+    flash = ops.flash_attention
+
+    def seen_flash(q, k, v, *a):
+        shapes.add((q.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                    v.shape[3], q.dtype))
+        return flash(q, k, v, *a)
+    for name, argv in LAUNCH_RUNS.items():
+        tag = f"[launch_serve {name}]"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ops.flash_attention = seen_flash
+        try:
+            out = serve.main(argv)
+        finally:
+            ops.flash_attention = flash
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        counts = {k: counts.get(k, 0) + got[k] for k in got}
+        s = out["summary"]
+        require(s["finished"] == s["n"], f"{tag} {s}")
+        if name == "qwen1.5-0.5b":
+            require(out["scales"], f"{tag} no scale line")
+        wall_lat = _wall_latencies(out["requests"], out["ticks"])
+        log(f"{tag} summary (driver s): {s}")
+        log(f"{tag} wall ms: TTFT p50 {wall_lat['ttft_p50']:.2f}, p99 "
+            f"{wall_lat['ttft_p99']:.2f}; TPOT p50 "
+            f"{wall_lat['tpot_p50']:.2f}; ITL p99 {wall_lat['itl_p99']:.2f};"
+            f" {len(out['ticks'])} ticks in {wall:.2f} s (boot included); "
+            f"scales {out['scales']}; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        res[name] = {"summary_driver_s": s, "wall_ms": wall_lat,
+                     "scales": out["scales"], "wall_s": wall,
+                     "launches": got}
+        out["server"].hmm.close()
+    for n in PATH_KERNELS["launch_serve"]:
+        require(counts[n] > 0, f"[launch_serve] {n} was not launched")
+    held = {(LAUNCH_BUCKET, *h, torch.float32) for h in SMOKE_FLASH_HEADS}
+    require(shapes <= held, f"[launch_serve] flash_attention at "
+            f"{shapes - held}, not held by the kernels phase")
+    res["launches"] = counts
+    return res
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -3633,7 +4010,8 @@ def main():
                             "serve_graphs,"
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
                             "serve_down_tp,serve_scale_mla,"
-                            "serve_scale_zamba2")
+                            "serve_scale_zamba2,serve_closed_loop,"
+                            "launch_serve")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -3673,6 +4051,9 @@ def main():
     runs.append(("serve_down_tp", lambda: phase_serve_down(args.layers, 2)))
     runs += [(p, lambda p=p: phase_serve_scale_dense(args.layers, p))
              for p in DENSE_SCALE]
+    runs.append(("serve_closed_loop",
+                 lambda: phase_serve_closed_loop(args.layers)))
+    runs.append(("launch_serve", phase_launch_serve))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

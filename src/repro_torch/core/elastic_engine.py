@@ -36,9 +36,14 @@ The defaults are the reference's: the slot-contiguous KV cache
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
 modes.  Dense KV with chunked prefill is not ported yet and raises.  So do
-a TP degree that cuts a head, the autoscaling policy, rebalancing, routing
-telemetry and parking: their knobs keep the reference's names and raise
-``NotImplementedError``.
+a TP degree that cuts a head, rebalancing, routing telemetry and parking:
+their knobs keep the reference's names and raise ``NotImplementedError``.
+
+The server is a ``serving/driver.ServingBackend``: the ``ClusterDriver``
+drives it through ``step``, ``start_scale`` and the load signals.  With a
+``policy`` it also keeps its own ``LoadEstimator``, which ``tick`` feeds
+with every finished request and ``autoscale_decision`` asks, as the
+launcher (``launch/serve.py``) does.
 """
 from __future__ import annotations
 
@@ -48,8 +53,9 @@ from functools import partial
 from typing import Dict, List, Optional
 
 from repro_torch import obs
-from repro_torch.core.hmm import (HMM, REBALANCE, SLICE_C, TELEMETRY,
-                                  TransferStats, not_ported)
+from repro_torch.core.coordinator import LoadEstimator
+from repro_torch.core.hmm import (HMM, REBALANCE, TELEMETRY, TransferStats,
+                                  not_ported)
 from repro_torch.core.imm import IMM
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.core.transfer import TransferOp
@@ -359,7 +365,6 @@ class ElasticServer:
                  kv_dtype: Optional[str] = None,
                  expert_dtype: Optional[str] = None,
                  imm_cache=None, cuda_graphs: bool = True, device="cuda"):
-        not_ported("policy", policy, None, SLICE_C)
         not_ported("routing_sample_every", routing_sample_every, 0,
                    TELEMETRY)
         not_ported("rebalance", rebalance, None, REBALANCE)
@@ -416,6 +421,7 @@ class ElasticServer:
                                       prefill_chunk=prefill_chunk,
                                       prefill_budget=prefill_budget,
                                       device=self.hmm.device)
+        self.estimator = LoadEstimator(policy) if policy else None
         self.queue: List[Request] = []
         self.requests: Dict[int, Request] = {}
         self.events: List[ScaleEvent] = []
@@ -576,9 +582,12 @@ class ElasticServer:
                 req.token_times.append(now)
         finished = []
         for rid in self.engine.drain_finished_at_admission():
-            self.requests[rid].finish_s = now
+            req = self.requests[rid]
+            req.finish_s = now
             finished.append(rid)
             tr.instant("req.finish", cat="req", args={"rid": rid})
+            if self.estimator:
+                self.estimator.record(req)
         for rid, tok, fin in self.engine.decode_tick():
             req = self.requests[rid]
             if req.first_token_s is None:
@@ -592,10 +601,20 @@ class ElasticServer:
                 req.finish_s = now
                 finished.append(rid)
                 tr.instant("req.finish", cat="req", args={"rid": rid})
+                if self.estimator:
+                    self.estimator.record(req)
         preempted = self.engine.drain_preempted()
         if preempted:
             self.queue[:0] = [self.requests[r] for r in preempted]
         return finished
+
+    # ------------------------------------------------------------ decisions
+    def autoscale_decision(self, now: float) -> Optional[str]:
+        """The policy's 'up' | 'down' | None at ``now`` (None without a
+        policy)."""
+        if not self.estimator:
+            return None
+        return self.estimator.decide(now, len(self.queue), self.utilization())
 
     # --------------------------------------------- ServingBackend protocol
     def step(self, now: float) -> List[Request]:

@@ -66,6 +66,18 @@ class ExpertPageTable:
         self._ensure_pool(device)
         return self.pool_pages - len(self._free[device])
 
+    def clone(self) -> "ExpertPageTable":
+        """An independent copy for what-if staging (the driver's cost
+        projections): the active and staged maps and the free lists are
+        copied, so staging on the clone leaves this table as it was
+        (``PageRef``s are immutable and shared)."""
+        t = ExpertPageTable(self.num_layers, self.num_experts,
+                            pool_pages_per_device=self.pool_pages)
+        t.active = dict(self.active)
+        t.staged = dict(self.staged) if self.staged is not None else None
+        t._free = {d: list(v) for d, v in self._free.items()}
+        return t
+
     def initial_place(self, cfg: ElasticConfig) -> None:
         """First boot: allocate a page per (layer, expert) on its owner."""
         assert not self.active

@@ -97,7 +97,6 @@ def not_ported(knob: str, value, default, where: str) -> None:
             f"{knob}={value!r} is not ported yet (only {default!r}): {where}")
 
 
-SLICE_C = "Slice C, the closed loop (ROADMAP §1 item 3)"
 TELEMETRY = "routing telemetry (ROADMAP §1 item 4)"
 REBALANCE = "the rebalancer and host tier (ROADMAP §1 item 5)"
 

@@ -13,7 +13,9 @@
 // arithmetic.  Instances (hd, hdv): (64, 64), (80, 80) for zamba2's
 // shared attention block, (128, 128), and (192, 128) for MLA's prefill
 // (q/k carry dn + dr = 192 values, v 128: the reference pads v to 192 and
-// trims the output, this instance reads and writes 128).
+// trims the output, this instance reads and writes 128); and the reduced
+// configs' widths, (16, 16) and MLA's (48, 32), which the f32 parity runs
+// of the serving launcher and the closed loop reach on the card.
 //
 // Bound on an H100.  At the serving path's largest bucket (B=1, S=1024,
 // H=32, KVH=4, hd=128, causal) the work is 4*hd operations per attended
@@ -571,9 +573,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); (hd, hdv) in {(64, 64),
-// (80, 80), (128, 128), (192, 128)}.  Returns cudaGetLastError() after
-// the launch (0 on success).  Allocates nothing and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); (hd, hdv) in {(16, 16),
+// (48, 32), (64, 64), (80, 80), (128, 128), (192, 128)}.  Returns
+// cudaGetLastError() after the launch (0 on success).  Allocates nothing and does not synchronise.
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* out, int B, int S, int H,
                            int KVH, int hd, int hdv, int causal, float scale,
@@ -584,6 +586,8 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   if (hd == HD && hdv == HDV)                                              \
     return launch<HD, HDV>(dtype, q, k, v, out, B, S, H, KVH, causal, scale, \
                            s);
+  FA_LAUNCH(16, 16)
+  FA_LAUNCH(48, 32)
   FA_LAUNCH(64, 64)
   FA_LAUNCH(80, 80)
   FA_LAUNCH(128, 128)

@@ -17,8 +17,9 @@ one masks a ragged last tile itself, so any S >= 1 works (the serving
 path's 64-token buckets are not all multiples of 128).  Head widths: q/k
 and v of 64, 80 (zamba2's shared attention block) or 128, or q/k 192 with
 v 128 (MLA's prefill: the reference pads v to 192 and trims the output;
-this instance reads and writes 128); the scale is the caller's,
-``1/sqrt(hd)`` by default.
+this instance reads and writes 128), and the reduced configs' 16 and
+MLA's 48 with v 32 (the launcher's and the closed loop's f32 runs on the
+card); the scale is the caller's, ``1/sqrt(hd)`` by default.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and alignment, allocates the output, launches on PyTorch's
@@ -39,7 +40,7 @@ _SIGNATURES = {"flash_attention_launch":
                [_I] + [_P] * 4 + [_I] * 7 + [_F, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q/k head dim, v head dim) instances
-HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
+HEAD_DIMS = ((16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2058,3 +2058,31 @@ def test_a_target_that_outgrows_the_split_buffers_replays_a_chunk_first(
         srv.hmm.close()
     assert order[0] == "chunk"
     assert tokens[True] == tokens[False]
+
+
+def test_closed_loop_on_the_card_equals_the_cpu_run(dev):
+    """Case 1 of ``tests/test_torch_closed_loop.py`` (TEST_MOE at f32, tp
+    = 2, DP2 -> DP3 -> DP2 under the driver) on ``cuda:0`` eight times:
+    the driver's events and every request's timestamps equal the CPU
+    run's (they depend on no weight: the driver's clock is virtual), and
+    the graphed server's greedy tokens equal its eager twin's."""
+    from test_torch_closed_loop import (events_without_wall,
+                                        run_closed_loop, same_events)
+    _, cpu_driver, cpu_reqs = run_closed_loop("case1")
+    want_events = events_without_wall(cpu_driver)
+    want_times = {r.rid: (r.first_token_s, r.finish_s, r.token_times)
+                  for r in cpu_reqs}
+    tokens = {}
+    for graphs in (True, False):
+        srv, driver, reqs = run_closed_loop(
+            "case1", all_devices=[dev] * 8, device=dev, cuda_graphs=graphs)
+        assert (srv.engine.graphs is not None) == graphs
+        got = events_without_wall(driver)
+        assert [e["direction"] for e in got] == ["up", "down"]
+        assert same_events(got, want_events), (got, want_events)
+        assert {r.rid: (r.first_token_s, r.finish_s, r.token_times)
+                for r in reqs} == want_times
+        tokens[graphs] = {r.rid: srv.engine.generated[r.rid] for r in reqs}
+        assert all(len(tokens[graphs][r.rid]) == r.output_len for r in reqs)
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
