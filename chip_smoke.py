@@ -323,6 +323,23 @@ Phases, each of which raises on failure (no phase's failure is caught):
    smoke MoE's 4 experts do not split over DP3's 6 devices in either
    package).  Every request finishes; each summary is printed in driver
    seconds and wall ms.
+22. ``serve_rebalance``: the skew rebalancer on qwen3-30b-a3b at full
+   width and 8 layers, DP2 x TP2 on four logical devices of the card
+   (bf16 pooled pages, paged KV, chunked prefill, CUDA graphs).  The 8
+   ``serve`` requests on a server without a policy, then on one with
+   ``routing_sample_every=1`` (the routed decode graph every tick) and the
+   reference test's tight ``RebalancePolicy``: it must replicate and
+   demote mid-serving, give the same tokens, capture no graph after boot
+   and keep every bound tensor (the commits write the index tensors in
+   place).  Prints the routed and the plain graphed decode tick, each
+   pass's STAGING, ``wall_s``, ``op_s`` and commit time, the replica and
+   D2H bytes with their per-op rates and the host tier's bytes; then
+   demotes every expert of layers 0 and 1 (about 2.4 GB pinned: the host's
+   MemAvailable is printed before and after) and scales to DP3 x TP2
+   while serving 8 more requests: those layers' movers must come from the
+   host tier (``expert_h2d_bytes`` = their pages) and ``expert_p2p_bytes``
+   count only the others; the same copies replayed alone give the H2D and
+   the device-to-device rates.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -444,6 +461,7 @@ PATH_KERNELS = {
 for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
     PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
 PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
+PATH_KERNELS["serve_rebalance"] = PATH_KERNELS["serve"]
 # the launcher's f32 smoke runs: deepseek-v2-lite's MLA with the dense
 # stores, and qwen1.5-0.5b's slot decode
 PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
@@ -3960,6 +3978,290 @@ def phase_launch_serve():
     return res
 
 
+# serve_rebalance: the reference test's tight bands, so that the policy
+# acts on the smoke requests' near-uniform routing
+REBALANCE_POLICY = dict(hot_factor=1.02, cold_factor=0.98, min_samples=3,
+                        cooldown_s=0.5, max_actions=8)
+
+
+def _mem_available():
+    """The host's MemAvailable line of /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        return next(line.strip() for line in f
+                    if line.startswith("MemAvailable"))
+
+
+def _rebalance_serve(srv, reqs, tracer, scale_at=None, target=None):
+    """Serve ``reqs`` to the end on a virtual clock (0.1 s a tick, the
+    policy's cooldown clock); with ``target``, ``start_scale`` at tick
+    ``scale_at`` and one ``advance`` after each tick.  Returns the tokens,
+    the chunkless ticks' ``decode.tick`` spans (ms), the rebalance spans
+    (begin and commit on the serving thread, the task's STAGING phase) and
+    copy ops, and the scale task."""
+    for r in reqs:
+        srv.submit(r)
+    eng, t, n, task = srv.engine, 0.0, 0, None
+    decode_ms, commit_ms, staging_ms, copies = [], [], [], []
+    begin_ms = []
+    while any(r.finish_s is None for r in reqs) or \
+            (task is not None and not task.done):
+        require(n < 3000, "serving did not finish")
+        if target is not None and n == scale_at:
+            task = srv.start_scale(target)
+        tracer.clear()
+        srv.tick(t)
+        if task is not None and not task.done:
+            task.advance(t)
+        ev = tracer.events()
+        if not any(e.name == "prefill.chunks" for e in ev):
+            decode_ms += [e.dur * 1e3 for e in ev if e.name == "decode.tick"]
+        commit_ms += [e.dur * 1e3 for e in ev
+                      if e.name == "hmm.commit_rebalance"]
+        begin_ms += [e.dur * 1e3 for e in ev
+                     if e.name == "hmm.begin_rebalance"]
+        staging_ms += [e.dur * 1e3 for e in ev
+                       if e.name == "rebalance.STAGING"]
+        copies += [(e.name, e.dur) for e in ev
+                   if e.name.startswith("rebalance:")]
+        t, n = t + .1, n + 1
+    torch.cuda.synchronize()
+    return {"tokens": {r.rid: list(eng.generated[r.rid]) for r in reqs},
+            "decode_ms": decode_ms, "commit_ms": commit_ms,
+            "begin_ms": begin_ms,
+            "staging_ms": staging_ms, "copies": copies, "task": task}
+
+
+def _kind_rates(copies, page):
+    """kind -> (ops, GB/s): each copy op's page over its own time (begin to
+    landed on the worker), summed over the ops of that kind."""
+    out = {}
+    for kind in ("replicate", "demote"):
+        ds = [d for name, d in copies if name.startswith(f"rebalance:{kind}")]
+        out[kind] = (len(ds), len(ds) * page / sum(ds) / 1e9 if ds else None)
+    return out
+
+
+def _copy_rate(pairs, reps=5):
+    """GB/s of copying every (destination, source) pair once, timed with
+    CUDA events over ``reps`` rounds after one warm-up round."""
+    def run():
+        for dst, src in pairs:
+            dst.copy_(src, non_blocking=True)
+    run()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        run()
+    b.record()
+    b.synchronize()
+    nbytes = reps * sum(s.nbytes for _, s in pairs)
+    return nbytes / (a.elapsed_time(b) / 1e3) / 1e9
+
+
+def phase_serve_rebalance(layers):
+    """``serve_rebalance``: qwen3-30b-a3b at full width and
+    ``SCALE_LAYERS`` layers, DP2 x TP2 on four logical devices of the
+    card, bf16 pooled pages, paged KV, chunked prefill, CUDA graphs.  The
+    8 smoke requests, served by a server without a policy, then by one
+    with ``routing_sample_every=1`` and a tight ``RebalancePolicy``: it
+    must replicate and demote mid-serving, give the same tokens, capture
+    no graph after boot and keep every bound tensor.  Then every expert of
+    two layers is demoted and the server scales to DP3 x TP2 while it
+    serves 8 more requests: those layers' movers come from the pinned-host
+    tier (``expert_h2d_bytes``), the others between logical devices."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.expert_pages import HOST
+    from repro_torch.kernels import ops
+    from repro_torch.serving.rebalance import RebalancePolicy
+    from repro_torch.serving.workload import Request
+    smi = _card()
+    tag = "[serve_rebalance]"
+    log(f"{tag} host {_mem_available()}")
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    L, E = cfg.num_layers, cfg.num_experts
+    c0, c1 = _scale_cfgs(2)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+
+    def requests(base):
+        return [Request(rid=base + i, arrival_s=0.0, prompt_len=len(p),
+                        output_len=32, prompt=p)
+                for i, p in enumerate(prompts)]
+    tracer = obs.install(obs.Tracer())
+    res = {"layers": L}
+    try:
+        srv = _scale_server(cfg, None, 2)
+        srv.boot(c0)
+        plain = _rebalance_serve(srv, requests(0), tracer)
+        srv.hmm.close()
+        del srv
+        srv = _scale_server(cfg, None, 2, routing_sample_every=1,
+                            rebalance=RebalancePolicy(**REBALANCE_POLICY))
+        srv.boot(c0)
+        log(f"{tag} qwen3-30b-a3b, {L} layers, full width, paged KV, "
+            f"pooled {cfg.dtype} experts (table width "
+            f"{srv.hmm.params['blocks']['moe']['tables'].shape[-1]}: one "
+            f"slot of slack), chunked prefill, CUDA graphs, "
+            f"{c0.describe()} on one card; routing_sample_every=1, "
+            f"RebalancePolicy({REBALANCE_POLICY})")
+        eng = srv.engine
+        captures, graphs = srv.imm.stats["captures"], eng.graphs
+        require(graphs is not None and graphs._routed == 1,
+                "the routed decode graph was not captured")
+        keep = _shard_ptrs({"params": eng.params, "cache": eng.cache},
+                           c0.devices)
+        ops.reset_launch_counts()
+        routed = _rebalance_serve(srv, requests(0), tracer)
+        counts = ops.launch_counts()
+        res["launches"] = _path_launches(counts, None, tag)
+        _compare_tokens(routed["tokens"], plain["tokens"], tag,
+                        "the server without a policy")
+        require(routed["tokens"] == plain["tokens"],
+                "the rebalanced server's tokens differ")
+        summ = srv.rebalance_summary()
+        require(summ is not None and summ["replicated"] >= 1
+                and summ["demoted"] >= 1, f"the policy did not act: {summ}")
+        require(srv.imm.stats["captures"] == captures
+                and eng.graphs is graphs, "a graph was captured again")
+        now = _shard_ptrs({"params": eng.params, "cache": eng.cache},
+                          c0.devices)
+        require(now == keep, "a bound tensor moved")
+        page = srv.hmm.expert_page_nbytes()
+        evs = [ev for ev in srv.rebalance_events if not ev.aborted]
+        rates = _kind_rates(routed["copies"], page)
+        plain_ms = statistics.median(plain["decode_ms"])
+        routed_ms = statistics.median(routed["decode_ms"])
+        log(f"{tag} graphed decode tick (chunkless, decode.tick span) "
+            f"median: routed {routed_ms:.3f} ms over "
+            f"{len(routed['decode_ms'])} ticks, plain {plain_ms:.3f} ms over "
+            f"{len(plain['decode_ms'])} ticks; {smi}")
+        log(f"{tag} {summ['passes']} passes ({summ['aborted']} aborted): "
+            f"{summ['replicated']} replicated, {summ['demoted']} demoted, "
+            f"{summ['dropped']} dropped, {summ['promoted']} promoted; tokens "
+            f"equal the server without a policy; no graph captured after "
+            f"boot, every bound tensor kept; {smi}")
+        log(f"{tag} per pass: begin on the serving thread ms "
+            f"{[round(x, 3) for x in routed['begin_ms']]}, STAGING span ms "
+            f"{[round(x, 3) for x in routed['staging_ms']]}, wall_s "
+            f"{[round(ev.stats.wall_s, 5) for ev in evs]}, op_s "
+            f"{[round(ev.stats.op_s, 5) for ev in evs]}, commit on the "
+            f"serving thread ms {[round(x, 3) for x in routed['commit_ms']]};"
+            f" {smi}")
+        log(f"{tag} expert_replica_bytes {summ['replica_bytes']} "
+            f"({rates['replicate'][0]} ops, {rates['replicate'][1]} GB/s per "
+            f"op), expert_d2h_bytes {summ['d2h_bytes']} "
+            f"({rates['demote'][0]} ops, {rates['demote'][1]} GB/s per op, "
+            f"into pinned host rows), host_tier_bytes "
+            f"{summ['host_tier_bytes']}; {smi}")
+        res.update(
+            tokens_equal=True, summary=summ,
+            decode_tick_ms={"routed": routed_ms, "plain": plain_ms},
+            staging_ms=routed["staging_ms"], commit_ms=routed["commit_ms"],
+            begin_ms=routed["begin_ms"],
+            wall_s=[ev.stats.wall_s for ev in evs],
+            op_s=[ev.stats.op_s for ev in evs], copy_rates=rates)
+
+        # every expert of two layers into the pinned-host tier
+        srv.rebalance_policy = None
+        t = 1000.0
+        while srv._rebalance_task is not None \
+                and not srv._rebalance_task.done:
+            srv.tick(t)
+            t += .1
+        pt = srv.hmm.page_table
+        cold = [("demote", l, e) for l in (0, 1) for e in range(E)
+                if (l, e) not in pt.host]
+        tracer.clear()
+        task = srv.start_rebalance(cold)
+        while not task.done:
+            srv.tick(t)
+            t += .1
+        st = task.stats
+        d2h_rate = st.expert_d2h_bytes / st.wall_s / 1e9
+        ev = tracer.events()
+        per_op = _kind_rates([(e.name, e.dur) for e in ev
+                              if e.name.startswith("rebalance:")], page)
+        begin = sum(e.dur for e in ev if e.name == "hmm.begin_rebalance")
+        host_bytes = srv.hmm.host_tier_bytes()
+        pinned = all(t_.is_pinned() for rows in
+                     srv.hmm._expert_host_pool.values()
+                     for t_ in rows.values())
+        require(pinned, "a host-tier row is not pinned")
+        log(f"{tag} demoted {len(cold)} more pages (every expert of layers "
+            f"0 and 1): expert_d2h_bytes {st.expert_d2h_bytes} in "
+            f"{st.wall_s:.4f} s (begin to commit end, "
+            f"{srv.hmm.transfer_workers} workers; begin {begin * 1e3:.2f} ms"
+            f", op_s {st.op_s:.4f}) = {d2h_rate:.2f} GB/s, "
+            f"{per_op['demote'][1]} GB/s per op (a slab not yet pinned is "
+            f"pinned on the worker); host_tier_bytes {host_bytes} in "
+            f"{srv.hmm._host_tier.pinned_bytes()} bytes of pinned slabs; "
+            f"host {_mem_available()}; {smi}")
+        res.update(pinned_bytes=srv.hmm._host_tier.pinned_bytes(),
+                   demote_all={"pages": len(cold),
+                               "d2h_bytes": st.expert_d2h_bytes,
+                               "wall_s": st.wall_s, "gb_s": d2h_rate,
+                               "begin_s": begin, "op_s": st.op_s,
+                               "per_op_gb_s": per_op["demote"][1]},
+                   host_tier_bytes=host_bytes)
+
+        # a scale while serving: layers 0 and 1 come from the host tier
+        ops.reset_launch_counts()
+        run = _rebalance_serve(srv, requests(100), tracer, scale_at=4,
+                               target=c1)
+        more = ops.launch_counts()
+        for n in res["launches"]:
+            res["launches"][n] += more[n]
+        task = run["task"]
+        require(task.phase.name == "DONE" and srv.hmm.active_cfg == c1,
+                "the scale did not finish")
+        migs = srv.hmm.last_migrations
+        host = [m for m in migs if m.src.device == HOST]
+        require(all(m.src.device == HOST for m in migs if m.layer < 2),
+                "a mover of a demoted layer did not come from the host tier")
+        require(any(m.layer < 2 for m in migs), "no mover in layers 0, 1")
+        stg = task.stage_stats
+        require(stg.expert_h2d_bytes == len(host) * page,
+                (stg.expert_h2d_bytes, len(host), page))
+        require(stg.expert_p2p_bytes == (len(migs) - len(host)) * page,
+                (stg.expert_p2p_bytes, len(migs), len(host)))
+        for r in requests(100):
+            toks = srv.engine.generated[r.rid]
+            require(len(toks) == 32 and all(0 <= x < cfg.vocab_size
+                                            for x in toks))
+        # the same scale's copies replayed alone, timed with CUDA events:
+        # host rows into pool pages, pool pages between logical devices
+        pool = srv.hmm.params["moe_pool"]
+        h2d = [(pool[b].shard(m.dst.device)[m.dst.page],
+                srv.hmm._expert_host_pool[(m.layer, m.expert)][b])
+               for m in host for b in pool]
+        p2p = [(pool[b].shard(m.dst.device)[m.dst.page],
+                pool[b].shard(m.dst.device)[m.dst.page].clone())
+               for m in migs if m.src.device != HOST for b in pool]
+        h2d_rate, p2p_rate = _copy_rate(h2d), _copy_rate(p2p)
+        log(f"{tag} scale {c0.describe()} -> {c1.describe()} while serving "
+            f"8 requests: {len(migs)} movers, {len(host)} from the host tier "
+            f"(expert_h2d_bytes {stg.expert_h2d_bytes}), "
+            f"{len(migs) - len(host)} between logical devices "
+            f"(expert_p2p_bytes {stg.expert_p2p_bytes}); staging wall "
+            f"{stg.wall_s:.4f} s; the same copies alone: H2D "
+            f"{h2d_rate:.2f} GB/s, P2P (one card, device to device) "
+            f"{p2p_rate:.2f} GB/s; {smi}")
+        res["scale"] = {"movers": len(migs), "host_movers": len(host),
+                        "h2d_bytes": stg.expert_h2d_bytes,
+                        "p2p_bytes": stg.expert_p2p_bytes,
+                        "stage_wall_s": stg.wall_s,
+                        "h2d_gb_s": h2d_rate, "p2p_gb_s": p2p_rate}
+        srv.hmm.close()
+        del srv, eng, graphs
+    finally:
+        obs.install(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -4011,7 +4313,7 @@ def main():
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
                             "serve_down_tp,serve_scale_mla,"
                             "serve_scale_zamba2,serve_closed_loop,"
-                            "launch_serve")
+                            "launch_serve,serve_rebalance")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4054,6 +4356,8 @@ def main():
     runs.append(("serve_closed_loop",
                  lambda: phase_serve_closed_loop(args.layers)))
     runs.append(("launch_serve", phase_launch_serve))
+    runs.append(("serve_rebalance",
+                 lambda: phase_serve_rebalance(args.layers)))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -35,9 +35,21 @@ The defaults are the reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
-modes.  Dense KV with chunked prefill is not ported yet and raises.  So do
-a TP degree that cuts a head, rebalancing, routing telemetry and parking:
-their knobs keep the reference's names and raise ``NotImplementedError``.
+modes.  Dense KV with chunked prefill is not ported yet and raises, as
+does a TP degree that cuts a head; parking is not ported.
+
+Skew-aware rebalancing (standard-attention MoE models, pooled pages):
+``routing_sample_every=N`` runs every Nth decode tick's twin that also
+gives the routing counts (on the card its own CUDA graph) and keeps their
+histogram (``routing_stats``); a ``RebalancePolicy`` (``rebalance=``)
+turns it into replicate / demote / drop / promote actions, which ``tick``
+drives through a ``RebalanceTask`` (STAGING: the HMM's copies on the
+TransferEngine while serving goes on; COMMITTING: the index arrays written
+in place) — never while a scale is in flight, and a scale aborts an open
+rebalance first.  ``expert_slot_slack`` (1 by default with a policy) is
+the table's spare width for replicas; ``expert_host_pages`` bounds the
+pinned-host tier.  Replicas are byte-identical, so the tokens are those of
+a server without a policy.
 
 The server is a ``serving/driver.ServingBackend``: the ``ClusterDriver``
 drives it through ``step``, ``start_scale`` and the load signals.  With a
@@ -48,20 +60,21 @@ launcher (``launch/serve.py``) does.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from functools import partial
 from typing import Dict, List, Optional
 
 from repro_torch import obs
 from repro_torch.core.coordinator import LoadEstimator
-from repro_torch.core.hmm import (HMM, REBALANCE, TELEMETRY, TransferStats,
-                                  not_ported)
+from repro_torch.core.hmm import HMM, TransferStats
 from repro_torch.core.imm import IMM
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.core.transfer import TransferOp
 from repro_torch.models.model import check_tp_heads, chunk_prefill_supported
 from repro_torch.serving.driver import ScalePhase, admission_during_scale
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.rebalance import RebalancePolicy
 from repro_torch.serving.workload import Request
 
 
@@ -118,6 +131,9 @@ class EngineScalingTask:
         if server._active_task is not None \
                 and not server._active_task.phase.terminal:
             raise RuntimeError("a scale event is already in flight")
+        # a scale goes first: an open rebalance is aborted (the page table
+        # holds one session at a time)
+        server._preempt_rebalance()
         self.server = server
         self.target = target
         self.phase = ScalePhase.STAGING
@@ -346,6 +362,110 @@ class EngineScalingTask:
         self.phase = ScalePhase.ABORTED
 
 
+@dataclasses.dataclass
+class RebalanceEvent:
+    """One committed (or aborted) rebalance pass."""
+    t: float
+    actions: int
+    replicated: int = 0
+    demoted: int = 0
+    dropped: int = 0
+    promoted: int = 0
+    stats: Optional[TransferStats] = None
+    aborted: bool = False
+
+
+class RebalanceTask:
+    """A resumable expert rebalance: STAGING (the HMM's replica and
+    demotion copies run on its TransferEngine while ``tick`` serves) ->
+    COMMITTING (the page table commits and the index arrays are written in
+    place) -> DONE, or ABORTED (``abort``: every staged page freed, the
+    serving layout untouched).  It never pauses admission: the serving
+    assignment changes only at commit, between two ticks.  Each phase
+    emits a ``rebalance.<PHASE>`` span on the ``"rebalance"`` lane."""
+
+    def __init__(self, server: "ElasticServer", actions: List, load=None):
+        self.server = server
+        self.actions = list(actions)
+        self.event: Optional[RebalanceEvent] = None
+        self.stats: Optional[TransferStats] = None
+        self._load = load
+        self.phase = ScalePhase.STAGING
+        try:
+            self.ops_total = server.hmm.begin_rebalance(actions, load=load)
+        except BaseException:
+            self.phase = ScalePhase.ABORTED
+            raise
+        server._rebalance_task = self
+
+    @property
+    def phase(self) -> ScalePhase:
+        return self._phase
+
+    @phase.setter
+    def phase(self, new: ScalePhase) -> None:
+        tr = obs.get_tracer()
+        now = tr.now()
+        old = getattr(self, "_phase", None)
+        self._phase = new
+        if old is not None and old is not new:
+            tr.complete(f"rebalance.{old.name}", self._phase_t0, now,
+                        cat="rebalance", tid="rebalance",
+                        args={"actions": len(self.actions),
+                              "next": new.name})
+        self._phase_t0 = now
+
+    @property
+    def done(self) -> bool:
+        return self.phase.terminal
+
+    def advance(self, now: float) -> ScalePhase:
+        ph = self.phase
+        if ph is ScalePhase.STAGING:
+            try:
+                if self.server.hmm.poll_rebalance():
+                    self.phase = ScalePhase.COMMITTING
+            except BaseException:
+                # poll_rebalance aborted the HMM's session
+                self.server._rebalance_task = None
+                self.phase = ScalePhase.ABORTED
+                raise
+        elif ph is ScalePhase.COMMITTING:
+            try:
+                self.stats = self.server.hmm.commit_rebalance(load=self._load)
+            except BaseException:
+                self.server._rebalance_task = None
+                self.phase = ScalePhase.ABORTED
+                raise
+            # the histogram described the old placement
+            self.server.engine.reset_routing_stats()
+            self.event = self._record(now)
+            self.server._rebalance_task = None
+            self.phase = ScalePhase.DONE
+        return self.phase
+
+    def _record(self, now: float) -> RebalanceEvent:
+        kinds = [a[0] for a in self.actions]
+        ev = RebalanceEvent(t=now, actions=len(self.actions),
+                            replicated=kinds.count("replicate"),
+                            demoted=kinds.count("demote"),
+                            dropped=kinds.count("drop_replica"),
+                            promoted=kinds.count("promote"),
+                            stats=self.stats)
+        self.server.rebalance_events.append(ev)
+        return ev
+
+    def abort(self):
+        if self.phase not in (ScalePhase.STAGING, ScalePhase.COMMITTING):
+            raise RuntimeError(f"cannot abort a task in {self.phase.name}")
+        self.server.hmm.abort_rebalance()
+        self.server._rebalance_task = None
+        self.server.rebalance_events.append(
+            RebalanceEvent(t=time.time(), actions=len(self.actions),
+                           aborted=True))
+        self.phase = ScalePhase.ABORTED
+
+
 class ElasticServer:
     def __init__(self, mcfg, *, tp: int, batch_per_replica: int,
                  max_len: int, prefill_buckets=(64,), all_devices=None,
@@ -359,17 +479,12 @@ class ElasticServer:
                  prefill_chunk: int = 0,
                  prefill_budget: Optional[int] = None,
                  routing_sample_every: int = 0,
-                 rebalance=None,
+                 rebalance: Optional[RebalancePolicy] = None,
                  expert_slot_slack: Optional[int] = None,
                  expert_host_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  expert_dtype: Optional[str] = None,
                  imm_cache=None, cuda_graphs: bool = True, device="cuda"):
-        not_ported("routing_sample_every", routing_sample_every, 0,
-                   TELEMETRY)
-        not_ported("rebalance", rebalance, None, REBALANCE)
-        not_ported("expert_slot_slack", expert_slot_slack or 0, 0,
-                   REBALANCE)
         if scaledown not in ("migrate", "drain"):
             raise ValueError(f"unknown scaledown {scaledown!r}")
         check_tp_heads(mcfg, tp)
@@ -396,6 +511,11 @@ class ElasticServer:
         # 'overlap': staging runs on the HMM's background TransferEngine
         # while tick() keeps serving
         self.staging_mode = staging
+        # skew-aware rebalancing: the policy's replicas need spare table
+        # width, so a policy makes the slot slack 1 by default
+        self.rebalance_policy = rebalance
+        if expert_slot_slack is None:
+            expert_slot_slack = 1 if rebalance is not None else 0
         self.hmm = HMM(mcfg, tp, batch_per_replica=batch_per_replica,
                        max_len=max_len, all_devices=all_devices, seed=seed,
                        kv_mode=kv_mode, kv_block_size=kv_block_size,
@@ -403,9 +523,13 @@ class ElasticServer:
                        expert_mode=expert_mode,
                        expert_pool_pages=expert_pool_pages,
                        staging=staging, transfer_workers=transfer_workers,
+                       expert_slot_slack=expert_slot_slack,
                        expert_host_pages=expert_host_pages,
                        kv_dtype=kv_dtype, expert_dtype=expert_dtype,
                        device=device)
+        # routing telemetry: every Nth decode tick also gives the routing
+        # counts (0: off, and no routed step is built)
+        self.routing_sample_every = routing_sample_every
         # ``imm_cache``: an OrderedDict shared across a fleet's servers, so
         # the standby LRU is bounded once (keys carry the model identity);
         # ``cuda_graphs=False``: the eager steps on the card (the twin that
@@ -413,6 +537,7 @@ class ElasticServer:
         self.imm = IMM(mcfg, self.hmm, batch_per_replica=batch_per_replica,
                        max_len=max_len, prefill_buckets=prefill_buckets,
                        prefill_chunk=prefill_chunk, shared_cache=imm_cache,
+                       collect_routing=routing_sample_every > 0,
                        cuda_graphs=cuda_graphs)
         self.engine = InferenceEngine(mcfg,
                                       batch_per_replica=batch_per_replica,
@@ -420,13 +545,17 @@ class ElasticServer:
                                       prefill_bucket=min(prefill_buckets),
                                       prefill_chunk=prefill_chunk,
                                       prefill_budget=prefill_budget,
+                                      routing_sample_every=(
+                                          routing_sample_every),
                                       device=self.hmm.device)
         self.estimator = LoadEstimator(policy) if policy else None
         self.queue: List[Request] = []
         self.requests: Dict[int, Request] = {}
         self.events: List[ScaleEvent] = []
+        self.rebalance_events: List[RebalanceEvent] = []
         self._staged_cfg: Optional[ElasticConfig] = None
         self._active_task: Optional[EngineScalingTask] = None
+        self._rebalance_task: Optional[RebalanceTask] = None
 
     # ------------------------------------------------------------ lifecycle
     def boot(self, cfg: ElasticConfig, params=None):
@@ -471,6 +600,7 @@ class ElasticServer:
         ``_record_stage``."""
         if self.engine.cfg is None:
             raise RuntimeError("boot() the server before scaling it")
+        self._preempt_rebalance()
         t0 = time.perf_counter()
         self.hmm.scale(new_cfg)                  # weights only; serving free
         return self._record_stage(new_cfg, time.perf_counter() - t0)
@@ -516,6 +646,8 @@ class ElasticServer:
         self.hmm.commit(live_cache=self.engine.cache)
         inst, params, cache, hit = self.imm.activate(new_cfg)
         self._bind(inst, params, cache)
+        # the routing histogram described the old placement
+        self.engine.reset_routing_stats()
         self.engine.admit_limit = None
         self._staged_cfg = None
         if self.events:
@@ -606,6 +738,9 @@ class ElasticServer:
         preempted = self.engine.drain_preempted()
         if preempted:
             self.queue[:0] = [self.requests[r] for r in preempted]
+        # advance an open rebalance, or let the policy open one: its copies
+        # run on the HMM's TransferEngine, so this does not block the tick
+        self._drive_rebalance(now)
         return finished
 
     # ------------------------------------------------------------ decisions
@@ -631,6 +766,11 @@ class ElasticServer:
         """Block-pool stats (None for the dense layout)."""
         return self.engine.kv_stats()
 
+    def routing_stats(self) -> Optional[dict]:
+        """The routing histogram of the sampled decode ticks since the last
+        placement change (None when sampling is off or before a sample)."""
+        return self.engine.routing_stats()
+
     def scaling_summary(self) -> Optional[dict]:
         """Staging-overlap and migration totals over the recorded scale
         events (None before the first): ``decode_stall_s`` the serve
@@ -652,6 +792,74 @@ class ElasticServer:
 
     def current_config(self) -> Optional[ElasticConfig]:
         return self.hmm.active_cfg
+
+    # ---------------------------------------------------- expert rebalance
+    def _preempt_rebalance(self) -> None:
+        """Abort an open rebalance: a scale goes first, and the page table
+        holds one session at a time."""
+        task = self._rebalance_task
+        if task is not None and not task.done:
+            task.abort()
+
+    def start_rebalance(self, actions: List, load=None) -> RebalanceTask:
+        """Open a rebalance over explicit ``stage_rebalance`` actions;
+        ``tick`` advances it to its end."""
+        if self._rebalance_task is not None and not self._rebalance_task.done:
+            raise RuntimeError("a rebalance is already in flight")
+        return RebalanceTask(self, actions, load=load)
+
+    def maybe_rebalance(self, now: float) -> Optional[RebalanceTask]:
+        """One policy pass: the routing histogram goes to the
+        ``RebalancePolicy``, and its actions, if any, open a
+        ``RebalanceTask``.  A pool that cannot take them skips the pass
+        (the policy tries again after its cooldown)."""
+        if self.rebalance_policy is None or self.expert_mode != "pooled":
+            return None
+        stats = self.engine.routing_stats()
+        cfg = self.hmm.active_cfg
+        elm = (math.ceil(self.mcfg.num_experts / cfg.ndev)
+               + self.hmm.expert_slot_slack)
+        actions = self.rebalance_policy.decide(
+            stats, self.hmm.page_table, cfg, now, slots_per_rank=elm)
+        if not actions:
+            return None
+        try:
+            return self.start_rebalance(actions, load=stats["counts"])
+        except MemoryError as err:
+            obs.get_tracer().instant("rebalance.skip", cat="rebalance",
+                                     args={"reason": str(err)})
+            return None
+
+    def _drive_rebalance(self, now: float) -> None:
+        """The per-tick rebalance pump: advance the open task, else ask the
+        policy — never while a scale is in flight."""
+        task = self._rebalance_task
+        if task is not None and not task.done:
+            task.advance(now)
+            return
+        if self.rebalance_policy is None:
+            return
+        if self._active_task is not None \
+                and not self._active_task.phase.terminal:
+            return
+        self.maybe_rebalance(now)
+
+    def rebalance_summary(self) -> Optional[dict]:
+        """The rebalance passes' totals (None before the first pass)."""
+        if not self.rebalance_events:
+            return None
+        done = [ev for ev in self.rebalance_events if not ev.aborted]
+        return {"passes": len(done),
+                "aborted": len(self.rebalance_events) - len(done),
+                "replicated": sum(ev.replicated for ev in done),
+                "demoted": sum(ev.demoted for ev in done),
+                "dropped": sum(ev.dropped for ev in done),
+                "promoted": sum(ev.promoted for ev in done),
+                "replica_bytes": sum(ev.stats.expert_replica_bytes
+                                     for ev in done if ev.stats),
+                "d2h_bytes": sum(ev.stats.expert_d2h_bytes
+                                 for ev in done if ev.stats),
+                "host_tier_bytes": self.hmm.host_tier_bytes()}
 
     def capacity(self, cfg: ElasticConfig) -> int:
         return cfg.dp * self.engine.batch_per_replica

@@ -7,6 +7,9 @@ port's counterpart of the reference's AOT-compiled executables
 * the decode step (``decode``: ``_decode_fn`` or ``_paged_decode_fn``), one
   graph for every replica and TP rank, issued in the order the eager step
   issues them;
+* with routing telemetry, its twin ``decode_routed`` beside it, over the
+  same static input: its output holds the routing counts behind the
+  tokens, so the engine's one read of the tokens brings them back too;
 * with chunked prefill, the paged chunk step (``chunk_prefill_{C}``), one
   graph per replica.
 
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
+from functools import partial
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -165,17 +169,18 @@ class StepGraphs:
                  replicas: int, device, stream, pool, warmup: bool):
         B = slots
         MB = max_len // block_size if paged else 0
-        decode = compiled["decode"]
         self._dec = _StaticInput(3 * B + B * MB, device)
         d = self._dec.dev
 
-        def decode_body():
+        def decode_body(step):
             args = [d[:B], d[B:2 * B], d[2 * B:3 * B] != 0]
             if paged:
                 args.append(d[3 * B:].view(B, MB))
-            return decode(params, cache, *args)[0]
+            return step(params, cache, *args)[0]
 
-        bodies = [decode_body]
+        decodes = [k for k in ("decode", "decode_routed") if k in compiled]
+        bodies = [partial(decode_body, compiled[k]) for k in decodes]
+        self._routed = len(decodes) - 1      # the routed twin's index
         if chunk:
             step = compiled[f"chunk_prefill_{chunk}"]
             self._chk = _StaticInput(chunk + 2 + MB + chunk // block_size,
@@ -187,7 +192,7 @@ class StepGraphs:
                 return step(params, cache, c[:C].view(1, C), c[C:C + 1],
                             c[C + 1:C + 2], c[C + 2:C + 2 + MB].view(1, MB),
                             c[C + 2 + MB:], replica=r)[0]
-            bodies += [lambda r=r: chunk_body(r) for r in range(replicas)]
+            bodies += [partial(chunk_body, r) for r in range(replicas)]
         # the idle inputs: every slot inactive on the NB sentinel; a chunk
         # of one token whose blocks are all NB
         self._dec.fill(np.zeros(3 * B, np.int32), np.full(B * MB, nb))
@@ -226,9 +231,22 @@ class StepGraphs:
                ) -> torch.Tensor:
         """Replay the decode step on host arrays; returns the next tokens
         [B] (the graph's output: read it before another replay)."""
+        return self._replay_decode(0, tokens, lengths, active, block_tables)
+
+    def decode_routed(self, tokens, lengths, active, block_tables=None
+                      ) -> torch.Tensor:
+        """Replay the decode step's routing twin (captured only where the
+        steps have one): the next tokens [B] followed by the routing
+        counts [L_moe * E]."""
+        if not self._routed:
+            raise RuntimeError("this step set has no decode_routed graph")
+        return self._replay_decode(self._routed, tokens, lengths, active,
+                                   block_tables)
+
+    def _replay_decode(self, i, tokens, lengths, active, block_tables):
         self._dec.fill(tokens, lengths, active,
                        () if block_tables is None else block_tables)
-        return self._graph(0).replay()
+        return self._graph(i).replay()
 
     def chunk(self, replica: int, tokens, start: int, length: int,
               block_table, chunk_ids) -> torch.Tensor:
@@ -236,4 +254,4 @@ class StepGraphs:
         the token at the chunk's last valid position, [1] (the graph's
         output: read it before another replay)."""
         self._chk.fill(tokens, [start, length], block_table, chunk_ids)
-        return self._graph(1 + replica).replay()
+        return self._graph(1 + self._routed + replica).replay()

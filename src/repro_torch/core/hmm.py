@@ -55,7 +55,23 @@ unit per ``stage_increment``) or on the background ``TransferEngine``
 ``poll_staging`` observes them; on the card each worker issues its copies
 on a side CUDA stream, ``core/transfer.py``).  Both run the same
 ``_stage_unit`` calls, so their byte accounting is equal field by field.
-Rebalancing and parking are later slices and raise ``NotImplementedError``.
+
+The skew rebalancer's session (pooled store only): ``begin_rebalance``
+stages replicate / demote / drop / promote actions on the page table and
+submits one copy op per replicate (the primary's page of every bank into
+the replica's fresh page, which no table names until commit) and per
+demote (the page into its host page's rows of the pinned-host tier,
+``_HostTier``) to the TransferEngine, on the card on its side streams,
+while serving goes on;
+``poll_rebalance`` observes them, ``commit_rebalance`` (on the serving
+thread) makes the default stream wait for them, publishes the demoted rows
+as the pinned-host tier, and writes the replica-aware index arrays into
+the bound ``tables`` / ``edest`` / ``eslot`` / ``gtable`` tensors in
+place, so every captured graph stays valid; ``abort_rebalance`` cancels
+or joins the copies before it frees their pages.  The table width has
+``expert_slot_slack`` spare slots per rank for the replicas.  A scale
+moves a demoted expert that must move from its host rows
+(``expert_h2d_bytes``, not P2P).  Parking is a later slice.
 """
 from __future__ import annotations
 
@@ -65,6 +81,7 @@ import re
 import threading
 import time
 from collections import defaultdict
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -89,26 +106,18 @@ from repro_torch.core.transfer import (TransferEngine, TransferOp,
 from repro_torch.serving.kv_blocks import KVBlockManager
 
 
-def not_ported(knob: str, value, default, where: str) -> None:
-    """Refuse a knob of the reference outside the ported slices, naming
-    the slice (ROADMAP §1) that will port it."""
-    if value != default:
-        raise NotImplementedError(
-            f"{knob}={value!r} is not ported yet (only {default!r}): {where}")
-
-
-TELEMETRY = "routing telemetry (ROADMAP §1 item 4)"
-REBALANCE = "the rebalancer and host tier (ROADMAP §1 item 5)"
-
-
 def _idx_key(index) -> tuple:
     return tuple((s.start, s.stop, s.step) for s in index)
 
 
 @dataclasses.dataclass
 class TransferStats:
-    """Bytes a boot, scale or commit moved, as the reference counts them.
-    The rebalancer's and the parking tier's fields stay 0 in the port."""
+    """Bytes a boot, scale, commit or rebalance moved, as the reference
+    counts them.  ``expert_replica_bytes``: pages copied to make replicas;
+    ``expert_d2h_bytes``: pages demoted into the pinned-host tier;
+    ``expert_h2d_bytes``: host-tier pages copied back at a scale (not in
+    ``p2p_bytes``).  The parking tier's ``d2h_bytes`` and ``h2d_bytes``
+    stay 0 (parking is not ported)."""
     zero_copy_bytes: int = 0
     p2p_bytes: int = 0
     local_bytes: int = 0
@@ -248,8 +257,6 @@ class HMM:
                  device="cuda"):
         if staging not in ("serial", "overlap"):
             raise ValueError(f"unknown staging {staging!r}")
-        not_ported("expert_slot_slack", expert_slot_slack, 0, REBALANCE)
-        not_ported("expert_host_pages", expert_host_pages, None, REBALANCE)
         if kv_mode not in ("dense", "paged"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         if expert_mode not in ("dense", "pooled"):
@@ -306,6 +313,23 @@ class HMM:
             or batch_per_replica * (max_len // kv_block_size))
         # per-device pool pages, fixed at boot for the HMM's lifetime
         self.expert_pool_pages = expert_pool_pages
+        # spare table slots per rank beyond ceil(E / ndev): room for the
+        # rebalancer's replicas; the width is fixed for the HMM's lifetime
+        self.expert_slot_slack = int(expert_slot_slack)
+        # the pinned-host tier's capacity in pages (None: every expert once)
+        self.expert_host_pages = expert_host_pages
+        # the host tier's bytes: (layer, expert) -> {bank: pinned row}, rows
+        # of the tier's slabs (made at the first demote)
+        self._expert_host_pool: Dict[Tuple[int, int],
+                                     Dict[str, torch.Tensor]] = {}
+        self._host_tier: Optional[_HostTier] = None
+        # the rebalance session (begin_rebalance to commit or abort)
+        self._rebalance_ops = None
+        self._rebalance_session = None
+        self._rebalance_stats: Optional[TransferStats] = None
+        self._rebalance_load = None
+        self._rebalance_t0 = 0.0
+        self.last_rebalance_stats: Optional[TransferStats] = None
         self.page_table: Optional[ExpertPageTable] = None
         self.kv_blocks: Optional[KVBlockManager] = None
         self.active_cfg: Optional[ElasticConfig] = None
@@ -403,9 +427,19 @@ class HMM:
                 for d, idx in sh.devices_indices_map(shape).items()})
         return out
 
-    def _pooled_index_arrays(self, table, cfg: ElasticConfig):
+    def _pooled_index_arrays(self, table, cfg: ElasticConfig,
+                             replicas=None, load=None):
+        """The pooled path's index arrays from a page-table dict, the
+        tables ``expert_slot_slack`` slots wider than ceil(E / ndev);
+        ``replicas`` / ``load``: the replica-aware serving assignment
+        (``pooled_layout``).  A scale's staging passes neither: its staged
+        table names each expert's kept copy."""
+        elm = (math.ceil(self.mcfg.num_experts / cfg.ndev)
+               + self.expert_slot_slack)
         return pooled_layout(table, cfg, self._n_moe_layers,
-                             self.mcfg.num_experts, self.expert_pool_pages)
+                             self.mcfg.num_experts, self.expert_pool_pages,
+                             replicas=replicas, load=load,
+                             slots_per_rank=elm)
 
     # ----------------------------------------------------------------- boot
     @obs.traced("hmm.boot", cat="hmm")
@@ -434,7 +468,8 @@ class HMM:
                     2 * L * math.ceil(E / cfg.ndev), L * E)
             self.page_table = ExpertPageTable(
                 L, E, pool_pages_per_device=(self.expert_pool_pages
-                                             if pooled else 0))
+                                             if pooled else 0),
+                host_pool_pages=self.expert_host_pages)
             self.page_table.initial_place(cfg)
             if pooled:
                 layout = self._pooled_index_arrays(self.page_table.active,
@@ -808,7 +843,8 @@ class HMM:
         leaf ``_stage_destination`` made, return it, and add its bytes to
         ``stats``."""
         if kind.startswith("pool:"):
-            return self._migrate_pool_bank(leaf, new_cfg, stats, dst)
+            return self._migrate_pool_bank(leaf, new_cfg, stats, dst,
+                                           kind.split(":", 1)[1])
         if kind.startswith("index:"):
             return dst          # uploaded in begin_scale; no weight bytes
         if kind == "expert_bank":
@@ -924,23 +960,30 @@ class HMM:
         self._reset_stage_session()
 
     def _migrate_pool_bank(self, leaf: ShardedTensor, new_cfg: ElasticConfig,
-                           stats: TransferStats, dst: ShardedTensor
-                           ) -> ShardedTensor:
-        """Rebuild one pooled bank for ``new_cfg`` into ``dst``: every
-        surviving device's pool slice is reused, new devices start from
-        zeros, and exactly the staged ``Migration`` list is copied, one
-        page per copy between logical devices.  A migrated-in page is written into its
-        destination slice in place: its page is one the active table
-        leaves free, so the serving instance never reads it (the
-        reference's immutable arrays take a new buffer instead)."""
+                           stats: TransferStats, dst: ShardedTensor,
+                           bank: str) -> ShardedTensor:
+        """Rebuild one pooled bank (``bank``: "wi", "wo_scale", ...) for
+        ``new_cfg`` into ``dst``: every surviving device's pool slice is
+        reused, new devices start from zeros, and exactly the staged
+        ``Migration`` list is copied, one page per copy between logical
+        devices.  A migrated-in page is written into its destination slice
+        in place: its page is one the active table leaves free, so the
+        serving instance never reads it (the reference's immutable arrays
+        take a new buffer instead).  A migration whose source is the
+        pinned-host tier (``src.device == HOST``) copies the expert's host
+        row, counted in ``expert_h2d_bytes`` and not in ``p2p_bytes``."""
         row_shape = leaf.shape[1:]
         row_bytes = math.prod(row_shape) * leaf.dtype.itemsize
         migs_by_dst: Dict[int, List] = defaultdict(list)
         for m in self.last_migrations:
             migs_by_dst[m.dst.device].append(m)
-        # pages that stay put are this bank's zero-copy reuse
+        # pages that stay put are this bank's zero-copy reuse: an expert
+        # kept in place through any copy (primary or replica)
         staged, active = self.page_table.staged, self.page_table.active
-        unchanged = sum(1 for k, r in active.items() if staged.get(k) == r)
+        replicas = self.page_table.replicas
+        unchanged = sum(
+            1 for k, r in active.items()
+            if staged.get(k) == r or staged.get(k) in replicas.get(k, ()))
         stats.zero_copy_bytes += unchanged * row_bytes
         stats.zero_copy_count += unchanged
         stats.expert_zero_copy_bytes += unchanged * row_bytes
@@ -948,6 +991,12 @@ class HMM:
         for dev in new_cfg.devices:
             local = dst.shard(dev)
             for m in migs_by_dst.get(dev, ()):
+                if m.src.is_host:
+                    local[m.dst.page].copy_(
+                        self._expert_host_pool[(m.layer, m.expert)][bank],
+                        non_blocking=True)
+                    stats.expert_h2d_bytes += row_bytes
+                    continue
                 local[m.dst.page].copy_(leaf.shards[m.src.device][m.src.page])
                 stats.p2p_bytes += row_bytes
                 stats.p2p_count += 1
@@ -1087,6 +1136,244 @@ class HMM:
         self._reset_stage_session()
         if self.page_table is not None:
             self.page_table.abort()
+
+    # ------------------------------------------------------------ rebalance
+    def _pool_slices(self) -> Dict[str, Dict[int, torch.Tensor]]:
+        """bank -> {logical device: its pool slice} of the active store."""
+        out = {}
+        for bank, leaf in self.params["moe_pool"].items():
+            out[bank] = (dict(leaf.shards) if isinstance(leaf, ShardedTensor)
+                         else {self.active_cfg.devices[0]: leaf})
+        return out
+
+    @obs.traced("hmm.begin_rebalance", cat="hmm")
+    def begin_rebalance(self, actions, load=None) -> int:
+        """Open a rebalance session: stage ``actions``
+        (``ExpertPageTable.stage_rebalance``) and submit one copy op per
+        replicate and per demote to the TransferEngine, where they run
+        while serving goes on — on the card on its side streams, after
+        everything the serving thread has issued (a replica's page may be
+        one a dropped replica left, which earlier steps read).  A
+        replicate copies the primary's page of every bank (the int8
+        scales too) into the replica's page, which no table names until
+        commit; a demote copies it into the rows of its host page in the
+        pinned-host tier (``_HostTier``: a slab that is not pinned yet is
+        pinned on the worker, off the serving thread).
+        ``load``: the [L_moe, E] routing counts the commit's serving
+        assignment weighs.  Returns the number of copy ops; drive with
+        ``poll_rebalance`` and ``commit_rebalance``, or unwind with
+        ``abort_rebalance``."""
+        if self.expert_mode != "pooled":
+            raise RuntimeError("rebalance requires expert_mode='pooled'")
+        if self._stage_work is not None or self.staged is not None:
+            raise RuntimeError("rebalance is mutually exclusive with scale "
+                               "staging")
+        if self._rebalance_ops is not None:
+            raise RuntimeError("a rebalance is already in progress")
+        self._rebalance_t0 = time.perf_counter()
+        ops = self.page_table.stage_rebalance(actions)
+        self._rebalance_ops = ops
+        self._rebalance_load = (np.asarray(load, np.float64)
+                                if load is not None else None)
+        self._rebalance_stats = TransferStats()
+        slices = self._pool_slices()
+        if self._host_tier is None:
+            self._host_tier = _HostTier(
+                {b: (tuple(t.shape[1:]), t.dtype)
+                 for b, t in self.params["moe_pool"].items()},
+                self.page_table.host_pool_pages,
+                pin=self.device.type == "cuda")
+        page_bytes = self.expert_page_nbytes()
+        work, devs = [], set()
+        for i, op in enumerate(ops):
+            if op.kind not in ("replicate", "demote"):
+                continue
+            src = {b: rows[op.src.device][op.src.page]
+                   for b, rows in slices.items()}
+            if op.kind == "demote":
+                dst, on = op.dst.page, [op.src.device]
+            else:
+                dst = {b: rows[op.dst.device][op.dst.page]
+                       for b, rows in slices.items()}
+                on = [op.src.device, op.dst.device]
+            on = cuda_devices(self.all_devices[d] for d in on)
+            devs.update(on)
+            work.append(TransferOp(
+                index=i, label=f"rebalance:{op.kind}:{op.layer}.{op.expert}",
+                fn=partial(self._rebalance_copy, op.kind, src, dst,
+                           page_bytes), devices=on))
+        self._rebalance_session = (
+            self.transfer_engine().submit(work, after=ready_events(devs))
+            if work else None)
+        return len(work)
+
+    def _rebalance_copy(self, kind: str, src, dst, page_bytes: int):
+        """One copy op of a rebalance session: every bank's row ``src`` into
+        ``dst`` (a demote's host page: its rows in the pinned-host tier) —
+        asynchronous on the card, on the worker's side stream — its page
+        counted as replica or D2H bytes.  Returns the rows written."""
+        if isinstance(dst, int):
+            dst = self._host_tier.rows(dst)
+        for bank, row in src.items():
+            dst[bank].copy_(row, non_blocking=True)
+        sub = TransferStats()
+        if kind == "demote":
+            sub.expert_d2h_bytes = page_bytes
+        else:
+            sub.expert_replica_bytes = page_bytes
+        with self._stage_lock:
+            self._rebalance_stats.merge(sub)
+        return dst
+
+    @property
+    def rebalance_in_flight(self) -> bool:
+        return (self._rebalance_session is not None
+                and not self._rebalance_session.finished())
+
+    def poll_rebalance(self) -> bool:
+        """A bounded completion poll (at most about 2 ms), as
+        ``poll_staging``: True once every copy op has landed
+        (``commit_rebalance`` legal).  A failed op aborts the session
+        (both tiers as before) and re-raises."""
+        if self._rebalance_ops is None:
+            return False
+        sess = self._rebalance_session
+        if sess is not None:
+            if not sess.finished():
+                sess.join(timeout=0.002)
+                if not sess.finished():
+                    return False
+            failed = sess.failed_ops()
+            if failed:
+                err = failed[0].error
+                self.abort_rebalance()
+                raise RuntimeError(
+                    f"rebalance copy op {failed[0].label!r} failed "
+                    f"({len(failed)} op(s)); session aborted") from err
+        return True
+
+    @obs.traced("hmm.commit_rebalance", cat="hmm")
+    def commit_rebalance(self, load=None) -> TransferStats:
+        """The rebalance's switchover, on the serving thread: the default
+        streams wait for the copies, the demoted rows become the host
+        tier's, the page table commits (freeing dropped replicas' and
+        promoted experts' pages), and the replica-aware serving assignment
+        (least-loaded over ``load``, by default the counts given to
+        ``begin_rebalance``) is written into the bound index tensors of
+        every logical device in place: the shapes stay (the slack is in
+        the width), so the bound steps and graphs stay valid, and every
+        copy is byte-identical, so the tokens do not change.  The new
+        layout is computed on a clone first: a slot overflow aborts the
+        whole session and raises before anything changes."""
+        if self._rebalance_ops is None:
+            raise RuntimeError("no rebalance session open")
+        sess = self._rebalance_session
+        if sess is not None:
+            sess.join()
+            if not self.poll_rebalance():     # raises on a failed op
+                raise RuntimeError("the rebalance session did not finish")
+        t0 = time.perf_counter()
+        ops, cfg, stats = (self._rebalance_ops, self.active_cfg,
+                           self._rebalance_stats)
+        if load is None:
+            load = self._rebalance_load
+        preview = self.page_table.clone()
+        preview.commit_rebalance()
+        try:
+            layout = self._pooled_index_arrays(
+                preview.active, cfg, replicas=preview.replicas, load=load)
+        except ValueError:
+            self.abort_rebalance()
+            raise
+        rows = {}
+        if sess is not None:
+            for top in sess.ops:
+                rows[top.index] = top.result
+                for dev, ev in top.events.items():
+                    torch.cuda.current_stream(dev).wait_event(ev)
+        for i, op in enumerate(ops):
+            if op.kind == "demote":
+                self._expert_host_pool[op.key] = rows[i]
+            elif op.kind == "promote":
+                self._expert_host_pool.pop(op.key, None)
+        self.page_table.commit_rebalance()
+        moe = self.params["blocks"]["moe"]
+        for name, arr in layout.items():
+            leaf = moe[name]
+            parts = (leaf.addressable_shards
+                     if isinstance(leaf, ShardedTensor)
+                     else [(None, (slice(None),), leaf)])
+            for _, index, t in parts:
+                t.copy_(_upload(np.ascontiguousarray(arr[index], np.int32),
+                                t.device))
+        if sess is not None:
+            stats.op_s = sess.op_seconds
+            stats.wall_s = max(sess.last_done_t - self._rebalance_t0, 0.0)
+        stats.wall_s += time.perf_counter() - t0
+        self.last_rebalance_stats = stats
+        self._reset_rebalance()
+        return stats
+
+    @obs.traced("hmm.abort_rebalance", cat="hmm")
+    def abort_rebalance(self) -> None:
+        """Cancel-or-join the session's copies (no worker writes a page
+        after this), then unwind it: the fresh pages return to their pools
+        and no demoted row is published — both tiers as before
+        ``begin_rebalance``.  Idempotent."""
+        if self._rebalance_session is not None:
+            self._rebalance_session.cancel()
+        self._reset_rebalance()
+        if self.page_table is not None:
+            self.page_table.abort_rebalance()
+
+    def _reset_rebalance(self) -> None:
+        self._rebalance_ops = None
+        self._rebalance_session = None
+        self._rebalance_stats = None
+        self._rebalance_load = None
+
+    def host_tier_bytes(self) -> int:
+        """Resident bytes of the pinned-host tier (the demoted pages)."""
+        return len(self._expert_host_pool) * self.expert_page_nbytes()
+
+
+class _HostTier:
+    """The pinned-host tier's memory: per bank, slabs of ``slab`` pages,
+    each pinned when a demote first needs one of its pages and kept; host
+    page p (the page table's ``HOST`` pool) is row ``p % slab`` of slab
+    ``p // slab``.  Page locking costs 20-25 times a copy's time on an
+    H100's host link (``tools/torch_host_tier_rates.py``), so a slab is
+    pinned once and a promoted page's rows serve a later demote, and a
+    slab fills the 128 MiB block the caching host allocator rounds it to
+    (one allocation a row would round each row to a power of two), or
+    holds the tier's ``capacity`` pages where they take less."""
+
+    SLAB_BYTES = 128 << 20
+
+    def __init__(self, banks: Dict[str, Tuple[tuple, torch.dtype]],
+                 capacity: int, pin: bool):
+        self.banks = banks
+        self.pin = pin
+        row = max(math.prod(shape) * dtype.itemsize
+                  for shape, dtype in banks.values())
+        self.slab = max(1, min(self.SLAB_BYTES // row, capacity))
+        self._slabs: Dict[Tuple[str, int], torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def rows(self, page: int) -> Dict[str, torch.Tensor]:
+        """Host page ``page``'s row of every bank (its slabs made here)."""
+        k, r = divmod(page, self.slab)
+        with self._lock:
+            for bank, (shape, dtype) in self.banks.items():
+                if (bank, k) not in self._slabs:
+                    self._slabs[(bank, k)] = torch.empty(
+                        (self.slab, *shape), dtype=dtype,
+                        pin_memory=self.pin)
+            return {b: self._slabs[(b, k)][r] for b in self.banks}
+
+    def pinned_bytes(self) -> int:
+        with self._lock:
+            return sum(t.nbytes for t in self._slabs.values())
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

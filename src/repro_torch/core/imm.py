@@ -8,8 +8,9 @@ functions of an instance's (mesh, shapes), and ``activate`` binds them to
 the HMM's arrays, a metadata-only step.  In the port a standby instance
 holds the step callables of ``serving.engine.compile_step_functions`` for
 its configuration (bound to its mesh's parallel context) and, once it is
-given tensors, their ``core/graphs.StepGraphs``: the decode step and the
-chunk steps captured as CUDA graphs over exactly those tensors, the
+given tensors, their ``core/graphs.StepGraphs``: the decode step (and,
+with ``collect_routing``, its routing twin) and the chunk steps captured
+as CUDA graphs over exactly those tensors, the
 counterpart of the reference's compile (on the CPU no graph is captured
 and the eager steps serve).
 
@@ -65,7 +66,7 @@ class StandbyInstance:
 class IMM:
     def __init__(self, mcfg, hmm, *, batch_per_replica: int, max_len: int,
                  prefill_buckets=(64,), prefill_chunk: int = 0,
-                 lru_capacity: int = 4,
+                 lru_capacity: int = 4, collect_routing: bool = False,
                  shared_cache: Optional[
                      "OrderedDict[Tuple, StandbyInstance]"] = None,
                  cuda_graphs: bool = True):
@@ -75,6 +76,9 @@ class IMM:
         self.max_len = max_len
         self.prefill_buckets = tuple(prefill_buckets)
         self.prefill_chunk = prefill_chunk
+        # routing telemetry: also build (and on the card capture) the
+        # decode step that gives the routing counts
+        self.collect_routing = collect_routing
         self.lru_capacity = lru_capacity
         # a fleet shares one LRU across its servers (the same OrderedDict
         # passed to every IMM); keys carry the model's identity
@@ -100,8 +104,10 @@ class IMM:
         return (repr(self.mcfg),
                 self.batch_per_replica, self.max_len,
                 self.prefill_buckets, self.prefill_chunk,
+                self.collect_routing,
                 hmm.kv_mode, hmm.kv_block_size, hmm.kv_blocks_per_replica,
                 hmm.expert_mode, hmm.expert_pool_pages,
+                hmm.expert_slot_slack,
                 hmm.kv_dtype, hmm.expert_dtype,
                 cfg.dp, cfg.tp, cfg.devices)
 
@@ -129,7 +135,8 @@ class IMM:
         compiled, _ = compile_step_functions(
             self.mcfg, max_len=self.max_len,
             prefill_buckets=self.prefill_buckets, kv_mode=self.hmm.kv_mode,
-            prefill_chunk=self.prefill_chunk, parallel=parallel)
+            prefill_chunk=self.prefill_chunk, parallel=parallel,
+            collect_routing=self.collect_routing)
         dt = time.perf_counter() - t0
         inst = StandbyInstance(cfg, mesh, compiled, dt, parallel)
         self._cache[key] = inst

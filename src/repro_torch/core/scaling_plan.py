@@ -9,8 +9,8 @@ for every shard of the target one of:
   reuses them (in the port: the same tensor);
 * ``P2P``       — copy from a device that holds identical bytes;
 * ``DISK``      — load from storage (first boot, or the baselines);
-* ``HOST``      — stream from a pinned-host tier (priced by the cost
-  model; the port's page table has no host tier, so its plans hold none);
+* ``HOST``      — copy from the pinned-host tier: a demoted expert that
+  must move is copied host-to-device instead of between devices;
 * ``INIT``      — fresh allocation of state (the KV cache of new replicas);
 * ``FREE``      — release after the switchover.
 
@@ -65,6 +65,14 @@ class ScalingPlan:
             out[s.op] += s.nbytes
         return dict(out)
 
+    def host_bytes_per_device(self) -> Dict[int, int]:
+        """Destination device -> bytes it takes from the pinned-host tier."""
+        out: Dict[int, int] = defaultdict(int)
+        for s in self.steps:
+            if s.op == Op.HOST:
+                out[s.dst] += s.nbytes
+        return dict(out)
+
 
 # ---------------------------------------------------------------- placement
 
@@ -108,18 +116,24 @@ def plan_elastic(tensors: Sequence[TensorDesc],
                  old: Optional[ElasticConfig],
                  new: ElasticConfig,
                  expert_assignment_old=None,
-                 expert_assignment_new=None) -> ScalingPlan:
+                 expert_assignment_new=None,
+                 host_resident: Optional[set] = None) -> ScalingPlan:
     """ElasticMoE's planner: zero-copy > P2P > disk; KV reused or INIT.
 
     The expert assignments ({(layer, expert) -> device}) are a page
     table's min-move placement; the default is the contiguous layout of
-    the dense expert banks."""
+    the dense expert banks.  ``host_resident``: the (layer, expert) keys
+    with a copy in the pinned-host tier; such an expert that must move is
+    an ``Op.HOST`` step (copied host-to-device), not P2P, as
+    ``HMM._migrate_pool_bank`` copies it."""
     if old is not None and old.tp != new.tp:
         raise ValueError("ElasticMoE scales DP and EP only; TP is fixed "
                          "(paper §4.1)")
     new_place = placement(tensors, new, expert_assignment_new)
     old_place = placement(tensors, old, expert_assignment_old) if old else {}
     kv_names = {t.name for t in tensors if t.kind == "kv"}
+    host_names = {t.name for t in tensors if t.kind == "expert"
+                  and (t.layer, t.expert) in (host_resident or ())}
 
     # content -> devices holding it under the old config
     holders: Dict[ShardKey, List[int]] = defaultdict(list)
@@ -135,6 +149,8 @@ def plan_elastic(tensors: Sequence[TensorDesc],
                 steps.append(PlanStep(Op.ZERO_COPY, key, nbytes, dst=d))
             elif key.tensor in kv_names:
                 steps.append(PlanStep(Op.INIT, key, nbytes, dst=d))
+            elif key.tensor in host_names:
+                steps.append(PlanStep(Op.HOST, key, nbytes, dst=d))
             elif holders.get(key):
                 srcs = holders[key]
                 src = srcs[rr[key] % len(srcs)]
@@ -234,17 +250,24 @@ def plan_elastic_paged(tensors, old, new, page_table,
     """The elastic plan over the page table's min-move expert placement.
     Stages the remap on ``page_table`` (the caller commits or aborts it,
     or passes a clone); a pool that cannot take the target's pages raises
-    ``MemoryError`` from ``stage_remap``.  The port's table has neither
-    the reference's pinned-host tier nor its replicas, so every moved
-    expert is a P2P step."""
+    ``MemoryError`` from ``stage_remap``.  An expert kept in place through
+    any of its copies (primary or replica) is a zero-copy step; a moved
+    expert with a copy in the table's pinned-host tier is an ``Op.HOST``
+    step, the others P2P — as ``HMM._migrate_pool_bank`` counts them."""
+    host = {(l + first_k_dense, e) for (l, e) in page_table.host}
     page_table.stage_remap(new)
     a_old, a_new = {}, {}
     for (l, e), ref in page_table.staged.items():
         a_new[(l + first_k_dense, e)] = ref.device
-        a_old[(l + first_k_dense, e)] = page_table.active[(l, e)].device
+        resident = {page_table.active[(l, e)]}
+        resident.update(page_table.replicas.get((l, e), ()))
+        a_old[(l + first_k_dense, e)] = (
+            ref.device if ref in resident
+            else page_table.active[(l, e)].device)
     return plan_elastic(tensors, old, new,
                         expert_assignment_old=a_old,
-                        expert_assignment_new=a_new)
+                        expert_assignment_new=a_new,
+                        host_resident=host)
 
 
 def plan_elastic_min_move(tensors, old: ElasticConfig, new: ElasticConfig,

@@ -25,7 +25,11 @@ holds its one shared block, unstacked, in ``params["shared_attn"]``.  A
 Python loop over layers replaces the reference's ``lax.scan``.
 
 The steps that take a cache update it in place (the reference donates it
-to its jitted steps) and return the same dict.
+to its jitted steps) and return the same dict.  With ``collect_routing``
+the two decode steps also return the routing histogram's sample: each MoE
+layer's per-expert token counts ``[L_moe, E]`` int32 (the dense-prefix
+layers have no router and give no row; standard-attention MoE models
+only, ``routing_stats_supported``).
 
 With ``parallel`` (``distributed.sharding.ParallelCtx``, several logical
 devices) the parameters and the cache are trees of ``ShardedTensor``s, as
@@ -162,19 +166,25 @@ def layer_params(tree, i: int):
 
 # -------------------------------------------------------------- block apply
 
-def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None):
+def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None, counts=None):
     """Post-attention feed-forward: the dense MLP, or the MoE over the
     pooled expert store ``moe_pool`` (``bp["moe"]`` carries its page-table
     index arrays) or over the layer's dense banks ``bp["moe"]["wi"/"wg"/
-    "wo"]``."""
+    "wo"]``.  A MoE layer appends its routing counts [E] to the list
+    ``counts`` when one is given."""
     if not moe:
         return mlp_apply(bp["mlp"], h, cfg.mlp_gated)
     B, S, D = h.shape
     x = h.reshape(B * S, D)
+    want = counts is not None
     if moe_pool is not None and "gtable" in bp["moe"]:
-        y = moe_local_pooled(cfg, bp["moe"], moe_pool, x)
+        y = moe_local_pooled(cfg, bp["moe"], moe_pool, x,
+                             return_counts=want)
     else:
-        y = moe_local(cfg, bp["moe"], x)
+        y = moe_local(cfg, bp["moe"], x, return_counts=want)
+    if want:
+        y, c = y
+        counts.append(c)
     y = y.reshape(B, S, D)
     if cfg.dense_residual:
         y = y + mlp_apply(bp["mlp"], h, cfg.mlp_gated)
@@ -214,14 +224,16 @@ def _attention(cfg, bp, h, positions, **cache_kw):
 
 
 def _attn_block(cfg, bp, x, positions, *, moe=False, moe_pool=None,
-                **cache_kw):
+                counts=None, **cache_kw):
     """Self-attention and the feed-forward, each with its residual ->
-    (x', the attention's new k/v, latent or cache)."""
+    (x', the attention's new k/v, latent or cache); a MoE layer appends
+    its routing counts to ``counts`` when given."""
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
     a, kv = _attention(cfg, bp, h, positions, **cache_kw)
     x = x + a
     h = apply_norm(bp["ln2"], x, cfg.norm_type)
-    return x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=moe_pool), kv
+    return x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=moe_pool,
+                         counts=counts), kv
 
 
 def _ssm_block(cfg, bp, x, cache=None):
@@ -316,6 +328,20 @@ def _decode_slots(cfg, cache, lengths):
         win = cache["attn_k"].shape[2]
         return lengths % win, (lengths + 1).clamp(max=win)
     return _cache_slot(cfg, lengths), lengths + 1
+
+
+def routing_stats_supported(cfg) -> bool:
+    """The decode steps' routing telemetry covers the standard-attention
+    MoE decoders (no MLA, no attention window), as in the reference."""
+    return (cfg.has_decode and cfg.arch_type == "moe"
+            and not cfg.use_mla and cfg.attn_window is None)
+
+
+def _check_routing(cfg) -> list:
+    """A fresh counts list for a step with ``collect_routing``."""
+    if not routing_stats_supported(cfg):
+        raise ValueError(f"{cfg.name}: routing telemetry unsupported")
+    return []
 
 
 def paged_cache_supported(cfg) -> bool:
@@ -472,7 +498,8 @@ def _attention_tp(cfg, ps, hs, positions, devices, caches=None,
                          write_pos=write_pos, kv_valid_len=kv_valid_len)
 
 
-def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None):
+def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None,
+               counts=None):
     """Run the model over row groups, group g on DP replica ``replicas[g]``
     with ``tokens[g]`` [b, S] on its TP rank 0's device: on each of the
     replica's ranks its embedding, then block by block.  An attention
@@ -484,8 +511,10 @@ def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None):
     An SSD block is replicated over the ranks: ``ssm(g, layer, the ranks'
     block params, the ranks' inputs)`` runs it on each rank's copy (from a
     zero state when ``ssm`` is None) -> the block's output, one copy per
-    rank.  Returns each group's final-normed hidden states and its ranks'
-    parameter views, one per rank."""
+    rank.  A MoE layer appends its routing counts [E] (on the first
+    logical device) to ``counts`` when given.  Returns each group's
+    final-normed hidden states and its ranks' parameter views, one per
+    rank."""
     _check_parallel(cfg, parallel)
     ssm = ssm or (lambda g, i, ps, xs: [_ssm_block(cfg, p, x)[0]
                                         for p, x in zip(ps, xs)])
@@ -511,7 +540,11 @@ def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None):
                        for p, x in zip(bp, xs[g])])
         if moe:
             ys = moe_ep(cfg, layer_params(params["blocks"]["moe"], i - nk),
-                        hs, parallel, pool=pool, owners=ranks)
+                        hs, parallel, pool=pool, owners=ranks,
+                        return_counts=counts is not None)
+            if counts is not None:
+                ys, c = ys
+                counts.append(c)
         if not moe or cfg.dense_residual:
             mlp = [mlp_apply_tp([p["mlp"] for p in bp], h, dv, cfg.d_ff,
                                 cfg.mlp_gated)
@@ -672,7 +705,7 @@ def _prefill_dp(cfg, params, batch, max_len, parallel, replica):
 
 
 def decode_step(cfg, params: Params, tokens, cache, lengths, *,
-                parallel=None):
+                parallel=None, collect_routing=False):
     """One decode step over the slot-contiguous cache.  tokens [B,1];
     lengths [B] int32 = tokens already cached: the new token's k/v (MLA:
     latent rows) land at slot ``lengths`` (``ops.kv_cache_write_pair``; past
@@ -682,9 +715,11 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
     state; a hybrid's shared block writes at ``lengths % max_len`` and
     attends ``min(lengths + 1, max_len)`` positions, as the reference's
     hybrid branch does.  Updates ``cache`` in place; returns (logits
-    [B,V], cache).  With ``parallel`` each replica decodes its own slots
-    over its slice of the cache."""
+    [B,V], cache), and with ``collect_routing`` the routing counts
+    [L_moe, E].  With ``parallel`` each replica decodes its own slots over
+    its slice of the cache."""
     _check_dense_kv(cfg)
+    counts = _check_routing(cfg) if collect_routing else None
     names = cache_names(cfg)
     if parallel is not None:
         groups, rows = _replica_rows(parallel, tokens, lengths)
@@ -708,9 +743,11 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
                 out.append(y)
             return out
         hs, local, devs = _dp_layers(cfg, params, parallel, groups,
-                                     [r[0] for r in rows], attn, ssm)
-        return _gather_rows(parallel, _logits(
-            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache
+                                     [r[0] for r in rows], attn, ssm,
+                                     counts)
+        return _routed(_gather_rows(parallel, _logits(
+            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache,
+            counts)
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     write_pos, valid = _decode_slots(cfg, cache, lengths)
@@ -723,21 +760,32 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
             cache["state"][i] = new["state"]
             continue
         x, _ = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+                           counts=counts,
                            cache=tuple(cache[n][i] for n in names),
                            write_pos=write_pos, kv_valid_len=valid)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    return linear(params["lm_head"], x[:, 0]), cache
+    return _routed(linear(params["lm_head"], x[:, 0]), cache, counts)
+
+
+def _routed(logits, cache, counts):
+    """A decode step's result: (logits, cache), and the stacked routing
+    counts [L_moe, E] when the step collected them."""
+    if counts is None:
+        return logits, cache
+    return logits, cache, torch.stack(counts)
 
 
 def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
-                      block_tables, write_block, *, parallel=None):
+                      block_tables, write_block, *, parallel=None,
+                      collect_routing=False):
     """One decode step over the paged KV pool.  tokens [B,1]; lengths [B]
     int32 (tokens already cached); block_tables [B,MB] int32; write_block
     [B] int32 = row receiving this token's k/v (``NB`` for inactive slots
     -> dropped).  Updates ``cache`` in place; returns (logits [B,V],
-    cache).  With ``parallel`` each replica decodes its own slots over its
-    pool slice: its rows' tables, write blocks and ``NB`` are local to
-    it."""
+    cache), and with ``collect_routing`` the routing counts [L_moe, E].
+    With ``parallel`` each replica decodes its own slots over its pool
+    slice: its rows' tables, write blocks and ``NB`` are local to it."""
+    counts = _check_routing(cfg) if collect_routing else None
     if parallel is not None:
         groups, rows = _replica_rows(parallel, tokens, lengths, block_tables,
                                      write_block)
@@ -750,9 +798,11 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
                 caches=[{n: v[i] for n, v in c.items()} for c in caches[g]],
                 block_tables=bt, write_block=wb, lengths=lens)[0]
         hs, local, devs = _dp_layers(cfg, params, parallel, groups,
-                                     [r[0] for r in rows], attn)
-        return _gather_rows(parallel, _logits(
-            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache
+                                     [r[0] for r in rows], attn,
+                                     counts=counts)
+        return _routed(_gather_rows(parallel, _logits(
+            cfg, local, devs, [[x[:, 0] for x in h] for h in hs])), cache,
+            counts)
     x = F.embedding(tokens.long(), params["embed"])
     positions = lengths[:, None]
     pool = params.get("moe_pool")
@@ -765,9 +815,9 @@ def paged_decode_step(cfg, params: Params, tokens, cache, lengths,
             lengths=lengths)
         x = x + a
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
-        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
+        x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool, counts=counts)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
-    return linear(params["lm_head"], x[:, 0]), cache
+    return _routed(linear(params["lm_head"], x[:, 0]), cache, counts)
 
 
 def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start,

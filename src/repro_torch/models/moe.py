@@ -20,7 +20,11 @@ Where the reference's JAX idioms do not carry over:
   sliced off, and dropped reads (``mode="fill"``) read a zero slot;
 * the reference's ``moe_local`` / ``moe_local_pooled`` also return the
   load-balance aux loss, a training term that serving discards; here they
-  return the output only, and ``route`` alone computes the loss.
+  return the output only, and ``route`` alone computes the loss;
+* ``routing_counts`` adds ones into a zeroed [E] tensor where the
+  reference's ``.at[].add`` does: ``torch.bincount`` would read the
+  largest index back to the host to size its output, which a CUDA graph
+  capture cannot hold.
 """
 from __future__ import annotations
 
@@ -81,9 +85,11 @@ def capacity_for(tokens: int, cfg) -> int:
 
 def routing_counts(topk_idx, num_experts: int):
     """topk_idx [T, k] -> per-expert routed-token counts [E] int32 (router
-    demand; capacity dropping ignored)."""
-    return torch.bincount(topk_idx.reshape(-1).long(),
-                          minlength=num_experts).to(torch.int32)
+    demand; capacity dropping ignored), with no read back to the host."""
+    idx = topk_idx.reshape(-1).long()
+    return torch.zeros(num_experts, dtype=torch.int32,
+                       device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
 def _expert_ffn(xg, wi, wg, wo):
@@ -127,11 +133,12 @@ def _combine(yg, where, topk_w, keep):
     return y
 
 
-def _moe_local_body(cfg, p, x, capacity, expert_ffn):
+def _moe_local_body(cfg, p, x, capacity, expert_ffn, return_counts=False):
     """Single-shard dispatch / combine shared by the dense banks and the
     pooled store; ``expert_ffn(xg [E, C, D]) -> [E, C, D]`` is the only
     difference between them.  Serving discards the router's aux loss, so
-    it is not computed here (``route`` has it)."""
+    it is not computed here (``route`` has it).  ``return_counts``: also
+    the router's per-expert token counts [E] (routing telemetry)."""
     T, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     C = capacity or capacity_for(T, cfg)
@@ -142,26 +149,31 @@ def _moe_local_body(cfg, p, x, capacity, expert_ffn):
     y = _combine(yg, where, topk_w, keep)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x)
+    if return_counts:
+        return y, routing_counts(topk_idx, E)
     return y
 
 
-def moe_local(cfg, p, x, capacity=None):
-    """x [T, D] -> [T, D] over dense banks {wi, wg, wo} [E, D, F|D]."""
+def moe_local(cfg, p, x, capacity=None, return_counts=False):
+    """x [T, D] -> [T, D] over dense banks {wi, wg, wo} [E, D, F|D] (and
+    the routing counts [E] with ``return_counts``)."""
     return _moe_local_body(
         cfg, p, x, capacity,
-        lambda xg: _expert_ffn(xg, p["wi"], p["wg"], p["wo"]))
+        lambda xg: _expert_ffn(xg, p["wi"], p["wg"], p["wo"]),
+        return_counts)
 
 
-def moe_local_pooled(cfg, p, pool, x, capacity=None):
+def moe_local_pooled(cfg, p, pool, x, capacity=None, return_counts=False):
     """Single-shard MoE over the pooled weight store: ``p["gtable"]`` [E]
     is each expert's global pool row and ``pool`` holds the banks
     ``{wi, wg, wo}`` as ``[pages, D, F]`` / ``[pages, F, D]``; the expert
     FFN reads pages through the table (``ops.paged_expert_ffn``: three
     paged-GMM launches on the card).  An int8 store also holds the
     per-page f32 scale banks ``{wi,wg,wo}_scale`` [pages], read through the
-    same table (``ops.quant_paged_expert_ffn``).  x [T, D] -> [T, D]."""
+    same table (``ops.quant_paged_expert_ffn``).  x [T, D] -> [T, D] (and
+    the routing counts [E] with ``return_counts``)."""
     return _moe_local_body(cfg, p, x, capacity,
-                           _paged_ffn(p["gtable"], pool))
+                           _paged_ffn(p["gtable"], pool), return_counts)
 
 
 def _paged_ffn(table, pool):
@@ -220,7 +232,8 @@ def _shards_to_rows(ys, n: int, xs):
     return out
 
 
-def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
+def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None,
+           return_counts=False):
     """Expert-parallel MoE across ``parallel``'s logical devices
     (``distributed.sharding.ParallelCtx``), EP = DP x TP in slot order.
 
@@ -249,7 +262,13 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
     explicit copy of each buffer's block j onto device j; device j runs
     its experts on [Elm, n_ep * C, D] (``ops.paged_expert_ffn`` over its
     pool slice and table row, or the dense banks); the outputs go back the
-    same way and each device combines its own rows."""
+    same way and each device combines its own rows.
+
+    ``return_counts``: also the router's per-expert token counts [E] int32
+    over the T rows (the zero pad rows left out), on the first device —
+    the reference replays its router on those rows; here each device
+    counts the rows of its shard that are not padding.  Returns (the
+    result, counts)."""
     single = torch.is_tensor(x)
     groups = [x] if single else list(x)
     ranked = [g if isinstance(g, (list, tuple)) else None for g in groups]
@@ -274,9 +293,14 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
 
     shards = _rows_to_shards(flat, t_local, devs)
     sends, wheres, gates = [], [], []
-    for dev, xi in zip(parallel.devices, shards):
+    counts = None
+    for i, (dev, xi) in enumerate(zip(parallel.devices, shards)):
         _, topk_idx, topk_w = _topk({"w": p["router"]["w"].shard(dev)}, xi,
                                     k)
+        valid = min(t_local, T - i * t_local)
+        if return_counts and valid > 0:
+            c = routing_counts(topk_idx[:valid], E).to(devs[0])
+            counts = c if counts is None else counts + c
         expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
         if pooled:
             dest = p["edest"].shard(dev).long()[expert_flat]
@@ -324,4 +348,5 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None):
                               ranked[g], tdevs,
                               cfg.moe_d_ff * cfg.num_shared_experts)
             out[g] = [y + s for y, s in zip(out[g], sh)]
-    return out[0] if single else out
+    out = out[0] if single else out
+    return (out, counts) if return_counts else out

@@ -2,12 +2,12 @@
 
 The port's own copy of the parts of ``repro.obs.tracer`` the one-card
 serving path uses (it imports nothing of the JAX package), so the serving
-engine's spans and instants stay where they are.  Counters, metrics, thread
-lanes and the Chrome-trace exporter are not ported yet.
+engine's spans, instants and counters stay where they are.  The metrics
+aggregation and the Chrome-trace exporter are not ported yet.
 
 One process-global :class:`Tracer` (installed via :func:`install`) collects
-decode-tick and prefill spans and request lifecycle instants into a bounded
-ring buffer.  Disabled by default: the global is :data:`NULL_TRACER`, whose
+decode-tick and prefill spans, request lifecycle instants and counter
+samples into a bounded ring buffer.  Disabled by default: the global is :data:`NULL_TRACER`, whose
 methods return immediately, and :func:`traced` short-circuits on an
 identity check.  ``deque.append`` is atomic under the GIL, so recording
 needs no lock: ``TransferEngine`` worker threads and the serve loop record
@@ -114,6 +114,15 @@ class Tracer:
         self._events.append(TraceEvent(name, cat, "i", t, t,
                                        self._resolve_tid(None), args))
 
+    def counter(self, name: str, value: float, *, cat: str = "",
+                tid: Optional[Lane] = None) -> None:
+        """Record a counter sample ``value`` (phase ``"C"``, the value in
+        ``args``), such as the routing histogram's top expert share."""
+        t = time.perf_counter()
+        self._events.append(TraceEvent(name, cat, "C", t, t,
+                                       self._resolve_tid(tid),
+                                       {"value": value}))
+
     def events(self) -> List[TraceEvent]:
         return list(self._events)
 
@@ -154,6 +163,9 @@ class NullTracer:
         return _NULL_SPAN
 
     def instant(self, *a: Any, **k: Any) -> None:
+        pass
+
+    def counter(self, *a: Any, **k: Any) -> None:
         pass
 
     def events(self) -> List[TraceEvent]:

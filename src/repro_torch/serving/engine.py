@@ -18,7 +18,10 @@ is prefilled at admission.  Every tick ends with one decode step for every
 runnable slot.
 
 The step functions are plain callables keyed like the reference's compiled
-executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``).  On
+executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``, and
+with routing telemetry ``decode_routed``: every ``routing_sample_every``-th
+tick runs it, and its routing counts, behind the tokens in the one tensor
+the tick reads back, go into ``routing_stats``).  On
 the card the IMM captures the decode step and the chunk step as CUDA graphs
 (``core/graphs.py``) and ``bind`` hands them over: the engine then fills
 their static inputs and replays them in place of the eager calls; the
@@ -79,31 +82,46 @@ def _local_rows(leaf) -> int:
     return leaf.shape[1]
 
 
+def _next_tokens(res, tokens, active):
+    """A decode step's greedy tokens (inactive slots keep theirs) and,
+    after a routed step, its routing counts flattened behind them: one
+    int32 tensor [B (+ L_moe * E)], which the engine reads back to the
+    host in one copy."""
+    logits, cache, *counts = res
+    nxt = torch.where(active, torch.argmax(logits, dim=-1).to(torch.int32),
+                      tokens)
+    if counts:
+        nxt = torch.cat([nxt, counts[0].reshape(-1).to(nxt.device)])
+    return nxt, cache
+
+
 def _decode_fn(mcfg, params, cache, tokens, lengths, active, *,
-               parallel=None):
+               parallel=None, collect_routing=False):
     """Greedy decode over the slot-contiguous cache; inactive slots keep
-    their token (their rows are rewritten by the next prefill)."""
-    logits, cache = M.decode_step(mcfg, params, tokens[:, None], cache,
-                                  lengths, parallel=parallel)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    return torch.where(active, nxt, tokens), cache
+    their token (their rows are rewritten by the next prefill).  With
+    ``collect_routing`` (the ``decode_routed`` twin) the routing counts
+    follow the tokens (``_next_tokens``)."""
+    return _next_tokens(
+        M.decode_step(mcfg, params, tokens[:, None], cache, lengths,
+                      parallel=parallel, collect_routing=collect_routing),
+        tokens, active)
 
 
 def _paged_decode_fn(mcfg, params, cache, tokens, lengths, active,
-                     block_tables, *, parallel=None):
+                     block_tables, *, parallel=None, collect_routing=False):
     """Greedy paged decode: the write block comes from each sequence's
     length; inactive slots write to the ``NB`` sentinel row (dropped) and
     keep their token.  ``block_tables`` and ``NB`` are each replica's
-    local ones."""
+    local ones.  ``collect_routing``: as ``_decode_fn``."""
     NB, bs = _local_rows(cache["k"]), cache["k"].shape[2]
     col = (lengths.long() // bs).clamp(max=block_tables.shape[1] - 1)
     wb = block_tables.gather(1, col[:, None])[:, 0]
     wb = torch.where(active, wb, torch.full_like(wb, NB))
-    logits, cache = M.paged_decode_step(mcfg, params, tokens[:, None], cache,
-                                        lengths, block_tables, wb,
-                                        parallel=parallel)
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-    return torch.where(active, nxt, tokens), cache
+    return _next_tokens(
+        M.paged_decode_step(mcfg, params, tokens[:, None], cache, lengths,
+                            block_tables, wb, parallel=parallel,
+                            collect_routing=collect_routing),
+        tokens, active)
 
 
 def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot, *,
@@ -165,23 +183,31 @@ def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
 
 def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
                            kv_mode: str = "dense", prefill_chunk: int = 0,
-                           parallel: Optional[ParallelCtx] = None
+                           parallel: Optional[ParallelCtx] = None,
+                           collect_routing: bool = False
                            ) -> Tuple[Dict[str, Callable], float]:
     """The step callables of an instance, keyed like the reference's
-    executables: ``decode``, ``prefill_{S_pad}`` for each bucket and, with
-    ``prefill_chunk``, ``chunk_prefill_{C}``; ``parallel`` for an instance
-    on several logical devices.  Eager PyTorch needs no compilation;
-    returns (callables, seconds) as the reference does."""
+    executables: ``decode``, ``prefill_{S_pad}`` for each bucket, with
+    ``prefill_chunk`` ``chunk_prefill_{C}``, and with ``collect_routing``
+    ``decode_routed`` (the decode step that also gives the routing
+    counts); ``parallel`` for an instance on several logical devices.
+    Eager PyTorch needs no compilation; returns (callables, seconds) as
+    the reference does."""
     t0 = time.perf_counter()
     paged = kv_mode == "paged"
     if prefill_chunk and not paged:
         raise NotImplementedError(
             "dense KV with prefill_chunk > 0 is not ported yet")
+    dec = _paged_decode_fn if paged else _decode_fn
+    out = {"decode": partial(dec, mcfg, parallel=parallel)}
+    if collect_routing:
+        if not M.routing_stats_supported(mcfg):
+            raise ValueError(f"{mcfg.name}: routing telemetry unsupported")
+        out["decode_routed"] = partial(dec, mcfg, parallel=parallel,
+                                       collect_routing=True)
     if paged:
-        out = {"decode": partial(_paged_decode_fn, mcfg, parallel=parallel)}
         prefill = partial(_paged_prefill_fn, mcfg, parallel=parallel)
     else:
-        out = {"decode": partial(_decode_fn, mcfg, parallel=parallel)}
         prefill = partial(_prefill_fn, mcfg, max_len, parallel=parallel)
     for S_pad in prefill_buckets:
         out[f"prefill_{S_pad}"] = prefill
@@ -232,8 +258,14 @@ class InferenceEngine:
 
     def __init__(self, mcfg, *, batch_per_replica: int, max_len: int,
                  prefill_bucket: int = 64, prefill_chunk: int = 0,
-                 prefill_budget: Optional[int] = None, device="cuda"):
+                 prefill_budget: Optional[int] = None,
+                 routing_sample_every: int = 0, device="cuda"):
         self.mcfg = mcfg
+        # routing telemetry: every Nth decode tick runs the decode_routed
+        # twin and adds its counts to the histogram (0: never)
+        self.routing_sample_every = routing_sample_every
+        self._routing_counts: Optional[np.ndarray] = None
+        self._routing_samples = 0
         self.batch_per_replica = batch_per_replica
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
@@ -858,16 +890,27 @@ class InferenceEngine:
             return pre
         active = np.array(runnable)
         self._step_count += 1
+        # routing telemetry: every Nth tick runs the twin that also gives
+        # the routing counts (the same arithmetic otherwise)
+        routed = (self.routing_sample_every > 0
+                  and "decode_routed" in self.compiled
+                  and self._step_count % self.routing_sample_every == 0)
         args = [self.tokens, self.lengths, active]
         if self.paged:
             parts = np.arange(len(self.slots)) // self.batch_per_replica
             args.append(self._local_ids(self.block_tables, parts))
         if self.graphs is not None:
-            nxt = self.graphs.decode(*args)
+            nxt = (self.graphs.decode_routed(*args) if routed
+                   else self.graphs.decode(*args))
         else:
-            nxt, self.cache = self.compiled["decode"](
+            nxt, self.cache = self.compiled[
+                "decode_routed" if routed else "decode"](
                 self.params, self.cache, *map(self._to_device, args))
+        # the tokens and, routed, the counts behind them: one copy
         nxt = nxt.cpu().numpy()
+        if routed:
+            self._accumulate_routing(nxt[len(self.slots):].reshape(
+                -1, self.mcfg.num_experts))
         out = []
         for i, s in enumerate(self.slots):
             if not active[i]:
@@ -883,3 +926,47 @@ class InferenceEngine:
                     self.kv.free(s.rid)
             out.append((s.rid, int(nxt[i]), fin))
         return pre + out
+
+    # --------------------------------------------------- routing telemetry
+    def _accumulate_routing(self, counts) -> None:
+        """Add one sampled tick's [L_moe, E] expert counts to the host-side
+        histogram and record a skew counter sample.  A change of shape (a
+        rebind to another routed step) restarts the counts and the sample
+        count together."""
+        c = np.asarray(counts, np.int64)
+        if self._routing_counts is None or \
+                self._routing_counts.shape != c.shape:
+            self._routing_counts = np.zeros_like(c)
+            self._routing_samples = 0
+        self._routing_counts += c
+        self._routing_samples += 1
+        tr = obs.get_tracer()
+        if tr.enabled:
+            tot = np.maximum(c.sum(axis=-1), 1)
+            tr.counter("routing.top_expert_share",
+                       float((c.max(axis=-1) / tot).mean()), cat="routing")
+
+    def reset_routing_stats(self) -> None:
+        """Restart the routing histogram (counts and sample count): at a
+        scale's switchover and at a rebalance commit, whose new placement
+        the old counts no longer describe."""
+        self._routing_counts = None
+        self._routing_samples = 0
+
+    def routing_stats(self) -> Optional[dict]:
+        """The accumulated per-expert routing histogram (None until a
+        sampled tick has landed): ``counts`` [L_moe, E] token counts, and
+        the layer-averaged skew metrics ``top_expert_share`` (the busiest
+        expert's share) and ``expert_cv`` (the counts' coefficient of
+        variation) — the signal the rebalancer acts on."""
+        if self._routing_counts is None or self._routing_samples == 0:
+            return None
+        c = self._routing_counts.astype(np.float64)
+        tot = np.maximum(c.sum(axis=-1), 1.0)
+        share = c.max(axis=-1) / tot
+        mean = np.maximum(c.mean(axis=-1), 1e-9)
+        cv = c.std(axis=-1) / mean
+        return {"samples": self._routing_samples,
+                "counts": self._routing_counts.copy(),
+                "top_expert_share": float(share.mean()),
+                "expert_cv": float(cv.mean())}

@@ -2086,3 +2086,143 @@ def test_closed_loop_on_the_card_equals_the_cpu_run(dev):
         assert all(len(tokens[graphs][r.rid]) == r.output_len for r in reqs)
         srv.hmm.close()
     assert tokens[True] == tokens[False]
+
+
+# ------------------------------------------------- the skew rebalancer
+
+def test_routed_decode_step_runs_with_no_host_sync(dev):
+    """The engine's routed twin (``decode_routed``) on DP2 x TP2 logical
+    devices of the card: no call synchronises with the host (the counts
+    are added with ``index_add_``, not ``bincount``); it writes the KV once
+    per layer and rank; its output is the plain step's tokens followed by
+    the [L, E] counts of every slot's routed rows."""
+    from repro_torch.serving.engine import _paged_decode_fn
+    cfg, hmm, ctx = _booted_dp(dev, 4, tp=2, **PAGED)
+    L, E, B, NB = cfg.num_layers, cfg.num_experts, 4, 32
+    tokens = torch.randint(0, cfg.vocab_size, (B,), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([20, 3, 40, 0], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, False, True], device=dev)
+    bt = torch.full((B, 8), NB, dtype=torch.int32)
+    for i, row in enumerate([[5, 9], [2], [7, 1, 30], [31]]):
+        bt[i, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    bt = bt.to(dev)
+
+    def step(routed):
+        return _paged_decode_fn(cfg, hmm.params, hmm.cache, tokens, lens,
+                                active, bt, parallel=ctx,
+                                collect_routing=routed)[0]
+    plain = step(False)
+    step(True)                               # builds and loads the kernels
+    ops.reset_launch_counts()
+    with _no_host_sync():
+        out = step(True)
+    assert ops.launch_counts()["kv_cache_write"] == L * 4
+    assert out.shape == (B + L * E,) and out.dtype == torch.int32
+    assert torch.equal(out[:B], plain)
+    counts = out[B:].view(L, E).cpu()
+    assert int(counts.sum()) == L * B * cfg.top_k and counts.min() >= 0
+    hmm.close()
+
+
+def _joined(srv):
+    """Every rebalance session's copies land in the tick that opens it, so
+    the commits fall on the same ticks in every run."""
+    hmm = srv.hmm
+    begin = hmm.begin_rebalance
+
+    def wrapped(*a, **k):
+        n = begin(*a, **k)
+        if hmm._rebalance_session is not None:
+            hmm._rebalance_session.join()
+        return n
+    hmm.begin_rebalance = wrapped
+    return srv
+
+
+def test_rebalance_commit_under_graphs_recaptures_nothing(dev):
+    """TEST_MOE's widths in bf16 on DP2 x TP2 logical devices with
+    ``routing_sample_every=1`` (the routed graph each tick) and the
+    reference test's tight policy: replicas and demotions commit while
+    serving, no graph is captured after boot (the commit writes the index
+    tensors in place: every bound tensor keeps its address), and the
+    tokens equal the eager twin's and those of the graphed server without
+    a policy."""
+    from repro_torch.core.graphs import _tensors
+    from repro_torch.serving.rebalance import RebalancePolicy
+    tokens = {}
+    for graphs, policy in ((True, True), (False, True), (True, False)):
+        kw = {}
+        if policy:
+            kw = dict(routing_sample_every=1, rebalance=RebalancePolicy(
+                hot_factor=1.02, cold_factor=0.98, min_samples=3,
+                cooldown_s=0.5, max_actions=8))
+        srv = _joined(_graph_server(dev, "dp2_tp2", graphs, **kw))
+        eng = srv.engine
+        bound = [(t, t.data_ptr())
+                 for t in _tensors(eng.params) + _tensors(eng.cache)]
+        captures, step_set = srv.imm.stats["captures"], eng.graphs
+        tokens[(graphs, policy)] = _drive(srv)
+        if policy:
+            summ = srv.rebalance_summary()
+            assert summ["replicated"] >= 1 and summ["demoted"] >= 1, summ
+            assert srv.imm.stats["captures"] == captures
+            assert eng.graphs is step_set
+            assert all(t.data_ptr() == p for t, p in bound)
+            assert srv.hmm.page_table.replicas
+            if graphs:
+                assert step_set._routed == 1
+        srv.hmm.close()
+    assert tokens[(True, True)] == tokens[(False, True)]
+    assert tokens[(True, True)] == tokens[(True, False)]
+
+
+@pytest.mark.parametrize("staging", ["serial", "overlap"])
+def test_demote_and_cold_scale_bytes_equal_the_cpu_run(dev, staging):
+    """int8 pages of TEST_MOE's widths, DP2 x TP2 -> DP3 x TP2: a rebalance
+    that demotes every expert and replicates one, then a scale, on logical
+    devices of the card and of the CPU.  The ``TransferStats`` byte
+    fields and the migrations are equal; on the card the host rows are
+    pinned (D2H on the worker's side stream) and each host-sourced page
+    lands equal to its host rows (the ``_scale`` banks too)."""
+    from repro_torch.core.expert_pages import HOST
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    c4 = ElasticConfig(2, 2, (0, 1, 2, 3))
+    c6 = ElasticConfig(3, 2, tuple(range(6)))
+    acts = [("demote", l, e) for l in range(2) for e in range(24)]
+    acts.append(("replicate", 0, 0, 1))
+
+    def run(d):
+        hmm = HMM(_graph_model("test-moe"), 2, batch_per_replica=2,
+                  max_len=128, seed=0, all_devices=[d] * 8, device=d,
+                  kv_mode="paged", kv_block_size=16, expert_mode="pooled",
+                  expert_dtype="int8", staging=staging)
+        hmm.boot(c4)
+        hmm.begin_rebalance(acts)
+        reb = hmm.commit_rebalance()
+        stage = hmm.scale(c6)
+        fields = lambda st: {f: getattr(st, f) for f in st.BYTE_FIELDS}
+        out = (fields(reb), fields(stage),
+               [(m.layer, m.expert, m.src.device, m.src.page, m.dst.device,
+                 m.dst.page) for m in hmm.last_migrations])
+        return hmm, out
+
+    cpu, want = run(torch.device("cpu"))
+    cpu.close()
+    hmm, got = run(dev)
+    assert got == want
+    assert all(m[2] == HOST for m in got[2])
+    assert got[1]["expert_p2p_bytes"] == 0
+    assert got[1]["expert_h2d_bytes"] == len(got[2]) \
+        * hmm.expert_page_nbytes()
+    host = hmm._expert_host_pool
+    assert all(t.is_pinned() for rows in host.values()
+               for t in rows.values())
+    new = hmm.staged[2]["moe_pool"]
+    torch.cuda.synchronize()
+    for l, e, _, _, d, page in got[2]:
+        for bank, rows in host[(l, e)].items():
+            assert torch.equal(new[bank].shard(d)[page].cpu(), rows)
+    hmm.commit()
+    hmm.close()

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor anything of
 the reference package, its entry points run on the card unless told
 otherwise, its kernel wrappers never fall back to the plain versions on a
-CUDA tensor, and every knob outside the one-card slice is refused."""
+CUDA tensor, and every knob outside the ported slices is refused."""
 import ast
 import inspect
 import os
@@ -23,6 +23,7 @@ from repro_torch.device import exact_matmuls
 from repro_torch.kernels import (flash_attention, kv_write, moe_gmm, ops,
                                  paged_attention, ref, ssd_scan)
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.rebalance import RebalancePolicy
 from repro_torch.serving.workload import Request
 from repro_torch.models import model as M
 
@@ -290,8 +291,7 @@ def test_use_reference_is_scoped():
 NOT_PORTED = {
     # dense KV with SERVER_KW's chunked prefill (the reference's
     # chunk_prefill_step) is outside the ported slices
-    "kv_mode": "dense", "expert_host_pages": 4,
-    "rebalance": object(), "routing_sample_every": 4,
+    "kv_mode": "dense",
 }
 
 
@@ -328,6 +328,45 @@ def test_scaling_knobs_are_accepted(knob):
         with pytest.raises(ValueError):
             ElasticServer(MCFG, **{**SERVER_KW, knob: "bogus"},
                           device="cpu")
+
+
+REBALANCE_KNOBS = {"rebalance": RebalancePolicy(min_samples=1),
+                   "routing_sample_every": 2, "expert_host_pages": 2}
+
+
+@pytest.mark.parametrize("knob", sorted(REBALANCE_KNOBS))
+def test_rebalance_knobs_are_accepted(knob):
+    """The rebalancer's knobs are ported: each reaches the part of the
+    server that acts on it, and a booted server serves."""
+    value = REBALANCE_KNOBS[knob]
+    srv = ElasticServer(MCFG, **{**SERVER_KW, knob: value}, device="cpu")
+    srv.boot(ElasticConfig(1, 1, (0,)))
+    width = srv.hmm.params["blocks"]["moe"]["tables"].shape[-1]
+    srv.submit(Request(0, 0.0, 5, 3, prompt=np.arange(5, dtype=np.int32)))
+    for t in range(8):
+        srv.tick(float(t))
+    assert len(srv.engine.generated[0]) == 3
+    if knob == "rebalance":
+        # the policy's replicas need spare table width: one slot of slack
+        assert srv.rebalance_policy is value
+        assert srv.hmm.expert_slot_slack == 1 and width == 4 + 1
+    elif knob == "routing_sample_every":
+        # every 2nd decode step of the 2 gives the routing counts
+        assert "decode_routed" in srv.engine.compiled
+        st = srv.routing_stats()
+        assert st["samples"] == 1 and st["counts"].shape == (2, 4)
+        # every slot's row is routed, as in the reference's decode
+        assert st["counts"].sum() == MCFG.num_layers * 2 * MCFG.top_k
+    else:
+        pt = srv.hmm.page_table
+        assert pt.host_pool_pages == 2
+        with pytest.raises(MemoryError, match="host page tier"):
+            srv.start_rebalance([("demote", 0, e) for e in range(3)])
+        task = srv.start_rebalance([("demote", 0, 0), ("demote", 1, 3)])
+        for t in range(8, 12):
+            srv.tick(float(t))
+        assert task.done and pt.demoted() == [(0, 0), (1, 3)]
+        assert srv.hmm.host_tier_bytes() == 2 * srv.hmm.expert_page_nbytes()
 
 
 @pytest.mark.parametrize("knob", ["kv_dtype", "expert_dtype"])
