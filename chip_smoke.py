@@ -340,6 +340,36 @@ Phases, each of which raises on failure (no phase's failure is caught):
    host tier (``expert_h2d_bytes`` = their pages) and ``expert_p2p_bytes``
    count only the others; the same copies replayed alone give the H2D and
    the device-to-device rates.
+23. ``serve_park``: scale to zero on ``serve_rebalance``'s server (DP2 x
+   TP2, overlapped staging with 4 workers, ``expert_host_pages`` set):
+   the host cache emptied (so the park pins cold), layer 0 demoted
+   whole, the 8 requests served, ``park`` (pinned host snapshot; it must
+   absorb layer 0's host-tier rows, ``memory_allocated`` must fall back
+   within 256 MiB of its level before the boot, and no graph set may
+   survive), ``start_unpark`` to DP2 x TP2 (``start_unpark`` and every
+   STAGING poll under sync-debug "error"; an ``unpark:`` op span must
+   overlap an ``unpark.compile`` span): the requests again give the same
+   tokens.  Parked again and unparked to DP3 x TP2: every logical
+   parameter bitwise equal to the pre-park one; 8 more requests finish.
+   Prints the park's wall split into pinning and D2H, its bytes, the
+   pinned bytes, MemAvailable and ``memory_allocated`` around it, the
+   unpark's ``h2d_bytes`` beside the bytes it copied and their rate, its
+   capture polls and seconds, ``stall_s``, the longest poll,
+   ``start_unpark`` to DONE and the commit, which gives the pinned
+   snapshot back (the host allocator's counts and VmRSS around it).
+24. ``serve_fleet``: a ``FleetDriver`` over two ``serve_park`` servers
+   (seeds 0 and 1, 512 pool pages a device, one shared ``imm_cache``)
+   in a pool of 8 ids with ``serve_closed_loop``'s policy: "a" (DP2 x
+   TP2, ``min_devices`` 0, parks after 1 s idle) takes the 8 requests,
+   "b" (DP1 x TP2, ``min_devices`` 2) 2, then a burst of 12 once "a" has
+   parked, and "a" 4 more once "b" has scaled up: "a" must park, "b" grow
+   onto ids "a" held, "a" unpark, every request finish with
+   in-vocabulary tokens; "a"'s STAGING polls and "b"'s decode steps
+   during the unpark run under sync-debug "error".  Prints each event
+   with its projection, "a"'s cold-start TTFT in driver s and wall ms
+   against ``unpark_transition_cost``, and the fleet tick that holds
+   "a"'s park (cold: the host cache is emptied first), split into
+   pinning and D2H.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -359,6 +389,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -462,6 +493,8 @@ for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
     PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
 PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_rebalance"] = PATH_KERNELS["serve"]
+PATH_KERNELS["serve_park"] = PATH_KERNELS["serve"]
+PATH_KERNELS["serve_fleet"] = PATH_KERNELS["serve"]
 # the launcher's f32 smoke runs: deepseek-v2-lite's MLA with the dense
 # stores, and qwen1.5-0.5b's slot decode
 PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
@@ -4262,6 +4295,510 @@ def phase_serve_rebalance(layers):
     return res
 
 
+# ---------------------------------------------------------- scale to zero
+
+def _overlap(a, b):
+    """Do two (t0, t1) spans overlap?"""
+    return max(a[0], b[0]) < min(a[1], b[1])
+
+
+def _logical_equal(old, old_table, new, new_table):
+    """Every logical parameter of ``old`` (a parameter tree and its page
+    table) bitwise equal in ``new``: each dense leaf shard against a shard of ``new`` at the same
+    index, each expert's rows where each table puts them.  Returns the
+    number of tensors compared."""
+    from repro_torch.distributed.sharding import tree_leaves_with_path
+    new_leaves = dict(tree_leaves_with_path(new))
+    n = 0
+    for path, leaf in tree_leaves_with_path(old):
+        if path.startswith("moe_pool/") or re.search(
+                r"moe/(tables|edest|eslot|gtable)$", path):
+            continue
+        by_index = {tuple((s.start, s.stop) for s in idx): t
+                    for _, idx, t in new_leaves[path].addressable_shards}
+        for _, idx, t in leaf.addressable_shards:
+            got = by_index[tuple((s.start, s.stop) for s in idx)]
+            require(torch.equal(got, t), f"{path} differs after the unpark")
+            n += 1
+    pool_old, pool_new = old["moe_pool"], new["moe_pool"]
+    for key, ref in old_table.active.items():
+        dst = new_table.active[key]
+        for bank in pool_old:
+            want = pool_old[bank].shard(ref.device)[ref.page]
+            got = pool_new[bank].shard(dst.device)[dst.page]
+            require(torch.equal(got, want),
+                    f"expert {key} bank {bank} differs after the unpark")
+            n += 1
+    return n
+
+
+def _strict(fn):
+    """``fn`` under ``set_sync_debug_mode("error")``: a call that
+    synchronises with the host raises (the mode is global: the
+    TransferEngine's workers run under it too)."""
+    def run(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def _unpark(srv, target, tracer, t=0.0):
+    """``start_unpark(target)`` and its polls to DONE, ``start_unpark`` and
+    every STAGING poll under sync-debug "error" (a tick of ``srv`` itself
+    would do nothing: it is parked until the commit; ``serve_fleet`` ticks
+    a second server between the polls).  Returns the task and
+    what it measured: each poll's wall, the STAGING polls, the wall from
+    ``start_unpark`` to DONE (the card synchronised), the capture polls,
+    and the op and capture spans."""
+    from repro_torch.serving.driver import ScalePhase
+    tracer.clear()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    task = _strict(srv.start_unpark)(target)
+    polls, staging, captures = [], 0, 0
+    while not task.done:
+        strict = task.phase is ScalePhase.STAGING
+        capturing = strict and not task._captured
+        p0 = time.perf_counter()
+        (_strict(task.advance) if strict else task.advance)(t)
+        polls.append(time.perf_counter() - p0)
+        staging += strict
+        captures += capturing
+        t += 0.05
+        require(len(polls) < 5000, "the unpark did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    require(task.phase is ScalePhase.DONE, f"unpark ended {task.phase}")
+    ev = tracer.events()
+    ops = [(e.t0, e.t1) for e in ev if e.name.startswith("unpark:")]
+    comp = [(e.t0, e.t1) for e in ev if e.name == "unpark.compile"]
+    return task, {"polls": polls, "staging_polls": staging,
+                  "capture_polls": captures, "wall_s": wall,
+                  "overlap": any(_overlap(a, b) for a in ops for b in comp),
+                  "ops": len(ops), "compile_spans": len(comp)}
+
+
+def _serve_all(srv, reqs, t=0.0):
+    """Submit ``reqs``, tick to their end; returns their tokens."""
+    for r in reqs:
+        srv.submit(r)
+    n = 0
+    while any(r.finish_s is None for r in reqs):
+        srv.tick(t)
+        t, n = t + 0.05, n + 1
+        require(n < 3000, "serving did not finish")
+    torch.cuda.synchronize()
+    return {r.rid: list(srv.engine.generated[r.rid]) for r in reqs}
+
+
+def _host_alloc():
+    """The caching host allocator's current counts, where this torch has
+    ``torch.cuda.host_memory_stats``, this process's resident, locked and
+    pinned bytes, and MemAvailable."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    got = {k: v for k, v in (stats() if stats else {}).items()
+           if k.endswith("current") or k.startswith("num_host")}
+    with open("/proc/self/status") as f:
+        got.update(line.split(":", 1) for line in f.read().splitlines()
+                   if line.startswith(("VmRSS", "VmLck", "VmPin")))
+    return {**{k: str(v).strip() for k, v in got.items()},
+            "MemAvailable": _mem_available()}
+
+
+def _host_pinned(srv):
+    return sum(b.nbytes for b in srv.hmm._parked.arena.blocks)
+
+
+def phase_serve_park(layers):
+    """``serve_park``: ``serve_tp``'s server (qwen3-30b-a3b at full width
+    and ``SCALE_LAYERS`` layers, DP2 x TP2 on four logical devices of the
+    card, paged bf16 KV, pooled bf16 pages, chunks of 128, CUDA graphs)
+    with overlapped staging (4 workers) and ``expert_host_pages`` set.
+    Layer 0 is demoted whole, the 8 smoke requests served, the server
+    parked (layer 0's tier rows absorbed; ``memory_allocated`` back within
+    256 MiB of its level before the boot) and unparked to DP2 x TP2: the
+    requests again give the same tokens.  Parked again (its parameters
+    kept aside) and unparked to DP3 x TP2: every logical parameter bitwise
+    equal to the pre-park one, and the requests finish."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.workload import Request
+    smi = _card()
+    tag = "[serve_park]"
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    E = cfg.num_experts
+    c0, c1 = _scale_cfgs(2)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+
+    def requests(base):
+        return [Request(rid=base + i, arrival_s=0.0, prompt_len=len(p),
+                        output_len=32, prompt=p)
+                for i, p in enumerate(prompts)]
+    tracer = obs.install(obs.Tracer(capacity=1 << 20))
+    res = {"layers": cfg.num_layers}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        # an earlier phase's cached pinned blocks would make the park's
+        # pinning warm
+        torch._C._host_emptyCache()
+        mem = {"before_boot": torch.cuda.memory_allocated()}
+        srv = _scale_server(cfg, None, 2, staging="overlap",
+                            transfer_workers=4, expert_host_pages=2 * E)
+        srv.boot(c0)
+        torch.cuda.synchronize()
+        mem["after_boot"] = torch.cuda.memory_allocated()
+        task = srv.start_rebalance([("demote", 0, e) for e in range(E)])
+        t = 0.0
+        while not task.done:
+            srv.tick(t)
+            t += .1
+        log(f"{tag} qwen3-30b-a3b, {cfg.num_layers} layers, full width, "
+            f"{c0.describe()} on one card, paged KV, pooled "
+            f"{cfg.dtype} pages, chunks of {CHUNK}, overlapped staging (4 "
+            f"workers), CUDA graphs; layer 0 demoted whole "
+            f"({srv.hmm.host_tier_bytes()} bytes in the host tier)")
+        ops.reset_launch_counts()
+        before = _serve_all(srv, requests(0))
+        host0 = _host_alloc()
+        st = srv.park()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["after_park"] = torch.cuda.memory_allocated()
+        mem["reserved_after_park"] = torch.cuda.memory_reserved()
+        lp = dict(srv.hmm.last_park)
+        host1 = _host_alloc()
+        require(mem["after_park"] - mem["before_boot"] < 256 << 20,
+                f"{tag} memory_allocated after the park {mem}")
+        require(srv.engine.graphs is None and all(
+            i.graphs is None for i in srv.imm._cache.values()),
+            f"{tag} a graph set survived the park")
+        pinned = _host_pinned(srv)
+        page = srv.hmm.expert_page_nbytes()
+        log(f"{tag} park (cold: the host cache emptied first): wall "
+            f"{st.wall_s:.4f} s = pinning "
+            f"{lp['pin_s']:.4f} s + D2H {lp['copy_s']:.4f} s "
+            f"({lp['copied_bytes'] / lp['copy_s'] / 1e9:.2f} GB/s) + the "
+            f"rest; d2h_bytes {st.d2h_bytes} (expert_d2h_bytes "
+            f"{st.expert_d2h_bytes}: {st.expert_d2h_bytes // page} pages "
+            f"from the devices, the reference's count), copied "
+            f"{lp['copied_bytes']}, absorbed from the host tier "
+            f"{lp['absorbed_bytes']} ({lp['absorbed_bytes'] // page} "
+            f"demoted pages, no copy), snapshot "
+            f"{srv.hmm.parked_bytes()} bytes in {pinned} pinned; host "
+            f"{host0} -> {host1}; memory_allocated before boot "
+            f"{mem['before_boot']}, after boot {mem['after_boot']}, after "
+            f"park {mem['after_park']} (reserved {mem['reserved_after_park']}"
+            f"); {smi}")
+        res["park"] = {"wall_s": st.wall_s, **lp, "d2h_bytes": st.d2h_bytes,
+                       "expert_d2h_bytes": st.expert_d2h_bytes,
+                       "parked_bytes": srv.hmm.parked_bytes(),
+                       "pinned_bytes": pinned, "host": [host0, host1],
+                       "memory": mem}
+        task, m = _unpark(srv, c0, tracer, 100.0)
+        host2 = _host_alloc()
+        gc.collect()
+        torch._C._host_emptyCache()
+        host3 = _host_alloc()
+        stg = task.stage_stats
+        h2d = stg.h2d_copied_bytes / stg.wall_s / 1e9
+        log(f"{tag} unpark -> {c0.describe()}: h2d_bytes {stg.h2d_bytes} "
+            f"(the reference's count: whole pool slices), copied "
+            f"{stg.h2d_copied_bytes} in a staging wall of {stg.wall_s:.4f} "
+            f"s = {h2d:.2f} GB/s (op_s {stg.op_s:.4f}); {m['capture_polls']}"
+            f" capture polls, capture_s {task.capture_s:.4f}, compile_hit "
+            f"{task.event.compile_hit}; stall_s {task.stall_s:.4f}, longest "
+            f"poll {max(m['polls']) * 1e3:.2f} ms, start_unpark to DONE "
+            f"{m['wall_s']:.4f} s (the commit, which gives the snapshot's "
+            f"pinned memory back, {task.event.switch_s:.4f} s; host {host2} "
+            f"after it, {host3} after a gc.collect and another "
+            f"_host_emptyCache); an unpark: op span overlaps an unpark.compile span: {m['overlap']}; "
+            f"{smi}")
+        require(m["overlap"], f"{tag} no op span overlapped a capture")
+        require(lp["absorbed_bytes"] == E * page,
+                f"{tag} absorbed {lp['absorbed_bytes']} bytes, not layer "
+                f"0's {E} demoted pages")
+        after = _serve_all(srv, requests(0), 200.0)
+        counts = ops.launch_counts()
+        res["launches"] = _path_launches(counts, None, tag)
+        _compare_tokens(after, before, tag, "the pre-park run")
+        require(after == before, f"{tag} tokens after the unpark differ")
+        res["unpark"] = {"h2d_bytes": stg.h2d_bytes,
+                         "h2d_copied_bytes": stg.h2d_copied_bytes,
+                         "expert_h2d_bytes": stg.expert_h2d_bytes,
+                         "init_bytes": task.stats.init_bytes,
+                         "stage_wall_s": stg.wall_s, "op_s": stg.op_s,
+                         "h2d_gb_s": h2d, "capture_s": task.capture_s,
+                         "stall_s": task.stall_s,
+                         "longest_poll_s": max(m["polls"]),
+                         "start_to_done_s": m["wall_s"],
+                         "commit_s": task.event.switch_s,
+                         "host_after_commit": host2,
+                         "host_after_gc": host3,
+                         "capture_polls": m["capture_polls"],
+                         "staging_polls": m["staging_polls"],
+                         "overlap": m["overlap"], "tokens_equal": True}
+
+        # again, to DP3 x TP2, the parameters kept aside to compare
+        old = (srv.hmm.params, srv.hmm.page_table)
+        st2 = srv.park()
+        lp2 = dict(srv.hmm.last_park)
+        task, m2 = _unpark(srv, c1, tracer, 300.0)
+        n = _logical_equal(old[0], old[1], srv.hmm.params,
+                           srv.hmm.page_table)
+        del old
+        more = _serve_all(srv, requests(100), 400.0)
+        for toks in more.values():
+            require(len(toks) == 32 and all(0 <= x < cfg.vocab_size
+                                            for x in toks))
+        log(f"{tag} park again (cold: the unpark's commit gave the pinned "
+            f"memory back, and nothing is demoted): wall {st2.wall_s:.4f} s "
+            f"= pinning {lp2['pin_s']:.4f} s + D2H {lp2['copy_s']:.4f} s; "
+            f"unpark -> {c1.describe()}: "
+            f"{n} logical tensors bitwise equal to the pre-park ones, "
+            f"h2d_bytes {task.stats.h2d_bytes}, start_unpark to DONE "
+            f"{m2['wall_s']:.4f} s, {m2['capture_polls']} capture polls; "
+            f"the 8 requests finish; {smi}")
+        res["again"] = {"park_wall_s": st2.wall_s, **lp2,
+                        "unpark_start_to_done_s": m2["wall_s"],
+                        "h2d_bytes": task.stats.h2d_bytes,
+                        "compared": n}
+        srv.hmm.close()
+        del srv, task
+    finally:
+        obs.install(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# serve_fleet: two serve_park servers in one pool of 8 ids, the
+# closed loop's policy; expert_pool_pages 512 a device (serve_park's) for
+# both: "b" booted on DP1 x TP2 would default to 1,024 and its DP3 x TP2
+# pools (58 GB) and "a"'s would not fit the card together
+FLEET = dict(dt=0.05, settle_s=1.0, max_step_dp=2, pool_pages=512,
+             park_after_idle_s=1.0)
+
+
+def _fleet_server(cfg, seed, shared):
+    from repro_torch.core.elastic_engine import ElasticServer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ElasticServer(cfg, tp=2, batch_per_replica=SCALE_BPR,
+                         max_len=MAX_LEN, seed=seed, device="cuda",
+                         all_devices=["cuda:0"] * 8, kv_mode="paged",
+                         kv_block_size=BS, expert_mode="pooled",
+                         prefill_chunk=CHUNK, staging="overlap",
+                         transfer_workers=4,
+                         expert_pool_pages=FLEET["pool_pages"],
+                         expert_host_pages=2 * cfg.num_experts,
+                         imm_cache=shared)
+
+
+def phase_serve_fleet(layers):
+    """``serve_fleet``: a ``FleetDriver`` over two ``serve_park`` servers
+    sharing one ``imm_cache`` in a pool of 8 ids: "a" (seed 0,
+    ``min_devices`` 0, parks after 1 s idle) on DP2 x TP2 and "b" (seed
+    1, ``min_devices`` 2) on DP1 x TP2.  "a" takes the 8 smoke requests
+    and "b" 2 at t = 0; "b" a burst of 12 once "a" has parked, "a" 4 more
+    once "b" has scaled up: "a" parks, "b" scales up onto ids "a" held,
+    "a" unparks.  "b"'s decode steps during "a"'s unpark and "a"'s
+    STAGING polls run under sync-debug "error"."""
+    from collections import OrderedDict
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.coordinator import ScalingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.driver import ScalePhase
+    from repro_torch.serving.fleet import (FleetConfig, FleetDriver,
+                                           FleetModelSpec)
+    from repro_torch.serving.metrics import SLO
+    from repro_torch.serving.workload import Request
+    smi = _card()
+    tag = "[serve_fleet]"
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    c0, _ = _scale_cfgs(2)
+    from repro_torch.core.topology import ElasticConfig
+    # cold pinning at "a"'s park, as a fleet's first park would have it
+    torch._C._host_emptyCache()
+    shared = OrderedDict()
+    a = _fleet_server(cfg, 0, shared)
+    a.boot(c0)
+    b = _fleet_server(cfg, 1, shared)
+    b.boot(ElasticConfig(1, 2, (0, 1)))
+    cl = CLOSED_LOOP
+    slo = SLO(**cl["slo"])
+    specs = [FleetModelSpec("a", a, ScalingPolicy(slo=slo, **cl["policy"]),
+                            cfg, 2, min_devices=0,
+                            park_after_idle_s=FLEET["park_after_idle_s"]),
+             FleetModelSpec("b", b, ScalingPolicy(slo=slo, **cl["policy"]),
+                            cfg, 2, min_devices=2)]
+    fd = FleetDriver(specs, range(8), FleetConfig(
+        dt=FLEET["dt"], settle_s=FLEET["settle_s"],
+        max_step_dp=FLEET["max_step_dp"]))
+    rng = np.random.default_rng(1)
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+
+    def burst(base, t, n):
+        return [Request(rid=base + i, arrival_s=t, prompt_len=len(p),
+                        output_len=32, prompt=p)
+                for i, p in enumerate(
+                    rng.integers(0, cfg.vocab_size,
+                                 int(rng.integers(200, 1001))
+                                 ).astype(np.int32) for _ in range(n))]
+    reqs = {"a": [Request(rid=i, arrival_s=0.0, prompt_len=len(p),
+                          output_len=32, prompt=p)
+                  for i, p in enumerate(prompts)],
+            "b": burst(100, 0.0, 2)}
+    # instrumentation around the servers, none inside the package: each
+    # fleet tick's wall; "a"'s unpark polls and "b"'s decode steps under
+    # sync-debug "error" while the unpark runs; "a"'s tokens' ticks
+    tracer = obs.install(obs.Tracer(capacity=1 << 20))
+    ticks, strict_steps, held_a, claimed = [], [0], set(), None
+    a_unpark, a_start = {}, a.start_unpark
+
+    def start_unpark(target):
+        torch.cuda.synchronize()
+        a_unpark["w0"] = time.perf_counter()
+        task = _strict(a_start)(target)
+        adv = task.advance
+
+        def advance(now):
+            staging = task.phase is ScalePhase.STAGING
+            phase = (_strict(adv) if staging else adv)(now)
+            if phase.terminal and "wall_s" not in a_unpark:
+                torch.cuda.synchronize()
+                a_unpark["wall_s"] = time.perf_counter() - a_unpark["w0"]
+            return phase
+        task.advance = advance
+        a_unpark["task"] = task
+        return task
+    a.start_unpark = start_unpark
+    b_step = b.step
+
+    def step(now):
+        task = a_unpark.get("task")
+        undo = None
+        if task is not None and not task.done:
+            undo = _strict_steps(b.engine)
+            strict_steps[0] += 1
+        try:
+            return b_step(now)
+        finally:
+            if undo is not None:
+                undo()
+    b.step = step
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    stage, arrivals = "park", reqs
+    while True:
+        torch.cuda.synchronize()
+        w0, t_tick, n_ev = time.perf_counter(), fd.t, len(fd.events)
+        fd.run(arrivals, until=fd.t + FLEET["dt"] / 2)     # one tick
+        arrivals = {}
+        torch.cuda.synchronize()
+        ticks.append((t_tick, w0, time.perf_counter(),
+                      [(e.model, e.kind) for e in fd.events[n_ev:]]))
+        held_a |= set(fd.states["a"].lease)
+        if ("b", "up") in ticks[-1][3] and stage != "park" \
+                and claimed is None:
+            st_b = fd.states["b"]
+            claimed = st_b.lease[st_b.task_prev_lease:]
+        kinds = [(e.model, e.kind) for e in fd.events]
+        if stage == "park" and ("a", "park") in kinds:
+            a_park = dict(a.hmm.last_park)
+            arrivals, stage = {"b": burst(200, fd.t, 12)}, "up"
+            reqs["b"] += arrivals["b"]
+        elif stage == "up" and ("b", "up") in kinds[
+                kinds.index(("a", "park")):]:
+            late = [Request(rid=300 + i, arrival_s=fd.t, prompt_len=len(p),
+                            output_len=32, prompt=p)
+                    for i, p in enumerate(prompts[:4])]
+            arrivals, stage = {"a": late}, "unpark"
+            reqs["a"] += late
+        done = all(r.finish_s is not None for v in reqs.values() for r in v)
+        if stage == "unpark" and done and all(
+                s.task is None for s in fd.states.values()):
+            break
+        require(fd.t < 120.0, f"{tag} the fleet did not finish: "
+                f"{[(e.t, e.model, e.kind) for e in fd.events]}")
+    wall = time.perf_counter() - t_start
+    obs.install(None)
+    counts = ops.launch_counts()
+    a.start_unpark, b.step = a_start, b_step
+    kinds = [(e.model, e.kind) for e in fd.events]
+    p, u = kinds.index(("a", "park")), kinds.index(("a", "unpark"))
+    up = next(i for i in range(p, u) if kinds[i] == ("b", "up"))
+    require(p < up < u, f"{tag} order {kinds}")
+    require(claimed and set(claimed) <= held_a,
+            f"{tag} b grew onto {claimed}, a held {sorted(held_a)}")
+    fd.check_invariants()
+    for name, srv in (("a", a), ("b", b)):
+        for r in reqs[name]:
+            toks = srv.engine.generated[r.rid]
+            require(r.finish_s is not None and len(toks) == 32
+                    and all(0 <= x < cfg.vocab_size for x in toks),
+                    f"{tag} {name} request {r.rid}")
+    require(strict_steps[0] > 0, f"{tag} no step of b ran during the unpark")
+    launches = _path_launches(counts, None, tag)
+    ev_by_tick = {i: k for i, (_, _, _, k) in enumerate(ticks)}
+    end = {t: w1 for t, _, w1, _ in ticks}
+    start = [(t, w0) for t, w0, _, _ in ticks]
+    events = []
+    for e in fd.events:
+        log(f"{tag} t={e.t:.2f} (driver s) {e.model} {e.kind} {e.src} -> "
+            f"{e.dst}: projected_s {e.projected_s:.4f} (cost model, the "
+            f"paper cluster's constants), queue {e.queue_depth}, free "
+            f"{e.free_devices}")
+        events.append(dataclasses.asdict(e))
+    park_tick = next(i for i, k in ev_by_tick.items() if ("a", "park") in k)
+    park_ms = (ticks[park_tick][2] - ticks[park_tick][1]) * 1e3
+    late = reqs["a"][8:]
+    cold_driver = [r.first_token_s - r.arrival_s for r in late]
+    cold_wall = [(end[r.first_token_s]
+                  - next(w0 for t, w0 in start if t >= r.arrival_s)) * 1e3
+                 for r in late]
+    proj = fd.events[u].projected_s
+    a_commit = next(e.switch_s for e in a.events if e.src == "parked")
+    tick_ms = sorted((w1 - w0) * 1e3 for _, w0, w1, _ in ticks)
+    log(f"{tag} a's cold-start TTFT: {[round(x, 3) for x in cold_driver]} "
+        f"driver s, {[round(x, 1) for x in cold_wall]} wall ms (unpark "
+        f"start to DONE {a_unpark['wall_s']:.4f} s) against "
+        f"unpark_transition_cost {proj:.4f} s (the paper cluster's; the "
+        f"commit, which gives the snapshot's pinned memory back, "
+        f"{a_commit:.4f} s); the fleet tick in which a parked "
+        f"(b waits through it; cold pinning, the host cache emptied at the "
+        f"phase's start): {park_ms:.1f} ms, of which pinning "
+        f"{a_park['pin_s'] * 1e3:.1f} ms and D2H "
+        f"{a_park['copy_s'] * 1e3:.1f} ms; fleet tick median "
+        f"{_pct(tick_ms, 50):.2f} ms, p99 "
+        f"{_pct(tick_ms, 99):.2f}, over {len(ticks)} ticks, {wall:.2f} s "
+        f"wall; {strict_steps[0]} of b's steps under sync-debug 'error' "
+        f"during the unpark; timeline {fd.timeline}; {smi}")
+    a.hmm.close()
+    b.hmm.close()
+    del a, b, fd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"events": events, "cold_ttft_driver_s": cold_driver,
+            "cold_ttft_wall_ms": cold_wall,
+            "unpark_start_to_done_s": a_unpark["wall_s"],
+            "unpark_projected_s": proj, "park_tick_ms": park_ms,
+            "park": a_park, "unpark_commit_s": a_commit,
+            "tick_ms": {"median": _pct(tick_ms, 50), "p99": _pct(tick_ms,
+                                                                 99)},
+            "ticks": len(ticks), "wall_s": wall,
+            "strict_steps": strict_steps[0], "launches": launches,
+            "params": FLEET}
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -4313,7 +4850,8 @@ def main():
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
                             "serve_down_tp,serve_scale_mla,"
                             "serve_scale_zamba2,serve_closed_loop,"
-                            "launch_serve,serve_rebalance")
+                            "launch_serve,serve_rebalance,serve_park,"
+                            "serve_fleet")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -4358,6 +4896,8 @@ def main():
     runs.append(("launch_serve", phase_launch_serve))
     runs.append(("serve_rebalance",
                  lambda: phase_serve_rebalance(args.layers)))
+    runs.append(("serve_park", lambda: phase_serve_park(args.layers)))
+    runs.append(("serve_fleet", lambda: phase_serve_fleet(args.layers)))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -178,3 +178,21 @@ def plan_cost(plan: ScalingPlan,
                        peak_mem_bytes_per_device=peak, breakdown=breakdown,
                        decode_stall_s=decode_stall, staging=staging,
                        migration_bytes=kv_migration_bytes)
+
+
+def unpark_cost(plan: ScalingPlan, *, preinit: bool = True,
+                staging: str = "overlap") -> ScalingCost:
+    """The cost of an unpark plan (``scaling_plan.plan_unpark``): every
+    weight shard over the host link at ``DEFAULT_HW.h2d_bw``, the KV
+    cache a fresh INIT.  Overlapped, the warmup hides under the transfers
+    as in ``plan_cost``; ``preinit=False`` adds the cold boot.  A parked
+    model serves nothing until the commit, so ``downtime_s`` is the whole
+    scale time (``breakdown["cold_start"]`` too)."""
+    for s in plan.steps:
+        if s.op not in (Op.HOST, Op.INIT, Op.FREE):
+            raise ValueError(f"an unpark plan streams host and init steps "
+                             f"only, not {s.op}")
+    cost = plan_cost(plan, preinit=preinit, staging=staging)
+    cost.downtime_s = cost.scale_time_s
+    cost.breakdown["cold_start"] = cost.scale_time_s
+    return cost

@@ -36,7 +36,19 @@ The defaults are the reference's: the slot-contiguous KV cache
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
 pooled expert pages, chunked prefill and the int8 stores are the other
 modes.  Dense KV with chunked prefill is not ported yet and raises, as
-does a TP degree that cuts a head; parking is not ported.
+does a TP degree that cuts a head.
+
+Scale to zero: ``park()`` (idle servers only) snapshots every weight bank
+into pinned host memory and drops every device tensor — the HMM's, the
+engine's and every CUDA graph set this server captured — so the card's
+memory is freed; ``tick`` then returns ``[]``, ``utilization`` is 0,
+``current_config`` is None, and ``submit`` queues.  ``start_unpark(target)``
+opens an ``UnparkTask``: STAGING (the snapshot streams host to device —
+overlapped, on the TransferEngine's side streams while the IMM captures
+the target's graphs one a poll on the serving thread; serial, one unit a
+poll, then COMPILING) -> COMMITTING (the fresh KV cache and the engine
+bound) -> DONE, after which the server serves with the tokens of a server
+never parked.  ``serving/fleet.py``'s ``FleetDriver`` parks and unparks.
 
 Skew-aware rebalancing (standard-attention MoE models, pooled pages):
 ``routing_sample_every=N`` runs every Nth decode tick's twin that also
@@ -362,6 +374,134 @@ class EngineScalingTask:
         self.phase = ScalePhase.ABORTED
 
 
+class UnparkTask:
+    """A resumable cold start from the parked snapshot
+    (``driver.ScalingTask``), the scale-from-zero twin of
+    ``EngineScalingTask``: ``begin_unpark`` opened the HMM's session (the
+    target's tensors and fresh KV cache made, overlapped copies
+    submitted).  Overlapped, each STAGING ``advance`` captures one graph
+    of the target's set over those tensors while the copies land (an
+    ``unpark.compile`` span each), then polls; serial, one unit a poll and
+    a COMPILING poll.  COMMITTING binds the engine; the next ``tick``
+    serves.  No MIGRATING or DRAINING: a parked server has no sequence.
+    ``compile_hit``'s meaning is the reference's (``IMM.has`` before the
+    first capture); ``capture_s`` is the time spent capturing.  Each
+    transition emits an ``unpark.<PHASE>`` span on the ``"scale"``
+    lane."""
+
+    def __init__(self, server: "ElasticServer", target: ElasticConfig):
+        if not server.parked:
+            raise RuntimeError("unpark requires a parked server")
+        if server._active_task is not None \
+                and not server._active_task.phase.terminal:
+            raise RuntimeError("a scale event is already in flight")
+        self.server = server
+        self.target = target
+        self.phase = ScalePhase.STAGING
+        self.staging_mode = server.hmm.staging_mode
+        self.increments_total = server.hmm.begin_unpark(target) + 1
+        self.increments_done = 0
+        self.stats: TransferStats = server.hmm._stage_stats
+        self.stage_stats: Optional[TransferStats] = None
+        self.event: Optional[ScaleEvent] = None
+        self.stall_s = 0.0
+        self.capture_s = 0.0
+        self._compile_hit: Optional[bool] = None
+        self._captured = False
+        server._active_task = self
+
+    @property
+    def phase(self) -> ScalePhase:
+        return self._phase
+
+    @phase.setter
+    def phase(self, new: ScalePhase) -> None:
+        tr = obs.get_tracer()
+        now = tr.now()
+        old = getattr(self, "_phase", None)
+        self._phase = new
+        if old is not None and old is not new:
+            tr.complete(f"unpark.{old.name}", self._phase_t0, now,
+                        cat="scale", tid="scale",
+                        args={"target": self.target.describe(),
+                              "next": new.name})
+        self._phase_t0 = now
+
+    @property
+    def done(self) -> bool:
+        return self.phase.terminal
+
+    def _unwind_failed(self):
+        """A step raised: abort the HMM's session.  The snapshot stays, so
+        a later ``start_unpark`` can try again."""
+        self.server.hmm.abort()
+        self.server._active_task = None
+        self.phase = ScalePhase.ABORTED
+
+    def _capture(self, limit: Optional[int]) -> None:
+        """The target's step set over its staged tensors, at most ``limit``
+        graphs (None: all), in an ``unpark.compile`` span."""
+        imm, tr = self.server.imm, obs.get_tracer()
+        if self._compile_hit is None:
+            self._compile_hit = imm.has(self.target)
+        c0 = tr.now()
+        t0 = time.perf_counter()
+        imm.preinitialize(self.target, *self.server._staged_tensors(),
+                          limit=limit)
+        self._captured = imm.ready(self.target)
+        self.capture_s += time.perf_counter() - t0
+        tr.complete("unpark.compile", c0, tr.now(), cat="scale", tid="scale",
+                    args={"hit": self._compile_hit,
+                          "target": self.target.describe()})
+
+    def advance(self, now: float) -> ScalePhase:
+        ph = self.phase
+        hmm = self.server.hmm
+        if ph is ScalePhase.STAGING:
+            t0 = time.perf_counter()
+            try:
+                if self.staging_mode == "overlap":
+                    if not self._captured:
+                        self._capture(limit=1)
+                    if self._captured and hmm.poll_staging():
+                        self.increments_done = self.increments_total
+                        self.stage_stats = dataclasses.replace(self.stats)
+                        self.phase = ScalePhase.COMMITTING
+                    else:
+                        self.increments_done = (self.increments_total - 1
+                                                - hmm.staging_remaining)
+                else:
+                    more = hmm.stage_increment()
+                    self.increments_done += 1
+                    if not more:
+                        self.stage_stats = dataclasses.replace(self.stats)
+                        self.phase = ScalePhase.COMPILING
+            except BaseException:
+                self._unwind_failed()
+                raise
+            self.stall_s += time.perf_counter() - t0
+        elif ph is ScalePhase.COMPILING:
+            t0 = time.perf_counter()
+            self.increments_done += 1
+            try:
+                self._capture(limit=None)
+            except BaseException:
+                self._unwind_failed()
+                raise
+            self.phase = ScalePhase.COMMITTING
+            self.stall_s += time.perf_counter() - t0
+        elif ph is ScalePhase.COMMITTING:
+            self.server._unpark_switchover(self)
+            self.phase = ScalePhase.DONE
+            self.server._active_task = None
+        return self.phase
+
+    def abort(self):
+        if self.phase not in (ScalePhase.STAGING, ScalePhase.COMPILING):
+            raise RuntimeError(f"cannot abort a task in {self.phase.name}")
+        self._unwind_failed()
+
+
 @dataclasses.dataclass
 class RebalanceEvent:
     """One committed (or aborted) rebalance pass."""
@@ -661,6 +801,60 @@ class ElasticServer:
             raise RuntimeError("boot() the server before scaling it")
         return EngineScalingTask(self, target)
 
+    # -------------------------------------------------------- scale to zero
+    @property
+    def parked(self) -> bool:
+        return self.hmm.parked
+
+    def park(self) -> TransferStats:
+        """Scale to zero devices: the HMM snapshots every weight bank into
+        pinned host memory, the engine drops its tensors and graphs, and
+        the IMM every graph set this server captured, so the device memory
+        is freed.  Legal only when idle (empty queue, no live slot, no
+        scale in flight; an open rebalance is aborted), so a park never
+        drops a request.  ``submit`` stays legal; ``start_unpark`` brings
+        the server back."""
+        if self._active_task is not None and not self._active_task.done:
+            raise RuntimeError("cannot park during a scale event")
+        self._preempt_rebalance()
+        if self.queue or self.engine.active_count():
+            raise RuntimeError("park requires a drained server (queue "
+                               "empty, no live slots)")
+        stats = self.hmm.park()
+        self.engine.unbind()
+        self.imm.release_all()
+        self._staged_cfg = None
+        return stats
+
+    def start_unpark(self, target: ElasticConfig) -> UnparkTask:
+        """Open a resumable cold start from the parked snapshot (the twin
+        of ``start_scale``); ``advance`` it between ticks until DONE."""
+        return UnparkTask(self, target)
+
+    def _unpark_switchover(self, task: UnparkTask):
+        """An unpark's commit: the HMM adopts the streamed weights and the
+        fresh KV cache, and the engine binds the target's instance (its
+        graphs captured during STAGING)."""
+        t0 = time.perf_counter()
+        target = task.target
+        self.hmm.commit()
+        inst, params, cache, hit = self.imm.activate(target)
+        self._bind(inst, params, cache)
+        self.engine.reset_routing_stats()
+        self.engine.admit_limit = None
+        ev = ScaleEvent(t=time.time(), src="parked", dst=target.describe(),
+                        stats=self.hmm.last_stats,
+                        compile_hit=(task._compile_hit
+                                     if task._compile_hit is not None
+                                     else hit),
+                        stage_s=task.stats.wall_s,
+                        switch_s=time.perf_counter() - t0,
+                        stall_s=task.stall_s, staging=self.staging_mode,
+                        stage_wall_s=(task.stage_stats.wall_s
+                                      if task.stage_stats else 0.0))
+        self.events.append(ev)
+        task.event = ev
+
     # -------------------------------------------------------------- serving
     def submit(self, req: Request):
         kv = self.hmm.kv_blocks
@@ -684,7 +878,10 @@ class ElasticServer:
         admissions pause and in-flight decodes continue (the shared
         ``admission_during_scale`` gate).  Sequences preempted under pool
         pressure re-enter at the front of the queue.  Returns rids
-        finished this tick."""
+        finished this tick; parked, nothing serves ([]) and the queue
+        accrues."""
+        if self.parked:
+            return []
         tr = obs.get_tracer()
         admitting = True
         if self._active_task is not None \
@@ -760,7 +957,7 @@ class ElasticServer:
         return len(self.queue)
 
     def utilization(self) -> float:
-        return self.engine.utilization()
+        return 0.0 if self.parked else self.engine.utilization()
 
     def kv_stats(self):
         """Block-pool stats (None for the dense layout)."""
@@ -791,6 +988,7 @@ class ElasticServer:
                                        for ev in self.events)}
 
     def current_config(self) -> Optional[ElasticConfig]:
+        """The active configuration; None while parked."""
         return self.hmm.active_cfg
 
     # ---------------------------------------------------- expert rebalance

@@ -71,7 +71,27 @@ place, so every captured graph stays valid; ``abort_rebalance`` cancels
 or joins the copies before it frees their pages.  The table width has
 ``expert_slot_slack`` spare slots per rank for the replicas.  A scale
 moves a demoted expert that must move from its host rows
-(``expert_h2d_bytes``, not P2P).  Parking is a later slice.
+(``expert_h2d_bytes``, not P2P).
+
+Scale to zero (``park``, ``begin_unpark``): ``park`` snapshots every
+weight bank into pinned host memory — each dense leaf's distinct shards
+and each expert page's rows, a demoted page's tier rows taken as they
+are — synchronises once, and drops every device tensor.  The HMM has one
+pinned allocator, ``_PinnedArena`` (128 MiB slabs, pinned once each; a
+leaf past a slab gets its own block): the host tier's slabs are carved
+from it, and the snapshot takes it over.  ``begin_unpark(target)`` opens
+a staging session like ``begin_scale``'s: it allocates the target's
+tensors and its fresh KV cache on the serving thread (zeroed pool
+slices; the index arrays of a fresh ``initial_place``), and its units
+copy the snapshot into them host to device (overlapped: on the
+TransferEngine's side streams).  ``commit`` adopts them and frees the
+snapshot, its pinned memory with it; ``abort`` keeps it, so the unpark
+can be retried.  The byte fields are the reference's: the park counts
+each dense leaf's logical bytes once and one page per device-resident
+page in ``d2h_bytes``; the unpark counts every device shard (whole pool
+slices, their zero rows too) in ``h2d_bytes``, and the rows it copies in
+``h2d_copied_bytes``.  One device on either side is not
+ported (``NotImplementedError``), as for a scale.
 """
 from __future__ import annotations
 
@@ -116,8 +136,11 @@ class TransferStats:
     counts them.  ``expert_replica_bytes``: pages copied to make replicas;
     ``expert_d2h_bytes``: pages demoted into the pinned-host tier;
     ``expert_h2d_bytes``: host-tier pages copied back at a scale (not in
-    ``p2p_bytes``).  The parking tier's ``d2h_bytes`` and ``h2d_bytes``
-    stay 0 (parking is not ported)."""
+    ``p2p_bytes``), or an unpark's live pages.  ``d2h_bytes``: a park's
+    snapshot; ``h2d_bytes``: an unpark's stream, every device shard whole
+    as the reference counts it; ``h2d_copied_bytes`` (not a reference
+    field): the bytes the unpark's copies moved, which leave out the
+    zero rows of the pool slices."""
     zero_copy_bytes: int = 0
     p2p_bytes: int = 0
     local_bytes: int = 0
@@ -135,6 +158,7 @@ class TransferStats:
     expert_h2d_bytes: int = 0
     d2h_bytes: int = 0
     h2d_bytes: int = 0
+    h2d_copied_bytes: int = 0
 
     #: the additive byte / count fields (timing fields excluded)
     BYTE_FIELDS = ("zero_copy_bytes", "p2p_bytes", "local_bytes",
@@ -145,7 +169,7 @@ class TransferStats:
                    "d2h_bytes", "h2d_bytes")
 
     def merge(self, o: "TransferStats"):
-        for f in self.BYTE_FIELDS + ("wall_s", "op_s"):
+        for f in self.BYTE_FIELDS + ("wall_s", "op_s", "h2d_copied_bytes"):
             setattr(self, f, getattr(self, f) + getattr(o, f))
 
 
@@ -323,6 +347,9 @@ class HMM:
         self._expert_host_pool: Dict[Tuple[int, int],
                                      Dict[str, torch.Tensor]] = {}
         self._host_tier: Optional[_HostTier] = None
+        # the one pinned-host allocator: the tier's slabs, then a park's
+        # snapshot (which takes it over), made at first use
+        self._arena: Optional[_PinnedArena] = None
         # the rebalance session (begin_rebalance to commit or abort)
         self._rebalance_ops = None
         self._rebalance_session = None
@@ -340,8 +367,15 @@ class HMM:
         self.last_stats: Optional[TransferStats] = None
         self.last_migrations: Optional[List] = None
         # begin_scale to commit or abort: (cfg, mesh, the staged parameter
-        # tree, {cache leaf: {logical device: new zeroed KV shard}})
+        # tree, {cache leaf: {logical device: new zeroed KV shard}}); an
+        # unpark's: (cfg, mesh, the staged tree, its fresh cache)
         self._scale_target: Optional[Tuple] = None
+        # the parked snapshot (park to an unpark's commit), the unpark
+        # session's fresh page table, and the last park's timings
+        self._parked: Optional[_Parked] = None
+        self._unpark = False
+        self._unpark_table: Optional[ExpertPageTable] = None
+        self.last_park: Optional[Dict[str, float]] = None
         self._reset_stage_session()
 
     @property
@@ -466,10 +500,7 @@ class HMM:
                 # scaling down to half the boot device count
                 self.expert_pool_pages = min(
                     2 * L * math.ceil(E / cfg.ndev), L * E)
-            self.page_table = ExpertPageTable(
-                L, E, pool_pages_per_device=(self.expert_pool_pages
-                                             if pooled else 0),
-                host_pool_pages=self.expert_host_pages)
+            self.page_table = self._fresh_table()
             self.page_table.initial_place(cfg)
             if pooled:
                 layout = self._pooled_index_arrays(self.page_table.active,
@@ -842,6 +873,9 @@ class HMM:
         """Execute ONE unit of staging work: copy into ``dst``, the staged
         leaf ``_stage_destination`` made, return it, and add its bytes to
         ``stats``."""
+        if kind == "unpark":
+            # a cold start: ``leaf`` is the parked snapshot's host leaf
+            return self._put_host_leaf(leaf, dst, stats)
         if kind.startswith("pool:"):
             return self._migrate_pool_bank(leaf, new_cfg, stats, dst,
                                            kind.split(":", 1)[1])
@@ -952,7 +986,10 @@ class HMM:
             for op in self._stage_session.ops:
                 for dev, ev in op.events.items():
                     torch.cuda.current_stream(dev).wait_event(ev)
-        if self.page_table is not None and self.page_table.staged is None:
+        if (self.page_table is not None and self.page_table.staged is None
+                and not self._unpark):
+            # an unpark's fresh table (begin_unpark) has no live placement
+            # to remap from
             self.page_table.stage_remap(new_cfg, min_move=False)
         self.staged = (new_cfg, mesh, new_params)
         stats.wall_s += time.perf_counter() - t0
@@ -1069,6 +1106,8 @@ class HMM:
         if self._scale_target is None:
             raise RuntimeError("no scale is staging")
         new_cfg, mesh, params, new_kv = self._scale_target
+        if self._unpark:
+            return new_cfg, mesh, params, new_kv     # its fresh cache
         return (new_cfg, mesh, params,
                 self._target_cache(live_cache, new_cfg, mesh, new_kv,
                                    TransferStats()))
@@ -1101,6 +1140,8 @@ class HMM:
         new_cfg, mesh, params = self.staged
         stats = TransferStats()
         t0 = time.perf_counter()
+        if self._unpark:
+            return self._commit_unpark(new_cfg, params, stats, t0)
         if live_cache is not None:
             self.cache = live_cache
         self.cache = self._target_cache(self.cache, new_cfg, mesh,
@@ -1134,8 +1175,260 @@ class HMM:
         self._scale_target = None
         self.last_migrations = None
         self._reset_stage_session()
+        # an unpark's snapshot stays: the unpark can be tried again
+        self._unpark = False
+        self._unpark_table = None
         if self.page_table is not None:
             self.page_table.abort()
+
+    # -------------------------------------------------------- scale to zero
+    def _fresh_table(self) -> ExpertPageTable:
+        """An empty page table of this HMM's store (nothing placed)."""
+        pooled = self.expert_mode == "pooled"
+        return ExpertPageTable(
+            self._n_moe_layers, self.mcfg.num_experts,
+            pool_pages_per_device=(self.expert_pool_pages if pooled else 0),
+            host_pool_pages=self.expert_host_pages)
+
+    def _pinned_arena(self) -> "_PinnedArena":
+        if self._arena is None:
+            self._arena = _PinnedArena(pin=self.device.type == "cuda")
+        return self._arena
+
+    @obs.traced("hmm.park", cat="hmm")
+    def park(self) -> TransferStats:
+        """Scale to zero devices: snapshot every weight bank into pinned
+        host memory and drop every device tensor the HMM holds.  A dense
+        leaf keeps its distinct shards (a TP split's pieces; a replicated
+        leaf once); the pooled store keeps each (layer, expert)'s rows: a
+        page demoted to the host tier is absorbed, its tier rows taken as
+        they are (a demote keeps the device page, so the reference counts
+        and copies it again; ``d2h_bytes`` keeps that count), any other
+        page is copied out.  The snapshot takes over the HMM's pinned
+        arena, the tier's slabs with it.  Every pinned buffer is made
+        before the first copy (``last_park`` splits the two), and the park
+        synchronises once, after the copies.  The KV cache is not kept:
+        the server parks only with no sequence in flight, and
+        ``begin_unpark`` makes a fresh one.  No staging or rebalance
+        session may be open.  Returns the stats, the snapshot in
+        ``d2h_bytes`` (one ``expert_page_nbytes`` per device-resident
+        page)."""
+        if self.active_cfg is None:
+            raise RuntimeError("nothing to park")
+        if self._stage_work is not None or self.staged is not None:
+            raise RuntimeError("park is mutually exclusive with scale "
+                               "staging")
+        if self._rebalance_ops is not None:
+            raise RuntimeError("park is mutually exclusive with rebalancing")
+        cfg = self.active_cfg
+        if cfg.ndev == 1:
+            raise NotImplementedError(
+                "parking from one device is not ported yet (boot on two or "
+                "more logical devices)")
+        t0 = time.perf_counter()
+        stats = TransferStats()
+        arena = self._pinned_arena()
+        pin0 = arena.pin_s
+        copies: List[Tuple[torch.Tensor, torch.Tensor]] = []   # (host, dev)
+
+        def snapshot(_, leaf: ShardedTensor) -> _HostLeaf:
+            pieces = {}
+            for _, index, data in leaf.addressable_shards:
+                if _idx_key(index) not in pieces:
+                    host = arena.empty(tuple(data.shape), data.dtype)
+                    copies.append((host, data))
+                    pieces[_idx_key(index)] = (index, host)
+                    stats.d2h_bytes += data.nbytes
+            return _HostLeaf(leaf.shape, pieces)
+        tree = tree_map_with_path(snapshot, {
+            k: v for k, v in self.params.items() if k != "moe_pool"})
+        pages = None
+        if self.expert_mode == "pooled":
+            pages = {}
+            slices = self._pool_slices()
+            page_bytes = self.expert_page_nbytes()
+            for key, ref in self.page_table.active.items():
+                if not ref.is_host:
+                    stats.d2h_bytes += page_bytes
+                    stats.expert_d2h_bytes += page_bytes
+                if key in self._expert_host_pool:
+                    pages[key] = self._expert_host_pool[key]   # absorbed
+                    continue
+                rows = {}
+                for bank, devs in slices.items():
+                    src = devs[ref.device][ref.page]
+                    rows[bank] = arena.empty(tuple(src.shape), src.dtype)
+                    copies.append((rows[bank], src))
+                pages[key] = rows
+        t1 = time.perf_counter()
+        for host, dev in copies:
+            host.copy_(dev, non_blocking=True)
+        for d in cuda_devices(self.all_devices[i] for i in cfg.devices):
+            torch.cuda.synchronize(d)       # the one sync: they have landed
+        copy_s = time.perf_counter() - t1
+        total = (sum(leaf.nbytes for _, leaf in tree_leaves_with_path(tree))
+                 + sum(r.nbytes for rows in (pages or {}).values()
+                       for r in rows.values()))
+        copied = sum(h.nbytes for h, _ in copies)
+        self._parked = _Parked(tree, pages, total, arena)
+        self.params = None
+        self.cache = None
+        self.kv_blocks = None
+        self.active_cfg = None
+        # the demoted rows live on in the snapshot, which owns the arena
+        self._expert_host_pool = {}
+        self._host_tier = None
+        self._arena = None
+        if self.page_table is not None:
+            self.page_table = self._fresh_table()
+        stats.wall_s = time.perf_counter() - t0
+        self.last_stats = stats
+        self.last_park = {"pin_s": arena.pin_s - pin0, "copy_s": copy_s,
+                          "pinned_bytes": arena.pinned_bytes,
+                          "copied_bytes": copied,
+                          "absorbed_bytes": total - copied,
+                          "bytes": total}
+        return stats
+
+    @property
+    def parked(self) -> bool:
+        return self._parked is not None
+
+    def parked_bytes(self) -> int:
+        """Bytes of the parked snapshot (0 unless parked)."""
+        return self._parked.nbytes if self._parked is not None else 0
+
+    @obs.traced("hmm.begin_unpark", cat="hmm")
+    def begin_unpark(self, cfg: ElasticConfig) -> int:
+        """Open a staging session that streams the parked snapshot to
+        ``cfg``'s devices: ``begin_scale``'s discipline (serial units in
+        ``stage_increment``; overlapped on the TransferEngine's side
+        streams, polled with ``poll_staging``).  Every destination tensor
+        and the fresh KV cache are made here, on the caller's thread, with
+        no host sync: the target's graphs can be captured over them
+        (``staged_tensors``) while the copies land.  The pooled store gets
+        a fresh ``initial_place`` at ``cfg``: its pool slices start zeroed
+        and each live page's rows are copied into its slot.  ``commit``
+        adopts the tensors and the cache (and a fresh KV block manager)
+        and frees the snapshot; ``abort`` keeps it.  Returns the unit
+        count."""
+        if self._parked is None:
+            raise RuntimeError("not parked")
+        if self._stage_work is not None:
+            raise RuntimeError("staging already in progress")
+        if cfg.tp != self.tp:
+            raise ValueError("TP is fixed across park and unpark (§4.1)")
+        if cfg.ndev == 1:
+            raise NotImplementedError(
+                "unparking to one device is not ported yet (unpark to two "
+                "or more logical devices)")
+        check_devices(cfg, self.all_devices)
+        t0 = time.perf_counter()
+        mesh = make_instance_mesh(cfg, self.all_devices)
+        snap = self._parked
+        table = None
+        if self.page_table is not None:
+            table = self._fresh_table()
+            table.initial_place(cfg)
+        src = tree_map_with_path(lambda _, leaf: leaf, snap.tree)
+        if self.expert_mode == "pooled":
+            pin = self.device.type == "cuda"
+            moe = src["blocks"]["moe"]
+            for name, arr in self._pooled_index_arrays(table.active,
+                                                       cfg).items():
+                t = torch.from_numpy(np.ascontiguousarray(arr, np.int32))
+                moe[name] = _HostLeaf.whole(t.pin_memory() if pin else t)
+            ppd = self.expert_pool_pages
+            src["moe_pool"] = {}
+            for bank, row in next(iter(snap.pages.values())).items():
+                rows = defaultdict(list)
+                for key, ref in table.active.items():
+                    rows[ref.device].append((ref.page, snap.pages[key][bank]))
+                src["moe_pool"][bank] = _HostPool(
+                    (cfg.ndev * ppd,) + tuple(row.shape), row.dtype,
+                    dict(rows))
+        work, dst = [], {}
+        for path, leaf in tree_leaves_with_path(src):
+            sh = self.param_sharding(path, leaf.shape, mesh)
+            dtype = leaf.dtype
+            # pool slices start zeroed (the rows of no page)
+            alloc = torch.zeros if isinstance(leaf, _HostPool) else torch.empty
+            dst[path] = ShardedTensor(leaf.shape, sh, {
+                d: alloc(index_shape(leaf.shape, idx), dtype=dtype,
+                         device=mesh.torch_device(d))
+                for d, idx in sh.devices_indices_map(leaf.shape).items()})
+            work.append((path, leaf, sh, None, "unpark", dst[path]))
+        self._stage_work = work
+        self._stage_cursor = 0
+        self._scale_target = (
+            cfg, mesh, tree_map_with_path(lambda path, _: dst[path], src),
+            self._sharded_cache(cfg, mesh))
+        self._unpark = True
+        self._unpark_table = table
+        self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
+        if snap.pages is not None:
+            # the live pages' share of the stream
+            self._stage_stats.expert_h2d_bytes += (
+                len(snap.pages) * self.expert_page_nbytes())
+        if self.staging_mode == "overlap":
+            self._stage_t0 = t0
+            devs = cuda_devices(self.all_devices[d] for d in cfg.devices)
+            ops = [TransferOp(index=i, label=f"unpark:{unit[0]}",
+                              devices=devs,
+                              fn=self._make_stage_op(unit[1:], cfg, mesh))
+                   for i, unit in enumerate(work)]
+            # the side streams wait for the zero fills issued above
+            self._stage_session = self.transfer_engine().submit(
+                ops, after=ready_events(devs))
+        return len(work)
+
+    def _put_host_leaf(self, leaf, dst: ShardedTensor,
+                       stats: TransferStats) -> ShardedTensor:
+        """One unpark unit: the parked ``leaf`` into its staged ``dst``,
+        shard by shard, asynchronously from pinned memory (on the card on
+        the worker's side stream).  ``h2d_bytes`` counts every device
+        shard whole, as the reference streams it; ``h2d_copied_bytes``
+        what was copied (a pool slice's live rows only)."""
+        for dev, index, data in dst.addressable_shards:
+            stats.h2d_bytes += data.nbytes
+            if isinstance(leaf, _HostPool):
+                for page, row in leaf.rows.get(dev, ()):
+                    data[page].copy_(row, non_blocking=True)
+                    stats.h2d_copied_bytes += row.nbytes
+            else:
+                stats.h2d_copied_bytes += leaf.copy_into(data, index)
+        return dst
+
+    def _commit_unpark(self, cfg: ElasticConfig, params,
+                       stats: TransferStats, t0: float) -> TransferStats:
+        """The unpark's switchover: the streamed weights, the fresh KV
+        cache made at ``begin_unpark`` (``init_bytes``: its logical bytes,
+        which the reference allocates here) and the fresh page table
+        become active; the snapshot is freed, its pinned memory given back
+        to the system (the caching host allocator would keep it)."""
+        cache = self._scale_target[3]
+        stats.init_bytes += sum(leaf.nbytes for leaf in cache.values())
+        self.cache = cache
+        if self.kv_mode == "paged":
+            self.kv_blocks = KVBlockManager(cfg.dp,
+                                            self.kv_blocks_per_replica,
+                                            self.kv_block_size)
+        self.active_cfg = cfg
+        self.params = params
+        self.staged = None
+        self._scale_target = None
+        if self._unpark_table is not None:
+            self.page_table = self._unpark_table
+        self._unpark = False
+        self._unpark_table = None
+        pinned = self._parked.arena.pin
+        self._parked = None
+        if pinned:
+            torch._C._host_emptyCache()
+        stats.wall_s = time.perf_counter() - t0
+        if self.last_stats is not None:
+            self.last_stats.merge(stats)
+        return stats
 
     # ------------------------------------------------------------ rebalance
     def _pool_slices(self) -> Dict[str, Dict[int, torch.Tensor]]:
@@ -1181,8 +1474,7 @@ class HMM:
             self._host_tier = _HostTier(
                 {b: (tuple(t.shape[1:]), t.dtype)
                  for b, t in self.params["moe_pool"].items()},
-                self.page_table.host_pool_pages,
-                pin=self.device.type == "cuda")
+                self.page_table.host_pool_pages, self._pinned_arena())
         page_bytes = self.expert_page_nbytes()
         work, devs = [], set()
         for i, op in enumerate(ops):
@@ -1333,30 +1625,30 @@ class HMM:
         self._rebalance_load = None
 
     def host_tier_bytes(self) -> int:
-        """Resident bytes of the pinned-host tier (the demoted pages)."""
-        return len(self._expert_host_pool) * self.expert_page_nbytes()
+        """Resident bytes of the pinned-host tier: the demoted pages and,
+        parked, the whole-model snapshot."""
+        return (len(self._expert_host_pool) * self.expert_page_nbytes()
+                + self.parked_bytes())
 
 
 class _HostTier:
     """The pinned-host tier's memory: per bank, slabs of ``slab`` pages,
-    each pinned when a demote first needs one of its pages and kept; host
-    page p (the page table's ``HOST`` pool) is row ``p % slab`` of slab
-    ``p // slab``.  Page locking costs 20-25 times a copy's time on an
-    H100's host link (``tools/torch_host_tier_rates.py``), so a slab is
-    pinned once and a promoted page's rows serve a later demote, and a
-    slab fills the 128 MiB block the caching host allocator rounds it to
-    (one allocation a row would round each row to a power of two), or
-    holds the tier's ``capacity`` pages where they take less."""
-
-    SLAB_BYTES = 128 << 20
+    each carved from the HMM's ``_PinnedArena`` when a demote first needs
+    one of its pages and kept; host page p (the page table's ``HOST``
+    pool) is row ``p % slab`` of slab ``p // slab``.  Page locking costs
+    20-25 times a copy's time on an H100's host link
+    (``tools/torch_host_tier_rates.py``), so memory is pinned once and a
+    promoted page's rows serve a later demote; a slab is at most one
+    arena slab (or the tier's ``capacity`` pages where they take less).
+    A park absorbs the demoted pages' rows into its snapshot."""
 
     def __init__(self, banks: Dict[str, Tuple[tuple, torch.dtype]],
-                 capacity: int, pin: bool):
+                 capacity: int, arena: "_PinnedArena"):
         self.banks = banks
-        self.pin = pin
+        self.arena = arena
         row = max(math.prod(shape) * dtype.itemsize
                   for shape, dtype in banks.values())
-        self.slab = max(1, min(self.SLAB_BYTES // row, capacity))
+        self.slab = max(1, min(arena.SLAB_BYTES // row, capacity))
         self._slabs: Dict[Tuple[str, int], torch.Tensor] = {}
         self._lock = threading.Lock()
 
@@ -1366,14 +1658,144 @@ class _HostTier:
         with self._lock:
             for bank, (shape, dtype) in self.banks.items():
                 if (bank, k) not in self._slabs:
-                    self._slabs[(bank, k)] = torch.empty(
-                        (self.slab, *shape), dtype=dtype,
-                        pin_memory=self.pin)
+                    self._slabs[(bank, k)] = self.arena.empty(
+                        (self.slab, *shape), dtype)
             return {b: self._slabs[(b, k)][r] for b in self.banks}
 
     def pinned_bytes(self) -> int:
         with self._lock:
             return sum(t.nbytes for t in self._slabs.values())
+
+
+class _PinnedArena:
+    """The HMM's pinned host memory — the host tier's slabs, then the
+    parked snapshot, which takes the arena over — as tensors carved from
+    128 MiB slabs (a power of two, so the caching host allocator rounds
+    nothing up), each slab pinned once when it is made.  A tensor goes to
+    the first slab with room at its end; one past a slab gets a block of
+    its own.  ``pin=False`` (CPU tensors): pageable memory.  Pinning that
+    fails raises: the copies would synchronise on pageable memory."""
+
+    SLAB_BYTES = 128 << 20
+    ALIGN = 512
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.blocks: List[torch.Tensor] = []
+        self.pin_s = 0.0                    # seconds spent allocating
+        self._tails: List[List] = []        # [slab, first free byte]
+        self._lock = threading.Lock()
+
+    @property
+    def pinned_bytes(self) -> int:
+        return sum(b.nbytes for b in self.blocks)
+
+    def _block(self, n: int) -> torch.Tensor:
+        t0 = time.perf_counter()
+        block = torch.empty(n, dtype=torch.uint8, pin_memory=self.pin)
+        self.pin_s += time.perf_counter() - t0
+        self.blocks.append(block)
+        return block
+
+    def empty(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        n = math.prod(shape) * dtype.itemsize
+        with self._lock:
+            if n > self.SLAB_BYTES:
+                buf, off = self._block(n), 0
+            else:
+                tail = next((t for t in self._tails
+                             if t[1] + n <= self.SLAB_BYTES), None)
+                if tail is None:
+                    tail = [self._block(self.SLAB_BYTES), 0]
+                    self._tails.append(tail)
+                buf, off = tail
+                tail[1] = -(-(off + n) // self.ALIGN) * self.ALIGN
+        return buf[off:off + n].view(dtype).view(shape)
+
+
+class _HostLeaf:
+    """A parked parameter leaf: its distinct shards in host memory,
+    ``pieces``: index key -> (index, host tensor)."""
+
+    def __init__(self, shape: tuple, pieces: Dict[tuple, Tuple]):
+        self.shape = tuple(shape)
+        self.pieces = pieces
+
+    @classmethod
+    def whole(cls, t: torch.Tensor) -> "_HostLeaf":
+        index = tuple(slice(None) for _ in t.shape)
+        return cls(tuple(t.shape), {_idx_key(index): (index, t)})
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.pieces.values()))[1].dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for _, t in self.pieces.values())
+
+    def copy_into(self, out: torch.Tensor, index) -> int:
+        """Fill ``out``, the leaf's shard at ``index``: from the piece at
+        that very index in one copy, else from each piece's overlap with it
+        (a dense expert bank whose EP split changed).  Returns the bytes."""
+        hit = self.pieces.get(_idx_key(index))
+        if hit is not None:
+            out.copy_(hit[1], non_blocking=True)
+            return out.nbytes
+        n = 0
+        for pindex, piece in self.pieces.values():
+            n += _copy_overlap(out, index, piece, pindex, self.shape)
+        return n
+
+
+class _HostPool:
+    """An unpark's source for one pool bank of ``shape``: logical device
+    -> [(page, host row)], each live page's row at its fresh slot."""
+
+    def __init__(self, shape: tuple, dtype: torch.dtype,
+                 rows: Dict[int, List[Tuple[int, torch.Tensor]]]):
+        self.shape, self.dtype, self.rows = tuple(shape), dtype, rows
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A parked HMM's snapshot: the parameter tree without the page pool
+    (``_HostLeaf`` leaves), the pooled store's rows by (layer, expert)
+    (None with dense banks), its bytes, and the arena that holds them."""
+    tree: Any
+    pages: Optional[Dict[Tuple[int, int], Dict[str, torch.Tensor]]]
+    nbytes: int
+    arena: _PinnedArena
+
+
+def _copy_overlap(out: torch.Tensor, out_index, src: torch.Tensor,
+                  src_index, shape) -> int:
+    """Copy into ``out`` (the shard at ``out_index`` of a leaf of
+    ``shape``) the part of ``src`` (the shard at ``src_index``) the two
+    share; returns its bytes."""
+    o, s = [], []
+    for n, a, b in zip(shape, out_index, src_index):
+        alo, ahi, _ = a.indices(n)
+        blo, bhi, _ = b.indices(n)
+        lo, hi = max(alo, blo), min(ahi, bhi)
+        if lo >= hi:
+            return 0
+        o.append(slice(lo - alo, hi - alo))
+        s.append(slice(lo - blo, hi - blo))
+    dst = out[tuple(o)]
+    _copy_blocks(dst, src[tuple(s)])
+    return dst.nbytes
+
+
+def _copy_blocks(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` in blocks that are contiguous on both sides: a
+    copy from a strided host view would go through a pageable copy and
+    synchronise."""
+    if dst.dim() == 0 or (dst.is_contiguous() and src.is_contiguous()):
+        dst.copy_(src, non_blocking=True)
+        return
+    for i in range(dst.shape[0]):
+        _copy_blocks(dst[i], src[i])
 
 
 def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:

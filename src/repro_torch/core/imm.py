@@ -26,10 +26,21 @@ capture time goes into ``compile_s_total`` and the instance's
 ``ScaleEvent.compile_hit`` reports whether the target's set was ready
 before ``switchover``.  ``cuda_graphs=False`` keeps the eager steps on the
 card: the comparison twin of tests and ``chip_smoke.py``.
+
+A fleet's servers share one LRU (``shared_cache``).  A set's graphs hold
+one server's tensors, so every instance belongs to the IMM that built it
+(its key starts with that IMM's ``owner`` token): two servers of one model
+never bind, release or recapture each other's set, and an eviction never
+drops another server's live set (the one its engine serves on).  ``has``
+keeps the reference's meaning: a standby instance of this model and
+configuration is cached, whichever server built it.  ``release_all``
+drops every set of this server (a park: the graphs' closures hold the
+parked tensors, and the graph pool its memory).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
@@ -56,11 +67,17 @@ class StandbyInstance:
     # on the CPU or with cuda_graphs=False)
     binding: Optional[Binding] = None
     graphs: Optional[StepGraphs] = None
+    # the IMM that built it, and whether its engine serves on this set
+    owner: int = 0
+    live: bool = False
 
     def release(self) -> None:
         """Drop the graphs and the binding (an evicted or stale set)."""
         self.graphs = None
         self.binding = None
+
+
+_OWNERS = itertools.count(1)
 
 
 class IMM:
@@ -81,9 +98,11 @@ class IMM:
         self.collect_routing = collect_routing
         self.lru_capacity = lru_capacity
         # a fleet shares one LRU across its servers (the same OrderedDict
-        # passed to every IMM); keys carry the model's identity
+        # passed to every IMM); keys carry the owner and the model's
+        # identity
         self._cache: "OrderedDict[Tuple, StandbyInstance]" = (
             shared_cache if shared_cache is not None else OrderedDict())
+        self.owner = next(_OWNERS)
         self.stats = {"preinit_hits": 0, "preinit_misses": 0,
                       "compile_s_total": 0.0, "captures": 0}
         # on the card: one capture stream and one graph memory pool.  The
@@ -98,6 +117,11 @@ class IMM:
             self._pool = torch.cuda.graph_pool_handle()
 
     def _key(self, cfg: ElasticConfig) -> Tuple:
+        """This IMM's cache key of ``cfg``'s instance: the owner, then
+        ``model_key``."""
+        return (self.owner,) + self.model_key(cfg)
+
+    def model_key(self, cfg: ElasticConfig) -> Tuple:
         """Everything that shapes an instance's step functions: the model,
         the compile-affecting knobs and the configuration."""
         hmm = self.hmm
@@ -112,9 +136,12 @@ class IMM:
                 cfg.dp, cfg.tp, cfg.devices)
 
     def has(self, cfg: ElasticConfig) -> bool:
-        """True if a standby instance for ``cfg`` is cached (touches
-        neither the LRU order nor the counters)."""
-        return self._key(cfg) in self._cache
+        """True if a standby instance of this model and ``cfg`` is cached,
+        built by this server or another one sharing the cache (the
+        reference's ``compile_hit``; touches neither the LRU order nor the
+        counters)."""
+        key = self.model_key(cfg)
+        return any(k[1:] == key for k in self._cache)
 
     def preinitialize(self, cfg: ElasticConfig, params=None, cache=None,
                       limit: Optional[int] = None) -> StandbyInstance:
@@ -138,14 +165,36 @@ class IMM:
             prefill_chunk=self.prefill_chunk, parallel=parallel,
             collect_routing=self.collect_routing)
         dt = time.perf_counter() - t0
-        inst = StandbyInstance(cfg, mesh, compiled, dt, parallel)
+        inst = StandbyInstance(cfg, mesh, compiled, dt, parallel,
+                               owner=self.owner)
         self._cache[key] = inst
         self.stats["compile_s_total"] += dt
-        while len(self._cache) > self.lru_capacity:
-            self._cache.popitem(last=False)[1].release()
+        self._evict()
         if params is not None:
             self._bind(inst, params, cache, limit)
         return inst
+
+    def _evict(self) -> None:
+        """Drop least recently used instances past ``lru_capacity``: this
+        server's any, another server's only if its engine does not serve
+        on it."""
+        while len(self._cache) > self.lru_capacity:
+            old = next((k for k, inst in self._cache.items()
+                        if inst.owner == self.owner or not inst.live), None)
+            if old is None:
+                return
+            self._cache.pop(old).release()
+
+    def release_all(self) -> None:
+        """Drop the graph set of every instance of this server (a park):
+        the step functions stay cached, and a fresh graph pool replaces
+        the one whose graphs are all gone."""
+        for inst in self._cache.values():
+            if inst.owner == self.owner:
+                inst.release()
+                inst.live = False
+        if self.cuda_graphs:
+            self._pool = torch.cuda.graph_pool_handle()
 
     def ready(self, cfg: ElasticConfig) -> bool:
         """True if ``cfg``'s instance is cached and holds a bound step set
@@ -212,4 +261,7 @@ class IMM:
         hit = self._bind(inst, params, cache)
         self.stats["preinit_hits" if hit else "preinit_misses"] += 1
         inst.activations += 1
+        for other in self._cache.values():
+            if other.owner == self.owner:
+                other.live = other is inst
         return inst, params, cache, hit

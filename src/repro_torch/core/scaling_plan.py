@@ -236,6 +236,20 @@ def plan_horizontal(tensors, old, new_replica: ElasticConfig) -> ScalingPlan:
     return ScalingPlan(steps, old, new_replica)
 
 
+def plan_unpark(tensors, new: ElasticConfig) -> ScalingPlan:
+    """A cold start from the parked snapshot (scale to zero): every weight
+    shard of ``new`` comes from the pinned-host tier (``Op.HOST``, one lane
+    per destination device), the KV cache is a fresh ``INIT``.  No disk
+    and no P2P: the unpark is bounded by the host link."""
+    kv_names = {t.name for t in tensors if t.kind == "kv"}
+    steps: List[PlanStep] = []
+    for d, shards in placement(tensors, new).items():
+        for key, nbytes in shards.items():
+            op = Op.INIT if key.tensor in kv_names else Op.HOST
+            steps.append(PlanStep(op, key, nbytes, dst=d))
+    return ScalingPlan(steps, None, new)
+
+
 STRATEGIES = {
     "elastic": plan_elastic,
     "cold_restart": plan_cold_restart,

@@ -1,4 +1,5 @@
-"""Tracing for the port's serving stack: the span tracer only.
+"""Tracing for the port's serving stack: the span tracer and its
+Chrome-trace export.
 
 Usage::
 
@@ -6,9 +7,13 @@ Usage::
     tr = obs.install(obs.Tracer())       # enable (None to disable)
     ...
     spans = [e for e in tr.events() if e.name == "decode.tick"]
+    obs.write_chrome_trace("trace.json", tr)
 """
+from repro_torch.obs.export import (chrome_trace, load_trace, validate_trace,
+                                    write_chrome_trace)
 from repro_torch.obs.tracer import (NULL_TRACER, NullTracer, TraceEvent,
                                     Tracer, get_tracer, install, traced)
 
 __all__ = ["Tracer", "NullTracer", "NULL_TRACER", "TraceEvent", "install",
-           "get_tracer", "traced"]
+           "get_tracer", "traced", "chrome_trace", "write_chrome_trace",
+           "load_trace", "validate_trace"]

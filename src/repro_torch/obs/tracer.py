@@ -2,8 +2,9 @@
 
 The port's own copy of the parts of ``repro.obs.tracer`` the one-card
 serving path uses (it imports nothing of the JAX package), so the serving
-engine's spans, instants and counters stay where they are.  The metrics
-aggregation and the Chrome-trace exporter are not ported yet.
+engine's spans, instants and counters stay where they are; the
+Chrome-trace exporter is ``obs/export.py``.  The metrics aggregation is
+not ported yet.
 
 One process-global :class:`Tracer` (installed via :func:`install`) collects
 decode-tick and prefill spans, request lifecycle instants and counter
@@ -15,7 +16,8 @@ into one buffer.  Every event has a lane (``tid``): the recording thread's
 ident (its name captured at first sighting, so the ``hmm-transfer-*``
 workers are told apart), or a named lane such as ``"scale"`` for the
 scaling task's phase spans.  Timestamps are seconds of
-``time.perf_counter``.
+``time.perf_counter``, bar an instant given its own ``t`` (the
+``FleetDriver``'s decisions, in driver seconds).
 """
 from __future__ import annotations
 
@@ -109,10 +111,12 @@ class Tracer:
         return _Span(self, name, cat, args)
 
     def instant(self, name: str, *, cat: str = "",
-                args: Optional[dict] = None) -> None:
-        t = time.perf_counter()
+                args: Optional[dict] = None, t: Optional[float] = None,
+                tid: Optional[Lane] = None) -> None:
+        if t is None:
+            t = time.perf_counter()
         self._events.append(TraceEvent(name, cat, "i", t, t,
-                                       self._resolve_tid(None), args))
+                                       self._resolve_tid(tid), args))
 
     def counter(self, name: str, value: float, *, cat: str = "",
                 tid: Optional[Lane] = None) -> None:

@@ -43,10 +43,10 @@ from typing import (Dict, List, Optional, Protocol, Sequence, Tuple, Union,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coordinator import LoadEstimator, ScalingPolicy
-from repro_torch.core.costmodel import plan_cost
+from repro_torch.core.costmodel import plan_cost, unpark_cost
 from repro_torch.core.scaling_plan import (STRATEGIES, placement,
                                            plan_elastic_min_move,
-                                           plan_elastic_paged)
+                                           plan_elastic_paged, plan_unpark)
 from repro_torch.core.topology import (ElasticConfig, kv_cache_bytes,
                                        model_tensors)
 from repro_torch.serving.metrics import latency_percentiles
@@ -156,6 +156,23 @@ def transition_cost(mcfg: ModelConfig, tp: int, old: ElasticConfig,
     return plan_cost(plan, preinit=preinit, strategy=strategy,
                      resident_bytes_per_device=resident, staging=staging,
                      kv_migration_bytes=kv_migration_bytes)
+
+
+def unpark_transition_cost(mcfg: ModelConfig, tp: int, new: ElasticConfig,
+                           *, preinit: bool = True, staging: str = "overlap",
+                           kv_seq_len: int = 4096,
+                           kv_dtype: Optional[str] = None,
+                           expert_dtype: Optional[str] = None):
+    """Plan and cost of a cold start from the parked snapshot at ``new``
+    (a ``costmodel.ScalingCost`` whose ``downtime_s`` is its scale time):
+    the ``FleetDriver``'s unpark projection, as ``transition_cost`` is its
+    scale projection.  The KV is priced at a batch of 8, as
+    ``transition_plan``'s default."""
+    kvb = kv_cache_bytes(mcfg, 8, kv_seq_len, kv_dtype=kv_dtype)
+    tensors = model_tensors(mcfg, tp, kv_bytes_per_replica=kvb,
+                            expert_dtype=expert_dtype)
+    return unpark_cost(plan_unpark(tensors, new), preinit=preinit,
+                       staging=staging)
 
 
 # ------------------------------------------------------------- device pool

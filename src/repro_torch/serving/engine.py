@@ -364,6 +364,28 @@ class InferenceEngine:
         self._lazy_prefill = OrderedDict(
             (k, None) for k in self._lazy_prefill if k in compiled)
 
+    def unbind(self) -> None:
+        """Drop every device reference the engine holds (a park): the
+        parameters, the cache, the step functions and their graphs, the
+        block manager and tables, the slots and the chunk jobs.  The HMM
+        has the weights in its host snapshot; a handle kept here would
+        keep the device memory alive.  Refuses while a sequence is live,
+        so a park never drops a request."""
+        if self.active_count():
+            raise RuntimeError("unbind with live sequences")
+        self.cfg = None
+        self.params = self.cache = None
+        self.compiled = {}
+        self.graphs = None
+        self.kv = None
+        self.parallel = None
+        self.block_tables = None
+        self.slots = []
+        self.lengths = self.tokens = None
+        self._prefilling = []
+        self._chunk_ctx = {}
+        self._lazy_prefill = OrderedDict()
+
     def free_slots(self) -> List[int]:
         """Slots that may admit: inactive, not reserved for a migration,
         and below ``admit_limit`` during a scale-down."""

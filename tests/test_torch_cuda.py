@@ -37,7 +37,11 @@ stores on one device and DP2 x TP2, and the MLA and zamba2 models on
 DP2 x TP2 through a scale up and a drain back, greedy tokens and launch
 counts equal; the paged decode and chunk steps' logits replayed bit for bit; a
 scale up, down and up that captures each target afresh; a capture on the
-serving thread while an overlapped staging's workers copy).
+serving thread while an overlapped staging's workers copy), and for
+scale to zero (a park frees every tensor and graph set of the server;
+an unpark's begin and STAGING polls make no host sync beside another
+server's decode steps; two servers sharing one ``imm_cache`` keep their
+own sets through a scale and a park).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -2226,3 +2230,142 @@ def test_demote_and_cold_scale_bytes_equal_the_cpu_run(dev, staging):
             assert torch.equal(new[bank].shard(d)[page].cpu(), rows)
     hmm.commit()
     hmm.close()
+
+
+# ------------------------------------------------------------ scale to zero
+
+def _strict(fn):
+    """``fn`` under ``set_sync_debug_mode("error")``: a call that
+    synchronises with the host raises (the mode is global: the
+    TransferEngine's workers run under it too)."""
+    def run(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def _park_server(dev, seed=0, cache=None, **kw):
+    """TEST_MOE's widths in bf16, DP2 x TP2 on 8 logical devices of the
+    card, paged KV, pooled pages, chunked prefill, CUDA graphs."""
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    srv = ElasticServer(_graph_model("test-moe"), tp=2, batch_per_replica=2,
+                        max_len=128, seed=seed, all_devices=[dev] * 8,
+                        device=dev, imm_cache=cache, **GRAPH_PAGED, **kw)
+    srv.boot(ElasticConfig(2, 2, (0, 1, 2, 3)))
+    return srv
+
+
+def test_park_frees_the_device_memory_and_every_graph_set(dev):
+    """A graphed server that served and scaled (two graph sets) parks:
+    every parameter and cache tensor it bound is freed, the engine and the
+    IMM hold no graph, ``memory_allocated`` is back within 256 MiB of its
+    level before the boot, and the snapshot is pinned.  Unparked to DP3 x
+    TP2 (its graphs captured during STAGING) it frees the snapshot's
+    pinned blocks at the commit and gives the tokens it gave before."""
+    import gc
+    import weakref
+    from repro_torch.core.graphs import _tensors
+    from repro_torch.core.topology import ElasticConfig
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    srv = _park_server(dev, staging="overlap")
+    want = _drive(srv)
+    srv.scale_to(ElasticConfig(3, 2, tuple(range(6))))
+    eng = srv.engine
+    bound = [weakref.ref(t) for t in _tensors(eng.params)
+             + _tensors(eng.cache)]
+    sets = [i for i in srv.imm._cache.values() if i.graphs is not None]
+    assert len(sets) == 2 and eng.graphs is not None
+    del eng
+    st = srv.park()
+    gc.collect()
+    assert all(r() is None for r in bound)
+    assert srv.engine.graphs is None and srv.engine.params is None
+    assert all(i.graphs is None and i.binding is None for i in sets)
+    assert torch.cuda.memory_allocated() - before < 256 << 20
+    snap = srv.hmm._parked
+    assert all(b.is_pinned() for b in snap.arena.blocks)
+    assert st.d2h_bytes == srv.hmm.parked_bytes()
+    blocks = len(snap.arena.blocks)
+    del snap
+    frees = torch.cuda.host_memory_stats()["num_host_free"]
+    task = srv.start_unpark(ElasticConfig(3, 2, tuple(range(6))))
+    n = 0
+    while not task.done:
+        task.advance(n * .1)
+        n += 1
+    assert task.phase.name == "DONE" and srv.engine.graphs is not None
+    # the commit gave the snapshot's pinned blocks back to the system
+    assert torch.cuda.host_memory_stats()["num_host_free"] - frees >= blocks
+    assert _drive(srv) == want
+    srv.hmm.close()
+
+
+def test_unpark_polls_make_no_host_sync_beside_a_ticking_server(dev):
+    """Server "a" unparks (overlapped staging, each unit slowed) while
+    server "b" serves on the same card: ``start_unpark`` and every STAGING
+    poll (the copies on side streams, one graph captured a poll) run under
+    sync-debug "error", and so does each of "b"'s decode steps between
+    them; "a" then serves its pre-park tokens."""
+    import time
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.serving.driver import ScalePhase
+    a = _park_server(dev, staging="overlap", transfer_workers=2)
+    want = _drive(a)
+    a.park()
+    b = _park_server(dev, seed=1)
+    for r in _graph_requests(b.mcfg.vocab_size):
+        b.submit(r)
+    b.tick(0.0)
+    graphs = b.engine.graphs
+    graphs.decode = _strict(graphs.decode)
+    unit = a.hmm._stage_unit
+
+    def slow(*args, **kw):
+        time.sleep(0.005)
+        return unit(*args, **kw)
+    a.hmm._stage_unit = slow
+    torch.cuda.synchronize()
+    task = _strict(a.start_unpark)(ElasticConfig(2, 2, (0, 1, 2, 3)))
+    n, polls = 1, 0
+    while task.phase is ScalePhase.STAGING:
+        _strict(task.advance)(n * .1)
+        b.tick(n * .1)
+        n, polls = n + 1, polls + 1
+    while not task.done:
+        task.advance(n * .1)
+        n += 1
+    del a.hmm._stage_unit, graphs.decode
+    # one graph of the target's set captured a STAGING poll
+    assert polls >= len(a.engine.graphs._graphs) > 0
+    assert _drive(a) == want
+    a.hmm.close()
+    b.hmm.close()
+
+
+def test_shared_cache_servers_keep_their_sets_through_a_park(dev):
+    """Two servers of one model share one ``imm_cache``: one scales to
+    DP3 x TP2 and serves, the other parks; the first then captures
+    nothing more, keeps its graph set and gives the same tokens."""
+    from collections import OrderedDict
+    from repro_torch.core.topology import ElasticConfig
+    shared = OrderedDict()
+    s1 = _park_server(dev, cache=shared)
+    s2 = _park_server(dev, seed=1, cache=shared)
+    s1.scale_to(ElasticConfig(3, 2, tuple(range(6))))
+    _drive(s1)                  # its prompts' prefixes registered, as later
+    want = _drive(s1)
+    captures, step_set = s1.imm.stats["captures"], s1.engine.graphs
+    s2.park()
+    assert _drive(s1) == want
+    assert s1.imm.stats["captures"] == captures
+    assert s1.engine.graphs is step_set
+    inst = shared[s1.imm._key(ElasticConfig(3, 2, tuple(range(6))))]
+    assert inst.graphs is step_set and inst.live
+    s1.hmm.close()
+    s2.hmm.close()
