@@ -134,6 +134,14 @@ Phases, each of which raises on failure (no phase's failure is caught):
    prefill at admission) and ``prefill_buckets`` every 64 tokens up to
    1024; ``flash_attention``, ``paged_decode_attention`` and
    ``kv_cache_write`` must each have launched.
+   ``serve_dense_chunked``: the same requests on qwen3-30b-a3b at full
+   depth with the slot-contiguous KV, dense banks and ``prefill_chunk``
+   128: each chunk step must launch ``mixed_block_paged_attention`` once
+   per layer (the slot's row read as pool blocks) and ``kv_cache_write``
+   once per layer (the chunk's blocks), no ``flash_attention``; two chunk
+   steps of the 1,000-token prompt's last chunk run under the profiler;
+   then its eager twin (``cuda_graphs=False``) serves the same requests,
+   whose tokens must be equal.
 7. ``e2e_mla``: a 2-layer deepseek-v2-lite-16b at full width (the dense
    layer and one MoE layer) with dense expert banks and with pooled
    pages: a monolithic prefill of a 200-token prompt into one slot, then
@@ -162,9 +170,19 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
    per group; each zamba2 decode step ``paged_decode_attention`` and
    ``kv_cache_write`` once per group; mamba2 no attention kernel.
-   Every serve phase runs its decode step and chunk step as the IMM's
-   CUDA graphs (captured at boot, replayed by the engine; each replay
-   counts the launches its capture recorded), its prefills eagerly.
+   Every serve phase runs its decode step, and its chunk step or every
+   bucket's monolithic prefill, as the IMM's CUDA graphs (captured at
+   boot, replayed by the engine; each replay counts the launches its
+   capture recorded); the boot must have captured the decode step and
+   the chunk step or one graph a bucket, and prints the capture seconds
+   and the bytes of the graph pool.  After serving, each monolithic
+   phase prefills the 1,000-token prompt (bucket 1024) into slot 0 with
+   the eager step, then with its bucket's graph into the same row, first
+   filled with ones: the token and every cache leaf's row must be equal
+   bit for bit; it prints the graphed wall (median of 5) beside the
+   device ms of two profiled replays, the eager wall (median of 3) and
+   the eager wall measured before the prefills were captured
+   (``EAGER_PREFILL_MS``).
    ``serve_graphs``: ``serve`` and ``serve_mamba2`` again with
    ``cuda_graphs=False`` (the eager steps), one server at a time, held
    against this call's graphed runs: the greedy tokens must be equal;
@@ -186,7 +204,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
    without such a flip (a flip tells a near-tied choice from a fault).
 12. ``serve_scale``: ``ElasticServer`` serving the ``serve`` requests
    (8 prompts of 200-1000 tokens, 32 output tokens) on qwen3-30b-a3b at
-   full width and 8 layers with paged KV, pooled experts and chunked
+   full width and 4 layers with paged KV, pooled experts and chunked
    prefill, booted on DP4; at the 5th tick ``stage_scale`` to DP6, seven
    ticks (as many as ``serve_overlap`` serves while it captures the
    target's seven graphs, one a poll), ``switchover``.  Every parameter
@@ -255,7 +273,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
    two doomed), bf16, migrate and unscaled; every TP copy of the cache
    equal after the scale.
 18. ``serve_scale_mla``: the dense layout on several logical devices:
-   deepseek-v2-lite-16b at full width and 8 layers (the pools the HMM
+   deepseek-v2-lite-16b at full width and 4 layers (the pools the HMM
    reserves, ``2 L ceil(E / ndev)`` pages a device, outgrow the card at
    full depth), pooled expert pages, the latent slot cache, monolithic
    prefill, bf16, booted on DP2 x TP2 (each rank 8 of the 16 heads): the
@@ -275,15 +293,20 @@ Phases, each of which raises on failure (no phase's failure is caught):
    and replica per decode step, one ``flash_attention`` per layer and
    rank per prefill, ``paged_gmm`` in every MoE layer.  The same requests
    and schedule on the eager twin (``cuda_graphs=False``) must give the
-   same tokens and launch counts.  Prints the scales' ``TransferStats``
+   same tokens and launch counts.  The graphed scale-up's target set (its
+   decode step and every bucket's prefill on each replica) is captured
+   inside ``stage_scale``; its size and capture seconds are printed
+   beside ``stage_s`` and the ``stage_s`` measured when the target's set
+   was its decode step alone (``DECODE_ONLY_UP_STAGE_S``).
+   Prints the scales' ``TransferStats``
    bytes, ``stage_s`` and ``switch_s``, the decode tick's median (ticks
    with no prefill) before, during and after the scale-up, in the drain
    and after it, the drain's seconds and the card; the graphed run also
    profiles three replays of the source's decode graph (every slot
    active) before the requests arrive, the cache restored after them.
 19. ``serve_scale_zamba2``: the same on zamba2-2.7b at full width and
-   depth (54 layers), bf16, DP4 -> DP6 -> DP4 at tp = 1 (14 requests, 16
-   tokens out):
+   6 layers (one group), bf16, DP4 -> DP6 -> DP4 at tp = 1 (14 requests,
+   16 tokens out):
    the scale-up is zero-copy reuse plus whole-replica copies (no
    experts; the staged copies must be exactly the two new devices'
    replicas).  Launches: one ``ssd_scan`` per layer per prefill, one
@@ -293,7 +316,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
 20. ``serve_closed_loop``: the paper's Coordinator drives the scaling
    (``serving/driver.py``'s ``ClusterDriver``, ``core/coordinator.py``'s
    estimator, ``core/costmodel.py``'s projections): the ``serve_scale``
-   server (8 layers, paged bf16 KV, pooled bf16 pages, chunks of 128,
+   server (4 layers, paged bf16 KV, pooled bf16 pages, chunks of 128,
    ``staging="overlap"`` with 4 workers, scale-down by migrate, CUDA
    graphs) boots on DP4 in a ``DevicePool`` of 6 logical devices
    (``min_dp=4``, ``max_step_dp=2``, ``settle_s=1``, no prewarm; SLO TTFT
@@ -324,7 +347,7 @@ Phases, each of which raises on failure (no phase's failure is caught):
    package).  Every request finishes; each summary is printed in driver
    seconds and wall ms.
 22. ``serve_rebalance``: the skew rebalancer on qwen3-30b-a3b at full
-   width and 8 layers, DP2 x TP2 on four logical devices of the card
+   width and 4 layers, DP2 x TP2 on four logical devices of the card
    (bf16 pooled pages, paged KV, chunked prefill, CUDA graphs).  The 8
    ``serve`` requests on a server without a policy, then on one with
    ``routing_sample_every=1`` (the routed decode graph every tick) and the
@@ -472,6 +495,8 @@ PATH_KERNELS = {
                    "kv_cache_write"),
     "serve_dense": ("flash_attention", "paged_decode_attention",
                     "kv_cache_write"),
+    "serve_dense_chunked": ("mixed_block_paged_attention",
+                            "paged_decode_attention", "kv_cache_write"),
     "serve_mla": ("mla_decode_attention", "flash_attention",
                   "kv_cache_write"),
     "serve_mla_pooled": ("mla_decode_attention", "flash_attention",
@@ -501,9 +526,10 @@ PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
                                 "paged_decode_attention", "kv_cache_write")
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # the scale phases: qwen3-30b-a3b at full width on logical devices of the
-# one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 8
-# layers (the pools of 48 would take 174 GB), e2e_scale at 2
-SCALE_LAYERS, SCALE_BPR, SCALE_DEVICES = 8, 2, 6
+# one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 4
+# layers (the pools of 48 would take 174 GB; 8 until the prefill graphs
+# and serve_dense_chunked had to fit the run's time), e2e_scale at 2
+SCALE_LAYERS, SCALE_BPR, SCALE_DEVICES = 4, 2, 6
 # the lengths of serve_scale_mla's one-device check, whose DP2 x TP2
 # decode gives each rank's MLA decode a replica's 2 slots at 8 heads
 RANK_LENGTHS = [1900, 5, 640, 1024]
@@ -1768,6 +1794,10 @@ SERVE_STORES = {
     # the reference's default knobs
     "serve_dense": ("qwen3-30b-a3b", dict(prefill_buckets=DENSE_BUCKETS),
                     None),
+    # dense KV and dense banks with chunked prefill: the chunk step over
+    # the slot's row
+    "serve_dense_chunked": ("qwen3-30b-a3b", dict(prefill_chunk=CHUNK),
+                            None),
     # MLA: dense latent KV and monolithic prefill, either expert store
     "serve_mla": ("deepseek-v2-lite-16b",
                   dict(prefill_buckets=DENSE_BUCKETS), None),
@@ -1783,6 +1813,20 @@ SERVE_STORES = {
                      dict(prefill_buckets=tuple(range(128, 1025, 128))),
                      None),
 }
+
+
+# a 1,024-token prefill's eager wall ms, measured on an NVIDIA H100 80GB
+# HBM3 at 700.00 W before the prefills were captured (PERF.md section 5)
+EAGER_PREFILL_MS = {"serve_dense": 204.85, "serve_mla": 131.14,
+                         "serve_mla_pooled": 137.41, "serve_mamba2": 92.52,
+                         "serve_zamba2": 123.07}
+
+
+def _pool_bytes(pool):
+    """Bytes the CUDA caching allocator holds in the graph memory pool
+    ``pool`` (its segments' total size)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
 def _capped(cfg, layers):
@@ -1834,6 +1878,7 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
     tag = f"[{phase}]"
     paged = knobs.get("kv_mode") == "paged"
     pooled = knobs.get("expert_mode") == "pooled"
+    chunked = bool(knobs.get("prefill_chunk"))
     if not cuda_graphs:
         tag = f"[{phase} eager]"
     log(f"{tag} {model}, {_describe(cfg, knobs, store)}, "
@@ -1853,6 +1898,19 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
     require((srv.engine.graphs is not None) == cuda_graphs,
             f"{tag} graphs bound: {srv.engine.graphs is not None}")
     mem_boot = torch.cuda.memory_allocated()
+    pool_gib = (_pool_bytes(srv.imm._pool) / 2**30 if cuda_graphs
+                else 0.0)
+    if cuda_graphs:
+        # the set: the decode step, the chunk step or every bucket's
+        # prefill (one replica)
+        n_graphs = len(srv.engine.graphs._graphs)
+        want_graphs = 1 + (1 if chunked else len(knobs.get(
+            "prefill_buckets", (64,))))
+        require(n_graphs == want_graphs, f"{tag} {n_graphs} graphs "
+                f"captured, {want_graphs} expected")
+        log(f"{tag} {n_graphs} graphs captured in {capture_s:.3f} s; the "
+            f"graph pool holds {pool_gib:.3f} GiB, memory_reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
     held = 0
     stack = [srv.engine.params]
     while stack:                       # parameters held (index arrays out)
@@ -1985,6 +2043,19 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
     log(f"{tag} kv_cache_write: {counts['kv_cache_write']} launches, one "
         f"per attention layer ({attn_layers}) per decode step "
         f"({eng._step_count}) and chunk step ({n_chunks})")
+    if chunked and not paged:
+        # each chunk step: one mixed attention per layer over the slot's
+        # row; each decode step one slot decode per layer; no monolithic
+        # prefill
+        L, steps = cfg.num_layers, eng._step_count
+        want = {"mixed_block_paged_attention": L * n_chunks,
+                "paged_decode_attention": L * steps, "flash_attention": 0}
+        for name, n in want.items():
+            require(counts[name] == n, f"{name}: {counts[name]} launches, "
+                    f"{n} expected")
+        log(f"{tag} {n_chunks} chunk steps over the slot rows: "
+            f"{counts['mixed_block_paged_attention'] / n_chunks:g} "
+            f"mixed_block_paged_attention launches each")
     if paged:
         # each chunk step: one mixed attention per layer; each chunk step
         # and decode step: three GMMs per MoE layer
@@ -2034,6 +2105,7 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         "knobs": {k: v for k, v in knobs.items() if k != "prefill_buckets"},
         "boot_s": boot_s, "boot_allocated_gib": mem_boot / 2**30,
         "cuda_graphs": cuda_graphs, "capture_s": capture_s,
+        "graph_pool_gib": pool_gib,
         "tokens": {r.rid: list(eng.generated[r.rid]) for r in reqs},
         "ticks": len(ticks) + len(prof_ticks),
         "decode_tick_ms_median": statistics.median(dec),
@@ -2045,42 +2117,48 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         "ttft_s": {r.rid: r.ttft for r in reqs},
         "profile": prof_rows, "profiled_ticks_ms": prof_ticks,
     }
-    if paged:
+    if chunked:
         chunk = [t["chunk_ms"] / t["chunks"] for t in ticks if t["chunks"]]
         res.update(chunk_step_ms_median=statistics.median(chunk),
-                   chunk_steps=len(chunk), gmm_launches=gmm_launches,
-                   kv={k: kv[k] for k in ("shared_block_hits", "cow_copies",
-                                          "preemptions")})
+                   chunk_steps=len(chunk))
+        if paged:
+            res.update(gmm_launches=gmm_launches,
+                       kv={k: kv[k] for k in ("shared_block_hits",
+                                              "cow_copies", "preemptions")})
         pre_txt = (f"chunk step median {res['chunk_step_ms_median']:.2f} ms "
                    f"over {len(chunk)} chunks")
         # two more chunk steps of the 1,000-token prompt's last chunk (ctx
-        # 1000, q_len 104) into freed pool rows 0.., traced
+        # 1000, q_len 104) into freed pool rows 0.. or the freed row 0,
+        # traced
         long = max(prompts, key=len)
         S = len(long)
         start = (S - 1) // CHUNK * CHUNK
         toks = torch.zeros(1, CHUNK, dtype=torch.int32, device="cuda")
         toks[0, :S - start] = torch.from_numpy(long[start:])
-        nblk = -(-S // BS)
-        tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
-                         device="cuda")
-        tbl[0, :nblk] = torch.arange(nblk)
-        ids = torch.arange(start // BS, start // BS + CHUNK // BS,
-                           dtype=torch.int32, device="cuda")
-        ids[ids >= nblk] = NB                    # past the prompt: dropped
+        if paged:
+            nblk = -(-S // BS)
+            tbl = torch.full((1, MAX_LEN // BS), NB, dtype=torch.int32,
+                             device="cuda")
+            tbl[0, :nblk] = torch.arange(nblk)
+            ids = torch.arange(start // BS, start // BS + CHUNK // BS,
+                               dtype=torch.int32, device="cuda")
+            ids[ids >= nblk] = NB                # past the prompt: dropped
+            where = (tbl, ids)
+        else:
+            where = (torch.zeros(1, dtype=torch.int32, device="cuda"),)
         if eng.graphs is not None:
             # the graph's replay, as the engine runs it: the inputs from
             # host arrays, the token read back
-            host = [t.cpu().numpy() for t in (toks, tbl, ids)]
+            host = [t.cpu().numpy() for t in (toks, *where)]
 
             def step():
-                int(eng.graphs.chunk(0, host[0], start, S, host[1],
-                                     host[2])[0])
+                int(eng.graphs.chunk(0, host[0], start, S, *host[1:])[0])
         else:
             eager = eng.compiled[f"chunk_prefill_{CHUNK}"]
 
             def step():
-                int(eager(eng.params, eng.cache, toks, start, S, tbl,
-                          ids)[0][0])
+                int(eager(eng.params, eng.cache, toks, start, S,
+                          *where)[0][0])
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2097,16 +2175,7 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         res["prefill_ms"] = prefills
         pre_txt = "prefill ms by bucket " + ", ".join(
             f"{S}: {ms:.2f}" for S, ms in prefills)
-        # one more prefill of the longest prompt, into a freed slot, traced
-        S = max(len(p) for p in prompts)
-        S_pad = -(-S // 64) * 64
-        toks = torch.zeros(1, S_pad, dtype=torch.int32, device="cuda")
-        toks[0, :S] = torch.from_numpy(max(prompts, key=len))
-        length = torch.tensor(S, dtype=torch.int32, device="cuda")
-        step = eng.compiled[f"prefill_{S_pad}"]
-        res["prefill_profile"], _ = _profile(
-            f"prefills of {S} tokens (bucket {S_pad})",
-            lambda: step(eng.params, eng.cache, toks, length, 0), 2)
+        res.update(_prefill_twins(phase, eng, prompts, knobs, tag))
     log(f"{tag} {len(reqs)} requests, {gen_tokens} tokens in {wall:.2f} s "
         f"({res['output_tok_s']:.2f} tok/s); decode tick median "
         f"{res['decode_tick_ms_median']:.2f} ms, p90 "
@@ -2117,6 +2186,101 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
     return res
 
 
+def _prefill_twins(phase, eng, prompts, knobs, tag):
+    """The longest prompt's monolithic prefill (1,000 tokens, bucket 1024)
+    into slot 0's freed row: the eager step's wall (median of 3), then,
+    on a graphed server, the bucket's graph replayed as the engine replays
+    it (inputs from host arrays, the token read back) into the same row
+    after it was overwritten: its token and every cache leaf's row must
+    equal the eager step's bit for bit; its wall (median of 5) and two
+    replays under the profiler (device ms).  On an eager server, two eager
+    prefills under the profiler."""
+    long = max(prompts, key=len)
+    S = len(long)
+    b = min(knobs["prefill_buckets"])
+    S_pad = max(b, -(-S // b) * b)
+    host = np.zeros((1, S_pad), np.int32)
+    host[0, :S] = long
+    toks = torch.from_numpy(host).cuda()
+    length = torch.tensor([S], dtype=torch.int32, device="cuda")
+    row = torch.zeros(1, dtype=torch.int32, device="cuda")
+    eager = eng.compiled[f"prefill_{S_pad}"]
+
+    def eager_step():
+        return int(eager(eng.params, eng.cache, toks, length, row)[0][0])
+
+    def timed(fn, n):
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        return statistics.median(walls)
+    out = {"prefill_eager_wall_ms": timed(eager_step, 3)}
+    want = eager_step()
+    rows = {n: leaf[:, 0].clone() for n, leaf in eng.cache.items()}
+    before = EAGER_PREFILL_MS.get(phase)
+    if eng.graphs is None:
+        out["prefill_profile"], _ = _profile(
+            f"eager prefills of {S} tokens (bucket {S_pad})", eager_step, 2)
+        return out
+    require(eng.graphs.has_prefill(S_pad), f"{tag} no graph of bucket "
+            f"{S_pad}")
+
+    def graphed():
+        return int(eng.graphs.prefill(0, host, S, np.zeros(1, np.int32))[0])
+    for leaf in eng.cache.values():
+        leaf[:, 0].fill_(1)                  # the graph must rewrite it
+    got = graphed()
+    require(got == want, f"{tag} graphed prefill token {got}, eager {want}")
+    for n, leaf in eng.cache.items():
+        require(torch.equal(leaf[:, 0], rows[n]),
+                f"{tag} graphed prefill's {n} row differs from the eager "
+                f"step's")
+    out["prefill_graph_wall_ms"] = timed(graphed, 5)
+    out["prefill_profile"], _ = _profile(
+        f"graphed prefills of {S} tokens (bucket {S_pad})", graphed, 2)
+    dev_ms = out["prefill_profile"]["device_ms_per_call"]
+    log(f"{tag} prefill of {S} tokens (bucket {S_pad}): graphed wall "
+        f"{out['prefill_graph_wall_ms']:.2f} ms at {dev_ms:.2f} device ms "
+        f"(idle {1 - dev_ms / out['prefill_graph_wall_ms']:.3f}); eager "
+        f"wall {out['prefill_eager_wall_ms']:.2f} ms this call"
+        + (f", {before:.2f} ms before the prefills were captured"
+           if before else "")
+        + "; token and cache row bitwise equal to the eager step's")
+    return out
+
+
+def phase_serve_dense_chunked(layers):
+    """``serve_dense_chunked``: the graphed server, then its eager twin
+    (``cuda_graphs=False``, unprofiled ticks) on the same requests: the
+    greedy tokens must be equal.  The kernels line takes the graphed
+    run's launches."""
+    phase = "serve_dense_chunked"
+    graphed = phase_serve(layers, phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = phase_serve(layers, phase, profile=False, cuda_graphs=False)
+    require(graphed["tokens"] == eager["tokens"],
+            f"[{phase}] the graphed server's tokens differ from the eager "
+            f"twin's")
+    cp, ep = graphed["chunk_profile"], eager["chunk_profile"]
+    log(f"[{phase}] graphed tokens equal the eager twin's "
+        f"({len(eager['tokens'])} requests); chunk step (ctx 1000, q_len "
+        f"104) wall / device ms: graphed {graphed['chunk_step_wall_ms']:.2f}"
+        f" / {cp['device_ms_per_call']:.2f}, eager "
+        f"{eager['chunk_step_wall_ms']:.2f} / {ep['device_ms_per_call']:.2f};"
+        f" decode tick median graphed {graphed['decode_tick_ms_median']:.2f}"
+        f", eager {eager['decode_tick_ms_median']:.2f} ms")
+    graphed["eager"] = {k: eager[k] for k in (
+        "decode_tick_ms_median", "chunk_step_ms_median",
+        "chunk_step_wall_ms", "chunk_profile", "serve_s", "boot_s")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return graphed
+
+
 def phase_serve_graphs(layers, done):
     """``serve`` and ``serve_mamba2`` (the most host-bound store) served
     eagerly (``cuda_graphs=False``) beside their graphed runs of this
@@ -2125,8 +2289,18 @@ def phase_serve_graphs(layers, done):
     decode tick (unprofiled median and p90, device ms and idle share of 3
     profiled ticks), the chunk step (``serve``: unprofiled wall, device ms
     and idle share of the 1,000-token prompt's last chunk), the capture
-    seconds and ``max_memory_allocated``."""
-    res = {}
+    seconds and ``max_memory_allocated``; and, for every graphed serve
+    phase of this call, its boot's capture seconds and the bytes its graph
+    pool holds."""
+    res = {"boot_captures": {}}
+    for phase in SERVE_STORES:
+        r = done.get(phase)
+        if r is None or not r.get("cuda_graphs"):
+            continue
+        res["boot_captures"][phase] = {"capture_s": r["capture_s"],
+                                       "graph_pool_gib": r["graph_pool_gib"]}
+        log(f"[serve_graphs] {phase}: boot capture {r['capture_s']:.3f} s, "
+            f"graph pool {r['graph_pool_gib']:.3f} GiB")
     for phase in ("serve", "serve_mamba2"):
         graphed = done.get(phase) or phase_serve(layers, phase)
         eager = phase_serve(layers, phase, cuda_graphs=False)
@@ -3333,21 +3507,28 @@ def phase_serve_down(layers, tp=1):
 # ------------------------------------------ the dense layout, scaled
 
 # phase: (model, depth cap, tp, output tokens, server knobs); DP(4/tp) x
-# TPtp -> DP(6/tp) x TPtp -> back, by drain.  zamba2's eager twin ticks at
-# about 0.5 s (54 layers, every replica launching its own SSD kernels),
-# so its requests are shorter: the drain still waits on the new
+# TPtp -> DP(6/tp) x TPtp -> back, by drain.  zamba2's eager twin ticked
+# at about 0.5 s at 54 layers (every replica launching its own SSD
+# kernels), so its requests are shorter: the drain still waits on the new
 # replicas' sequences
 DENSE_SCALE = {
     "serve_scale_mla": ("deepseek-v2-lite-16b", SCALE_LAYERS, 2, 32,
                         dict(prefill_buckets=DENSE_BUCKETS,
                              expert_mode="pooled")),
-    "serve_scale_zamba2": ("zamba2-2.7b", None, 1, 16,
+    # one group of six layers (54 until the prefill graphs had to fit the
+    # run's time)
+    "serve_scale_zamba2": ("zamba2-2.7b", 6, 1, 16,
                            dict(prefill_buckets=tuple(range(128, 1025,
                                                             128)))),
 }
 # the ticks the scales start at: up at the 9th, switchover three ticks
 # later, the drain back six ticks after that
 UP_TICK, STAGED_TICKS, DOWN_AFTER = 8, 3, 6
+# the graphed scale-up's stage_s measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (8 and 54 layers) when the target's set was its decode step
+# alone
+DECODE_ONLY_UP_STAGE_S = {"serve_scale_mla": 0.198,
+                          "serve_scale_zamba2": 0.619}
 
 
 def _card():
@@ -3539,6 +3720,16 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
             events["up"] = {"stage_synced_s": time.perf_counter() - ts,
                             "staged": {f: getattr(ev.stats, f)
                                        for f in ev.stats.BYTE_FIELDS}}
+            if cuda_graphs:
+                # the target's set, captured inside stage_scale: its
+                # decode step and every bucket's prefill on each replica
+                inst = srv.imm._cache[srv.imm._key(c1)]
+                want_n = 1 + c1.dp * len(knobs["prefill_buckets"])
+                require(len(inst.graphs._graphs) == want_n,
+                        f"{tag} target set of {len(inst.graphs._graphs)} "
+                        f"graphs, {want_n} expected")
+                events["up"].update(target_graphs=want_n,
+                                    target_capture_s=inst.compile_s)
             stage = "during"
         elif n == UP_TICK + STAGED_TICKS:
             torch.cuda.synchronize()
@@ -3644,6 +3835,15 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
                f"{e['staged']['zero_copy_bytes']} B reused; with the card "
                f"synchronised stage {e['stage_synced_s']:.4f} s, switch "
                f"{e['switch_synced_s']:.4f} s" if name == "up" else ""))
+    if cuda_graphs:
+        e = events["up"]
+        log(f"{tag} the scale-up's target set: {e['target_graphs']} graphs "
+            f"(the decode step, {len(knobs['prefill_buckets'])} prefill "
+            f"buckets x {c1.dp} replicas) captured in "
+            f"{e['target_capture_s']:.3f} s inside stage_s "
+            f"{e['stage_s']:.4f} (stall_s {up.stall_s:.4f}); with its "
+            f"decode step alone (8 and 54 layers): stage_s "
+            f"{DECODE_ONLY_UP_STAGE_S[phase]:.3f}")
     log(f"{tag} {len(reqs)} requests, {len(ticks)} ticks, {wall:.2f} s; "
         f"decode tick median (no prefill) by stage {med} ms; drain "
         f"{drain_s:.3f} s over {drain_ticks} ticks; max_memory_allocated "
@@ -4844,7 +5044,8 @@ def main():
                          "multiple of its attn_every")
     ap.add_argument("--phases",
                     default="build,kernels,e2e,e2e_mla,e2e_ssm,e2e_scale,"
-                            "e2e_tp,serve,serve_int8,serve_dense,serve_mla,"
+                            "e2e_tp,serve,serve_int8,serve_dense,"
+                            "serve_dense_chunked,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
                             "serve_graphs,"
                             "serve_scale,serve_tp,serve_overlap,serve_down,"
@@ -4874,7 +5075,9 @@ def main():
             ("e2e", phase_e2e), ("e2e_mla", phase_e2e_mla),
             ("e2e_ssm", phase_e2e_ssm), ("e2e_scale", phase_e2e_scale),
             ("e2e_tp", phase_e2e_tp)]
-    runs += [(p, lambda p=p: phase_serve(args.layers, p))
+    runs += [(p, lambda p=p: (phase_serve_dense_chunked(args.layers)
+                              if p == "serve_dense_chunked"
+                              else phase_serve(args.layers, p)))
              for p in SERVE_STORES]
     # the eager twins of serve and serve_mamba2, held against this call's
     # graphed runs

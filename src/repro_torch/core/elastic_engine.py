@@ -34,9 +34,8 @@ pause and in-flight decodes continue (``admission_during_scale``).
 The defaults are the reference's: the slot-contiguous KV cache
 (``kv_mode="dense"``), dense expert banks (``expert_mode="dense"``) and a
 monolithic prefill at admission (``prefill_chunk=0``); the paged KV pool,
-pooled expert pages, chunked prefill and the int8 stores are the other
-modes.  Dense KV with chunked prefill is not ported yet and raises, as
-does a TP degree that cuts a head.
+pooled expert pages, chunked prefill (into either KV layout) and the int8
+stores are the other modes.  A TP degree that cuts a head raises.
 
 Scale to zero: ``park()`` (idle servers only) snapshots every weight bank
 into pinned host memory and drops every device tensor — the HMM's, the
@@ -631,9 +630,6 @@ class ElasticServer:
         if prefill_chunk and not chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
                              f"(as in the reference)")
-        if prefill_chunk and kv_mode == "dense":
-            raise NotImplementedError(
-                "dense KV with prefill_chunk > 0 is not ported yet")
         self.mcfg = mcfg
         self.kv_mode = kv_mode
         # int8 storage: the HMM owns the layout (int8 pools with f32 scale
@@ -679,6 +675,9 @@ class ElasticServer:
                        prefill_chunk=prefill_chunk, shared_cache=imm_cache,
                        collect_routing=routing_sample_every > 0,
                        cuda_graphs=cuda_graphs)
+        # an aborted scale's or unpark's target set is never bound: the
+        # IMM drops it at every HMM abort
+        self.hmm.abort_listeners.append(self.imm.release_standby)
         self.engine = InferenceEngine(mcfg,
                                       batch_per_replica=batch_per_replica,
                                       max_len=max_len,

@@ -10,13 +10,19 @@ port's counterpart of the reference's AOT-compiled executables
 * with routing telemetry, its twin ``decode_routed`` beside it, over the
   same static input: its output holds the routing counts behind the
   tokens, so the engine's one read of the tokens brings them back too;
-* with chunked prefill, the paged chunk step (``chunk_prefill_{C}``), one
-  graph per replica.
+* with chunked prefill, the chunk step (``chunk_prefill_{C}``, paged or
+  dense KV), one graph per replica;
+* with monolithic prefill, each given bucket's prefill (``prefill_{S}``),
+  one graph per bucket and replica.  A chunked engine never runs its
+  prefill buckets, so none is captured there.
 
 A graph reads one static int32 device buffer: the decode's tokens,
 lengths, active mask and, paged, its block tables [B, MB] (ids local to
-each replica's pool slice); the chunk's tokens [1, C], start, length,
-block table [1, MB] and chunk ids [C/bs].  ``decode`` and ``chunk`` fill it
+each replica's pool slice); the chunk's tokens [1, C], start, length and,
+paged, its block table [1, MB] and chunk ids [C/bs], dense, its slot's row
+(local to its replica's slice); a prefill's tokens [1, S], length and,
+paged, its block ids [S/bs], dense, its row (one buffer a bucket, which its
+replicas' graphs share).  ``decode``, ``chunk`` and ``prefill`` fill it
 from a reused pinned host buffer (an event orders a fill after the copy of
 the one before) and replay on the current (default) stream, so the events
 that staging and migration record there order after the step as they do
@@ -24,18 +30,19 @@ after an eager one.  Every graph of a server captures into the server's
 one memory pool, where they share their intermediates; so a graph's
 output is read before another graph of the pool replays: the engine
 copies the decode's tokens to the host at once, and reads a final chunk's
-token at once.
+or a prefill's token at once.
 
 Capture runs on the IMM's capture stream (neither the default stream nor
 a TransferEngine stream) in ``thread_local`` mode: the TransferEngine's
 workers go on copying and waiting on their events while the serving
 thread captures a scale's target.  Capture launches nothing.  The first
 capture on a capture stream, at boot, follows one eager warm-up of each
-step on that stream, with every slot inactive and every chunk id the
-``NB`` sentinel (no pool row is written; a slot cache's rows at position 0
-are rewritten by the prefill that admits the slot): it loads the kernels
-and creates the stream's split workspaces and cuBLAS workspace while no
-request is live.  A scale's target is captured with no warm-up: its steps
+step on that stream, with every slot inactive, every chunk and prefill
+block id the ``NB`` sentinel (no pool row is written) and every dense
+chunk and prefill on row 0 of each replica's slice (no request is live
+yet; the prefill or chunks that admit a slot rewrite its row): it loads
+the kernels and creates the stream's split workspaces and cuBLAS
+workspace while no request is live.  A scale's target is captured with no warm-up: its steps
 issue the same kernels, which have run on that stream, and its tensors
 may still be in flight.  A capture never grows the split counters and
 workspaces (``_build.capturing``): a target with more slots than any set
@@ -53,10 +60,12 @@ the set is captured afresh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import weakref
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +91,10 @@ class Binding:
         self._refs = [weakref.ref(t) for t in ts]
         self.ptrs = tuple(t.data_ptr() for t in ts)
 
+    def tensors(self) -> List[Optional[torch.Tensor]]:
+        """The recorded tensors, None for each one that was freed."""
+        return [r() for r in self._refs]
+
     def matches(self, params, cache) -> bool:
         """True if ``params`` and ``cache`` hold exactly the recorded
         tensors, each still at its recorded address."""
@@ -106,15 +119,32 @@ class CapturedStep:
         return self.out
 
 
+@contextlib.contextmanager
+def _no_collection() -> Iterator[None]:
+    """Python's cyclic garbage collector off inside the block: a
+    collection during a capture could destroy an unreachable graph of an
+    earlier set (its ``cudaGraphExecDestroy`` is not permitted on a
+    capturing thread), which invalidates the capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def capture(fn: Callable[[], torch.Tensor], stream, pool) -> CapturedStep:
     """Capture ``fn()`` on ``stream`` into the memory pool ``pool``; a
     failed capture raises.  Where the capture found the stream's split
     counters or workspaces too small, they are grown outside it and the
-    step is captured again over them."""
+    step is captured again over them.  No garbage collection runs during
+    a capture (``_no_collection``)."""
     discarded = None
     for _ in range(2):
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream), _build.capturing() as tally:
+        with torch.cuda.stream(stream), _build.capturing() as tally, \
+                _no_collection():
             g.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 out = fn()
@@ -159,14 +189,16 @@ class _StaticInput:
 
 
 class StepGraphs:
-    """One configuration's decode step and per-replica chunk steps over
-    ``params`` and ``cache``, captured by ``capture``.  ``slots`` = every replica's
-    slots; ``nb`` = a replica's pool blocks (the local ``NB`` sentinel);
-    ``chunk`` = the chunk length (0: no chunk steps)."""
+    """One configuration's decode step, per-replica chunk steps and
+    per-replica prefill buckets over ``params`` and ``cache``, captured by
+    ``capture``.  ``slots`` = every replica's slots; ``nb`` = a replica's
+    pool blocks (the local ``NB`` sentinel); ``chunk`` = the chunk length
+    (0: no chunk steps); ``buckets`` = the prefill buckets to capture."""
 
     def __init__(self, compiled, params, cache, *, slots: int, max_len: int,
                  paged: bool, block_size: int, nb: int, chunk: int,
-                 replicas: int, device, stream, pool, warmup: bool):
+                 buckets, replicas: int, device, stream, pool,
+                 warmup: bool):
         B = slots
         MB = max_len // block_size if paged else 0
         self._dec = _StaticInput(3 * B + B * MB, device)
@@ -181,24 +213,44 @@ class StepGraphs:
         decodes = [k for k in ("decode", "decode_routed") if k in compiled]
         bodies = [partial(decode_body, compiled[k]) for k in decodes]
         self._routed = len(decodes) - 1      # the routed twin's index
+
+        def placed(n):
+            """The entries that place a chunk or prefill of ``n`` tokens:
+            its block ids (paged) or its slot's row (dense)."""
+            return n // block_size if paged else 1
         if chunk:
-            step = compiled[f"chunk_prefill_{chunk}"]
-            self._chk = _StaticInput(chunk + 2 + MB + chunk // block_size,
-                                     device)
-            c = self._chk.dev
             C = chunk
+            step = compiled[f"chunk_prefill_{C}"]
+            self._chk = _StaticInput(C + 2 + MB + placed(C), device)
+            c = self._chk.dev
 
             def chunk_body(r):
+                tail = ([c[C + 2:C + 2 + MB].view(1, MB), c[C + 2 + MB:]]
+                        if paged else [c[C + 2:]])
                 return step(params, cache, c[:C].view(1, C), c[C:C + 1],
-                            c[C + 1:C + 2], c[C + 2:C + 2 + MB].view(1, MB),
-                            c[C + 2 + MB:], replica=r)[0]
+                            c[C + 1:C + 2], *tail, replica=r)[0]
             bodies += [partial(chunk_body, r) for r in range(replicas)]
+        # bucket -> (its static input, the index of replica 0's graph)
+        self._pre: Dict[int, tuple] = {}
+
+        def prefill_body(step, p, S, r):
+            return step(params, cache, p[:S].view(1, S), p[S:S + 1],
+                        p[S + 1:], replica=r)[0]
+        for S in buckets:
+            inp = _StaticInput(S + 1 + placed(S), device)
+            self._pre[S] = (inp, len(bodies))
+            bodies += [partial(prefill_body, compiled[f"prefill_{S}"],
+                               inp.dev, S, r) for r in range(replicas)]
         # the idle inputs: every slot inactive on the NB sentinel; a chunk
-        # of one token whose blocks are all NB
+        # and a prefill of one token, on the NB sentinel (paged) or on row
+        # 0 (dense)
         self._dec.fill(np.zeros(3 * B, np.int32), np.full(B * MB, nb))
+        idle = np.full(MB + chunk // block_size, nb) if paged else [0]
         if chunk:
-            self._chk.fill(np.zeros(C + 1, np.int32), [1],
-                           np.full(MB + C // block_size, nb))
+            self._chk.fill(np.zeros(C + 1, np.int32), [1], idle)
+        for S, (inp, _) in self._pre.items():
+            inp.fill(np.zeros(S, np.int32), [1],
+                     np.full(S // block_size, nb) if paged else [0])
         if warmup:
             main = torch.cuda.current_stream(device)
             stream.wait_stream(main)
@@ -215,8 +267,8 @@ class StepGraphs:
         return len(self._bodies) - len(self._graphs)
 
     def capture(self, limit: Optional[int] = None) -> None:
-        """Capture the next ``limit`` pending steps (None: all), the decode
-        step first."""
+        """Capture the next ``limit`` pending steps (None: all): the decode
+        steps first, then the chunk steps, then the prefill buckets."""
         todo = self._bodies[len(self._graphs):]
         for body in todo[:limit]:
             self._graphs.append(capture(body, self._stream, self._pool))
@@ -249,9 +301,26 @@ class StepGraphs:
         return self._graph(i).replay()
 
     def chunk(self, replica: int, tokens, start: int, length: int,
-              block_table, chunk_ids) -> torch.Tensor:
-        """Replay replica ``replica``'s chunk step on host arrays; returns
-        the token at the chunk's last valid position, [1] (the graph's
-        output: read it before another replay)."""
-        self._chk.fill(tokens, [start, length], block_table, chunk_ids)
+              *where) -> torch.Tensor:
+        """Replay replica ``replica``'s chunk step on host arrays
+        (``where``: the block table and chunk ids, paged, or the slot's
+        local row, dense); returns the token at the chunk's last valid
+        position, [1] (the graph's output: read it before another
+        replay)."""
+        self._chk.fill(tokens, [start, length], *where)
         return self._graph(1 + self._routed + replica).replay()
+
+    def has_prefill(self, bucket: int) -> bool:
+        """True if the set holds graphs of prefill bucket ``bucket``."""
+        return bucket in self._pre
+
+    def prefill(self, replica: int, tokens, length: int, where
+                ) -> torch.Tensor:
+        """Replay replica ``replica``'s prefill of ``tokens`` [1, S] (S a
+        captured bucket) on host arrays (``where``: the block ids, paged,
+        or the slot's local row, dense); returns the token at position
+        ``length - 1``, [1] (the graph's output: read it before another
+        replay)."""
+        inp, i = self._pre[np.shape(tokens)[-1]]
+        inp.fill(tokens, [length], where)
+        return self._graph(i + replica).replay()

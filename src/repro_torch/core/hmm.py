@@ -102,7 +102,7 @@ import threading
 import time
 from collections import defaultdict
 from functools import partial
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -326,6 +326,9 @@ class HMM:
         self.transfer_workers = transfer_workers
         self._transfer: Optional[TransferEngine] = None
         self.transfer_engine()      # its side streams, before any staging
+        # called at the end of every ``abort`` (the IMM drops the aborted
+        # target's graph set there)
+        self.abort_listeners: List[Callable[[], None]] = []
         self._stage_lock = threading.Lock()
         self.kv_mode = kv_mode
         self.expert_mode = expert_mode
@@ -1168,7 +1171,8 @@ class HMM:
         cancel-or-join first (pending ops never start, running ones land),
         then unwind the page table, so no worker sees the unwound table.
         Idempotent; frees every staged-only page exactly once
-        (``ExpertPageTable.abort``)."""
+        (``ExpertPageTable.abort``).  Then each of ``abort_listeners``
+        runs."""
         if self._stage_session is not None:
             self._stage_session.cancel()
         self.staged = None
@@ -1180,6 +1184,8 @@ class HMM:
         self._unpark_table = None
         if self.page_table is not None:
             self.page_table.abort()
+        for fn in self.abort_listeners:
+            fn()
 
     # -------------------------------------------------------- scale to zero
     def _fresh_table(self) -> ExpertPageTable:

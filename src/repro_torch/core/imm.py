@@ -9,10 +9,10 @@ the HMM's arrays, a metadata-only step.  In the port a standby instance
 holds the step callables of ``serving.engine.compile_step_functions`` for
 its configuration (bound to its mesh's parallel context) and, once it is
 given tensors, their ``core/graphs.StepGraphs``: the decode step (and,
-with ``collect_routing``, its routing twin) and the chunk steps captured
-as CUDA graphs over exactly those tensors, the
-counterpart of the reference's compile (on the CPU no graph is captured
-and the eager steps serve).
+with ``collect_routing``, its routing twin), the chunk steps and, without
+chunking, every given prefill bucket captured as CUDA graphs over exactly
+those tensors, the counterpart of the reference's compile (on the CPU no
+graph is captured and the eager steps serve).
 
 ``preinitialize(cfg, params, cache, limit)`` captures the set where the
 instance holds none over these tensors, at most ``limit`` graphs a call;
@@ -36,6 +36,19 @@ keeps the reference's meaning: a standby instance of this model and
 configuration is cached, whichever server built it.  ``release_all``
 drops every set of this server (a park: the graphs' closures hold the
 parked tensors, and the graph pool its memory).
+
+A set is bound only over the very tensors it was captured on, and a
+scale frees its source's tensors or drops its target's: so at every
+``activate`` (a switchover, an unpark's commit) and at every abort of a
+scale or an unpark (the server hands ``release_standby`` to its HMM's
+``abort_listeners``) each other instance of this server whose set names a
+tensor the live set does not hold gives up its graphs and binding, whose
+closures would keep that tensor allocated, and which can never be bound
+again.  A set whose every
+tensor the live set holds frees nothing and can be bound again (a model
+without expert index arrays scaled up reuses every tensor of its source,
+and the way back down finds them all): it is kept.  The instances stay
+cached, so ``has`` and the hit and miss counters keep their meaning.
 """
 from __future__ import annotations
 
@@ -196,6 +209,22 @@ class IMM:
         if self.cuda_graphs:
             self._pool = torch.cuda.graph_pool_handle()
 
+    def release_standby(self) -> None:
+        """Drop the graphs and the binding of every instance of this
+        server that its engine does not serve on and whose set names a
+        tensor the live set does not hold (a scale's freed source, an
+        aborted target's staged tensors): such a set is never bound
+        again, and it alone would keep that tensor allocated.  Another
+        server's sets are left as they are."""
+        mine = [i for i in self._cache.values() if i.owner == self.owner]
+        live = {id(t) for i in mine if i.live and i.binding is not None
+                for t in i.binding.tensors()}
+        for inst in mine:
+            if not inst.live and inst.binding is not None and any(
+                    t is None or id(t) not in live
+                    for t in inst.binding.tensors()):
+                inst.release()
+
     def ready(self, cfg: ElasticConfig) -> bool:
         """True if ``cfg``'s instance is cached and holds a bound step set
         with every graph captured."""
@@ -228,7 +257,11 @@ class IMM:
                     max_len=self.max_len, paged=paged,
                     block_size=hmm.kv_block_size,
                     nb=hmm.kv_blocks_per_replica if paged else 0,
-                    chunk=self.prefill_chunk, replicas=inst.cfg.dp,
+                    chunk=self.prefill_chunk,
+                    # a chunked engine never runs its prefill buckets
+                    buckets=(() if self.prefill_chunk
+                             else self.prefill_buckets),
+                    replicas=inst.cfg.dp,
                     device=devs[0], stream=self._stream, pool=self._pool,
                     warmup=not self._warm)
                 self._warm = True
@@ -264,4 +297,5 @@ class IMM:
         for other in self._cache.values():
             if other.owner == self.owner:
                 other.live = other is inst
+        self.release_standby()
         return inst, params, cache, hit

@@ -1,6 +1,7 @@
 """Core transformer layers as plain functions over parameter dicts — the
 port of the parts of ``repro.models.layers`` the serving paths use (the
-paged KV pool, and the slot-contiguous cache with monolithic prefill).
+paged KV pool, and the slot-contiguous cache with monolithic or chunked
+prefill).
 
 Conventions (the reference's, kept at every public function):
 
@@ -216,6 +217,18 @@ def paged_chunk_attention_apply(cfg, p, x, positions, *, cache, block_tables,
     return ys[0], cache
 
 
+def chunk_attention_apply(cfg, p, x, positions, *, k_row, v_row, start):
+    """Chunked-prefill attention over a slot's row of the slot-contiguous
+    cache: the one-device case of :func:`chunk_attention_apply_tp`.  x
+    [1,C,D]; k_row / v_row [1,S_max,KVH,hd], updated in place; ``start``
+    [1] int32.  Returns (y [1,C,D], (k_row, v_row))."""
+    ys, _ = chunk_attention_apply_tp(
+        cfg, [p], [x], positions, [x.device], caches=[(k_row, v_row)],
+        slot=torch.zeros(1, dtype=torch.int32, device=x.device),
+        start=start)
+    return ys[0], (k_row, v_row)
+
+
 # ------------------------------------------------------ attention bodies
 
 def _tp_qkv(cfg, ps, xs, positions, devices):
@@ -359,6 +372,47 @@ def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
                                                 **heads)
         os_.append(o)
     return _tp_out(ps, os_, devices), caches
+
+
+def chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
+                             slot, start):
+    """Chunked-prefill attention over the slot-contiguous cache (one
+    sequence), over one replica's TP ranks (module note): the paged chunk
+    attention over the slot's row read as a block pool.
+
+    x [1,C,D] is one prefill chunk at positions ``start .. start + C - 1``
+    (``positions`` [1,C]); ``caches[t]`` = rank t's copy ``(k_cache,
+    v_cache)`` [B,S_max,KVH,hd] of this layer, updated in place; ``slot``
+    and ``start`` [1] int32 device tensors.  Each copy is viewed as a pool
+    [B * S_max/bs, bs, KVH, hd] with bs = gcd(C, S_max, 16), the slot's
+    row as its blocks ``slot * S_max/bs + arange(S_max/bs)``.  The chunk's
+    k/v rows go to positions ``[s, s + C)`` of the row, s = min(start,
+    S_max - C): the reference's ``dynamic_update_slice`` moves a chunk
+    that would run past the row back onto its last C positions, and the
+    view never writes past its own row.  Then rank t's heads attend its kv
+    heads of its copy through the mixed kernel with ctx = min(start + C,
+    S_max) and q_len = ctx - start, so row i attends positions ``<= start
+    + i`` of the row: the reference's causal ``mha`` over the row, the
+    padding rows included.  Returns (the outputs, one per rank,
+    ``caches``)."""
+    C = xs[0].shape[1]
+    S_max = caches[0][0].shape[1]
+    bs = math.gcd(C, S_max, 16)
+    MB = S_max // bs
+    dev = start.device
+    start = start.reshape(1).to(torch.int32)
+    base = slot.reshape(1).to(dev, torch.int32) * MB
+    table = base[:, None] + torch.arange(MB, dtype=torch.int32,
+                                         device=dev)[None]
+    first = torch.clamp(start, max=S_max - C) // bs
+    ids = base + first + torch.arange(C // bs, dtype=torch.int32, device=dev)
+    ctx = torch.clamp(start + C, max=S_max)
+    views = [{"k": k.view(-1, bs, *k.shape[2:]),
+              "v": v.view(-1, bs, *v.shape[2:])} for k, v in caches]
+    ys, _ = paged_chunk_attention_apply_tp(
+        cfg, ps, xs, positions, devices, caches=views, block_tables=table,
+        chunk_block_ids=ids, ctx_len=ctx, q_len=ctx - start)
+    return ys, caches
 
 
 # ----------------------------------------------------------------------- mlp

@@ -3,8 +3,9 @@ models — the port of the serving steps of ``repro.models.model`` over the
 two KV layouts: the paged pool (``paged_decode_step``,
 ``paged_chunk_prefill_step``; standard attention only, as in the
 reference) and the slot-contiguous cache of the dense-KV mode
-(``prefill``, ``decode_step``; ``write_prefill_to_blocks`` moves a
-monolithic prefill into the pool), plus the full-sequence ``forward``.  An
+(``prefill``, ``decode_step``, and for standard attention
+``chunk_prefill_step``; ``write_prefill_to_blocks`` moves a monolithic
+prefill into the pool), plus the full-sequence ``forward``.  An
 MLA model (``cfg.use_mla``) caches its latent ``{'c','kr'}``
 (``models/mla.py``) and applies its ``first_k_dense`` prefix in every
 step, prefix rows first in the cache.  A Mamba2 model (``arch_type``
@@ -65,11 +66,11 @@ from repro_torch.distributed.sharding import (local_view, tp_all_gather,
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_norm, attention_apply,
                                        attention_apply_tp, attention_init,
-                                       linear, linear_cols, linear_init,
-                                       mlp_apply, mlp_apply_tp, mlp_init,
-                                       norm_init, paged_attention_apply,
+                                       chunk_attention_apply_tp, linear,
+                                       linear_cols, linear_init, mlp_apply,
+                                       mlp_apply_tp, mlp_init, norm_init,
+                                       paged_attention_apply,
                                        paged_attention_apply_tp,
-                                       paged_chunk_attention_apply,
                                        paged_chunk_attention_apply_tp)
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
                                        mamba2_init)
@@ -836,35 +837,72 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start,
     gathered by a device index, cache).  With ``parallel`` the sequence
     belongs to replica ``replica``: its table and ids are local to that
     replica's pool slice."""
+    def attn(ps, hs, positions, devs, caches, start, ctx, bt, ids):
+        return paged_chunk_attention_apply_tp(
+            cfg, ps, hs, positions, devs, caches=caches, block_tables=bt,
+            chunk_block_ids=ids, ctx_len=ctx, q_len=ctx - start)[0]
+    return _chunk_step(cfg, params, tokens, cache, start, length,
+                       (block_tables, chunk_block_ids), attn,
+                       parallel=parallel, replica=replica)
+
+
+def chunk_prefill_step(cfg, params: Params, tokens, cache, start, length,
+                       slot, *, parallel=None, replica: int = 0):
+    """Dense-layout twin of :func:`paged_chunk_prefill_step`: the chunk's
+    k/v land in row ``slot`` of the slot-contiguous cache {'k','v':
+    [L,B,S_max,KVH,hd]} at positions [start, start+C) (moved back onto the
+    row's last C positions where they would run past it, as the
+    reference's ``dynamic_update_slice`` moves them), and the chunk
+    attends causally over the row (``layers.chunk_attention_apply_tp``:
+    the mixed kernel over the row viewed as pool blocks).  ``start``,
+    ``length`` and ``slot`` are [1] int32 tensors (a Python int is filled
+    into one).  With ``parallel`` the row is local to replica
+    ``replica``'s slice, and every copy its TP ranks hold is written.
+    Updates ``cache`` in place; returns (logits [1,V] at ``length-1``,
+    cache)."""
+    def attn(ps, hs, positions, devs, caches, start, ctx, slot):
+        return chunk_attention_apply_tp(
+            cfg, ps, hs, positions, devs,
+            caches=[(c["k"], c["v"]) for c in caches], slot=slot,
+            start=start)[0]
+    return _chunk_step(cfg, params, tokens, cache, start, length, (slot,),
+                       attn, parallel=parallel, replica=replica)
+
+
+def _chunk_step(cfg, params, tokens, cache, start, length, where, attn, *,
+                parallel, replica):
+    """The two chunk steps' body: the chunk's embedding, then block by
+    block its attention, ``attn(the ranks' attention params, the ranks'
+    normed inputs, positions, the ranks' devices, the ranks' layer caches,
+    start, ctx, *where)`` -> one output per rank (one rank on one device),
+    and its feed-forward; returns (the logits at ``length - 1``, cache).
+    ``where`` (the block table and chunk ids, or the slot row) goes to the
+    replica's device with the tokens."""
     C = tokens.shape[1]
     dev = tokens.device
     # fills, not copies from host memory: the step never syncs
-    start, length = (
+    start, length, *where = (
         v if torch.is_tensor(v)
         else torch.full((1,), int(v), dtype=torch.int32, device=dev)
-        for v in (start, length))
+        for v in (start, length, *where))
     if parallel is not None:
-        dev, (tokens, block_tables, chunk_block_ids, start, length) = \
-            _one_replica(parallel, replica, tokens, block_tables,
-                         chunk_block_ids, start, length)
+        dev, (tokens, start, length, *where) = _one_replica(
+            parallel, replica, tokens, start, length, *where)
     start = start.reshape(1).to(torch.int32)
     ctx_t = length.reshape(1).to(torch.int32)
     positions = start[:, None] + torch.arange(C, device=dev,
                                               dtype=torch.int32)[None]
-    qlen_t = ctx_t - start
     # the logits row of the last valid position, q_len - 1
-    last = (qlen_t - 1).long()
+    last = (ctx_t - start - 1).long()
     if parallel is not None:
         copies = _rank_caches(cache, parallel, replica)
 
-        def attn(g, i, bp, h, dv):
-            return paged_chunk_attention_apply_tp(
-                cfg, [p["attn"] for p in bp], h, positions, dv,
-                caches=[{n: v[i] for n, v in c.items()} for c in copies],
-                block_tables=block_tables, chunk_block_ids=chunk_block_ids,
-                ctx_len=ctx_t, q_len=qlen_t)[0]
+        def run(g, i, bp, h, dv):
+            return attn([p["attn"] for p in bp], h, positions, dv,
+                        [{n: v[i] for n, v in c.items()} for c in copies],
+                        start, ctx_t, *where)
         hs, local, devs = _dp_layers(cfg, params, parallel, [replica],
-                                     [tokens], attn)
+                                     [tokens], run)
         return _logits(cfg, local, devs,
                        [[x.index_select(1, last.to(x.device))[:, 0]
                          for x in hs[0]]])[0], cache
@@ -872,12 +910,9 @@ def paged_chunk_prefill_step(cfg, params: Params, tokens, cache, start,
     pool = params.get("moe_pool")
     for _, i, bp, moe in _layers(cfg, params):
         h = apply_norm(bp["ln1"], x, cfg.norm_type)
-        a, _ = paged_chunk_attention_apply(
-            cfg, bp["attn"], h, positions,
-            cache={n: v[i] for n, v in cache.items()},
-            block_tables=block_tables, chunk_block_ids=chunk_block_ids,
-            ctx_len=ctx_t, q_len=qlen_t)
-        x = x + a
+        x = x + attn([bp["attn"]], [h], positions, [dev],
+                     [{n: v[i] for n, v in cache.items()}], start, ctx_t,
+                     *where)[0]
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
         x = x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=pool)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)

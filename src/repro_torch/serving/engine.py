@@ -11,22 +11,25 @@ overwrites the slot row.  Paged KV keeps a block *pool* ``[L, NB, bs, ...]`` and
 block table (``serving/kv_blocks.py``): admission is gated by free blocks,
 shared prompt prefixes are copy-on-write, and when the pool runs dry the
 lowest-priority sequence is preempted (freed + re-queued; recomputed on
-resume).  With ``prefill_chunk > 0`` (paged only here) each tick runs at
-most ``prefill_budget`` prompt tokens as ``prefill_chunk``-token chunks
-(``serving/scheduler.py``); with ``prefill_chunk == 0`` the whole prompt
-is prefilled at admission.  Every tick ends with one decode step for every
-runnable slot.
+resume).  With ``prefill_chunk > 0`` each tick runs at most
+``prefill_budget`` prompt tokens as ``prefill_chunk``-token chunks
+(``serving/scheduler.py``), into the pool's blocks or the slot's row;
+with ``prefill_chunk == 0`` the whole prompt is prefilled at admission.
+Every tick ends with one decode step for every runnable slot.
 
 The step functions are plain callables keyed like the reference's compiled
 executables (``decode``, ``prefill_{S_pad}``, ``chunk_prefill_{C}``, and
 with routing telemetry ``decode_routed``: every ``routing_sample_every``-th
 tick runs it, and its routing counts, behind the tokens in the one tensor
 the tick reads back, go into ``routing_stats``).  On
-the card the IMM captures the decode step and the chunk step as CUDA graphs
-(``core/graphs.py``) and ``bind`` hands them over: the engine then fills
-their static inputs and replays them in place of the eager calls; the
-prefills stay eager.  The steps update the cache in place: the reference
-donates it to its jitted steps, here the rows are written directly.
+the card the IMM captures these steps as CUDA graphs (``core/graphs.py``:
+the decode steps, the chunk step, and without chunking one prefill graph
+per given bucket and replica) and ``bind`` hands them over: the engine then
+fills their static inputs and replays them in place of the eager calls,
+and reads each prefill's or chunk's token once, right after it.  A paged
+bucket built lazily (``_prefill``) runs eagerly.  The steps update the
+cache in place: the reference donates it to its jitted steps, here the
+rows are written directly.
 
 On several logical devices (``parallel``, from ``engine_parallel_ctx``) the
 cache is sharded per DP replica and each replica's steps address its own
@@ -124,27 +127,39 @@ def _paged_decode_fn(mcfg, params, cache, tokens, lengths, active,
         tokens, active)
 
 
-def _prefill_fn(mcfg, max_len, params, cache, tokens, length, slot, *,
-                parallel=None):
-    """Prefill one request (padded to a bucket) into cache row ``slot``:
-    the whole row is overwritten, zeros past the bucket, as the
-    reference's update of its ``max_len``-padded cache does.  Returns (the
-    argmax token at position ``length - 1``, cache).  With ``parallel``
-    the slot's replica runs it and its slice takes the row, in every copy
-    its TP ranks hold."""
-    replica, row, copies = 0, slot, [cache]
+def _greedy(logits) -> torch.Tensor:
+    """The argmax token of a one-sequence step as a [1] int32 tensor: the
+    caller reads it, outside a captured graph."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _prefill_fn(mcfg, max_len, params, cache, tokens, length, row, *,
+                parallel=None, replica: int = 0):
+    """Prefill one request (padded to a bucket) into cache row ``row``
+    ([1] int32 device tensor; a Python int is filled into one): the whole
+    row is overwritten, zeros past the bucket, as the reference's update of
+    its ``max_len``-padded cache does, by one indexed copy a leaf.
+    ``length`` [1] int32.  Returns (the argmax token at position ``length -
+    1`` as a [1] int32 tensor, cache).  With ``parallel`` replica
+    ``replica`` runs it, ``row`` is local to its slice, and every copy its
+    TP ranks hold takes the row."""
+    copies = [cache]
     if parallel is not None:
-        replica, row = divmod(slot, _local_rows(next(iter(cache.values()))))
         copies = [{n: v.shard(d) for n, v in cache.items()}
                   for d in parallel.replica_devices(replica)]
+    if not torch.is_tensor(row):
+        row = torch.full((1,), int(row), dtype=torch.int32,
+                         device=tokens.device)
     logits, small = M.prefill(mcfg, params,
-                              {"tokens": tokens, "lengths": length[None]},
+                              {"tokens": tokens,
+                               "lengths": length.reshape(1)},
                               max_len=max_len, parallel=parallel,
                               replica=replica)
     for rows in copies:
         for name, leaf in rows.items():
-            leaf[:, row] = small[name][:, 0]
-    return int(torch.argmax(logits, dim=-1)[0]), cache
+            leaf.index_copy_(1, row.to(leaf.device).long().reshape(1),
+                             small[name].to(leaf.device, leaf.dtype))
+    return _greedy(logits), cache
 
 
 def _paged_prefill_fn(mcfg, params, cache, tokens, length, block_ids, *,
@@ -153,15 +168,31 @@ def _paged_prefill_fn(mcfg, params, cache, tokens, length, block_ids, *,
     ``block_ids`` [S_pad/bs] (``NB`` marks padding and CoW-shared prefix
     blocks, which already hold the same tokens — or a co-owner's tokens
     beyond this prompt — and are not rewritten); with ``parallel``, on
-    replica ``replica``, ids local to its slice."""
+    replica ``replica``, ids local to its slice.  ``length`` [1] int32.
+    Returns (the argmax token as a [1] int32 tensor, cache)."""
     S_pad = tokens.shape[1]
     logits, small = M.prefill(mcfg, params,
-                              {"tokens": tokens, "lengths": length[None]},
+                              {"tokens": tokens,
+                               "lengths": length.reshape(1)},
                               max_len=S_pad, parallel=parallel,
                               replica=replica)
     cache = M.write_prefill_to_blocks(cache, small, block_ids,
                                       parallel=parallel, replica=replica)
-    return int(torch.argmax(logits, dim=-1)[0]), cache
+    return _greedy(logits), cache
+
+
+def _chunk_prefill_fn(mcfg, params, cache, tokens, start, length, row, *,
+                      parallel=None, replica: int = 0):
+    """One dense-KV prefill chunk: tokens [1, C] are prompt positions
+    [start, start+C) of cache row ``row`` (with ``parallel``: local to
+    replica ``replica``'s slice); ``length`` = prompt tokens covered after
+    this chunk; ``start``, ``length`` and ``row`` are [1] int32 tensors.
+    Returns (the argmax token at the last valid position as a [1] int32
+    tensor, cache)."""
+    logits, cache = M.chunk_prefill_step(mcfg, params, tokens, cache, start,
+                                         length, row, parallel=parallel,
+                                         replica=replica)
+    return _greedy(logits), cache
 
 
 def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
@@ -178,7 +209,7 @@ def _paged_chunk_prefill_fn(mcfg, params, cache, tokens, start, length,
                                                start, length, block_tables,
                                                chunk_ids, parallel=parallel,
                                                replica=replica)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return _greedy(logits), cache
 
 
 def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
@@ -195,9 +226,6 @@ def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
     the reference does."""
     t0 = time.perf_counter()
     paged = kv_mode == "paged"
-    if prefill_chunk and not paged:
-        raise NotImplementedError(
-            "dense KV with prefill_chunk > 0 is not ported yet")
     dec = _paged_decode_fn if paged else _decode_fn
     out = {"decode": partial(dec, mcfg, parallel=parallel)}
     if collect_routing:
@@ -215,7 +243,8 @@ def compile_step_functions(mcfg, *, max_len: int, prefill_buckets=(64,),
         if not M.chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported")
         out[f"chunk_prefill_{prefill_chunk}"] = partial(
-            _paged_chunk_prefill_fn, mcfg, parallel=parallel)
+            _paged_chunk_prefill_fn if paged else _chunk_prefill_fn, mcfg,
+            parallel=parallel)
     return out, time.perf_counter() - t0
 
 
@@ -315,8 +344,8 @@ class InferenceEngine:
         """Attach the instance's parameters, cache and step functions;
         ``kv`` is the block manager of a paged pool (None: dense KV),
         ``parallel`` the context of an instance on several logical
-        devices, ``graphs`` its decode and chunk steps captured over these
-        very tensors (None: the eager steps).  A rebind keeps the
+        devices, ``graphs`` its steps captured over these very tensors
+        (None: the eager steps).  A rebind keeps the
         surviving slots' requests, lengths, tokens and block tables (their
         KV stays where it is)."""
         old_slots, old_lengths = self.slots, self.lengths
@@ -332,9 +361,6 @@ class InferenceEngine:
         self.lengths = np.zeros((n,), np.int32)
         self.tokens = np.zeros((n,), np.int32)
         if self.prefill_chunk:
-            if not self.paged:
-                raise NotImplementedError(
-                    "dense KV with prefill_chunk > 0 is not ported yet")
             if not M.chunk_prefill_supported(self.mcfg):
                 raise ValueError("chunked prefill unsupported for this "
                                  "model")
@@ -497,14 +523,14 @@ class InferenceEngine:
         S_pad = max(bucket, -(-S // bucket) * bucket)
         toks = np.zeros((1, S_pad), np.int32)
         toks[0, :S] = full
-        length = torch.tensor(S, dtype=torch.int32, device=self.device)
+        r = self._partition(slot)
         # the span closes once the first token is on the host, so it holds
         # the prefill's device time too (the time to first token)
         with obs.get_tracer().span("prefill.request", cat="serve",
                                    args={"rid": req.rid, "S_pad": S_pad}):
             if self.paged:
                 alloc = self.kv.allocate(
-                    req.rid, S, partition=self._partition(slot),
+                    req.rid, S, partition=r,
                     priority=getattr(req, "priority", 0),
                     tokens=[int(t) for t in full])
                 bs = self.kv.block_size
@@ -512,19 +538,16 @@ class InferenceEngine:
                 for j, b in enumerate(alloc.blocks):
                     if j >= alloc.num_shared:  # shared prefix: not rewritten
                         ids[j] = b
-                r = self._partition(slot)
-                first, self.cache = self._prefill(S_pad)(
-                    self.params, self.cache, self._to_device(toks), length,
-                    self._to_device(self._local_ids(ids, [r])),
-                    **self._replica_kw(slot))
+                where = self._local_ids(ids, [r])
+            else:
+                # the slot's row in its replica's slice
+                where = np.array([self._local_row(slot)], np.int32)
+            first = self._run_prefill(S_pad, slot, toks, S, where)
+            if self.paged:
                 # the NB sentinel, never block 0 (a valid row), clears the
                 # previous occupant's rows
                 self.block_tables[slot, :] = self.kv.num_blocks
                 self.block_tables[slot, :len(alloc.blocks)] = alloc.blocks
-            else:
-                first, self.cache = self._prefill(S_pad)(
-                    self.params, self.cache, self._to_device(toks), length,
-                    slot)
         produced = len(self.generated.get(req.rid, [])) if resume else 0
         remaining = req.output_len - produced - 1
         self.slots[slot] = SlotState(rid=req.rid, remaining=remaining,
@@ -548,23 +571,27 @@ class InferenceEngine:
         return first
 
     def _start_request_chunked(self, req, prompt: np.ndarray, slot: int):
-        """Chunked admission: no model compute runs here.  KV is allocated
-        up-front (occupancy-gated like ``can_admit``) but prefix chains
-        register only as chunks are written (``register_written``) — a
-        matching arrival must never bind to blocks whose contents are still
-        pending.  The job starts past the CoW-shared prefix
-        (``prefix_skip``).  Returns None: the first token arrives from
-        ``decode_tick`` when the final chunk lands."""
+        """Chunked admission: no model compute runs here.  Paged KV is
+        allocated up-front (occupancy-gated like ``can_admit``) but prefix
+        chains register only as chunks are written (``register_written``)
+        — a matching arrival must never bind to blocks whose contents are
+        still pending — and the job starts past the CoW-shared prefix
+        (``prefix_skip``); dense KV starts at 0 in the slot's row.  Returns
+        None: the first token arrives from ``decode_tick`` when the final
+        chunk lands."""
         resume = req.rid in self._resume_rids
         full = self._full_prompt(req, prompt)
         S = len(full)
-        alloc = self.kv.allocate(req.rid, S, partition=self._partition(slot),
-                                 priority=getattr(req, "priority", 0),
-                                 tokens=[int(t) for t in full],
-                                 register=False)
-        self.block_tables[slot, :] = self.kv.num_blocks
-        self.block_tables[slot, :len(alloc.blocks)] = alloc.blocks
-        start = prefix_skip(alloc.num_shared, self.kv.block_size, S)
+        start = 0
+        if self.paged:
+            alloc = self.kv.allocate(req.rid, S,
+                                     partition=self._partition(slot),
+                                     priority=getattr(req, "priority", 0),
+                                     tokens=[int(t) for t in full],
+                                     register=False)
+            self.block_tables[slot, :] = self.kv.num_blocks
+            self.block_tables[slot, :len(alloc.blocks)] = alloc.blocks
+            start = prefix_skip(alloc.num_shared, self.kv.block_size, S)
         produced = len(self.generated.get(req.rid, [])) if resume else 0
         remaining = req.output_len - produced - 1
         self.slots[slot] = SlotState(rid=req.rid, remaining=remaining,
@@ -606,8 +633,31 @@ class InferenceEngine:
             self.compiled.pop(old, None)
         return self.compiled[key]
 
+    def _run_prefill(self, S_pad: int, slot: int, toks: np.ndarray,
+                     length: int, where: np.ndarray) -> int:
+        """One monolithic prefill of ``toks`` [1, S_pad] for ``slot``: its
+        bucket's graph on the slot's replica where the set holds one, else
+        the eager step; ``where`` is the slot's local row (dense KV) or the
+        block ids local to the replica's pool slice (paged).  Returns the
+        first token, read once, right after the step."""
+        if self.graphs is not None and self.graphs.has_prefill(S_pad):
+            first = self.graphs.prefill(self._partition(slot), toks, length,
+                                        where)
+        else:
+            first, self.cache = self._prefill(S_pad)(
+                self.params, self.cache, self._to_device(toks),
+                self._to_device(np.array([length], np.int32)),
+                self._to_device(where), **self._replica_kw(slot))
+        return int(first[0])
+
     def _chunk_prefill(self) -> Callable:
         return self.compiled[f"chunk_prefill_{self.prefill_chunk}"]
+
+    def _local_row(self, slot: int) -> int:
+        """A slot's row in its replica's slice of the slot cache."""
+        if self.parallel is None:
+            return slot
+        return slot % self.batch_per_replica
 
     # -------------------------------------------------- paged bookkeeping
     def _slot_of(self, rid: int) -> int:
@@ -820,8 +870,6 @@ class InferenceEngine:
         plans = self.scheduler.plan(self._prefilling)
         out: List[Tuple[int, int, bool]] = []
         C = self.prefill_chunk
-        bs = self.kv.block_size
-        NB = self.kv.num_blocks
         jobs = {j.slot: j for j in self._prefilling}
         for plan in plans:
             slot = plan.slot
@@ -830,38 +878,51 @@ class InferenceEngine:
             toks = np.zeros((1, C), np.int32)
             toks[0, :plan.take] = full[plan.start:plan.start + plan.take]
             upto = plan.start + plan.take
-            sb = self.kv.seq(job.rid)
-            j0 = plan.start // bs
-            # pool rows this chunk writes: the NB sentinel drops writes to
-            # padding, CoW-shared prefix blocks, and (on the rounded-down
-            # prefix_skip start) recomputed rows
-            ids = np.full((C // bs,), NB, np.int32)
-            for k in range(C // bs):
-                j = j0 + k
-                if sb.num_shared <= j < len(sb.blocks):
-                    ids[k] = sb.blocks[j]
-            tbl = np.full((1, self.max_len // bs), NB, np.int32)
-            bt = self.kv.block_table(job.rid)
-            tbl[0, :len(bt)] = bt
             r = [self._partition(slot)]
-            tbl, ids = self._local_ids(tbl, r), self._local_ids(ids, r)
+            if self.paged:
+                where = self._chunk_blocks(job, plan.start, r)
+            else:
+                # dense KV: the slot's row in its replica's slice
+                where = (np.array([self._local_row(slot)], np.int32),)
             if self.graphs is not None:
-                first = self.graphs.chunk(r[0], toks, plan.start, upto, tbl,
-                                          ids)
+                first = self.graphs.chunk(r[0], toks, plan.start, upto,
+                                          *where)
             else:
                 first, self.cache = self._chunk_prefill()(
                     self.params, self.cache, self._to_device(toks),
                     self._to_device(np.array([plan.start], np.int32)),
                     self._to_device(np.array([upto], np.int32)),
-                    self._to_device(tbl), self._to_device(ids),
-                    **self._replica_kw(slot))
+                    *map(self._to_device, where), **self._replica_kw(slot))
             job.pos = upto
-            # written blocks become matchable for later arrivals
-            self.kv.register_written(job.rid, [int(t) for t in full], upto)
+            if self.paged:
+                # written blocks become matchable for later arrivals
+                self.kv.register_written(job.rid, [int(t) for t in full],
+                                         upto)
             if plan.final:
                 out.append(self._finish_prefill(slot, job, int(first),
                                                 resumed))
         return out
+
+    def _chunk_blocks(self, job: PrefillJob, start: int, replicas
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """A paged chunk's block table [1, MB] and the pool rows [C/bs] it
+        writes, local to its replica's slice, from the block manager at
+        execution time: the NB sentinel drops writes to padding, CoW-shared
+        prefix blocks, and (on the rounded-down ``prefix_skip`` start)
+        recomputed rows."""
+        C, bs, NB = self.prefill_chunk, self.kv.block_size, self.kv.num_blocks
+        sb = self.kv.seq(job.rid)
+        j0 = start // bs
+        ids = np.full((C // bs,), NB, np.int32)
+        for k in range(C // bs):
+            j = j0 + k
+            if sb.num_shared <= j < len(sb.blocks):
+                ids[k] = sb.blocks[j]
+        tbl = np.full((1, self.max_len // bs), NB, np.int32)
+        bt = self.kv.block_table(job.rid)
+        tbl[0, :len(bt)] = bt
+        return (self._local_ids(tbl, replicas),
+                self._local_ids(ids, replicas))
 
     def _finish_prefill(self, slot: int, job: PrefillJob, first: int,
                         resumed: bool) -> Tuple[int, int, bool]:
@@ -880,7 +941,8 @@ class InferenceEngine:
         if fin:
             # output_len 1 (or a resume with only its final token left)
             s.active = False
-            self.kv.free(s.rid)
+            if self.paged:
+                self.kv.free(s.rid)
         return (s.rid, first, fin)
 
     @obs.traced("decode.tick", cat="serve")

@@ -2260,12 +2260,13 @@ def _park_server(dev, seed=0, cache=None, **kw):
 
 
 def test_park_frees_the_device_memory_and_every_graph_set(dev):
-    """A graphed server that served and scaled (two graph sets) parks:
-    every parameter and cache tensor it bound is freed, the engine and the
-    IMM hold no graph, ``memory_allocated`` is back within 256 MiB of its
-    level before the boot, and the snapshot is pinned.  Unparked to DP3 x
-    TP2 (its graphs captured during STAGING) it frees the snapshot's
-    pinned blocks at the commit and gives the tokens it gave before."""
+    """A graphed server that served and scaled (its source's set released
+    at the switchover, the target's live) parks: every parameter and
+    cache tensor it bound is freed, the engine and the IMM hold no graph,
+    ``memory_allocated`` is back within 256 MiB of its level before the
+    boot, and the snapshot is pinned.  Unparked to DP3 x TP2 (its graphs
+    captured during STAGING) it frees the snapshot's pinned blocks at the
+    commit and gives the tokens it gave before."""
     import gc
     import weakref
     from repro_torch.core.graphs import _tensors
@@ -2280,7 +2281,7 @@ def test_park_frees_the_device_memory_and_every_graph_set(dev):
     bound = [weakref.ref(t) for t in _tensors(eng.params)
              + _tensors(eng.cache)]
     sets = [i for i in srv.imm._cache.values() if i.graphs is not None]
-    assert len(sets) == 2 and eng.graphs is not None
+    assert len(sets) == 1 and eng.graphs is sets[0].graphs
     del eng
     st = srv.park()
     gc.collect()
@@ -2369,3 +2370,200 @@ def test_shared_cache_servers_keep_their_sets_through_a_park(dev):
     assert inst.graphs is step_set and inst.live
     s1.hmm.close()
     s2.hmm.close()
+
+
+# ---------------------------------------- prefill graphs, dense KV chunks
+
+# store: (model, tp, dp, server knobs); every one monolithic but the
+# chunked ones
+PREFILL_STORES = {
+    "dense": ("qwen3-30b-a3b", 1, 1, dict(prefill_buckets=(32, 64))),
+    "paged": ("test-moe", 1, 1, dict(kv_mode="paged", kv_block_size=16,
+                                     expert_mode="pooled",
+                                     prefill_buckets=(32, 64))),
+    "mla": ("deepseek-v2-lite-16b", 1, 1, dict(prefill_buckets=(32, 64))),
+    "mamba2": ("mamba2-1.3b", 1, 1, dict(prefill_buckets=(32, 64))),
+    "zamba2": ("zamba2-2.7b", 1, 1, dict(prefill_buckets=(32, 64))),
+    "dense_dp2_tp2": ("test-moe", 2, 2, dict(prefill_buckets=(32, 64))),
+}
+DENSE_CHUNK_STORES = {
+    "dense_chunk": ("test-moe", 1, 1, dict(prefill_chunk=32,
+                                           prefill_budget=64)),
+    "dense_chunk_dp2_tp2": ("test-moe", 2, 2, dict(prefill_chunk=32,
+                                                   prefill_budget=64)),
+}
+
+
+def _prefill_server(dev, spec, graphs=True):
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.topology import ElasticConfig
+    model, tp, dp, knobs = spec
+    srv = ElasticServer(_graph_model(model), tp=tp, batch_per_replica=2,
+                        max_len=128, seed=0, all_devices=[dev] * (dp * tp),
+                        device=dev, cuda_graphs=graphs, **knobs)
+    srv.boot(ElasticConfig(dp, tp, tuple(range(dp * tp))))
+    return srv
+
+
+def _shards(eng):
+    from repro_torch.core.graphs import _tensors
+    return _tensors(eng.cache)
+
+
+def _graphed_twin(eng, eager, graphed):
+    """Run ``eager()`` -> the token tensor, then, from the cache state
+    before it, ``graphed()`` under sync-debug "error": the tokens and
+    every cache shard must be equal bit for bit, and the step must have
+    written something."""
+    before = [t.clone() for t in _shards(eng)]
+    want = int(eager()[0])
+    after = [t.clone() for t in _shards(eng)]
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+    for t, b in zip(_shards(eng), before):
+        t.copy_(b)
+    with _no_host_sync():
+        out = graphed()
+    assert int(out[0]) == want
+    for t, a in zip(_shards(eng), after):
+        assert torch.equal(t, a)
+
+
+@pytest.mark.parametrize("store", sorted(PREFILL_STORES))
+def test_graphed_prefill_equals_eager_with_no_host_sync(dev, store):
+    """Each monolithic store's prefill bucket (the slot row of the dense,
+    MLA latent and Mamba2 / zamba2 state caches, the paged pool's blocks;
+    on DP2 x TP2, replica 1's row in both ranks' copies) as the IMM's
+    graph: filled and replayed under sync-debug "error", its token and
+    every cache shard equal the eager step's on the same inputs and
+    state, bit for bit."""
+    import numpy as np
+    srv = _prefill_server(dev, PREFILL_STORES[store])
+    eng = srv.engine
+    assert all(eng.graphs.has_prefill(b) for b in (32, 64))
+    S, S_pad, r = 45, 64, eng.cfg.dp - 1
+    gen = torch.Generator().manual_seed(4)
+    host = np.zeros((1, S_pad), np.int32)
+    host[0, :S] = torch.randint(0, srv.mcfg.vocab_size, (S,),
+                                generator=gen).numpy()
+    if eng.paged:
+        where = np.array([3, 1, 6, eng.kv.blocks_per_partition], np.int32)
+    else:
+        where = np.array([1], np.int32)
+    kw = {"replica": r} if eng.parallel is not None else {}
+    step = eng.compiled[f"prefill_{S_pad}"]
+
+    def eager():
+        return step(eng.params, eng.cache, torch.from_numpy(host).to(dev),
+                    torch.tensor([S], dtype=torch.int32, device=dev),
+                    torch.from_numpy(where).to(dev), **kw)[0]
+    _graphed_twin(eng, eager, lambda: eng.graphs.prefill(r, host, S, where))
+    srv.hmm.close()
+
+
+def test_a_lazy_paged_bucket_runs_eagerly(dev):
+    """A paged monolithic server given bucket 32 only: a prompt of 45
+    tokens needs bucket 64, which the engine builds lazily and runs
+    eagerly (the set holds no graph of it, and nothing is captured after
+    boot); the tokens equal the eager twin's."""
+    spec = PREFILL_STORES["paged"]
+    spec = spec[:3] + (dict(spec[3], prefill_buckets=(32,)),)
+    tokens = {}
+    for graphs in (False, True):
+        srv = _prefill_server(dev, spec, graphs)
+        captures = srv.imm.stats["captures"]
+        tokens[graphs] = _drive(srv)
+        assert "prefill_64" in srv.engine.compiled
+        if graphs:
+            assert not srv.engine.graphs.has_prefill(64)
+            assert srv.engine.graphs.has_prefill(32)
+            assert srv.imm.stats["captures"] == captures
+        srv.hmm.close()
+    assert tokens[True] == tokens[False]
+
+
+@pytest.mark.parametrize("store", sorted(DENSE_CHUNK_STORES))
+def test_dense_chunk_step_graphed_equals_eager_with_no_host_sync(dev,
+                                                                 store):
+    """Dense KV with chunks of 32: the chunk step over the slot's row (the
+    mixed kernel over the row read as pool blocks, the chunk written by
+    ``kv_cache_write``'s block instance), replayed from the IMM's graph
+    under sync-debug "error", equals the eager step bit for bit (token and
+    every shard; on DP2 x TP2 replica 1's row in both ranks' copies); the
+    server's tokens equal its eager twin's, with the same launch counts,
+    and it captured no prefill bucket."""
+    import numpy as np
+    spec = DENSE_CHUNK_STORES[store]
+    srv = _prefill_server(dev, spec)
+    eng = srv.engine
+    assert not eng.graphs.has_prefill(64)
+    r, C = eng.cfg.dp - 1, 32
+    gen = torch.Generator().manual_seed(5)
+    host = torch.randint(0, srv.mcfg.vocab_size, (1, C), generator=gen,
+                         dtype=torch.int32).numpy()
+    row = np.array([1], np.int32)
+    kw = {"replica": r} if eng.parallel is not None else {}
+    step = eng.compiled[f"chunk_prefill_{C}"]
+    for start, length in ((0, 32), (32, 50)):
+        def eager():
+            return step(eng.params, eng.cache,
+                        torch.from_numpy(host).to(dev),
+                        torch.tensor([start], dtype=torch.int32, device=dev),
+                        torch.tensor([length], dtype=torch.int32,
+                                     device=dev),
+                        torch.from_numpy(row).to(dev), **kw)[0]
+        _graphed_twin(eng, eager, lambda: eng.graphs.chunk(
+            r, host, start, length, row))
+    srv.hmm.close()
+    tokens, counts = {}, {}
+    for graphs in (False, True):
+        srv = _prefill_server(dev, spec, graphs)
+        ops.reset_launch_counts()
+        tokens[graphs] = _drive(srv)
+        counts[graphs] = ops.launch_counts()
+        srv.hmm.close()
+    assert tokens[True] == tokens[False] and counts[True] == counts[False]
+    assert counts[True]["mixed_block_paged_attention"] > 0
+    assert counts[True]["flash_attention"] == 0
+
+
+def test_a_scale_down_frees_the_source_tensors_the_target_does_not_hold(
+        dev):
+    """DP3 x TP2 -> DP2 x TP2 on a graphed server (paged KV, pooled
+    pages; a vocabulary of 32,768, so the third replica's embedding and
+    LM head copies take 32 MiB): after the switchover every source
+    parameter and cache tensor that the target does not hold is freed —
+    the source's graph set, whose closures named them, was released —
+    and ``memory_allocated`` has fallen by at least their bytes, less the
+    target's own new tensors and 1 MiB of static inputs."""
+    import gc
+    import weakref
+    from repro_torch.core.elastic_engine import ElasticServer
+    from repro_torch.core.graphs import _tensors
+    from repro_torch.core.topology import ElasticConfig
+    cfg = dataclasses.replace(_graph_model("test-moe"), vocab_size=32768,
+                              d_model=256)
+    srv = ElasticServer(cfg, tp=2, batch_per_replica=2, max_len=128,
+                        seed=0, all_devices=[dev] * 6, device=dev,
+                        **GRAPH_PAGED)
+    srv.boot(ElasticConfig(3, 2, tuple(range(6))))
+    _drive(srv)
+    eng = srv.engine
+    src = {id(t): t for t in _tensors(eng.params) + _tensors(eng.cache)}
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    srv.scale_to(ElasticConfig(2, 2, (0, 1, 2, 3)))
+    tgt = {id(t): t for t in _tensors(eng.params) + _tensors(eng.cache)}
+    gone = [weakref.ref(t) for i, t in src.items() if i not in tgt]
+    gone_bytes = sum(t.nbytes for i, t in src.items() if i not in tgt)
+    new_bytes = sum(t.nbytes for i, t in tgt.items() if i not in src)
+    del src
+    gc.collect()
+    torch.cuda.synchronize()
+    assert gone and all(r() is None for r in gone)
+    assert gone_bytes > 16 << 20
+    assert m0 - torch.cuda.memory_allocated() >= \
+        gone_bytes - new_bytes - (1 << 20)
+    assert len(_drive(srv)) == len(GRAPH_REQS)
+    srv.hmm.close()
+

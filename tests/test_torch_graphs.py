@@ -18,13 +18,17 @@ stores), saving the boot weights and every ``TransferStats``.  Held:
 * the IMM's ``Binding`` refuses a parameter or cache tensor that changed;
   a server scaled up, down and up again captures each step set afresh over
   the new tensors, and ``activate`` over tensors the cached set was not
-  built on counts a miss; an evicted instance drops its set;
+  built on counts a miss; an evicted instance drops its set; after a
+  switchover, and after an aborted scale, every other set that names a
+  tensor the live set does not hold is dropped, and a set whose tensors
+  all live is kept and bound again on the way back;
 * on the CPU ``activate`` returns the eager steps; the launch tally of a
   capture reaches the wrappers' counts only at replay.
 
 The graphs themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import json
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +36,8 @@ import pytest
 import torch
 
 from helpers import TEST_MOE
-from test_torch_scale import (COMMON, CPU8, REQS, _mcfg, _start, _stats,
-                              _tree, _wait)
+from test_torch_scale import (COMMON, CPU8, DENSE, REQS, _mcfg, _start,
+                              _stats, _tree, _wait)
 from repro.core.hmm import HMM as JaxHMM
 from repro.core.topology import ElasticConfig as JaxElasticConfig
 from repro.models import model as JM
@@ -295,6 +299,75 @@ def test_up_down_up_captures_afresh():
     srv._bind(inst, params, cache)
     tokens = _serve(srv)
     assert all(len(t) == out for t, (_, out) in zip(tokens.values(), REQS))
+    srv.hmm.close()
+
+
+def _held_sets(srv):
+    """This server's cached instances that hold a binding or graphs."""
+    imm = srv.imm
+    return {inst.cfg.dp for inst in imm._cache.values()
+            if inst.owner == imm.owner
+            and (inst.binding is not None or inst.graphs is not None)}
+
+
+def test_a_scale_releases_the_sets_it_cannot_bind_again():
+    """Pooled pages (the page-table index arrays are rebuilt at every
+    scale): after a switchover (up, then down) only the live instance
+    holds a binding (and, on the card, graphs): the source's set names
+    tensors the scale freed.  A target staged and then aborted — by its
+    task, and by ``HMM.abort`` under a blocking ``stage_scale`` — gives its
+    set up too.  Every instance stays cached, so ``has`` keeps its
+    answer."""
+    srv = _server(staging="overlap")
+    imm = srv.imm
+    for dp in (3, 2):
+        srv.scale_to(_cfg(dp))
+        assert _held_sets(srv) == {dp}
+        live = imm._cache[imm._key(_cfg(dp))]
+        assert live.live and live.binding.matches(srv.engine.params,
+                                                  srv.engine.cache)
+        assert imm.has(_cfg(2)) and imm.has(_cfg(3))
+    # the units wait for a gate, so the task is still STAGING once its
+    # target's set is captured
+    gate, unit = threading.Event(), srv.hmm._stage_unit
+
+    def gated(*a, **k):
+        assert gate.wait(timeout=300)
+        return unit(*a, **k)
+    srv.hmm._stage_unit = gated
+    task = srv.start_scale(_cfg(3))
+    while not imm.ready(_cfg(3)):
+        task.advance(0.0)
+    assert task.phase.name == "STAGING"
+    assert _held_sets(srv) == {2, 3}        # the target, captured
+    gate.set()
+    task.abort()
+    del srv.hmm._stage_unit
+    assert _held_sets(srv) == {2} and imm.has(_cfg(3))
+    srv.stage_scale(_cfg(3))
+    assert _held_sets(srv) == {2, 3}
+    srv.hmm.abort()
+    srv._staged_cfg = None
+    assert _held_sets(srv) == {2} and imm.has(_cfg(3))
+    assert len(_serve(srv, 1)[0]) == REQS[0][1]
+    srv.hmm.close()
+
+
+def test_a_set_whose_tensors_all_live_is_kept_and_bound_again():
+    """The dense test model with the default stores: DP2 -> DP3 reuses
+    every parameter and cache tensor of DP2, so the DP2 set frees nothing
+    and is kept; the way back down binds it again (no capture), and the
+    DP3 set, which names the third replica's tensors, is released."""
+    srv = ElasticServer(DENSE, tp=1, batch_per_replica=2, max_len=64,
+                        seed=0, all_devices=CPU8, device="cpu",
+                        prefill_buckets=(32,))
+    srv.boot(_cfg(2))
+    imm = srv.imm
+    srv.scale_to(_cfg(3))
+    assert _held_sets(srv) == {2, 3}
+    srv.scale_to(_cfg(2))
+    assert _held_sets(srv) == {2}
+    assert imm.stats["captures"] == 2 and imm.stats["preinit_hits"] == 2
     srv.hmm.close()
 
 

@@ -289,9 +289,8 @@ def test_use_reference_is_scoped():
 
 
 NOT_PORTED = {
-    # dense KV with SERVER_KW's chunked prefill (the reference's
-    # chunk_prefill_step) is outside the ported slices
-    "kv_mode": "dense",
+    # a tp that cuts MCFG's two kv heads (the head-cutting TP slice)
+    "tp": 4,
 }
 
 

@@ -283,7 +283,9 @@ def check_step(ref, models, steps, name, dp, tp, step):
             _close(small[n], io["pre_" + n], tol)
         # slot 1 of replica 1: its row in every rank's copy
         _prefill_fn(mcfg, MAX_LEN, params, cache, t["pre_tokens"],
-                    torch.tensor(11), 3, parallel=ctx)
+                    torch.tensor([11], dtype=torch.int32),
+                    torch.tensor([1], dtype=torch.int32), parallel=ctx,
+                    replica=1)
         for n in cache:
             _close(cache[n].gather()[:, 3], io["pre_" + n][:, 0], tol)
     else:

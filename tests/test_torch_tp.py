@@ -29,6 +29,11 @@ devices.  Held:
   stores and for the int8 KV blocks and expert pages; every
   ``TransferStats.BYTE_FIELDS`` value equal the reference's, staged and
   committed;
+* dense KV with chunked prefill (``DENSE_CHUNK``, one loop exec'd on both
+  sides): DP2 x TP2 with dense banks and pooled pages, greedy tokens equal
+  the reference's and the port's monolithic run's; DP2 x TP2 -> DP3 x TP2
+  opened while prompts are mid-chunk, tokens and byte fields equal the
+  reference's;
 * a TP degree that cuts a head raises ``NotImplementedError`` naming its
   slice; a vocabulary that does not split over the ranks stays whole on
   each (the sharding rule) and gives the one-device logits;
@@ -57,6 +62,61 @@ from repro_torch.serving.engine import _prefill_fn, engine_parallel_ctx
 from repro_torch.serving.workload import Request
 
 MAX_LEN, NBL, BS = 32, 8, 8          # slot cache length; blocks a replica
+
+# dense KV with chunked prefill at DP2 x TP2 (the requests and knobs of
+# ``tests/test_chunked_prefill.py``): exec'd by the reference script and by
+# the tests, so both sides drive the same loop
+DENSE_CHUNK = '''
+DC_KW = dict(tp=2, batch_per_replica=4, max_len=128, seed=0,
+             kv_mode="dense", kv_block_size=16, prefill_buckets=(32, 64, 96),
+             prefill_chunk=32, prefill_budget=64)
+# the mid-chunk scale: two slots a replica, one chunk a tick
+DC_SCALE_KW = dict(DC_KW, batch_per_replica=2, prefill_buckets=(32,),
+                   prefill_budget=32)
+
+def mixed_reqs():
+    rng = np.random.default_rng(0)
+    return [Request(i, 0.2 * i, L, o,
+                    prompt=rng.integers(0, 128, L).astype(np.int32))
+            for i, (L, o) in enumerate(zip([10, 37, 90, 16, 64, 45],
+                                           [8, 12, 16, 1, 10, 6]))]
+
+def drive(srv, reqs):
+    pending = sorted(reqs, key=lambda r: r.arrival_s)
+    t, n, i = 0.0, 0, 0
+    while any(r.finish_s is None for r in reqs):
+        while i < len(pending) and pending[i].arrival_s <= t:
+            srv.submit(pending[i]); i += 1
+        srv.tick(t); t += .1; n += 1
+        assert n < 3000
+    return {str(r.rid): [int(x) for x in srv.engine.generated[r.rid]]
+            for r in reqs}
+
+def scale_mid_chunk(srv, target):
+    """start_scale to ``target`` at the second tick, while prompts are
+    mid-chunk; one advance after every tick."""
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, 0.0, L, 30,
+                    prompt=rng.integers(0, 128, L).astype(np.int32))
+            for i, L in enumerate([16, 90, 90, 37])]
+    for r in reqs:
+        srv.submit(r)
+    t, n, task, overlapped = 0.0, 0, None, False
+    while any(r.finish_s is None for r in reqs):
+        if n == 1 and task is None:
+            assert any(s.prefilling for s in srv.engine.slots if s.rid >= 0)
+            task = srv.start_scale(target)
+        srv.tick(t); t += .1; n += 1
+        if task is not None and not task.done:
+            task.advance(t)
+            overlapped = overlapped or bool(srv.engine._prefilling)
+        assert n < 800
+    assert overlapped and task.done and srv.engine.num_slots == 6
+    return {"tokens": {str(r.rid): [int(x) for x in
+                                    srv.engine.generated[r.rid]]
+                       for r in reqs},
+            "final": stats(srv.events[-1].stats)}
+'''
 
 SCRIPT = COMMON + '''
 from repro.core.elastic_engine import ElasticServer
@@ -174,6 +234,17 @@ for name, kw in SERVERS.items():
     res[name] = {"tokens": {str(r.rid): srv.engine.generated[r.rid]
                             for r in reqs},
                  "staged": staged, "final": stats(srv.events[-1].stats)}
+
+exec(DENSE_CHUNK)
+for em in ("dense", "pooled"):
+    srv = ElasticServer(MCFG, expert_mode=em, **DC_KW)
+    srv.boot(cfg(2, 2))
+    np.savez(f"{OUT}/dchunk_{em}.npz", **flat(srv.hmm.params))
+    res["dchunk_" + em] = {"tokens": drive(srv, mixed_reqs())}
+srv = ElasticServer(MCFG, **DC_SCALE_KW)
+srv.boot(cfg(2, 2))
+np.savez(f"{OUT}/dchunk_scale.npz", **flat(srv.hmm.params))
+res["dchunk_scale"] = scale_mid_chunk(srv, cfg(3, 2))
 json.dump(res, open(f"{OUT}/serve.json", "w"))
 print("TP-DONE")
 '''
@@ -206,8 +277,9 @@ SERVERS = {
 @pytest.fixture(scope="module")
 def ref_tp(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp_ref")
-    proc = _start(SCRIPT % (repr(PARAMS), repr(SERVERS), repr(REQS),
-                            MAX_LEN, NBL, BS), out)
+    proc = _start("DENSE_CHUNK = " + repr(DENSE_CHUNK) + "\n"
+                  + SCRIPT % (repr(PARAMS), repr(SERVERS), repr(REQS),
+                              MAX_LEN, NBL, BS), out)
     _wait(proc, "TP steps and servers")
     return out
 
@@ -280,7 +352,9 @@ def test_tp_steps_match_one_device_reference(ref_tp, case, step):
         _close(small["k"], io["pre_k"])
         _close(small["v"], io["pre_v"])
         _prefill_fn(cfg, MAX_LEN, params, cache, t["pre_tokens"],
-                    torch.tensor(11), 3, parallel=ctx)     # slot 1 of 1
+                    torch.tensor([11], dtype=torch.int32),
+                    torch.tensor([1], dtype=torch.int32), parallel=ctx,
+                    replica=1)                  # slot 3: replica 1, row 1
         _close(cache["k"].gather()[:, 3], io["pre_k"][:, 0])
     elif step == "decode_step":
         _fill(cache, {n: io["dec_" + n] for n in ("k", "v")})
@@ -350,8 +424,10 @@ def test_tp_copies_stay_bitwise_equal(store):
         else:
             TM.decode_step(cfg, params, tokens, cache, lens, parallel=ctx)
             _assert_copies_equal(cache, ctx)
-            _prefill_fn(cfg, MAX_LEN, params, cache, chunk, torch.tensor(9),
-                        2, parallel=ctx)
+            _prefill_fn(cfg, MAX_LEN, params, cache, chunk,
+                        torch.tensor([9], dtype=torch.int32),
+                        torch.tensor([0], dtype=torch.int32), parallel=ctx,
+                        replica=1)              # slot 2: replica 1, row 0
         _assert_copies_equal(cache, ctx)
         assert any(leaf.shard(1).abs().sum() > 0 for leaf in cache.values())
 
@@ -398,6 +474,55 @@ def test_tp2_scale_up_equals_reference_and_unscaled(ref_tp, name):
     dp3 = ref_tp / f"serve_{name}_dp3.npz"
     params3 = _tree(dp3 if dp3.exists() else ref_tp / f"serve_{name}.npz")
     assert _serve(name, params3, scale=False, boot_dp=3)[0] == got
+
+
+# ---------------------------------------------- dense KV, chunked prefill
+
+def _dense_chunk():
+    """The ``DENSE_CHUNK`` loop with the port's classes."""
+    ns = {"np": np, "Request": Request, "stats": _stats}
+    exec(DENSE_CHUNK, ns)
+    return ns
+
+
+def _dense_chunk_server(params, **kw):
+    srv = ElasticServer(_mcfg(), all_devices=CPU8, device="cpu", **kw)
+    srv.boot(_cfg(2, 2), params=params)
+    return srv
+
+
+@pytest.mark.parametrize("experts", ["dense", "pooled"])
+def test_dense_kv_chunked_equals_reference_and_monolithic(ref_tp, experts):
+    """Dense KV, chunks of 32 under a budget of 64, DP2 x TP2, dense banks
+    or pooled pages: the reference server's greedy tokens, and the port's
+    own monolithic run's (chunking only schedules); every TP rank's copy
+    of the slot cache equal."""
+    want = json.load(open(ref_tp / "serve.json"))["dchunk_" + experts]
+    ns = _dense_chunk()
+    params = _tree(ref_tp / f"dchunk_{experts}.npz")
+    srv = _dense_chunk_server(params, expert_mode=experts, **ns["DC_KW"])
+    got = ns["drive"](srv, ns["mixed_reqs"]())
+    assert got == want["tokens"] and len(got["3"]) == 1
+    _assert_copies_equal(srv.engine.cache, srv.engine.parallel)
+    mono = _dense_chunk_server(params, expert_mode=experts,
+                               **dict(ns["DC_KW"], prefill_chunk=0,
+                                      prefill_budget=None))
+    assert ns["drive"](mono, ns["mixed_reqs"]()) == got
+
+
+def test_dense_kv_scale_up_mid_chunk_equals_reference(ref_tp):
+    """DP2 x TP2 -> DP3 x TP2 opened while prompts are mid-chunk (serial
+    staging, one advance a tick): the jobs go on chunking through the
+    scale, and the tokens and every ``TransferStats.BYTE_FIELDS`` value
+    equal the reference's."""
+    want = json.load(open(ref_tp / "serve.json"))["dchunk_scale"]
+    ns = _dense_chunk()
+    srv = _dense_chunk_server(_tree(ref_tp / "dchunk_scale.npz"),
+                              **ns["DC_SCALE_KW"])
+    got = ns["scale_mid_chunk"](srv, _cfg(3, 2))
+    assert got["tokens"] == want["tokens"]
+    assert got["final"] == want["final"] and got["final"]["p2p_bytes"] > 0
+    _assert_copies_equal(srv.engine.cache, srv.engine.parallel)
 
 
 # ----------------------------------------------------------- what raises
