@@ -223,12 +223,15 @@ Phases, each of which raises on failure (no phase's failure is caught):
    the same inputs and state (DP6: the target, captured while staging).
    Then the same with int8 KV blocks and int8 expert pages, its steps
    untimed.
-13. ``e2e_tp``: the ``e2e_scale`` steps on DP2 x TP2 and DP1 x TP4 (4
+13. ``e2e_tp``: the ``e2e_scale`` steps on DP2 x TP2, DP1 x TP4 (4
    logical devices of the card; a TP sum or gather is a copy and an add
-   on the card): each replica's ranks split its attention heads (from
-   the cache's head ``t * KVH / tp``), embedding rows and LM head
-   columns, f32, bf16 and bf16 with int8 stores, held to the e2e rules;
-   every rank's copy of the cache must equal rank 0's after the steps.
+   on the card) and DP1 x TP8 (8): each replica's ranks split its
+   attention heads (from the cache's head ``t * KVH / tp``; at tp = 8
+   each rank holds half a kv head: q, k and v's columns are gathered and
+   rank t attends its 4 query heads against kv head ``t // 2``),
+   embedding rows and LM head columns, f32, bf16 and bf16 with int8
+   stores, held to the e2e rules; every rank's copy of the cache must
+   equal rank 0's after the steps.
 14. ``serve_tp``: the ``serve_scale`` server and requests at tp = 2,
    booted on DP2 x TP2 and scaled to DP3 x TP2 at the 5th tick (four
    ticks between ``stage_scale`` and ``switchover``), bf16
@@ -239,6 +242,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
    the cache equal at the end; the TP sums and gathers at a decode and a
    chunk step's shapes, each timed alone (their per-step figure is the
    sum of those times over a step's calls, not a reading from a step).
+14a. ``serve_tp8``: the ``serve_scale`` server and requests at tp = 8,
+   bf16, booted on DP1 x TP8 and scaled to DP2 x TP8 (16 logical
+   devices) at the 5th tick, where each rank holds 64 of a kv head's 128
+   columns: the ``serve_tp`` invariants (the new replica's TP-split
+   leaves, the half-head k/v shards included, are its ranks' shards),
+   graphed decode tokens equal to eager, the boot's and the target's
+   capture seconds and graphs, ``stage_s`` and ``stall_s``, the steps
+   timed and profiled at both configurations, the launches a tick and
+   ``max_memory_allocated``; the TP sums and gathers of the cut path,
+   each timed alone.
 15. ``serve_overlap``: the ``serve_scale`` server and requests with
    ``staging="overlap"`` and 4 transfer workers (each issuing its copies
    on its own side CUDA stream), bf16 then int8: ``start_scale`` to DP6
@@ -516,6 +529,7 @@ PATH_KERNELS = {
 }
 for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
     PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
+PATH_KERNELS["serve_tp8"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_rebalance"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_park"] = PATH_KERNELS["serve"]
@@ -525,6 +539,10 @@ PATH_KERNELS["serve_fleet"] = PATH_KERNELS["serve"]
 PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
                                 "paged_decode_attention", "kv_cache_write")
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
+# a TP rank's (query heads, kv heads, first kv head) of qwen3-30b-a3b's
+# replicated cache at tp = 2, 4 and 8
+TP_HEAD_RANGES = ((16, 2, 0), (16, 2, 2), (8, 1, 0), (8, 1, 3), (4, 1, 1),
+                  (4, 1, 3))
 # the scale phases: qwen3-30b-a3b at full width on logical devices of the
 # one card, DP4 -> DP6 at tp = 1, 2 slots a replica; serve_scale at 4
 # layers (the pools of 48 would take 174 GB; 8 until the prefill graphs
@@ -1302,11 +1320,12 @@ def phase_kernels():
             heads=(ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD)))
         out["paged_decode_attention"].append(_slot_decode_case(
             dtype, gen, timer, timed, heads=(ZAMBA_H, ZAMBA_H, ZAMBA_HD)))
-    # each flash instance at peaked scores and a ragged S: the bf16 output
-    # is the f32 answer rounded once
+    # each flash instance at peaked scores and a ragged S (the last, a
+    # qwen3-30b-a3b rank at tp = 8: 4 query heads and the kv head they
+    # read): the bf16 output is the f32 answer rounded once
     for heads in ((H, KVH, HD, HD), (MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV),
                   (ZAMBA_H, ZAMBA_H, ZAMBA_HD, ZAMBA_HD), (H, KVH, 64, 64),
-                  (4, 4, 48, 32), (4, 4, 16, 16)):
+                  (4, 4, 48, 32), (4, 4, 16, 16), (H // 8, 1, HD, HD)):
         out["flash_attention"].append(_flash_case(
             1000, torch.bfloat16, gen, timer, False, heads, peaked=True))
     # the smoke configs' instances at launch_serve's shapes (f32, as it
@@ -1348,18 +1367,20 @@ def phase_kernels():
             out[gmm_name].append(
                 _gmm_case("wi", 5, dtype, True, gen, timer, False, quant))
             torch.cuda.empty_cache()
-    # a TP rank's heads of the replicated cache (e2e_tp, serve_tp):
-    # qwen3-30b-a3b's 16 query and 2 kv heads at tp = 2 and 8 and 1 at tp
-    # = 4, from head 0 and past it, bf16 and int8 rows (timed past 0)
+    # a TP rank's heads of the replicated cache (e2e_tp, serve_tp,
+    # serve_tp8): qwen3-30b-a3b's 16 query and 2 kv heads at tp = 2, 8 and
+    # 1 at tp = 4, and 4 and 1 at tp = 8 (half a kv head a rank: its 4
+    # query heads read one kv head), from head 0 and past it, bf16 and
+    # int8 rows (timed past 0)
     for phase in ("serve", "serve_int8"):
         dec_name, mix_name = PATH_KERNELS[phase][:2]
-        for nq, n, off in ((16, 2, 0), (16, 2, 2), (8, 1, 0), (8, 1, 3)):
+        for nq, n, off in TP_HEAD_RANGES:
             for kind, name in (("decode", dec_name), ((1000, 104), mix_name)):
                 rec, _ = _attention_case(kind, torch.bfloat16, gen, timer,
                                          off > 0, phase == "serve_int8",
                                          heads=(nq, n, off))
                 out[name].append(rec)
-    for nq, n, off in ((16, 2, 0), (16, 2, 2), (8, 1, 0), (8, 1, 3)):
+    for nq, n, off in TP_HEAD_RANGES:
         out["paged_decode_attention"].append(_slot_decode_case(
             torch.bfloat16, gen, timer, off > 0, heads=(nq, KVH, HD),
             kv_range=(n, off)))
@@ -2340,8 +2361,12 @@ def phase_serve_graphs(layers, done):
 
 def _scale_cfgs(tp=1):
     """The scale phases' source and target: DP4 -> DP6 at tp = 1, DP2 x
-    TP2 -> DP3 x TP2 at tp = 2 (4 -> 6 logical devices either way)."""
+    TP2 -> DP3 x TP2 at tp = 2 (4 -> 6 logical devices either way); DP1 x
+    TP8 -> DP2 x TP8 at tp = 8 (8 -> 16)."""
     from repro_torch.core.topology import ElasticConfig
+    if tp == 8:
+        return (ElasticConfig(1, 8, tuple(range(8))),
+                ElasticConfig(2, 8, tuple(range(16))))
     return (ElasticConfig(4 // tp, tp, (0, 1, 2, 3)),
             ElasticConfig(6 // tp, tp, tuple(range(6))))
 
@@ -2596,8 +2621,9 @@ def phase_e2e_scale():
 
 
 def phase_e2e_tp():
-    """A 2-layer qwen3-30b-a3b at full width booted on DP2 x TP2 and on DP1
-    x TP4 (4 logical devices of the card): a chunk step and a decode step
+    """A 2-layer qwen3-30b-a3b at full width booted on DP2 x TP2, on DP1 x
+    TP4 (4 logical devices of the card) and on DP1 x TP8 (8; each rank
+    holds 64 of a kv head's 128 columns): a chunk step and a decode step
     through the kernels and the plain versions, held to the e2e rules, and
     every rank's copy of the cache equal to rank 0's after them."""
     from repro_torch.configs import get_config
@@ -2609,13 +2635,13 @@ def phase_e2e_tp():
         cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
                                   dtype=dtype_name)
         store = "int8" if quant else None
-        for dp, tp in ((2, 2), (1, 4)):
-            ecfg = ElasticConfig(dp, tp, (0, 1, 2, 3))
+        for dp, tp in ((2, 2), (1, 4), (1, 8)):
+            ecfg = ElasticConfig(dp, tp, tuple(range(dp * tp)))
             hmm = HMM(cfg, tp, batch_per_replica=SCALE_BPR, max_len=MAX_LEN,
                       kv_mode="paged", kv_block_size=BS,
                       kv_blocks_per_replica=256, expert_mode="pooled",
                       seed=1, kv_dtype=store, expert_dtype=store,
-                      device="cuda", all_devices=["cuda:0"] * 4)
+                      device="cuda", all_devices=["cuda:0"] * (dp * tp))
             hmm.boot(ecfg)
             out.append(_e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant,
                                         tag="[e2e_tp]"))
@@ -2702,9 +2728,14 @@ def _shard_ptrs(tree, devices):
             for d in devices}
 
 
+SCALE_PHASES = {1: "serve_scale", 2: "serve_tp", 8: "serve_tp8"}
+
+
 def _serve_scale(layers, store, timed, tp=1):
-    """``serve_scale`` (tp = 1, DP4 -> DP6) or ``serve_tp`` (tp = 2, DP2 x
-    TP2 -> DP3 x TP2) with one store, ``stage_scale`` at the 5th tick and
+    """``serve_scale`` (tp = 1, DP4 -> DP6), ``serve_tp`` (tp = 2, DP2 x
+    TP2 -> DP3 x TP2) or ``serve_tp8`` (tp = 8, DP1 x TP8 -> DP2 x TP8:
+    each rank holds half a kv head) with one store, ``stage_scale`` at the
+    5th tick and
     ``switchover`` after as many ticks as the target has graphs (its
     decode step and a chunk step per replica): an overlapped staging
     captures one a poll with a tick between two polls, so
@@ -2720,20 +2751,24 @@ def _serve_scale(layers, store, timed, tp=1):
     cfg = _capped(get_config("qwen3-30b-a3b"),
                   min(SCALE_LAYERS, layers or SCALE_LAYERS))
     L = cfg.num_layers
-    tag = f"[{'serve_tp' if tp > 1 else 'serve_scale'} {store or 'bf16'}]"
+    tag = f"[{SCALE_PHASES[tp]} {store or 'bf16'}]"
     c0, c1 = _scale_cfgs(tp)
-    srv = _scale_server(cfg, store, tp)
+    srv = _scale_server(cfg, store, tp, max(SCALE_DEVICES, c1.ndev))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     srv.boot(c0)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
+    boot_capture_s = srv.imm.stats["compile_s_total"]
+    boot_graphs = len(srv.engine.graphs._graphs) if srv.engine.graphs else 0
     log(f"{tag} qwen3-30b-a3b, {L} layers, full width, paged KV, pooled "
         f"experts ({store or cfg.dtype}), chunked prefill, "
         f"{c0.describe()} -> {c1.describe()}, every logical device on the "
-        f"one card; boot {boot_s:.2f} s, "
+        f"one card; boot {boot_s:.2f} s (capture {boot_capture_s:.3f} s, "
+        f"{boot_graphs} graphs), "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     res = {"layers": L, "store": store or cfg.dtype, "boot_s": boot_s,
+           "boot_capture_s": boot_capture_s, "boot_graphs": boot_graphs,
            "boot_allocated_gib": torch.cuda.memory_allocated() / 2**30}
     if timed:
         res[f"steps_dp{c0.dp}"] = _scale_step_times(
@@ -2789,6 +2824,12 @@ def _serve_scale(layers, store, timed, tp=1):
             res["scale"] = _check_scale(srv, ev, staged, migs, keep,
                                         stage_synced, switch_synced, tag,
                                         c0, c1)
+            res["scale"].update(
+                capture_s=srv.imm.stats["compile_s_total"] - boot_capture_s,
+                graphs=len(eng.graphs._graphs) if eng.graphs else 0)
+            log(f"{tag} the target's {res['scale']['graphs']} graphs "
+                f"captured in {res['scale']['capture_s']:.3f} s inside "
+                f"stage_s")
             tick += 1
             continue
         srv.tick(ts - t_start)
@@ -2833,6 +2874,7 @@ def _serve_scale(layers, store, timed, tp=1):
     if tp > 1:
         _require_copies_equal(eng.cache, c1, tag)
         res["collectives"] = _collective_times(cfg, eng, tag)
+    ticks_n = len(ticks) + 1 + c1.dp      # and the scale tick's serves
     dec = {dp: [t["ms"] for t in ticks if t["dp"] == dp and not t["chunks"]]
            for dp in work}
     chk = {dp: [t["chunk_ms"] / t["chunks"] for t in ticks
@@ -2854,7 +2896,9 @@ def _serve_scale(layers, store, timed, tp=1):
         f"chunk step median {res['chunk_step_ms_median']} ms by dp; "
         f"[decode steps, chunk steps] by dp {work}; max_memory_allocated "
         f"{res['max_memory_allocated_gib']:.2f} GiB")
-    log(f"{tag} launches " + str({k: counts[k] for k in want}))
+    log(f"{tag} launches " + str({k: counts[k] for k in want})
+        + f"; a tick ({ticks_n} ticks): "
+        + str({k: round(counts[k] / ticks_n, 2) for k in want}))
     del srv, eng
     return res
 
@@ -2867,33 +2911,54 @@ def _collective_times(cfg, eng, tag):
     of the attention output, two gathers (the K and V rows) and one
     broadcast of the MoE output; per replica one sum of the embedding and
     one gather of the logits.  A decode step runs them for every replica
-    (2 rows each), a chunk step for one (128 rows)."""
+    (2 rows each), a chunk step for one (128 rows).  Where tp cuts a head
+    the layer's two k/v gathers become a gather of each of q, k and v's
+    columns onto rank 0, a broadcast of the k and v rows of all heads and
+    a copy of each rank's query heads to it."""
     from repro_torch.device import torch_dtype
-    from repro_torch.distributed.sharding import (tp_all_gather,
+    from repro_torch.distributed.sharding import (place, tp_all_gather,
                                                   tp_all_reduce,
-                                                  tp_broadcast)
+                                                  tp_broadcast, tp_gather)
     timer = Timer()
     par = eng.parallel
     devs = [par.torch_device(d) for d in par.replica_devices(0)]
     tp, L, dt = par.tp, cfg.num_layers, torch_dtype(cfg.dtype)
-    kvh, hd = cfg.num_kv_heads // tp, cfg.resolved_head_dim
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cut = H % tp or KVH % tp
     out = {}
     for name, rows, reps in (("decode", (SCALE_BPR, 1), par.dp),
                              ("chunk", (1, CHUNK), 1)):
         x = [torch.randn(*rows, cfg.d_model, device="cuda").to(dt)
              for _ in devs]
-        kv = [torch.randn(*rows, kvh, hd, device="cuda").to(dt)
-              for _ in devs]
         lg = [torch.randn(rows[0], cfg.vocab_size // tp,
                           device="cuda").to(dt) for _ in devs]
         t = {"all_reduce_ms": timer(lambda: tp_all_reduce(x, devs)),
-             "all_gather_kv_ms": timer(lambda: tp_all_gather(kv, devs, 2)),
              "broadcast_ms": timer(lambda: tp_broadcast(x[0], devs)),
              "all_gather_logits_ms": timer(
                  lambda: tp_all_gather(lg, devs, -1))}
+        if cut:
+            qc = [torch.randn(*rows, H * hd // tp, device="cuda").to(dt)
+                  for _ in devs]
+            kc = [torch.randn(*rows, KVH * hd // tp, device="cuda").to(dt)
+                  for _ in devs]
+            kw = torch.randn(*rows, KVH, hd, device="cuda").to(dt)
+            qw = torch.randn(*rows, H, hd, device="cuda").to(dt)
+            n = H // tp if H % tp == 0 else -(-H // tp) + 1
+            t.update(
+                gather_q_cols_ms=timer(lambda: tp_gather(qc, devs, -1)),
+                gather_kv_cols_ms=timer(lambda: tp_gather(kc, devs, -1)),
+                broadcast_kv_ms=timer(lambda: tp_broadcast(kw, devs)),
+                place_q_heads_ms=timer(lambda: [
+                    place(qw[:, :, :n], d) for d in devs]))
+            layer = (t["gather_q_cols_ms"] + 2 * t["gather_kv_cols_ms"]
+                     + 2 * t["broadcast_kv_ms"] + t["place_q_heads_ms"])
+        else:
+            kv = [torch.randn(*rows, KVH // tp, hd, device="cuda").to(dt)
+                  for _ in devs]
+            t["all_gather_kv_ms"] = timer(lambda: tp_all_gather(kv, devs, 2))
+            layer = 2 * t["all_gather_kv_ms"]
         t["per_step_ms"] = reps * (
-            L * (t["all_reduce_ms"] + 2 * t["all_gather_kv_ms"]
-                 + t["broadcast_ms"])
+            L * (t["all_reduce_ms"] + layer + t["broadcast_ms"])
             + t["all_reduce_ms"] + t["all_gather_logits_ms"])
         out[name] = t
         log(f"{tag} TP sums and gathers at a {name} step's shapes, each "
@@ -2909,8 +2974,10 @@ def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
     """The switchover's invariants on the card: every parameter shard of
     the surviving devices but the rebuilt index arrays, and every KV
     shard, is the same tensor as before; the staged expert bytes are
-    exactly the migrations' pages, the rest of the copies exactly the two
-    new devices' non-expert shards (at tp = 2 each its TP rank's), commit
+    exactly the migrations' pages, the rest of the copies exactly the new
+    devices' non-expert shards (at tp > 1 each its TP rank's: every new
+    device's shard of each TP-split leaf equals its rank's shard on the
+    first replica, at tp = 8 the k/v shards half a kv head wide), commit
     moved no weight byte and zeroed the new replica's KV slice in each of
     its ranks' copies."""
     from repro_torch.distributed.sharding import tree_leaves_with_path
@@ -2918,8 +2985,13 @@ def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
     now = _shard_ptrs({"params": eng.params, "cache": eng.cache},
                       sorted({d for _, d in keep}))
     index = ("tables", "edest", "eslot", "gtable")
+    # a DP1 source's KV shard is indexed whole, a DP2 target's by its
+    # replica's slice: as in the reference's ``_grow_cache``, no shard
+    # keeps its key and every replica's KV is allocated anew
+    whole_kv = c0.dp == 1
     moved = [k for k, p in keep.items()
-             if now[k] != p and not k[0].endswith(index)]
+             if now[k] != p and not k[0].endswith(index)
+             and not (whole_kv and k[0].startswith("cache/"))]
     require(not moved, f"shards not reused: {moved[:5]}")
     page = hmm.expert_page_nbytes()
     E, Lm = hmm.mcfg.num_experts, hmm._n_moe_layers
@@ -2940,18 +3012,40 @@ def _check_scale(srv, ev, staged, migs, keep, stage_synced, switch_synced,
             and final["expert_p2p_bytes"] == staged["expert_p2p_bytes"],
             "commit moved weight bytes")
     kv = sum(leaf.nbytes for leaf in eng.cache.values())
-    require(final["init_bytes"] == kv // c1.dp * (c1.dp - c0.dp) * c1.tp,
+    fresh = c1.dp if whole_kv else c1.dp - c0.dp
+    require(final["init_bytes"] == kv // c1.dp * fresh * c1.tp,
             (final["init_bytes"], kv))             # the new replicas' copies
+    new = [d for d in c1.devices if d not in c0.devices]
+    split = 0
+    for path, leaf in tree_leaves_with_path(eng.params):
+        if path.startswith("moe_pool") or path.endswith(index):
+            continue
+        for d in new:
+            rank = c1.devices.index(d) % c1.tp
+            require(torch.equal(leaf.shard(d), leaf.shard(c0.devices[rank])),
+                    f"{tag} {path} on new device {d} is not rank {rank}'s "
+                    f"shard")
+        split += leaf.shard(new[0]).shape != tuple(leaf.shape)
+    if c1.tp > 1:
+        kvw = hmm.mcfg.num_kv_heads * hmm.mcfg.resolved_head_dim // c1.tp
+        widths = {leaf.shard(new[0]).shape[-1]
+                  for path, leaf in tree_leaves_with_path(eng.params)
+                  if path.endswith(("attn/k/w", "attn/v/w"))}
+        require(widths == {kvw}, (widths, kvw))
+        log(f"{tag} the new replica's {split} TP-split leaves are its ranks' "
+            f"shards; k/v shards {kvw} columns wide "
+            f"({kvw / hmm.mcfg.resolved_head_dim:g} kv heads a rank)")
     nonzero = {f: v for f, v in final.items() if v}
     rate = staged["p2p_bytes"] / stage_synced / 1e9
     log(f"{tag} scale {c0.describe()} -> {c1.describe()}: stage_s "
-        f"{ev.stage_s:.3f} (host), "
+        f"{ev.stage_s:.3f} (host; stall_s {ev.stall_s:.3f}), "
         f"{stage_synced:.3f} s with the card synchronised; switch_s "
         f"{ev.switch_s:.4f} (host), {switch_synced:.4f} s synchronised; "
         f"{migs} expert pages moved (copies between logical devices on "
         f"one card); bytes {nonzero}; staged copies "
         f"{staged['p2p_bytes'] / 1e9:.3f} GB at {rate:.1f} GB/s")
-    return {"stage_s": ev.stage_s, "stage_synced_s": stage_synced,
+    return {"stage_s": ev.stage_s, "stall_s": ev.stall_s,
+            "stage_synced_s": stage_synced,
             "switch_s": ev.switch_s, "switch_synced_s": switch_synced,
             "migrations": migs, "staged_bytes": staged,
             "final_bytes": final, "copy_gb_s": rate}
@@ -2969,6 +3063,16 @@ def phase_serve_scale(layers, tp=1):
     names = PATH_KERNELS["serve_tp" if tp > 1 else "serve_scale"]
     res["launches"] = {n: sum(r["launches"][n] for r in res.values())
                        for n in names}
+    return res
+
+
+def phase_serve_tp8(layers):
+    """``serve_tp8``: the ``serve_scale`` server and requests at tp = 8, bf16,
+    booted on DP1 x TP8 and scaled to DP2 x TP8 (8 -> 16 logical devices
+    of the card); each rank holds 64 of a kv head's 128 columns."""
+    res = _serve_scale(layers, None, True, 8)
+    res["launches"] = {n: res["launches"][n]
+                       for n in PATH_KERNELS["serve_tp8"]}
     return res
 
 
@@ -3107,13 +3211,13 @@ def _device_split(prof, ticks):
                             in host[:8]]}
 
 
-def _scale_server(cfg, store, tp, **kw):
+def _scale_server(cfg, store, tp, ndev=SCALE_DEVICES, **kw):
     from repro_torch.core.elastic_engine import ElasticServer
     gc.collect()
     torch.cuda.empty_cache()
     return ElasticServer(cfg, tp=tp, batch_per_replica=SCALE_BPR,
                          max_len=MAX_LEN, seed=0, device="cuda",
-                         all_devices=["cuda:0"] * SCALE_DEVICES,
+                         all_devices=["cuda:0"] * ndev,
                          kv_mode="paged", kv_block_size=BS,
                          expert_mode="pooled", prefill_chunk=CHUNK,
                          kv_dtype=store, expert_dtype=store, **kw)
@@ -5048,7 +5152,8 @@ def main():
                             "serve_dense_chunked,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
                             "serve_graphs,"
-                            "serve_scale,serve_tp,serve_overlap,serve_down,"
+                            "serve_scale,serve_tp,serve_tp8,serve_overlap,"
+                            "serve_down,"
                             "serve_down_tp,serve_scale_mla,"
                             "serve_scale_zamba2,serve_closed_loop,"
                             "launch_serve,serve_rebalance,serve_park,"
@@ -5085,6 +5190,7 @@ def main():
                                                             res)))
     runs.append(("serve_scale", lambda: phase_serve_scale(args.layers)))
     runs.append(("serve_tp", lambda: phase_serve_scale(args.layers, 2)))
+    runs.append(("serve_tp8", lambda: phase_serve_tp8(args.layers)))
     # serve_overlap holds its staged bytes and tokens against this call's
     # serve_scale (serial staging of the same server and requests)
     runs.append(("serve_overlap", lambda: phase_serve_overlap(

@@ -28,9 +28,11 @@ TP splits over 'tp', experts (dense bank E axis, pool page axis, table
 rows) over ('dp', 'tp') = EP, the rest replicated (``param_sharding``, one
 leaf's rule); the cache splits its batch or block axis over 'dp'
 (``cache_sharding``), so each TP rank of a replica holds a copy of its
-slice.  A configuration whose TP split would cut a query or kv head
-raises at boot (``models.model.check_tp_heads``): the model steps compute
-head-aligned splits only.
+slice.  Like the reference's rule, the split of q, k, v and o may cut a
+head (qwen3-30b-a3b's 4 kv heads at tp = 8: 64 of a head's 128 columns a
+rank); the standard-attention steps compute it (``models.layers``'
+module note).  An MLA model whose TP split would cut a head raises at
+boot (``models.model.check_tp_heads``).
 
 ``scale`` (``begin_scale`` + ``stage_increment``) stages the target's
 weights while the old instance serves: a shard whose (index, logical

@@ -19,26 +19,43 @@ the rows directly) and return the same dict or tuple.
 The ``*_tp`` forms run one DP replica's TP ranks (Megatron-style, the
 shards of ``HMM.param_sharding``): they take one parameter view, one copy
 of the input and one ``torch.device`` per rank, rank 0 first, and return
-one copy of the output per rank.  Rank t computes its query and kv heads
-(columns of q, k, v; its slice of a replicated bias) and its columns of
-the MLP's up and gate; its rows of ``o`` and ``down`` give a partial
-output that ``tp_all_reduce`` sums over the ranks.  The cache is
-replicated over the ranks: the new k/v rows of all heads
-(``tp_all_gather``) go into every rank's copy, and rank t attends kv
-heads ``[t * KVH/tp, (t+1) * KVH/tp)`` of its copy in place (the kernels'
-``kv_head_offset``).  Only head-aligned splits are computed (``H`` and
-``KVH`` divisible by tp; ``models.model.check_tp_heads``).  The
-one-device forms are the case of one rank: the sums and gathers then
+one copy of the output per rank.  Rank t holds columns ``[t W/tp, (t+1)
+W/tp)`` of q, k and v (W their width) and the matching rows of ``o``,
+wherever W divides by tp, also inside a head; its columns of the MLP's up
+and gate and its rows of ``down``.  The rows of ``o`` and ``down`` give a
+partial output that ``tp_all_reduce`` sums over the ranks.  The cache is
+replicated over the ranks: the new k/v rows of all heads go into every
+rank's copy, and each rank attends the kv heads its query heads read, of
+its copy in place (the kernels' ``kv_head_offset``, ``kv_heads``).
+
+* Head-aligned (``H`` and ``KVH`` divisible by tp): rank t computes its
+  own query and kv heads (RoPE is per head), the k/v rows are gathered
+  (``tp_all_gather``), and it attends kv heads ``[t KVH/tp, (t+1)
+  KVH/tp)``.
+* A split that cuts a head: the ranks' q, k and v columns are gathered in
+  rank order on rank 0 (a weight the rule left whole is rank 0's own
+  product), reshaped to heads and rotated there (RoPE pairs dimensions
+  within a head, which a cut can separate), then broadcast.  Rank t needs
+  attention-output columns ``[c0, c1) = [t H hd/tp, (t+1) H hd/tp)``: it
+  attends the query heads ``[c0 // hd, ceil(c1 / hd))`` against the one
+  kv head of their group, or, where they span groups, the whole groups
+  they touch (``_cut_plan``), and multiplies columns ``[c0, c1)`` of the
+  result by its rows of ``o``.  An int8 row is quantized over all heads,
+  as in the reference.
+
+The one-device forms are the case of one rank: the sums and gathers then
 return the rank's own tensor, and it attends all its kv heads.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (tp_all_gather, tp_all_reduce,
+from repro_torch.distributed.sharding import (place, tp_all_gather,
+                                              tp_all_reduce, tp_broadcast,
                                               tp_gather)
 from repro_torch.kernels import ops
 
@@ -231,18 +248,95 @@ def chunk_attention_apply(cfg, p, x, positions, *, k_row, v_row, start):
 
 # ------------------------------------------------------ attention bodies
 
-def _tp_qkv(cfg, ps, xs, positions, devices):
-    """Each rank's q, k, v over its own heads (rope is per head: local)."""
+def _cut_plan(cfg, tp: int, t: int):
+    """Rank ``t``'s share of a split that cuts a head (module note) ->
+    (query heads [h0, h1), kv heads [g0, g1), its attention-output columns
+    [c0, c1)): the query heads covering [c0, c1), widened to whole groups
+    where they span more than one kv head's group."""
+    H, G, hd = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    c0, c1 = t * H * hd // tp, (t + 1) * H * hd // tp
+    h0, h1 = c0 // hd, -(-c1 // hd)
+    g0, g1 = h0 // G, -(-h1 // G)
+    if g1 - g0 > 1:
+        h0, h1 = g0 * G, g1 * G
+    return (h0, h1), (g0, g1), (c0, c1)
+
+
+def _gathered_cols(ps, xs, devices, width: int):
+    """All ``width`` columns of a TP linear on rank 0's device: the ranks'
+    column shards joined in rank order, or rank 0's own product where the
+    sharding left the weight whole."""
+    if ps[0]["w"].shape[-1] == width:
+        return linear(ps[0], xs[0])
+    return tp_gather([linear_cols(p, x, t) for t, (p, x)
+                      in enumerate(zip(ps, xs))], devices, -1)
+
+
+class _Share(NamedTuple):
+    """A TP rank's share of the attention: the query heads it attends
+    [B,S,n,hd], the fresh k/v of the kv heads they read, the kernels'
+    ``heads`` keywords for its copy of the cache, and ``cols`` = (c0, c1,
+    h0), the output columns it keeps (None: all of them)."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    heads: dict
+    cols: Optional[Tuple[int, int, int]]
+
+
+def _tp_qkv(cfg, ps, xs, positions, devices, everywhere=True):
+    """Each rank's :class:`_Share` (module note), and the new k and v rows
+    of all heads [B,S,KVH,hd]: one copy per rank, or rank 0's alone where
+    not ``everywhere`` -> (shares, ks, vs)."""
     tp = len(ps)
-    return [_qkv_rope(cfg, p, x, positions.to(d), t, tp)
-            for t, (p, x, d) in enumerate(zip(ps, xs, devices))]
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if H % tp == 0 and KVH % tp == 0:
+        kvh = KVH // tp
+        qkv = [_qkv_rope(cfg, p, x, positions.to(d), t, tp)
+               for t, (p, x, d) in enumerate(zip(ps, xs, devices))]
+        ks, vs = ((tp_all_gather(parts, devices, 2) if everywhere
+                   else [tp_gather(parts, devices, 2)])
+                  for parts in ([r[1] for r in qkv], [r[2] for r in qkv]))
+        return [_Share(q, k, v, dict(kv_head_offset=t * kvh, kv_heads=kvh),
+                       None) for t, (q, k, v) in enumerate(qkv)], ks, vs
+    B, S, _ = xs[0].shape
+    q, k, v = (_gathered_cols([p[n] for p in ps], xs, devices, w * hd)
+               .reshape(B, S, w, hd)
+               for n, w in (("q", H), ("k", KVH), ("v", KVH)))
+    rot_dim = int(hd * cfg.rope_fraction) // 2 * 2
+    if rot_dim:
+        cos, sin = rope_tables(positions.to(devices[0]), rot_dim)
+        q = apply_rope(q, cos, sin, rot_dim)
+        k = apply_rope(k, cos, sin, rot_dim)
+    ks, vs = tp_broadcast(k, devices), tp_broadcast(v, devices)
+    shares = []
+    for t, d in enumerate(devices):
+        (h0, h1), (g0, g1), (c0, c1) = _cut_plan(cfg, tp, t)
+        shares.append(_Share(place(q[:, :, h0:h1], d), ks[t][:, :, g0:g1],
+                             vs[t][:, :, g0:g1],
+                             dict(kv_head_offset=g0, kv_heads=g1 - g0),
+                             (c0, c1, h0)))
+    return (shares, ks, vs) if everywhere else (shares, ks[:1], vs[:1])
 
 
-def _tp_out(ps, os_, devices):
-    """Each rank's attention rows [B,S,H/tp,hd] through its rows of ``o``
-    (which carries no bias), summed over the ranks."""
-    return tp_all_reduce([dot(o.reshape(*o.shape[:2], -1), p["o"]["w"])
-                          for p, o in zip(ps, os_)], devices)
+def _tp_out(ps, os_, devices, shares=None):
+    """Each rank's attention rows [B,S,heads,hd] through its rows of ``o``
+    (which carries no bias), summed over the ranks.  Where
+    ``shares[t].cols`` = (c0, c1, h0), rank t's rows are query heads from
+    h0 and it keeps output columns [c0, c1) (a split that cuts a head;
+    rows [c0, c1) of an ``o`` the sharding left whole)."""
+    parts = []
+    for t, (p, o) in enumerate(zip(ps, os_)):
+        o, w = o.reshape(*o.shape[:2], -1), p["o"]["w"]
+        if shares is not None and shares[t].cols is not None:
+            c0, c1, h0 = shares[t].cols
+            hd = os_[t].shape[-1]
+            o = o[..., c0 - h0 * hd:c1 - h0 * hd]
+            if w.shape[0] != c1 - c0:
+                w = w[c0:c1]
+        parts.append(dot(o, w))
+    return tp_all_reduce(parts, devices)
 
 
 def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
@@ -252,9 +346,9 @@ def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
 
     * Prefill / forward (``caches`` None): x [B,S,D] at ``positions``
       ``arange(S)``; each rank attends causally (``cfg.causal`` unless
-      ``causal`` is given) over its own heads' fresh k/v
-      (``ops.flash_attention``); returns (the outputs, one per rank, (k,
-      v) of all heads [B,S,KVH,hd] on rank 0's device).
+      ``causal`` is given) over the fresh k/v of the kv heads its query
+      heads read (``ops.flash_attention``); returns (the outputs, one per
+      rank, (k, v) of all heads [B,S,KVH,hd] on rank 0's device).
     * Decode (``caches[t]`` = rank t's copy ``(k_cache, v_cache)``
       [B,max_len,KVH,hd], x [B,1,D]): all heads' new rows go into every
       copy at ``cache[b, write_pos[b]]`` in place
@@ -262,28 +356,24 @@ def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
       positions outside the cache drop), then rank t attends its kv heads
       of its copy, positions ``< kv_valid_len[b]`` (the decode step passes
       lengths + 1, where the causal mask ends too), through
-      ``ops.paged_decode_attention`` from kv head ``t * KVH/tp``; returns
-      (the outputs, ``caches``)."""
-    tp = len(ps)
-    kvh = cfg.num_kv_heads // tp
+      ``ops.paged_decode_attention``; returns (the outputs, ``caches``)."""
     causal = cfg.causal if causal is None else causal
-    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
+    shares, ks, vs = _tp_qkv(cfg, ps, xs, positions, devices,
+                             everywhere=caches is not None)
     if caches is None:
-        os_ = [ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal)
-               for q, k, v in qkv]
-        return _tp_out(ps, os_, devices), tuple(
-            tp_gather([t[j] for t in qkv], devices, 2) for j in (1, 2))
-    ks = tp_all_gather([k[:, 0] for _, k, _ in qkv], devices, 1)
-    vs = tp_all_gather([v[:, 0] for _, _, v in qkv], devices, 1)
+        os_ = [ops.flash_attention(r.q.contiguous(), r.k.contiguous(),
+                                   r.v.contiguous(), causal)
+               for r in shares]
+        return _tp_out(ps, os_, devices, shares), (ks[0], vs[0])
     os_ = []
-    for t, ((q, _, _), (kc, vc), d) in enumerate(zip(qkv, caches, devices)):
-        ops.kv_cache_write_pair(kc, ks[t].to(kc.dtype), vc,
-                                vs[t].to(vc.dtype), write_pos.to(d))
+    for t, ((q, _, _, heads, _), (kc, vc), d) in enumerate(
+            zip(shares, caches, devices)):
+        ops.kv_cache_write_pair(kc, ks[t][:, 0].to(kc.dtype), vc,
+                                vs[t][:, 0].to(vc.dtype), write_pos.to(d))
         os_.append(ops.paged_decode_attention(
             q[:, 0].contiguous(), kc, vc, kv_valid_len.to(d, torch.int32),
-            kv_head_offset=t * kvh, kv_heads=kvh)[:, None])
-    return _tp_out(ps, os_, devices), caches
+            **heads)[:, None])
+    return _tp_out(ps, os_, devices, shares), caches
 
 
 def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
@@ -302,15 +392,12 @@ def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
     ``ops.kv_paged_write`` each, which drops the sentinel on the device;
     then rank t attends its kv heads of its copy.  Returns (the outputs,
     one per rank, ``caches``)."""
-    tp = len(ps)
-    kvh = cfg.num_kv_heads // tp
-    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
-    ks = tp_all_gather([k[:, 0] for _, k, _ in qkv], devices, 1)
-    vs = tp_all_gather([v[:, 0] for _, _, v in qkv], devices, 1)
+    shares, ks, vs = _tp_qkv(cfg, ps, xs, positions, devices)
     os_ = []
-    for t, ((q, _, _), cache, d) in enumerate(zip(qkv, caches, devices)):
+    for t, ((q, _, _, heads, _), cache, d) in enumerate(
+            zip(shares, caches, devices)):
         lens = lengths.to(d)
-        ops.kv_paged_write(cache["k"], cache["v"], ks[t], vs[t],
+        ops.kv_paged_write(cache["k"], cache["v"], ks[t][:, 0], vs[t][:, 0],
                            write_block.to(d), lens, cache.get("k_scale"),
                            cache.get("v_scale"))
         # table padding holds the NB sentinel; the kernel and the plain
@@ -318,7 +405,6 @@ def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
         # outputs are unused)
         qd, bt = q[:, 0].contiguous(), block_tables.to(d)
         lens = (lens + 1).to(torch.int32)
-        heads = dict(kv_head_offset=t * kvh, kv_heads=kvh)
         if "k_scale" in cache:
             o = ops.quant_block_paged_decode_attention(
                 qd, cache["k"], cache["k_scale"], cache["v"],
@@ -327,7 +413,7 @@ def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
             o = ops.block_paged_decode_attention(qd, cache["k"], cache["v"],
                                                  bt, lens, **heads)
         os_.append(o[:, None])
-    return _tp_out(ps, os_, devices), caches
+    return _tp_out(ps, os_, devices, shares), caches
 
 
 def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
@@ -344,16 +430,13 @@ def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
     quantize each token row and scatter its scale alongside), one
     ``ops.kv_block_write`` a copy (the pools as a one-layer stack, the
     chunk's C rows as its ``C/bs`` blocks); then rank t's heads attend
-    causally over the whole context through ``block_tables`` [1,MB], its
-    kv heads of its copy.  Returns (the outputs, one per rank,
+    causally over the whole context through ``block_tables`` [1,MB], the
+    kv heads they read of its copy.  Returns (the outputs, one per rank,
     ``caches``)."""
-    tp = len(ps)
-    kvh = cfg.num_kv_heads // tp
-    qkv = _tp_qkv(cfg, ps, xs, positions, devices)
-    ks = tp_all_gather([k for _, k, _ in qkv], devices, 2)
-    vs = tp_all_gather([v for _, _, v in qkv], devices, 2)
+    shares, ks, vs = _tp_qkv(cfg, ps, xs, positions, devices)
     os_ = []
-    for t, ((q, _, _), cache, d) in enumerate(zip(qkv, caches, devices)):
+    for t, ((q, _, _, heads, _), cache, d) in enumerate(
+            zip(shares, caches, devices)):
         one = {n: c[None] for n, c in cache.items()}
         ops.kv_block_write(one["k"], one["v"], ks[t], vs[t],
                            chunk_block_ids.to(d), one.get("k_scale"),
@@ -361,7 +444,6 @@ def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
         bt = block_tables.to(d)
         ctx1 = ctx_len.to(d).reshape(1).to(torch.int32)
         qlen1 = q_len.to(d).reshape(1).to(torch.int32)
-        heads = dict(kv_head_offset=t * kvh, kv_heads=kvh)
         if "k_scale" in cache:
             o = ops.quant_mixed_block_paged_attention(
                 q.contiguous(), cache["k"], cache["k_scale"], cache["v"],
@@ -371,7 +453,7 @@ def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
                                                 cache["v"], bt, ctx1, qlen1,
                                                 **heads)
         os_.append(o)
-    return _tp_out(ps, os_, devices), caches
+    return _tp_out(ps, os_, devices, shares), caches
 
 
 def chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,

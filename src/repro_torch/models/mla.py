@@ -25,7 +25,8 @@ standard attention: rank t holds its heads' columns of ``q`` (or
 ``q_up``), ``k_up`` and ``v_up`` and its rows of ``o``; ``kv_down``,
 ``kv_norm`` (and ``q_down``, ``q_norm``) are replicated, so every rank
 computes the same latent and writes it into its own copy of the cache.
-Heads split evenly over tp (``models.model.check_tp_heads``).
+Heads split evenly over tp: a tp that cuts an MLA head raises
+(``models.model.check_tp_heads``).
 """
 from __future__ import annotations
 

@@ -50,8 +50,9 @@ MLA layer splits its heads the same way (``mla_*_tp``: every rank
 computes the same latent and writes its own copy); an SSD layer is
 replicated, each rank running it on its copy of the activations and its
 copy of the layer's conv tail and state; a hybrid's shared block splits
-as standard attention does.  Heads must split evenly over tp
-(``check_tp_heads``); the paged steps stay standard-attention only.
+as standard attention does, also where tp cuts a head; an MLA model's
+heads must split evenly over tp (``check_tp_heads``); the paged steps
+stay standard-attention only.
 """
 from __future__ import annotations
 
@@ -416,19 +417,20 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids, *, parallel=None,
 
 # ------------------------------------------------------------ DP replicas
 
-HEAD_CUT = ("the head-cutting TP slice (ROADMAP §0 item 4): the reference "
-            "shards q, k and v wherever their widths divide by tp, also "
-            "inside a head")
+MLA_HEAD_CUT = ("MLA's head-cutting TP slice (ROADMAP §0 item 8): the "
+                "reference shards q_up, k_up and v_up wherever their widths "
+                "divide by tp, also inside a head")
 
 
 def check_tp_heads(cfg, tp: int) -> None:
-    """Raise for a TP degree that does not split the query and kv heads
-    evenly over the ranks: the port computes head-aligned splits only."""
-    if tp > 1 and (cfg.num_heads % tp or cfg.num_kv_heads % tp):
+    """Raise for an MLA model at a TP degree that does not split its heads
+    evenly over the ranks: ``mla_*_tp`` compute head-aligned splits only.
+    Standard attention takes any tp (``layers``' module note)."""
+    if cfg.use_mla and tp > 1 and cfg.num_heads % tp:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query and {cfg.num_kv_heads} kv "
-            f"heads do not split evenly over tp = {tp}; serving where the "
-            f"TP split cuts a head is not ported yet: it is {HEAD_CUT}")
+            f"{cfg.name}: {cfg.num_heads} MLA heads do not split evenly over "
+            f"tp = {tp}; serving an MLA model where the TP split cuts a "
+            f"head is not ported yet: it is {MLA_HEAD_CUT}")
 
 
 def check_mla_heads(cfg, tp: int, devices) -> None:

@@ -41,6 +41,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 import types
 
 import numpy as np
@@ -48,7 +49,8 @@ import pytest
 import torch
 
 from helpers import REPO
-from test_torch_scale import COMMON, CPU8, _mcfg, _start, _tree, _wait
+from test_torch_scale import (COMMON, CPU8, REF_XLA_FLAGS, _mcfg, _start,
+                              _tree, _wait)
 from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import costmodel as TCost
 from repro_torch.core import topology as TTopo
@@ -162,16 +164,15 @@ LAUNCHES = {"default": [],
 def _launch(module, args, extra_env):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                REPRO_SERVE_DEVICES="8", **extra_env)
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", module, "--autoscale", *args], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    return proc
 
 
 def _launcher_lines(proc):
-    out, err = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"launcher failed (rc={proc.returncode})\n"
-                             f"{out}\n{err[-4000:]}")
+    out = _wait(proc, "launcher")
     return [ln for ln in out.splitlines()
             if ln.startswith("[t=") or ln.startswith("{'n'")]
 
@@ -182,7 +183,7 @@ def ref(tmp_path_factory):
     together."""
     out = tmp_path_factory.mktemp("closed_loop_ref")
     proc = _start(SCRIPT % repr(CASES), out)
-    xla = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
+    xla = {"XLA_FLAGS": REF_XLA_FLAGS, "OMP_NUM_THREADS": "1"}
     launches = {
         name: (_launch("repro.launch.serve", args, xla),
                _launch("repro_torch.launch.serve", ["--device", "cpu",

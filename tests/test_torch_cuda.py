@@ -424,13 +424,14 @@ def test_flash_attention_matches_plain(dev, case, dtype, causal):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("dims", flash_attention.HEAD_DIMS,
                          ids=lambda d: f"{d[0]}-{d[1]}")
 def test_flash_attention_tile_boundaries(dev, dims, G, dtype, causal):
     """Every (hd, hdv) instance at S one token either side of the 64-row
-    query and key tiles and on them, at two tiles and one, and at 1; one
-    and eight query heads a kv head; queries scaled so each score has a
+    query and key tiles and on them, at two tiles and one, and at 1; one,
+    four (a qwen3-30b-a3b rank at tp = 8: 4 query heads, the one kv head
+    they read) and eight query heads a kv head; queries scaled so each score has a
     standard deviation of 3 (a peaked softmax, where a probability rounded
     to bf16 before P.V moves the output by more than its own rounding).
     In bf16 the output is the f32 answer rounded once."""
@@ -1245,16 +1246,17 @@ def test_slot_decode_step_runs_with_no_host_sync(dev, model):
 
 # ----------------------------------------------- several logical devices
 
-def _booted_dp(dev, ndev, tp=1, **knobs):
-    """A reduced (2-layer) qwen3-30b-a3b in bf16 booted on ``ndev``
-    logical devices of the one card (DP = ndev / tp)."""
+def _booted_dp(dev, ndev, tp=1, model=(), **knobs):
+    """A reduced (2-layer) qwen3-30b-a3b in bf16 (its fields replaced by
+    ``model``'s pairs) booted on ``ndev`` logical devices of the one card
+    (DP = ndev / tp)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hmm import HMM
     from repro_torch.core.topology import ElasticConfig
     from repro_torch.distributed.sharding import make_instance_mesh
     from repro_torch.serving.engine import engine_parallel_ctx
     cfg = dataclasses.replace(get_config("qwen3-30b-a3b-smoke"),
-                              dtype="bfloat16")
+                              dtype="bfloat16", **dict(model))
     ecfg = ElasticConfig(ndev // tp, tp, tuple(range(ndev)))
     hmm = HMM(cfg, tp, batch_per_replica=2, max_len=128, seed=0,
               all_devices=[dev] * ndev, device=dev, **knobs)
@@ -1348,8 +1350,10 @@ def test_multi_device_steps_run_with_no_host_sync(dev, store):
 # ------------------------------------------------- a TP rank's head range
 
 # (query heads of the rank, its kv heads, the pool's kv heads, offset):
-# qwen3-30b-a3b's (16, 2) at tp = 2 and (8, 1) at tp = 4 over its 4 heads
-HEAD_RANGES = [(16, 2, 4, 0), (16, 2, 4, 2), (8, 1, 4, 0), (8, 1, 4, 3)]
+# qwen3-30b-a3b's (16, 2) at tp = 2, (8, 1) at tp = 4 and (4, 1) at tp = 8
+# (half a kv head a rank: its 4 query heads read one kv head) over its 4
+HEAD_RANGES = [(16, 2, 4, 0), (16, 2, 4, 2), (8, 1, 4, 0), (8, 1, 4, 3),
+               (4, 1, 4, 1), (4, 1, 4, 3)]
 
 
 def _offset_pools(gen, shape, store, dev):
@@ -1512,6 +1516,81 @@ def test_tp_steps_run_with_no_host_sync(dev, store):
     # chip_smoke.py's e2e rule for bf16: a one-ulp difference may flip a
     # near-tied expert choice
     assert ((got - want).norm() / want.norm()).item() < 0.25
+
+
+# qwen3-30b-a3b's attention at full width (32 query heads, 4 kv heads of
+# 128) in the reduced model: at tp = 8 a rank holds half a kv head
+QWEN3_HEADS = (("num_heads", 32), ("num_kv_heads", 4), ("head_dim", 128))
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_tp8_cut_head_steps_graphed_equal_eager_with_no_host_sync(dev,
+                                                                  store):
+    """DP1 x TP8 on 8 logical devices of the card, qwen3-30b-a3b's heads
+    (each rank 64 of a kv head's 128 columns): the paged decode step and a
+    chunk step run with no host sync and write every rank's copy of the
+    cache (L * tp KV writes each), the copies stay equal, each step
+    captured with ``core.graphs.capture`` replays the eager step's logits
+    bit for bit, and the logits agree with the plain versions'."""
+    from repro_torch.core.graphs import capture
+    from repro_torch.models import model as M
+    knobs = dict(PAGED)
+    if store == "int8":
+        knobs.update(kv_dtype="int8", expert_dtype="int8")
+    cfg, hmm, ctx = _booted_dp(dev, 8, tp=8, model=QWEN3_HEADS, **knobs)
+    params, cache, L = hmm.params, hmm.cache, cfg.num_layers
+    for leaf in cache.values():                 # the same earlier contents
+        first = leaf.shard(0)                   # in every rank's copy
+        if first.dtype == torch.int8:
+            first.random_(-127, 128)
+        elif first.dtype == torch.float32 and first.dim() == 3:
+            first.uniform_(0.01, 0.03)
+        else:
+            first.normal_()
+        for d in range(1, 8):
+            leaf.shard(d).copy_(first)
+    NB = 32
+    bt = torch.full((2, 8), NB, dtype=torch.int32)
+    bt[0, :2], bt[1, :3] = torch.tensor([5, 9]), torch.tensor([7, 1, 30])
+    bt = bt.to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1), dtype=torch.int32,
+                           device=dev)
+    lens = torch.tensor([20, 40], dtype=torch.int32, device=dev)
+    wb = torch.tensor([9, 30], dtype=torch.int32, device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, 32), dtype=torch.int32,
+                          device=dev)
+    ids = torch.tensor([7, NB], dtype=torch.int32, device=dev)
+    start = torch.tensor([0], dtype=torch.int32, device=dev)
+    length = torch.tensor([20], dtype=torch.int32, device=dev)
+    steps = {
+        "decode": lambda: M.paged_decode_step(
+            cfg, params, tokens, cache, lens, bt, wb, parallel=ctx)[0],
+        "chunk": lambda: M.paged_chunk_prefill_step(
+            cfg, params, chunk, cache, start, length, bt[1:2], ids,
+            parallel=ctx)[0]}
+    stream, pool = torch.cuda.Stream(), torch.cuda.graph_pool_handle()
+    for name, fn in steps.items():
+        fn()                                 # builds and loads the kernels
+        snapshot = {n: {d: t.clone() for d, t in leaf.shards.items()}
+                    for n, leaf in cache.items()}
+        ops.reset_launch_counts()
+        with _no_host_sync():
+            want = fn().clone()
+        assert ops.launch_counts()["kv_cache_write"] == L * 8, name
+        for leaf in cache.values():
+            for d in range(1, 8):
+                assert torch.equal(leaf.shard(d), leaf.shard(0)), name
+        g = capture(fn, stream, pool)
+        for _ in range(2):
+            got = g.replay().clone()
+            assert torch.equal(got, want), (name, (got - want).abs().max())
+        for n, leaf in cache.items():
+            for d, t in leaf.shards.items():
+                t.copy_(snapshot[n][d])
+        with ops.use_reference():
+            plain = fn().float()
+        # chip_smoke.py's e2e rule for bf16
+        assert ((want.float() - plain).norm() / plain.norm()).item() < 0.25
 
 
 # ------------------------------------------------ scaling while serving

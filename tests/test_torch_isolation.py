@@ -289,15 +289,18 @@ def test_use_reference_is_scoped():
 
 
 NOT_PORTED = {
-    # a tp that cuts MCFG's two kv heads (the head-cutting TP slice)
-    "tp": 4,
+    # a tp that cuts an MLA model's heads (MLA's head-cutting TP slice; a
+    # standard-attention model is served at such a tp)
+    "tp": ("deepseek-v2-lite-16b-smoke", 3, "MLA's head-cutting TP slice"),
 }
 
 
 @pytest.mark.parametrize("knob", sorted(NOT_PORTED))
 def test_knobs_outside_the_slice_raise(knob):
-    with pytest.raises(NotImplementedError):
-        ElasticServer(MCFG, **{**SERVER_KW, knob: NOT_PORTED[knob]},
+    from repro_torch.configs import get_config
+    name, value, slice_ = NOT_PORTED[knob]
+    with pytest.raises(NotImplementedError, match=slice_):
+        ElasticServer(get_config(name), **{**SERVER_KW, knob: value},
                       device="cpu")
 
 
@@ -414,20 +417,22 @@ def test_int8_cache_of_other_dtype_raises():
 
 def test_more_than_one_device_raises():
     """Several logical devices serve a standard-attention decoder at any
-    tp that keeps every head whole (``tests/test_torch_scale.py``,
+    tp, also one that cuts a head (``tests/test_torch_scale.py``,
     ``tests/test_torch_tp.py``), and the MLA and Mamba2 models too
     (``tests/test_torch_scale_mla.py``, ``tests/test_torch_scale_ssm.py``):
     deepseek-v2-lite and mamba2-1.3b boot on two.  What they do not serve
-    yet raises ``NotImplementedError`` naming its slice — a tp that cuts a
-    kv head — and a configuration naming a logical device that
+    yet raises ``NotImplementedError`` naming its slice — a tp that cuts an
+    MLA model's heads — and a configuration naming a logical device that
     ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
     another device."""
     from repro_torch.configs import get_config
     srv = ElasticServer(MCFG, **SERVER_KW, device="cpu")
     with pytest.raises(ValueError, match="not in all_devices"):
         srv.boot(ElasticConfig(2, 1, (0, 1)))
-    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
-        ElasticServer(MCFG, **{**SERVER_KW, "tp": 4}, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="MLA's head-cutting TP slice"):
+        ElasticServer(get_config("deepseek-v2-lite-16b-smoke"),
+                      **{**SERVER_KW, "tp": 3}, device="cpu")
     cpu2 = [torch.device("cpu")] * 2
     for name in ("deepseek-v2-lite-16b-smoke", "mamba2-1.3b-smoke"):
         hmm = HMM(get_config(name), 1, batch_per_replica=2, max_len=64,

@@ -35,12 +35,14 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from helpers import REPO, TEST_MOE
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.elastic_engine import ElasticServer
@@ -228,20 +230,44 @@ REQS = [(_rng.integers(0, 128, n).tolist(), out)
         for n, out in zip([10, 37, 16, 23, 30, 45], [20, 12, 24, 9, 15, 18])]
 
 
+# the reference subprocess's XLA: 8 simulated host devices, each op on one
+# thread (an XLA CPU client otherwise sizes its Eigen pool to the whole
+# host, and these processes run beside the suite's test workers)
+REF_XLA_FLAGS = ("--xla_force_host_platform_device_count=8 "
+                 "--xla_cpu_multi_thread_eigen=false "
+                 "intra_op_parallelism_threads=1")
+REF_TIMEOUT_S = 600
+
+
 def _start(script, out):
-    env = dict(os.environ,
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+    env = dict(os.environ, XLA_FLAGS=REF_XLA_FLAGS, OMP_NUM_THREADS="1",
                PYTHONPATH=os.path.join(REPO, "src"))
-    return subprocess.Popen([sys.executable, "-c", script, str(out)],
+    proc = subprocess.Popen([sys.executable, "-c", script, str(out)],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    return proc
 
 
 def _wait(proc, what):
-    out, err = proc.communicate(timeout=600)
+    """The reference's standard output, or an error with its rc (or the
+    seconds it ran before its time ran out: then it is killed and reaped,
+    so it holds no core for the rest of the run) and its stderr's tail."""
+    try:
+        out, err = proc.communicate(timeout=REF_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(
+            f"reference {what} did not finish in {REF_TIMEOUT_S} s (killed "
+            f"after {time.perf_counter() - proc.started:.0f} s since its "
+            f"start)\n{out[-2000:]}\n{err[-4000:]}") from None
     if proc.returncode != 0:
         raise AssertionError(f"reference {what} failed (rc="
-                             f"{proc.returncode})\n{out}\n{err[-4000:]}")
+                             f"{proc.returncode}, after "
+                             f"{time.perf_counter() - proc.started:.0f} s)"
+                             f"\n{out}\n{err[-4000:]}")
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -255,6 +281,16 @@ def ref(tmp_path_factory):
     for proc, what in procs:
         _wait(proc, what)
     return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The steps are tiny: one intra-op thread (the suite runs several
+    test workers on the host's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tree(path):
@@ -561,10 +597,11 @@ def test_scale_up_tokens_equal_unscaled_and_reference(ref, name):
 
 
 def test_server_refuses_what_is_not_ported(ref):
-    """Scaling to (or from) one device and a TP degree that cuts a kv head
-    are refused, naming what is missing; a server scale-down is ported
-    (``tests/test_torch_scaledown.py``), and so is serving at a
-    head-aligned tp > 1 (``tests/test_torch_tp.py``)."""
+    """Scaling to (or from) one device and an MLA model at a TP degree
+    that cuts its heads are refused, naming what is missing; a server
+    scale-down is ported (``tests/test_torch_scaledown.py``), and so is
+    standard attention at any tp > 1, also one that cuts a kv head
+    (``tests/test_torch_tp.py``)."""
     srv = ElasticServer(_mcfg(), tp=1, batch_per_replica=2, max_len=128,
                         all_devices=CPU8, device="cpu",
                         prefill_buckets=(32, 64))
@@ -572,6 +609,8 @@ def test_server_refuses_what_is_not_ported(ref):
     with pytest.raises(NotImplementedError, match="one device"):
         srv.stage_scale(_cfg(1))
     assert srv.hmm.staged is None and srv.engine.admit_limit is None
-    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
-        ElasticServer(_mcfg(num_kv_heads=2), tp=4, batch_per_replica=2,
-                      max_len=128, all_devices=CPU8, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="MLA's head-cutting TP slice"):
+        ElasticServer(get_config("deepseek-v2-lite-16b-smoke"), tp=3,
+                      batch_per_replica=2, max_len=128, all_devices=CPU8,
+                      device="cpu")

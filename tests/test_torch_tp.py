@@ -34,9 +34,19 @@ devices.  Held:
   the reference's and the port's monolithic run's; DP2 x TP2 -> DP3 x TP2
   opened while prompts are mid-chunk, tokens and byte fields equal the
   reference's;
-* a TP degree that cuts a head raises ``NotImplementedError`` naming its
-  slice; a vocabulary that does not split over the ranks stays whole on
-  each (the sharding rule) and gives the one-device logits;
+* a TP degree that cuts a head — (H, KVH, tp) = (4, 2, 4), (6, 6, 4),
+  (4, 1, 2) and (4, 4, 3): a rank holds half a kv head, one and a half
+  query heads, half of the one kv head, or (no width dividing by 3) the
+  whole weights, of which it keeps a third of the output columns — the
+  same six steps (``chunk_prefill_step``
+  too) at DP2 x tp against the reference's one-device steps within 1e-5,
+  every rank's copy bitwise equal, also for bf16 and int8 stores;
+  ``ElasticServer`` with 2 kv heads at tp = 4, DP1 x TP4 -> DP2 x TP4
+  (paged KV, pooled pages, chunks of 16): greedy tokens and every
+  ``TransferStats.BYTE_FIELDS`` value equal the reference's; an MLA model
+  at a tp that cuts its heads still raises, naming its slice;
+* a vocabulary that does not split over the ranks stays whole on each
+  (the sharding rule) and gives the one-device logits;
 * the plain attention versions at a kv head offset equal the plain
   versions on the heads sliced out, and the TP sums and gathers add and
   join in rank order.
@@ -50,6 +60,7 @@ import torch
 
 from test_torch_scale import (CHUNKED, COMMON, CPU8, DENSE, REQS, TOL,
                               _mcfg, _start, _stats, _tree, _wait)
+from repro_torch.configs import get_config
 from repro_torch.core.elastic_engine import ElasticServer
 from repro_torch.core.hmm import HMM
 from repro_torch.core.topology import ElasticConfig
@@ -123,7 +134,7 @@ from repro.core.elastic_engine import ElasticServer
 from repro.core.hmm import HMM, TransferStats
 from repro.models import model as JM
 from repro.serving.workload import Request
-PARAMS, SERVERS, REQS = %s, %s, %s
+PARAMS, SERVERS, REQS, CUT, CUT_SERVER = %s, %s, %s, %s, %s
 MAX_LEN, NBL, BS = %d, %d, %d
 
 def stats(st):
@@ -135,7 +146,8 @@ for name, (model, dp, tp, kw) in PARAMS.items():
     mcfg = {"moe": MCFG, "dense": DENSE,
             "moe_shared": dataclasses.replace(MCFG, num_shared_experts=1),
             "moe_residual": dataclasses.replace(MCFG, dense_residual=True),
-            }[model]
+            }[model] if model not in CUT else dataclasses.replace(
+                MCFG, num_heads=CUT[model][0], num_kv_heads=CUT[model][1])
     hmm = HMM(mcfg, tp=tp, batch_per_replica=2, max_len=MAX_LEN, **kw)
     hmm.boot(cfg(dp, tp))
     np.savez(f"{OUT}/p_{name}.npz", **flat(hmm.params))
@@ -204,7 +216,34 @@ for name, (model, dp, tp, kw) in PARAMS.items():
         np.int32(start), np.int32(length), gtl, ids + NBL)
     io["ch_logits"] = np.asarray(lg)
     io["ch_k_out"], io["ch_v_out"] = np.asarray(c["k"]), np.asarray(c["v"])
+    if model in CUT:
+        # the same tokens as a chunk at 16 (a multiple of C, as the engine
+        # starts its chunks), context 29, into slot 3 (replica 1's row 1)
+        # of the slot cache
+        lg, c = JM.chunk_prefill_step(
+            mcfg, p, tok, {n: jnp.asarray(io["dec_" + n]) for n in ("k", "v")},
+            np.int32(16), np.int32(16 + length - start), np.int32(3))
+        io["dc_logits"] = np.asarray(lg)
+        io["dc_k_out"], io["dc_v_out"] = np.asarray(c["k"]), np.asarray(c["v"])
     np.savez(f"{OUT}/io_{name}.npz", **io)
+
+def serve(srv, target):
+    reqs = [Request(i, 0.0, len(pr), out, prompt=np.asarray(pr, np.int32))
+            for i, (pr, out) in enumerate(REQS)]
+    for r in reqs:
+        srv.submit(r)
+    t, n, staged = 0.0, 0, None
+    while any(r.finish_s is None for r in reqs):
+        if n == 5:
+            staged = stats(srv.stage_scale(target).stats)
+            srv.tick(t); t += .1; n += 1
+            srv.switchover()
+            continue
+        srv.tick(t); t += .1; n += 1
+        assert n < 500
+    return {"tokens": {str(r.rid): srv.engine.generated[r.rid]
+                       for r in reqs},
+            "staged": staged, "final": stats(srv.events[-1].stats)}
 
 for name, kw in SERVERS.items():
     srv = ElasticServer(MCFG, tp=2, batch_per_replica=2, max_len=128,
@@ -218,22 +257,14 @@ for name, kw in SERVERS.items():
                                   "prefill_budget")})
         hmm.boot(cfg(3, 2))
         np.savez(f"{OUT}/serve_{name}_dp3.npz", **flat(hmm.params))
-    reqs = [Request(i, 0.0, len(pr), out, prompt=np.asarray(pr, np.int32))
-            for i, (pr, out) in enumerate(REQS)]
-    for r in reqs:
-        srv.submit(r)
-    t, n, staged = 0.0, 0, None
-    while any(r.finish_s is None for r in reqs):
-        if n == 5:
-            staged = stats(srv.stage_scale(cfg(3, 2)).stats)
-            srv.tick(t); t += .1; n += 1
-            srv.switchover()
-            continue
-        srv.tick(t); t += .1; n += 1
-        assert n < 500
-    res[name] = {"tokens": {str(r.rid): srv.engine.generated[r.rid]
-                            for r in reqs},
-                 "staged": staged, "final": stats(srv.events[-1].stats)}
+    res[name] = serve(srv, cfg(3, 2))
+
+# two kv heads at tp = 4: each rank holds half a kv head
+srv = ElasticServer(dataclasses.replace(MCFG, num_kv_heads=2), tp=4,
+                    batch_per_replica=2, max_len=128, seed=0, **CUT_SERVER)
+srv.boot(cfg(1, 4))
+np.savez(f"{OUT}/serve_cut.npz", **flat(srv.hmm.params))
+res["cut"] = serve(srv, cfg(2, 4))
 
 exec(DENSE_CHUNK)
 for em in ("dense", "pooled"):
@@ -258,7 +289,20 @@ PARAMS = {
     "dense": ("dense", 2, 2, {}),
     "moe_shared": ("moe_shared", 2, 2, {}),
     "moe_residual": ("moe_residual", 2, 2, {}),
+    "cut_kvh2": ("cut_kvh2", 2, 4, {}),
+    "cut_h6": ("cut_h6", 2, 4, {}),
+    "cut_kvh1": ("cut_kvh1", 2, 2, {}),
+    "cut_tp3": ("cut_tp3", 2, 3, {}),
 }
+# the head-cutting weights: (query heads, kv heads, tp); at tp = 3 no
+# width splits (64 % 3), so q, k, v, o and the MLP stay whole on each rank
+CUT = {"cut_kvh2": (4, 2, 4), "cut_h6": (6, 6, 4), "cut_kvh1": (4, 1, 2),
+       "cut_tp3": (4, 4, 3)}
+CUT_IDS = {"cut_kvh2": "kvh2-tp4", "cut_h6": "h6-tp4", "cut_kvh1": "kvh1-tp2",
+           "cut_tp3": "h4-tp3"}
+# the head-cutting server: two kv heads at tp = 4, chunks of 16
+CUT_SERVER = dict(CHUNKED, prefill_chunk=16, prefill_budget=32,
+                  prefill_buckets=(16,))
 # (weights, tp): the dense banks and the dense model hold the same global
 # numbers at either tp
 CASES = [("moe_dense", 2), ("moe_dense", 4), ("moe_pooled_tp2", 2),
@@ -279,9 +323,20 @@ def ref_tp(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp_ref")
     proc = _start("DENSE_CHUNK = " + repr(DENSE_CHUNK) + "\n"
                   + SCRIPT % (repr(PARAMS), repr(SERVERS), repr(REQS),
-                              MAX_LEN, NBL, BS), out)
+                              repr(CUT), repr(CUT_SERVER), MAX_LEN, NBL,
+                              BS), out)
     _wait(proc, "TP steps and servers")
     return out
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The steps are tiny: one intra-op thread (the suite runs several
+    test workers on the host's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(dp, tp):
@@ -289,6 +344,8 @@ def _cfg(dp, tp):
 
 
 def _model(name):
+    if name in CUT:
+        return _mcfg(num_heads=CUT[name][0], num_kv_heads=CUT[name][1])
     return {"moe": _mcfg(), "dense": DENSE,
             "moe_shared": _mcfg(num_shared_experts=1),
             "moe_residual": _mcfg(dense_residual=True)}[PARAMS[name][0]]
@@ -334,7 +391,24 @@ def _close(got, want):
 @pytest.mark.parametrize("step", STEPS)
 @pytest.mark.parametrize("case", CASES, ids=[f"{n}-tp{t}" for n, t in CASES])
 def test_tp_steps_match_one_device_reference(ref_tp, case, step):
-    name, tp = case
+    _check_step(ref_tp, *case, step)
+
+
+@pytest.mark.parametrize("step", STEPS + ["chunk_prefill_step"])
+@pytest.mark.parametrize("name", sorted(CUT), ids=[CUT_IDS[n]
+                                                   for n in sorted(CUT)])
+def test_a_head_cutting_tp_matches_one_device_reference(ref_tp, name, step):
+    """Heads that do not split evenly over tp: each rank gathers q, k and
+    v, attends the query heads covering its columns of ``o`` against the
+    kv heads they read, and the steps equal the reference's one-device
+    steps on the same weights."""
+    _check_step(ref_tp, name, CUT[name][2], step)
+
+
+def _check_step(ref_tp, name, tp, step):
+    """The port's ``step`` at DP2 x ``tp`` on the weights ``name`` against
+    the reference's one-device step: logits and cache rows within TOL,
+    every TP rank's copy of the cache bitwise equal."""
     io = dict(np.load(ref_tp / f"io_{name}.npz"))
     t = {k: torch.from_numpy(v) for k, v in io.items()}
     paged = step.startswith("paged")
@@ -371,6 +445,14 @@ def test_tp_steps_match_one_device_reference(ref_tp, case, step):
         _close(lg, io["pd_logits"])
         for n in ("k", "v"):
             _close(cache[n].gather(), io[f"pd_{n}_out"])
+    elif step == "chunk_prefill_step":
+        _fill(cache, {n: io["dec_" + n] for n in ("k", "v")})
+        lg, cache = TM.chunk_prefill_step(
+            cfg, params, t["ch_tokens"], cache, 16, 29, 1, parallel=ctx,
+            replica=1)                          # slot 3: replica 1, row 1
+        _close(lg, io["dc_logits"])
+        for n in ("k", "v"):
+            _close(cache[n].gather(), io[f"dc_{n}_out"])
     else:
         _fill(cache, {n: io["pd_" + n] for n in ("k", "v")})
         lg, cache = TM.paged_chunk_prefill_step(
@@ -388,7 +470,20 @@ def test_tp_copies_stay_bitwise_equal(store):
     TP2: a paged decode step, a chunk step, a prefill written into the
     pool, then (slot cache) a decode step and a prefill written into a
     slot leave every rank's copy of the cache equal to rank 0's."""
-    cfg = _mcfg(dtype="bfloat16")
+    _copies_stay_equal(store, 4, 4, 2)
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "int8"])
+@pytest.mark.parametrize("name", sorted(CUT), ids=[CUT_IDS[n]
+                                                   for n in sorted(CUT)])
+def test_a_head_cutting_tp_keeps_the_copies_bitwise_equal(name, store):
+    """The same steps at a tp that cuts a head: every rank writes the
+    gathered rows of all heads (an int8 row quantized over all of them)."""
+    _copies_stay_equal(store, *CUT[name])
+
+
+def _copies_stay_equal(store, H, KVH, tp):
+    cfg = _mcfg(dtype="bfloat16", num_heads=H, num_kv_heads=KVH)
     int8 = dict(kv_dtype="int8", expert_dtype="int8") \
         if store == "int8" else {}
     gen = torch.Generator().manual_seed(0)
@@ -398,13 +493,13 @@ def test_tp_copies_stay_bitwise_equal(store):
                           dtype=torch.int32)
     lens = torch.tensor([5, 17, 30, 9], dtype=torch.int32)
     for kv_mode in ("paged", "dense"):
-        hmm = HMM(cfg, 2, batch_per_replica=2, max_len=MAX_LEN,
+        hmm = HMM(cfg, tp, batch_per_replica=2, max_len=MAX_LEN,
                   all_devices=CPU8, device="cpu", kv_mode=kv_mode,
                   kv_block_size=BS, kv_blocks_per_replica=NBL,
                   expert_mode="pooled", **(int8 if kv_mode == "paged"
                                            else {}))
-        hmm.boot(_cfg(2, 2))
-        ctx = engine_parallel_ctx(make_instance_mesh(_cfg(2, 2), CPU8))
+        hmm.boot(_cfg(2, tp))
+        ctx = engine_parallel_ctx(make_instance_mesh(_cfg(2, tp), CPU8))
         params, cache = hmm.params, hmm.cache
         if kv_mode == "paged":
             bt = torch.tensor([[0, 1, 8, 8], [2, 3, 4, 8], [0, 1, 2, 3],
@@ -459,6 +554,40 @@ def _serve(name, params, scale, boot_dp=2):
     tokens = {str(r.rid): srv.engine.generated[r.rid] for r in reqs}
     final = _stats(srv.events[-1].stats) if scale else None
     return tokens, staged, final
+
+
+def test_a_head_cutting_tp_server_scales_up_as_the_reference(ref_tp):
+    """Two kv heads at tp = 4 (half a kv head a rank), paged KV, pooled
+    pages, chunks of 16: DP1 x TP4 -> DP2 x TP4 at the 5th tick gives the
+    reference server's greedy tokens and every byte field, staged and
+    committed, and every TP rank's copy of the cache stays equal."""
+    want = json.load(open(ref_tp / "serve.json"))["cut"]
+    srv = ElasticServer(_mcfg(num_kv_heads=2), tp=4, batch_per_replica=2,
+                        max_len=128, seed=0, all_devices=CPU8, device="cpu",
+                        **CUT_SERVER)
+    srv.boot(_cfg(1, 4), params=_tree(ref_tp / "serve_cut.npz"))
+    reqs = [Request(i, 0.0, len(pr), out, prompt=np.asarray(pr, np.int32))
+            for i, (pr, out) in enumerate(REQS)]
+    for r in reqs:
+        srv.submit(r)
+    t, n, staged = 0.0, 0, None
+    while any(r.finish_s is None for r in reqs):
+        if n == 5:
+            staged = _stats(srv.stage_scale(_cfg(2, 4)).stats)
+            srv.tick(t)
+            t, n = t + .1, n + 1
+            srv.switchover()
+            assert srv.engine.num_slots == 4
+            continue
+        srv.tick(t)
+        t, n = t + .1, n + 1
+        assert n < 500
+    _assert_copies_equal(srv.engine.cache, srv.engine.parallel)
+    assert {str(r.rid): srv.engine.generated[r.rid]
+            for r in reqs} == want["tokens"]
+    final = _stats(srv.events[-1].stats)
+    assert staged == want["staged"] and final == want["final"]
+    assert final["p2p_bytes"] > 0 and final["zero_copy_bytes"] > 0
 
 
 @pytest.mark.parametrize("name", sorted(SERVERS))
@@ -527,22 +656,23 @@ def test_dense_kv_scale_up_mid_chunk_equals_reference(ref_tp):
 
 # ----------------------------------------------------------- what raises
 
-@pytest.mark.parametrize("heads", [(4, 2, 4), (6, 6, 4), (4, 1, 2)],
-                         ids=["kvh2-tp4", "h6-tp4", "kvh1-tp2"])
-def test_a_head_cutting_tp_raises(heads):
-    """Heads that do not split evenly over tp: the server, the HMM and a
-    model step refuse them, naming the slice that will port them."""
-    H, KVH, tp = heads
-    cfg = _mcfg(num_heads=H, num_kv_heads=KVH)
-    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
+@pytest.mark.parametrize("tp", [3, 8])
+def test_an_mla_head_cutting_tp_raises(tp):
+    """deepseek-v2-lite (4 heads at its reduced size) at a tp that cuts a
+    head: the server, the HMM and a model step refuse it, naming MLA's own
+    slice."""
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    assert cfg.use_mla and cfg.num_heads % tp
+    match = "MLA's head-cutting TP slice"
+    with pytest.raises(NotImplementedError, match=match):
         ElasticServer(cfg, tp=tp, batch_per_replica=2, max_len=64,
                       all_devices=CPU8, device="cpu")
     hmm = HMM(cfg, tp, batch_per_replica=2, max_len=64, all_devices=CPU8,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
-        hmm.boot(_cfg(2, tp))
-    ctx = engine_parallel_ctx(make_instance_mesh(_cfg(2, tp), CPU8))
-    with pytest.raises(NotImplementedError, match="head-cutting TP slice"):
+    with pytest.raises(NotImplementedError, match=match):
+        hmm.boot(_cfg(8 // tp, tp))
+    ctx = engine_parallel_ctx(make_instance_mesh(_cfg(8 // tp, tp), CPU8))
+    with pytest.raises(NotImplementedError, match=match):
         TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
                    parallel=ctx)
 
