@@ -68,7 +68,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    at a TP rank's heads of the replicated cache (``kv_head_offset``):
    qwen3-30b-a3b's 16 query and 2 kv heads (tp = 2) and 8 and 1 (tp =
    4) from head 0 and past it (heads 2 and 3), bf16 and int8 rows, held
-   to the same rules and timed past head 0.
+   to the same rules and timed past head 0; the block-paged decode and
+   the mixed attention at group 16 (chatglm3-6b's 32 query heads over a
+   pool of 2 kv heads), bf16 (timed) and f32; the MLA decode at a tp = 3
+   rank's 6 heads (B = 2 and 8) and, bf16, a tp = 32 rank's one, and
+   flash at MLA's widths with 6 heads (S = 1024 and 192).
    Both GMMs also at the expert-parallel shapes of ``serve_scale``: a
    device's table of 32 slots (DP4) or 22 with a pad slot on page 0
    (DP6), over the rows n_ep * C of a decode step and of a chunk step.
@@ -147,7 +151,16 @@ Phases, each of which raises on failure (no phase's failure is caught):
    pages: a monolithic prefill of a 200-token prompt into one slot, then
    three decode steps of 8 slots (one full: its writes drop), through the
    kernels and through ``ops.use_reference()``, held to the e2e rules
-   above; layer 0's latent rows must be equal on both paths.
+   above; layer 0's latent rows must be equal on both paths.  Then,
+   pooled pages, at a tp that cuts a head (``tp`` logical devices of the
+   card, DP1): tp = 3 (q 1,024 columns a rank, mid-head; k_up, v_up and
+   o whole; each rank attends 6 heads) in f32 and bf16, tp = 32 (every
+   leaf cut: q 96 columns, k_up / v_up 64, o 64 rows; one head a rank)
+   in bf16, the same prefill (the engine's, into every rank's copy) and
+   decode steps held to the same rules, every rank's copy equal to rank
+   0's, and per rank one MLA decode and one latent write a layer a step
+   and one flash attention a layer a prefill; at tp = 32 in f32 the boot
+   must raise under "MLA head count".
 8. ``serve_mla`` and ``serve_mla_pooled``: the same requests on
    deepseek-v2-lite-16b at full depth (27 layers) with the reference's
    default knobs, and with ``expert_mode="pooled"``; each decode step
@@ -170,6 +183,13 @@ Phases, each of which raises on failure (no phase's failure is caught):
    ``ssd_scan`` once per SSD layer and, zamba2, ``flash_attention`` once
    per group; each zamba2 decode step ``paged_decode_attention`` and
    ``kv_cache_write`` once per group; mamba2 no attention kernel.
+   ``serve_chatglm3``: the same requests on chatglm3-6b at full width and
+   depth (28 layers, 32 query heads over 2 kv heads, half rotary, QKV
+   bias; no experts), paged KV, chunks of 128, bf16; each decode step
+   must launch ``block_paged_decode_attention`` once per layer (group
+   16), each chunk step ``mixed_block_paged_attention`` once per layer;
+   it prints the decode floor, the bytes of the weights a tick reads at
+   the card's memory rate.
    Every serve phase runs its decode step, and its chunk step or every
    bucket's monolithic prefill, as the IMM's CUDA graphs (captured at
    boot, replayed by the engine; each replay counts the launches its
@@ -202,6 +222,11 @@ Phases, each of which raises on failure (no phase's failure is caught):
    Each case prints the rows whose top-k expert set differs between the
    two runs and the logits' relative error of the decode rows with and
    without such a flip (a flip tells a near-tied choice from a fault).
+   Last, bf16 with dense KV and dense expert banks on DP4, one decode
+   step of the 8 slots with ``moe_ep``'s expert-slot dispatch and with
+   the packed one (``ParallelCtx.moe_dispatch="packed"``), each held to
+   the e2e bf16 rule against its plain versions and profiled (device
+   ms), with each dispatch's capacity and expert-row products a device.
 12. ``serve_scale``: ``ElasticServer`` serving the ``serve`` requests
    (8 prompts of 200-1000 tokens, 32 output tokens) on qwen3-30b-a3b at
    full width and 4 layers with paged KV, pooled experts and chunked
@@ -316,7 +341,13 @@ Phases, each of which raises on failure (no phase's failure is caught):
    with no prefill) before, during and after the scale-up, in the drain
    and after it, the drain's seconds and the card; the graphed run also
    profiles three replays of the source's decode graph (every slot
-   active) before the requests arrive, the cache restored after them.
+   active) before the requests arrive and of the target's right after
+   the switchover, the cache restored after them (their launches are
+   not counted).
+18a. ``serve_scale_mla_tp3``: the same at tp = 3, DP1 x TP3 -> DP2 x TP3
+   -> DP1 x TP3 (3 and 6 logical devices; q cut mid-head, each rank
+   attending 6 heads; a DP1 source's KV is allocated anew for every
+   replica at the scale-up, as the reference's ``_grow_cache`` does).
 19. ``serve_scale_zamba2``: the same on zamba2-2.7b at full width and
    6 layers (one group), bf16, DP4 -> DP6 -> DP4 at tp = 1 (14 requests,
    16 tokens out):
@@ -457,6 +488,11 @@ D_MODEL, MOE_FF, N_EXP = 2048, 768, 128
 # v dim; experts and their width
 MLA_H, MLA_R, MLA_DR, MLA_DN, MLA_DV = 16, 512, 64, 128, 128
 MLA_FF, MLA_EXP = 1408, 64
+# the heads a tp = 3 rank attends (its 682-683 of o's 2,048 rows cover 6
+# heads of 128)
+MLA_TP3_HEADS = 6
+# chatglm3-6b's (query heads, kv heads, first kv head): group 16
+GLM_HEADS = (32, 2, 0)
 # the SSD scans of a 1,024-token prefill, (B, S, H, P, N, chunk):
 # mamba2-1.3b's and zamba2-2.7b's; zamba2's shared attention block's heads
 SSD_MAMBA2 = (1, 1024, 64, 64, 128, 256)
@@ -530,6 +566,10 @@ PATH_KERNELS = {
 for _p in ("serve_tp", "serve_overlap", "serve_down", "serve_down_tp"):
     PATH_KERNELS[_p] = PATH_KERNELS["serve_scale"]
 PATH_KERNELS["serve_tp8"] = PATH_KERNELS["serve"]
+PATH_KERNELS["serve_chatglm3"] = ("block_paged_decode_attention",
+                                  "mixed_block_paged_attention",
+                                  "kv_cache_write")
+PATH_KERNELS["serve_scale_mla_tp3"] = PATH_KERNELS["serve_scale_mla"]
 PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_rebalance"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_park"] = PATH_KERNELS["serve"]
@@ -647,36 +687,38 @@ def _tables(gen, lengths, NB, MB, need_extra=0):
     return bt
 
 
-def _kv_pools(gen, dtype, quant, NB):
-    """K/V pools for an attention case: (kernel arguments, pools for the
-    library call in q's dtype, K/V bytes per context token).  int8 pools
-    hold random entries and positive scales with row maxima in [0.3, 3]."""
+def _kv_pools(gen, dtype, quant, NB, kvh=KVH):
+    """K/V pools of ``kvh`` kv heads for an attention case: (kernel
+    arguments, pools for the library call in q's dtype, K/V bytes per
+    context token).  int8 pools hold random entries and positive scales
+    with row maxima in [0.3, 3]."""
     from repro_torch.kernels.quant import dequantize_rows
     if not quant:
-        k = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
-        v = torch.randn(NB, BS, KVH, HD, generator=gen).to(dtype).cuda()
-        return (k, v), (k, v), 2 * KVH * HD * k.element_size()
+        k = torch.randn(NB, BS, kvh, HD, generator=gen).to(dtype).cuda()
+        v = torch.randn(NB, BS, kvh, HD, generator=gen).to(dtype).cuda()
+        return (k, v), (k, v), 2 * kvh * HD * k.element_size()
     pools = []
     for _ in range(2):
-        p = torch.randint(-127, 128, (NB, BS, KVH, HD), generator=gen,
+        p = torch.randint(-127, 128, (NB, BS, kvh, HD), generator=gen,
                           dtype=torch.int8).cuda()
         sc = ((0.3 + 2.7 * torch.rand(NB, BS, generator=gen)) / 127).cuda()
         pools += [p, sc]
     lib = tuple(dequantize_rows(p, sc, (-2, -1)).to(dtype)
                 for p, sc in (pools[:2], pools[2:]))
-    return tuple(pools), lib, 2 * (KVH * HD + 4)
+    return tuple(pools), lib, 2 * (kvh * HD + 4)
 
 
 def _attention_case(kind, dtype, gen, timer, do_time, quant=False,
-                    heads=None):
+                    heads=None, pool_kvh=KVH):
     """``heads`` = (query heads, kv heads, offset): a TP rank's kv heads
-    of the 4-head pool from the offset (``kv_head_offset``); default all
-    of qwen3-30b-a3b's 32 and 4."""
+    of the ``pool_kvh``-head pool from the offset (``kv_head_offset``);
+    default all of qwen3-30b-a3b's 32 and 4."""
     from repro_torch.kernels import ops, ref
     NB, MB = 1024, MAX_LEN // BS
     nq, nkv, off = heads or (H, KVH, 0)
     rng = dict(kv_head_offset=off, kv_heads=nkv)
-    pools, (k_lib, v_lib), kv_tok_bytes = _kv_pools(gen, dtype, quant, NB)
+    pools, (k_lib, v_lib), kv_tok_bytes = _kv_pools(gen, dtype, quant, NB,
+                                                    pool_kvh)
     k_lib, v_lib = (t[:, :, off:off + nkv] for t in (k_lib, v_lib))
     kv_tok_bytes = (2 * nkv * HD * pools[0].element_size()
                     + (8 if quant else 0))
@@ -741,7 +783,7 @@ def _attention_case(kind, dtype, gen, timer, do_time, quant=False,
         io = nbytes(q, q, bt, ctx_t, ql_t)
         label = f"B=1 Sq={CHUNK} ctx={ctx} q_len={q_len} peaked"
     if heads:
-        label += f" H={nq} KVH={nkv} of {KVH} from head {off}"
+        label += f" H={nq} KVH={nkv} of {pool_kvh} from head {off}"
     got = kern()
     want = plain()
     torch.cuda.synchronize()
@@ -1294,7 +1336,17 @@ def phase_kernels():
         for lengths in (RANK_LENGTHS[:SCALE_BPR], RANK_LENGTHS):
             mla.append(_mla_case(lengths, MAX_LEN, dtype, gen, timer, timed,
                                  heads=MLA_H // 2))
-        for S, nh in ((1024, MLA_H), (192, MLA_H), (1024, MLA_H // 2)):
+        # where tp cuts a head: a tp = 3 rank's 6 heads (serve_scale_mla_
+        # tp3's 2 slots, e2e_mla's 8) and, in bf16, a tp = 32 rank's one
+        # (the f32 kernel takes even counts; e2e_mla)
+        for lengths in (RANK_LENGTHS[:SCALE_BPR], DECODE_LENGTHS):
+            mla.append(_mla_case(lengths, MAX_LEN, dtype, gen, timer, timed,
+                                 heads=MLA_TP3_HEADS))
+        if dtype == torch.bfloat16:
+            mla.append(_mla_case(DECODE_LENGTHS, MAX_LEN, dtype, gen, timer,
+                                 timed, heads=1))
+        for S, nh in ((1024, MLA_H), (192, MLA_H), (1024, MLA_H // 2),
+                      (1024, MLA_TP3_HEADS), (192, MLA_TP3_HEADS)):
             out["flash_attention"].append(_flash_case(
                 S, dtype, gen, timer, timed,
                 heads=(nh, nh, MLA_DN + MLA_DR, MLA_DV)))
@@ -1384,6 +1436,15 @@ def phase_kernels():
         out["paged_decode_attention"].append(_slot_decode_case(
             torch.bfloat16, gen, timer, off > 0, heads=(nq, KVH, HD),
             kv_range=(n, off)))
+    # group 16: chatglm3-6b's 32 query heads over its 2 kv heads
+    # (serve_chatglm3), a pool of 2 kv heads, bf16 (timed) and f32
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind, name in (("decode", "block_paged_decode_attention"),
+                           ((1000, 104), "mixed_block_paged_attention")):
+            rec, _ = _attention_case(kind, dtype, gen, timer,
+                                     dtype == torch.bfloat16,
+                                     heads=GLM_HEADS, pool_kvh=GLM_HEADS[1])
+            out[name].append(rec)
     torch.cuda.empty_cache()
     # qwen3-30b-a3b's expert-parallel shapes (serve_scale): each device's
     # table of Elm slots (32 at DP4; 22 at DP6, pad slots on page 0) over
@@ -1679,6 +1740,115 @@ def _e2e_mla(dtype_name, expert_mode):
             "max_abs_err": err, "rel_err": rel, "layer1_cache_err": layer1}
 
 
+def _e2e_mla_tp(dtype_name, tp):
+    """deepseek-v2-lite at full width, 2 layers, pooled pages, dense
+    latent KV, on DP1 x TP``tp`` (``tp`` logical devices of the card), at
+    a tp that cuts its heads: tp = 3 cuts q mid-head and leaves k_up,
+    v_up and o whole (each rank attends 6 heads); tp = 32 cuts every leaf
+    (each rank attends one head, half of its 128 columns of o).  As
+    ``_e2e_mla``: a monolithic prefill of a 200-token prompt (bucket 256)
+    into slot 2 of every rank's copy and three decode steps of the 8
+    slots, through the kernels and through ``ops.use_reference()`` from
+    the same cache (the same contents in every copy), held to the e2e
+    rules, every rank's copy equal to rank 0's after each run.  In f32 at
+    tp = 32 the boot must raise under "MLA head count" (the f32 MLA
+    decode kernel takes an even head count)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import _prefill_fn
+    tag = f"[e2e_mla tp={tp}]"
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=2, dtype=dtype_name)
+    ecfg = ElasticConfig(1, tp, tuple(range(tp)))
+    hmm = HMM(cfg, tp, batch_per_replica=BATCH, max_len=MAX_LEN, seed=1,
+              expert_mode="pooled", device="cuda",
+              all_devices=["cuda:0"] * tp)
+    heads = M.heads_a_rank(cfg, tp)
+    if dtype_name == "float32" and any(n % 2 for n in heads):
+        refused = None
+        try:
+            hmm.boot(ecfg)
+        except NotImplementedError as e:
+            refused = str(e)
+        require(refused is not None and "MLA head count" in refused,
+                f"{tag} f32 boot at {heads[0]} head a rank: {refused}")
+        log(f"{tag} float32: the boot raised as required: {refused}")
+        return {"dtype": dtype_name, "tp": tp, "refused": refused}
+    hmm.boot(ecfg)
+    attn = hmm.params["blocks"]["attn"]
+    widths = {k: attn[k]["w"].shard(0).shape[-1 if k != "o" else -2]
+              for k in ("q", "k_up", "v_up", "o")}
+    _fill_pool(hmm.cache, torch.Generator(device="cuda").manual_seed(2), tp)
+    ctx = _scale_ctx(ecfg, hmm)
+    cg = torch.Generator().manual_seed(3)
+    S, S_pad, slot, steps = 200, 256, 2, 3
+    tokens = torch.zeros(1, S_pad, dtype=torch.int32)
+    tokens[0, :S] = torch.randint(0, cfg.vocab_size, (S,), generator=cg)
+    lengths = [1900, 5, S, 1024, 77, 300, 1500, MAX_LEN]
+    dec_tokens = torch.randint(0, cfg.vocab_size, (steps, BATCH, 1),
+                               generator=cg)
+    args = [t.cuda() for t in (tokens, torch.tensor([S], dtype=torch.int32),
+                               dec_tokens,
+                               torch.tensor(lengths, dtype=torch.int32))]
+
+    def run():
+        c = _clone_pool(hmm.cache)
+        _, c = _prefill_fn(cfg, MAX_LEN, hmm.params, c, args[0], args[1],
+                           slot, parallel=ctx)
+        out = [M.prefill(cfg, hmm.params, {"tokens": args[0],
+                                           "lengths": args[1]},
+                         max_len=S_pad, parallel=ctx)[0]]
+        for i in range(steps):
+            ld, c = M.decode_step(cfg, hmm.params, args[2][i], c,
+                                  args[3] + i, parallel=ctx)
+            out.append(ld)
+        return torch.cat(out).float(), c
+
+    run()                                  # first calls: kernels loaded
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got, c_got = run()
+    counts = ops.launch_counts()
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    require(got.shape == (1 + steps * BATCH, cfg.vocab_size))
+    require(torch.isfinite(got).all() and torch.isfinite(want).all())
+    _require_copies_equal(c_got, ecfg, f"{tag} kernels")
+    _require_copies_equal(c_want, ecfg, f"{tag} plain versions")
+    # per rank: one MLA decode and one latent write a layer a step, two
+    # flash attentions a layer (the engine's prefill and the prefill)
+    L = cfg.num_layers
+    for name, n in (("mla_decode_attention", L * tp * steps),
+                    ("kv_cache_write", L * tp * steps),
+                    ("flash_attention", 2 * L * tp)):
+        require(counts[name] == n, f"{tag} {name}: {counts[name]} "
+                f"launches, {n} expected")
+    for k in c_got:
+        require(torch.equal(c_got[k].shard(0)[0], c_want[k].shard(0)[0]),
+                f"{tag} layer 0's cache {k} differs")
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    if dtype_name == "float32":
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{tag} {dtype_name} logits rel err "
+                f"{rel}")
+    log(f"{tag} 2-layer deepseek-v2-lite-16b {dtype_name} on "
+        f"{ecfg.describe()} (one card), pooled experts, dense latent KV; "
+        f"rank 0's widths {widths} (q columns, k_up / v_up columns, o "
+        f"rows), heads a rank {sorted(set(heads))}: prefill (S={S}, bucket "
+        f"{S_pad}) + {steps} decode steps, logits {tuple(got.shape)}, "
+        f"max_abs_err {err:.3e}, rel {rel:.3e}; every rank's copy equal")
+    del hmm, c_got, c_want
+    return {"dtype": dtype_name, "tp": tp, "max_abs_err": err,
+            "rel_err": rel, "widths": widths, "heads_a_rank": heads,
+            "launches": counts}
+
+
 def phase_e2e_mla():
     out = []
     for expert_mode in ("dense", "pooled"):
@@ -1686,6 +1856,11 @@ def phase_e2e_mla():
             out.append(_e2e_mla(dtype_name, expert_mode))
             gc.collect()
             torch.cuda.empty_cache()
+    for tp, dtype_name in ((3, "float32"), (3, "bfloat16"),
+                           (32, "float32"), (32, "bfloat16")):
+        out.append(_e2e_mla_tp(dtype_name, tp))
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1833,6 +2008,11 @@ SERVE_STORES = {
     "serve_zamba2": ("zamba2-2.7b",
                      dict(prefill_buckets=tuple(range(128, 1025, 128))),
                      None),
+    # a dense decoder, no experts (arXiv:2406.12793): 32 query heads over
+    # 2 kv heads (group 16), half rotary, QKV bias; the paper's stores
+    "serve_chatglm3": ("chatglm3-6b",
+                       dict(kv_mode="paged", kv_block_size=BS,
+                            prefill_chunk=CHUNK), None),
 }
 
 
@@ -1872,14 +2052,22 @@ def _describe(cfg, knobs, store):
                      f"{cfg.attn_every} layers")
         stores = ("per-slot SSD state"
                   + (" + shared-attention KV" if cfg.attn_every else ""))
+    elif not cfg.is_moe:
+        arch = (f"{cfg.num_heads} heads over {cfg.num_kv_heads} kv heads "
+                f"of {cfg.resolved_head_dim} (rotary on "
+                f"{cfg.rope_fraction:g} of each), QKV bias "
+                f"{cfg.qkv_bias}, {cfg.norm_type}, MLP {cfg.d_ff}, no "
+                f"experts")
     else:
         arch = (f"{cfg.num_experts} experts top-{cfg.top_k} "
                 f"(+{cfg.num_shared_experts} shared, {cfg.first_k_dense} "
                 f"dense layers first), moe_d_ff {cfg.moe_d_ff}")
+    if cfg.arch_type not in ("ssm", "hybrid"):
         stores = (("paged KV" if knobs.get("kv_mode") == "paged"
                    else "dense latent KV" if cfg.use_mla else "dense KV")
-                  + (", pooled experts" if knobs.get("expert_mode")
-                     == "pooled" else ", dense expert banks"))
+                  + ("" if not cfg.is_moe else ", pooled experts"
+                     if knobs.get("expert_mode") == "pooled"
+                     else ", dense expert banks"))
     return (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {arch}, vocab "
             f"{cfg.vocab_size}, {cfg.dtype}; store: {store or cfg.dtype}, "
             f"{stores}" + (", chunked prefill" if knobs.get("prefill_chunk")
@@ -1932,7 +2120,7 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         log(f"{tag} {n_graphs} graphs captured in {capture_s:.3f} s; the "
             f"graph pool holds {pool_gib:.3f} GiB, memory_reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
-    held = 0
+    held = held_bytes = 0
     stack = [srv.engine.params]
     while stack:                       # parameters held (index arrays out)
         t = stack.pop()
@@ -1942,8 +2130,19 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
             stack += t
         elif t.is_floating_point() or t.dtype == torch.int8:
             held += t.numel()
+            held_bytes += t.numel() * t.element_size()
     log(f"{tag} boot {boot_s:.2f} s (capture {capture_s:.3f} s), "
         f"{mem_boot / 2**30:.2f} GiB allocated, {held:,} parameters held")
+    floor_ms = None
+    if cfg.arch_type == "dense":
+        # every weight but the embedding table (one row a token) is read
+        # once a tick: the tick's floor at the card's memory rate
+        emb = srv.engine.params["embed"]
+        floor_b = held_bytes - emb.numel() * emb.element_size()
+        floor_ms = floor_b / PEAK_BYTES * 1e3
+        log(f"{tag} decode floor: a tick reads {floor_b / 1e9:.2f} GB of "
+            f"weights, {floor_ms:.3f} ms at {PEAK_BYTES / 1e12:.2f} TB/s "
+            f"(the KV read besides)")
 
     prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
     out_len = 32
@@ -2077,7 +2276,19 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         log(f"{tag} {n_chunks} chunk steps over the slot rows: "
             f"{counts['mixed_block_paged_attention'] / n_chunks:g} "
             f"mixed_block_paged_attention launches each")
-    if paged:
+    if paged and not cfg.is_moe:
+        # each chunk step: one mixed attention per layer; each decode
+        # step: one paged decode per layer
+        dec_name, mix = PATH_KERNELS[phase][:2]
+        L, steps = cfg.num_layers, eng._step_count
+        want = {mix: L * n_chunks, dec_name: L * steps}
+        for name, n in want.items():
+            require(counts[name] == n, f"{name}: {counts[name]} launches, "
+                    f"{n} expected")
+        log(f"{tag} {n_chunks} chunk steps, {steps} decode steps: "
+            f"{counts[mix] / n_chunks:g} {mix} and "
+            f"{counts[dec_name] / steps:g} {dec_name} launches each")
+    elif paged:
         # each chunk step: one mixed attention per layer; each chunk step
         # and decode step: three GMMs per MoE layer
         _, mix, gmm = PATH_KERNELS[phase][:3]
@@ -2134,7 +2345,7 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         "decode_ticks": len(dec),
         "output_tok_s": gen_tokens / wall, "serve_s": wall,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": counts,
+        "launches": counts, "decode_floor_ms": floor_ms,
         "ttft_s": {r.rid: r.ttft for r in reqs},
         "profile": prof_rows, "profiled_ticks_ms": prof_ticks,
     }
@@ -2143,9 +2354,10 @@ def phase_serve(layers, phase="serve", profile=True, cuda_graphs=True):
         res.update(chunk_step_ms_median=statistics.median(chunk),
                    chunk_steps=len(chunk))
         if paged:
-            res.update(gmm_launches=gmm_launches,
-                       kv={k: kv[k] for k in ("shared_block_hits",
-                                              "cow_copies", "preemptions")})
+            res["kv"] = {k: kv[k] for k in ("shared_block_hits",
+                                            "cow_copies", "preemptions")}
+        if paged and cfg.is_moe:
+            res["gmm_launches"] = gmm_launches
         pre_txt = (f"chunk step median {res['chunk_step_ms_median']:.2f} ms "
                    f"over {len(chunk)} chunks")
         # two more chunk steps of the 1,000-token prompt's last chunk (ctx
@@ -2362,11 +2574,12 @@ def phase_serve_graphs(layers, done):
 def _scale_cfgs(tp=1):
     """The scale phases' source and target: DP4 -> DP6 at tp = 1, DP2 x
     TP2 -> DP3 x TP2 at tp = 2 (4 -> 6 logical devices either way); DP1 x
-    TP8 -> DP2 x TP8 at tp = 8 (8 -> 16)."""
+    TP3 -> DP2 x TP3 at tp = 3 (3 -> 6); DP1 x TP8 -> DP2 x TP8 at tp = 8
+    (8 -> 16)."""
     from repro_torch.core.topology import ElasticConfig
-    if tp == 8:
-        return (ElasticConfig(1, 8, tuple(range(8))),
-                ElasticConfig(2, 8, tuple(range(16))))
+    if tp in (3, 8):
+        return (ElasticConfig(1, tp, tuple(range(tp))),
+                ElasticConfig(2, tp, tuple(range(2 * tp))))
     return (ElasticConfig(4 // tp, tp, (0, 1, 2, 3)),
             ElasticConfig(6 // tp, tp, tuple(range(6))))
 
@@ -2589,10 +2802,104 @@ def _e2e_scale_steps(cfg, hmm, ecfg, dtype_name, quant, tag="[e2e_scale]"):
             "layer1_int8_differing": flips, "routing": routing}
 
 
+def _e2e_packed():
+    """A 2-layer qwen3-30b-a3b at full width on DP4 (4 logical devices of
+    the card) with dense expert banks and dense KV, bf16: one decode step
+    of the 8 slots with ``moe_ep``'s expert-slot dispatch and with the
+    packed one (``ParallelCtx.moe_dispatch="packed"``), each through the
+    kernels (under ``set_sync_debug_mode("error")``) and through
+    ``ops.use_reference()`` from the same cache, held to the e2e bf16
+    rule, and each step's device ms from a profile of 3 steps.  The two
+    dispatches drop different entries (capacity per expert against per
+    device), so they are compared with each other only for the record.
+    Packed computes every one of a device's 32 experts on every row it
+    receives: its rows an expert are printed beside expert slots'."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hmm import HMM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    tag = "[e2e_scale packed]"
+    cfg = dataclasses.replace(get_config("qwen3-30b-a3b"), num_layers=2,
+                              dtype="bfloat16")
+    c4, _ = _scale_cfgs()
+    hmm = HMM(cfg, 1, batch_per_replica=SCALE_BPR, max_len=MAX_LEN, seed=1,
+              device="cuda", all_devices=["cuda:0"] * SCALE_DEVICES)
+    hmm.boot(c4)
+    _fill_pool(hmm.cache, torch.Generator(device="cuda").manual_seed(2))
+    ctx = _scale_ctx(c4, hmm)
+    B = c4.dp * SCALE_BPR
+    cg = torch.Generator().manual_seed(3)
+    lengths = torch.tensor([1900, 5, 640, 1024, 77, 300, 1500, 16][:B],
+                           dtype=torch.int32).cuda()
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=cg,
+                           dtype=torch.int32).cuda()
+    n_ep, elm, k = c4.ndev, cfg.num_experts // c4.ndev, cfg.top_k
+    t_local = -(-B // n_ep)
+    res, logits = {}, {}
+    for mode in ("expert_slots", "packed"):
+        pctx = dataclasses.replace(ctx, moe_dispatch=mode)
+        cache = _clone_pool(hmm.cache)
+
+        def step():
+            return M.decode_step(cfg, hmm.params, tokens, cache, lengths,
+                                 parallel=pctx)[0]
+
+        def run():
+            c = _clone_pool(hmm.cache)
+            return M.decode_step(cfg, hmm.params, tokens, c, lengths,
+                                 parallel=pctx)[0].float()
+
+        run()                              # first calls: kernels loaded
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        with ops.use_reference():
+            want = run()
+        torch.cuda.synchronize()
+        require(got.shape == (B, cfg.vocab_size))
+        require(torch.isfinite(got).all() and torch.isfinite(want).all())
+        rel = ((got - want).norm() / want.norm()).item()
+        require(rel < E2E_BF16_REL, f"{tag} {mode}: logits rel err {rel}")
+        prof, _ = _profile(f"{tag} {mode} decode steps of {B} slots on "
+                           f"{c4.describe()}", step, 3)
+        if mode == "packed":
+            C = max(1, math.ceil(t_local * k / n_ep * cfg.capacity_factor))
+            rows = elm * n_ep * C      # every local expert, every row
+        else:
+            from repro_torch.models.moe import capacity_for
+            C = capacity_for(t_local, cfg)
+            rows = elm * n_ep * C
+        res[mode] = {"rel_err": rel, "max_abs_err":
+                     (got - want).abs().max().item(),
+                     "device_ms": prof["device_ms_per_call"],
+                     "wall_ms": prof["wall_ms_per_call"], "capacity": C,
+                     "expert_rows_a_device": rows, "profile": prof}
+        logits[mode] = got
+        per = "a destination" if mode == "packed" else "an expert"
+        log(f"{tag} {mode}: logits rel err against the plain versions "
+            f"{rel:.3e}; capacity {C} (rows {per} a source device), "
+            f"{rows} expert-row products a device a MoE layer; decode step "
+            f"device {prof['device_ms_per_call']:.3f} ms, wall "
+            f"{prof['wall_ms_per_call']:.3f} ms")
+        del cache
+    a, b = logits["packed"], logits["expert_slots"]
+    res["packed_vs_slots_rel"] = ((a - b).norm() / b.norm()).item()
+    ratio = res["packed"]["device_ms"] / res["expert_slots"]["device_ms"]
+    log(f"{tag} packed against expert slots (different drops): rel "
+        f"{res['packed_vs_slots_rel']:.3e}; device ms packed / slots "
+        f"{ratio:.3f}; card {_card()}")
+    del hmm
+    return res
+
+
 def phase_e2e_scale():
     """A 2-layer qwen3-30b-a3b at full width booted on DP4 (4 logical
     devices of the card), a chunk step and a decode step held to the e2e
-    rules; then scaled to DP6 (stage, commit) and the same again."""
+    rules; then scaled to DP6 (stage, commit) and the same again; then
+    the packed dispatch's decode step (``_e2e_packed``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.hmm import HMM
     out = []
@@ -2617,6 +2924,9 @@ def phase_e2e_scale():
         del hmm
         gc.collect()
         torch.cuda.empty_cache()
+    out.append(_e2e_packed())
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3610,15 +3920,20 @@ def phase_serve_down(layers, tp=1):
 
 # ------------------------------------------ the dense layout, scaled
 
-# phase: (model, depth cap, tp, output tokens, server knobs); DP(4/tp) x
-# TPtp -> DP(6/tp) x TPtp -> back, by drain.  zamba2's eager twin ticked
-# at about 0.5 s at 54 layers (every replica launching its own SSD
-# kernels), so its requests are shorter: the drain still waits on the new
-# replicas' sequences
+# phase: (model, depth cap, tp, output tokens, server knobs);
+# ``_scale_cfgs(tp)`` -> back, by drain: DP(4/tp) x TPtp -> DP(6/tp) x
+# TPtp, and at tp = 3 DP1 x TP3 -> DP2 x TP3 (3 and 6 logical devices,
+# neither dividing deepseek-v2-lite's 16 heads: q is cut mid-head, each
+# rank attends 6 heads).  zamba2's eager twin ticked at about 0.5 s at 54
+# layers (every replica launching its own SSD kernels), so its requests
+# are shorter: the drain still waits on the new replicas' sequences
 DENSE_SCALE = {
     "serve_scale_mla": ("deepseek-v2-lite-16b", SCALE_LAYERS, 2, 32,
                         dict(prefill_buckets=DENSE_BUCKETS,
                              expert_mode="pooled")),
+    "serve_scale_mla_tp3": ("deepseek-v2-lite-16b", SCALE_LAYERS, 3, 32,
+                            dict(prefill_buckets=DENSE_BUCKETS,
+                                 expert_mode="pooled")),
     # one group of six layers (54 until the prefill graphs had to fit the
     # run's time)
     "serve_scale_zamba2": ("zamba2-2.7b", 6, 1, 16,
@@ -3736,10 +4051,11 @@ def _dense_vs_one_device(cfg, srv, ecfg, knobs, tag):
 
 
 def _decode_profile(srv, tag):
-    """Three replays of the source configuration's decode graph with every
-    slot active (ragged lengths), profiled before any request arrives; the
-    cache is restored after them, so the served run starts from the state
-    its eager twin starts from."""
+    """Three replays of the current configuration's decode graph with
+    every slot active (ragged lengths), profiled between ticks (the
+    source's before any request arrives, ``serve_scale_mla_tp3``'s target
+    right after the switchover); the cache is restored after them, so the
+    served run goes on from the state its eager twin is in."""
     eng = srv.engine
     B = eng.num_slots
     saved = {n: {d: t.clone() for d, t in leaf.shards.items()}
@@ -3842,6 +4158,13 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
             torch.cuda.synchronize()
             events["up"]["switch_synced_s"] = time.perf_counter() - ts
             stage = "after"
+            if cuda_graphs:
+                # the target's decode step (its launches are not the
+                # ticks': taken out of the counts)
+                before = ops.launch_counts()
+                res["profile_target"] = _decode_profile(srv, tag)
+                after = ops.launch_counts()
+                profiled = {k: after[k] - before[k] for k in after}
         elif n == UP_TICK + STAGED_TICKS + DOWN_AFTER:
             torch.cuda.synchronize()
             t_task = time.perf_counter()
@@ -3874,6 +4197,8 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
     wall = time.perf_counter() - t_start
     obs.install(None)
     counts = ops.launch_counts()
+    if cuda_graphs:
+        counts = {k: v - profiled[k] for k, v in counts.items()}
     require(task.phase is ScalePhase.DONE and srv.hmm.active_cfg == c0,
             f"{tag} the scale-down ended in {task.phase}")
     require(task.migrated_blocks == 0 and srv.scaledown_mode == "drain")
@@ -3888,7 +4213,10 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
     st, fin = events["up"]["staged"], events["up"]["final"]
     require(st["p2p_bytes"] > 0 and st["zero_copy_bytes"] > 0)
     replica_kv = sum(leaf.nbytes for leaf in eng.cache.values()) // c0.dp
-    require(fin["init_bytes"] == replica_kv * (c1.dp - c0.dp) * c1.tp,
+    # a DP1 source's KV shards are indexed whole, so every replica's KV is
+    # allocated anew (the reference's ``_grow_cache``; ``_check_scale``)
+    fresh = c1.dp if c0.dp == 1 else c1.dp - c0.dp
+    require(fin["init_bytes"] == replica_kv * fresh * c1.tp,
             (fin["init_bytes"], replica_kv))
     if not cfg.is_moe:
         # no experts: everything is replicated, so the staged copies are
@@ -3941,13 +4269,19 @@ def _serve_scale_dense(layers, phase, cuda_graphs):
                f"{e['switch_synced_s']:.4f} s" if name == "up" else ""))
     if cuda_graphs:
         e = events["up"]
+        alone = DECODE_ONLY_UP_STAGE_S.get(phase)
         log(f"{tag} the scale-up's target set: {e['target_graphs']} graphs "
             f"(the decode step, {len(knobs['prefill_buckets'])} prefill "
             f"buckets x {c1.dp} replicas) captured in "
             f"{e['target_capture_s']:.3f} s inside stage_s "
-            f"{e['stage_s']:.4f} (stall_s {up.stall_s:.4f}); with its "
-            f"decode step alone (8 and 54 layers): stage_s "
-            f"{DECODE_ONLY_UP_STAGE_S[phase]:.3f}")
+            f"{e['stage_s']:.4f} (stall_s {up.stall_s:.4f})"
+            + (f"; with its decode step alone (8 and 54 layers): stage_s "
+               f"{alone:.3f}" if alone is not None else ""))
+    if cuda_graphs:
+        log(f"{tag} graphed decode step of every slot, device ms: "
+            f"{c0.describe()} {res['profile']['device_ms_per_call']:.3f}, "
+            f"{c1.describe()} "
+            f"{res['profile_target']['device_ms_per_call']:.3f}")
     log(f"{tag} {len(reqs)} requests, {len(ticks)} ticks, {wall:.2f} s; "
         f"decode tick median (no prefill) by stage {med} ms; drain "
         f"{drain_s:.3f} s over {drain_ticks} ticks; max_memory_allocated "
@@ -5151,10 +5485,11 @@ def main():
                             "e2e_tp,serve,serve_int8,serve_dense,"
                             "serve_dense_chunked,serve_mla,"
                             "serve_mla_pooled,serve_mamba2,serve_zamba2,"
-                            "serve_graphs,"
+                            "serve_chatglm3,serve_graphs,"
                             "serve_scale,serve_tp,serve_tp8,serve_overlap,"
                             "serve_down,"
                             "serve_down_tp,serve_scale_mla,"
+                            "serve_scale_mla_tp3,"
                             "serve_scale_zamba2,serve_closed_loop,"
                             "launch_serve,serve_rebalance,serve_park,"
                             "serve_fleet")

@@ -82,7 +82,7 @@ from repro_torch.core.hmm import HMM, TransferStats
 from repro_torch.core.imm import IMM
 from repro_torch.core.topology import ElasticConfig
 from repro_torch.core.transfer import TransferOp
-from repro_torch.models.model import check_tp_heads, chunk_prefill_supported
+from repro_torch.models.model import chunk_prefill_supported
 from repro_torch.serving.driver import ScalePhase, admission_during_scale
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.rebalance import RebalancePolicy
@@ -626,7 +626,6 @@ class ElasticServer:
                  imm_cache=None, cuda_graphs: bool = True, device="cuda"):
         if scaledown not in ("migrate", "drain"):
             raise ValueError(f"unknown scaledown {scaledown!r}")
-        check_tp_heads(mcfg, tp)
         if prefill_chunk and not chunk_prefill_supported(mcfg):
             raise ValueError(f"{mcfg.name}: chunked prefill unsupported "
                              f"(as in the reference)")

@@ -30,9 +30,8 @@ leaf's rule); the cache splits its batch or block axis over 'dp'
 (``cache_sharding``), so each TP rank of a replica holds a copy of its
 slice.  Like the reference's rule, the split of q, k, v and o may cut a
 head (qwen3-30b-a3b's 4 kv heads at tp = 8: 64 of a head's 128 columns a
-rank); the standard-attention steps compute it (``models.layers``'
-module note).  An MLA model whose TP split would cut a head raises at
-boot (``models.model.check_tp_heads``).
+rank); the steps compute it (``models.layers``' and ``models.mla``'s
+module notes).
 
 ``scale`` (``begin_scale`` + ``stage_increment``) stages the target's
 weights while the old instance serves: a shard whose (index, logical
@@ -119,7 +118,7 @@ from repro_torch.distributed.sharding import (Mesh, NamedSharding,
                                               tree_leaves_with_path,
                                               tree_map_with_path)
 from repro_torch.kernels.quant import quantize_rows
-from repro_torch.models.model import (check_mla_heads, check_tp_heads,
+from repro_torch.models.model import (check_mla_heads,
                                       dense_cache_supported, init_cache,
                                       init_expert_bank, init_paged_cache,
                                       init_params, paged_cache_supported)
@@ -492,7 +491,6 @@ class HMM:
         if cfg.tp != self.tp:
             raise ValueError(f"{cfg.describe()}: the HMM was built for "
                              f"tp={self.tp}")
-        check_tp_heads(self.mcfg, cfg.tp)
         check_mla_heads(self.mcfg, cfg.tp,
                         [self.all_devices[d] for d in cfg.devices])
         t0 = time.perf_counter()

@@ -239,11 +239,15 @@ class ParallelCtx:
     Expert parallelism spans every device, EP = DP x TP, in slot order,
     and the expert FFN's hidden dim stays whole, as in the reference's
     elastic engine context (``moe_tp=False``), so the expert FFN needs no
-    sum over TP ranks."""
+    sum over TP ranks.  ``moe_dispatch`` selects ``moe_ep``'s body over
+    dense banks: ``"expert_slots"`` (one capacity slot set per expert) or
+    ``"packed"`` (one per destination device); the engine never selects
+    packed, and pooled pages always take the expert-slot body."""
     devices: Tuple[int, ...]                 # logical ids, slot order
     dp: int
     tp: int
     all_devices: Tuple[torch.device, ...]
+    moe_dispatch: str = "expert_slots"       # or "packed"
 
     @property
     def num_ep(self) -> int:

@@ -277,7 +277,8 @@ class _Share(NamedTuple):
     """A TP rank's share of the attention: the query heads it attends
     [B,S,n,hd], the fresh k/v of the kv heads they read, the kernels'
     ``heads`` keywords for its copy of the cache, and ``cols`` = (c0, c1,
-    h0), the output columns it keeps (None: all of them)."""
+    h0 * hd), the output columns it keeps and the one its heads start at
+    (None: all of them; :func:`_tp_out`)."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
@@ -316,23 +317,23 @@ def _tp_qkv(cfg, ps, xs, positions, devices, everywhere=True):
         shares.append(_Share(place(q[:, :, h0:h1], d), ks[t][:, :, g0:g1],
                              vs[t][:, :, g0:g1],
                              dict(kv_head_offset=g0, kv_heads=g1 - g0),
-                             (c0, c1, h0)))
+                             (c0, c1, h0 * hd)))
     return (shares, ks, vs) if everywhere else (shares, ks[:1], vs[:1])
 
 
-def _tp_out(ps, os_, devices, shares=None):
-    """Each rank's attention rows [B,S,heads,hd] through its rows of ``o``
-    (which carries no bias), summed over the ranks.  Where
-    ``shares[t].cols`` = (c0, c1, h0), rank t's rows are query heads from
-    h0 and it keeps output columns [c0, c1) (a split that cuts a head;
-    rows [c0, c1) of an ``o`` the sharding left whole)."""
+def _tp_out(ps, os_, devices, cols=None):
+    """Each rank's attention rows [B,S,...] (its heads' outputs, flattened)
+    through its rows of ``o`` (which carries no bias), summed over the
+    ranks.  Where ``cols[t]`` = (c0, c1, first), rank t's rows start at
+    attention-output column ``first`` and it keeps columns [c0, c1) (a
+    split that cuts a head; rows [c0, c1) of an ``o`` the sharding left
+    whole)."""
     parts = []
     for t, (p, o) in enumerate(zip(ps, os_)):
         o, w = o.reshape(*o.shape[:2], -1), p["o"]["w"]
-        if shares is not None and shares[t].cols is not None:
-            c0, c1, h0 = shares[t].cols
-            hd = os_[t].shape[-1]
-            o = o[..., c0 - h0 * hd:c1 - h0 * hd]
+        if cols is not None and cols[t] is not None:
+            c0, c1, first = cols[t]
+            o = o[..., c0 - first:c1 - first]
             if w.shape[0] != c1 - c0:
                 w = w[c0:c1]
         parts.append(dot(o, w))
@@ -364,7 +365,8 @@ def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
         os_ = [ops.flash_attention(r.q.contiguous(), r.k.contiguous(),
                                    r.v.contiguous(), causal)
                for r in shares]
-        return _tp_out(ps, os_, devices, shares), (ks[0], vs[0])
+        return (_tp_out(ps, os_, devices, [r.cols for r in shares]),
+                (ks[0], vs[0]))
     os_ = []
     for t, ((q, _, _, heads, _), (kc, vc), d) in enumerate(
             zip(shares, caches, devices)):
@@ -373,7 +375,7 @@ def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
         os_.append(ops.paged_decode_attention(
             q[:, 0].contiguous(), kc, vc, kv_valid_len.to(d, torch.int32),
             **heads)[:, None])
-    return _tp_out(ps, os_, devices, shares), caches
+    return _tp_out(ps, os_, devices, [r.cols for r in shares]), caches
 
 
 def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
@@ -413,7 +415,7 @@ def paged_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,
             o = ops.block_paged_decode_attention(qd, cache["k"], cache["v"],
                                                  bt, lens, **heads)
         os_.append(o[:, None])
-    return _tp_out(ps, os_, devices, shares), caches
+    return _tp_out(ps, os_, devices, [r.cols for r in shares]), caches
 
 
 def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
@@ -453,7 +455,7 @@ def paged_chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *,
                                                 cache["v"], bt, ctx1, qlen1,
                                                 **heads)
         os_.append(o)
-    return _tp_out(ps, os_, devices, shares), caches
+    return _tp_out(ps, os_, devices, [r.cols for r in shares]), caches
 
 
 def chunk_attention_apply_tp(cfg, ps, xs, positions, devices, *, caches,

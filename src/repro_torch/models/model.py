@@ -50,9 +50,9 @@ MLA layer splits its heads the same way (``mla_*_tp``: every rank
 computes the same latent and writes its own copy); an SSD layer is
 replicated, each rank running it on its copy of the activations and its
 copy of the layer's conv tail and state; a hybrid's shared block splits
-as standard attention does, also where tp cuts a head; an MLA model's
-heads must split evenly over tp (``check_tp_heads``); the paged steps
-stay standard-attention only.
+as standard attention does, also where tp cuts a head, and so does an
+MLA layer (``mla``'s module note); the paged steps stay
+standard-attention only.
 """
 from __future__ import annotations
 
@@ -75,8 +75,9 @@ from repro_torch.models.layers import (apply_norm, attention_apply,
                                        paged_chunk_attention_apply_tp)
 from repro_torch.models.mamba2 import (mamba2_decode, mamba2_forward,
                                        mamba2_init)
-from repro_torch.models.mla import (mla_decode, mla_decode_tp, mla_init,
-                                    mla_prefill, mla_prefill_tp)
+from repro_torch.models.mla import (heads_a_rank, mla_decode,
+                                    mla_decode_tp, mla_init, mla_prefill,
+                                    mla_prefill_tp)
 from repro_torch.models.moe import (moe_ep, moe_local, moe_local_pooled,
                                     router_init)
 
@@ -417,30 +418,18 @@ def write_prefill_to_blocks(cache, dense_cache, block_ids, *, parallel=None,
 
 # ------------------------------------------------------------ DP replicas
 
-MLA_HEAD_CUT = ("MLA's head-cutting TP slice (ROADMAP §0 item 8): the "
-                "reference shards q_up, k_up and v_up wherever their widths "
-                "divide by tp, also inside a head")
-
-
-def check_tp_heads(cfg, tp: int) -> None:
-    """Raise for an MLA model at a TP degree that does not split its heads
-    evenly over the ranks: ``mla_*_tp`` compute head-aligned splits only.
-    Standard attention takes any tp (``layers``' module note)."""
-    if cfg.use_mla and tp > 1 and cfg.num_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} MLA heads do not split evenly over "
-            f"tp = {tp}; serving an MLA model where the TP split cuts a "
-            f"head is not ported yet: it is {MLA_HEAD_CUT}")
-
-
 def check_mla_heads(cfg, tp: int, devices) -> None:
-    """Raise for an f32 MLA model on a card whose TP ranks would each hold
-    an odd number of heads: the f32 ``mla_decode_attention`` takes an even
-    count only (ROADMAP §3, "MLA head count"), so such a configuration
-    would fail at its first decode or capture."""
-    heads = cfg.num_heads // tp
-    if (cfg.use_mla and cfg.dtype == "float32" and heads % 2
+    """Raise for an f32 MLA model on a card where a TP rank would attend
+    an odd number of heads (``mla.heads_a_rank``: H / tp, or where tp cuts
+    a head the heads covering the rank's output columns): the f32
+    ``mla_decode_attention`` takes an even count only (ROADMAP §3, "MLA
+    head count"), so such a configuration would fail at its first decode
+    or capture."""
+    odd = [n for n in (heads_a_rank(cfg, tp) if cfg.use_mla else ())
+           if n % 2]
+    if (odd and cfg.dtype == "float32"
             and any(torch.device(d).type == "cuda" for d in devices)):
+        heads = odd[0]
         raise NotImplementedError(
             f"{cfg.name}: {heads} heads a rank at tp = {tp}; the f32 MLA "
             f"decode kernel takes an even head count (ROADMAP §3, \"MLA "
@@ -448,11 +437,10 @@ def check_mla_heads(cfg, tp: int, devices) -> None:
             f"rank an even count")
 
 
-def _check_parallel(cfg, parallel) -> None:
+def _check_parallel(cfg) -> None:
     if not dense_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: only standard-attention, "
                                   f"MLA and Mamba2 decoders are ported")
-    check_tp_heads(cfg, parallel.tp)
 
 
 def _embed_tp(cfg, tables, tokens, devices):
@@ -518,7 +506,7 @@ def _dp_layers(cfg, params, parallel, replicas, tokens, attn, ssm=None,
     logical device) to ``counts`` when given.  Returns each group's
     final-normed hidden states and its ranks' parameter views, one per
     rank."""
-    _check_parallel(cfg, parallel)
+    _check_parallel(cfg)
     ssm = ssm or (lambda g, i, ps, xs: [_ssm_block(cfg, p, x)[0]
                                         for p, x in zip(ps, xs)])
     ranks = [parallel.replica_devices(r) for r in replicas]

@@ -187,6 +187,16 @@ def _paged_ffn(table, pool):
                                            pool["wg"], pool["wo"], xg)
 
 
+def _packed_ffn(xg, eid, wi, wg, wo):
+    """The packed body's expert FFN: xg [S, D] through every local expert
+    of the banks (wi/wg [E_local, D, F], wo [E_local, F, D]; ``_expert_ffn``'s
+    products and rounding points), then each row's own expert ``eid`` [S]
+    selected; ``eid == E_local`` (an empty slot) selects a zero row."""
+    y_all = _expert_ffn(xg.expand(wi.shape[0], *xg.shape), wi, wg, wo)
+    y_all = torch.cat([y_all, y_all.new_zeros((1, *xg.shape))])
+    return y_all[eid, torch.arange(xg.shape[0], device=xg.device)]
+
+
 # ---------------------------------------------------------------- EP path
 
 def _rows_to_shards(xs, n: int, devices):
@@ -264,6 +274,16 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None,
     pool slice and table row, or the dense banks); the outputs go back the
     same way and each device combines its own rows.
 
+    With ``parallel.moe_dispatch == "packed"`` and dense banks (pooled
+    pages keep the expert-slot body, as in the reference) the body is the
+    reference's ``_moe_ep_shard_packed``: each device packs its entries
+    per destination device into [n_ep, C2, D], C2 = ceil(t_local * k /
+    n_ep * capacity_factor), an entry's slot its rank among the earlier
+    entries for that destination (kept where slot < C2), beside a [n_ep,
+    C2] local expert id (``elm`` marks an empty slot); device j computes
+    every local expert's FFN on every received row and selects the row's
+    own expert (``_packed_ffn``); the combine weighs by ``topk_w * keep``.
+
     ``return_counts``: also the router's per-expert token counts [E] int32
     over the T rows (the zero pad rows left out), on the first device —
     the reference replays its router on those rows; here each device
@@ -280,9 +300,14 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None,
     T = sum(t.shape[0] for t in flat)
     T_pad = -(-T // n_ep) * n_ep
     t_local = max(1, T_pad // n_ep)
-    C = capacity or capacity_for(t_local, cfg)
     E, k = cfg.num_experts, cfg.top_k
     pooled = pool is not None and "tables" in p
+    packed = parallel.moe_dispatch == "packed" and not pooled
+    if packed:
+        C = capacity or max(1, math.ceil(t_local * k / n_ep
+                                         * cfg.capacity_factor))
+    else:
+        C = capacity or capacity_for(t_local, cfg)
     if pooled:
         elm = p["tables"].shape[-1]
     else:
@@ -292,7 +317,7 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None,
         elm = E // n_ep
 
     shards = _rows_to_shards(flat, t_local, devs)
-    sends, wheres, gates = [], [], []
+    sends, wheres, gates, eids = [], [], [], []
     counts = None
     for i, (dev, xi) in enumerate(zip(parallel.devices, shards)):
         _, topk_idx, topk_w = _topk({"w": p["router"]["w"].shard(dev)}, xi,
@@ -301,20 +326,36 @@ def moe_ep(cfg, p, x, parallel, capacity=None, pool=None, owners=None,
         if return_counts and valid > 0:
             c = routing_counts(topk_idx[:valid], E).to(devs[0])
             counts = c if counts is None else counts + c
-        expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
-        if pooled:
-            dest = p["edest"].shard(dev).long()[expert_flat]
-            e_loc = p["eslot"].shard(dev).long()[expert_flat]
+        if packed:
+            expert_flat = topk_idx.reshape(-1).long()
+            dest, slot, keep = _dispatch_indices(expert_flat // elm, n_ep, C)
+            where, lead = (dest, slot), (n_ep,)
+            eid = torch.full((n_ep, C + 1), elm, dtype=torch.long,
+                             device=xi.device)
+            eid[where] = expert_flat % elm
+            eids.append(eid[:, :C])
         else:
-            dest, e_loc = expert_flat // elm, expert_flat % elm
-        where = (dest, e_loc, slot)
-        sends.append(_scatter(xi, k, (n_ep, elm), where, C))
+            expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
+            if pooled:
+                dest = p["edest"].shard(dev).long()[expert_flat]
+                e_loc = p["eslot"].shard(dev).long()[expert_flat]
+            else:
+                dest, e_loc = expert_flat // elm, expert_flat % elm
+            where, lead = (dest, e_loc, slot), (n_ep, elm)
+        sends.append(_scatter(xi, k, lead, where, C))
         wheres.append(where)
         gates.append((topk_w, keep))
 
     backs = []
     for j, (dev, tdev) in enumerate(zip(parallel.devices, devs)):
         recv = torch.stack([s[j].to(tdev) for s in sends])   # all-to-all
+        if packed:
+            eid = torch.stack([e[j].to(tdev) for e in eids])
+            backs.append(_packed_ffn(
+                recv.reshape(n_ep * C, D), eid.reshape(n_ep * C),
+                p["wi"].shard(dev), p["wg"].shard(dev),
+                p["wo"].shard(dev)).reshape(n_ep, C, D))
+            continue
         xg = recv.transpose(0, 1).reshape(elm, n_ep * C, D).contiguous()
         if pooled:
             yg = _paged_ffn(p["tables"].shard(dev)[0],

@@ -11,6 +11,12 @@ Their steps run through the port's standard-attention paths: at
 ``prefill`` (two prompts, lengths 16 and 11, padded to 16, max_len 32)
 and one ``decode_step`` from the prefilled cache are held against
 ``repro.models.model`` within atol = rtol = 1e-5 (logits and cache).
+
+Their servers: the reference's ``ElasticServer`` and the port's, on one
+device at f32 with the paper's stores (the paged KV pool with chunked
+prefill; arctic's experts in pooled pages), on the same weights (the
+reference server's own, converted) and the same three requests, must give
+exactly the same greedy tokens.
 """
 import dataclasses
 
@@ -20,10 +26,16 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.core.elastic_engine import ElasticServer as JaxServer
+from repro.core.topology import ElasticConfig as JaxElasticConfig
 from repro.models import model as JM
+from repro.serving.workload import Request as JaxRequest
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
+from repro_torch.core.elastic_engine import ElasticServer
+from repro_torch.core.topology import ElasticConfig
 from repro_torch.models import model as TM
+from repro_torch.serving.workload import Request
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 NAMES = ["yi-6b", "qwen1.5-0.5b", "stablelm-3b", "chatglm3-6b",
@@ -71,3 +83,43 @@ def test_steps_match_reference(name):
     for n in jc:
         np.testing.assert_allclose(cache[n].numpy(), np.asarray(jc[n]),
                                    **TOL)
+
+
+# the paged KV pool in blocks of 16, chunks of 32 (two chunks a tick)
+SERVER_KW = dict(tp=1, batch_per_replica=4, max_len=128, seed=0,
+                 kv_mode="paged", kv_block_size=16, prefill_chunk=32,
+                 prefill_budget=64, prefill_buckets=(32,))
+# (prompt length, output tokens): a prompt inside one chunk, one that
+# straddles chunks and blocks, one that ends on a block boundary
+SERVE_REQS = [(10, 7), (37, 5), (16, 6)]
+
+
+def _serve(srv, make, vocab):
+    rng = np.random.default_rng(1)
+    reqs = [make(i, 0.0, n, out,
+                 prompt=rng.integers(0, vocab, n).astype(np.int32))
+            for i, (n, out) in enumerate(SERVE_REQS)]
+    for r in reqs:
+        srv.submit(r)
+    for t in range(40):
+        if all(r.finish_s is not None for r in reqs):
+            return srv.engine.generated
+        srv.tick(float(t))
+    raise AssertionError("requests did not finish")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_server_tokens_equal_reference(name):
+    kw = dict(SERVER_KW, **({"expert_mode": "pooled"}
+                            if get_config(name).is_moe else {}))
+    ref = JaxServer(jax_config(name + "-smoke"), **kw)
+    ref.boot(JaxElasticConfig(1, 1, (0,)))
+    params = jax.tree.map(np.asarray, ref.engine.params)
+    cfg = get_config(name + "-smoke")
+    want = _serve(ref, JaxRequest, cfg.vocab_size)
+    srv = ElasticServer(cfg, device="cpu", **kw)
+    srv.boot(ElasticConfig(1, 1, (0,)), params=params_from_jax(params))
+    got = _serve(srv, Request, cfg.vocab_size)
+    assert got == want
+    assert [len(got[i]) for i in range(len(SERVE_REQS))] == [
+        out for _, out in SERVE_REQS]

@@ -288,20 +288,37 @@ def test_use_reference_is_scoped():
     assert not ops._REFERENCE.get()
 
 
-NOT_PORTED = {
-    # a tp that cuts an MLA model's heads (MLA's head-cutting TP slice; a
-    # standard-attention model is served at such a tp)
-    "tp": ("deepseek-v2-lite-16b-smoke", 3, "MLA's head-cutting TP slice"),
-}
+# knobs the port once refused, each at a value the reference serves: a
+# tp that cuts deepseek-v2-lite's MLA heads (its 4 reduced heads over 3
+# ranks; 6 experts, so that expert parallelism splits them over 3)
+ACCEPTED_KNOBS = {"tp": ("deepseek-v2-lite-16b-smoke", 3)}
 
 
-@pytest.mark.parametrize("knob", sorted(NOT_PORTED))
-def test_knobs_outside_the_slice_raise(knob):
+@pytest.mark.parametrize("knob", sorted(ACCEPTED_KNOBS))
+def test_knobs_once_outside_the_slice_are_accepted(knob):
+    """A server at such a knob boots on the reference's own rule and
+    serves the greedy tokens of a one-device server at the same weights."""
+    import dataclasses
     from repro_torch.configs import get_config
-    name, value, slice_ = NOT_PORTED[knob]
-    with pytest.raises(NotImplementedError, match=slice_):
-        ElasticServer(get_config(name), **{**SERVER_KW, knob: value},
-                      device="cpu")
+    name, value = ACCEPTED_KNOBS[knob]
+    mcfg = dataclasses.replace(get_config(name), num_experts=6,
+                               capacity_factor=100.0)
+    kw = dict(tp=1, batch_per_replica=2, max_len=64, prefill_buckets=(32,),
+              seed=0, device="cpu")
+    tokens = []
+    for k, cfg in (({}, ElasticConfig(1, 1, (0,))),
+                   ({knob: value, "all_devices": [torch.device("cpu")] * 3},
+                    ElasticConfig(1, value, (0, 1, 2)))):
+        srv = ElasticServer(mcfg, **{**kw, **k})
+        srv.boot(cfg, params=None if not tokens else one.hmm.params)
+        if not tokens:
+            one = srv
+        srv.submit(Request(0, 0.0, 20, 6,
+                           prompt=np.arange(20, dtype=np.int32) * 7 % 512))
+        for t in range(10):
+            srv.tick(float(t))
+        tokens.append(srv.engine.generated[0])
+    assert len(tokens[0]) == 6 and tokens[1] == tokens[0]
 
 
 SCALING_KNOBS = {"scaledown": "drain", "staging": "overlap",
@@ -420,19 +437,15 @@ def test_more_than_one_device_raises():
     tp, also one that cuts a head (``tests/test_torch_scale.py``,
     ``tests/test_torch_tp.py``), and the MLA and Mamba2 models too
     (``tests/test_torch_scale_mla.py``, ``tests/test_torch_scale_ssm.py``):
-    deepseek-v2-lite and mamba2-1.3b boot on two.  What they do not serve
-    yet raises ``NotImplementedError`` naming its slice — a tp that cuts an
-    MLA model's heads — and a configuration naming a logical device that
+    deepseek-v2-lite and mamba2-1.3b boot on two (and deepseek-v2-lite
+    at a tp that cuts its heads, ``test_knobs_once_outside_the_slice_are_
+    accepted``).  A configuration naming a logical device that
     ``all_devices`` lacks raises ``ValueError``: nothing maps it onto
     another device."""
     from repro_torch.configs import get_config
     srv = ElasticServer(MCFG, **SERVER_KW, device="cpu")
     with pytest.raises(ValueError, match="not in all_devices"):
         srv.boot(ElasticConfig(2, 1, (0, 1)))
-    with pytest.raises(NotImplementedError,
-                       match="MLA's head-cutting TP slice"):
-        ElasticServer(get_config("deepseek-v2-lite-16b-smoke"),
-                      **{**SERVER_KW, "tp": 3}, device="cpu")
     cpu2 = [torch.device("cpu")] * 2
     for name in ("deepseek-v2-lite-16b-smoke", "mamba2-1.3b-smoke"):
         hmm = HMM(get_config(name), 1, batch_per_replica=2, max_len=64,

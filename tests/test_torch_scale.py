@@ -19,9 +19,10 @@ parameters (``convert.params_from_jax``).  Held:
   equal to the active ones;
 * ``moe_ep`` against the reference's at f32 within 1e-5 for n_ep 2, 4, 6
   over dense banks and pooled pages (a min-move placement, and 20 experts
-  over 6 devices with pad slots), T = 15 rows (not a multiple of n_ep),
-  with and without capacity drops; without drops also against the port's
-  ``moe_local``;
+  over 6 devices with pad slots), and over dense banks through the packed
+  dispatch (``ParallelCtx.moe_dispatch="packed"``), T = 15 rows (not a
+  multiple of n_ep), with and without capacity drops; without drops also
+  against the port's ``moe_local``;
 * ``ElasticServer`` at tp = 1, DP2 -> DP3 at the 5th tick (``stage_scale``,
   one tick, ``switchover``): greedy tokens equal the reference server's
   tokens and an unscaled DP3 run of the port, with the paged KV pool,
@@ -42,7 +43,6 @@ import pytest
 import torch
 
 from helpers import REPO, TEST_MOE
-from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.elastic_engine import ElasticServer
@@ -125,13 +125,15 @@ for E, n, cf, pooled in %s:
     x = jax.random.normal(jax.random.PRNGKey(1), (3, 5, mcfg.d_model))
     mesh = Mesh(np.array(jax.devices()[:n]).reshape(n, 1), ("dp", "tp"))
     ctx = ParallelCtx(mesh=mesh, ep_axes=("dp", "tp"), tp_axis="tp",
-                      dp_axes=("dp",), moe_tp=False)
+                      dp_axes=("dp",), moe_tp=False,
+                      moe_dispatch="packed" if pooled == "packed"
+                      else "expert_slots")
     key = f"{E}_{n}_{cf}_{pooled}"
     outs[key + "/x"] = np.asarray(x)
     for k in ("wi", "wg", "wo"):
         outs[key + "/" + k] = np.asarray(p[k])
     outs[key + "/router"] = np.asarray(p["router"]["w"])
-    if not pooled:
+    if pooled in (False, "packed"):
         y = jax.jit(lambda p, x: moe_ep(mcfg, p, x, ctx)[0])(p, x)
     else:
         # a min-move placement: booted on 4 devices, remapped to n
@@ -213,10 +215,14 @@ HMM_CASES = {
     "down_dense": ("moe", 1, 3, 2, {}, "commit"),
     "down_abort": ("moe", 1, 3, 2, PAGED, "abort"),
 }
-# (experts, n_ep, capacity factor, pooled)
+# (experts, n_ep, capacity factor, store): dense banks (False), pooled
+# pages (True), or dense banks through the packed dispatch ("packed"; 12,
+# 6 and 4 local experts against top-2, and at capacity factor 0.5 entries
+# dropped on every n_ep)
 MOE_CASES = [(24, n, cf, pooled) for n in (2, 4, 6) for cf in (100.0, 1.0)
              for pooled in (False, True)] + [(20, 6, cf, True)
-                                             for cf in (100.0, 1.0)]
+                                             for cf in (100.0, 1.0)] + [
+    (24, n, cf, "packed") for n in (2, 4, 6) for cf in (100.0, 0.5)]
 CHUNKED = dict(PAGED, prefill_chunk=32, prefill_budget=64,
                prefill_buckets=(32,))
 SERVERS = {
@@ -505,7 +511,9 @@ def _moe_inputs(ref, case):
     mcfg = _mcfg(num_experts=E, capacity_factor=cf)
     mesh = make_instance_mesh(_cfg(n), CPU8)
     ctx = ParallelCtx(devices=mesh.devices, dp=n, tp=1,
-                      all_devices=mesh.all_devices)
+                      all_devices=mesh.all_devices,
+                      moe_dispatch="packed" if pooled == "packed"
+                      else "expert_slots")
 
     def shard(a, spec=()):
         return ShardedTensor.from_tensor(torch.from_numpy(a),
@@ -513,7 +521,7 @@ def _moe_inputs(ref, case):
     ep = (("dp", "tp"),)
     p = {"router": {"w": shard(get["router"])}}
     pool = None
-    if pooled:
+    if pooled is True:
         p.update(tables=shard(get["tables"], ep), edest=shard(get["edest"]),
                  eslot=shard(get["eslot"]), gtable=shard(get["gtable"]))
         pool = {k: shard(get["pool_" + k], ep) for k in ("wi", "wg", "wo")}
@@ -523,7 +531,8 @@ def _moe_inputs(ref, case):
 
 
 @pytest.mark.parametrize("case", MOE_CASES,
-                         ids=[f"E{E}-ep{n}-cf{cf:g}-{'pooled' if p else 'dense'}"
+                         ids=[f"E{E}-ep{n}-cf{cf:g}-"
+                              f"{ {False: 'dense', True: 'pooled'}.get(p, p)}"
                               for E, n, cf, p in MOE_CASES])
 def test_moe_ep_matches_reference(ref, case):
     mcfg, ctx, p, pool, get = _moe_inputs(ref, case)
@@ -597,11 +606,11 @@ def test_scale_up_tokens_equal_unscaled_and_reference(ref, name):
 
 
 def test_server_refuses_what_is_not_ported(ref):
-    """Scaling to (or from) one device and an MLA model at a TP degree
-    that cuts its heads are refused, naming what is missing; a server
-    scale-down is ported (``tests/test_torch_scaledown.py``), and so is
-    standard attention at any tp > 1, also one that cuts a kv head
-    (``tests/test_torch_tp.py``)."""
+    """Scaling to (or from) one device is refused, naming what is
+    missing; a server scale-down is ported (``tests/test_torch_scaledown.
+    py``), and so is any tp > 1, also one that cuts a kv head
+    (``tests/test_torch_tp.py``) or an MLA head (``tests/test_torch_scale_
+    mla.py``)."""
     srv = ElasticServer(_mcfg(), tp=1, batch_per_replica=2, max_len=128,
                         all_devices=CPU8, device="cpu",
                         prefill_buckets=(32, 64))
@@ -609,8 +618,3 @@ def test_server_refuses_what_is_not_ported(ref):
     with pytest.raises(NotImplementedError, match="one device"):
         srv.stage_scale(_cfg(1))
     assert srv.hmm.staged is None and srv.engine.admit_limit is None
-    with pytest.raises(NotImplementedError,
-                       match="MLA's head-cutting TP slice"):
-        ElasticServer(get_config("deepseek-v2-lite-16b-smoke"), tp=3,
-                      batch_per_replica=2, max_len=128, all_devices=CPU8,
-                      device="cpu")

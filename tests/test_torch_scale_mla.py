@@ -59,7 +59,7 @@ from repro.core.hmm import HMM, TransferStats
 from repro.models import model as JM
 from repro.serving.driver import ScalePhase
 from repro.serving.workload import Request
-MODELS, STEPS, HMM_CASES, SERVERS, REQS = %s, %s, %s, %s, %s
+MODELS, STEPS, HMM_CASES, SERVERS, REQS, SPECS = %s, %s, %s, %s, %s, %s
 MAX_LEN = %d
 
 def model(key):
@@ -121,6 +121,20 @@ for name, (key, tp, dp0, dp1, kw, mode) in HMM_CASES.items():
     res[name] = r
 json.dump(res, open(f"{OUT}/hmm.json", "w"))
 
+def spec(leaf):
+    return [list(a) if isinstance(a, tuple) else a
+            for a in tuple(leaf.sharding.spec)]
+
+res = {}
+for name, (key, dp, tp) in SPECS.items():
+    hmm = HMM(model(key), tp=tp, batch_per_replica=2, max_len=MAX_LEN)
+    hmm.boot(cfg(dp, tp))
+    res[name] = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                          for k in path): spec(leaf)
+                 for path, leaf in jax.tree_util.tree_flatten_with_path(
+                     hmm.params)[0]}
+json.dump(res, open(f"{OUT}/specs.json", "w"))
+
 def drive(srv, reqs, target, at, down):
     t, n, task = 0.0, 0, None
     while any(r.finish_s is None for r in reqs) or \\
@@ -171,8 +185,14 @@ MODELS = {
     "v3": ("deepseek-v3-smoke", dict(num_experts=12)),
     "v3_nodrop": ("deepseek-v3-smoke",
                   dict(num_experts=12, capacity_factor=100.0)),
+    # 24 experts: dense banks split over DP1 x TP8's 8 devices too
+    "v2_e24": ("deepseek-v2-lite-16b-smoke",
+               dict(num_experts=24, capacity_factor=100.0)),
+    "v3_e24": ("deepseek-v3-smoke",
+               dict(num_experts=24, capacity_factor=100.0)),
 }
-STEPS = {"v2": "v2_nodrop", "v3": "v3_nodrop"}
+STEPS = {"v2": "v2_nodrop", "v3": "v3_nodrop", "v2_e24": "v2_e24",
+         "v3_e24": "v3_e24"}
 POOLED = dict(expert_mode="pooled")
 # name: (model, tp, from dp, to dp, HMM knobs, mode)
 HMM_CASES = {
@@ -182,25 +202,35 @@ HMM_CASES = {
     "down": ("v2", 1, 3, 2, POOLED, "commit"),
     "down_abort": ("v2", 1, 3, 2, POOLED, "abort"),
     "v3_tp2": ("v3", 2, 2, 3, {}, "commit"),
+    # tp = 3 cuts q_up's 192 columns mid-head (64 a rank); k_up, v_up, o,
+    # the MLPs, the embedding and the LM head stay whole
+    "tp3": ("v2", 3, 1, 2, POOLED, "commit"),
 }
 # name: (model, tp, from dp, to dp, server knobs)
 SERVERS = {
     "up_dense": ("v2", 1, 2, 3, {}),
     "up_tp2_pooled": ("v2", 2, 2, 3, POOLED),
     "drain_tp2": ("v2", 2, 3, 2, POOLED),
+    "up_tp3": ("v2", 3, 1, 2, POOLED),
+    "drain_tp3": ("v2", 3, 2, 1, POOLED),
 }
+# name: (model, dp, tp) booted by both packages, every leaf's sharding
+# compared: every leaf cut at tp = 8 (4 heads), q alone at tp = 3
+SPECS = {"v2_tp8": ("v2", 1, 8), "v3_tp8": ("v3", 1, 8),
+         "v2_tp3": ("v2", 2, 3), "v3_tp3": ("v3", 2, 3)}
 _rng = np.random.default_rng(0)
 REQS = [(_rng.integers(0, 512, n).tolist(), out)
         for n, out in zip([10, 37, 16, 23, 30, 45], [20, 12, 24, 9, 15, 18])]
 
 
 def start_reference(tmp_path_factory, tag, models, steps, hmm_cases,
-                    servers):
+                    servers, specs=None):
     """Run the reference script for these cases; returns its output
     directory."""
     out = tmp_path_factory.mktemp(tag)
     _wait(_start(SCRIPT % (repr(models), repr(steps), repr(hmm_cases),
-                           repr(servers), repr(REQS), MAX_LEN), out),
+                           repr(servers), repr(REQS), repr(specs or {}),
+                           MAX_LEN), out),
           f"{tag} steps, HMM scales and servers")
     return out
 
@@ -208,7 +238,7 @@ def start_reference(tmp_path_factory, tag, models, steps, hmm_cases,
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     return start_reference(tmp_path_factory, "scale_mla", MODELS, STEPS,
-                           HMM_CASES, SERVERS)
+                           HMM_CASES, SERVERS, SPECS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -258,36 +288,39 @@ def _close(got, want, tol=TOL):
 
 def check_step(ref, models, steps, name, dp, tp, step):
     """The port's ``step`` at DP``dp`` x TP``tp`` on the reference's
-    weights ``name`` against the reference's one-device step."""
+    weights ``name`` against the reference's one-device step (the decode
+    step's 4 slots over the replicas; the prefill on the last replica)."""
     io = dict(np.load(ref / f"io_{name}.npz"))
     t = {k: torch.from_numpy(v) for k, v in io.items()}
     mcfg = model(models, steps[name])
     tol = HYBRID_TOL if mcfg.arch_type == "hybrid" else TOL
-    hmm = HMM(mcfg, tp, batch_per_replica=2, max_len=MAX_LEN,
+    bpr, replica = 4 // dp, dp - 1
+    hmm = HMM(mcfg, tp, batch_per_replica=bpr, max_len=MAX_LEN,
               all_devices=CPU8, device="cpu")
     hmm.boot(cfg(dp, tp), params=_tree(ref / f"p_{name}.npz"))
     ctx = engine_parallel_ctx(make_instance_mesh(cfg(dp, tp), CPU8))
     params, cache = hmm.params, hmm.cache
     if step == "forward":
         got = TM.forward(mcfg, params, {"tokens": t["fwd_tokens"]},
-                         parallel=ctx, replica=1)
+                         parallel=ctx, replica=replica)
         _close(got, io["fwd_logits"], tol)
         return
     if step == "prefill":
         lg, small = TM.prefill(mcfg, params, {
             "tokens": t["pre_tokens"], "lengths": torch.tensor([11])},
-            MAX_LEN, parallel=ctx, replica=1)
+            MAX_LEN, parallel=ctx, replica=replica)
         _close(lg, io["pre_logits"], tol)
         assert set(small) == set(cache)
         for n in cache:
             _close(small[n], io["pre_" + n], tol)
-        # slot 1 of replica 1: its row in every rank's copy
+        # slot 1 of the replica: its row in every rank's copy
         _prefill_fn(mcfg, MAX_LEN, params, cache, t["pre_tokens"],
                     torch.tensor([11], dtype=torch.int32),
                     torch.tensor([1], dtype=torch.int32), parallel=ctx,
-                    replica=1)
+                    replica=replica)
         for n in cache:
-            _close(cache[n].gather()[:, 3], io["pre_" + n][:, 0], tol)
+            _close(cache[n].gather()[:, replica * bpr + 1],
+                   io["pre_" + n][:, 0], tol)
     else:
         for n, leaf in cache.items():
             a = t["dec_" + n]
@@ -376,8 +409,14 @@ def check_server(ref, models, servers, name):
     assert_copies_equal(srv.engine.cache, srv.engine.parallel)
 
 
-STEP_CASES = [(n, dp, tp, s) for n in STEPS for dp, tp in ((2, 1), (2, 2))
-              for s in ("forward", "prefill", "decode_step")]
+# DP1 x TP8 cuts every leaf of the 4 heads (q_up / q 24 columns a rank,
+# half a head of 48; k_up, v_up and o 16), DP2 x TP3 q alone
+STEP_CASES = [(n, dp, tp, s) for n in ("v2", "v3") for dp, tp in ((2, 1),
+                                                                  (2, 2))
+              for s in ("forward", "prefill", "decode_step")] + [
+    (n, dp, tp, s) for n in ("v2_e24", "v3_e24") for dp, tp in ((1, 8),
+                                                                (2, 3))
+    for s in ("forward", "prefill", "decode_step")]
 
 
 @pytest.mark.parametrize("case", STEP_CASES,
@@ -397,10 +436,38 @@ def test_server_tokens_equal_reference(ref, name):
     check_server(ref, MODELS, SERVERS, name)
 
 
+def _specs(tree, prefix=""):
+    """Every leaf's sharding spec by its path, as the reference script
+    writes them (tuples as lists)."""
+    items = (tree.items() if isinstance(tree, dict)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_specs(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = [list(a) if isinstance(a, tuple) else a
+                               for a in v.sharding.spec]
+    return out
+
+
 def test_latent_shards_follow_the_reference_rules(ref):
     """DP2 x TP2: q, k_up and v_up split by columns over the TP ranks, o
     by rows, the latent's down projection and norm replicated, the dense
-    prefix unstacked; the latent cache split on its batch axis only."""
+    prefix unstacked; the latent cache split on its batch axis only.  At
+    the tp values that cut a head (``SPECS``: DP1 x TP8, where every leaf
+    is cut, and DP2 x TP3, where q alone is) every leaf's spec equals the
+    reference HMM's."""
+    want = json.load(open(ref / "specs.json"))
+    for name, (key, dp, tp) in SPECS.items():
+        hmm = HMM(model(MODELS, key), tp, batch_per_replica=2,
+                  max_len=MAX_LEN, all_devices=CPU8, device="cpu")
+        hmm.boot(cfg(dp, tp))
+        assert _specs(hmm.params) == want[name], name
+        q = "q_up" if key == "v3" else "q"
+        attn = hmm.params["blocks"]["attn"]
+        assert attn[q]["w"].sharding.spec[-1] == "tp"
+        assert (attn["o"]["w"].sharding.spec[1] == "tp") == (tp == 8)
     mcfg = model(MODELS, "v3")
     hmm = HMM(mcfg, 2, batch_per_replica=2, max_len=MAX_LEN,
               all_devices=CPU8, device="cpu")
@@ -439,3 +506,28 @@ def test_odd_mla_heads_a_rank_refused_on_the_card(dtype, tp, device,
             TM.check_mla_heads(mcfg, tp, devices)
     else:
         TM.check_mla_heads(mcfg, tp, devices)
+
+
+@pytest.mark.parametrize("dtype,tp,refused", [
+    ("float32", 32, True),       # 1 head a rank: every leaf cut
+    ("bfloat16", 32, False),     # the bf16 kernel takes any count
+    ("float32", 3, False),       # 6 heads a rank (q cut, the rest whole)
+    ("float32", 6, True),        # 3 heads on rank 0
+])
+def test_an_f32_mla_model_at_a_head_cutting_tp_on_the_card(dtype, tp,
+                                                           refused):
+    """deepseek-v2-lite at full width (16 heads of v width 128) where tp
+    cuts a head: rank t attends the heads covering its 2,048 / tp columns
+    of ``o``, and an odd count of them is refused in f32 on the card under
+    "MLA head count" as a head-aligned odd count is."""
+    mcfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                               dtype=dtype)
+    assert mcfg.num_heads == 16 and 16 % tp
+    devices = [torch.device("cuda:0")] * tp
+    if refused:
+        with pytest.raises(NotImplementedError, match="MLA head count"):
+            TM.check_mla_heads(mcfg, tp, devices)
+    else:
+        TM.check_mla_heads(mcfg, tp, devices)
+    assert TM.heads_a_rank(mcfg, tp) == {32: [1] * 32, 3: [6] * 3,
+                                         6: [3, 4, 3, 3, 4, 3]}[tp]

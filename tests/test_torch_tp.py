@@ -659,22 +659,29 @@ def test_dense_kv_scale_up_mid_chunk_equals_reference(ref_tp):
 @pytest.mark.parametrize("tp", [3, 8])
 def test_an_mla_head_cutting_tp_raises(tp):
     """deepseek-v2-lite (4 heads at its reduced size) at a tp that cuts a
-    head: the server, the HMM and a model step refuse it, naming MLA's own
-    slice."""
-    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    head, which the port once refused: now the server and the HMM take it
+    (the reference's rule: at tp = 3 q alone is cut, 64 of its 192
+    columns a rank, and k_up, v_up and o stay whole; at tp = 8 every leaf
+    is cut) and a forward on it gives the one-device logits.  The steps
+    against the reference are ``tests/test_torch_scale_mla.py``'s."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b-smoke"),
+                              num_experts=24, capacity_factor=100.0)
     assert cfg.use_mla and cfg.num_heads % tp
-    match = "MLA's head-cutting TP slice"
-    with pytest.raises(NotImplementedError, match=match):
-        ElasticServer(cfg, tp=tp, batch_per_replica=2, max_len=64,
-                      all_devices=CPU8, device="cpu")
+    ElasticServer(cfg, tp=tp, batch_per_replica=2, max_len=64,
+                  all_devices=CPU8, device="cpu")
+    one = HMM(cfg, 1, batch_per_replica=2, max_len=64, device="cpu")
+    one.boot(ElasticConfig(1, 1, (0,)))
     hmm = HMM(cfg, tp, batch_per_replica=2, max_len=64, all_devices=CPU8,
               device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        hmm.boot(_cfg(8 // tp, tp))
+    hmm.boot(_cfg(8 // tp, tp), params=one.params)
+    attn = hmm.params["blocks"]["attn"]
+    assert attn["q"]["w"].shard(0).shape[-1] == 4 * 48 // tp
+    assert (attn["k_up"]["w"].shard(0).shape[-1] == 4 * 32) == (tp == 3)
     ctx = engine_parallel_ctx(make_instance_mesh(_cfg(8 // tp, tp), CPU8))
-    with pytest.raises(NotImplementedError, match=match):
-        TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                   parallel=ctx)
+    tokens = torch.arange(0, 130, 10, dtype=torch.int32)[None]
+    want = TM.forward(cfg, one.params, {"tokens": tokens})
+    got = TM.forward(cfg, hmm.params, {"tokens": tokens}, parallel=ctx)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("tp", [2, 4])
