@@ -437,6 +437,40 @@ Phases, each of which raises on failure (no phase's failure is caught):
    against ``unpark_transition_cost``, and the fleet tick that holds
    "a"'s park (cold: the host cache is emptied first), split into
    pinning and D2H.
+25. ``e2e_vlm``: llama-3.2-vision-11b at full width, its image encoder a
+   stub (embeddings [8, 1601, 4096] from seed 0), every cross gate set
+   to 1.0 (the reference initialises them to zero, which would keep the
+   image out).  5 layers (one group) in f32 and bf16, the prefill of the
+   8 smoke prompts and 2 decode steps through the kernels and under
+   ``ops.use_reference()``; then 40 layers in bf16: the prefill, 32
+   greedy decode steps (median and p90 wall), 4 profiled for the device
+   time, and ``max_memory_allocated``.
+26. ``e2e_encoder``: hubert-xlarge at full width, frames [8, 1024, 1280]
+   from seed 0: 2 layers in f32 and bf16 against plain, then 48 layers in
+   bf16 timed and profiled.
+27. ``e2e_window``: chatglm3-6b at full width with the dry run's
+   ``attn_window`` of 8,192, B = 2 prompts of 9,216 tokens: 2 layers in
+   f32 and bf16 against plain through the prefill (the ring keeps the
+   last 8,192 rows) and 16 ring decode steps; then 28 layers in bf16,
+   the prefill and 64 decode steps timed.
+28. ``serve_scale_one``: qwen3-30b-a3b at full width and
+   ``SCALE_LAYERS`` layers (paged bf16 KV, pooled pages, chunks of 128,
+   CUDA graphs) booted on one device: serves, ``stage_scale`` DP1 ->
+   DP2, ``switchover`` (its commit zeroes the KV, a DP1 shard being
+   keyed whole, as in the reference), finishes, drains to DP1, parks at
+   DP1 with nothing kept aside (``memory_allocated`` back within 256 MiB
+   of its level before the boot) and unparks to DP1 (8 fresh requests'
+   tokens equal before and after), then parks and unparks again with the
+   parameters kept aside (every logical parameter bitwise equal); the
+   eager twin's scale run gives the graphed run's tokens.
+The new phases print their numbers beside the card's name and power
+limit.  The kernels phase also runs the last slice's instances: the
+VLM's cross prefill (S = 1024 over 1,601 image rows) and cross decode,
+the encoder's non-causal prefill (B = 8, 16 heads of 80), chatglm3-6b's
+windowed prefill (S = 9216, W = 8192) and ring decode (positions below
+W, between W and 2W - 1, and past it, where the range is empty and the
+output the uniform mean of v), and a cross prefill whose rows past the
+window attend no key; SDPA's time is taken with the same boolean mask.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -573,6 +607,13 @@ PATH_KERNELS["serve_scale_mla_tp3"] = PATH_KERNELS["serve_scale_mla"]
 PATH_KERNELS["serve_closed_loop"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_rebalance"] = PATH_KERNELS["serve"]
 PATH_KERNELS["serve_park"] = PATH_KERNELS["serve"]
+PATH_KERNELS["serve_scale_one"] = PATH_KERNELS["serve"]
+# the last slice's model steps: the VLM's self and cross prefill and
+# decode, the encoder's forward, the windowed prefill and ring decode
+PATH_KERNELS["e2e_vlm"] = ("flash_attention", "paged_decode_attention",
+                           "kv_cache_write")
+PATH_KERNELS["e2e_encoder"] = ("flash_attention",)
+PATH_KERNELS["e2e_window"] = PATH_KERNELS["e2e_vlm"]
 PATH_KERNELS["serve_fleet"] = PATH_KERNELS["serve"]
 # the launcher's f32 smoke runs: deepseek-v2-lite's MLA with the dense
 # stores, and qwen1.5-0.5b's slot decode
@@ -598,6 +639,16 @@ RANK_LENGTHS = [1900, 5, 640, 1024]
 LAUNCH_BUCKET = 32
 SMOKE_FLASH_HEADS = ((2, 2, 48, 32), (4, 4, 48, 32), (2, 2, 64, 64),
                      (2, 2, 16, 16), (4, 4, 16, 16))
+# llama-3.2-vision-11b's heads (query, kv, width) and image rows;
+# hubert-xlarge's heads; chatglm3-6b at the dry run's long-context window
+# (LONG_CONTEXT_WINDOW) over a prompt past it (the reference's mha takes
+# Sq % 1024 == 0 above 1024), and the windowed decode's positions L: L <
+# W, W <= L < 2W - 1 (the ring's mask drops the newest slots) and L >= 2W
+# - 1 (it drops every slot: the uniform mean)
+VLM_HEADS, VLM_IMG = (32, 8, 128), 1601
+ENC_HEADS = (16, 16, 80)
+WINDOW, WINDOW_S = 8192, 9216
+RING_L = [100, 5000, 8191, 8192, 12000, 16382, 16383, 20000]
 
 
 def log(*a):
@@ -896,45 +947,80 @@ def _gmm_case(bank, C, dtype, aliased, gen, timer, do_time, quant=False,
     return rec
 
 
+def _attended(S, Skv, causal, window):
+    """(attended (query, key) pairs of one head, empty rows) of a prefill
+    attention: row i reads keys t <= i where causal, and t > i - window
+    under a window; a row left with none reads all Skv (the uniform mean,
+    as the reference's -1e30 mask gives)."""
+    i = np.arange(S)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(S, Skv)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(S, int)
+    n = np.maximum(hi - lo, 0)
+    empty = n == 0
+    return int(np.where(empty, Skv, n).sum()), int(empty.sum())
+
+
 def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD),
-                peaked=False):
-    """Causal prefill attention of one prompt of S tokens (a serving
-    bucket) against its plain version and causal SDPA, at ``heads`` =
-    (query heads, kv heads, q/k width, v width): qwen3-30b-a3b's (32, 4,
-    128, 128) by default, deepseek-v2-lite's MLA (16, 16, 192, 128; a
-    TP rank's 8, 8, 192, 128 at tp = 2) or zamba2-2.7b's shared block
-    (32, 32, 80, 80), or a smoke config's (``SMOKE_FLASH_HEADS``);
-    scale 1/sqrt(q/k width).  ``peaked``: queries drawn for scores of standard deviation 3,
-    and a bf16 output held to one rounding of the f32 answer."""
+                peaked=False, B=1, Skv=None, causal=True, window=None):
+    """Prefill attention of B prompts of S tokens (a serving bucket)
+    against its plain version and SDPA (causal, or with the boolean mask
+    of the same function), at ``heads`` = (query heads, kv heads, q/k
+    width, v width): qwen3-30b-a3b's (32, 4, 128, 128) by default,
+    deepseek-v2-lite's MLA (16, 16, 192, 128; a TP rank's 8, 8, 192, 128
+    at tp = 2) or zamba2-2.7b's shared block (32, 32, 80, 80), or a smoke
+    config's (``SMOKE_FLASH_HEADS``), and the last slice's: the VLM's
+    cross prefill (``Skv`` image rows, not causal), the encoder's (not
+    causal) and a sliding ``window``; scale 1/sqrt(q/k width).
+    ``peaked``: queries drawn for scores of standard deviation 3, and a
+    bf16 output held to one rounding of the f32 answer."""
     from repro_torch.kernels import ops, ref
     nh, nkv, hd, hdv = heads
+    Skv = S if Skv is None else Skv
     scale = hd ** -0.5
-    q = (torch.randn(1, S, nh, hd, generator=gen)
+    q = (torch.randn(B, S, nh, hd, generator=gen)
          * (DECODE_Q_STD if peaked else 1.0)).to(dtype).cuda()
-    k = torch.randn(1, S, nkv, hd, generator=gen).to(dtype).cuda()
-    v = torch.randn(1, S, nkv, hdv, generator=gen).to(dtype).cuda()
-    kern = lambda: ops.flash_attention(q, k, v, True, scale)
-    plain = lambda: ref.flash_attention_ref(q, k, v, True, scale)
+    k = torch.randn(B, Skv, nkv, hd, generator=gen).to(dtype).cuda()
+    v = torch.randn(B, Skv, nkv, hdv, generator=gen).to(dtype).cuda()
+    kern = lambda: ops.flash_attention(q, k, v, causal, scale, window)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal, scale, window)
     ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-        ql, kl, vl, is_causal=True, enable_gqa=True, scale=scale)
+    pairs, empty = _attended(S, Skv, causal, window)
+    if window is None and causal:
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, enable_gqa=True, scale=scale)
+    else:
+        i = torch.arange(S, device="cuda")[:, None]
+        t = torch.arange(Skv, device="cuda")[None]
+        mask = torch.ones(S, Skv, dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= t <= i
+        if window is not None:
+            mask &= i - t < window
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, enable_gqa=True, scale=scale)
     got = kern()
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    torch.testing.assert_close(lib().transpose(1, 2).float(), want.float(),
-                               **TOL[dtype])
+    if not empty:          # SDPA gives NaN where a row attends no key
+        torch.testing.assert_close(lib().transpose(1, 2).float(),
+                                   want.float(), **TOL[dtype])
     excess = None
     if peaked and dtype == torch.bfloat16:
         excess = _require_one_bf16_rounding(
             got, ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                         True, scale), "flash_attention")
+                                         causal, scale, window),
+            "flash_attention")
     # 2 (hd + hdv) per attended (q, k, head)
-    ops_n = 2 * (hd + hdv) * nh * S * (S + 1) // 2
+    ops_n = 2 * (hd + hdv) * nh * B * pairs
     io = nbytes(q, k, v, got)
     b_ms, b_by = bound_ms(io, ops_n, dtype)
-    rec = {"case": f"B=1 S={S} H={nh} KVH={nkv} hd={hd} hdv={hdv} causal"
+    rec = {"case": f"B={B} S={S}" + (f" Skv={Skv}" if Skv != S else "")
+                   + f" H={nh} KVH={nkv} hd={hd} hdv={hdv} "
+                   + ("causal" if causal else "not causal")
+                   + (f" window={window}" if window else "")
+                   + (f" ({empty} rows attend no key)" if empty else "")
                    + (" peaked" if peaked else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
@@ -1008,6 +1094,81 @@ def _slot_decode_case(dtype, gen, timer, do_time, heads=(H, KVH, HD),
     rec = {"case": f"B={BATCH} H={nh} KVH={nkv} hd={hd} S_max={MAX_LEN} "
                    f"lengths={DECODE_LENGTHS}"
                    + (f" kv heads {n} from {off}" if kv_range else ""),
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if excess is not None:
+        rec["rounding_excess"] = excess
+    if do_time:
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
+                   library_ms=timer(lib))
+    return rec
+
+
+def _range_decode_case(dtype, gen, timer, do_time, heads, S_max, ends,
+                       starts=None):
+    """Decode over a slot cache [B, S_max, KVH, hd] of rows ``[starts[b],
+    ends[b])``: the windowed ring's ranges (``starts`` given; an empty
+    range is the uniform mean of all S_max rows) or the VLM's cross
+    decode over its image rows (every row); against the plain version,
+    the bf16 output to one rounding of the f32 answer, a second launch the
+    same bits, and SDPA with the range's boolean mask (which cannot give
+    an empty range's mean: such rows attend every row there and are not
+    compared)."""
+    from repro_torch.kernels import ops, ref
+    nh, nkv, hd = heads
+    B = len(ends)
+    kc = torch.randn(B, S_max, nkv, hd, generator=gen).to(dtype).cuda()
+    vc = torch.randn(B, S_max, nkv, hd, generator=gen).to(dtype).cuda()
+    q = (torch.randn(B, nh, hd, generator=gen)
+         * DECODE_Q_STD).to(dtype).cuda()
+    end = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    start = (None if starts is None else
+             torch.tensor(starts, dtype=torch.int32, device="cuda"))
+    kern = lambda: ops.paged_decode_attention(q, kc, vc, end, starts=start)
+    plain = lambda: ref.paged_decode_attention_ref(q, kc, vc, end,
+                                                   starts=start)
+    lo = np.zeros(B, int) if starts is None else np.asarray(starts)
+    hi = np.asarray(ends)
+    empty = lo >= hi
+    t = torch.arange(S_max, device="cuda")[None, :]
+    mask = ((t >= torch.tensor(lo, device="cuda")[:, None])
+            & (t < end.long()[:, None]))
+    mask |= torch.tensor(empty, device="cuda")[:, None]
+    ql = q[:, :, None]
+    kl, vl = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    lib = lambda: sdpa(ql, kl, vl, mask[:, None, None, :])
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    require(torch.equal(kern(), got), "paged_decode_attention: a second "
+            "launch differs from the first")
+    if empty.any():
+        mean = vc.float().mean(1).repeat_interleave(nh // nkv, 1)
+        rows = torch.tensor(empty, device="cuda")
+        torch.testing.assert_close(got.float()[rows], mean[rows],
+                                   **TOL[dtype])
+    excess = None
+    if dtype == torch.bfloat16:
+        excess = _require_one_bf16_rounding(
+            got, ref.paged_decode_attention_ref(q.float(), kc.float(),
+                                                vc.float(), end,
+                                                starts=start),
+            "paged_decode_attention")
+    keep = torch.tensor(~empty, device="cuda")
+    torch.testing.assert_close(lib()[:, :, 0].float()[keep],
+                               want.float()[keep], **TOL[dtype])
+    rows = int(np.where(empty, S_max, hi - lo).sum())
+    io = (nbytes(q, got, end) + (0 if start is None else nbytes(start))
+          + rows * 2 * nkv * hd * kc.element_size())
+    ops_n = 4 * hd * nh * rows
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B={B} H={nh} KVH={nkv} hd={hd} S_max={S_max} rows "
+                   f"from {0 if starts is None else list(starts)} to "
+                   f"{list(ends)}"
+                   + (f" ({int(empty.sum())} empty: the uniform mean)"
+                      if empty.any() else ""),
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
     if excess is not None:
@@ -1472,6 +1633,35 @@ def phase_kernels():
             out["quant_paged_gmm"].append(_gmm_case(
                 "wi", C, dtype, False, gen, timer, dtype == torch.bfloat16,
                 quant=True, shape=(MLA_EXP, D_MODEL, MLA_FF)))
+        torch.cuda.empty_cache()
+    # the last slice's instances: the VLM's cross prefill (a 1,024-token
+    # prompt over its 1,601 image rows) and cross decode (every image
+    # row), the encoder's non-causal prefill (B = 8 clips of 1,024
+    # frames), chatglm3-6b's windowed prefill and ring decode, and a cross
+    # prefill whose rows 31 and up lie past the window (no key: the mean)
+    nh, nkv, hd = VLM_HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        peaked = dtype == torch.bfloat16
+        fa, pd = out["flash_attention"], out["paged_decode_attention"]
+        fa.append(_flash_case(1024, dtype, gen, timer, timed,
+                              (nh, nkv, hd, hd), peaked, Skv=VLM_IMG,
+                              causal=False))
+        fa.append(_flash_case(1024, dtype, gen, timer, timed,
+                              ENC_HEADS + ENC_HEADS[2:], peaked, B=8,
+                              causal=False))
+        fa.append(_flash_case(WINDOW_S, dtype, gen, timer, timed,
+                              (32, 2, HD, HD), peaked, window=WINDOW))
+        fa.append(_flash_case(64, dtype, gen, timer, False,
+                              (nh, nkv, hd, hd), peaked, Skv=24,
+                              causal=False, window=8))
+        torch.cuda.empty_cache()
+        pd.append(_range_decode_case(
+            dtype, gen, timer, timed, (32, 2, HD), WINDOW,
+            [min(L + 1, WINDOW) for L in RING_L],
+            [max(0, L - WINDOW + 1) for L in RING_L]))
+        pd.append(_range_decode_case(dtype, gen, timer, timed, VLM_HEADS,
+                                     VLM_IMG, [VLM_IMG] * BATCH))
         torch.cuda.empty_cache()
     for name, recs in out.items():
         for r in recs:
@@ -1964,6 +2154,308 @@ def phase_e2e_ssm():
             gc.collect()
             torch.cuda.empty_cache()
     return out
+
+
+def _step_ms(fn, n):
+    """``n`` calls of ``fn``, each timed on the host from its start to a
+    synchronised card -> (every call's wall ms, the last call's value)."""
+    walls, out = [], None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, out
+
+
+def _kernels_vs_plain(run, dtype_name, tag, what):
+    """``run()`` -> (logits, cache) through the kernels and under
+    ``ops.use_reference()``: finite logits of one shape; f32 within
+    ``E2E_F32_TOL``, bf16 relative Frobenius error under
+    ``E2E_BF16_REL``.  Returns (the errors, both caches)."""
+    from repro_torch.kernels import ops
+    got, c_got = run()
+    with ops.use_reference():
+        want, c_want = run()
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and torch.isfinite(got).all()
+            and torch.isfinite(want).all(), f"{tag} {what}: logits")
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    if dtype_name == "float32":
+        torch.testing.assert_close(got, want, **E2E_F32_TOL)
+    else:
+        require(rel < E2E_BF16_REL, f"{tag} {what} logits rel err {rel}")
+    return {"dtype": dtype_name, "max_abs_err": err, "rel_err": rel}, \
+        c_got, c_want
+
+
+def _vlm_params(cfg):
+    """llama-3.2-vision-11b's parameters from seed 0, every cross gate set
+    to 1.0: the reference initialises ``xgate`` to zero, and tanh(0) = 0
+    would keep the image out of the output entirely."""
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, 0, device="cuda")
+    params["cross_blocks"]["xgate"].fill_(1.0)
+    return params
+
+
+def _vlm_batch(cfg, gen):
+    """The 8 smoke prompts padded to 1,024 with their lengths, and stub
+    image embeddings [8, 1601, 4096] from ``gen``."""
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    tokens = torch.zeros(BATCH, 1024, dtype=torch.int32)
+    for b, p in enumerate(prompts):
+        tokens[b, :len(p)] = torch.from_numpy(p)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    img = torch.randn(BATCH, cfg.num_image_tokens, cfg.d_model,
+                      generator=gen).to(getattr(torch, cfg.dtype))
+    return {"tokens": tokens.cuda(), "lengths": lengths.cuda(),
+            "image_embeds": img.cuda()}
+
+
+def phase_e2e_vlm():
+    """``e2e_vlm``: llama-3.2-vision-11b at full width (the image encoder a
+    stub: embeddings from seed 0), every cross gate 1.0.  5 layers (one
+    group: the cross layer and four self layers) in f32 and bf16: a
+    prefill of the 8 smoke prompts over their images and 2 decode steps,
+    through the kernels and under ``ops.use_reference()``, the logits to
+    ``E2E_F32_TOL`` (f32) or ``E2E_BF16_REL`` (bf16) and the image k/v
+    equal.  Then 40 layers in bf16: the prefill, 32 greedy decode steps
+    (each step's wall to a synchronised card; the launches counted from
+    0 over prefill and steps), 4 more steps profiled for their device
+    time, and ``max_memory_allocated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    smi = _card()
+    tag = "[e2e_vlm]"
+    base = get_config("llama-3.2-vision-11b")
+    res = {"compare": []}
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, num_layers=base.cross_attn_every,
+                                  dtype=dtype_name)
+        params = _vlm_params(cfg)
+        batch = _vlm_batch(cfg, torch.Generator().manual_seed(0))
+        steps = torch.randint(0, cfg.vocab_size, (2, BATCH, 1),
+                              generator=torch.Generator().manual_seed(1),
+                              dtype=torch.int32).cuda()
+
+        def run():
+            lg, cache = M.prefill(cfg, params, batch, MAX_LEN)
+            out = [lg]
+            for j in range(2):
+                lg, cache = M.decode_step(cfg, params, steps[j], cache,
+                                          batch["lengths"] + j)
+                out.append(lg)
+            return torch.cat(out).float(), cache
+        rec, c_got, c_want = _kernels_vs_plain(run, dtype_name, tag,
+                                               "5 layers")
+        for n in ("img_k", "img_v"):
+            require(torch.equal(c_got[n], c_want[n]), f"{tag} {n} differs")
+        log(f"{tag} {cfg.num_layers} layers (1 cross + "
+            f"{cfg.num_layers - 1} self) at full width, "
+            f"{dtype_name}: prefill of {BATCH} prompts (bucket 1024) over "
+            f"{cfg.num_image_tokens} image rows + 2 decode steps, kernels "
+            f"against plain: max_abs_err {rec['max_abs_err']:.3e}, rel "
+            f"{rec['rel_err']:.3e}; image k/v equal; {smi}")
+        res["compare"].append(rec)
+        del params, batch, c_got, c_want, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    params = _vlm_params(cfg)
+    batch = _vlm_batch(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(cfg, params, batch, MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    lengths = batch["lengths"].clone()
+    tok = torch.argmax(lg, -1).to(torch.int32)
+    toks = [tok]
+
+    def step():
+        nonlocal tok, lengths
+        lg, _ = M.decode_step(cfg, params, tok[:, None], cache, lengths)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        lengths = lengths + 1
+        toks.append(tok)
+        return lg
+    walls, lg = _step_ms(step, 32)
+    counts = ops.launch_counts()
+    res["launches"] = {n: counts[n] for n in PATH_KERNELS["e2e_vlm"]}
+    for n, c in res["launches"].items():
+        require(c > 0, f"{tag} {n} was not launched")
+    require(torch.isfinite(lg).all(), f"{tag} logits not finite")
+    allt = torch.stack(toks).cpu()
+    require(bool(((allt >= 0) & (allt < cfg.vocab_size)).all()))
+    prof, _ = _profile("e2e_vlm decode steps", step, 4)
+    peak = torch.cuda.max_memory_allocated()
+    med, p90 = statistics.median(walls), _pct(walls, 90)
+    log(f"{tag} {cfg.num_layers} layers bf16 ("
+        f"{cfg.num_layers // cfg.cross_attn_every} cross), B={BATCH}, "
+        f"S_max={MAX_LEN}: "
+        f"prefill {prefill_ms:.2f} ms (bucket 1024 over "
+        f"{cfg.num_image_tokens} image rows), 32 greedy decode steps: "
+        f"median {med:.3f} ms, p90 {p90:.3f} ms (wall to a synchronised "
+        f"card), device {prof['device_ms_per_call']:.3f} ms a step; "
+        f"max_memory_allocated {peak}; launches {res['launches']}; {smi}")
+    res.update(prefill_ms=prefill_ms, decode_ms=walls, decode_median_ms=med,
+               decode_p90_ms=p90, device_ms=prof["device_ms_per_call"],
+               profile=prof, max_memory_allocated=peak, card=smi)
+    del params, cache, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_e2e_encoder():
+    """``e2e_encoder``: hubert-xlarge at full width (the conv frontend a
+    stub: frames from seed 0).  2 layers in f32 and bf16, ``forward`` over
+    frames [8, 1024, 1280] through the kernels and under
+    ``ops.use_reference()`` (``E2E_F32_TOL``, ``E2E_BF16_REL``); then 48
+    layers in bf16: 3 forwards timed (wall to a synchronised card), the
+    launches counted from 0 over them, and one profiled for its device
+    time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    smi = _card()
+    tag = "[e2e_encoder]"
+    base = get_config("hubert-xlarge")
+    res = {"compare": []}
+    gen = torch.Generator().manual_seed(0)
+    frames32 = torch.randn(BATCH, 1024, base.d_model, generator=gen).cuda()
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, num_layers=2, dtype=dtype_name)
+        params = M.init_params(cfg, 0, device="cuda")
+        frames = frames32.to(getattr(torch, dtype_name))
+        rec, _, _ = _kernels_vs_plain(
+            lambda: (M.forward(cfg, params, {"frames": frames}).float(),
+                     None), dtype_name, tag, "2 layers")
+        log(f"{tag} 2 layers at full width, {dtype_name}: forward over "
+            f"frames {tuple(frames.shape)}, kernels against plain: "
+            f"max_abs_err {rec['max_abs_err']:.3e}, rel "
+            f"{rec['rel_err']:.3e}; {smi}")
+        res["compare"].append(rec)
+        del params, frames
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    params = M.init_params(cfg, 0, device="cuda")
+    frames = frames32.to(torch.bfloat16)
+    M.forward(cfg, params, {"frames": frames})       # warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls, y = _step_ms(lambda: M.forward(cfg, params, {"frames": frames}),
+                        3)
+    counts = ops.launch_counts()
+    res["launches"] = {n: counts[n] for n in PATH_KERNELS["e2e_encoder"]}
+    require(res["launches"]["flash_attention"] == 3 * cfg.num_layers,
+            f"{tag} launches {res['launches']}")
+    require(y.shape == (BATCH, 1024, cfg.vocab_size)
+            and torch.isfinite(y).all(), f"{tag} logits")
+    prof, _ = _profile("e2e_encoder forward", lambda: M.forward(
+        cfg, params, {"frames": frames}), 1)
+    log(f"{tag} {cfg.num_layers} layers bf16, frames [{BATCH}, 1024, "
+        f"{cfg.d_model}]: "
+        f"forward {statistics.median(walls):.2f} ms (median of 3, wall to "
+        f"a synchronised card; {walls}), device "
+        f"{prof['device_ms_per_call']:.2f} ms; launches {res['launches']}; "
+        f"{smi}")
+    res.update(forward_ms=walls, device_ms=prof["device_ms_per_call"],
+               profile=prof, card=smi)
+    del params, frames, frames32, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_e2e_window():
+    """``e2e_window``: chatglm3-6b at full width with ``attn_window`` =
+    8192 (the dry run's ``LONG_CONTEXT_WINDOW``), B = 2 prompts of 9,216
+    tokens (lengths 9216 and 9000; the reference's mha takes Sq % 1024 ==
+    0 above 1024).  2 layers in f32 and bf16: the prefill (the ring keeps
+    the last 8,192 rows) and 16 decode steps (the ring written at L %
+    8192, its slots masked as the reference masks them), through the
+    kernels and under ``ops.use_reference()``, each step's logits held
+    (``E2E_F32_TOL``, ``E2E_BF16_REL``).  Then 28 layers in bf16: the
+    prefill and 64 decode steps timed (wall to a synchronised card), the
+    launches counted from 0 over them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    smi = _card()
+    tag = "[e2e_window]"
+    base = dataclasses.replace(get_config("chatglm3-6b"),
+                               attn_window=WINDOW)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, base.vocab_size, (2, WINDOW_S), generator=gen,
+                           dtype=torch.int32).cuda()
+    lengths = torch.tensor([WINDOW_S, 9000], dtype=torch.int32).cuda()
+    steps = torch.randint(0, base.vocab_size, (16, 2, 1), generator=gen,
+                          dtype=torch.int32).cuda()
+    max_len = WINDOW_S + 128
+    res = {"compare": []}
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, num_layers=2, dtype=dtype_name)
+        params = M.init_params(cfg, 0, device="cuda")
+
+        def run():
+            lg, cache = M.prefill(cfg, params, {"tokens": tokens,
+                                                "lengths": lengths}, max_len)
+            out = [lg]
+            for j in range(16):
+                lg, cache = M.decode_step(cfg, params, steps[j], cache,
+                                          lengths + j)
+                out.append(lg)
+            return torch.cat(out).float(), cache
+        rec, c_got, _ = _kernels_vs_plain(run, dtype_name, tag, "2 layers")
+        require(c_got["k"].shape[2] == WINDOW, f"{tag} ring rows")
+        log(f"{tag} 2 layers at full width, {dtype_name}: prefill of 2 x "
+            f"{WINDOW_S} tokens (window {WINDOW}) + 16 ring decode steps, "
+            f"kernels against plain: max_abs_err {rec['max_abs_err']:.3e}, "
+            f"rel {rec['rel_err']:.3e}; {smi}")
+        res["compare"].append(rec)
+        del params, c_got, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg, cache = M.prefill(cfg, params, {"tokens": tokens,
+                                        "lengths": lengths}, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    state = {"tok": torch.argmax(lg, -1).to(torch.int32), "L": lengths}
+
+    def step():
+        lg, _ = M.decode_step(cfg, params, state["tok"][:, None], cache,
+                              state["L"])
+        state["tok"] = torch.argmax(lg, -1).to(torch.int32)
+        state["L"] = state["L"] + 1
+        return lg
+    walls, lg = _step_ms(step, 64)
+    counts = ops.launch_counts()
+    res["launches"] = {n: counts[n] for n in PATH_KERNELS["e2e_window"]}
+    for n, c in res["launches"].items():
+        require(c > 0, f"{tag} {n} was not launched")
+    require(torch.isfinite(lg).all(), f"{tag} logits not finite")
+    med, p90 = statistics.median(walls), _pct(walls, 90)
+    log(f"{tag} {cfg.num_layers} layers bf16, B=2, window {WINDOW}: prefill "
+        f"{prefill_ms:.2f} ms ({WINDOW_S} tokens a prompt), 64 ring decode "
+        f"steps: median {med:.3f} ms, p90 {p90:.3f} ms (wall to a "
+        f"synchronised card); launches {res['launches']}; {smi}")
+    res.update(prefill_ms=prefill_ms, decode_ms=walls, decode_median_ms=med,
+               decode_p90_ms=p90, card=smi)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _prompts(rng, vocab):
@@ -4608,10 +5100,10 @@ def phase_launch_serve():
     res, counts, shapes = {}, {}, set()
     flash = ops.flash_attention
 
-    def seen_flash(q, k, v, *a):
+    def seen_flash(q, k, v, *a, **kw):
         shapes.add((q.shape[1], q.shape[2], k.shape[2], q.shape[3],
                     v.shape[3], q.dtype))
-        return flash(q, k, v, *a)
+        return flash(q, k, v, *a, **kw)
     for name, argv in LAUNCH_RUNS.items():
         tag = f"[launch_serve {name}]"
         ops.reset_launch_counts()
@@ -4940,31 +5432,49 @@ def _overlap(a, b):
     return max(a[0], b[0]) < min(a[1], b[1])
 
 
+def _shards(leaf):
+    """A leaf's (device, index, tensor) shards: a one-device instance's
+    plain tensor is its one shard, indexed ``slice(None)``."""
+    if hasattr(leaf, "addressable_shards"):
+        return leaf.addressable_shards
+    return [(None, (slice(None),) * leaf.dim(), leaf)]
+
+
 def _logical_equal(old, old_table, new, new_table):
     """Every logical parameter of ``old`` (a parameter tree and its page
-    table) bitwise equal in ``new``: each dense leaf shard against a shard of ``new`` at the same
-    index, each expert's rows where each table puts them.  Returns the
+    table) bitwise equal in ``new``: each shard of a dense leaf of
+    ``new`` (every replica's copy) against ``old``'s at the same index,
+    the same indices in both, each expert's rows where each table puts
+    them; plain (one-device) leaves count as one shard.  Returns the
     number of tensors compared."""
     from repro_torch.distributed.sharding import tree_leaves_with_path
     new_leaves = dict(tree_leaves_with_path(new))
+
+    def key(idx):
+        return tuple((s.start, s.stop) for s in idx)
     n = 0
     for path, leaf in tree_leaves_with_path(old):
         if path.startswith("moe_pool/") or re.search(
                 r"moe/(tables|edest|eslot|gtable)$", path):
             continue
-        by_index = {tuple((s.start, s.stop) for s in idx): t
-                    for _, idx, t in new_leaves[path].addressable_shards}
-        for _, idx, t in leaf.addressable_shards:
-            got = by_index[tuple((s.start, s.stop) for s in idx)]
-            require(torch.equal(got, t), f"{path} differs after the unpark")
+        by_index = {key(idx): t for _, idx, t in _shards(leaf)}
+        shards = _shards(new_leaves[path])
+        require({key(idx) for _, idx, _ in shards} == set(by_index),
+                f"{path} is split otherwise after the unpark")
+        for _, idx, t in shards:
+            require(torch.equal(t, by_index[key(idx)]),
+                    f"{path} differs after the unpark")
             n += 1
     pool_old, pool_new = old["moe_pool"], new["moe_pool"]
+
+    def page(bank, ref):
+        return (bank.shard(ref.device) if hasattr(bank, "shard")
+                else bank)[ref.page]
     for key, ref in old_table.active.items():
         dst = new_table.active[key]
         for bank in pool_old:
-            want = pool_old[bank].shard(ref.device)[ref.page]
-            got = pool_new[bank].shard(dst.device)[dst.page]
-            require(torch.equal(got, want),
+            require(torch.equal(page(pool_new[bank], dst),
+                                page(pool_old[bank], ref)),
                     f"expert {key} bank {bank} differs after the unpark")
             n += 1
     return n
@@ -5209,6 +5719,162 @@ def phase_serve_park(layers):
                         "compared": n}
         srv.hmm.close()
         del srv, task
+    finally:
+        obs.install(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _scale_one(cfg, prompts, cuda_graphs, tag):
+    """``serve_scale_one``'s scale run: boot DP1, serve the 8 smoke
+    requests for 6 ticks, ``stage_scale`` to DP2, one tick, ``switchover``,
+    serve to the end, then ``start_scale`` back to DP1 (drain) advanced to
+    DONE.  Returns (the server, the tokens, the two events, the drain's
+    wall)."""
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.serving.workload import Request
+    c1, c2 = ElasticConfig(1, 1, (0,)), ElasticConfig(2, 1, (0, 1))
+    srv = _scale_server(cfg, None, 1, ndev=2, scaledown="drain",
+                        cuda_graphs=cuda_graphs)
+    srv.boot(c1)
+    reqs = [Request(rid=i, arrival_s=0.0, prompt_len=len(p), output_len=32,
+                    prompt=p) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    t = 0.0
+    for _ in range(6):
+        srv.tick(t)
+        t += 0.05
+    torch.cuda.synchronize()
+    up = srv.stage_scale(c2)
+    srv.tick(t)
+    t += 0.05
+    srv.switchover()
+    torch.cuda.synchronize()
+    require(srv.engine.num_slots == 2 * SCALE_BPR, f"{tag} slots")
+    n = 0
+    while any(r.finish_s is None for r in reqs):
+        srv.tick(t)
+        t, n = t + 0.05, n + 1
+        require(n < 3000, f"{tag} serving did not finish")
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    task = srv.start_scale(c1)
+    while not task.done:
+        task.advance(t)
+        t += 0.05
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - w0
+    require(srv.current_config() == c1 and srv.engine.parallel is None,
+            f"{tag} not back on one device")
+    tokens = {r.rid: list(srv.engine.generated[r.rid]) for r in reqs}
+    return srv, tokens, (up, task.event), drain_s
+
+
+def phase_serve_scale_one(layers):
+    """``serve_scale_one``: qwen3-30b-a3b at full width and
+    ``SCALE_LAYERS`` layers, paged bf16 KV, pooled bf16 pages, chunks of
+    128, CUDA graphs, two logical devices of the card.  Boots on ONE
+    device (DP1: plain tensors, one-device steps), serves the 8 smoke
+    requests part way, ``stage_scale`` to DP2 (the target's graphs
+    captured inside it), ``switchover`` (the KV zeroed at this commit, as
+    the reference's ``_grow_cache`` does: a DP1 shard is keyed whole),
+    finishes, drains back to DP1 (``start_scale``), then parks at DP1
+    with nothing kept aside (``memory_allocated`` back within 256 MiB of
+    its level before the boot) and unparks to DP1: 8 fresh requests give
+    the tokens they gave before the park.  A second park and unpark keeps
+    the parameters aside: every logical one bitwise equal to the pre-park
+    one.  The eager twin (``cuda_graphs=False``) runs the
+    scale part and its tokens must equal the graphed run's."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.topology import ElasticConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.workload import Request
+    smi = _card()
+    tag = "[serve_scale_one]"
+    cfg = _capped(get_config("qwen3-30b-a3b"),
+                  min(SCALE_LAYERS, layers or SCALE_LAYERS))
+    prompts = _prompts(np.random.default_rng(0), cfg.vocab_size)
+    c1 = ElasticConfig(1, 1, (0,))
+    res = {"layers": cfg.num_layers}
+    tracer = obs.install(obs.Tracer(capacity=1 << 20))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch._C._host_emptyCache()
+        mem = {"before_boot": torch.cuda.memory_allocated()}
+        ops.reset_launch_counts()
+        srv, tokens, (up, down), drain_s = _scale_one(cfg, prompts, True,
+                                                      tag)
+        counts = ops.launch_counts()
+        res["launches"] = _path_launches(counts, None, tag)
+        fields = ("zero_copy_bytes", "p2p_bytes", "local_bytes",
+                  "init_bytes", "expert_p2p_bytes",
+                  "expert_zero_copy_bytes")
+        for name, ev in (("up", up), ("down", down)):
+            st = {f: int(getattr(ev.stats, f)) for f in fields}
+            log(f"{tag} {ev.src} -> {ev.dst}: stage_s {ev.stage_s:.4f}, "
+                f"switch_s {ev.switch_s:.4f}, stall_s {ev.stall_s:.4f}; "
+                f"bytes {st} (init_bytes: the zeroed KV of the commit); "
+                f"{smi}")
+            res[name] = {"stage_s": ev.stage_s, "switch_s": ev.switch_s,
+                         "stall_s": ev.stall_s, **st}
+        kv1 = sum(t.nbytes for t in srv.engine.cache.values())
+        require(up.stats.init_bytes == 2 * kv1,
+                f"{tag} the DP1 -> DP2 commit made {up.stats.init_bytes} "
+                f"KV bytes, not both replicas' {2 * kv1}")
+        res["drain_s"] = drain_s
+        def fresh(base):
+            return [Request(rid=base + i, arrival_s=0.0, prompt_len=len(p),
+                            output_len=32, prompt=p)
+                    for i, p in enumerate(prompts)]
+        before = _serve_all(srv, fresh(100), 100.0)
+        # the first park keeps nothing aside, so the memory it frees shows
+        st = srv.park()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem["after_park"] = torch.cuda.memory_allocated()
+        require(mem["after_park"] - mem["before_boot"] < 256 << 20,
+                f"{tag} memory_allocated after the park {mem}")
+        task, m = _unpark(srv, c1, tracer, 200.0)
+        again = _serve_all(srv, fresh(200), 300.0)
+        require(list(again.values()) == list(before.values()),
+                f"{tag} tokens after the unpark differ")
+        log(f"{tag} park at {c1.describe()}: wall {st.wall_s:.4f} s, "
+            f"d2h_bytes {st.d2h_bytes}; memory_allocated before boot "
+            f"{mem['before_boot']}, after the park {mem['after_park']}; "
+            f"unpark -> {c1.describe()}: start_unpark to DONE "
+            f"{m['wall_s']:.4f} s, h2d_bytes {task.stats.h2d_bytes}; 8 "
+            f"fresh requests' tokens equal before and after; {smi}")
+        res.update(park_wall_s=st.wall_s, d2h_bytes=st.d2h_bytes,
+                   unpark_start_to_done_s=m["wall_s"],
+                   h2d_bytes=task.stats.h2d_bytes, memory=mem, card=smi)
+        # again, the parameters kept aside to compare
+        old = (srv.hmm.params, srv.hmm.page_table)
+        st2 = srv.park()
+        task, m2 = _unpark(srv, c1, tracer, 400.0)
+        n = _logical_equal(old[0], old[1], srv.hmm.params,
+                           srv.hmm.page_table)
+        del old
+        log(f"{tag} park again: wall {st2.wall_s:.4f} s; unpark -> "
+            f"{c1.describe()}: start_unpark to DONE {m2['wall_s']:.4f} s; "
+            f"{n} logical tensors bitwise equal to the pre-park ones; {smi}")
+        res["again"] = {"park_wall_s": st2.wall_s,
+                        "unpark_start_to_done_s": m2["wall_s"],
+                        "compared": n}
+        srv.hmm.close()
+        del srv, task
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager, e_tokens, _, _ = _scale_one(cfg, prompts, False, tag)
+        _compare_tokens(e_tokens, tokens, tag, "the graphed run")
+        require(e_tokens == tokens, f"{tag} graphed tokens differ from "
+                f"the eager twin's")
+        eager.hmm.close()
+        del eager
     finally:
         obs.install(None)
     gc.collect()
@@ -5492,7 +6158,8 @@ def main():
                             "serve_scale_mla_tp3,"
                             "serve_scale_zamba2,serve_closed_loop,"
                             "launch_serve,serve_rebalance,serve_park,"
-                            "serve_fleet")
+                            "serve_fleet,e2e_vlm,e2e_encoder,e2e_window,"
+                            "serve_scale_one")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -5542,6 +6209,11 @@ def main():
                  lambda: phase_serve_rebalance(args.layers)))
     runs.append(("serve_park", lambda: phase_serve_park(args.layers)))
     runs.append(("serve_fleet", lambda: phase_serve_fleet(args.layers)))
+    runs.append(("e2e_vlm", phase_e2e_vlm))
+    runs.append(("e2e_encoder", phase_e2e_encoder))
+    runs.append(("e2e_window", phase_e2e_window))
+    runs.append(("serve_scale_one",
+                 lambda: phase_serve_scale_one(args.layers)))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -2,10 +2,10 @@
 
 Pure data.  The field set is the reference's, field for field, so a
 reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``;
-the port itself serves the standard-attention MoE decoders
+the port serves the standard-attention MoE decoders
 (``models/model.py:paged_cache_supported``), the MLA decoders
 (``models/mla.py``) and the Mamba2 models, attention-free and hybrid
-(``models/mamba2.py``).
+(``models/mamba2.py``), and steps the VLM and the encoder.
 """
 from __future__ import annotations
 
@@ -108,13 +108,12 @@ class ModelConfig:
         return self.arch_type != "encoder"
 
     def param_count(self) -> int:
-        """Parameters of a standard-attention, MLA or Mamba2 decoder
-        (embedding, LM head, attention, dense MLP or routed and shared
-        experts plus router, SSD blocks, a hybrid's one shared attention
-        block) — the subset of the reference's ``param_count`` that the
-        port's models cover, term for term (like the reference, it counts
-        every layer as a MoE layer, no norm scales, and an SSD block's
-        conv over ``d_inner`` channels only)."""
+        """Parameters (embedding, LM head, attention, dense MLP or routed
+        and shared experts plus router, SSD blocks, a hybrid's one shared
+        attention block, a VLM's cross-attentions) — the reference's
+        ``param_count`` term for term (like the reference, it counts every
+        layer as a MoE layer, an encoder's embedding too, no norm scales,
+        and an SSD block's conv over ``d_inner`` channels only)."""
         D, H = self.d_model, self.num_heads
         hd, kvh = self.resolved_head_dim, self.num_kv_heads
         n = self.vocab_size * D * (1 if self.tie_embeddings else 2)
@@ -144,14 +143,16 @@ class ModelConfig:
                    + D * self.num_experts)
         else:
             ffn = ff_mult * D * self.d_ff
-        return n + self.num_layers * (attn + ffn)
+        n += self.num_layers * (attn + ffn)
+        if self.arch_type == "vlm" and self.cross_attn_every:
+            n += self.num_layers // self.cross_attn_every * std_attn
+        return n
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """A smoke-test-sized variant of the same architecture family (2
-    layers, d_model<=256, <=4 experts, f32) — the reference's ``reduced``
-    for the standard-attention, MLA and Mamba2 decoders the port
-    covers."""
+    layers, d_model<=256, <=4 experts, f32) — the reference's
+    ``reduced``."""
     small: dict = dict(
         num_layers=2,
         d_model=min(cfg.d_model, 256),
@@ -186,5 +187,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.attn_every:
         small["attn_every"] = 1
         small["num_layers"] = 2
+    if cfg.cross_attn_every:
+        small["cross_attn_every"] = 2
+        small["num_image_tokens"] = 16
+    if cfg.num_frame_tokens:
+        small["num_frame_tokens"] = 64
     small["dtype"] = "float32"
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)

@@ -2,7 +2,9 @@
 server that boots on one or several logical devices, serves, and scales
 while it serves.
 
-On one device (``ElasticConfig(1, 1, (0,))``) an instance serves a
+An encoder (no decode) and a VLM (a ``Request`` carries no image) are
+refused at construction; their steps are ``models.model``'s.  On one
+device (``ElasticConfig(1, 1, (0,))``) an instance serves a
 standard-attention decoder, an MLA decoder (over its latent cache) or a
 Mamba2 model, attention-free or hybrid (over its per-slot SSD state and,
 hybrid, the shared block's K/V); the last two with dense KV and monolithic
@@ -12,7 +14,10 @@ keeps every head whole: each DP replica runs its attention on its own
 shards and slots (at tp > 1 split over its TP ranks, with explicit sums
 between them), and the MoE runs expert-parallel across every device.
 
-Scaling (the paper's §5): ``start_scale(target)`` opens an
+Scaling (the paper's §5), also from and to one device (the HMM reads a
+one-device instance's tensors as shards of its one-device mesh, and the
+engine switches between the one-device and the ``parallel`` steps at the
+switchover): ``start_scale(target)`` opens an
 ``EngineScalingTask`` whose ``advance(now)`` is a non-blocking poll, and
 ``tick()`` serves between any two polls; ``scale_to`` and ``stage_scale``
 + ``switchover`` are the blocking forms.  The phases are the reference's
@@ -624,6 +629,22 @@ class ElasticServer:
                  kv_dtype: Optional[str] = None,
                  expert_dtype: Optional[str] = None,
                  imm_cache=None, cuda_graphs: bool = True, device="cuda"):
+        if not mcfg.has_decode:
+            raise NotImplementedError(
+                f"{mcfg.name} is encoder-only: no serving decode (as "
+                f"launch/serve.py says); models.model.forward runs it")
+        if mcfg.arch_type == "vlm":
+            raise NotImplementedError(
+                f"{mcfg.name}: a Request carries no image, so a VLM server "
+                f"would prefill without one (the reference's server attends "
+                f"the prompt as its image: ROADMAP §3, \"The VLM server\"); "
+                f"models.model's prefill and decode_step take "
+                f"image_embeds")
+        if mcfg.attn_window is not None:
+            raise NotImplementedError(
+                f"{mcfg.name}: a sliding window runs on one device only, so "
+                f"a windowed server could not scale (ROADMAP §1 item 6); "
+                f"models.model's prefill and decode_step take the window")
         if scaledown not in ("migrate", "drain"):
             raise ValueError(f"unknown scaledown {scaledown!r}")
         if prefill_chunk and not chunk_prefill_supported(mcfg):

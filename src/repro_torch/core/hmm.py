@@ -91,8 +91,17 @@ can be retried.  The byte fields are the reference's: the park counts
 each dense leaf's logical bytes once and one page per device-resident
 page in ``d2h_bytes``; the unpark counts every device shard (whole pool
 slices, their zero rows too) in ``h2d_bytes``, and the rows it copies in
-``h2d_copied_bytes``.  One device on either side is not
-ported (``NotImplementedError``), as for a scale.
+``h2d_copied_bytes``.
+
+One device on either side of a scale, a park or an unpark: the
+instance's plain tensors are read as the shards of its one-device mesh,
+every index ``slice(None)`` (``_sharded_view``), as the reference's
+one-device arrays are, so the same staging, byte accounting and commit
+run; a one-device target's staged tree and cache are its shards as plain
+tensors again (``_plain``).  A DP1 source's KV shards are keyed whole
+and a DP2 target's by replica, and the reverse, so such a commit zeroes
+the KV, as the reference's ``_grow_cache`` does (ROADMAP §3, "Parity
+held").
 """
 from __future__ import annotations
 
@@ -438,6 +447,30 @@ class HMM:
             s[1] = "dp"
         return NamedSharding(mesh, tuple(s))
 
+    def _sharded_view(self, tree, cfg: ElasticConfig, cache: bool = False):
+        """``tree`` as ``cfg``'s mesh holds it: on one device its plain
+        tensors as the one shard each of a ``ShardedTensor`` (every index
+        ``slice(None)``, the same tensors), by the parameter rule or, with
+        ``cache``, the cache's; on several devices ``tree`` itself."""
+        if cfg.ndev > 1:
+            return tree
+        mesh = make_instance_mesh(cfg, self.all_devices)
+        dev = cfg.devices[0]
+        return tree_map_with_path(
+            lambda path, t: ShardedTensor(
+                t.shape, (self.cache_sharding(t.shape, mesh) if cache else
+                          self.param_sharding(path, t.shape, mesh)),
+                {dev: t}), tree)
+
+    @staticmethod
+    def _plain(tree, cfg: ElasticConfig):
+        """A tree of ``cfg``'s ``ShardedTensor``s as the instance holds it:
+        on one device each leaf's one shard, plain; else ``tree``."""
+        if cfg.ndev > 1:
+            return tree
+        return tree_map_with_path(lambda _, t: t.shard(cfg.devices[0]),
+                                  tree)
+
     def _cache_template(self, cfg: ElasticConfig) -> Dict[str, Tuple]:
         """name -> (shape, dtype) of ``cfg``'s cache (nothing allocated)."""
         cache = self.make_cache(cfg, device="meta")
@@ -748,10 +781,7 @@ class HMM:
             raise RuntimeError("staging already in progress")
         if new_cfg.tp != self.tp:
             raise ValueError("TP is fixed during scaling (§4.1)")
-        if self.active_cfg.ndev == 1 or new_cfg.ndev == 1:
-            raise NotImplementedError(
-                "scaling from or to one device is not ported yet (boot on "
-                "two or more logical devices)")
+        check_devices(new_cfg, self.all_devices)
         t0 = time.perf_counter()
         mesh = make_instance_mesh(new_cfg, self.all_devices)
         if self.expert_mode == "pooled":
@@ -761,7 +791,8 @@ class HMM:
                 self.page_table.staged, new_cfg)
         work = []
         dst = {}
-        for path, leaf in tree_leaves_with_path(self.params):
+        for path, leaf in tree_leaves_with_path(
+                self._sharded_view(self.params, self.active_cfg)):
             sh = self.param_sharding(path, leaf.shape, mesh)
             kind, expert_dim = "reshard", None
             if re.search(r"moe/w[igo]$", path):
@@ -780,7 +811,8 @@ class HMM:
         self._stage_cursor = 0
         self._scale_target = (
             new_cfg, mesh,
-            tree_map_with_path(lambda path, _: dst[path], self.params),
+            self._plain(tree_map_with_path(lambda path, _: dst[path],
+                                           self.params), new_cfg),
             self._new_kv_shards(new_cfg, mesh))
         self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
         if self.staging_mode == "overlap":
@@ -1079,7 +1111,10 @@ class HMM:
         (``_new_kv_shards``).  Dense rows split the batch axis, the paged
         pool the block axis: either way a surviving shard keeps its (index,
         logical device) and is adopted as it is — every live block table
-        stays valid."""
+        stays valid.  A one-device side is read and given as plain
+        tensors (``_sharded_view``, ``_plain``)."""
+        live_cache = self._sharded_view(live_cache, self.active_cfg,
+                                        cache=True)
         out = {}
         for name, (shape, _) in self._cache_template(new_cfg).items():
             old = _holders(live_cache[name])
@@ -1096,7 +1131,7 @@ class HMM:
                     stats.zero_copy_count += 1
                 shards[dev] = data
             out[name] = ShardedTensor(shape, sh, shards)
-        return out
+        return self._plain(out, new_cfg)
 
     # --------------------------------------------------------------- attach
     def staged_tensors(self, live_cache):
@@ -1158,6 +1193,8 @@ class HMM:
         self.active_cfg = new_cfg
         self.params = params
         self.staged = None
+        if new_cfg.ndev == 1:
+            self.device = self.all_devices[new_cfg.devices[0]]
         if self.page_table is not None and self.page_table.staged is not None:
             self.page_table.commit()
         stats.wall_s = time.perf_counter() - t0
@@ -1227,10 +1264,6 @@ class HMM:
         if self._rebalance_ops is not None:
             raise RuntimeError("park is mutually exclusive with rebalancing")
         cfg = self.active_cfg
-        if cfg.ndev == 1:
-            raise NotImplementedError(
-                "parking from one device is not ported yet (boot on two or "
-                "more logical devices)")
         t0 = time.perf_counter()
         stats = TransferStats()
         arena = self._pinned_arena()
@@ -1246,8 +1279,8 @@ class HMM:
                     pieces[_idx_key(index)] = (index, host)
                     stats.d2h_bytes += data.nbytes
             return _HostLeaf(leaf.shape, pieces)
-        tree = tree_map_with_path(snapshot, {
-            k: v for k, v in self.params.items() if k != "moe_pool"})
+        tree = tree_map_with_path(snapshot, self._sharded_view(
+            {k: v for k, v in self.params.items() if k != "moe_pool"}, cfg))
         pages = None
         if self.expert_mode == "pooled":
             pages = {}
@@ -1324,10 +1357,6 @@ class HMM:
             raise RuntimeError("staging already in progress")
         if cfg.tp != self.tp:
             raise ValueError("TP is fixed across park and unpark (§4.1)")
-        if cfg.ndev == 1:
-            raise NotImplementedError(
-                "unparking to one device is not ported yet (unpark to two "
-                "or more logical devices)")
         check_devices(cfg, self.all_devices)
         t0 = time.perf_counter()
         mesh = make_instance_mesh(cfg, self.all_devices)
@@ -1367,8 +1396,10 @@ class HMM:
         self._stage_work = work
         self._stage_cursor = 0
         self._scale_target = (
-            cfg, mesh, tree_map_with_path(lambda path, _: dst[path], src),
-            self._sharded_cache(cfg, mesh))
+            cfg, mesh,
+            self._plain(tree_map_with_path(lambda path, _: dst[path], src),
+                        cfg),
+            self._plain(self._sharded_cache(cfg, mesh), cfg))
         self._unpark = True
         self._unpark_table = table
         self._stage_stats = TransferStats(wall_s=time.perf_counter() - t0)
@@ -1423,6 +1454,8 @@ class HMM:
         self.params = params
         self.staged = None
         self._scale_target = None
+        if cfg.ndev == 1:
+            self.device = self.all_devices[cfg.devices[0]]
         if self._unpark_table is not None:
             self.page_table = self._unpark_table
         self._unpark = False

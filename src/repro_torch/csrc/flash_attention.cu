@@ -1,12 +1,25 @@
-// Causal blocked (flash) attention for a monolithic prefill, for Hopper
-// (sm_90a).
+// Blocked (flash) attention for a monolithic prefill, for Hopper
+// (sm_90a): causal self-attention, with or without a sliding window, and
+// non-causal attention (an encoder's, or a cross-attention's over another
+// sequence's keys).
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention.py:72).
 //
-// What it computes.  q/k [B,S,H|KVH,hd]; v [B,S,KVH,hdv] (GQA: query head
-// h reads kv head h / (H/KVH)); out [B,S,H,hdv].  Query row i attends to
-// key rows t <= i (causal) or to every row (not causal).  Online softmax
+// What it computes.  q [B,S,H,hd]; k [B,Skv,KVH,hd]; v [B,Skv,KVH,hdv]
+// (GQA: query head h reads kv head h / (H/KVH)); out [B,S,H,hdv].  Query
+// row i attends to key rows t <= i (causal, Skv = S) or to every row (not
+// causal: the encoder's self-attention, Skv = S, and the VLM's cross
+// prefill, S prompt rows over Skv = 1601 image rows), and with a window W
+// only to rows with i - t < W.  None of the three has a TPU kernel of its
+// own: the reference computes them in plain mha, which the port routes
+// through this kernel.  A window's masked score is the reference's -1e30,
+// so a row left with no key (a cross row W or more past the last image
+// row) gets the mean of every row of v, as the reference's softmax gives;
+// padding past Skv and the causal mask are -inf (a causal row always
+// attends itself).  A causal window starts each query tile at the key
+// tile of its first row's window and a warp skips a tile below all of its
+// rows' windows: about S W key rows a head instead of S^2 / 2.  Online softmax
 // in f32 (running max m, sum l, accumulator acc), score = dot(q, k) *
 // scale (the caller's; 1/sqrt(hd) for a standard head), output acc /
 // max(l, 1e-30) rounded once to q's type -- the Pallas kernel's
@@ -49,11 +62,18 @@
 // in f32.  The two parts keep each probability to about 2^-17 of itself
 // as the Pallas kernel's f32 P.V does, so the bf16 output is the f32
 // answer rounded once; they cost a second P.V product, 1.5x the tensor
-// work of one pass.  140-194 registers a thread by instance, no spills.
+// work of one pass.  A tile's P.V goes into a zeroed fragment a pair of
+// n-tiles, added into O with f32 adds: the tensor cores' f32 sums do not
+// round to nearest, and summing every tile of a long row on them put the
+// output 3.85e-5 past one bf16 rounding of the f32 answer at 9,216 keys
+// (8.3e-6 with the f32 adds, which cost 8 % at S = 1024).  No spills.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), causal,
-// B=1, S=1024: 0.0825 ms at qwen3-30b-a3b's heads (32/4, 128), 0.0720 ms
-// at MLA's (16/16, 192/128), 0.0594 ms at zamba2-2.7b's (32/32, 80):
-// 1.7-2.4x causal SDPA and 9.5-11.5x the bound.  What is left: timed
+// B=1, S=1024, summing on the tensor cores: 0.0825 ms at
+// qwen3-30b-a3b's heads (32/4, 128), 0.0720 ms at MLA's (16/16,
+// 192/128), 0.0594 ms at zamba2-2.7b's (32/32, 80): 1.7-2.4x causal SDPA
+// and 9.5-11.5x the bound.  The cross instance (1,024 rows over 1,601
+// keys) takes 1.11x SDPA's time, the window instance (9,216 rows, W =
+// 8,192) 0.84x SDPA's with the same mask (PERF.md).  What is left: timed
 // variants that skipped the copies after the first tile changed nothing,
 // and dropping all of P.V saved only 28 %; the time is a chain of
 // dependent steps per tile (the products, the row max across the quad,
@@ -166,7 +186,7 @@ template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int H, int KVH, int causal, float scale) {
+    int S, int Skv, int H, int KVH, int causal, int window, float scale) {
   constexpr int KS = HD / 16;     // k-steps of S = Q K^T
   constexpr int NV = HDV / 8;     // n-tiles of O
   constexpr int KR = tile_row(HD), VR = tile_row(HDV);
@@ -182,14 +202,16 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t kv_stride = (size_t)KVH * HD, v_stride = (size_t)KVH * HDV;
-  const __nv_bfloat16* k_base = k + (size_t)b * S * kv_stride +
+  const __nv_bfloat16* k_base = k + (size_t)b * Skv * kv_stride +
                                 (size_t)kvh * HD;
-  const __nv_bfloat16* v_base = v + (size_t)b * S * v_stride +
+  const __nv_bfloat16* v_base = v + (size_t)b * Skv * v_stride +
                                 (size_t)kvh * HDV;
 
-  // key tiles up to the last row this query tile attends
-  const int last = causal ? min(S, q0 + TQ) : S;
+  // key tiles up to the last row this query tile attends, and, causal
+  // with a window, from the first key its first row's window holds
+  const int last = causal ? min(Skv, q0 + TQ) : Skv;
   const int n_k = (last + TK - 1) / TK;
+  const int kt0 = causal && window > 0 ? max(0, q0 - window + 1) / TK : 0;
 
   // tile kt's K and V rows into stage st, zero past S: each thread
   // copies the same 16-byte pieces of every tile
@@ -203,7 +225,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
 #pragma unroll 2
     for (int i = 0; i < TK * KP / TC_THREADS; ++i) {
       const int c = tid + i * TC_THREADS, r = c / KP, p = c % KP;
-      const bool ok = k0 + r < S;
+      const bool ok = k0 + r < Skv;
       cp_async16(kd + r * KR + p * 16,
                  k_base + (ok ? (size_t)(k0 + r) * kv_stride + p * 8 : 0),
                  ok);
@@ -211,14 +233,14 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
 #pragma unroll 2
     for (int i = 0; i < TK * VP / TC_THREADS; ++i) {
       const int c = tid + i * TC_THREADS, r = c / VP, p = c % VP;
-      const bool ok = k0 + r < S;
+      const bool ok = k0 + r < Skv;
       cp_async16(vd + r * VR + p * 16,
                  v_base + (ok ? (size_t)(k0 + r) * v_stride + p * 8 : 0),
                  ok);
     }
     cp_async_commit();
   };
-  issue(0, 0);
+  issue(kt0, 0);
 
   // this warp's 16 query rows as A fragments, straight from device
   // memory while the first tile is in flight (rows past S zero)
@@ -249,10 +271,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[nt][j] = 0.f;
 
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int st = kt % STAGES;
+  for (int kt = kt0; kt < n_k; ++kt) {
+    const int st = (kt - kt0) % STAGES;
     if (kt + 1 < n_k) {
-      issue(kt + 1, (kt + 1) % STAGES);
+      issue(kt + 1, (kt + 1 - kt0) % STAGES);
       cp_async_wait<1>();          // tile kt has landed, kt + 1 in flight
     } else {
       cp_async_wait<0>();
@@ -296,7 +318,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
           if constexpr (MASK) {
             const int col = k0 + nt * 8 + 2 * tig + (j & 1);
             const int row = j < 2 ? row0 : row1;
-            if (col >= S || (causal && col > row)) s = -CUDART_INF_F;
+            if (col >= Skv || (causal && col > row))
+              s = -CUDART_INF_F;
+            else if (window > 0 && row - col >= window)
+              s = NEG_INF;     // the reference's -1e30: a row with no key
+                               // left gets the mean of every row of v
           }
           sc[nt][j] = s;
           mx[j >> 1] = fmaxf(mx[j >> 1], s);
@@ -318,12 +344,18 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
       }
       // O += P_hi V + P_lo V, 16 keys a k-step: the S fragments of n-tiles
       // 2 kk and 2 kk + 1 are P's A fragment; one ldmatrix.x4.trans gives
-      // the B fragments of two 8-value n-tiles of V
+      // the B fragments of two 8-value n-tiles of V.  Each n-tile pair's
+      // products over the tile's TK keys are summed on the tensor cores
+      // into a zeroed fragment, which is added into O with f32 adds:
+      // the tensor cores' own f32 sums do not round to nearest, and a
+      // chain of them through every key tile of a long row (8,192 keys
+      // under chatglm3-6b's window) moved the output by more than an f32
+      // sum in another order does
       const unsigned char* vr =
           vt_s + (size_t)(lane & 15) * VR + (lane >> 4) * 16;
+      uint32_t pa[TK / 16][4], pl[TK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk) {
-        uint32_t pa[4], pl[4];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float p[4];
@@ -332,24 +364,41 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
             p[j] = ex2(sc[2 * kk + half][j] - m2[j >> 1]);  // 0 if masked
             l2[j >> 1] += p[j];
           }
-          split_bf16(p[0], p[1], pa[2 * half], pl[2 * half]);
-          split_bf16(p[2], p[3], pa[2 * half + 1], pl[2 * half + 1]);
+          split_bf16(p[0], p[1], pa[kk][2 * half], pl[kk][2 * half]);
+          split_bf16(p[2], p[3], pa[kk][2 * half + 1],
+                     pl[kk][2 * half + 1]);
         }
+      }
 #pragma unroll
-        for (int np = 0; np < HDV / 16; ++np) {
+      for (int np = 0; np < HDV / 16; ++np) {
+        float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < TK / 16; ++kk) {
           uint32_t bv[4];
           ldmatrix_x4_trans(bv, vr + (size_t)kk * 16 * VR + np * 32);
-          mma_bf16(o[2 * np], pa, bv[0], bv[1]);
-          mma_bf16(o[2 * np], pl, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
-          mma_bf16(o[2 * np + 1], pl, bv[2], bv[3]);
+          mma_bf16(t[0], pa[kk], bv[0], bv[1]);
+          mma_bf16(t[0], pl[kk], bv[0], bv[1]);
+          mma_bf16(t[1], pa[kk], bv[2], bv[3]);
+          mma_bf16(t[1], pl[kk], bv[2], bv[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[2 * np][j] += t[0][j];
+          o[2 * np + 1][j] += t[1][j];
         }
       }
     };
-    // a warp whose rows all lie before the tile's first key skips it
-    if (k0 + TK > S || (causal && k0 + TK - 1 > q0 + warp * 16)) {
-      if (!causal || k0 <= q0 + warp * 16 + 15) tile(std::true_type());
-    } else {
+    // a causal warp skips a tile whose keys all lie after its rows, or,
+    // with a window, all before every one of its rows' windows (a causal
+    // row always attends itself); the diagonal, the ragged last tile and
+    // a window's edge are masked
+    const int w0 = q0 + warp * 16, w1 = w0 + 15;
+    const bool skip = causal && (k0 > w1 || (window > 0 &&
+                                             k0 + TK - 1 <= w0 - window));
+    if (k0 + TK > Skv || (causal && k0 + TK - 1 > w0) ||
+        (window > 0 && k0 <= w1 - window)) {
+      if (!skip) tile(std::true_type());
+    } else if (!skip) {
       tile(std::false_type());
     }
     __syncthreads();               // every warp is done with stage st
@@ -404,8 +453,8 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const float* src,
 template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int H,
-    int KVH, int causal, float scale) {
+    const float* __restrict__ v, float* __restrict__ out, int S, int Skv,
+    int H, int KVH, int causal, int window, float scale) {
   constexpr int QP = HD + 1;     // padded q / k rows
   constexpr int PP = BK + 1;     // padded probability rows
   constexpr int NC = HDV / 16;   // accumulator columns per thread
@@ -423,8 +472,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KVH * HD;
   const size_t v_stride = (size_t)KVH * HDV, o_stride = (size_t)H * HDV;
   const float* q_base = q + ((size_t)b * S + q0) * q_stride + (size_t)h * HD;
-  const float* k_base = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const float* v_base = v + (size_t)b * S * v_stride + (size_t)kvh * HDV;
+  const float* k_base = k + (size_t)b * Skv * kv_stride + (size_t)kvh * HD;
+  const float* v_base = v + (size_t)b * Skv * v_stride + (size_t)kvh * HDV;
 
   stage<HD>(q_s, QP, q_base, q_stride, BQ, S - q0);
 
@@ -436,16 +485,18 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
   }
-  // key tiles up to the last row this query tile attends
-  const int last = causal ? min(S, q0 + BQ) : S;
+  // key tiles up to the last row this query tile attends, and, causal
+  // with a window, from the first key its first row's window holds
+  const int last = causal ? min(Skv, q0 + BQ) : Skv;
   const int n_k = (last + BK - 1) / BK;
+  const int kt0 = causal && window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
-  for (int kt = 0; kt < n_k; ++kt) {
+  for (int kt = kt0; kt < n_k; ++kt) {
     const int k0 = kt * BK;
     stage<HD>(k_s, QP, k_base + (size_t)k0 * kv_stride, kv_stride, BK,
-              S - k0);
+              Skv - k0);
     stage<HDV>(v_s, HDV, v_base + (size_t)k0 * v_stride, v_stride, BK,
-               S - k0);
+               Skv - k0);
     __syncthreads();
 
     // scores of rows ty*4 + i against columns tx + 16*j
@@ -473,8 +524,13 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const bool ok = col < S && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        // padding past Skv never counts; a causal or window mask is the
+        // reference's -1e30 (a row with no key left: the mean of v)
+        s[i][j] = col >= Skv ? -CUDART_INF_F
+                  : (causal && col > row) ||
+                          (window > 0 && row - col >= window)
+                      ? NEG_INF
+                      : s[i][j] * scale;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 16 threads holding row i are lanes tx = 0..15 of a half warp
@@ -537,8 +593,8 @@ constexpr size_t smem_bytes() {
 
 template <int HD, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int S, int H, int KVH, int causal, float scale,
-           cudaStream_t stream) {
+           int B, int S, int Skv, int H, int KVH, int causal, int window,
+           float scale, cudaStream_t stream) {
   if (dtype == 1) {
     const dim3 grid((S + TQ - 1) / TQ, H, B);
     constexpr size_t smem = mma_smem_bytes<HD, HDV>();
@@ -551,7 +607,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), S, H, KVH, causal, scale);
+        static_cast<__nv_bfloat16*>(out), S, Skv, H, KVH, causal, window,
+        scale);
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
@@ -564,8 +621,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   flash_attention_kernel<HD, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, KVH,
-      causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), S, Skv, H,
+      KVH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -573,19 +630,24 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); (hd, hdv) in {(16, 16),
-// (48, 32), (64, 64), (80, 80), (128, 128), (192, 128)}.  Returns
-// cudaGetLastError() after the launch (0 on success).  Allocates nothing and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out); q [B,S,H,hd], k
+// [B,Skv,KVH,hd], v [B,Skv,KVH,hdv]; causal needs Skv = S; window > 0:
+// row i attends keys t with i - t < window (0: no window); (hd, hdv) in
+// {(16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128)}.
+// Returns cudaGetLastError() after the launch (0 on success).  Allocates
+// nothing and does not synchronise.
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* out, int B, int S, int H,
-                           int KVH, int hd, int hdv, int causal, float scale,
-                           void* stream) {
+                           const void* v, void* out, int B, int S, int Skv,
+                           int H, int KVH, int hd, int hdv, int causal,
+                           int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 0 || B <= 0) return 0;
-#define FA_LAUNCH(HD, HDV)                                                 \
-  if (hd == HD && hdv == HDV)                                              \
-    return launch<HD, HDV>(dtype, q, k, v, out, B, S, H, KVH, causal, scale, \
-                           s);
+  if (Skv <= 0 || (causal && Skv != S) || window < 0)
+    return (int)cudaErrorInvalidValue;
+#define FA_LAUNCH(HD, HDV)                                                \
+  if (hd == HD && hdv == HDV)                                             \
+    return launch<HD, HDV>(dtype, q, k, v, out, B, S, Skv, H, KVH, causal, \
+                           window, scale, s);
   FA_LAUNCH(16, 16)
   FA_LAUNCH(48, 32)
   FA_LAUNCH(64, 64)

@@ -1,5 +1,7 @@
-"""Causal blocked (flash) attention for a monolithic prefill — CUDA launch
-wrapper.
+"""Blocked (flash) attention for a monolithic prefill — CUDA launch
+wrapper: causal self-attention, with or without a sliding window, and
+the non-causal attention of an encoder or of a cross-attention over
+another sequence's keys.
 
 Port of the Pallas TPU kernel ``flash_attention``
 (``repro/kernels/flash_attention.py:72``); the kernel and its design note
@@ -37,19 +39,22 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_launch":
-               [_I] + [_P] * 4 + [_I] * 7 + [_F, _P]}
+               [_I] + [_P] * 4 + [_I] * 9 + [_F, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q/k head dim, v head dim) instances
 HEAD_DIMS = ((16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: float | None = None
-                    ) -> torch.Tensor:
-    """q [B,S,H,hd]; k [B,S,KVH,hd]; v [B,S,KVH,hdv] (query head h reads
-    kv head h // (H/KVH)) -> [B,S,H,hdv] in q's dtype; causal: row i
-    attends rows t <= i; scores scaled by ``scale`` (default
-    ``1/sqrt(hd)``).  (hd, hdv) in ``HEAD_DIMS``."""
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """q [B,Sq,H,hd]; k [B,Skv,KVH,hd]; v [B,Skv,KVH,hdv] (query head h
+    reads kv head h // (H/KVH)) -> [B,Sq,H,hdv] in q's dtype; row i and
+    key t are positions i and t.  causal (Sq = Skv): row i attends keys
+    t <= i; ``window`` W: keys with i - t < W (a row that attends none
+    gets the uniform mean of v, ``ref.flash_attention_ref``); scores
+    scaled by ``scale`` (default ``1/sqrt(hd)``).  (hd, hdv) in
+    ``HEAD_DIMS``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -64,13 +69,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
-        raise ValueError("shapes: q [B,S,H,hd], k [B,S,KVH,hd], v "
-                         "[B,S,KVH,hdv]")
+        raise ValueError("shapes: q [B,Sq,H,hd], k [B,Skv,KVH,hd], v "
+                         "[B,Skv,KVH,hdv]")
     B, S, H, hd = q.shape
-    KVH, hdv = k.shape[2], v.shape[3]
-    if k.shape[:2] != (B, S) or k.shape[3] != hd or H % KVH:
+    Skv, KVH, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape[0] != B or k.shape[3] != hd or H % KVH:
         raise ValueError(f"q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)}")
+    if causal and Skv != S:
+        raise ValueError(f"a causal attention attends its own {S} keys, "
+                         f"not {Skv}")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window {window} must be at least 1")
     if (hd, hdv) not in HEAD_DIMS:
         raise ValueError(f"head dims (q/k, v) = {(hd, hdv)} not in "
                          f"{HEAD_DIMS}")
@@ -81,8 +91,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, H, KVH, hd, hdv, int(causal), scale,
-            stream)
+            out.data_ptr(), B, S, Skv, H, KVH, hd, hdv, int(causal),
+            0 if window is None else int(window), scale, stream)
     _build.check(lib, rc, "flash_attention")
     _build.count_launch(flash_attention)
     return out

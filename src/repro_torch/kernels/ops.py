@@ -173,25 +173,29 @@ def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
                                           scale_o, x)
 
 
-def flash_attention(q, k, v, causal=True, scale=None):
-    """Causal blocked attention over a whole prompt (every monolithic
-    prefill, every layer; MLA's at q/k width 192 and v width 128); see
+def flash_attention(q, k, v, causal=True, scale=None, window=None):
+    """Blocked attention over a whole prompt (every monolithic prefill,
+    every layer; MLA's at q/k width 192 and v width 128), causal or not,
+    over its own keys or another sequence's (a cross-attention's image
+    keys), with or without a sliding ``window``; see
     ``flash_attention.flash_attention``."""
     if _plain(q):
-        return ref.flash_attention_ref(q, k, v, causal, scale)
-    return _flash.flash_attention(q, k, v, causal, scale)
+        return ref.flash_attention_ref(q, k, v, causal, scale, window)
+    return _flash.flash_attention(q, k, v, causal, scale, window)
 
 
 def paged_decode_attention(q, k_cache, v_cache, lengths, kv_head_offset=0,
-                           kv_heads=None):
+                           kv_heads=None, starts=None):
     """Decode attention over the slot-contiguous cache (every decode tick,
-    every layer, with ``kv_mode="dense"``); see
+    every layer, with ``kv_mode="dense"``), positions ``[starts, lengths)``
+    (a windowed ring's, or a cross-attention's image rows); see
     ``paged_attention.paged_decode_attention``."""
     if _plain(q):
         return ref.paged_decode_attention_ref(q, k_cache, v_cache, lengths,
-                                              kv_head_offset, kv_heads)
+                                              kv_head_offset, kv_heads,
+                                              starts)
     return paged_attention.paged_decode_attention(
-        q, k_cache, v_cache, lengths, kv_head_offset, kv_heads)
+        q, k_cache, v_cache, lengths, kv_head_offset, kv_heads, starts)
 
 
 def kv_cache_write(cache, new, pos):

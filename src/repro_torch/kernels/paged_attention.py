@@ -49,7 +49,7 @@ _SIGNATURES = {
 _DECODE_SIGNATURES = {
     "block_paged_decode_attention_launch":
         [_I] + [_P] * 9 + [_I] * 9 + [_F, _P],
-    "paged_decode_attention_launch": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    "paged_decode_attention_launch": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
     "quant_block_paged_decode_attention_launch":
         [_I] + [_P] * 11 + [_I] * 9 + [_F, _P],
 }
@@ -237,7 +237,8 @@ def _decode_launch(wrapper, q, kv, inputs, dims, context, scales=()):
         ws = _build.split_workspace(q.device, stream,
                                     n_acc + 2 * n_acc // hd)
         rc = getattr(lib, f"{name}_launch")(
-            _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in inputs),
+            _DTYPES[q.dtype], q.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in inputs),
             out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
             done.data_ptr(), *dims, 1.0 / math.sqrt(hd), stream)
     _build.check(lib, rc, name)
@@ -366,11 +367,15 @@ quant_mixed_block_paged_attention.launches = 0
 def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
                            lengths: torch.Tensor, kv_head_offset=0,
-                           kv_heads=None) -> torch.Tensor:
+                           kv_heads=None, starts=None) -> torch.Tensor:
     """Decode attention over the slot-contiguous cache (the dense-KV
     serving mode).  q [B,H,hd]; k/v_cache [B,S_max,KVH,hd] of q's dtype;
-    lengths [B] int32, clamped to S_max -> [B,H,hd].  Positions at or past
-    ``lengths[b]`` are never read.  The limits of
+    lengths [B] int32, clamped to S_max -> [B,H,hd].  Row b attends
+    positions ``[starts[b], lengths[b])`` (``starts`` [B] int32, or None:
+    from 0); positions outside are never read, and an empty range gives
+    the uniform mean of all S_max rows of v, as the reference's ``-1e30``
+    mask does (the windowed ring decode's;
+    ``ref.paged_decode_attention_ref``).  The limits of
     :func:`block_paged_decode_attention` hold; kv heads from
     ``kv_head_offset`` (module note)."""
     dev = q.device
@@ -378,8 +383,10 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
     if q.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q.dtype} (bfloat16 or float32)")
+    ints = [("lengths", lengths)] + ([] if starts is None
+                                     else [("starts", starts)])
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
+                    *ints):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -387,20 +394,21 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} dtype {t.dtype}, expected {q.dtype}")
-    if lengths.dtype != torch.int32:
-        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    for name, t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
             or k_cache.shape[3] != q.shape[2] \
-            or lengths.shape != (q.shape[0],):
+            or any(t.shape != (q.shape[0],) for _, t in ints):
         raise ValueError(f"shapes: q [B,H,hd], caches [B,S_max,KVH,hd], "
-                         f"lengths [B]; got {tuple(q.shape)}, "
+                         f"lengths and starts [B]; got {tuple(q.shape)}, "
                          f"{tuple(k_cache.shape)}, {tuple(lengths.shape)}")
     KVH, n = _head_range(q, k_cache, kv_head_offset, kv_heads)
     B, H, hd = q.shape
     S_max = k_cache.shape[1]
     return _decode_launch(paged_decode_attention, q, (k_cache, v_cache),
-                          (k_cache, v_cache, lengths),
+                          (k_cache, v_cache, lengths, starts),
                           (B, H, n, KVH, kv_head_offset, hd, S_max), S_max)
 
 

@@ -80,22 +80,38 @@ def quant_paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g,
     return quant_paged_gmm_ref(table_o, pool_o, scale_o, h)
 
 
-def flash_attention_ref(q, k, v, causal=True, scale=None):
-    """q [B,S,H,hd]; k [B,S,KVH,hd]; v [B,S,KVH,hdv] (query head h reads
-    kv head h // (H/KVH)) -> [B,S,H,hdv]; causal: row i attends rows
-    t <= i; scores scaled by ``scale`` (default ``1/sqrt(hd)``)."""
-    B, S, H, hd = q.shape
-    KVH, hdv = k.shape[2], v.shape[3]
+def flash_attention_ref(q, k, v, causal=True, scale=None, window=None):
+    """q [B,Sq,H,hd]; k [B,Skv,KVH,hd]; v [B,Skv,KVH,hdv] (query head h
+    reads kv head h // (H/KVH)) -> [B,Sq,H,hdv]; row i and key t are
+    positions i and t.  causal (Sq = Skv): row i attends keys t <= i;
+    ``window`` W: keys with i - t < W (the reference's sliding window, on
+    the causal prefill and on a cross-attention alike); scores scaled by
+    ``scale`` (default ``1/sqrt(hd)``).  A masked score is ``-1e30``, as in
+    the reference's ``mha``: a row that attends no key (a cross row past
+    the window) gets the uniform mean of all Skv rows of v.  The rows go
+    1,024 at a time, as the reference's ``mha`` chunks them, which bounds
+    the f32 scores held at once (a 9,216-token prompt's whole [S, S]
+    score matrix would take 10.9 GB a sequence at 32 heads)."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KVH
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    qg = q.reshape(B, S, KVH, G, hd).float()
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k.float()) * scale
-    if causal:
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-        s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkh->bqkgh", p, v.float())
-    return o.reshape(B, S, H, hdv).to(q.dtype)
+    kf, vf = k.float(), v.float()
+    t = torch.arange(Skv, device=q.device)[None]
+    out = []
+    for r0 in range(0, Sq, 1024):
+        qg = q[:, r0:r0 + 1024].reshape(B, -1, KVH, G, hd).float()
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, kf) * scale
+        i = torch.arange(r0, r0 + qg.shape[1], device=q.device)[:, None]
+        mask = torch.ones(qg.shape[1], Skv, dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= t <= i
+        if window is not None:
+            mask &= i - t < window
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        out.append(torch.einsum("bkgqt,btkh->bqkgh", p, vf))
+    return torch.cat(out, 1).reshape(B, Sq, H, hdv).to(q.dtype)
 
 
 def mla_decode_attention_ref(q_eff, q_rope, c_cache, kr_cache, lengths,
@@ -198,9 +214,14 @@ def _heads(pool, kv_head_offset: int, kv_heads):
 
 
 def paged_decode_attention_ref(q, k_cache, v_cache, lengths,
-                               kv_head_offset=0, kv_heads=None):
+                               kv_head_offset=0, kv_heads=None, starts=None):
     """q [B,H,hd]; caches [B,S,KVH,hd]; lengths [B] (clamped to S) ->
-    [B,H,hd]; kv heads from ``kv_head_offset`` (module note)."""
+    [B,H,hd]; kv heads from ``kv_head_offset`` (module note).  Row b
+    attends positions ``[starts[b], lengths[b])`` (``starts`` None: from
+    0).  A masked score is ``-1e30``, as in the reference's ``mha``: an
+    empty range gives the uniform mean of all S rows of v (the windowed
+    ring decode's ``L >= 2W - 1``, ``models/model.py``'s ``_decode_slots``
+    note)."""
     k_cache = _heads(k_cache, kv_head_offset, kv_heads)
     v_cache = _heads(v_cache, kv_head_offset, kv_heads)
     B, H, hd = q.shape
@@ -209,7 +230,10 @@ def paged_decode_attention_ref(q, k_cache, v_cache, lengths,
     qg = q.reshape(B, KVH, G, hd).float()
     s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float()) / math.sqrt(hd)
     t = torch.arange(S, device=q.device)[None, None, None]
-    s = torch.where(t < lengths.long()[:, None, None, None], s, NEG_INF)
+    keep = t < lengths.long()[:, None, None, None]
+    if starts is not None:
+        keep = keep & (t >= starts.long()[:, None, None, None])
+    s = torch.where(keep, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkh->bkgh", p, v_cache.float())
     return o.reshape(B, H, hd).to(q.dtype)

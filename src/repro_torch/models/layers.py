@@ -1,7 +1,8 @@
 """Core transformer layers as plain functions over parameter dicts — the
-port of the parts of ``repro.models.layers`` the serving paths use (the
-paged KV pool, and the slot-contiguous cache with monolithic or chunked
-prefill).
+port of ``repro.models.layers``: attention over the paged KV pool and
+over the slot-contiguous cache with monolithic or chunked prefill, a
+sliding window over the latter (its ring decode included), and the VLM's
+cross-attention over image keys.
 
 Conventions (the reference's, kept at every public function):
 
@@ -188,26 +189,88 @@ def _qkv_rope(cfg, p, x, positions, rank: int = 0, tp: int = 1):
 
 def attention_apply(cfg, p, x, positions, *, cache=None, write_pos=None,
                     kv_valid_len=None, kv_x=None, causal=None, window=None):
-    """Self-attention, with or without the slot-contiguous KV cache: the
-    one-device case of :func:`attention_apply_tp`.
+    """Self- or cross-attention, with or without the slot-contiguous KV
+    cache (the reference's signature; ``causal`` defaults to
+    ``cfg.causal`` and applies to self-attention, ``window`` to
+    ``cfg.attn_window``).
 
-    * Prefill / forward (``cache=None``): x [B,S,D] -> (y [B,S,D], (k, v)
-      [B,S,KVH,hd]).
-    * Decode (``cache=(k_cache, v_cache)`` [B,max_len,KVH,hd], x [B,1,D]):
-      -> (y [B,1,D], cache), updated in place.
+    * Prefill / forward (``cache=None``): x [B,S,D] at ``positions``
+      ``arange(S)`` -> (y [B,S,D], (k, v) [B,S,KVH,hd]); a ``window`` W
+      masks keys t with i - t >= W.
+    * Decode (``cache=(k_cache, v_cache)`` [B,rows,KVH,hd], x [B,1,D],
+      ``write_pos``): -> (y [B,1,D], cache), updated in place; with a
+      window the new row goes where ``write_pos`` says (the ring's ``L %
+      rows``) and row b attends the ring slots the reference's mask keeps
+      (``_decode_range``).
+    * Cross-attention, prefill (``kv_x`` [B,T,D], the image embeddings):
+      k and v from ``kv_x`` -> (y, the image (k, v) [B,T,KVH,hd]); decode
+      (a ``cache`` of image k/v and no ``write_pos``): attends it in place
+      -> (y, cache).  Never causal and never rotated.
 
-    Cross-attention (``kv_x``, or a cache without ``write_pos``) and
-    windowed attention are outside this port and raise."""
-    if kv_x is not None or (cache is not None and write_pos is None):
-        raise NotImplementedError("cross-attention is not ported yet")
+    Self-attention is the one-device case of :func:`attention_apply_tp`;
+    cross-attention runs on one device only (``_cross_attention``)."""
+    causal = cfg.causal if causal is None else causal
     window = cfg.attn_window if window is None else window
-    if window is not None:
-        raise NotImplementedError("windowed attention is not ported yet")
+    if kv_x is not None or (cache is not None and write_pos is None):
+        return _cross_attention(cfg, p, x, positions, kv_x=kv_x,
+                                cache=cache, kv_valid_len=kv_valid_len,
+                                window=window)
     ys, kv = attention_apply_tp(
         cfg, [p], [x], positions, [x.device],
         caches=None if cache is None else [cache], write_pos=write_pos,
-        kv_valid_len=kv_valid_len, causal=causal)
+        kv_valid_len=kv_valid_len, causal=causal, window=window)
     return ys[0], kv if cache is None else cache
+
+
+def _decode_range(positions, valid, window):
+    """A decode row's attended slots ``[start, end)`` of its cache, as the
+    reference's ``mha`` masks them with ``kv_pos = arange(rows)`` (slot
+    indices, which a windowed ring holds out of position order): ``end``
+    = ``valid``, the valid length, which the self-attention's callers end
+    at ``positions + 1``, where its causal mask ends too; ``start`` =
+    ``positions - W + 1`` (at least 0) under a window W, else None.
+    Where start >= end the reference masks every slot, and its softmax
+    over equal ``-1e30`` scores gives the uniform mean of v, which
+    ``ops.paged_decode_attention`` reproduces (ROADMAP §3, "Windowed
+    decode")."""
+    end = valid.to(torch.int32)
+    if window is None:
+        return None, end
+    start = (positions[:, 0].to(torch.int32) - (window - 1)).clamp(min=0)
+    return start, end
+
+
+def _cross_attention(cfg, p, x, positions, *, kv_x, cache, kv_valid_len,
+                     window):
+    """:func:`attention_apply`'s cross-attention on one device.  Prefill:
+    q from x [B,S,D], k and v from ``kv_x`` [B,T,D] (no rope on them, as
+    in the reference), the image keys at positions ``arange(T)``, through
+    ``ops.flash_attention`` (S rows over T keys) -> (y, (k, v)).  Decode
+    (x [B,1,D]): q against the cached image k/v [B,T,KVH,hd] through
+    ``ops.paged_decode_attention`` over ``_decode_range``'s slots (every
+    image row, or a window's) -> (y, cache)."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    # no rope and no causal mask, as the reference's VLM blocks call it
+    q = linear(p["q"], x).reshape(B, S, H, hd)
+    if kv_x is not None:
+        T = kv_x.shape[1]
+        k = linear(p["k"], kv_x).reshape(B, T, KVH, hd)
+        v = linear(p["v"], kv_x).reshape(B, T, KVH, hd)
+        o = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), False, window=window)
+        return linear(p["o"], o.reshape(B, S, H * hd)), (k, v)
+    if S != 1:
+        raise ValueError(f"a decode over a cached image attends one token, "
+                         f"not {S}")
+    kc, vc = cache
+    T = kc.shape[1]
+    valid = (torch.full((B,), T, dtype=torch.int32, device=x.device)
+             if kv_valid_len is None else kv_valid_len)
+    start, end = _decode_range(positions, valid, window)
+    o = ops.paged_decode_attention(q[:, 0].contiguous(), kc, vc, end,
+                                   starts=start)
+    return linear(p["o"], o.reshape(B, 1, H * hd)), cache
 
 
 def paged_attention_apply(cfg, p, x, positions, *, cache, block_tables,
@@ -341,29 +404,32 @@ def _tp_out(ps, os_, devices, cols=None):
 
 
 def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
-                       write_pos=None, kv_valid_len=None, causal=None):
+                       write_pos=None, kv_valid_len=None, causal=None,
+                       window=None):
     """Self-attention over one replica's TP ranks (module note), with or
     without the slot-contiguous KV cache.
 
     * Prefill / forward (``caches`` None): x [B,S,D] at ``positions``
       ``arange(S)``; each rank attends causally (``cfg.causal`` unless
       ``causal`` is given) over the fresh k/v of the kv heads its query
-      heads read (``ops.flash_attention``); returns (the outputs, one per
-      rank, (k, v) of all heads [B,S,KVH,hd] on rank 0's device).
+      heads read (``ops.flash_attention``), keys t with i - t < ``window``
+      only where one is given; returns (the outputs, one per rank, (k, v)
+      of all heads [B,S,KVH,hd] on rank 0's device).
     * Decode (``caches[t]`` = rank t's copy ``(k_cache, v_cache)``
       [B,max_len,KVH,hd], x [B,1,D]): all heads' new rows go into every
       copy at ``cache[b, write_pos[b]]`` in place
       (``ops.kv_cache_write_pair``, one launch for both, once per copy;
       positions outside the cache drop), then rank t attends its kv heads
       of its copy, positions ``< kv_valid_len[b]`` (the decode step passes
-      lengths + 1, where the causal mask ends too), through
+      lengths + 1, where the causal mask ends too), and under a ``window``
+      from ``_decode_range``'s start on, through
       ``ops.paged_decode_attention``; returns (the outputs, ``caches``)."""
     causal = cfg.causal if causal is None else causal
     shares, ks, vs = _tp_qkv(cfg, ps, xs, positions, devices,
                              everywhere=caches is not None)
     if caches is None:
         os_ = [ops.flash_attention(r.q.contiguous(), r.k.contiguous(),
-                                   r.v.contiguous(), causal)
+                                   r.v.contiguous(), causal, window=window)
                for r in shares]
         return (_tp_out(ps, os_, devices, [r.cols for r in shares]),
                 (ks[0], vs[0]))
@@ -372,8 +438,10 @@ def attention_apply_tp(cfg, ps, xs, positions, devices, *, caches=None,
             zip(shares, caches, devices)):
         ops.kv_cache_write_pair(kc, ks[t][:, 0].to(kc.dtype), vc,
                                 vs[t][:, 0].to(vc.dtype), write_pos.to(d))
+        start, end = _decode_range(positions.to(d), kv_valid_len.to(d),
+                                   window)
         os_.append(ops.paged_decode_attention(
-            q[:, 0].contiguous(), kc, vc, kv_valid_len.to(d, torch.int32),
+            q[:, 0].contiguous(), kc, vc, end, starts=start,
             **heads)[:, None])
     return _tp_out(ps, os_, devices, [r.cols for r in shares]), caches
 

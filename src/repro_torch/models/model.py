@@ -86,11 +86,20 @@ Params = Dict[str, Any]
 
 # ------------------------------------------------------------------ builders
 
-def _block_init(gen, cfg, dtype, device, *, moe: bool, lead=()):
+def _block_init(gen, cfg, dtype, device, *, moe: bool, lead=(),
+                cross: bool = False):
+    """One block's parameters (stacked over ``lead``); a VLM's ``cross``
+    block adds the cross-attention ``xattn``, its norm ``lnx`` and its
+    gate ``xgate`` [1], zeros as in the reference (``tanh(0) = 0``: at
+    init the image does not enter)."""
     attn = mla_init if cfg.use_mla else attention_init
     p = {"ln1": norm_init(cfg.d_model, cfg.norm_type, dtype, device, lead),
          "ln2": norm_init(cfg.d_model, cfg.norm_type, dtype, device, lead),
          "attn": attn(gen, cfg, dtype, device, lead)}
+    if cross:
+        p["xattn"] = attention_init(gen, cfg, dtype, device, lead)
+        p["lnx"] = norm_init(cfg.d_model, cfg.norm_type, dtype, device, lead)
+        p["xgate"] = torch.zeros(*lead, 1, dtype=dtype, device=device)
     if moe:
         p["moe"] = {"router": router_init(gen, cfg.d_model, cfg.num_experts,
                                           device, lead)}
@@ -130,19 +139,21 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
     dense banks or the pooled store layer by layer with
     ``init_expert_bank``, so the experts are never held twice.  The Mamba2
     models get stacked SSD blocks and, a hybrid, one shared attention
-    block."""
+    block.  A VLM's ``blocks`` are its ``num_layers - ncross`` self
+    layers and ``cross_blocks`` its ``ncross = num_layers /
+    cross_attn_every`` cross layers, one leading each group; an encoder
+    has no ``embed`` (its frames arrive embedded)."""
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: Params = {"final_norm": norm_init(cfg.d_model, cfg.norm_type, dtype,
-                                         dev),
-                 "embed": torch.randn(cfg.vocab_size, cfg.d_model,
-                                      generator=gen, device=dev,
-                                      dtype=torch.float32).mul_(0.02)
-                 .to(dtype),
-                 "lm_head": linear_init(gen, cfg.d_model, cfg.vocab_size,
-                                        dtype, dev)}
+                                         dev)}
+    if cfg.arch_type != "encoder":
+        p["embed"] = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                                 device=dev,
+                                 dtype=torch.float32).mul_(0.02).to(dtype)
+    p["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size, dtype, dev)
     if cfg.arch_type in ("ssm", "hybrid"):
         lead = (cfg.num_layers,)
         p["blocks"] = {"ln": norm_init(cfg.d_model, cfg.norm_type, dtype,
@@ -150,6 +161,13 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
                        "ssm": mamba2_init(gen, cfg, dtype, dev, lead)}
         if cfg.arch_type == "hybrid":
             p["shared_attn"] = _block_init(gen, cfg, dtype, dev, moe=False)
+        return p
+    if cfg.arch_type == "vlm":
+        ncross = cfg.num_layers // cfg.cross_attn_every
+        p["blocks"] = _block_init(gen, cfg, dtype, dev, moe=False,
+                                  lead=(cfg.num_layers - ncross,))
+        p["cross_blocks"] = _block_init(gen, cfg, dtype, dev, moe=False,
+                                        lead=(ncross,), cross=True)
         return p
     nk = cfg.first_k_dense if cfg.is_moe else 0
     if nk:
@@ -199,7 +217,19 @@ def _layers(cfg, params):
     attention decoder's blocks are all "attn", dense prefix first, cache
     row = layer.  A Mamba2 model's are "ssm" (cache row = layer); a hybrid
     applies its shared "attn" block at the head of every group of
-    ``attn_every`` layers (cache row = group)."""
+    ``attn_every`` layers (cache row = group).  A VLM's group g of
+    ``cross_attn_every`` layers is its cross block ("cross", cache row g
+    * every: the cross layer's self-attention; image row g) and then
+    ``every - 1`` self blocks, the reference's cache row order."""
+    if cfg.arch_type == "vlm":
+        every = cfg.cross_attn_every
+        for g in range(cfg.num_layers // every):
+            yield "cross", g * every, layer_params(params["cross_blocks"],
+                                                   g), False
+            for j in range(every - 1):
+                yield "attn", g * every + 1 + j, layer_params(
+                    params["blocks"], g * (every - 1) + j), False
+        return
     if cfg.arch_type in ("ssm", "hybrid"):
         every = cfg.attn_every if cfg.arch_type == "hybrid" else 0
         for l in range(cfg.num_layers):
@@ -227,16 +257,32 @@ def _attention(cfg, bp, h, positions, **cache_kw):
 
 
 def _attn_block(cfg, bp, x, positions, *, moe=False, moe_pool=None,
-                counts=None, **cache_kw):
+                counts=None, image_x=None, image_kv=None, **cache_kw):
     """Self-attention and the feed-forward, each with its residual ->
-    (x', the attention's new k/v, latent or cache); a MoE layer appends
-    its routing counts to ``counts`` when given."""
+    (x', the attention's new k/v, latent or cache, the image k/v); a MoE
+    layer appends its routing counts to ``counts`` when given.  A VLM's
+    cross block (``xattn``) attends the image after its self-attention,
+    non-causal and without rope: the cached ``image_kv`` at decode, else
+    ``image_x`` [B,T,D] (or, where no image is given, its own normed
+    input, as the reference's ``kv_x=None`` does), and adds
+    ``tanh(xgate)`` times it."""
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
     a, kv = _attention(cfg, bp, h, positions, **cache_kw)
     x = x + a
+    img = image_kv
+    if "xattn" in bp:
+        hx = apply_norm(bp["lnx"], x, cfg.norm_type)
+        if image_kv is not None:
+            cx, _ = attention_apply(cfg, bp["xattn"], hx, positions,
+                                    cache=image_kv)
+        else:
+            cx, img = attention_apply(
+                cfg, bp["xattn"], hx, positions,
+                kv_x=hx if image_x is None else image_x)
+        x = x + torch.tanh(bp["xgate"]) * cx
     h = apply_norm(bp["ln2"], x, cfg.norm_type)
     return x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=moe_pool,
-                         counts=counts), kv
+                         counts=counts), kv, img
 
 
 def _ssm_block(cfg, bp, x, cache=None):
@@ -255,12 +301,16 @@ def _ssm_block(cfg, bp, x, cache=None):
 
 def dense_cache_supported(cfg) -> bool:
     """The slot-contiguous cache covers the standard-attention decoders
-    (``paged_cache_supported``), the MLA decoders (dense and MoE) and the
-    Mamba2 models (attention-free and hybrid)."""
-    return paged_cache_supported(cfg) or (
-        cfg.has_decode and cfg.attn_window is None
-        and (cfg.arch_type in ("ssm", "hybrid")
-             or (cfg.arch_type in ("dense", "moe") and cfg.use_mla)))
+    (dense, MoE and the VLM, also under a sliding window), the MLA
+    decoders (dense and MoE) and the Mamba2 models (attention-free and
+    hybrid); the last two without a window."""
+    if not cfg.has_decode:
+        return False
+    if cfg.arch_type == "vlm" or (cfg.arch_type in ("dense", "moe")
+                                  and not cfg.use_mla):
+        return True
+    return cfg.attn_window is None and cfg.arch_type in ("dense", "moe",
+                                                         "ssm", "hybrid")
 
 
 def cache_names(cfg):
@@ -273,13 +323,16 @@ def cache_names(cfg):
 
 
 def _check_dense_kv(cfg) -> None:
-    """The slot-contiguous steps cover the reference's standard-attention,
-    MLA, ssm and hybrid branches of ``prefill`` / ``decode_step``.  The
-    standard branches scan ``blocks`` only: a dense prefix there is
-    outside what the reference computes; the MLA branches apply it."""
+    """The slot-contiguous steps cover the reference's standard-attention
+    (windowed too), VLM, MLA, ssm and hybrid branches of ``prefill`` /
+    ``decode_step``.  The standard branches scan ``blocks`` only: a dense
+    prefix there is outside what the reference computes; the MLA branches
+    apply it.  An encoder has no decode, as in the reference."""
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only (no decode)")
     if not dense_cache_supported(cfg):
-        raise NotImplementedError(f"{cfg.name}: only standard-attention, "
-                                  f"MLA and Mamba2 decoders are ported")
+        raise NotImplementedError(f"{cfg.name}: a sliding window is ported "
+                                  f"for standard attention only")
     if cfg.is_moe and cfg.first_k_dense and not cfg.use_mla:
         raise ValueError(f"{cfg.name}: the dense-KV steps apply no "
                          f"first_k_dense prefix (as in the reference)")
@@ -288,11 +341,13 @@ def _check_dense_kv(cfg) -> None:
 def init_cache(cfg, batch: int, max_len: int, dtype=None, *,
                device="cuda"):
     """Slot-contiguous decode cache, zeros, in the model dtype (or
-    ``dtype``): {'k','v': [L, B, max_len, KVH, hd]}; for MLA the latent
-    {'c': [L, B, max_len, r], 'kr': [L, B, max_len, dr]}; for a Mamba2
-    model {'conv': [L, B, K-1, d_inner + 2N], 'state': [L, B, H, N, P]
-    f32}, and for a hybrid also the shared block's {'attn_k','attn_v':
-    [L / attn_every, B, max_len, KVH, hd]}."""
+    ``dtype``): {'k','v': [L, B, rows, KVH, hd]}, rows = max_len, or
+    ``min(max_len, attn_window)`` under a window (a ring); a VLM adds the
+    image's {'img_k','img_v': [L / cross_attn_every, B, num_image_tokens,
+    KVH, hd]}; for MLA the latent {'c': [L, B, max_len, r], 'kr': [L, B,
+    max_len, dr]}; for a Mamba2 model {'conv': [L, B, K-1, d_inner + 2N],
+    'state': [L, B, H, N, P] f32}, and for a hybrid also the shared
+    block's {'attn_k','attn_v': [L / attn_every, B, max_len, KVH, hd]}."""
     _check_dense_kv(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
@@ -305,32 +360,39 @@ def init_cache(cfg, batch: int, max_len: int, dtype=None, *,
         cache["state"] = torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_state,
                                       cfg.ssm_head_dim), device=dev)
         L = L // cfg.attn_every if cfg.attn_every else 0
-    lead = (L, batch, max_len)
+    rows = max_len
+    if cfg.attn_window is not None and cfg.arch_type in ("dense", "moe",
+                                                         "vlm"):
+        rows = min(max_len, cfg.attn_window)
+    lead = (L, batch, rows)
     if cfg.use_mla:
         shapes = ((cfg.kv_lora_rank,), (cfg.qk_rope_dim,))
     else:
         shapes = ((cfg.num_kv_heads, cfg.resolved_head_dim),) * 2
     cache.update({n: torch.zeros(lead + tail, dtype=dtype, device=dev)
                   for n, tail in zip(cache_names(cfg), shapes)})
+    if cfg.arch_type == "vlm":
+        img = (cfg.num_layers // cfg.cross_attn_every, batch,
+               cfg.num_image_tokens) + shapes[0]
+        cache["img_k"] = torch.zeros(img, dtype=dtype, device=dev)
+        cache["img_v"] = torch.zeros(img, dtype=dtype, device=dev)
     return cache
-
-
-def _cache_slot(cfg, lengths):
-    """KV write slot for each sequence (ring-buffered under attn_window)."""
-    if cfg.attn_window is None:
-        return lengths
-    return lengths % cfg.attn_window
 
 
 def _decode_slots(cfg, cache, lengths):
     """A decode step's (write slot, valid length) per sequence: slot
-    ``lengths`` over ``lengths + 1`` positions; a hybrid's shared block
-    writes at ``lengths % max_len`` over at most ``max_len``, as the
-    reference's hybrid branch does."""
-    if cfg.arch_type == "hybrid":
-        win = cache["attn_k"].shape[2]
+    ``lengths`` over ``lengths + 1`` positions.  A ring of ``rows`` slots
+    (the cache's rows: a hybrid's shared block, and standard attention
+    under a window, whose rows are ``min(max_len, W)``, or a VLM's
+    ``max_len``, which its prefill writes whole) is written at ``lengths %
+    rows`` over at most ``rows``, as the reference's branches do; under a
+    window the attention also drops the slots below ``lengths - W + 1``
+    (``layers._decode_range``)."""
+    name = "attn_k" if cfg.arch_type == "hybrid" else "k"
+    if cfg.arch_type == "hybrid" or cfg.attn_window is not None:
+        win = cache[name].shape[2]
         return lengths % win, (lengths + 1).clamp(max=win)
-    return _cache_slot(cfg, lengths), lengths + 1
+    return lengths, lengths + 1
 
 
 def routing_stats_supported(cfg) -> bool:
@@ -438,6 +500,13 @@ def check_mla_heads(cfg, tp: int, devices) -> None:
 
 
 def _check_parallel(cfg) -> None:
+    """The steps over several logical devices cover the decoders of
+    ``dense_cache_supported`` without a window; the VLM's cross-attention
+    and a sliding window run on one device (ROADMAP §1 item 6)."""
+    if cfg.arch_type in ("vlm", "encoder") or cfg.attn_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention, the encoder and a sliding window "
+            f"run on one device only (ROADMAP §1 item 6)")
     if not dense_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: only standard-attention, "
                                   f"MLA and Mamba2 decoders are ported")
@@ -585,14 +654,22 @@ def _one_replica(parallel, replica, *ts):
 # ------------------------------------------------------------------- steps
 
 def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
-    """Full-sequence forward: tokens [B,S] -> logits [B,S,V].  Every
-    sequence attends causally over its S tokens (``ops.flash_attention``);
-    an SSD layer scans them from a zero state (``ops.ssd_scan``).  The
-    reference also returns the router's load-balance loss, a training
-    term; it is not computed here."""
-    if not dense_cache_supported(cfg):
-        raise NotImplementedError(f"{cfg.name}: only standard-attention, "
-                                  f"MLA and Mamba2 decoders are ported")
+    """Full-sequence forward: tokens [B,S] (an encoder's frames [B,S,D])
+    -> logits [B,S,V].  Every sequence attends over its S tokens
+    (``ops.flash_attention``), causally unless the config says not (the
+    encoder), within ``attn_window`` where one is set; a VLM's cross
+    blocks also attend ``batch["image_embeds"]`` [B,T,D]; an SSD layer
+    scans the tokens from a zero state (``ops.ssd_scan``).  The reference
+    also returns the router's load-balance loss, a training term; it is
+    not computed here."""
+    if cfg.arch_type != "encoder" and not dense_cache_supported(cfg):
+        raise NotImplementedError(f"{cfg.name}: a sliding window is ported "
+                                  f"for standard attention only")
+    if cfg.arch_type == "encoder":
+        if parallel is not None:
+            _check_parallel(cfg)
+        x = batch["frames"]
+        return _forward_one(cfg, params, x, batch)
     tokens = batch["tokens"]
     B, S = tokens.shape
     if parallel is not None:     # the batch on replica ``replica``
@@ -603,15 +680,22 @@ def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
             lambda g, i, bp, h, dv: _attention_tp(
                 cfg, [p["attn"] for p in bp], h, positions, dv)[0])
         return _logits(cfg, local, devs, hs)[0]
-    x = F.embedding(tokens.long(), params["embed"])
+    return _forward_one(cfg, params, F.embedding(tokens.long(),
+                                                 params["embed"]), batch)
+
+
+def _forward_one(cfg, params, x, batch):
+    """:func:`forward` on one device from the embedded input x [B,S,D]."""
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     pool = params.get("moe_pool")
     for kind, _, bp, moe in _layers(cfg, params):
         if kind == "ssm":
             x, _ = _ssm_block(cfg, bp, x)
         else:
-            x, _ = _attn_block(cfg, bp, x, positions, moe=moe,
-                               moe_pool=pool)
+            x = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+                            image_x=(batch["image_embeds"]
+                                     if kind == "cross" else None))[0]
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return linear(params["lm_head"], x)
 
@@ -625,12 +709,18 @@ def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,
     MoE router, as in the reference (with capacity dropping, padding tokens
     take capacity slots).  Returns (logits [B,V] at position lengths-1,
     cache as ``init_cache`` lays it out, each layer's K/V or latent in its
-    first S rows (the last ``max_len`` when S is longer) and zeros
+    first S rows (the last ``rows`` when S is longer: a window's ring
+    keeps the last ``min(max_len, W)``, as the reference does) and zeros
     after).  An SSD layer scans all S tokens, padding included, so its
     cached conv tail and state are those after S tokens, as in the
-    reference; decode continues from there.  With ``parallel`` the batch
-    runs on replica ``replica``, which holds the returned logits and
-    cache."""
+    reference; decode continues from there.  A VLM's cross blocks attend
+    ``batch["image_embeds"]`` [B,T,D] and cache its k/v in ``img_k`` /
+    ``img_v``; as in the reference its self k/v fill ``max_len`` rows
+    whatever the window (a prompt longer than ``max_len`` raises), and
+    without image embeddings each cross block attends its own normed
+    input, whose S rows its image leaves then hold (ROADMAP §3, "The VLM
+    server").  With ``parallel`` the batch runs on replica ``replica``,
+    which holds the returned logits and cache."""
     _check_dense_kv(cfg)
     if parallel is not None:
         return _prefill_dp(cfg, params, batch, max_len, parallel, replica)
@@ -638,19 +728,35 @@ def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,
     B, S = tokens.shape
     x = F.embedding(tokens.long(), params["embed"])
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    n = min(S, max_len)
     cache = init_cache(cfg, B, max_len, x.dtype, device=x.device)
     pool = params.get("moe_pool")
     names = cache_names(cfg)
+    img, image_kv = batch.get("image_embeds"), []
+    if cfg.arch_type == "vlm":
+        if S > max_len:
+            raise ValueError(f"a VLM prompt of {S} tokens does not fit "
+                             f"max_len {max_len} (as in the reference)")
+        for name in names:
+            cache[name] = x.new_zeros(cache[name].shape[:2] + (max_len,)
+                                      + cache[name].shape[3:])
+    rows = cache[names[0]].shape[2] if names else 0
+    n = min(S, rows)
     for kind, i, bp, moe in _layers(cfg, params):
         if kind == "ssm":
             x, new = _ssm_block(cfg, bp, x)
             cache["conv"][i] = new["conv"]
             cache["state"][i] = new["state"]
             continue
-        x, kv = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool)
+        x, kv, ikv = _attn_block(cfg, bp, x, positions, moe=moe,
+                                 moe_pool=pool,
+                                 image_x=img if kind == "cross" else None)
+        if kind == "cross":
+            image_kv.append(ikv)
         for name, new in zip(names, kv):
             cache[name][i, :, :n] = new[:, S - n:]
+    if image_kv:
+        cache["img_k"] = torch.stack([k for k, _ in image_kv]).to(x.dtype)
+        cache["img_v"] = torch.stack([v for _, v in image_kv]).to(x.dtype)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     lengths = batch.get("lengths")
     if lengths is None:
@@ -666,6 +772,7 @@ def _prefill_dp(cfg, params, batch, max_len, parallel, replica):
     tail and state, a hybrid's shared-block k/v) lies on its TP rank 0's
     device, written from rank 0's results; the caller writes it into every
     rank's copy."""
+    _check_parallel(cfg)
     tokens, lengths = batch["tokens"], batch.get("lengths")
     B, S = tokens.shape
     dev, (tokens,) = _one_replica(parallel, replica, tokens)
@@ -705,7 +812,8 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
     An SSD layer takes one recurrent step from its cached conv tail and
     state; a hybrid's shared block writes at ``lengths % max_len`` and
     attends ``min(lengths + 1, max_len)`` positions, as the reference's
-    hybrid branch does.  Updates ``cache`` in place; returns (logits
+    hybrid branch does, and so does a windowed ring (``_decode_slots``).
+    A VLM's cross blocks also attend their cached image k/v.  Updates ``cache`` in place; returns (logits
     [B,V], cache), and with ``collect_routing`` the routing counts
     [L_moe, E].  With ``parallel`` each replica decodes its own slots over
     its slice of the cache."""
@@ -713,6 +821,7 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
     counts = _check_routing(cfg) if collect_routing else None
     names = cache_names(cfg)
     if parallel is not None:
+        _check_parallel(cfg)
         groups, rows = _replica_rows(parallel, tokens, lengths)
         caches = [_rank_caches(cache, parallel, r) for r in groups]
         slots = [_decode_slots(cfg, caches[g][0], lens)
@@ -750,10 +859,14 @@ def decode_step(cfg, params: Params, tokens, cache, lengths, *,
             cache["conv"][i] = new["conv"]
             cache["state"][i] = new["state"]
             continue
-        x, _ = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
-                           counts=counts,
-                           cache=tuple(cache[n][i] for n in names),
-                           write_pos=write_pos, kv_valid_len=valid)
+        image_kv = None
+        if kind == "cross":
+            g = i // cfg.cross_attn_every
+            image_kv = (cache["img_k"][g], cache["img_v"][g])
+        x = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+                        counts=counts, image_kv=image_kv,
+                        cache=tuple(cache[n][i] for n in names),
+                        write_pos=write_pos, kv_valid_len=valid)[0]
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return _routed(linear(params["lm_head"], x[:, 0]), cache, counts)
 

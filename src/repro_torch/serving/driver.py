@@ -16,9 +16,9 @@ every ``DriverEvent.t`` are in driver seconds.  ``projected_scale_s`` is
 the cost model's time on the paper's cluster (``core/costmodel.py``), not
 the card's.
 
-The port refuses a scale whose target is one device
-(``core/hmm.py``'s one-device check); set ``DriverConfig.min_dp`` so that
-no rung of the ladder is a single device (``min_dp * tp > 1``).
+A rung of the ladder may be a single device: the port's server scales
+from and to one device as the reference's does (``core/hmm.py``'s
+one-device note).
 
 Lifecycle of a ``ScalingTask``::
 
@@ -352,10 +352,6 @@ class ClusterDriver:
     serves.  ``run()`` is the paper's §5 lifecycle as a loop that may be
     called again with more arrivals (its state persists).  Its clock is
     virtual: ``t`` moves by ``config.dt`` a tick.
-
-    The port's server refuses a scale to one device, so give
-    ``DriverConfig.min_dp`` a value with ``min_dp * tp > 1``: no rung of
-    the ladder is then a single device.
     """
 
     def __init__(self, backend: ServingBackend, policy: ScalingPolicy, *,

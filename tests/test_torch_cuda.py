@@ -41,7 +41,10 @@ serving thread while an overlapped staging's workers copy), and for
 scale to zero (a park frees every tensor and graph set of the server;
 an unpark's begin and STAGING polls make no host sync beside another
 server's decode steps; two servers sharing one ``imm_cache`` keep their
-own sets through a scale and a park).
+own sets through a scale and a park), and for the last slice's
+instances (the flash kernel over another sequence's keys, not causal,
+and under a sliding window, rows with no key included; the slot decode
+over a windowed ring's ranges, the empty one's uniform mean included).
 Needs an NVIDIA GPU: marked ``cuda`` and skipped elsewhere.  On the card,
 from the repo root::
 
@@ -451,6 +454,85 @@ def test_flash_attention_tile_boundaries(dev, dims, G, dtype, causal):
             want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                              causal)
             _assert_one_bf16_rounding(got, want32, f"flash_attention S={S}")
+
+
+# the last slice's flash instances: (B, S, Skv, H, KVH, hd, causal,
+# window): the VLM's cross prefill at a ragged Skv, the encoder's
+# non-causal head width 80, a causal window at and either side of a key
+# tile, and a cross window under which rows past Skv - 1 + W attend no key
+FLASH_NEW = {
+    "cross": (2, 65, 1601, 8, 2, 128, False, None),
+    "cross-one-row": (1, 1, 33, 4, 4, 64, False, None),
+    "encoder-hd80": (2, 129, 129, 4, 4, 80, False, None),
+    "window-63": (1, 300, 300, 8, 2, 128, True, 63),
+    "window-64": (1, 300, 300, 8, 2, 128, True, 64),
+    "window-65": (2, 257, 257, 4, 4, 64, True, 65),
+    "window-1": (1, 70, 70, 4, 4, 64, True, 1),
+    "cross-window-empty-rows": (2, 130, 24, 8, 2, 128, False, 8),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(FLASH_NEW))
+def test_flash_attention_cross_and_window_match_plain(dev, case, dtype):
+    """Keys of their own length (a cross-attention), non-causal, and the
+    sliding window's mask, whose skipped key tiles and masked edge tiles
+    give the plain version's answer; a row with no key left gives the
+    uniform mean of v, as the plain version (the reference's -1e30 mask)
+    does.  bf16 within one rounding of the f32 answer."""
+    B, S, Skv, H, KVH, hd, causal, window = FLASH_NEW[case]
+    gen = torch.Generator().manual_seed(31)
+    q = _rand(gen, (B, S, H, hd), dtype, dev, 3.0)
+    k = _rand(gen, (B, Skv, KVH, hd), dtype, dev)
+    v = _rand(gen, (B, Skv, KVH, hd), dtype, dev)
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal, window=window)
+        _assert_one_bf16_rounding(got, want32, f"flash_attention {case}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("W,rows", [(4, 4), (64, 64), (200, 130),
+                                    (300, 257)])
+def test_ring_decode_matches_plain_and_the_uniform_mean(dev, W, rows,
+                                                         dtype):
+    """The windowed ring decode (``starts``) at L < W, W <= L < 2W - 1
+    and L >= 2W - 1 over a ring of ``rows`` = min(max_len, W) slots: the
+    kernel reads ``[max(0, L - W + 1), min(L + 1, rows))``, and an empty
+    range gives the uniform mean of all rows of v (the reference's
+    softmax over equal -1e30 scores); a repeat launch gives the same bits;
+    bf16 within one rounding of the f32 answer."""
+    H, KVH, hd = 16, 2, 128
+    Ls = [0, W - 1, W, 2 * W - 2, 2 * W - 1, 3 * W + 5]
+    gen = torch.Generator().manual_seed(32)
+    q = _rand(gen, (len(Ls), H, hd), dtype, dev, 3.0)
+    kc = _rand(gen, (len(Ls), rows, KVH, hd), dtype, dev)
+    vc = _rand(gen, (len(Ls), rows, KVH, hd), dtype, dev)
+    end = torch.tensor([min(L + 1, rows) for L in Ls], dtype=torch.int32,
+                       device=dev)
+    start = torch.tensor([max(0, L - W + 1) for L in Ls], dtype=torch.int32,
+                         device=dev)
+    got = paged_attention.paged_decode_attention(q, kc, vc, end,
+                                                 starts=start)
+    want = ref.paged_decode_attention_ref(q, kc, vc, end, starts=start)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(paged_attention.paged_decode_attention(
+        q, kc, vc, end, starts=start), got)
+    empty = start >= end
+    assert empty.any()
+    mean = vc.float().mean(1).repeat_interleave(H // KVH, 1)
+    torch.testing.assert_close(got.float()[empty], mean[empty],
+                               **TOL[dtype])
+    if dtype == torch.bfloat16:
+        want32 = ref.paged_decode_attention_ref(q.float(), kc.float(),
+                                                vc.float(), end,
+                                                starts=start)
+        _assert_one_bf16_rounding(got, want32, f"ring decode W={W}")
 
 
 SLOT = {  # H, KVH, hd, S_max, lengths

@@ -70,7 +70,8 @@ from repro_torch.core.imm import IMM
 from repro_torch.core.scaling_plan import plan_unpark
 from repro_torch.core.topology import (ElasticConfig, kv_cache_bytes,
                                        model_tensors)
-from repro_torch.distributed.sharding import tree_leaves_with_path
+from repro_torch.distributed.sharding import (ShardedTensor,
+                                              tree_leaves_with_path)
 from repro_torch.serving import driver as TDriver
 from repro_torch.serving import fleet as TFleet
 from repro_torch.serving.metrics import SLO
@@ -103,8 +104,10 @@ STORES = {
                   kv_mode="paged", kv_block_size=16), False),
 }
 DEMOTE = [(0, 0), (0, 5), (1, 23)]
-HMM_CASES = {f"{s}_{a}_{b}": (s, a, b) for s in STORES
+HMM_CASES = {f"{s}_{a}_{b}": (s, a, b, 2) for s in STORES
              for a, b in ((1, 1), (2, 3))}
+# one device: parked from DP1 and unparked to DP1 at tp = 1
+HMM_CASES.update({f"{s}_one": (s, 1, 1, 1) for s in ("dense", "bf16")})
 
 def store_mcfg(store):
     bf16 = STORES[store][1]
@@ -113,8 +116,8 @@ def store_mcfg(store):
 def hmm_case(name):
     """Boot, demote (pooled), park, an unpark aborted after one unit, then
     the unpark to its end and its commit."""
-    store, dp0, dp1 = HMM_CASES[name]
-    hmm = make_hmm(name, store, dp0)
+    store, dp0, dp1, tp = HMM_CASES[name]
+    hmm = make_hmm(name, store, dp0, tp)
     res = {}
     if "expert_mode" in STORES[store][0]:
         hmm.begin_rebalance([("demote", l, e) for l, e in DEMOTE])
@@ -123,12 +126,12 @@ def hmm_case(name):
     res["park"] = stats(hmm.park())
     res["parked"] = [hmm.parked, int(hmm.parked_bytes()),
                      int(hmm.host_tier_bytes()), hmm.active_cfg is None]
-    hmm.begin_unpark(cfg(dp1, 2))
+    hmm.begin_unpark(cfg(dp1, tp))
     hmm.stage_increment()
     hmm.abort()
     res["after_abort"] = [hmm.parked, int(hmm.parked_bytes()),
                           hmm.active_cfg is None]
-    n = hmm.begin_unpark(cfg(dp1, 2))
+    n = hmm.begin_unpark(cfg(dp1, tp))
     while hmm.stage_increment():
         pass
     res["units"] = n
@@ -303,10 +306,10 @@ from repro.serving.metrics import SLO
 from repro.serving.workload import Request
 
 
-def make_hmm(name, store, dp):
-    hmm = HMM(store_mcfg(store), 2, batch_per_replica=2, max_len=32,
+def make_hmm(name, store, dp, tp):
+    hmm = HMM(store_mcfg(store), tp, batch_per_replica=2, max_len=32,
               **STORES[store][0])
-    hmm.boot(cfg(dp, 2))
+    hmm.boot(cfg(dp, tp))
     np.savez(f"{OUT}/{name}.npz", **flat(hmm.params))
     return hmm
 
@@ -382,11 +385,11 @@ def _port_ns(out, pre=None):
     ns = {"MCFG": _mcfg(), "Request": Request, "cfg": _cfg}
     exec(DRIVE, ns)
 
-    def make_hmm(name, store, dp):
-        hmm = HMM(ns["store_mcfg"](store), 2, batch_per_replica=2,
+    def make_hmm(name, store, dp, tp):
+        hmm = HMM(ns["store_mcfg"](store), tp, batch_per_replica=2,
                   max_len=32, all_devices=CPU8, device="cpu",
                   **ns["STORES"][store][0])
-        hmm.boot(_cfg(dp), params=_tree(out / f"{name}.npz"))
+        hmm.boot(_cfg(dp, tp), params=_tree(out / f"{name}.npz"))
         if pre is not None:
             pre[name] = _logical(hmm)
         return hmm
@@ -410,6 +413,18 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.detach().contiguous().reshape(-1).view(torch.uint8)
 
 
+def _whole(leaf) -> torch.Tensor:
+    """A leaf as one tensor: a sharded leaf gathered, a one-device
+    instance's plain tensor as it is."""
+    return leaf.gather() if isinstance(leaf, ShardedTensor) else leaf
+
+
+def _page(leaf, ref) -> torch.Tensor:
+    """An expert page's rows in a pool bank (sharded or plain)."""
+    return (leaf.shard(ref.device) if isinstance(leaf, ShardedTensor)
+            else leaf)[ref.page]
+
+
 def _logical(hmm) -> dict:
     """Every logical parameter: each dense leaf gathered (its copies on
     every device first held equal), each expert's rows where the page
@@ -419,35 +434,39 @@ def _logical(hmm) -> dict:
     for path, leaf in tree_leaves_with_path(hmm.params):
         if path.startswith("moe_pool/") or INDEX.search(path):
             continue
-        full = leaf.gather()
-        for _, index, shard in leaf.addressable_shards:
+        full = _whole(leaf)
+        for _, index, shard in getattr(leaf, "addressable_shards", ()):
             assert torch.equal(_bits(shard), _bits(full[index])), path
         out[path] = full.clone()
     if hmm.expert_mode == "pooled":
         pool = hmm.params["moe_pool"]
         for (l, e), r in hmm.page_table.active.items():
             for bank, leaf in pool.items():
-                out[f"{l}.{e}.{bank}"] = leaf.shard(r.device)[r.page].clone()
+                out[f"{l}.{e}.{bank}"] = _page(leaf, r).clone()
     return out
 
 
 # ------------------------------------------ park / unpark in process
 
 def test_park_and_unpark_refuse_what_is_not_ported_or_legal():
-    """One device on either side raises ``NotImplementedError``; a second
-    park, an unpark while not parked, a park while staging raise."""
+    """A second park, an unpark while not parked, a park while staging
+    and an unpark to another tp raise.  Parking from and unparking to one
+    device is ported (the ``*_one`` cases of
+    ``test_hmm_park_unpark_bytes_and_table_equal_reference``): a
+    one-device HMM parks, refuses a second park, and unparks to two
+    devices."""
     one = ElasticConfig(1, 1, (0,))
     hmm = HMM(_mcfg(), 1, batch_per_replica=2, max_len=32,
               all_devices=CPU8, device="cpu")
     hmm.boot(one)
-    with pytest.raises(NotImplementedError):
-        hmm.park()
-    hmm = HMM(_mcfg(), 1, batch_per_replica=2, max_len=32,
-              all_devices=CPU8, device="cpu")
-    hmm.boot(_cfg(2, 1))
     hmm.park()
-    with pytest.raises(NotImplementedError):
-        hmm.begin_unpark(one)
+    with pytest.raises(RuntimeError, match="nothing to park"):
+        hmm.park()
+    hmm.begin_unpark(_cfg(2, 1))
+    while hmm.stage_increment():
+        pass
+    hmm.commit()
+    assert hmm.active_cfg == _cfg(2, 1) and not hmm.parked
     hmm.close()
     hmm = HMM(_mcfg(), 2, batch_per_replica=2, max_len=32,
               all_devices=CPU8, device="cpu")
@@ -1043,7 +1062,7 @@ def test_hmm_unpark_restores_every_parameter(ref, hmm_runs, name):
     leaves = dict(tree_leaves_with_path(hmm.params))
     assert leaves.keys() == want.keys()
     for path, leaf in leaves.items():
-        assert torch.equal(_bits(leaf.gather()), _bits(want[path])), path
+        assert torch.equal(_bits(_whole(leaf)), _bits(want[path])), path
 
 
 # ------------------------------------------------------ the server round trip

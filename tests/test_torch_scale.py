@@ -164,7 +164,38 @@ json.dump(res, open(f"{OUT}/hmm.json", "w"))
 print("HMM-DONE")
 '''
 
-SERVE_SCRIPT = COMMON + '''
+# a server booted on one device, run by the reference's script and by the
+# test alike: DP1 -> DP2 staged at tick 5 and switched over after one
+# tick, then a drain back to DP1 opened at tick 12 and advanced once after
+# every tick
+DRIVE_ONE = '''
+def drive_one(srv, reqs, cfg):
+    for r in reqs:
+        srv.submit(r)
+    t, n, task = 0.0, 0, None
+    while any(r.finish_s is None for r in reqs) or (
+            task is not None and not task.done):
+        if n == 5:
+            srv.stage_scale(cfg(2))
+            srv.tick(t)
+            t, n = t + .1, n + 1
+            srv.switchover()
+            continue
+        if n == 12:
+            task = srv.start_scale(cfg(1))
+        srv.tick(t)
+        t, n = t + .1, n + 1
+        if task is not None and not task.done:
+            task.advance(t)
+        assert n < 800
+    return {"tokens": {str(r.rid): [int(x) for x in srv.engine.generated[
+                r.rid]] for r in reqs},
+            "events": [[e.src, e.dst, {f: int(getattr(e.stats, f))
+                                       for f in e.stats.BYTE_FIELDS}]
+                       for e in srv.events]}
+'''
+
+SERVE_SCRIPT = COMMON + DRIVE_ONE + '''
 from repro.core.elastic_engine import ElasticServer
 from repro.core.hmm import HMM
 from repro.serving.workload import Request
@@ -199,6 +230,14 @@ for name, kw in SERVERS.items():
         srv.tick(t); t += .1; n += 1
         assert n < 500
     res[name] = {str(r.rid): srv.engine.generated[r.rid] for r in reqs}
+for name, kw in %s.items():
+    srv = ElasticServer(MCFG, tp=1, batch_per_replica=2, max_len=128,
+                        seed=0, **kw)
+    srv.boot(cfg(1))
+    np.savez(f"{OUT}/serve_{name}.npz", **flat(srv.hmm.params))
+    res[name] = drive_one(srv, [
+        Request(i, 0.0, len(pr), out, prompt=np.asarray(pr, np.int32))
+        for i, (pr, out) in enumerate(REQS)], cfg)
 json.dump(res, open(f"{OUT}/serve.json", "w"))
 print("SERVE-DONE")
 '''
@@ -214,6 +253,12 @@ HMM_CASES = {
     "down_pooled": ("moe", 1, 3, 2, PAGED, "commit"),
     "down_dense": ("moe", 1, 3, 2, {}, "commit"),
     "down_abort": ("moe", 1, 3, 2, PAGED, "abort"),
+    # one device on either side: its plain tensors as shards indexed
+    # slice(None), so the commit zeroes the KV, as the reference's does
+    "one_up_pooled": ("moe", 1, 1, 2, PAGED, "commit"),
+    "one_down_pooled": ("moe", 1, 2, 1, PAGED, "commit"),
+    "one_up_dense": ("moe", 1, 1, 2, {}, "commit"),
+    "one_down_dense": ("moe", 1, 2, 1, {}, "commit"),
 }
 # (experts, n_ep, capacity factor, store): dense banks (False), pooled
 # pages (True), or dense banks through the packed dispatch ("packed"; 12,
@@ -230,6 +275,12 @@ SERVERS = {
     "paged_drops": dict(CHUNKED, model={"capacity_factor": 1.25}),
     "defaults": dict(prefill_buckets=(32, 64)),
     "int8": dict(CHUNKED, kv_dtype="int8", expert_dtype="int8"),
+}
+# servers booted on one device (``DRIVE_ONE``); the paged one drains its
+# scale-down (a migration's copies land at times a loop cannot fix)
+ONE_SERVERS = {
+    "one_paged": dict(CHUNKED, scaledown="drain"),
+    "one_defaults": dict(prefill_buckets=(32, 64)),
 }
 _rng = np.random.default_rng(0)
 REQS = [(_rng.integers(0, 128, n).tolist(), out)
@@ -283,7 +334,8 @@ def ref(tmp_path_factory):
     procs = [
         (_start(HMM_SCRIPT % (repr(HMM_CASES), repr(MOE_CASES)), out),
          "HMM and moe_ep"),
-        (_start(SERVE_SCRIPT % (repr(SERVERS), repr(REQS)), out), "servers")]
+        (_start(SERVE_SCRIPT % (repr(SERVERS), repr(REQS),
+                                repr(ONE_SERVERS)), out), "servers")]
     for proc, what in procs:
         _wait(proc, what)
     return out
@@ -605,16 +657,56 @@ def test_scale_up_tokens_equal_unscaled_and_reference(ref, name):
     assert _serve(name, params3, scale=False, boot_dp=3) == got
 
 
+@pytest.mark.parametrize("name", sorted(ONE_SERVERS))
+def test_one_device_server_scales_up_and_drains_as_the_reference(ref, name):
+    """A server booted on one device, scaled DP1 -> DP2 while it serves
+    and drained back to DP1: the greedy tokens and both events' byte
+    fields equal the reference's.  Each commit zeroes the KV of the
+    sequences it keeps (a DP1 cache shard is keyed whole, a DP2 one by
+    replica), in both packages, so the scale-up's ``init_bytes`` are both
+    replicas' KV; the server ends on plain tensors and one-device
+    steps."""
+    want = json.load(open(ref / "serve.json"))[name]
+    ns = {}
+    exec(DRIVE_ONE, ns)
+    srv = ElasticServer(_mcfg(), tp=1, batch_per_replica=2, max_len=128,
+                        seed=0, all_devices=CPU8, device="cpu",
+                        **ONE_SERVERS[name])
+    srv.boot(_cfg(1), params=_tree(ref / f"serve_{name}.npz"))
+    kv_dp1 = sum(t.nbytes for t in srv.engine.cache.values())
+    reqs = [Request(i, 0.0, len(pr), out, prompt=np.asarray(pr, np.int32))
+            for i, (pr, out) in enumerate(REQS)]
+    got = json.loads(json.dumps(ns["drive_one"](srv, reqs, _cfg)))
+    assert got == want
+    assert got["events"][0][2]["init_bytes"] == 2 * kv_dp1
+    assert srv.current_config() == _cfg(1) and srv.engine.parallel is None
+    assert not isinstance(srv.hmm.params["lm_head"]["w"], ShardedTensor)
+
+
 def test_server_refuses_what_is_not_ported(ref):
-    """Scaling to (or from) one device is refused, naming what is
-    missing; a server scale-down is ported (``tests/test_torch_scaledown.
-    py``), and so is any tp > 1, also one that cuts a kv head
-    (``tests/test_torch_tp.py``) or an MLA head (``tests/test_torch_scale_
-    mla.py``)."""
+    """A VLM (a ``Request`` carries no image), an encoder (no decode) and
+    a sliding window (its steps run on one device only, so the server
+    could not scale) are refused at construction, naming why; a scale to
+    another tp is refused (as in the reference) with nothing staged.
+    Scaling to or from
+    one device is ported (``test_one_device_server_scales_up_and_drains_
+    as_the_reference``), and so are a server scale-down
+    (``tests/test_torch_scaledown.py``) and any tp > 1, also one that
+    cuts a kv head (``tests/test_torch_tp.py``) or an MLA head
+    (``tests/test_torch_scale_mla.py``)."""
+    from repro_torch.configs import get_config
+    for name, why in (("llama-3.2-vision-11b-smoke", "no image"),
+                      ("hubert-xlarge-smoke", "encoder-only")):
+        with pytest.raises(NotImplementedError, match=why):
+            ElasticServer(get_config(name), tp=1, batch_per_replica=2,
+                          max_len=128, all_devices=CPU8, device="cpu")
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        ElasticServer(_mcfg(attn_window=8), tp=1, batch_per_replica=2,
+                      max_len=128, all_devices=CPU8, device="cpu")
     srv = ElasticServer(_mcfg(), tp=1, batch_per_replica=2, max_len=128,
                         all_devices=CPU8, device="cpu",
                         prefill_buckets=(32, 64))
     srv.boot(_cfg(3), params=_tree(ref / "serve_defaults.npz"))
-    with pytest.raises(NotImplementedError, match="one device"):
-        srv.stage_scale(_cfg(1))
+    with pytest.raises(ValueError, match="TP is fixed"):
+        srv.stage_scale(_cfg(1, 2))
     assert srv.hmm.staged is None and srv.engine.admit_limit is None
