@@ -463,6 +463,26 @@ Phases, each of which raises on failure (no phase's failure is caught):
    tokens equal before and after), then parks and unparks again with the
    parameters kept aside (every logical parameter bitwise equal); the
    eager twin's scale run gives the graphed run's tokens.
+29. ``train``: qwen3-30b-a3b at full width cut to ``TRAIN_LAYERS``
+   layers, bf16, weights from seed 0 with dense expert banks
+   (``init_params(..., experts=True)``), batches of 2 x 1,024 tokens from
+   ``synthetic_batches``.  The first step's loss and gradients through
+   the kernels against ``ops.use_reference()`` on the same batch (loss
+   within 1e-2 relative, the global gradient norm within 2 %, every
+   gradient finite; the rows whose top-k expert set flipped near a tie
+   counted), then 6 steps of ``make_train_step`` (remat) on one fixed
+   batch, whose loss must fall at every step; the step wall (median after
+   the first), forward + backward and optimizer ms, tokens/s,
+   ``max_memory_allocated`` and both flash kernels' launches, counted from
+   0 over the 6 steps; one step under the profiler.
+30. ``train_mla``: the same for deepseek-v2-lite-16b (its dense first
+   layer, then 3 MoE layers; MLA's q/k 192 and v 128).
+31. ``launch_train``: ``python -m repro_torch.launch.train``'s ``main``
+   on the card for qwen3-30b-a3b and deepseek-v2-lite-16b (their f32
+   smoke configs, 3 steps of 2 x 64 tokens: shapes the kernels phase
+   holds), every loss finite; and one f32 step of the test MoE's widths
+   through the kernels against ``ops.use_reference()``, the loss and
+   every gradient within 1e-4.
 The new phases print their numbers beside the card's name and power
 limit.  The kernels phase also runs the last slice's instances: the
 VLM's cross prefill (S = 1024 over 1,601 image rows) and cross decode,
@@ -471,6 +491,16 @@ windowed prefill (S = 9216, W = 8192) and ring decode (positions below
 W, between W and 2W - 1, and past it, where the range is empty and the
 output the uniform mean of v), and a cross prefill whose rows past the
 window attend no key; SDPA's time is taken with the same boolean mask.
+And ``flash_attention_bwd``, the training path's backward (no TPU
+kernel: the reference differentiates its plain ``mha``), at
+qwen3-30b-a3b's training shape (B = 2, S = 1024, 32 over 4 heads of 128;
+the main case), deepseek-v2-lite's (16 heads, q/k 192, v 128), a ragged
+S = 1000, and in f32 at the smoke configs' (64, 64) and (48, 32) and the
+test MoE's 16: dQ, dK and dV within ``TOL`` of the plain version on the
+same inputs and forward LSE, the same bits from a second launch, and
+the forward with its LSE bit for bit the forward without it, its LSE
+within 1e-4 of the plain version's; the library time is SDPA's backward
+under autograd.
 
 The line before the last is ``{"kernels": [...]}`` (each kernel's
 launches summed over the serve phases whose path runs it,
@@ -551,6 +581,10 @@ REPLACES = {
     "kv_cache_write": "src/repro/kernels/kv_write.py:37",
     "mla_decode_attention": "src/repro/kernels/mla_decode.py:73",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:67",
+    # the reference trains through jax.value_and_grad
+    # (src/repro/training/train_loop.py:25) of its plain mha
+    "flash_attention_bwd": "none: no pallas_call (jax.grad of mha, "
+                           "src/repro/models/layers.py:115)",
 }
 _ATTN_CU = "src/repro_torch/csrc/paged_attention.cu"
 _DECODE_CU = "src/repro_torch/csrc/paged_decode.cu"
@@ -567,6 +601,7 @@ SOURCES = {
     "kv_cache_write": "src/repro_torch/csrc/kv_write.cu",
     "mla_decode_attention": "src/repro_torch/csrc/mla_decode.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 # the kernels each serve phase's path runs (the kernels line takes each
 # kernel's launches from the first phase listing it)
@@ -619,6 +654,10 @@ PATH_KERNELS["serve_fleet"] = PATH_KERNELS["serve"]
 # stores, and qwen1.5-0.5b's slot decode
 PATH_KERNELS["launch_serve"] = ("flash_attention", "mla_decode_attention",
                                 "paged_decode_attention", "kv_cache_write")
+# training: every layer's flash forward (twice a step under remat) and
+# its backward
+for _p in ("train", "train_mla", "launch_train"):
+    PATH_KERNELS[_p] = ("flash_attention", "flash_attention_bwd")
 DECODE_LENGTHS = [2048, 1, 17, 333, 1024, 1500, 64, 777]
 # a TP rank's (query heads, kv heads, first kv head) of qwen3-30b-a3b's
 # replicated cache at tp = 2, 4 and 8
@@ -649,6 +688,13 @@ VLM_HEADS, VLM_IMG = (32, 8, 128), 1601
 ENC_HEADS = (16, 16, 80)
 WINDOW, WINDOW_S = 8192, 9216
 RING_L = [100, 5000, 8191, 8192, 12000, 16382, 16383, 20000]
+# the train phases: full width cut to 4 layers, 2 x 1,024 tokens, 6 steps;
+# the launcher's f32 smoke runs, 3 steps of 2 x 64 tokens (4 heads: the
+# smoke configs' (64, 64) and (48, 32), and the test MoE's 16)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 6
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-2, 2e-2
+LAUNCH_TRAIN_SEQ = 64
+SMOKE_BWD_HEADS = ((4, 4, 64, 64), (4, 4, 48, 32), (4, 4, 16, 16))
 
 
 def log(*a):
@@ -1029,6 +1075,65 @@ def _flash_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD),
     if do_time:
         rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
                    library_ms=timer(lib))
+    return rec
+
+
+def _flash_bwd_case(S, dtype, gen, timer, do_time, heads=(H, KVH, HD, HD),
+                    B=TRAIN_BATCH):
+    """The training path's backward of causal self-attention, B sequences
+    of S tokens at ``heads`` = (query heads, kv heads, q/k width, v
+    width), scale 1/sqrt(q/k width) (MLA's 1/sqrt(dn + dr)): the forward
+    with its LSE must give the forward's bits without it and an LSE within
+    1e-4 of the plain version's; dQ, dK and dV within ``TOL`` of the plain
+    version on the same inputs, o and LSE; a second launch the same bits.
+    The library time is SDPA's backward under autograd (its forward
+    outside the timing).  Bound: (6 hd + 4 hdv) operations per attended
+    (query, key, head) (S, dV, dP, dQ, dK; 10 hd where hdv = hd)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+    nh, nkv, hd, hdv = heads
+    scale = hd ** -0.5
+    q = torch.randn(B, S, nh, hd, generator=gen).to(dtype).cuda()
+    k = torch.randn(B, S, nkv, hd, generator=gen).to(dtype).cuda()
+    v = torch.randn(B, S, nkv, hdv, generator=gen).to(dtype).cuda()
+    do = torch.randn(B, S, nh, hdv, generator=gen).to(dtype).cuda()
+    o, lse = fa.flash_attention(q, k, v, True, scale, lse=True)
+    plain_o, plain_lse = ref.flash_attention_lse_ref(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    require(torch.equal(o, fa.flash_attention(q, k, v, True, scale)),
+            "flash_attention: the forward with its LSE is not the same bits")
+    torch.testing.assert_close(lse, plain_lse, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(o.float(), plain_o.float(), **TOL[dtype])
+    kern = lambda: fb.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+    got, want = kern(), plain()
+    again = kern()
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+        require(torch.equal(g, a), f"flash_attention_bwd {name}: a second "
+                f"launch gave other bits")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    pairs = B * S * (S + 1) // 2
+    ops_n = (6 * hd + 4 * hdv) * nh * pairs
+    io = nbytes(q, k, v, o, do, lse, *got)
+    b_ms, b_by = bound_ms(io, ops_n, dtype)
+    rec = {"case": f"B={B} S={S} H={nh} KVH={nkv} hd={hd} hdv={hdv} causal",
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": io, "ops": ops_n}
+    if do_time:
+        ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ol = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True, enable_gqa=True, scale=scale)
+        dol = do.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(ol, (ql, kl, vl), dol,
+                                          retain_graph=True)
+        rec.update(ms=timer(kern), plain_ms=timer(plain, iters=10),
+                   library_ms=timer(lib))
+        del ol
     return rec
 
 
@@ -1541,6 +1646,18 @@ def phase_kernels():
                   (4, 4, 48, 32), (4, 4, 16, 16), (H // 8, 1, HD, HD)):
         out["flash_attention"].append(_flash_case(
             1000, torch.bfloat16, gen, timer, False, heads, peaked=True))
+    # the training path's backward: qwen3-30b-a3b's shape (the main case),
+    # deepseek-v2-lite's MLA, a ragged S; in f32 the launcher's smoke
+    # shapes and the test MoE's width
+    bwd = out["flash_attention_bwd"]
+    bwd.append(_flash_bwd_case(TRAIN_SEQ, torch.bfloat16, gen, timer, True))
+    bwd.append(_flash_bwd_case(TRAIN_SEQ, torch.bfloat16, gen, timer, True,
+                               (MLA_H, MLA_H, MLA_DN + MLA_DR, MLA_DV)))
+    bwd.append(_flash_bwd_case(1000, torch.bfloat16, gen, timer, False))
+    for heads in SMOKE_BWD_HEADS:
+        bwd.append(_flash_bwd_case(LAUNCH_TRAIN_SEQ, torch.float32, gen,
+                                   timer, False, heads))
+    torch.cuda.empty_cache()
     # the smoke configs' instances at launch_serve's shapes (f32, as it
     # runs them) and in bf16
     for dtype in (torch.float32, torch.bfloat16):
@@ -6103,6 +6220,216 @@ def phase_serve_fleet(layers):
             "params": FLEET}
 
 
+def _grads(cfg, params, batch):
+    """(loss, every parameter's gradient) of ``loss_fn`` (remat), in
+    JAX's leaf order."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.distributed.sharding import tree_leaves as leaves
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss = loss_fn(cfg, params, batch)
+    return loss.detach(), torch.autograd.grad(loss, ps,
+                                              materialize_grads=True)
+
+
+def _gnorm(grads):
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads)).item()
+
+
+def _train_case(name, tag):
+    """``train`` / ``train_mla``: ``name`` at full width cut to
+    ``TRAIN_LAYERS`` layers, bf16, from seed 0; the first step against
+    ``ops.use_reference()``, then ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on one fixed batch, timed, and one profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import synthetic_batches
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.distributed.sharding import tree_leaves as leaves
+    smi = _card()
+    cfg = dataclasses.replace(get_config(name), num_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, 0, device="cuda", experts=True)
+    n_params = sum(p.numel() for p in leaves(params))
+    batch = train_loop.to_device(next(synthetic_batches(
+        cfg, TRAIN_BATCH, TRAIN_SEQ, 0)), "cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the first step's loss and gradients: kernels against plain
+    with _Routing() as r_got:
+        loss, grads = _grads(cfg, params, batch)
+    require(all(bool(torch.isfinite(g).all()) for g in grads),
+            f"{tag} a gradient is not finite")
+    gnorm = _gnorm(grads)
+    del grads
+    with ops.use_reference(), _Routing() as r_want:
+        loss_ref, grads = _grads(cfg, params, batch)
+    gnorm_ref = _gnorm(grads)
+    del grads
+    n_moe = len(r_want) // 2          # the forward's calls, then remat's
+    flips = sum(int((a != b).any(-1).sum())
+                for a, b in zip(r_got[:n_moe], r_want[:n_moe]))
+    loss_rel = abs(loss.item() - loss_ref.item()) / abs(loss_ref.item())
+    gnorm_rel = abs(gnorm - gnorm_ref) / gnorm_ref
+    log(f"{tag} first step, kernels against plain: loss {loss.item():.6f} "
+        f"/ {loss_ref.item():.6f} (rel {loss_rel:.2e}), gnorm {gnorm:.6f} "
+        f"/ {gnorm_ref:.6f} (rel {gnorm_rel:.2e}); {flips} of "
+        f"{tokens * n_moe} routed rows flipped their top-{cfg.top_k} set "
+        f"in the forward; {smi}")
+    require(loss_rel < TRAIN_LOSS_REL, f"{tag} loss rel err {loss_rel}")
+    require(gnorm_rel < TRAIN_GNORM_REL, f"{tag} gnorm rel err {gnorm_rel}")
+    torch.cuda.empty_cache()
+    # the steps: make_train_step, its optimizer timed apart
+    opt = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = init_state(opt, params)
+    step = train_loop.make_train_step(cfg, opt)
+    update = train_loop.apply_updates
+    opt_ms = []
+
+    def timed_update(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    losses = []
+
+    def one():
+        nonlocal params, state
+        params, state, m = step(params, state, batch)
+        losses.append(m["loss"].item())
+    train_loop.apply_updates = timed_update
+    try:
+        ops.reset_launch_counts()
+        walls, _ = _step_ms(one, TRAIN_STEPS)
+        counts = ops.launch_counts()
+    finally:
+        train_loop.apply_updates = update
+    launches = {n: counts[n] for n in PATH_KERNELS["train"]}
+    require(launches == {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                         "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS},
+            f"{tag} launches {launches}")
+    require(all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"{tag} the loss did not fall at every step: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    prof, _ = _profile(f"{tag} train step", one, 1)
+    wall = statistics.median(walls[1:])
+    fb = [w - o for w, o in zip(walls, opt_ms)]
+    log(f"{tag} {cfg.name} {TRAIN_LAYERS} layers bf16, {n_params:,} "
+        f"parameters, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        f"{[round(x, 4) for x in losses]}; step wall "
+        f"{wall:.2f} ms (median of steps 2-{TRAIN_STEPS}; {walls}), "
+        f"forward + backward {statistics.median(fb[1:]):.2f} ms, optimizer "
+        f"{statistics.median(opt_ms[1:]):.2f} ms, {tokens / wall * 1e3:.0f} "
+        f"tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB; device "
+        f"{prof['device_ms_per_call']:.2f} ms a step; launches {launches}; "
+        f"{smi}")
+    res = {"losses": losses, "step_ms": walls, "opt_ms": opt_ms,
+           "fwd_bwd_ms": fb, "tokens_per_s": tokens / wall * 1e3,
+           "max_memory_allocated": peak, "parameters": n_params,
+           "loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
+           "routing_flips": flips, "launches": launches, "profile": prof,
+           "card": smi}
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train():
+    return _train_case("qwen3-30b-a3b", "[train]")
+
+
+def phase_train_mla():
+    return _train_case("deepseek-v2-lite-16b", "[train_mla]")
+
+
+def _train_step_f32_test_moe(smi):
+    """One f32 step at the test MoE's widths (2 layers, 4 heads of 16, 24
+    experts top-2): the loss and every gradient through the kernels
+    within 1e-4 of ``ops.use_reference()``'s."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import train_loop
+    from repro_torch.training.data import synthetic_batches
+    cfg = ModelConfig(name="test-moe", arch_type="moe", num_layers=2,
+                      d_model=64, vocab_size=128, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, num_experts=24,
+                      top_k=2, moe_d_ff=32, dtype="float32",
+                      capacity_factor=100.0)
+    batch = train_loop.to_device(next(synthetic_batches(
+        cfg, TRAIN_BATCH, LAUNCH_TRAIN_SEQ, 0)), "cuda")
+    params = M.init_params(cfg, 0, device="cuda", experts=True)
+    loss, grads = _grads(cfg, params, batch)
+    with ops.use_reference():
+        loss_ref, grads_ref = _grads(cfg, params, batch)
+    torch.testing.assert_close(loss, loss_ref, atol=1e-4, rtol=1e-4)
+    err = 0.0
+    for g, w in zip(grads, grads_ref):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        err = max(err, (g - w).abs().max().item())
+    log(f"[launch_train] test MoE f32 step, kernels against plain: loss "
+        f"{loss.item():.6f} / {loss_ref.item():.6f}, {len(grads)} "
+        f"gradients within 1e-4 (max abs err {err:.2e}); {smi}")
+    return {"loss": loss.item(), "loss_ref": loss_ref.item(),
+            "grad_max_abs_err": err}
+
+
+def phase_launch_train():
+    """``launch_train``: ``repro_torch.launch.train.main`` on the card for
+    the two trained families' f32 smoke configs; every loss finite, each
+    flash call at a shape the kernels phase held."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    smi = _card()
+    res, counts, shapes = {}, {}, set()
+    flash = ops.flash_attention
+
+    def seen_flash(q, k, v, *a, **kw):
+        shapes.add((q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+                    q.dtype))
+        return flash(q, k, v, *a, **kw)
+    for name in ("qwen3-30b-a3b", "deepseek-v2-lite-16b"):
+        tag = f"[launch_train {name}]"
+        ops.reset_launch_counts()
+        ops.flash_attention = seen_flash
+        t0 = time.perf_counter()
+        try:
+            out = train.main(["--arch", name, "--steps", "3", "--batch",
+                              str(TRAIN_BATCH), "--seq",
+                              str(LAUNCH_TRAIN_SEQ)])
+        finally:
+            ops.flash_attention = flash
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = ops.launch_counts()
+        counts = {k: counts.get(k, 0) + got[k] for k in got}
+        require(all(math.isfinite(l) for _, l in out["history"]),
+                f"{tag} {out['history']}")
+        log(f"{tag} history {out['history']} in {wall:.2f} s; launches "
+            f"{ {k: v for k, v in got.items() if v} }; {smi}")
+        res[name] = {"history": out["history"], "wall_s": wall,
+                     "launches": got}
+        del out
+    for n in PATH_KERNELS["launch_train"]:
+        require(counts[n] > 0, f"[launch_train] {n} was not launched")
+    held = {(*h, torch.float32) for h in SMOKE_BWD_HEADS}
+    require(shapes <= held, f"[launch_train] flash_attention at "
+            f"{shapes - held}, not held by the kernels phase")
+    res["launches"] = counts
+    res["test_moe_step"] = _train_step_f32_test_moe(smi)
+    torch.cuda.empty_cache()
+    return res
+
+
 def _profile(label, fn, n):
     """Trace ``n`` calls of ``fn`` (each ending in a sync) with
     torch.profiler: device time by kernel name, and the device's busy share
@@ -6159,7 +6486,7 @@ def main():
                             "serve_scale_zamba2,serve_closed_loop,"
                             "launch_serve,serve_rebalance,serve_park,"
                             "serve_fleet,e2e_vlm,e2e_encoder,e2e_window,"
-                            "serve_scale_one")
+                            "serve_scale_one,train,train_mla,launch_train")
     ap.add_argument("--json", help="write every measurement to this file")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -6214,6 +6541,9 @@ def main():
     runs.append(("e2e_window", phase_e2e_window))
     runs.append(("serve_scale_one",
                  lambda: phase_serve_scale_one(args.layers)))
+    runs.append(("train", phase_train))
+    runs.append(("train_mla", phase_train_mla))
+    runs.append(("launch_train", phase_launch_train))
     for phase, run in runs:
         if phase in phases:
             tp = time.perf_counter()

@@ -589,20 +589,8 @@ class HMM:
         """Random parameters with dense expert banks ``blocks/moe/{wi, wg,
         wo}`` [L, E, D, F|D], filled one layer at a time, so the banks (58
         GB at full size) are never held twice."""
-        mcfg, dev = self.mcfg, self.device
-        params = init_params(mcfg, self.seed, device=dev)
-        if not mcfg.is_moe:
-            return params
-        L, E = self._n_moe_layers, mcfg.num_experts
-        dtype = torch_dtype(mcfg.dtype)
-        moe = params["blocks"]["moe"]
-        for k, shape in self._bank_shapes().items():
-            moe[k] = torch.empty((L, E, *shape), dtype=dtype, device=dev)
-        for l, bank in self._expert_banks(dev):
-            for k in ("wi", "wg", "wo"):
-                moe[k][l] = bank.pop(k)
-            del bank
-        return params
+        return init_params(self.mcfg, self.seed, device=self.device,
+                           experts=True)
 
     def _pool_banks(self, rows: int, dev):
         """Zeroed page pools of ``rows`` pages (and, int8, their scale

@@ -23,7 +23,10 @@
 // in f32 (running max m, sum l, accumulator acc), score = dot(q, k) *
 // scale (the caller's; 1/sqrt(hd) for a standard head), output acc /
 // max(l, 1e-30) rounded once to q's type -- the Pallas kernel's
-// arithmetic.  Instances (hd, hdv): (64, 64), (80, 80) for zamba2's
+// arithmetic.  Given an lse buffer (the training forward, whose backward
+// is csrc/flash_attention_bwd.cu), each row also writes m + log(l) in
+// units of s * scale; serving passes none, and the output's bits do not
+// depend on it.  Instances (hd, hdv): (64, 64), (80, 80) for zamba2's
 // shared attention block, (128, 128), and (192, 128) for MLA's prefill
 // (q/k carry dn + dr = 192 values, v 128: the reference pads v to 192 and
 // trims the output, this instance reads and writes 128); and the reduced
@@ -186,7 +189,8 @@ template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int Skv, int H, int KVH, int causal, int window, float scale) {
+    float* __restrict__ lse, int S, int Skv, int H, int KVH, int causal,
+    int window, float scale) {
   constexpr int KS = HD / 16;     // k-steps of S = Q K^T
   constexpr int NV = HDV / 8;     // n-tiles of O
   constexpr int KR = tile_row(HD), VR = tile_row(HDV);
@@ -422,6 +426,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_attention_mma_kernel(
     for (int nt = 0; nt < NV; ++nt)
       *reinterpret_cast<uint32_t*>(dst + nt * 8) =
           pack_bf16(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
+    // the row's log-sum-exp in units of s * scale, for the backward
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * H + h) * S + row] =
+          (m2[r] + log2f(l2[r])) * 0.6931471805599453f;
   }
 }
 
@@ -453,8 +461,9 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const float* src,
 template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int S, int Skv,
-    int H, int KVH, int causal, int window, float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int S, int Skv, int H, int KVH, int causal,
+    int window, float scale) {
   constexpr int QP = HD + 1;     // padded q / k rows
   constexpr int PP = BK + 1;     // padded probability rows
   constexpr int NC = HDV / 16;   // accumulator columns per thread
@@ -580,6 +589,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     float* o = out + ((size_t)b * S + q0 + r) * o_stride + (size_t)h * HDV;
 #pragma unroll
     for (int j = 0; j < NC; ++j) o[tx + 16 * j] = acc[i][j] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + q0 + r] = m[i] + logf(l[i]);
   }
 }
 
@@ -593,8 +604,8 @@ constexpr size_t smem_bytes() {
 
 template <int HD, int HDV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int S, int Skv, int H, int KVH, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float* lse, int B, int S, int Skv, int H, int KVH, int causal,
+           int window, float scale, cudaStream_t stream) {
   if (dtype == 1) {
     const dim3 grid((S + TQ - 1) / TQ, H, B);
     constexpr size_t smem = mma_smem_bytes<HD, HDV>();
@@ -607,8 +618,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), S, Skv, H, KVH, causal, window,
-        scale);
+        static_cast<__nv_bfloat16*>(out), lse, S, Skv, H, KVH, causal,
+        window, scale);
     return (int)cudaGetLastError();
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
@@ -621,8 +632,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return (int)err;
   flash_attention_kernel<HD, HDV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Skv, H,
-      KVH, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Skv,
+      H, KVH, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -634,20 +645,23 @@ extern "C" {
 // [B,Skv,KVH,hd], v [B,Skv,KVH,hdv]; causal needs Skv = S; window > 0:
 // row i attends keys t with i - t < window (0: no window); (hd, hdv) in
 // {(16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128)}.
-// Returns cudaGetLastError() after the launch (0 on success).  Allocates
-// nothing and does not synchronise.
+// lse: null, or f32 [B,H,S] that receives each row's log-sum-exp of its
+// scaled scores (the training forward; the output is the same bits either
+// way).  Returns cudaGetLastError() after the launch (0 on success).
+// Allocates nothing and does not synchronise.
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* out, int B, int S, int Skv,
-                           int H, int KVH, int hd, int hdv, int causal,
-                           int window, float scale, void* stream) {
+                           const void* v, void* out, void* lse, int B, int S,
+                           int Skv, int H, int KVH, int hd, int hdv,
+                           int causal, int window, float scale,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (S <= 0 || B <= 0) return 0;
   if (Skv <= 0 || (causal && Skv != S) || window < 0)
     return (int)cudaErrorInvalidValue;
 #define FA_LAUNCH(HD, HDV)                                                \
   if (hd == HD && hdv == HDV)                                             \
-    return launch<HD, HDV>(dtype, q, k, v, out, B, S, Skv, H, KVH, causal, \
-                           window, scale, s);
+    return launch<HD, HDV>(dtype, q, k, v, out, static_cast<float*>(lse), \
+                           B, S, Skv, H, KVH, causal, window, scale, s);
   FA_LAUNCH(16, 16)
   FA_LAUNCH(48, 32)
   FA_LAUNCH(64, 64)

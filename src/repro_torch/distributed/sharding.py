@@ -41,10 +41,16 @@ Spec = Tuple[Any, ...]
 # ------------------------------------------------------------------- trees
 
 def tree_leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(``"a/b/0/c"`` path, leaf) pairs in JAX's flattening order."""
+    """(``"a/b/0/c"`` path, leaf) pairs in JAX's flattening order; a
+    NamedTuple's fields are ``.name``, as ``str`` of JAX's key gives them
+    (the training checkpoints' keys)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves_with_path(tree[k], f"{prefix}{k}/")
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            yield from tree_leaves_with_path(getattr(tree, f),
+                                             f"{prefix}.{f}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from tree_leaves_with_path(v, f"{prefix}{i}/")
@@ -52,11 +58,24 @@ def tree_leaves_with_path(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def tree_leaves(tree) -> list:
+    """The leaves in JAX's flattening order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def tree_map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     """The same nesting with ``fn(path, leaf)`` at every leaf."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, f"{prefix}{k}/")
                 for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               f"{prefix}.{f}/")
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return [tree_map_with_path(fn, v, f"{prefix}{i}/")
                 for i, v in enumerate(tree)]

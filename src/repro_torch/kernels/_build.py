@@ -40,7 +40,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("paged_attention", "paged_decode", "moe_gmm", "flash_attention",
-           "kv_write", "mla_decode", "ssd_scan")
+           "flash_attention_bwd", "kv_write", "mla_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,7 +21,9 @@ and v of 64, 80 (zamba2's shared attention block) or 128, or q/k 192 with
 v 128 (MLA's prefill: the reference pads v to 192 and trims the output;
 this instance reads and writes 128), and the reduced configs' 16 and
 MLA's 48 with v 32 (the launcher's and the closed loop's f32 runs on the
-card); the scale is the caller's, ``1/sqrt(hd)`` by default.
+card); the scale is the caller's, ``1/sqrt(hd)`` by default.  The
+training forward also asks for each row's log-sum-exp, which the
+backward (``kernels/flash_attention_bwd.py``) reads.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape,
 contiguity and alignment, allocates the output, launches on PyTorch's
@@ -39,7 +41,7 @@ from repro_torch.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention_launch":
-               [_I] + [_P] * 4 + [_I] * 9 + [_F, _P]}
+               [_I] + [_P] * 5 + [_I] * 9 + [_F, _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (q/k head dim, v head dim) instances
 HEAD_DIMS = ((16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128))
@@ -47,14 +49,16 @@ HEAD_DIMS = ((16, 16), (48, 32), (64, 64), (80, 80), (128, 128), (192, 128))
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: float | None = None,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, lse: bool = False):
     """q [B,Sq,H,hd]; k [B,Skv,KVH,hd]; v [B,Skv,KVH,hdv] (query head h
     reads kv head h // (H/KVH)) -> [B,Sq,H,hdv] in q's dtype; row i and
     key t are positions i and t.  causal (Sq = Skv): row i attends keys
     t <= i; ``window`` W: keys with i - t < W (a row that attends none
     gets the uniform mean of v, ``ref.flash_attention_ref``); scores
     scaled by ``scale`` (default ``1/sqrt(hd)``).  (hd, hdv) in
-    ``HEAD_DIMS``."""
+    ``HEAD_DIMS``.  With ``lse`` it returns (out, lse [B,H,Sq] f32): each
+    row's log-sum-exp of its scaled scores, which the backward reads
+    (``ref.flash_attention_lse_ref``); out is the same bits either way."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a {dev.type} tensor")
@@ -86,16 +90,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}")
     scale = 1.0 / math.sqrt(hd) if scale is None else float(scale)
     out = q.new_empty((B, S, H, hdv))
+    row_lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+               if lse else None)
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_launch(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, S, Skv, H, KVH, hd, hdv, int(causal),
+            out.data_ptr(), None if row_lse is None else row_lse.data_ptr(),
+            B, S, Skv, H, KVH, hd, hdv, int(causal),
             0 if window is None else int(window), scale, stream)
     _build.check(lib, rc, "flash_attention")
     _build.count_launch(flash_attention)
-    return out
+    return out if row_lse is None else (out, row_lse)
 
 
 flash_attention.launches = 0

@@ -11,6 +11,17 @@ and ``kv_heads``: the kv heads ``[kv_head_offset, kv_head_offset +
 kv_heads)`` of a pool that holds more (a TP rank's heads of the replicated
 cache; ``kernels/ref.py``'s module note), read in place.
 
+``flash_attention`` has a gradient: where grad is enabled and an input
+requires it, it runs the ``torch.autograd.Function`` ``_FlashAttention``,
+whose forward also returns each row's log-sum-exp and whose backward is
+the hand-written ``flash_attention_bwd`` kernel (the plain versions on
+the CPU and under ``use_reference()``, a choice its forward records for
+the backward, which the autograd engine runs on a thread of its own).
+Every other call, serving's and a CUDA graph's, takes the path it always
+took.  ``reference_contexts`` carries ``use_reference()`` into the
+recomputation of a ``torch.utils.checkpoint`` block, which the backward
+runs on that thread too.
+
 Launch counts live on the kernel wrappers (``<wrapper>.launches``, one per
 launch and nowhere else; a CUDA graph's replay adds the launches its
 capture recorded, ``_build.count_launch``); ``launch_counts`` reads and
@@ -20,12 +31,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Dict, Iterator
 
 import torch
 
 from repro_torch.kernels import (flash_attention as _flash, kv_write,
                                  mla_decode, moe_gmm, paged_attention, ref)
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import ssd_scan as _ssd
 
 _REFERENCE = contextvars.ContextVar("repro_torch_use_reference",
@@ -44,6 +57,7 @@ KERNELS = {
         paged_attention.quant_mixed_block_paged_attention,
     "quant_paged_gmm": moe_gmm.quant_paged_gmm,
     "flash_attention": _flash.flash_attention,
+    "flash_attention_bwd": _flash_bwd.flash_attention_bwd,
     "paged_decode_attention": paged_attention.paged_decode_attention,
     "kv_cache_write": kv_write.kv_cache_write,
     "mla_decode_attention": mla_decode.mla_decode_attention,
@@ -59,6 +73,14 @@ def use_reference() -> Iterator[None]:
         yield
     finally:
         _REFERENCE.reset(token)
+
+
+def reference_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recomputation of a
+    checkpointed block runs in the mode (kernels or ``use_reference()``)
+    its forward ran in."""
+    again = use_reference() if _REFERENCE.get() else contextlib.nullcontext()
+    return contextlib.nullcontext(), again
 
 
 def launch_counts() -> Dict[str, int]:
@@ -173,12 +195,48 @@ def quant_paged_expert_ffn(table_i, table_g, table_o, pool_i, pool_g, pool_o,
                                           scale_o, x)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Causal self-attention with its gradient (the training forward):
+    the forward saves q, k, v, the output and its rows' log-sum-exp, the
+    backward runs ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.plain, ctx.scale = _plain(q), scale
+        if ctx.plain:
+            o, lse = ref.flash_attention_lse_ref(q, k, v, True, scale)
+        else:
+            o, lse = _flash.flash_attention(q, k, v, True, scale, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (ref.flash_attention_bwd_ref if ctx.plain
+               else _flash_bwd.flash_attention_bwd)
+        return (*bwd(q, k, v, o, lse, do.contiguous(), ctx.scale), None)
+
+
 def flash_attention(q, k, v, causal=True, scale=None, window=None):
     """Blocked attention over a whole prompt (every monolithic prefill,
     every layer; MLA's at q/k width 192 and v width 128), causal or not,
     over its own keys or another sequence's (a cross-attention's image
     keys), with or without a sliding ``window``; see
-    ``flash_attention.flash_attention``."""
+    ``flash_attention.flash_attention``.  Where grad is enabled and an
+    input requires it (training), causal self-attention without a window
+    runs ``_FlashAttention``; the backward of the others is not ported
+    (ROADMAP §1 item 7)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not causal or window is not None or k.shape[1] != q.shape[1]:
+            raise NotImplementedError(
+                "flash_attention's backward covers causal self-attention "
+                "without a window; the rest is ROADMAP §1 item 7's open "
+                "work")
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        return _FlashAttention.apply(q, k, v, float(scale))
     if _plain(q):
         return ref.flash_attention_ref(q, k, v, causal, scale, window)
     return _flash.flash_attention(q, k, v, causal, scale, window)

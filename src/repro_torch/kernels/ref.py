@@ -2,7 +2,11 @@
 ``repro.kernels.ref`` for the eleven kernels on the serving paths (bf16/f32
 pools, int8 pools with f32 scales, the slot-contiguous KV cache of the
 dense-KV mode with its monolithic prefill, the MLA latent cache, and the
-Mamba2 SSD chunk scan).
+Mamba2 SSD chunk scan), and of the training path's one kernel of its own:
+the flash attention's backward, with the forward's row log-sum-exp that
+it reads (``flash_attention_lse_ref``, ``flash_attention_bwd_ref``; the
+reference has no kernel there and differentiates its ``mha`` with
+``jax.grad``).
 
 The CPU tests hold these against the Pallas kernels; ``chip_smoke.py``
 holds the CUDA kernels against these on the card.  They repeat the
@@ -80,6 +84,34 @@ def quant_paged_expert_ffn_ref(table_i, table_g, table_o, pool_i, pool_g,
     return quant_paged_gmm_ref(table_o, pool_o, scale_o, h)
 
 
+def _acc_type(t: torch.Tensor) -> torch.dtype:
+    """The type the attention's plain versions compute in: f32, or f64
+    for f64 inputs (``torch.autograd.gradcheck``'s type)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _flash_scores(q, k, causal, scale, window):
+    """The masked, scaled scores of :func:`flash_attention_ref`, 1,024
+    query rows at a time: yields [B,KVH,G,rows,Skv] in ``_acc_type``."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    kf = k.to(_acc_type(q))
+    t = torch.arange(Skv, device=q.device)[None]
+    for r0 in range(0, Sq, 1024):
+        qg = q[:, r0:r0 + 1024].reshape(B, -1, KVH, G, hd).to(kf.dtype)
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, kf) * scale
+        i = torch.arange(r0, r0 + qg.shape[1], device=q.device)[:, None]
+        mask = torch.ones(qg.shape[1], Skv, dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= t <= i
+        if window is not None:
+            mask &= i - t < window
+        yield torch.where(mask, s, NEG_INF)
+
+
 def flash_attention_ref(q, k, v, causal=True, scale=None, window=None):
     """q [B,Sq,H,hd]; k [B,Skv,KVH,hd]; v [B,Skv,KVH,hdv] (query head h
     reads kv head h // (H/KVH)) -> [B,Sq,H,hdv]; row i and key t are
@@ -92,26 +124,66 @@ def flash_attention_ref(q, k, v, causal=True, scale=None, window=None):
     1,024 at a time, as the reference's ``mha`` chunks them, which bounds
     the f32 scores held at once (a 9,216-token prompt's whole [S, S]
     score matrix would take 10.9 GB a sequence at 32 heads)."""
-    B, Sq, H, hd = q.shape
-    Skv, KVH, hdv = k.shape[1], k.shape[2], v.shape[3]
+    B, Sq, H = q.shape[:3]
+    vf = v.to(_acc_type(q))
+    out = [torch.einsum("bkgqt,btkh->bqkgh", torch.softmax(s, dim=-1), vf)
+           for s in _flash_scores(q, k, causal, scale, window)]
+    return torch.cat(out, 1).reshape(B, Sq, H, v.shape[3]).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, v, causal=True, scale=None, window=None):
+    """:func:`flash_attention_ref` and each row's log-sum-exp of its
+    masked, scaled scores, lse [B,H,Sq] in f32 (f64 for f64 inputs): the
+    units of ``s * scale``, so that row i's probabilities are ``exp(s *
+    scale - lse[i])``, which :func:`flash_attention_bwd_ref` and the CUDA
+    backward read."""
+    B, Sq, H = q.shape[:3]
+    vf = v.to(_acc_type(q))
+    out, lse = [], []
+    for s in _flash_scores(q, k, causal, scale, window):
+        out.append(torch.einsum("bkgqt,btkh->bqkgh",
+                                torch.softmax(s, dim=-1), vf))
+        lse.append(torch.logsumexp(s, dim=-1))
+    return (torch.cat(out, 1).reshape(B, Sq, H, v.shape[3]).to(q.dtype),
+            torch.cat(lse, -1).reshape(B, H, Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, scale=None):
+    """The gradient of causal self-attention (:func:`flash_attention_ref`
+    with ``causal=True``, Skv = S, no window) -> (dq, dk, dv) in q's, k's
+    and v's types, each rounded once from f32 sums (f64 for f64 inputs).
+    ``o`` [B,S,H,hdv] is the forward's output and ``lse`` [B,H,S] its
+    rows' log-sum-exp (:func:`flash_attention_lse_ref`); ``do`` the
+    output's gradient.  The textbook steps, 1,024 query rows at a time:
+    P = exp(s * scale - lse), dV = P^T dO, dP = dO V^T, D_i = rowsum(dO
+    * O), dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q.  Under
+    GQA a kv head's dK and dV sum over the query heads that read it."""
+    B, S, H, hd = q.shape
+    KVH, hdv = k.shape[2], v.shape[3]
     G = H // KVH
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    kf, vf = k.float(), v.float()
-    t = torch.arange(Skv, device=q.device)[None]
-    out = []
-    for r0 in range(0, Sq, 1024):
-        qg = q[:, r0:r0 + 1024].reshape(B, -1, KVH, G, hd).float()
+    acc = _acc_type(q)
+    kf, vf = k.to(acc), v.to(acc)
+    dk = torch.zeros(B, S, KVH, hd, dtype=acc, device=q.device)
+    dv = torch.zeros(B, S, KVH, hdv, dtype=acc, device=q.device)
+    dq = []
+    t = torch.arange(S, device=q.device)[None]
+    for r0 in range(0, S, 1024):
+        n = min(S - r0, 1024)
+        qg, og, dog = (x[:, r0:r0 + n].reshape(B, n, KVH, G, -1).to(acc)
+                       for x in (q, o, do))
         s = torch.einsum("bqkgh,btkh->bkgqt", qg, kf) * scale
-        i = torch.arange(r0, r0 + qg.shape[1], device=q.device)[:, None]
-        mask = torch.ones(qg.shape[1], Skv, dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= t <= i
-        if window is not None:
-            mask &= i - t < window
-        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-        out.append(torch.einsum("bkgqt,btkh->bqkgh", p, vf))
-    return torch.cat(out, 1).reshape(B, Sq, H, hdv).to(q.dtype)
+        i = torch.arange(r0, r0 + n, device=q.device)[:, None]
+        l = lse[:, :, r0:r0 + n].reshape(B, KVH, G, n, 1).to(acc)
+        p = torch.where(t <= i, torch.exp(s - l), 0.0)
+        dv += torch.einsum("bkgqt,bqkgh->btkh", p, dog)
+        dp = torch.einsum("bqkgh,btkh->bkgqt", dog, vf)
+        d = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+        ds = p * (dp - d)
+        dq.append(torch.einsum("bkgqt,btkh->bqkgh", ds, kf) * scale)
+        dk += torch.einsum("bkgqt,bqkgh->btkh", ds, qg) * scale
+    return (torch.cat(dq, 1).reshape(B, S, H, hd).to(q.dtype),
+            dk.to(k.dtype), dv.to(v.dtype))
 
 
 def mla_decode_attention_ref(q_eff, q_rope, c_cache, kr_cache, lengths,

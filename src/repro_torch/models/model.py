@@ -5,7 +5,9 @@ two KV layouts: the paged pool (``paged_decode_step``,
 reference) and the slot-contiguous cache of the dense-KV mode
 (``prefill``, ``decode_step``, and for standard attention
 ``chunk_prefill_step``; ``write_prefill_to_blocks`` moves a monolithic
-prefill into the pool), plus the full-sequence ``forward``.  An
+prefill into the pool), plus the full-sequence ``forward`` and the
+training loss ``loss_fn`` (the attention decoders on one device, over
+dense expert banks; ``training/train_loop.py`` differentiates it).  An
 MLA model (``cfg.use_mla``) caches its latent ``{'c','kr'}``
 (``models/mla.py``) and applies its ``first_k_dense`` prefix in every
 step, prefix rows first in the cache.  A Mamba2 model (``arch_type``
@@ -60,6 +62,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.distributed.sharding import (local_view, tp_all_gather,
@@ -130,14 +133,19 @@ def init_expert_bank(cfg, gen: torch.Generator, dtype, device):
             "wo": normal((E, Fd, D), Fd ** -0.5)}
 
 
-def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
+def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None,
+                experts: bool = False) -> Params:
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed`` (not the reference's numbers: the tests convert
     the reference's parameters with ``convert.params_from_jax`` instead).
 
     MoE layers get the router but no routed experts: ``HMM.boot`` fills the
     dense banks or the pooled store layer by layer with
-    ``init_expert_bank``, so the experts are never held twice.  The Mamba2
+    ``init_expert_bank``, so the experts are never held twice.  With
+    ``experts`` (training, which owns its weights) the dense banks
+    ``blocks/moe/{wi, wg, wo}`` [L, E, D, F|D] are drawn here, one layer at
+    a time from a generator seeded with ``seed + 1``, the numbers the
+    HMM's dense boot draws.  The Mamba2
     models get stacked SSD blocks and, a hybrid, one shared attention
     block.  A VLM's ``blocks`` are its ``num_layers - ncross`` self
     layers and ``cross_blocks`` its ``ncross = num_layers /
@@ -175,6 +183,15 @@ def init_params(cfg, seed: int = 0, *, device="cuda", dtype=None) -> Params:
                              for _ in range(nk)]
     p["blocks"] = _block_init(gen, cfg, dtype, dev, moe=cfg.is_moe,
                               lead=(cfg.num_layers - nk,))
+    if experts and cfg.is_moe:
+        moe, L = p["blocks"]["moe"], cfg.num_layers - nk
+        banks = torch.Generator(device=dev)
+        banks.manual_seed(seed + 1)
+        for l in range(L):
+            for name, t in init_expert_bank(cfg, banks, dtype, dev).items():
+                if name not in moe:
+                    moe[name] = t.new_empty((L, *t.shape))
+                moe[name][l] = t
     return p
 
 
@@ -187,12 +204,14 @@ def layer_params(tree, i: int):
 
 # -------------------------------------------------------------- block apply
 
-def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None, counts=None):
+def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None, counts=None,
+              aux=None):
     """Post-attention feed-forward: the dense MLP, or the MoE over the
     pooled expert store ``moe_pool`` (``bp["moe"]`` carries its page-table
     index arrays) or over the layer's dense banks ``bp["moe"]["wi"/"wg"/
     "wo"]``.  A MoE layer appends its routing counts [E] to the list
-    ``counts`` when one is given."""
+    ``counts``, and over dense banks its router's aux loss to the list
+    ``aux``, when one is given."""
     if not moe:
         return mlp_apply(bp["mlp"], h, cfg.mlp_gated)
     B, S, D = h.shape
@@ -202,7 +221,7 @@ def _ffn_part(cfg, bp, h, *, moe: bool, moe_pool=None, counts=None):
         y = moe_local_pooled(cfg, bp["moe"], moe_pool, x,
                              return_counts=want)
     else:
-        y = moe_local(cfg, bp["moe"], x, return_counts=want)
+        y = moe_local(cfg, bp["moe"], x, return_counts=want, aux=aux)
     if want:
         y, c = y
         counts.append(c)
@@ -257,10 +276,12 @@ def _attention(cfg, bp, h, positions, **cache_kw):
 
 
 def _attn_block(cfg, bp, x, positions, *, moe=False, moe_pool=None,
-                counts=None, image_x=None, image_kv=None, **cache_kw):
+                counts=None, aux=None, image_x=None, image_kv=None,
+                **cache_kw):
     """Self-attention and the feed-forward, each with its residual ->
     (x', the attention's new k/v, latent or cache, the image k/v); a MoE
-    layer appends its routing counts to ``counts`` when given.  A VLM's
+    layer appends its routing counts to ``counts`` and its aux loss to
+    ``aux`` when given.  A VLM's
     cross block (``xattn``) attends the image after its self-attention,
     non-causal and without rope: the cached ``image_kv`` at decode, else
     ``image_x`` [B,T,D] (or, where no image is given, its own normed
@@ -282,7 +303,7 @@ def _attn_block(cfg, bp, x, positions, *, moe=False, moe_pool=None,
         x = x + torch.tanh(bp["xgate"]) * cx
     h = apply_norm(bp["ln2"], x, cfg.norm_type)
     return x + _ffn_part(cfg, bp, h, moe=moe, moe_pool=moe_pool,
-                         counts=counts), kv, img
+                         counts=counts, aux=aux), kv, img
 
 
 def _ssm_block(cfg, bp, x, cache=None):
@@ -659,9 +680,9 @@ def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
     (``ops.flash_attention``), causally unless the config says not (the
     encoder), within ``attn_window`` where one is set; a VLM's cross
     blocks also attend ``batch["image_embeds"]`` [B,T,D]; an SSD layer
-    scans the tokens from a zero state (``ops.ssd_scan``).  The reference
-    also returns the router's load-balance loss, a training term; it is
-    not computed here."""
+    scans the tokens from a zero state (``ops.ssd_scan``).  The
+    reference's forward also returns the router's load-balance loss, a
+    training term: :func:`train_forward` returns it."""
     if cfg.arch_type != "encoder" and not dense_cache_supported(cfg):
         raise NotImplementedError(f"{cfg.name}: a sliding window is ported "
                                   f"for standard attention only")
@@ -684,20 +705,92 @@ def forward(cfg, params: Params, batch, *, parallel=None, replica: int = 0):
                                                  params["embed"]), batch)
 
 
-def _forward_one(cfg, params, x, batch):
-    """:func:`forward` on one device from the embedded input x [B,S,D]."""
+def _forward_one(cfg, params, x, batch, remat=False, aux=None):
+    """:func:`forward` on one device from the embedded input x [B,S,D];
+    each MoE block's aux loss goes to the list ``aux`` where one is given,
+    and each attention block runs checkpointed under ``remat``."""
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     pool = params.get("moe_pool")
     for kind, _, bp, moe in _layers(cfg, params):
         if kind == "ssm":
             x, _ = _ssm_block(cfg, bp, x)
-        else:
-            x = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+            continue
+
+        def block(x, bp=bp, moe=moe, kind=kind):
+            a = []
+            y = _attn_block(cfg, bp, x, positions, moe=moe, moe_pool=pool,
+                            aux=None if aux is None else a,
                             image_x=(batch["image_embeds"]
                                      if kind == "cross" else None))[0]
+            return (y, *a)
+        out = (checkpoint(block, x, use_reentrant=False,
+                          context_fn=ops.reference_contexts)
+               if remat else block(x))
+        x = out[0]
+        if aux is not None:
+            aux.extend(out[1:])
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return linear(params["lm_head"], x)
+
+
+def train_forward(cfg, params: Params, batch, *, parallel=None,
+                  remat: bool = True):
+    """The reference's training ``forward`` for the decoders
+    ``_check_train`` takes: tokens [B,S] -> (logits [B,S,V], aux), aux the
+    routers' load-balance losses summed over the MoE blocks in order from
+    an f32 zero (the dense prefix adds none).  ``remat`` runs each block
+    under ``torch.utils.checkpoint`` (non-reentrant), which keeps its
+    input only and runs it again in the backward, as the reference's
+    ``jax.checkpoint`` does."""
+    _check_train(cfg, params, parallel)
+    aux = []
+    logits = _forward_one(cfg, params, F.embedding(
+        batch["tokens"].long(), params["embed"]), batch, remat, aux)
+    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for a in aux:
+        total = total + a
+    return logits, total
+
+
+def _check_train(cfg, params, parallel) -> None:
+    """Training covers the attention decoders — standard attention and
+    MLA, dense and MoE over dense expert banks — on one device and
+    without a window: the others need a backward that is not ported
+    (ROADMAP §1 item 7)."""
+    if parallel is not None:
+        why = "training over logical devices (parallel)"
+    elif cfg.arch_type in ("ssm", "hybrid"):
+        why = f"{cfg.arch_type} training (a backward for ssd_scan)"
+    elif cfg.arch_type in ("vlm", "encoder"):
+        why = (f"{cfg.arch_type} training (a flash backward that is not "
+               f"causal or attends other keys)")
+    elif cfg.attn_window is not None:
+        why = "training under a window (a windowed flash backward)"
+    elif "moe_pool" in params:
+        why = "training over the pooled expert store"
+    else:
+        return
+    raise NotImplementedError(f"{cfg.name}: {why} is not ported (ROADMAP "
+                              f"§1 item 7)")
+
+
+def loss_fn(cfg, params: Params, batch, *, parallel=None, remat=True):
+    """The reference's training loss: the mean next-token NLL of the
+    logits in f32 (``log_softmax``, the labels gathered), over
+    ``batch["loss_mask"]``'s tokens where one is given, plus
+    ``cfg.router_aux_coef`` times the summed router aux loss."""
+    logits, aux = train_forward(cfg, params, batch, parallel=parallel,
+                                remat=remat)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + cfg.router_aux_coef * aux
 
 
 def prefill(cfg, params: Params, batch, max_len: int, *, parallel=None,

@@ -20,7 +20,9 @@ Where the reference's JAX idioms do not carry over:
   sliced off, and dropped reads (``mode="fill"``) read a zero slot;
 * the reference's ``moe_local`` / ``moe_local_pooled`` also return the
   load-balance aux loss, a training term that serving discards; here they
-  return the output only, and ``route`` alone computes the loss;
+  return the output only and append the loss to a list ``aux`` when the
+  caller (the training forward) gives one, so the serving steps and
+  their CUDA graphs compute none of it;
 * ``routing_counts`` adds ones into a zeroed [E] tensor where the
   reference's ``.at[].add`` does: ``torch.bincount`` would read the
   largest index back to the host to size its output, which a CUDA graph
@@ -55,15 +57,21 @@ def _topk(p, x, top_k: int):
     return probs, topk_idx, topk_w / topk_w.sum(-1, keepdim=True)
 
 
-def route(p, x, top_k: int):
-    """x [T, D] -> (topk_idx [T,k] int32, topk_w [T,k] f32, aux_loss)."""
-    probs, topk_idx, topk_w = _topk(p, x, top_k)
-    # GShard/Switch load-balance auxiliary loss
+def _aux_loss(probs, topk_idx):
+    """The GShard/Switch load-balance auxiliary loss of one MoE layer: E
+    times the sum over experts of the mean router probability and the
+    share of tokens whose first choice it is (f32 scalar; no gradient
+    reaches it through the choices)."""
     E = probs.shape[-1]
     me = probs.mean(0)
     ce = F.one_hot(topk_idx[:, 0], E).float().mean(0)
-    aux = E * torch.sum(me * ce)
-    return topk_idx.to(torch.int32), topk_w, aux
+    return E * torch.sum(me * ce)
+
+
+def route(p, x, top_k: int):
+    """x [T, D] -> (topk_idx [T,k] int32, topk_w [T,k] f32, aux_loss)."""
+    probs, topk_idx, topk_w = _topk(p, x, top_k)
+    return topk_idx.to(torch.int32), topk_w, _aux_loss(probs, topk_idx)
 
 
 def _dispatch_indices(topk_idx, num_experts: int, capacity: int):
@@ -133,16 +141,20 @@ def _combine(yg, where, topk_w, keep):
     return y
 
 
-def _moe_local_body(cfg, p, x, capacity, expert_ffn, return_counts=False):
+def _moe_local_body(cfg, p, x, capacity, expert_ffn, return_counts=False,
+                    aux=None):
     """Single-shard dispatch / combine shared by the dense banks and the
     pooled store; ``expert_ffn(xg [E, C, D]) -> [E, C, D]`` is the only
-    difference between them.  Serving discards the router's aux loss, so
-    it is not computed here (``route`` has it).  ``return_counts``: also
-    the router's per-expert token counts [E] (routing telemetry)."""
+    difference between them.  The router's aux loss is appended to the
+    list ``aux`` where one is given (training); serving gives none and
+    computes none.  ``return_counts``: also the router's per-expert token
+    counts [E] (routing telemetry)."""
     T, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     C = capacity or capacity_for(T, cfg)
-    _, topk_idx, topk_w = _topk(p["router"], x, k)
+    probs, topk_idx, topk_w = _topk(p["router"], x, k)
+    if aux is not None:
+        aux.append(_aux_loss(probs, topk_idx))
     expert_flat, slot, keep = _dispatch_indices(topk_idx, E, C)
     where = (expert_flat, slot)
     yg = expert_ffn(_scatter(x, k, (E,), where, C).contiguous())
@@ -154,13 +166,14 @@ def _moe_local_body(cfg, p, x, capacity, expert_ffn, return_counts=False):
     return y
 
 
-def moe_local(cfg, p, x, capacity=None, return_counts=False):
+def moe_local(cfg, p, x, capacity=None, return_counts=False, aux=None):
     """x [T, D] -> [T, D] over dense banks {wi, wg, wo} [E, D, F|D] (and
-    the routing counts [E] with ``return_counts``)."""
+    the routing counts [E] with ``return_counts``); the aux loss goes to
+    the list ``aux`` where one is given."""
     return _moe_local_body(
         cfg, p, x, capacity,
         lambda xg: _expert_ffn(xg, p["wi"], p["wg"], p["wo"]),
-        return_counts)
+        return_counts, aux)
 
 
 def moe_local_pooled(cfg, p, pool, x, capacity=None, return_counts=False):

@@ -11,9 +11,11 @@ Usage::
 """
 from repro_torch.obs.export import (chrome_trace, load_trace, validate_trace,
                                     write_chrome_trace)
-from repro_torch.obs.tracer import (NULL_TRACER, NullTracer, TraceEvent,
-                                    Tracer, get_tracer, install, traced)
+from repro_torch.obs.tracer import (NULL_TRACER, MetricsRegistry,
+                                    NullTracer, TraceEvent, Tracer,
+                                    get_tracer, install, traced)
 
-__all__ = ["Tracer", "NullTracer", "NULL_TRACER", "TraceEvent", "install",
+__all__ = ["Tracer", "NullTracer", "NULL_TRACER", "TraceEvent",
+           "MetricsRegistry", "install",
            "get_tracer", "traced", "chrome_trace", "write_chrome_trace",
            "load_trace", "validate_trace"]

@@ -1,10 +1,10 @@
 """Span tracer for the serving stack (DESIGN.md §9).
 
-The port's own copy of the parts of ``repro.obs.tracer`` the one-card
-serving path uses (it imports nothing of the JAX package), so the serving
-engine's spans, instants and counters stay where they are; the
-Chrome-trace exporter is ``obs/export.py``.  The metrics aggregation is
-not ported yet.
+The port's own copy of ``repro.obs.tracer`` (it imports nothing of the
+JAX package), so the serving engine's spans, instants and counters stay
+where they are, and each tracer's ``metrics`` aggregates counters and
+gauges (``MetricsRegistry``); the Chrome-trace exporter is
+``obs/export.py``.
 
 One process-global :class:`Tracer` (installed via :func:`install`) collects
 decode-tick and prefill spans, request lifecycle instants and counter
@@ -73,6 +73,29 @@ class _Span:
         return False
 
 
+class MetricsRegistry:
+    """Thread-safe counters and gauges, independent of the event buffer
+    (aggregates survive ring-buffer eviction)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: Dict[str, float] = {}
+        self._gauges: Dict[str, float] = {}
+
+    def inc(self, name: str, value: float = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + value
+
+    def gauge(self, name: str, value: float) -> None:
+        with self._lock:
+            self._gauges[name] = value
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {"counters": dict(self._counters),
+                    "gauges": dict(self._gauges)}
+
+
 class Tracer:
     """Collecting tracer; events beyond ``capacity`` evict the oldest, so a
     serve loop can run traced indefinitely."""
@@ -83,6 +106,7 @@ class Tracer:
         self._events: deque = deque(maxlen=capacity)
         self._thread_names: Dict[int, str] = {}
         self._name_lock = threading.Lock()
+        self.metrics = MetricsRegistry()
 
     def now(self) -> float:
         return time.perf_counter()
@@ -156,6 +180,7 @@ class NullTracer:
     """The disabled fast path: every method returns immediately."""
 
     enabled = False
+    metrics = None  # no aggregation when disabled
 
     def now(self) -> float:
         return time.perf_counter()

@@ -65,9 +65,10 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (_build, flash_attention, kv_write,
-                                 mla_decode, moe_gmm, ops, paged_attention,
-                                 ref, ssd_scan)
+from repro_torch.kernels import (_build, flash_attention,
+                                 flash_attention_bwd, kv_write, mla_decode,
+                                 moe_gmm, ops, paged_attention, ref,
+                                 ssd_scan)
 from repro_torch.kernels.quant import dequantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -494,6 +495,102 @@ def test_flash_attention_cross_and_window_match_plain(dev, case, dtype):
         want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                          causal, window=window)
         _assert_one_bf16_rounding(got, want32, f"flash_attention {case}")
+
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dims", flash_attention_bwd.HEAD_DIMS,
+                         ids=lambda d: f"{d[0]}-{d[1]}")
+def test_flash_attention_bwd_matches_plain(dev, dims, G, dtype):
+    """The backward's every (hd, hdv) instance at S = 1, either side of
+    its 32-column slices and 64-row tiles, on them and ragged past several;
+    one, four and eight query heads a kv head (its dK and dV sum the
+    group inside a block).  The forward's LSE output leaves its output
+    bit for bit as it was and is within 1e-4 of the plain version's; the
+    gradients are within ``TOL`` of the plain version's on the same o and
+    lse, and a second launch gives the same bits (no float atomics)."""
+    hd, hdv = dims
+    KVH = 2 if G == 1 else 1
+    gen = torch.Generator().manual_seed(40)
+    for S in (1, 31, 33, 63, 64, 65, 129, 200):
+        q = _rand(gen, (2, S, G * KVH, hd), dtype, dev)
+        k = _rand(gen, (2, S, KVH, hd), dtype, dev)
+        v = _rand(gen, (2, S, KVH, hdv), dtype, dev)
+        do = _rand(gen, (2, S, G * KVH, hdv), dtype, dev)
+        o, lse = flash_attention.flash_attention(q, k, v, True, lse=True)
+        assert torch.equal(o, flash_attention.flash_attention(q, k, v, True))
+        _, lse_plain = ref.flash_attention_lse_ref(q, k, v, True)
+        torch.testing.assert_close(lse, lse_plain, atol=1e-4, rtol=1e-4)
+        ops.reset_launch_counts()
+        got = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, do)
+        assert ops.launch_counts()["flash_attention_bwd"] == 1
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g.float(), w.float(), **TOL[dtype],
+                                       msg=lambda m: f"{name} S={S}: {m}")
+        again = flash_attention_bwd.flash_attention_bwd(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_grad_runs_both_kernels_or_neither(dev):
+    """Where an input requires grad, ``ops.flash_attention`` runs the
+    forward with its LSE and the backward kernel; under
+    ``use_reference()`` neither launches, also in the backward, which the
+    autograd engine runs on a thread of its own."""
+    gen = torch.Generator().manual_seed(41)
+    shapes = ((2, 130, 8, 128), (2, 130, 2, 128), (2, 130, 2, 128))
+    base = [_rand(gen, s, torch.bfloat16, dev) for s in shapes]
+    do = _rand(gen, (2, 130, 8, 128), torch.bfloat16, dev)
+    grads = {}
+    for plain in (False, True):
+        ts = [t.clone().requires_grad_() for t in base]
+        ops.reset_launch_counts()
+        with ops.use_reference() if plain else contextlib.nullcontext():
+            o = ops.flash_attention(*ts)
+        o.backward(do)
+        counts = ops.launch_counts()
+        n = 0 if plain else 1
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) \
+            == (n, n)
+        grads[plain] = [t.grad.float() for t in ts]
+    for g, w in zip(grads[False], grads[True]):
+        torch.testing.assert_close(g, w, **TOL[torch.bfloat16])
+
+
+def test_training_step_under_remat_keeps_the_reference_mode(dev):
+    """A checkpointed block's recomputation runs in its forward's mode:
+    one f32 step of a tiny MoE under ``use_reference()`` launches no
+    kernel, and the same step through the kernels is within 1e-4 of it."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig, init_state
+    from repro_torch.training.train_loop import make_train_step
+    from repro_torch.configs import ModelConfig
+    cfg = ModelConfig(name="test-moe", arch_type="moe", num_layers=2,
+                      d_model=64, vocab_size=128, num_heads=4,
+                      num_kv_heads=4, head_dim=16, d_ff=128, num_experts=24,
+                      top_k=2, moe_d_ff=32, dtype="float32",
+                      capacity_factor=100.0)
+    gen = torch.Generator().manual_seed(42)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen)
+    batch = {"tokens": tokens[:, :-1].to(dev), "labels": tokens[:, 1:].to(dev)}
+    out = {}
+    for plain in (True, False):
+        params = init_params(cfg, 0, device=dev, experts=True)
+        opt = AdamWConfig(warmup_steps=1)
+        step = make_train_step(cfg, opt)
+        ops.reset_launch_counts()
+        with ops.use_reference() if plain else contextlib.nullcontext():
+            params, _, m = step(params, init_state(opt, params), batch)
+        counts = ops.launch_counts()
+        assert (counts["flash_attention"] == 0) == plain
+        assert (counts["flash_attention_bwd"] == 0) == plain
+        out[plain] = (m["loss"], params)
+    torch.testing.assert_close(out[False][0], out[True][0], atol=1e-4,
+                               rtol=1e-4)
+    from repro_torch.distributed.sharding import tree_leaves as leaves
+    for a, b in zip(leaves(out[False][1]), leaves(out[True][1])):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

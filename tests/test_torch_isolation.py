@@ -26,6 +26,7 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.rebalance import RebalancePolicy
 from repro_torch.serving.workload import Request
 from repro_torch.models import model as M
+from repro_torch.training.train_loop import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
@@ -93,10 +94,11 @@ ENTRY_POINTS = {
                             kv_mode="paged", expert_mode="pooled", **kw),
     "init_params": lambda **kw: M.init_params(MCFG, 0, **kw),
     "init_paged_cache": lambda **kw: M.init_paged_cache(MCFG, 4, 16, **kw),
+    "train": lambda **kw: train(MCFG, steps=1, batch=1, seq_len=8, **kw),
 }
 DEFAULTS = {"ElasticServer": ElasticServer.__init__, "HMM": HMM.__init__,
             "init_params": M.init_params,
-            "init_paged_cache": M.init_paged_cache}
+            "init_paged_cache": M.init_paged_cache, "train": train}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
